@@ -6,7 +6,8 @@
 //   lumina_flash_online     <- _flash_kernel_fused_sum  (_flash_attention_fwd_impl, static_max=None)
 //   lumina_flash_static_max <- _flash_kernel_static_max (_flash_attention_fwd_impl, static_max=bound)
 //   lumina_flash_online_lse <- _flash_kernel_res        (_flash_fwd_res_impl, static_max=None)
-// One templated kernel (kStaticMax, kEmitLse) stands in for all four; each
+//   lumina_flash_static_max_lse <- _flash_kernel_res_static_max (_flash_fwd_res_impl, static_max=bound)
+// One templated kernel (kStaticMax, kEmitLse) stands in for all five; each
 // entry point is a distinct C function so the Python wrapper can count its
 // launches.
 //
@@ -379,8 +380,8 @@ int launch(const void* q, const void* k, const void* v, const int* mask, void* o
 // Every entry point takes the same arguments. meta (int64[19]): B, Sq, Sk,
 // Hq, Hkv, D, then element strides q (b, s, h), k (b, s, h), v (b, s, h),
 // out (b, s, h), mask (b). mask may be null (every key valid); lse (B, Hq, Sq)
-// fp32 is written only by lumina_flash_online_lse, bound read only by
-// lumina_flash_static_max. Each returns the cudaError_t of the launch (0 on
+// fp32 is written only by the two *_lse entry points, bound read only by the
+// two static_max ones. Each returns the cudaError_t of the launch (0 on
 // success).
 #define LUMINA_FLASH_ARGS                                                               \
   const void *q, const void *k, const void *v, const int *mask, void *out, float *lse, \
@@ -402,6 +403,10 @@ int lumina_flash_static_max(LUMINA_FLASH_ARGS) {
 
 int lumina_flash_online_lse(LUMINA_FLASH_ARGS) {
   return launch<false, true>(q, k, v, mask, out, lse, meta, scale, 0.f, is_bf16, stream);
+}
+
+int lumina_flash_static_max_lse(LUMINA_FLASH_ARGS) {
+  return launch<true, true>(q, k, v, mask, out, lse, meta, scale, bound, is_bf16, stream);
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ Conventions, as in the JAX package:
 - parameters are stored in `param_dtype` (fp32 by default) and activations
   run in `dtype`: a `Linear` casts its weight to its input's dtype, as
   flax's `nn.Dense(dtype=...)` does;
-- norms, RoPE and softmax are fp32 islands;
+- norms, RoPE and softmax are fp32 islands, and norm weights and the
+  cross-attention gate are fp32 parameters at any `param_dtype`;
 - parameter names follow the reference state-dict keys
   (`core/checkpoint.state_dict_from_jax_params`), so a converted state dict
   loads with `strict=True`.
@@ -13,12 +14,15 @@ Conventions, as in the JAX package:
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.attention import attention as attention_op
 from ..ops.attention import default_attn_scale, resolve_impl
@@ -59,27 +63,26 @@ def modulate(x, scale):
 
 
 class RMSNorm(nn.Module):
-    """RMSNorm with a learned gain, computed in fp32."""
+    """RMSNorm with a learned fp32 gain, computed in fp32."""
 
-    def __init__(self, dim: int, eps: float = 1e-5, device=None, dtype=torch.float32):
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=torch.float32))
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.eps)
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm in fp32, optional affine."""
+    """LayerNorm in fp32, optional fp32 affine."""
 
-    def __init__(self, dim: int, eps: float = 1e-6, use_affine: bool = True,
-                 device=None, dtype=torch.float32):
+    def __init__(self, dim: int, eps: float = 1e-6, use_affine: bool = True, device=None):
         super().__init__()
         self.eps = eps
         if use_affine:
-            self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
-            self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+            self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=torch.float32))
+            self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=torch.float32))
         else:
             self.weight = self.bias = None
 
@@ -122,7 +125,7 @@ class CaptionEmbedder(nn.Sequential):
     def __init__(self, cap_feat_dim: int, hidden_size: int, param_dtype=torch.float32,
                  device=None):
         super().__init__(
-            LayerNorm(cap_feat_dim, eps=1e-5, device=device, dtype=param_dtype),
+            LayerNorm(cap_feat_dim, eps=1e-5, device=device),
             _linear(cap_feat_dim, hidden_size, init="zeros", device=device, dtype=param_dtype),
         )
 
@@ -183,7 +186,7 @@ class Attention(nn.Module):
         self.wk = _linear(dim, self.n_kv_heads * self.head_dim, **kw)
         self.wv = _linear(dim, self.n_kv_heads * self.head_dim, **kw)
         self.wo = _linear(n_heads * self.head_dim, dim, **kw)
-        nkw = dict(eps=1e-5, device=device, dtype=param_dtype)
+        nkw = dict(eps=1e-5, device=device)
         if qk_norm:
             self.q_norm = LayerNorm(n_heads * self.head_dim, **nkw)
             self.k_norm = LayerNorm(self.n_kv_heads * self.head_dim, **nkw)
@@ -265,3 +268,53 @@ def unpatchify(tokens, h: int, w: int, patch_size: int, out_channels: int):
     x = tokens[:, : gh * gw].reshape(b, gh, gw, p, p, out_channels)
     x = torch.einsum("nhwpqc->nchpwq", x)
     return x.reshape(b, out_channels, h, w)
+
+
+# -- activation rematerialisation ------------------------------------------------
+
+_WEIGHT_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save every weight-matmul output (the 2-D `mm`/`addmm` a `Linear`
+    lowers to; attention's batched products are `bmm` and are recomputed):
+    the counterpart of `dots_with_no_batch_dims_saveable`."""
+    return CheckpointPolicy.MUST_SAVE if op in _WEIGHT_MATMULS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_slim_policy(ctx, op, *args, **kwargs):
+    """As `_dots_policy`, but recompute the expanding matmuls too (output
+    larger than the activation input): in a DiT block exactly the FFN
+    up-projections w1 and w3 (`_dots_slim_policy` of the JAX package)."""
+    if op not in _WEIGHT_MATMULS:
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    lhs, rhs = (args[0], args[1]) if op == torch.ops.aten.mm.default else (args[1], args[2])
+    if rhs.shape[1] <= lhs.shape[1]:  # output no wider than the input
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = {"full": None, "dots": _dots_policy, "dots_slim": _dots_slim_policy}
+
+
+def maybe_remat(fn: Callable, remat: bool, policy: str = "dots") -> Callable:
+    """Wrap a block's forward in non-reentrant `torch.utils.checkpoint` with
+    a selective policy (counterpart of the JAX package's `maybe_remat`; the
+    reference's `--checkpointing` is all-or-nothing full-block remat).
+
+    policy:
+      - "full": save nothing, recompute the whole block in the backward;
+      - "dots" (default): keep every weight-matmul output, recompute the
+        elementwise chains, norms and attention (whose kernels, launched
+        through ctypes, re-run in the recompute);
+      - "dots_slim": like "dots" but recompute the FFN up-projections too.
+    Returns `fn` itself when `remat` is false."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy: {policy!r} (use 'full', 'dots' or 'dots_slim')")
+    if not remat:
+        return fn
+    chosen = REMAT_POLICIES[policy]
+    kwargs = {"use_reentrant": False}
+    if chosen is not None:
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, chosen)
+    return functools.partial(checkpoint, fn, **kwargs)

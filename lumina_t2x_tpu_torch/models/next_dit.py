@@ -4,10 +4,12 @@
 Sandwich RMSNorm around attention and FFN, 4-chunk adaLN (scale + tanh
 gate), gated zero-init cross-attention to caption features, 2-D RoPE with
 time-aware scaling and the proportional attention scale. The blocks run as a
-plain Python loop over `layers`.
+plain Python loop over `layers`; with `remat` each block runs under
+`torch.utils.checkpoint` with the `remat_policy` of `layers.maybe_remat`
+whenever autograd is on.
 
 Not ported yet (ROADMAP queue 1): the variable-aspect `img_sizes` list path,
-`kv_merge_ratio > 1` (`pool_kv_2d`), sequence sharding and remat; each raises
+`kv_merge_ratio > 1` (`pool_kv_2d`) and sequence sharding; each raises
 `NotImplementedError`.
 """
 
@@ -21,6 +23,7 @@ from torch import nn
 from ..ops.attention import anagram_attn_scale, default_attn_scale, proportional_attn_scale
 from ..ops.rope import rope_angles_2d_timeaware
 from .layers import (
+    REMAT_POLICIES,
     Attention,
     CaptionEmbedder,
     FeedForward,
@@ -28,6 +31,7 @@ from .layers import (
     RMSNorm,
     TimestepEmbedder,
     _linear,
+    maybe_remat,
     modulate,
     patchify,
     pooled_caption,
@@ -43,18 +47,18 @@ class NextDiTBlock(nn.Module):
                  y_dim: int, attn_impl: str = "auto", param_dtype=torch.float32, device=None):
         super().__init__()
         cond_dim = min(dim, 1024)
-        pk = dict(device=device, dtype=param_dtype)
         self.adaLN_modulation = nn.Sequential(
-            nn.SiLU(), _linear(cond_dim, 4 * dim, init="zeros", **pk))
-        self.attention_y_norm = RMSNorm(y_dim, eps=norm_eps, **pk)
+            nn.SiLU(), _linear(cond_dim, 4 * dim, init="zeros", device=device, dtype=param_dtype))
+        nk = dict(eps=norm_eps, device=device)
+        self.attention_y_norm = RMSNorm(y_dim, **nk)
         self.attention = Attention(dim, n_heads, n_kv_heads, qk_norm=qk_norm, y_dim=y_dim,
                                    attn_impl=attn_impl, param_dtype=param_dtype, device=device)
-        self.attention_norm1 = RMSNorm(dim, eps=norm_eps, **pk)
-        self.attention_norm2 = RMSNorm(dim, eps=norm_eps, **pk)
+        self.attention_norm1 = RMSNorm(dim, **nk)
+        self.attention_norm2 = RMSNorm(dim, **nk)
         self.feed_forward = FeedForward(dim, 4 * dim, multiple_of, ffn_dim_multiplier,
                                         param_dtype=param_dtype, device=device)
-        self.ffn_norm1 = RMSNorm(dim, eps=norm_eps, **pk)
-        self.ffn_norm2 = RMSNorm(dim, eps=norm_eps, **pk)
+        self.ffn_norm1 = RMSNorm(dim, **nk)
+        self.ffn_norm2 = RMSNorm(dim, **nk)
 
     def forward(self, x, x_mask, angles, y, y_mask, adaln_input, attn_scale=None,
                 lse_recorder: Optional[List[torch.Tensor]] = None):
@@ -79,10 +83,12 @@ class NextDiT(nn.Module):
                  norm_eps: float = 1e-5, learn_sigma: bool = True, qk_norm: bool = False,
                  cap_feat_dim: int = 5120, rope_theta: float = 10000.0,
                  dtype=torch.float32, param_dtype=torch.float32, attn_impl: str = "auto",
-                 remat: bool = False, seq_shard_axis: Optional[str] = None, device=None):
+                 remat: bool = False, remat_policy: str = "dots",
+                 seq_shard_axis: Optional[str] = None, device=None):
         super().__init__()
-        if remat:
-            raise NotImplementedError("remat belongs to the training slice (ROADMAP queue 1, item 7)")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy: {remat_policy!r} "
+                             f"(use one of {sorted(REMAT_POLICIES)})")
         if seq_shard_axis is not None:
             raise NotImplementedError("sequence sharding belongs to the multi-GPU slice "
                                       "(ROADMAP queue 1, item 11)")
@@ -98,6 +104,8 @@ class NextDiT(nn.Module):
         self.rope_theta = rope_theta
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.remat = remat
+        self.remat_policy = remat_policy
         cond_dim = min(dim, 1024)
         pk = dict(device=device, dtype=param_dtype)
 
@@ -131,10 +139,11 @@ class NextDiT(nn.Module):
                 scale_factor: float = 1.0, scale_watershed: float = 1.0,
                 proportional_attn: bool = False, base_seqlen: Optional[int] = None,
                 attn_scale_variant: str = "proportional", kv_merge_ratio: int = 1,
-                lse_recorder: Optional[List[torch.Tensor]] = None):
+                lse_recorder: Optional[List[torch.Tensor]] = None, train: bool = False):
         """Denoise step: x (B, C, H, W) latents, t (B,) times in [0, 1],
         cap_feats (B, Ly, cap_feat_dim), cap_mask (B, Ly). Returns the
-        (B, C, H, W) fp32 velocity."""
+        (B, C, H, W) fp32 velocity. `train` is accepted and unused, as in the
+        JAX t2i model (it has no dropout)."""
         if img_sizes is not None:
             raise NotImplementedError("the img_sizes list path is not ported yet "
                                       "(ROADMAP queue 1, item 3)")
@@ -166,9 +175,11 @@ class NextDiT(nn.Module):
             attn_scale = default_attn_scale(head_dim)
 
         cap_feats_c = cap_feats.to(self.dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            tokens = layer(tokens, x_mask, angles, cap_feats_c, cap_mask, adaln_input,
-                           attn_scale, lse_recorder)
+            tokens = maybe_remat(layer, remat, self.remat_policy)(
+                tokens, x_mask, angles, cap_feats_c, cap_mask, adaln_input, attn_scale,
+                lse_recorder)
 
         tokens = self.final_layer(tokens, adaln_input)
         out = unpatchify(tokens, h, w, p, self.out_channels)

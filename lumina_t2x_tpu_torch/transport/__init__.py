@@ -2,10 +2,12 @@
 
 from .path import LinearPath, expand_t_like_x
 from .solvers import make_time_grid, odeint_fixed, time_shift
-from .transport import ModelType, PathType, Sampler, Transport, WeightType
+from .transport import (ModelType, PathType, Sampler, Transport, WeightType, mean_flat,
+                        sample_t)
 
 __all__ = [
     "create_transport", "Transport", "Sampler", "ModelType", "PathType", "WeightType",
+    "sample_t", "mean_flat",
     "LinearPath", "expand_t_like_x", "odeint_fixed", "make_time_grid", "time_shift",
 ]
 

@@ -1,15 +1,19 @@
-"""Flow-matching transport, sampling side (counterpart of
+"""Flow-matching transport (counterpart of
 `lumina_t2x_tpu/transport/transport.py`): the enums, the integration
-interval, the probability-flow drift and the fixed-step ODE sampler. Model
-callables have the signature `model_fn(x, t) -> out` with t of shape (B,).
+interval, the training times (`sample_t`) and the velocity-matching loss
+(`Transport.training_losses`), the probability-flow drift and the fixed-step
+ODE sampler. Model callables have the signature `model_fn(x, t) -> out` with
+t of shape (B,). Random draws come from an explicit `torch.Generator`, or are
+handed in as tensors.
 
-Not ported yet (ROADMAP queue 1, items 4 and 7): the adaptive ODE methods,
-`sample_sde`, the likelihood sampler and `training_losses`.
+Not ported yet (ROADMAP queue 1, item 4): the adaptive ODE methods,
+`sample_sde` and the likelihood sampler.
 """
 
 from __future__ import annotations
 
 import enum
+from typing import Callable, Optional
 
 import torch
 
@@ -38,6 +42,37 @@ class WeightType(enum.Enum):
 _ADAPTIVE = ("dopri5", "dopri8", "adaptive")
 
 
+def sample_t(batch: int, snr_type: str = "uniform", t0: float = 0.0, t1: float = 1.0, *,
+             generator: Optional[torch.Generator] = None, device=None, draw=None):
+    """Training times by `snr_type`: uniform, uniform_{t0}_{t1}, lognorm
+    (sigmoid of a standard normal) or shift_{factor}. `draw`: the (B,)
+    variates (uniform, or standard normal for lognorm); drawn from
+    `generator` when None."""
+    lognorm = snr_type == "lognorm"
+    if draw is None:
+        sample = torch.randn if lognorm else torch.rand
+        draw = sample((batch,), generator=generator, device=device, dtype=torch.float32)
+    if snr_type.startswith("uniform"):
+        if "_" in snr_type:
+            _, lo, hi = snr_type.split("_")
+            t0, t1 = float(lo), float(hi)
+        return draw * (t1 - t0) + t0
+    if lognorm:
+        return torch.sigmoid(draw) * (t1 - t0) + t0
+    if snr_type.startswith("shift"):
+        try:
+            shift_factor = float(snr_type.split("_")[1])
+        except (IndexError, ValueError):
+            raise ValueError(f"illegal snr_type: {snr_type}; time shift should be "
+                             "shift_{factor}, like shift_3.0") from None
+        return (shift_factor * draw) / (1.0 + (shift_factor - 1.0) * draw)
+    raise ValueError(f"Unknown snr type: {snr_type}")
+
+
+def mean_flat(x):
+    return x.reshape(x.shape[0], -1).mean(dim=-1)
+
+
 class Transport:
     """Holds the transport configuration."""
 
@@ -64,6 +99,30 @@ class Transport:
         if reverse:
             t0, t1 = 1.0 - t0, 1.0 - t1
         return t0, t1
+
+    def training_losses(self, model_fn: Callable, x1, loss_mask=None, *,
+                        generator: Optional[torch.Generator] = None, t=None, x0=None):
+        """Velocity-matching MSE loss. `t` (B,) and the noise `x0` are drawn
+        from `generator` unless given (tests hand in the JAX package's
+        draws). `loss_mask` (B, ...) with 1 on valid pixels restricts each
+        item's mean. Returns {"loss": (B,), "task_loss": (B,) detached}."""
+        if self.model_type != ModelType.VELOCITY:
+            raise NotImplementedError("training is defined for velocity models only "
+                                      "(as in the reference)")
+        b = x1.shape[0]
+        if t is None:
+            t0, t1 = self.check_interval(self.train_eps, self.sample_eps)
+            t = sample_t(b, self.snr_type, t0, t1, generator=generator, device=x1.device)
+        if x0 is None:
+            x0 = torch.randn(x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)
+        xt, ut = self.path_sampler.interpolant(t, x0, x1)
+        sq = (model_fn(xt, t).float() - ut.float()) ** 2
+        if loss_mask is not None:
+            m = loss_mask.float()
+            task_loss = (sq * m).reshape(b, -1).sum(-1) / m.reshape(b, -1).sum(-1).clamp_min(1.0)
+        else:
+            task_loss = mean_flat(sq)
+        return {"loss": task_loss, "task_loss": task_loss.detach()}
 
     def get_drift(self):
         """Probability-flow ODE drift."""

@@ -178,7 +178,8 @@ def test_cpu_calls_launch_no_kernel():
     tfa.flash_static_max(tq, tk, tv, tm, bound=5.0)
     tfa.flash_online_lse(tq, tk, tv, tm)
     tfa.flash_lse_range(tq, tk, tv, tm)
-    assert tfa.LAUNCHES == {"small_kv": 0, "online": 0, "static_max": 0, "online_lse": 0}
+    assert {"small_kv", "online", "static_max", "online_lse"} <= set(tfa.LAUNCHES)
+    assert all(count == 0 for count in tfa.LAUNCHES.values())
     assert tfa.PLAIN_CUDA_CALLS["count"] == 0
 
 

@@ -134,7 +134,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         tmodel(*args, kv_merge_ratio=2)
     with pytest.raises(NotImplementedError):
-        t_nd.NextDiT(remat=True, **TINY)
+        t_nd.NextDiT(seq_shard_axis="data", **TINY)
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))
