@@ -12,14 +12,31 @@ last line:
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
    kernel; the LSE forward and the backward kernels also at the training
    cross-attention's Sk=32), bf16 and fp32, GQA, masked tails and a fully masked row, with
-   kernel and plain times (CUDA events, median after a warm-up);
+   kernel and plain times (CUDA events, median after a warm-up), the
+   least time the card could take (`bound_ms`: bytes over 3.35 TB/s or
+   operations over 989 TFLOP/s bf16, whichever is longer) and the time of
+   one library call on the same inputs (`scaled_dot_product_attention` for
+   K1-K3, aten's flash attention with its log-sum-exp for K4/K5, the sdpa
+   autograd backward for K6-K8); then the fused-RoPE kernels (K9: `rope`
+   at Sq=Sk=4096, `rope_q` at Sk=32 and 256 with the 2B's 1024^2 angles)
+   against their plain versions, against K2 on `apply_rope`d inputs (equal
+   up to one bf16 ulp), and their gradient (`_FlashAttentionRope` through
+   the kernels against the plain Function);
 4. full-width forward: one CFG forward of NextDiT_2B_patch2 (qk-norm,
    caption dim 2048, bf16, zero-init tensors randomised) at 1024^2 with 256
    caption tokens, through the kernels and through the plain versions;
 5. the sampler: a 30-point midpoint trajectory (CFG 4, time-shift 4) of the
    same model through `sample_lib` with calibration, timed; then the
-   sampler CLI (`pipelines.sample.main`, 2B, 1024^2, --qk_norm --debug), the
-   first main path whose kernel launches are counted;
+   `lumina` CLI's `infer` (2B, 1024^2, the repo's settings, --debug: no
+   qk-norm, so no calibration, as in the JAX CLI);
+5b. serving: `build_worker` (2B, bf16, --debug, zero-init tensors
+   randomised) behind `make_server` on port 0, driven with urllib:
+   /api/health, one /api/generate at the defaults (1024^2, 30 steps,
+   midpoint, CFG 4, t-shift 4; the main path of K1-K4, with calibration
+   and K3), then under LUMINA_FUSE_ROPE=1 one 1024^2 and one 512x2048
+   request at 10 steps (the main path of K9: no K1-K4), and the 1024^2
+   10-step request again unfused (a setting of its own: calibrated, K3),
+   whose preview must agree with the fused one;
 6. gradient: one loss + backward of the randomised 2B at 1024^2, B=2, 32
    caption tokens, `dots` remat, through the kernels, the plain versions and
    the plain sdpa; the kernels' gradient must lie within 1.5x the sdpa's
@@ -32,19 +49,25 @@ last line:
    auto, bf16 Adafactor so that two checkpoints fit the machine's disk-write
    limit) for 3 steps, then --auto_resume for a 4th step with
    LUMINA_FLASH_FUSED_BWD=0: the second main path, whose training kernel
-   launches are counted.
+   launches are counted; then `lumina infer --ckpt` on that checkpoint
+   (10 steps, settings written to a temporary YAML file).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import base64
 import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+import zlib
 
 import numpy as np
 import torch
@@ -62,8 +85,11 @@ KERNELS = {  # entry point -> (source, line of the Pallas kernel it replaces)
     "bwd_fused": (BWD_SOURCE, 619),       # _bwd_fused_kernel
     "bwd_dq": (BWD_SOURCE, 552),          # _bwd_dq_kernel
     "bwd_dkv": (BWD_SOURCE, 584),         # _bwd_dkv_kernel
+    "rope": (FWD_SOURCE, 956),            # _flash_rope_kernel
+    "rope_q": (FWD_SOURCE, 963),          # _flash_rope_q_kernel
 }
 SAMPLER_KERNELS = ("small_kv", "online", "static_max", "online_lse")
+ROPE_KERNELS = ("rope", "rope_q")
 TRAIN_KERNELS = ("online_lse", "static_max_lse", "bwd_fused", "bwd_dq", "bwd_dkv")
 B, S, H, D, CAP, TRAIN_CAP = 2, 4096, 32, 72, 256, 32
 BF16_MAX, BF16_MEAN, FP32_MAX, LSE_MAX = 1e-2, 1e-3, 2e-3, 1e-3
@@ -71,6 +97,10 @@ BF16_MAX, BF16_MEAN, FP32_MAX, LSE_MAX = 1e-2, 1e-3, 2e-3, 1e-3
 # rounding of the output (8 mantissa bits); fp32 sums in another order
 BWD_BF16_MAX, BWD_BF16_MEAN, BWD_FP32_MAX = 1e-2, 1e-3, 1e-4
 GRAD_FLOOR_FACTOR = 1.5
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): bf16 tensor cores,
+# fp32 outside them, device memory
+PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+PROMPT = "a photo of an astronaut riding a horse"
 
 
 def phase(name, msg):
@@ -95,6 +125,78 @@ def time_ms(fn, reps=7):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def least_time(nbytes, tensor_ops, dtype, fp32_ops=0):
+    """The least time of the work: bytes moved once over the memory rate, or
+    operations over the peak rate of their type, whichever is longer."""
+    t_ops = tensor_ops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32) + fp32_ops / PEAK_FP32
+    t_bytes = nbytes / HBM_BYTES_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def attention_ops(q, k, products):
+    """Multiply-add operations of `products` (Sq x Sk x D) products."""
+    b, sq, hq, d = q.shape
+    return 2 * products * b * hq * sq * k.shape[1] * d
+
+
+def _sdpa(q, k, v, mask, scale):
+    """One library call on (B, S, H, D) inputs (the yardstick; the port
+    never calls it)."""
+    attn_mask = None if mask is None else (mask != 0)[:, None, None, :]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=attn_mask,
+        scale=scale, enable_gqa=k.shape[2] != q.shape[2])
+
+
+def top_kernel(fn):
+    """Name of the device kernel that takes the longest in one call of fn
+    (which library kernel the dispatcher picked)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        timed = [(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0),
+                  e.key) for e in prof.key_averages()]
+        timed = [t for t in timed if t[0] > 0]
+        if timed:
+            return max(timed)[1][:90]
+    return "not traced"
+
+
+def library_forward(q, k, v, mask, scale):
+    fn = lambda: _sdpa(q, k, v, mask, scale)
+    return {"library_ms": time_ms(fn), "library_kernel": top_kernel(fn)}
+
+
+def library_forward_lse(q, k, v, mask, scale):
+    """One library call that returns the output and the (B, H, Sq) fp32
+    log-sum-exp, as K4/K5 do (K5's fixed bound is an implementation detail
+    of the same function): aten's flash attention, which takes the timed
+    case (bf16, no mask, as many kv heads as q heads). Returns its time,
+    kernel and LSE."""
+    assert mask is None and q.dtype == torch.bfloat16 and k.shape[2] == q.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fn = lambda: torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, scale=scale)
+    return {"library_ms": time_ms(fn), "library_kernel": top_kernel(fn), "library_lse": fn()[1]}
+
+
+def library_backward(q, k, v, mask, dout, scale):
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = _sdpa(*leaves, mask, scale)
+    grad_out = dout.transpose(1, 2)
+    fn = lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
+    return {"library_ms": time_ms(fn, reps=5), "library_kernel": top_kernel(fn)}
 
 
 def device_phase():
@@ -175,10 +277,28 @@ def kernel_phase(fa):
             if ms is None:
                 ms = time_ms(lambda: kernel(q, k, v, mask, scale, **kw))
                 plain_ms = time_ms(lambda: plain(q, k, v, mask, scale, *kw.values()))
-                line += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                out_bytes = _nbytes(got)
+                lse_bytes = B * H * S * 4 if entry.endswith("_lse") else 0
+                extra = least_time(_nbytes(q, k, v, mask) + out_bytes + lse_bytes,
+                              attention_ops(q, k, 2), dtype)
+                if entry.endswith("_lse"):
+                    extra.update(library_forward_lse(q, k, v, mask, scale))
+                    lib_lse = extra.pop("library_lse")
+                    line += ("; library LSE vs plain max diff "
+                             + (f"{(lib_lse[fin] - ref_lse[fin]).abs().max().item():.3g}"
+                                if lib_lse.shape == ref_lse.shape
+                                else f"not compared (shape {tuple(lib_lse.shape)})"))
+                else:
+                    extra.update(library_forward(q, k, v, mask, scale))
+                line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                         f"{extra['bound_ms']:.4f} ms ({extra['bound_by']}), library "
+                         f"{extra['library_ms']:.3f} ms ({extra['library_kernel']})")
             phase("kernels", line)
             del q, k, v, got, ref
-        results[entry] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        results[entry] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                          **(extra if entry not in results else
+                             {key: results[entry][key] for key in
+                              ("bound_ms", "bound_by", "library_ms", "library_kernel")})}
     return results
 
 
@@ -239,12 +359,133 @@ def backward_kernel_phase(fa):
                              ("bwd_dkv", fa.flash_bwd_dkv)):
                 times[name] = time_ms(lambda: fn(*args), reps=5)
             times["plain"] = time_ms(lambda: fa.flash_bwd_plain(*args), reps=5)
-            line += "; " + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items())
+            # read q, k, v, out, dO, LSE once; write what the kernel writes
+            reads = _nbytes(q, k, v, out, dout, lse)
+            bounds = {"bwd_fused": least_time(reads + _nbytes(q, k, v), attention_ops(q, k, 5), dtype),
+                      "bwd_dq": least_time(reads + _nbytes(q), attention_ops(q, k, 3), dtype),
+                      "bwd_dkv": least_time(reads + _nbytes(k, v), attention_ops(q, k, 4), dtype)}
+            library = library_backward(q, k, v, mask, dout, scale)
+            line += ("; " + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items())
+                     + "; bounds " + ", ".join(f"{n} {b_['bound_ms']:.4f} ms ({b_['bound_by']})"
+                                              for n, b_ in bounds.items())
+                     + f"; library backward {library['library_ms']:.3f} ms "
+                       f"({library['library_kernel']})")
         phase("kernels", line)
         del q, k, v, dout, out, lse, args, ref, got
         torch.cuda.empty_cache()
-    return {name: {"max_abs_err": worst[name], "ms": times[name], "plain_ms": times["plain"]}
-            for name in worst}
+    return {name: {"max_abs_err": worst[name], "ms": times[name], "plain_ms": times["plain"],
+                   **bounds[name], **library} for name in worst}
+
+
+def rope_angles_2b():
+    """The 2B's RoPE angles at 1024^2: a 64 x 64 token grid, (4096, 36)."""
+    from lumina_t2x_tpu_torch.ops.rope import rope_angles_2d
+
+    return rope_angles_2d(D, 64, 64, device="cuda").reshape(S, D // 2)
+
+
+def rope_kernel_phase(fa):
+    """K9 (`flash_rope`, `flash_rope_q`) against its plain version (the
+    rotation in the operand dtype, then the fp32 softmax), against K2 on
+    `apply_rope`d inputs, and `_FlashAttentionRope`'s gradient through the
+    kernels against the plain Function. The bf16 forward bar is 1e-2 of
+    max(1, max|ref|): the absolute 1e-2 where outputs stay below 1 (every
+    Sk=4096 case), one bf16 output rounding above it (Sk=32 outputs reach
+    [4, 8), where half an ulp is 1.6e-2)."""
+    from lumina_t2x_tpu_torch.ops.rope import apply_rope
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    angles = rope_angles_2b()
+    scale = D ** -0.5
+    results = {}
+    for entry, sk in (("rope", S), ("rope_q", TRAIN_CAP), ("rope_q", CAP)):
+        kernel = getattr(fa, f"flash_{entry}")
+        prev = results.get(entry, {"max_abs_err": 0.0, "ms": None})
+        worst = prev["max_abs_err"]
+        for label, dtype, hkv, mask_kind in CASES:
+            q = _rand(g, B, S, H, D, dtype=dtype)
+            k = _rand(g, B, sk, hkv, D, dtype=dtype)
+            v = _rand(g, B, sk, hkv, D, dtype=dtype)
+            mask = None
+            if mask_kind != "none":
+                mask = torch.ones(B, sk, dtype=torch.int32, device="cuda")
+                mask[1, sk - sk // 5:] = 0
+                if mask_kind == "row":
+                    mask[1] = 0
+            got = kernel(q, k, v, angles, mask, scale)
+            q_rot = apply_rope(q, angles)
+            k_rot = apply_rope(k, angles) if entry == "rope" else k
+            ref = fa.flash_online_plain(q_rot.float(), k_rot.float(), v.float(), mask, scale)
+            k2 = fa.flash_online(q_rot, k_rot, v, mask, scale)
+            torch.cuda.synchronize()
+            err = (got.float() - ref).abs()
+            max_err, mean_err = err.max().item(), err.mean().item()
+            top = max(1.0, ref.abs().max().item())
+            bar = FP32_MAX if dtype == torch.float32 else BF16_MAX * top
+            require(math.isfinite(max_err) and max_err <= bar,
+                    f"{entry} {label} (Sk={sk}): max abs err {max_err} > {bar}")
+            if dtype == torch.bfloat16:
+                require(mean_err <= BF16_MEAN, f"{entry} {label}: mean abs err {mean_err}")
+            if mask_kind == "row":
+                require(torch.count_nonzero(got[1]).item() == 0, f"{entry}: masked row not 0")
+            k2_diff = (got.float() - k2.float()).abs().max().item()
+            ulp = 2.0 ** (-7 if dtype == torch.bfloat16 else -23) * k2.float().abs().max().item()
+            require(k2_diff <= ulp, f"{entry} {label}: {k2_diff} from K2 on rotated inputs")
+            worst = max(worst, max_err)
+            line = (f"{entry} {label} (Sk={sk}): max abs err {max_err:.3g} (bar {bar:.3g}) mean "
+                    f"{mean_err:.3g}; vs K2 on apply_rope'd inputs max diff {k2_diff:.3g}"
+                    f"{' (equal)' if torch.equal(got, k2) else ''}")
+            if prev["ms"] is None and "ms" not in results.get(entry, {}):
+                ms = time_ms(lambda: kernel(q, k, v, angles, mask, scale))
+                plain_ms = time_ms(lambda: getattr(fa, f"flash_{entry}_plain")(
+                    q, k, v, angles, mask, scale))
+                k2_ms = time_ms(lambda: fa.flash_online(q_rot, k_rot, v, mask, scale))
+                # q, k, v, the two (S, D) fp32 tables read once, out written;
+                # the rotation: a multiply, a multiply and an add per element
+                rotated = q.numel() + (k.numel() if entry == "rope" else 0)
+                extra = least_time(_nbytes(q, k, v, mask, got) + 2 * S * D * 4,
+                              attention_ops(q, k, 2), dtype, fp32_ops=3 * rotated)
+                results[entry] = {"ms": ms, "plain_ms": plain_ms, "k2_ms": k2_ms, **extra,
+                                  "library_ms": None, "library_kernel": "none"}
+                line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K2 on rotated inputs "
+                         f"{k2_ms:.3f} ms, bound {extra['bound_ms']:.4f} ms ({extra['bound_by']}), "
+                         f"library none")
+            phase("kernels", line)
+            del q, k, v, got, ref, k2, q_rot, k_rot
+        results[entry]["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+
+    for entry, sk, hkv, mask_kind in (("rope", S, H, "none"), ("rope_q", TRAIN_CAP, 8, "tail")):
+        q = _rand(g, B, S, H, D, dtype=torch.bfloat16)
+        k = _rand(g, B, sk, hkv, D, dtype=torch.bfloat16)
+        v = _rand(g, B, sk, hkv, D, dtype=torch.bfloat16)
+        dout = _rand(g, B, S, H, D, dtype=torch.bfloat16)
+        mask = None
+        if mask_kind == "tail":
+            mask = torch.ones(B, sk, dtype=torch.int32, device="cuda")
+            mask[1, sk - sk // 5:] = 0
+        grads = {}
+        for impl, fn in (("kernels", fa.flash_attention_rope),
+                         ("plain", fa.flash_attention_rope_plain)):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            fn(*leaves, angles, mask, scale, rotate_k=entry == "rope").backward(dout)
+            grads[impl] = [t.grad for t in leaves]
+        torch.cuda.synchronize()
+        parts = []
+        for what, got, ref in zip(("dq", "dk", "dv"), grads["kernels"], grads["plain"]):
+            top = max(ref.float().abs().max().item(), 1e-30)
+            err = (got.float() - ref.float()).abs()
+            rel_max, rel_mean = err.max().item() / top, err.mean().item() / top
+            require(math.isfinite(rel_max) and rel_max <= BWD_BF16_MAX,
+                    f"{entry} gradient {what}: max err {rel_max} of max|ref|")
+            require(rel_mean <= BWD_BF16_MEAN, f"{entry} gradient {what}: mean err {rel_mean}")
+            parts.append(f"{what} {rel_max:.2g}")
+        phase("kernels", f"_FlashAttentionRope gradient ({entry}, bf16, Sk={sk}, Hkv={hkv}, "
+              f"mask {mask_kind}), kernels vs plain Function: max err / max|ref| "
+              + ", ".join(parts))
+        del q, k, v, dout, grads
+        torch.cuda.empty_cache()
+    return results
 
 
 def _randomise_zero_init(model, seed):
@@ -296,7 +537,6 @@ def forward_phase(fa):
 
 
 def slice_phase(fa, model, cap, cap_mask):
-    from lumina_t2x_tpu_torch.pipelines import sample as sample_cli
     from lumina_t2x_tpu_torch.pipelines.sample_lib import (autocalibrate_flash_static_max,
                                                            build_t2i_sample_fn)
 
@@ -305,7 +545,7 @@ def slice_phase(fa, model, cap, cap_mask):
     bound = autocalibrate_flash_static_max(model, cap, cap_mask, generator=g, **kw)
     require(bound is not None and math.isfinite(bound), "calibration declined at 2B")
     phase("slice", f"flash static-max calibrated: {bound:.4f}")
-    sample_fn = build_t2i_sample_fn(model, num_steps=30, solver="midpoint", **kw)
+    sample_fn = build_t2i_sample_fn(model, num_steps=30, solver="midpoint", static_max=bound, **kw)
     z = torch.randn(1, 4, 128, 128, generator=g, device="cuda")
     torch.cuda.synchronize()  # the forward phase and the probe warmed up every path
     t0 = time.perf_counter()
@@ -319,29 +559,138 @@ def slice_phase(fa, model, cap, cap_mask):
           f"batch 2), {1 / total:.4f} samples/s; latents finite, std {latents.std().item():.3f}")
     del model, sample_fn
     torch.cuda.empty_cache()
-    fa.set_flash_static_max(None)
+
+
+def lumina_infer(fa, label, extra_argv, config=None, steps=30):
+    """`lumina infer` (the port's CLI, `pipelines.sample.main` underneath)
+    into a temporary directory; checks the latents and returns the launch
+    counts."""
+    from lumina_t2x_tpu_torch.cli import entry_point
 
     with tempfile.TemporaryDirectory() as out_dir:
         fa.reset_launch_counts()
-        sample_cli.main(["--model", "NextDiT_2B_patch2", "--qk_norm", "--resolution",
-                         "1:1024x1024", "--num_sampling_steps", "30", "--solver", "midpoint",
-                         "--cfg_scale", "4.0", "--time_shifting_factor", "4", "--debug",
-                         "--image_save_path", out_dir])
+        t0 = time.perf_counter()
+        manifest = entry_point.main(["infer", PROMPT, out_dir, "--device", "cuda",
+                                     "-c", config or os.path.join(ROOT, "configs/infer/settings.yaml"),
+                                     *extra_argv])
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES)
         plain_calls = fa.PLAIN_CUDA_CALLS["count"]
-        fa.set_flash_static_max(None)  # the CLI's inference bound stays out of later phases
-        with open(os.path.join(out_dir, "data.json")) as f:
-            items = json.load(f)["items"]
+        items = manifest["items"]
         lat = np.load(items[0]["path"])
-    require(lat.shape == (4, 128, 128) and np.isfinite(lat).all(), "CLI latents not finite")
-    phase("slice", f"CLI wrote {len(items)} latent(s) {lat.shape}, finite; launches {launches}; "
-          f"plain-version CUDA calls {plain_calls}")
-    for name in SAMPLER_KERNELS:
-        require(launches[name] > 0, f"kernel {name} was not launched on the main path")
-    require(launches["static_max"] > launches["online"], "static-max is not the bulk after calibration")
-    require(plain_calls == 0, f"plain versions ran {plain_calls} times on CUDA")
+    require(len(items) == 1 and items[0]["steps"] == steps, f"{label}: manifest {items}")
+    require(lat.shape == (4, 128, 128) and np.isfinite(lat).all(), f"{label}: latents not finite")
+    require(plain_calls == 0, f"{label}: plain versions ran {plain_calls} times on CUDA")
+    phase("cli", f"{label}: {manifest['args']['model']}, qk_norm {manifest['args']['qk_norm']}, "
+          f"{steps} steps, latents {lat.shape} finite, std {lat.std():.3f}; wall {wall:.1f} s incl. "
+          f"model set-up; launches {launches}; plain-version CUDA calls {plain_calls}")
     return launches
+
+
+def cli_phase(fa):
+    """`lumina infer "prompt" out --debug` at the repo's settings (2B, 1024^2,
+    30 midpoint steps, CFG 4, t-shift 4; no --qk_norm, as the JAX CLI)."""
+    launches = lumina_infer(fa, "lumina infer --debug", ["--debug"])
+    require(launches["small_kv"] > 0 and launches["online"] > 0,
+            "lumina infer did not run the attention kernels")
+
+
+def _png_pixels(png):
+    """RGB pixels of a PNG with one 8-bit RGB IDAT stream of filter-0 rows
+    (what the server writes)."""
+    require(png[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(png):
+        n, tag = struct.unpack(">I4s", png[pos:pos + 8])
+        data = png[pos + 8:pos + 8 + n]
+        require(zlib.crc32(tag + data) & 0xFFFFFFFF == struct.unpack(">I", png[pos + 8 + n:pos + 12 + n])[0],
+                f"PNG chunk {tag} CRC")
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", data[:10])
+            require(depth == 8 and ctype == 2, f"PNG depth {depth} color type {ctype}")
+        elif tag == b"IDAT":
+            idat += data
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    require(not rows[:, 0].any(), "PNG rows not filter 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def serving_phase(fa):
+    """The 2B served over HTTP on the card: returns the launch counts of its
+    main paths (K1-K4 from the default request, K9 from the fused ones)."""
+    from lumina_t2x_tpu_torch.pipelines.demo import build_worker
+    from lumina_t2x_tpu_torch.pipelines.serve import DemoApp, make_server
+
+    t0 = time.perf_counter()
+    worker = build_worker("NextDiT_2B_patch2", "bf16", debug=True, device="cuda")
+    n = _randomise_zero_init(worker.model, 1)
+    server = make_server(DemoApp(worker, model_name="NextDiT_2B_patch2"), port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    phase("serve", f"build_worker NextDiT_2B_patch2 bf16 --debug ({n} zero-init tensors "
+          f"randomised) and server up in {time.perf_counter() - t0:.1f} s at {url}")
+
+    def post(body):
+        fa.reset_launch_counts()
+        req = urllib.request.Request(url + "/api/generate", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            status, payload = resp.status, json.loads(resp.read())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, plain_calls = dict(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"]
+        require(status == 200, f"/api/generate {body}: HTTP {status}")
+        pixels = _png_pixels(base64.b64decode(payload["image_png_b64"]))
+        w, h = (int(x) for x in body.get("resolution", "1024x1024").split("x"))
+        require(pixels.shape == (h // 8, w // 8, 3), f"preview shape {pixels.shape}")
+        require(plain_calls == 0, f"{body}: plain versions ran {plain_calls} times on CUDA")
+        phase("serve", f"POST /api/generate {body}: {secs:.2f} s (server-side "
+              f"{payload['metadata']['elapsed_s']} s), PNG {w // 8}x{h // 8}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; plain-version CUDA calls {plain_calls}")
+        return launches, pixels
+
+    try:
+        with urllib.request.urlopen(url + "/api/health", timeout=60) as resp:
+            health = json.loads(resp.read())
+        require(health["ok"] and health["model"] == "NextDiT_2B_patch2", f"health {health}")
+        phase("serve", f"GET /api/health: {health}")
+        default, _ = post({"cap": PROMPT})
+        for name in SAMPLER_KERNELS:
+            require(default[name] > 0, f"kernel {name} was not launched by the default request")
+        require(default["static_max"] > default["online"],
+                "static-max is not the bulk after calibration")
+        require(not any(default[name] for name in ROPE_KERNELS), "K9 ran unfused")
+        os.environ["LUMINA_FUSE_ROPE"] = "1"
+        try:
+            fused, fused_px = post({"cap": PROMPT, "num_sampling_steps": 10})
+            wide, _ = post({"cap": PROMPT, "num_sampling_steps": 10, "resolution": "512x2048"})
+        finally:
+            os.environ.pop("LUMINA_FUSE_ROPE")
+        for launches in (fused, wide):
+            require(all(launches[name] > 0 for name in ROPE_KERNELS), "K9 was not launched")
+            require(not any(launches[name] for name in SAMPLER_KERNELS),
+                    f"K1-K4 ran under LUMINA_FUSE_ROPE=1: {launches}")
+        unfused, unfused_px = post({"cap": PROMPT, "num_sampling_steps": 10})
+        require(unfused["static_max"] > unfused["online"] and not any(
+            unfused[name] for name in ROPE_KERNELS),
+            f"the unfused 10-step setting did not calibrate and run K3: {unfused}")
+        diff = np.abs(fused_px.astype(np.int32) - unfused_px.astype(np.int32))
+        phase("serve", f"1024^2 10-step preview, fused RoPE (K9) vs unfused (K3): mean "
+              f"{diff.mean():.3f}, max {diff.max()} of 255 levels")
+        # the 2B forward's bf16 bar (2e-2 relative) over the preview's range
+        require(diff.mean() <= 2e-2 * 255, f"fused and unfused previews differ: {diff.mean()}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    del worker, server
+    torch.cuda.empty_cache()
+    return {**{name: default[name] for name in SAMPLER_KERNELS},
+            **{name: fused[name] + wide[name] for name in ROPE_KERNELS}}
 
 
 def _train_inputs(seed):
@@ -530,6 +879,12 @@ def trainer_phase(fa):
         del state
         torch.cuda.empty_cache()
         require(os.listdir(ckpts) == ["0000004"], f"checkpoints after resume: {os.listdir(ckpts)}")
+        settings = os.path.join(results, "settings.yaml")
+        with open(settings, "w") as f:
+            f.write("- infer:\n    num_sampling_steps: 10\n")
+        ckpt_launches = lumina_infer(fa, "lumina infer --ckpt <trainer checkpoint>",
+                                     ["--ckpt", os.path.join(ckpts, "0000004")], settings, steps=10)
+        require(ckpt_launches["static_max"] > 0, "the checkpoint's qk-norm model did not calibrate")
         metrics = _train_metrics(results)
         phase("trainer", f"--auto_resume from step 3 with LUMINA_FLASH_FUSED_BWD=0: step 4 loss "
               f"{metrics[-1]['train/loss']:.5f}, {1000 * metrics[-1]['train/secs_per_step']:.1f} "
@@ -559,13 +914,17 @@ def main():
     build_phase(fa)
     results = kernel_phase(fa)
     results.update(backward_kernel_phase(fa))
-    launches = slice_phase(fa, *forward_phase(fa))
+    results.update(rope_kernel_phase(fa))
+    slice_phase(fa, *forward_phase(fa))
+    cli_phase(fa)
+    launches = serving_phase(fa)
     gradient_phase(fa)
     recipe_phase(fa)
     launches.update(trainer_phase(fa))  # K4: the training path's count
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": f"{TPU_KERNELS}:{line}",
-         "launches": launches[name], **results[name]}
+         "launches": launches[name], **{key: results[name][key] for key in keys}}
         for name, (source, line) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,15 @@ dicts of numpy arrays, transformer layers stacked under `layers/`, or per
 layer under `blocks_<i>/`) into the reference-layout state dict that the
 port's `NextDiT.load_state_dict(..., strict=True)` takes.
 `train_state_from_jax` extends it to the EMA tree and the optimizer state.
+
+Reference release weights (`.pth` / `.safetensors` state dicts) load with
+`load_torch_state_dict` and are written with `save_safetensors`: the
+safetensors format is read and written here (an 8-byte little-endian header
+length, a JSON header, then the raw little-endian tensor bytes), so neither
+needs the `safetensors` package. The port's parameter names are the
+reference keys, so no key mapping is needed. `save_weights` writes such a
+state dict as a checkpoint directory whose `ema` stream `init_from` (and the
+sampler's `--ckpt`) restores.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import logging
 import os
 import re
 import shutil
+import struct
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -143,6 +153,93 @@ def _unstackable(tree, n_layers, stacked=False):
     return out
 
 
+# -- reference state dicts: .pth and .safetensors -------------------------------------
+
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+_SAFETENSORS_NAMES = {dtype: name for name, dtype in _SAFETENSORS_DTYPES.items()}
+
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Read a `.safetensors` file into CPU tensors of their stored dtypes."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) < 8:
+        raise ValueError(f"{path}: not a safetensors file (shorter than its header length)")
+    (n,) = struct.unpack("<Q", data[:8])
+    if 8 + n > len(data):
+        raise ValueError(f"{path}: header length {n} runs past the end of the file")
+    header = json.loads(data[8:8 + n])
+    buf = memoryview(data)[8 + n:]
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has unsupported dtype {info['dtype']}")
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        begin, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        count = int(np.prod(shape, dtype=np.int64))
+        if end - begin != count * torch.empty((), dtype=dtype).element_size() or end > len(buf):
+            raise ValueError(f"{path}: tensor {name!r} has inconsistent data offsets")
+        flat = (torch.frombuffer(bytearray(buf[begin:end]), dtype=dtype) if count
+                else torch.empty(0, dtype=dtype))
+        out[name] = flat.reshape(shape)
+    return out
+
+
+def save_safetensors(state_dict: Dict[str, torch.Tensor], path: str):
+    """Write a state dict of tensors (or numpy arrays) as `.safetensors`:
+    tensors in name order, the header padded with spaces to 8 bytes."""
+    header, blobs, offset = {"__metadata__": {"format": "pt"}}, [], 0
+    for name in sorted(state_dict):
+        t = torch.as_tensor(state_dict[name]).detach().cpu().contiguous()
+        if t.dtype not in _SAFETENSORS_NAMES:
+            raise ValueError(f"tensor {name!r}: dtype {t.dtype} has no safetensors name")
+        blob = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _SAFETENSORS_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for blob in blobs:
+            f.write(blob)
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint (`.safetensors`, or a `.pth` torch file, whose
+    `state_dict` entry is taken when it has one) as CPU tensors of their
+    stored dtypes (`load_state_dict` casts them to the model's)."""
+    if path.endswith(".safetensors"):
+        return load_safetensors(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return dict(sd)
+
+
+def save_weights(path: str, state_dict: Dict[str, torch.Tensor], model_args: Dict,
+                 stream: str = "ema") -> str:
+    """Write a weights-only checkpoint directory: `<path>/<stream>/state_dict.pt`
+    and `<path>/model_args.json`, which `init_from` and the sampler's
+    `--ckpt` read."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.join(path, stream), exist_ok=True)
+    torch.save({k: torch.as_tensor(v) for k, v in state_dict.items()},
+               os.path.join(path, stream, _STREAM_FILE))
+    with open(os.path.join(path, "model_args.json"), "w") as f:
+        json.dump(model_args, f, indent=2, default=str)
+    return path
+
+
 # -- trainer checkpoints ---------------------------------------------------------------
 
 
@@ -202,9 +299,11 @@ def find_auto_resume(results_dir: str) -> Optional[str]:
     return os.path.join(base, complete[-1]) if complete else None
 
 
-def _load_stream(path: str, stream: str):
-    return torch.load(os.path.join(path, stream, _STREAM_FILE), map_location="cpu",
-                      mmap=True, weights_only=True)
+def load_stream(path: str, stream: str):
+    """One stream (`model`, `ema`, `optimizer`) of a checkpoint directory, on
+    the CPU."""
+    return torch.load(os.path.join(os.path.abspath(path), stream, _STREAM_FILE),
+                      map_location="cpu", mmap=True, weights_only=True)
 
 
 def _copy_into(dst, src, where: str):
@@ -229,9 +328,9 @@ def load_checkpoint(path: str, state):
     in place (no second copy of the state on the device)."""
     path = os.path.abspath(path)
     with torch.no_grad():
-        state.model.load_state_dict(_load_stream(path, "model"), strict=True)
-        _copy_into(state.ema, _load_stream(path, "ema"), "ema")
-        _copy_into(state.opt_state, _load_stream(path, "optimizer"), "optimizer")
+        state.model.load_state_dict(load_stream(path, "model"), strict=True)
+        _copy_into(state.ema, load_stream(path, "ema"), "ema")
+        _copy_into(state.opt_state, load_stream(path, "optimizer"), "optimizer")
     with open(os.path.join(path, "resume_step.txt")) as f:
         state.step = int(f.read().strip())
     return state
@@ -250,7 +349,7 @@ def init_from(path: str, model, stream: str = "ema") -> Dict[str, torch.Tensor]:
     """Weights-only partial load of one stream of a checkpoint dir into
     `model`: keys with another shape are dropped (kept as initialised).
     Returns the loaded state dict."""
-    loaded = _load_stream(os.path.abspath(path), stream)
+    loaded = load_stream(path, stream)
     current = model.state_dict()
     keep = {k: v for k, v in loaded.items() if k in current and current[k].shape == v.shape}
     dropped = [k for k in loaded if k in current and k not in keep]

@@ -7,9 +7,11 @@
 //   lumina_flash_static_max <- _flash_kernel_static_max (_flash_attention_fwd_impl, static_max=bound)
 //   lumina_flash_online_lse <- _flash_kernel_res        (_flash_fwd_res_impl, static_max=None)
 //   lumina_flash_static_max_lse <- _flash_kernel_res_static_max (_flash_fwd_res_impl, static_max=bound)
-// One templated kernel (kStaticMax, kEmitLse) stands in for all five; each
-// entry point is a distinct C function so the Python wrapper can count its
-// launches.
+//   lumina_flash_rope       <- _flash_rope_kernel       (_flash_rope_fwd_impl, rotate_k=True)
+//   lumina_flash_rope_q     <- _flash_rope_q_kernel     (_flash_rope_fwd_impl, rotate_k=False)
+// One templated kernel (kStaticMax, kEmitLse, kRope) stands in for all seven;
+// each entry point is a distinct C function so the Python wrapper can count
+// its launches.
 //
 // What it computes (the Pallas kernels' math, not their TPU mechanics):
 //   s   = scale * q . k            over valid keys (kv_mask != 0, j < Sk)
@@ -18,6 +20,23 @@
 //   out = sum_j p v_j / sum_j p    fp32 accumulation, output in q's dtype
 //   lse = m + log(l) | bound + log(l)   (kEmitLse; plain (B, Hq, Sq) fp32)
 // A query row whose keys are all masked outputs 0 and has lse = -inf.
+//
+// Fused RoPE (kRope, the two rope entry points; online softmax, no LSE): q and
+// k arrive unrotated. Once a q tile (and, with kRopeQK, each k tile) sits in
+// shared memory it is rotated there, in fp32, by the interleaved-pair formula
+// of `_rotate_tile`:  x * cos_full + swap_pairs(x) * sin_signed,  from (S, D)
+// fp32 tables the host builds from the angles (`ops/rope.rot_tables`; angles
+// reach ~200 rad at extrapolated sizes, so no in-kernel sincos). Each
+// product and the sum are rounded separately (__fmul_rn / __fadd_rn: no FMA
+// contraction), then rounded once to the operand dtype, so the rotated tile
+// equals the plain `apply_rope` bit for bit and the rest of the kernel is
+// the online kernel's. Query rows index the table by query position, key rows
+// by key position (self-attention: Sq == Sk, one table). The zero pad of
+// head_dim (72 -> 80) is never touched: pairs (2i, 2i+1) lie inside D. With
+// kRopeQK every k tile is rotated again for every q tile (64 times per head
+// at S=4096); the rotation is ~3 fp32 operations per element against
+// 4*Sq*D tensor-core operations per k row, so it is cheap next to the
+// products, and the extra cost is the table reads from L2.
 //
 // Layout: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), read in place from
 // element strides (the last dim must be contiguous); GQA maps q head h to kv
@@ -56,6 +75,10 @@ constexpr int kBQ = 64;        // q rows per block
 constexpr int kBK = 64;        // keys per streamed tile
 constexpr int kThreads = 128;  // 4 warps; thread pair (2r, 2r+1) owns row r
 constexpr int kMaxHeadDim = 128;
+// fused-RoPE modes of the forward template
+constexpr int kRopeNone = 0;
+constexpr int kRopeQ = 1;   // rotate q only (cross-attention to caption keys)
+constexpr int kRopeQK = 2;  // rotate q and k (self-attention, Sq == Sk)
 
 struct Params {
   const void* q;
@@ -64,6 +87,8 @@ struct Params {
   const int* mask;  // (B, Sk) int32 or nullptr
   void* out;
   float* lse;       // (B, Hq, Sq) fp32 or nullptr
+  const float* rope_cos;  // (Sq, D) fp32 cos_full, rope entry points only
+  const float* rope_sin;  // (Sq, D) fp32 sin_signed
   int B, Sq, Sk, Hq, Hkv, D, DP;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -141,6 +166,29 @@ __device__ void load_tile(T* dst, int ld, const T* src, long long sb, long long 
   }
 }
 
+// Rotate rows [0, rows) of a shared-memory tile whose first row is sequence
+// position row0, in place: out = x * cos_full + swap_pairs(x) * sin_signed in
+// fp32 with separately rounded products and sum, rounded once to T. One
+// thread owns one (2i, 2i+1) pair, so the update is race-free; rows at or
+// past S (zero-filled) are left as they are.
+template <typename T>
+__device__ void rotate_tile(T* tile, int ld, const float* cos_full, const float* sin_signed,
+                            int row0, int S, int rows, int D) {
+  const int pairs = D / 2;
+  for (int idx = threadIdx.x; idx < rows * pairs; idx += kThreads) {
+    const int r = idx / pairs;
+    const int c = 2 * (idx - r * pairs);
+    const int s = row0 + r;
+    if (s >= S) continue;
+    const float* cs = cos_full + (long long)s * D + c;
+    const float* sn = sin_signed + (long long)s * D + c;
+    const float x0 = to_f32(tile[r * ld + c]);
+    const float x1 = to_f32(tile[r * ld + c + 1]);
+    tile[r * ld + c] = from_f32<T>(__fadd_rn(__fmul_rn(x0, cs[0]), __fmul_rn(x1, sn[0])));
+    tile[r * ld + c + 1] = from_f32<T>(__fadd_rn(__fmul_rn(x1, cs[1]), __fmul_rn(x0, sn[1])));
+  }
+}
+
 // S (kBQ x kBK, fp32) = Q (kBQ x DP) . K^T
 template <typename T>
 __device__ void qk_tile(const T* Qs, const T* Ks, float* Ss, const Layout<T>& L, int DP) {
@@ -205,9 +253,11 @@ __device__ void pv_tile(const T* Ps, const T* Plo, const T* Vs, float* Os, const
   }
 }
 
-template <typename T, bool kStaticMax, bool kEmitLse>
+template <typename T, bool kStaticMax, bool kEmitLse, int kRope>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(Params p) {
+  static_assert(kRope == kRopeNone || (!kStaticMax && !kEmitLse),
+                "the fused-RoPE forward is the online kernel without LSE");
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout<T> L(p.DP);
   T* Qs = reinterpret_cast<T*>(smem + L.q_off);
@@ -231,6 +281,10 @@ flash_fwd_kernel(Params p) {
   const T* v = static_cast<const T*>(p.v);
 
   load_tile<T>(Qs, L.qld, q, p.q_sb, p.q_ss, p.q_sh, b, h, q0, p.Sq, kBQ, p.D, DP);
+  if constexpr (kRope != kRopeNone) {
+    __syncthreads();  // the whole q tile has landed; the loop's barrier orders the rotation
+    rotate_tile<T>(Qs, L.qld, p.rope_cos, p.rope_sin, q0, p.Sq, kBQ, p.D);
+  }
   for (int idx = threadIdx.x; idx < kBQ * DP; idx += kThreads) {
     const int r = idx / DP;
     Os[r * L.old_ + (idx - r * DP)] = 0.f;
@@ -254,6 +308,10 @@ flash_fwd_kernel(Params p) {
       kvalid[threadIdx.x] = (j < p.Sk) && (p.mask == nullptr || p.mask[b * p.m_sb + j] != 0);
     }
     __syncthreads();
+    if constexpr (kRope == kRopeQK) {
+      rotate_tile<T>(Ks, L.qld, p.rope_cos, p.rope_sin, j0, p.Sk, kBK, p.D);
+      __syncthreads();
+    }
 
     qk_tile<T>(Qs, Ks, Ss, L, DP);
     __syncthreads();
@@ -322,10 +380,10 @@ flash_fwd_kernel(Params p) {
   }
 }
 
-template <typename T, bool kStaticMax, bool kEmitLse>
+template <typename T, bool kStaticMax, bool kEmitLse, int kRope>
 int launch_typed(const Params& p, cudaStream_t stream) {
   const Layout<T> L(p.DP);
-  auto kernel = flash_fwd_kernel<T, kStaticMax, kEmitLse>;
+  auto kernel = flash_fwd_kernel<T, kStaticMax, kEmitLse, kRope>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.total);
   if (err != cudaSuccess) return (int)err;
@@ -334,11 +392,13 @@ int launch_typed(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool kStaticMax, bool kEmitLse>
+template <bool kStaticMax, bool kEmitLse, int kRope = kRopeNone>
 int launch(const void* q, const void* k, const void* v, const int* mask, void* out,
            float* lse, const long long* meta, float scale, float bound, int is_bf16,
-           void* stream) {
+           void* stream, const float* rope_cos = nullptr, const float* rope_sin = nullptr) {
   Params p;
+  p.rope_cos = rope_cos;
+  p.rope_sin = rope_sin;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -369,10 +429,13 @@ int launch(const void* q, const void* k, const void* v, const int* mask, void* o
   p.bound = bound;
   if (p.D <= 0 || p.D > kMaxHeadDim || p.Hkv <= 0 || p.Hq % p.Hkv != 0 || p.Sk <= 0)
     return (int)cudaErrorInvalidValue;
+  if (kRope != kRopeNone &&
+      (p.D % 2 != 0 || rope_cos == nullptr || rope_sin == nullptr || (kRope == kRopeQK && p.Sk != p.Sq)))
+    return (int)cudaErrorInvalidValue;
   if (p.Sq == 0 || p.B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_typed<__nv_bfloat16, kStaticMax, kEmitLse>(p, s);
-  return launch_typed<float, kStaticMax, kEmitLse>(p, s);
+  if (is_bf16) return launch_typed<__nv_bfloat16, kStaticMax, kEmitLse, kRope>(p, s);
+  return launch_typed<float, kStaticMax, kEmitLse, kRope>(p, s);
 }
 
 }  // namespace
@@ -386,6 +449,14 @@ int launch(const void* q, const void* k, const void* v, const int* mask, void* o
 #define LUMINA_FLASH_ARGS                                                               \
   const void *q, const void *k, const void *v, const int *mask, void *out, float *lse, \
       const long long *meta, float scale, float bound, int is_bf16, void *stream
+
+// The two rope entry points take unrotated q and k, the same meta, and the
+// (Sq, D) fp32 tables cos_full and sin_signed (contiguous) instead of lse
+// and bound; lumina_flash_rope needs Sk == Sq.
+#define LUMINA_FLASH_ROPE_ARGS                                                          \
+  const void *q, const void *k, const void *v, const int *mask, void *out,             \
+      const float *rope_cos, const float *rope_sin, const long long *meta, float scale, \
+      int is_bf16, void *stream
 
 extern "C" {
 
@@ -407,6 +478,16 @@ int lumina_flash_online_lse(LUMINA_FLASH_ARGS) {
 
 int lumina_flash_static_max_lse(LUMINA_FLASH_ARGS) {
   return launch<true, true>(q, k, v, mask, out, lse, meta, scale, bound, is_bf16, stream);
+}
+
+int lumina_flash_rope(LUMINA_FLASH_ROPE_ARGS) {
+  return launch<false, false, kRopeQK>(q, k, v, mask, out, nullptr, meta, scale, 0.f, is_bf16,
+                                       stream, rope_cos, rope_sin);
+}
+
+int lumina_flash_rope_q(LUMINA_FLASH_ROPE_ARGS) {
+  return launch<false, false, kRopeQ>(q, k, v, mask, out, nullptr, meta, scale, 0.f, is_bf16,
+                                      stream, rope_cos, rope_sin);
 }
 
 }  // extern "C"

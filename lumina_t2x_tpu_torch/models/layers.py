@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Callable, List, Optional
 
 import torch
@@ -26,7 +27,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops.attention import attention as attention_op
 from ..ops.attention import default_attn_scale, resolve_impl
-from ..ops.flash_attention import flash_lse_range, streams_kv
+from ..ops.flash_attention import (flash_attention_rope, flash_attention_rope_plain,
+                                   flash_lse_range, streams_kv)
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import apply_rope
 
@@ -170,6 +172,15 @@ class Attention(nn.Module):
     (more than 1024 keys, `flash` impl), the module appends the (max, min)
     log-sum-exp of its self-attention rows (`flash_lse_range`): the
     static-max calibration probe (`pipelines/sample_lib.py`).
+
+    `LUMINA_FUSE_ROPE=1` (default 0), with the `flash` impl (or `plain`, over
+    the plain versions) and a 2-D angle table: q and k stay unrotated and
+    both attentions run the fused-RoPE kernels (`flash_attention_rope`):
+    self-attention rotates q and k, cross-attention only q, as the JAX
+    package's branch does. That branch records no LSE, so calibration
+    declines and no static bound is used. It stays off by default: it is
+    the JAX package's parity path, and on an H100 it is slower than
+    `apply_rope` followed by the unfused kernels (PERF.md).
     """
 
     def __init__(self, dim: int, n_heads: int, n_kv_heads: Optional[int] = None,
@@ -209,15 +220,21 @@ class Attention(nn.Module):
         xq = xq.reshape(b, s, nh, hd)
         xk = xk.reshape(b, s, nkv, hd)
         xv = xv.reshape(b, s, nkv, hd)
-        if angles is not None:
-            xq = apply_rope(xq, angles)
-            xk = apply_rope(xk, angles)
 
         scale = attn_scale if attn_scale is not None else default_attn_scale(hd)
         impl = resolve_impl(self.attn_impl)
-        out = attention_op(xq, xk, xv, kv_mask=x_mask, scale=scale, impl=impl)
-        if lse_recorder is not None and impl == "flash" and streams_kv(xk.shape[1]):
-            lse_recorder.append(flash_lse_range(xq, xk, xv, x_mask, scale))
+        fuse_rope = (angles is not None and impl in ("flash", "plain") and angles.dim() == 2
+                     and os.environ.get("LUMINA_FUSE_ROPE", "0") == "1")
+        if fuse_rope:
+            rope_attention = flash_attention_rope if impl == "flash" else flash_attention_rope_plain
+            out = rope_attention(xq, xk, xv, angles, kv_mask=x_mask, scale=scale)
+        else:
+            if angles is not None:
+                xq = apply_rope(xq, angles)
+                xk = apply_rope(xk, angles)
+            out = attention_op(xq, xk, xv, kv_mask=x_mask, scale=scale, impl=impl)
+            if lse_recorder is not None and impl == "flash" and streams_kv(xk.shape[1]):
+                lse_recorder.append(flash_lse_range(xq, xk, xv, x_mask, scale))
 
         if self.y_dim > 0 and y is not None:
             yk = self.wk_y(y)
@@ -228,7 +245,10 @@ class Attention(nn.Module):
             yk = yk.reshape(b, ly, nkv, hd)
             yv = yv.reshape(b, ly, nkv, hd)
             # cross-attention always uses the default 1/sqrt(d) scale
-            out_y = attention_op(xq, yk, yv, kv_mask=y_mask, impl=impl)
+            if fuse_rope:  # xq is unrotated here: rotate it in-kernel, keys carry none
+                out_y = rope_attention(xq, yk, yv, angles, kv_mask=y_mask, rotate_k=False)
+            else:
+                out_y = attention_op(xq, yk, yv, kv_mask=y_mask, impl=impl)
             out = out + out_y * torch.tanh(self.gate).to(out.dtype)[None, None, :, None]
 
         return self.wo(out.reshape(b, s, nh * hd))

@@ -1,7 +1,7 @@
 """Flash attention: hand-written Hopper kernels and their plain PyTorch
 versions (counterpart of `lumina_t2x_tpu/ops/flash_attention.py`).
 
-Eight entry points, each with its own launch counter (`LAUNCHES`), each
+Ten entry points, each with its own launch counter (`LAUNCHES`), each
 standing in for one Pallas TPU kernel:
 
 | entry point            | Pallas kernel (lumina_t2x_tpu/ops/flash_attention.py)   |
@@ -14,12 +14,18 @@ standing in for one Pallas TPU kernel:
 | `flash_bwd_fused`      | `_bwd_fused_kernel` (one-sweep backward)                  |
 | `flash_bwd_dq`         | `_bwd_dq_kernel` (two-kernel backward, dQ)                |
 | `flash_bwd_dkv`        | `_bwd_dkv_kernel` (two-kernel backward, dK and dV)        |
+| `flash_rope`           | `_flash_rope_kernel` (online, q and k rotated in-kernel)  |
+| `flash_rope_q`         | `_flash_rope_q_kernel` (online, q rotated in-kernel)      |
 
 The first three serve inference (no autograd); under autograd
 `flash_attention` runs `_FlashAttention`, whose forward is `flash_online_lse`
 or, with a train bound installed on a streaming call, `flash_static_max_lse`,
 and whose backward is `flash_bwd_fused` or `flash_bwd_dq` + `flash_bwd_dkv`,
-chosen by the JAX package's rule (`use_fused_bwd`).
+chosen by the JAX package's rule (`use_fused_bwd`). `flash_attention_rope`
+(the `LUMINA_FUSE_ROPE=1` path) takes unrotated q and k: without autograd it
+runs `flash_rope` or `flash_rope_q`; under autograd `_FlashAttentionRope`,
+whose backward rotates q (and k) in plain PyTorch, runs `flash_online_lse`
+and the backward kernels, and inverse-rotates dq (and dk).
 
 The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_{fwd,bwd}.cu`; they
 are built with `nvcc` at first use into `build/kernels/<source hash>/` at the
@@ -37,11 +43,13 @@ themselves on such rows; the main path never has them).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -49,6 +57,7 @@ from typing import Optional
 import torch
 
 from .attention import default_attn_scale
+from .rope import apply_rope, rot_tables
 
 _NEG_INF = -2.3819763e38  # most-negative bf16-representable float32
 # whole-KV threshold: Sk <= this takes the small-KV entry point
@@ -60,7 +69,8 @@ _STATIC_MAX_CLAMP = 55.0
 # launches of each kernel; a wrapper adds one where it launches, nowhere else
 _FWD_ENTRIES = ("small_kv", "online", "static_max", "online_lse", "static_max_lse")
 _BWD_ENTRIES = ("bwd_fused", "bwd_dq", "bwd_dkv")
-LAUNCHES = {name: 0 for name in _FWD_ENTRIES + _BWD_ENTRIES}
+_ROPE_ENTRIES = ("rope", "rope_q")
+LAUNCHES = {name: 0 for name in _FWD_ENTRIES + _BWD_ENTRIES + _ROPE_ENTRIES}
 # calls of the plain versions on CUDA tensors (the main path should make none)
 PLAIN_CUDA_CALLS = {"count": 0}
 
@@ -73,15 +83,19 @@ def reset_launch_counts() -> None:
 
 # -- static-max bounds: the inference slot and the train slot -------------------
 #
-# Two separate slots, as in the JAX package: the inference slot is installed
-# by `pipelines/sample_lib.autocalibrate_flash_static_max` and read only by
-# the no-grad dispatch; the train slot is installed by
-# `pipelines/train_lib.autocalibrate_flash_static_max_train` and read only by
-# the autograd forward (`_FlashAttention`, which also serves the remat
-# recompute). A sampling bound never applies to a training step.
+# Two separate slots, as in the JAX package: the inference slot
+# (`set_flash_static_max`) is read only by the no-grad dispatch; the train
+# slot is installed by `pipelines/train_lib.autocalibrate_flash_static_max_train`
+# and read only by the autograd forward (`_FlashAttention`, which also serves
+# the remat recompute). A sampling bound never applies to a training step.
+# A sampler (`pipelines/sample_lib.build_t2i_sample_fn`) carries its own
+# calibrated bound and runs inside `flash_static_max_scope`, which wins over
+# the inference slot for its thread.
 
 _flash_static_max: Optional[float] = None
 _flash_static_max_train: Optional[float] = None
+_UNSCOPED = object()
+_scoped = threading.local()
 
 
 def set_flash_static_max(bound: Optional[float]) -> None:
@@ -97,16 +111,34 @@ def set_flash_static_max_train(bound: Optional[float]) -> None:
     _flash_static_max_train = float(bound) if bound is not None else None
 
 
+@contextlib.contextmanager
+def flash_static_max_scope(bound: Optional[float]):
+    """Within the block, this thread's inference calls use `bound` (None: the
+    online kernel) whatever the process-wide slot holds. A sampler runs its
+    trajectory in the scope of the bound it was built with, as a JAX sampler
+    bakes its bound in when it is traced."""
+    prev = getattr(_scoped, "bound", _UNSCOPED)
+    _scoped.bound = float(bound) if bound is not None else None
+    try:
+        yield
+    finally:
+        _scoped.bound = prev
+
+
 def get_flash_static_max(train: bool = False) -> Optional[float]:
     """The bound the next streaming call will use: the train slot under
-    autograd, the inference slot otherwise. The env pins
+    autograd, the inference slot otherwise (this thread's
+    `flash_static_max_scope` first). The env pins
     (`LUMINA_FLASH_STATIC_MAX_TRAIN`, `LUMINA_FLASH_STATIC_MAX`) win over the
     settings."""
     if train:
         v = os.environ.get("LUMINA_FLASH_STATIC_MAX_TRAIN", "")
         return float(v) if v else _flash_static_max_train
     v = os.environ.get("LUMINA_FLASH_STATIC_MAX", "")
-    return float(v) if v else _flash_static_max
+    if v:
+        return float(v)
+    scoped = getattr(_scoped, "bound", _UNSCOPED)
+    return _flash_static_max if scoped is _UNSCOPED else scoped
 
 
 def streams_kv(sk: int) -> bool:
@@ -224,6 +256,17 @@ def flash_bwd_plain(q, k, v, kv_mask, out, lse, dout, scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_rope_plain(q, k, v, angles, kv_mask, scale):
+    """Plain version of `flash_rope`: `apply_rope` on q and k (fp32, rounded
+    to the operand dtype), then the exact masked softmax."""
+    return flash_online_plain(apply_rope(q, angles), apply_rope(k, angles), v, kv_mask, scale)
+
+
+def flash_rope_q_plain(q, k, v, angles, kv_mask, scale):
+    """Plain version of `flash_rope_q`: only q is rotated."""
+    return flash_online_plain(apply_rope(q, angles), k, v, kv_mask, scale)
+
+
 # -- the CUDA library ----------------------------------------------------------
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -287,9 +330,11 @@ def build_library():
     fwd = [ptr] * 6 + [meta, ctypes.c_float, ctypes.c_float, ctypes.c_int, ptr]
     # backward: q, k, v, mask, dout, lse, delta, dq, dk, dv, meta, scale, is_bf16, stream
     bwd = [ptr] * 10 + [meta, ctypes.c_float, ctypes.c_int, ptr]
+    # rope: q, k, v, mask, out, cos_full, sin_signed, meta, scale, is_bf16, stream
+    rope = [ptr] * 7 + [meta, ctypes.c_float, ctypes.c_int, ptr]
     for name in LAUNCHES:
         fn = getattr(lib, f"lumina_flash_{name}")
-        fn.argtypes = fwd if name in _FWD_ENTRIES else bwd
+        fn.argtypes = fwd if name in _FWD_ENTRIES else bwd if name in _BWD_ENTRIES else rope
         fn.restype = ctypes.c_int
     BUILD_INFO["seconds"] = time.perf_counter() - t0
     BUILD_INFO["path"] = str(lib_path)
@@ -320,6 +365,18 @@ def _check_inputs(q, k, v, kv_mask):
     return q, k, v, kv_mask
 
 
+def _fwd_meta(q, k, v, out, kv_mask):
+    """meta (int64[19]) of the forward entry points: shapes, then element
+    strides of q, k, v, out (b, s, h) and the mask (b)."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    return (ctypes.c_longlong * 19)(
+        b, sq, sk, hq, hkv, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        kv_mask.stride(0) if kv_mask is not None else 0,
+    )
+
+
 def _launch(name, q, k, v, kv_mask, scale, bound=0.0, with_lse=False):
     """Check what the kernel takes, allocate the outputs and launch
     `lumina_flash_<name>` on the current stream; returns out or (out, lse).
@@ -333,20 +390,58 @@ def _launch(name, q, k, v, kv_mask, scale, bound=0.0, with_lse=False):
     with torch.cuda.device(q.device):
         out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
-        meta = (ctypes.c_longlong * 19)(
-            b, sq, sk, hq, hkv, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            kv_mask.stride(0) if kv_mask is not None else 0,
-        )
         err = getattr(lib, f"lumina_flash_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kv_mask.data_ptr() if kv_mask is not None else None, out.data_ptr(),
-            lse.data_ptr() if with_lse else None, meta, scale, bound,
+            lse.data_ptr() if with_lse else None, _fwd_meta(q, k, v, out, kv_mask), scale, bound,
             int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash kernel {name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
     return (out, lse) if with_lse else out
+
+
+# the last angle table's rotation tables: (angles, its version, head_dim,
+# cos_full, sin_signed). A forward hands one angles tensor to every layer,
+# which calls the fused-RoPE kernels twice, so the tables are built once
+_ROT_CACHE = [None]
+
+
+def _rotation_tables(angles, d):
+    """`rot_tables(angles, d)` as contiguous (Sq, D) fp32 tensors, reused
+    while the same, unmodified angles tensor comes back."""
+    hit = _ROT_CACHE[0]
+    if hit is not None and hit[0] is angles and hit[1] == angles._version and hit[2] == d:
+        return hit[3], hit[4]
+    cos_full, sin_signed = (t.contiguous() for t in rot_tables(angles, d))
+    _ROT_CACHE[0] = (angles, angles._version, d, cos_full, sin_signed)
+    return cos_full, sin_signed
+
+
+def _launch_rope(name, q, k, v, angles, kv_mask, scale):
+    """Check what the fused-RoPE kernels take, build the (Sq, D) fp32
+    rotation tables on the card with `rot_tables` (the plain version's
+    arithmetic; `_rotation_tables` reuses them across a forward's calls) and
+    launch `lumina_flash_<name>`; returns out."""
+    q, k, v, kv_mask = _check_inputs(q, k, v, kv_mask)
+    b, sq, hq, d = q.shape
+    if d % 2 or tuple(angles.shape) != (sq, d // 2):
+        raise ValueError(f"angles {tuple(angles.shape)} must be (Sq, D/2) = {(sq, d // 2)}")
+    if name == "rope" and k.shape[1] != sq:
+        raise ValueError(f"flash_rope rotates k by the query positions: Sk {k.shape[1]} != Sq {sq}")
+    lib = build_library()
+    with torch.cuda.device(q.device):
+        cos_full, sin_signed = _rotation_tables(angles.to(q.device), d)
+        out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+        err = getattr(lib, f"lumina_flash_{name}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kv_mask.data_ptr() if kv_mask is not None else None, out.data_ptr(),
+            cos_full.data_ptr(), sin_signed.data_ptr(), _fwd_meta(q, k, v, out, kv_mask), scale,
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash kernel {name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+    return out
 
 
 def _bwd_delta(out, dout):
@@ -467,6 +562,22 @@ def flash_bwd_dkv(q, k, v, kv_mask, out, lse, dout, scale: Optional[float] = Non
     return _launch_bwd("bwd_dkv", q, k, v, kv_mask, out, lse, dout, _scale(q, scale))[1:]
 
 
+def flash_rope(q, k, v, angles, kv_mask=None, scale: Optional[float] = None):
+    """Online-softmax attention of unrotated q and k (Sq == Sk), both rotated
+    in-kernel by the (Sq, D/2) fp32 `angles` (replaces `_flash_rope_kernel`)."""
+    if not q.is_cuda:
+        return flash_rope_plain(q, k, v, angles, kv_mask, _scale(q, scale))
+    return _launch_rope("rope", q, k, v, angles, kv_mask, _scale(q, scale))
+
+
+def flash_rope_q(q, k, v, angles, kv_mask=None, scale: Optional[float] = None):
+    """Online-softmax attention of unrotated q, rotated in-kernel, to keys
+    that carry no rotation, any Sk (replaces `_flash_rope_q_kernel`)."""
+    if not q.is_cuda:
+        return flash_rope_q_plain(q, k, v, angles, kv_mask, _scale(q, scale))
+    return _launch_rope("rope_q", q, k, v, angles, kv_mask, _scale(q, scale))
+
+
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
@@ -512,15 +623,50 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, kv_mask, out, lse = ctx.saved_tensors
-        args = (q, k, v, kv_mask, out, lse, dout, ctx.scale)
-        if ctx.plain:
-            dq, dk, dv = flash_bwd_plain(*args)
-        elif use_fused_bwd(q.shape[0], q.shape[1], q.shape[2], q.shape[3], k.shape[1]):
-            dq, dk, dv = flash_bwd_fused(*args)
-        else:
-            dq = flash_bwd_dq(*args)
-            dk, dv = flash_bwd_dkv(*args)
+        dq, dk, dv = _attention_bwd(q, k, v, kv_mask, out, lse, dout, ctx.scale, ctx.plain)
         return dq, dk, dv, None, None, None
+
+
+def _attention_bwd(q, k, v, kv_mask, out, lse, dout, scale, plain):
+    """(dq, dk, dv) from the forward's out and LSE: the plain backward, or
+    `flash_bwd_fused` / `flash_bwd_dq` + `flash_bwd_dkv` by `use_fused_bwd`."""
+    args = (q, k, v, kv_mask, out, lse, dout, scale)
+    if plain:
+        return flash_bwd_plain(*args)
+    if use_fused_bwd(q.shape[0], q.shape[1], q.shape[2], q.shape[3], k.shape[1]):
+        return flash_bwd_fused(*args)
+    return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+
+
+class _FlashAttentionRope(torch.autograd.Function):
+    """Differentiable fused-RoPE attention (counterpart of the JAX custom_vjp
+    `_flash_attention_rope`, `_rope_fwd`/`_rope_bwd`). Forward: `flash_rope`
+    (`rotate_k`) or `flash_rope_q`; it saves the unrotated q, k, v, the mask
+    and the angles. Backward: `apply_rope` on q (and k), `flash_online_lse`
+    (never the static-max LSE forward, whatever train bound is installed),
+    the backward kernels by `use_fused_bwd`, then dq (and dk) rotated back
+    by -angles: the rotation is orthogonal. `plain=True` runs the plain
+    versions on any device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, angles, scale, rotate_k, plain):
+        out = _rope_entry(rotate_k, plain)(q, k, v, angles, kv_mask, scale)
+        ctx.save_for_backward(q, k, v, kv_mask, angles)
+        ctx.scale, ctx.rotate_k, ctx.plain = scale, rotate_k, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask, angles = ctx.saved_tensors
+        q_rot = apply_rope(q, angles)
+        k_rot = apply_rope(k, angles) if ctx.rotate_k else k
+        lse_fwd = flash_online_lse_plain if ctx.plain else flash_online_lse
+        out, lse = lse_fwd(q_rot, k_rot, v, kv_mask, ctx.scale)
+        dq, dk, dv = _attention_bwd(q_rot, k_rot, v, kv_mask, out, lse, dout, ctx.scale, ctx.plain)
+        dq = apply_rope(dq, -angles)
+        if ctx.rotate_k:
+            dk = apply_rope(dk, -angles)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _differentiable(q, k, v) -> bool:
@@ -561,6 +707,43 @@ def flash_attention_plain(q, k, v, kv_mask=None, scale: Optional[float] = None):
         return _FlashAttention.apply(q, k, v, kv_mask, _scale(q, scale), True)
     name, kw = _route(q, k)
     return globals()[f"flash_{name}_plain"](q, k, v, kv_mask, _scale(q, scale), **kw)
+
+
+def _rope_entry(rotate_k, plain):
+    if rotate_k:
+        return flash_rope_plain if plain else flash_rope
+    return flash_rope_q_plain if plain else flash_rope_q
+
+
+def _rope_call(q, k, v, angles, kv_mask, scale, rotate_k, plain):
+    _check_gqa_heads(q.shape[2], k.shape[2])
+    if rotate_k and k.shape[1] != q.shape[1]:
+        raise ValueError(f"rotate_k rotates k by the query positions: Sk {k.shape[1]} != "
+                         f"Sq {q.shape[1]}")
+    angles = angles.float()
+    scale = _scale(q, scale)
+    if _differentiable(q, k, v):
+        return _FlashAttentionRope.apply(q, k, v, kv_mask, angles, scale, bool(rotate_k), plain)
+    return _rope_entry(rotate_k, plain)(q, k, v, angles, kv_mask, scale)
+
+
+def flash_attention_rope(q, k, v, angles, kv_mask=None, scale: Optional[float] = None,
+                         rotate_k: bool = True):
+    """Flash attention with the RoPE rotation fused into the kernel
+    (counterpart of the JAX `flash_attention_rope`). q and k are UNROTATED;
+    `angles` is the (Sq, D/2) angle table. rotate_k=True (self-attention,
+    Sq == Sk) equals `flash_attention(apply_rope(q), apply_rope(k), v)`;
+    rotate_k=False (cross-attention) rotates only q and k keeps its own
+    length. `_FlashAttentionRope` under autograd, else `flash_rope` /
+    `flash_rope_q`."""
+    return _rope_call(q, k, v, angles, kv_mask, scale, rotate_k, False)
+
+
+def flash_attention_rope_plain(q, k, v, angles, kv_mask=None, scale: Optional[float] = None,
+                               rotate_k: bool = True):
+    """`flash_attention_rope` over the plain versions, on any device: the
+    reference a run on the card compares the kernels with."""
+    return _rope_call(q, k, v, angles, kv_mask, scale, rotate_k, True)
 
 
 def flash_lse_range(q, k, v, kv_mask=None, scale: Optional[float] = None):

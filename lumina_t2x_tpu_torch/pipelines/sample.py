@@ -1,14 +1,18 @@
 """Text-to-image sampling CLI (counterpart of
-`lumina_t2x_tpu/pipelines/sample.py`, its t2i `--debug` branch): random
-weights from `--seed`, random caption features, static-max calibration, the
-ODE trajectory, and `.npy` latents with a `data.json` manifest.
+`lumina_t2x_tpu/pipelines/sample.py`, its t2i branch): weights from
+`--ckpt` (the `ema` stream of a checkpoint directory, whose `model_args`
+override `--model`, `--qk_norm` and `--cap_feat_dim`) or random from
+`--seed`, random caption features, static-max calibration, the ODE
+trajectory, and `.npy` latents with a `data.json` manifest.
 
     python -m lumina_t2x_tpu_torch.pipelines.sample --model NextDiT_2B_patch2 \
         --qk_norm --resolution 1:1024x1024 --num_sampling_steps 30 \
         --solver midpoint --cfg_scale 4.0 --time_shifting_factor 4 --debug
 
-Not ported yet (ROADMAP queue 1): checkpoint loading, the text encoder, the
-VAE decode, the class-conditional branch and the adaptive solvers.
+`--debug` ignores `--ckpt`, as in the JAX package. Not ported yet (ROADMAP
+queue 1): the text encoder (`--text_encoder`), the VAE decode
+(`--vae_ckpt`), the class-conditional branch and the adaptive solvers that
+`--atol` / `--rtol` configure.
 """
 
 from __future__ import annotations
@@ -22,12 +26,15 @@ from typing import List
 import numpy as np
 import torch
 
+from ..core.checkpoint import init_from, load_model_args
 from ..models import get_model
 from .sample_lib import autocalibrate_flash_static_max, build_t2i_sample_fn
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="lumina-t2x PyTorch sampler (text-to-image)")
+    p.add_argument("--ckpt", type=str, default=None,
+                   help="checkpoint directory whose ema stream is sampled")
     p.add_argument("--model", type=str, default="NextDiT_2B_patch2")
     p.add_argument("--image_save_path", type=str, default="samples")
     p.add_argument("--caption_path", type=str, default=None, help="txt file, one prompt per line")
@@ -35,6 +42,10 @@ def parse_args(argv=None):
     p.add_argument("--num_sampling_steps", type=int, default=30)
     p.add_argument("--solver", type=str, default="midpoint",
                    choices=["euler", "midpoint", "heun", "rk4"])
+    p.add_argument("--atol", type=float, default=1e-6,
+                   help="adaptive-solver absolute tolerance (the adaptive solvers are not ported)")
+    p.add_argument("--rtol", type=float, default=1e-3,
+                   help="adaptive-solver relative tolerance (the adaptive solvers are not ported)")
     p.add_argument("--cfg_scale", type=float, default=4.0)
     p.add_argument("--time_shifting_factor", type=float, default=1.0)
     p.add_argument("--scaling_watershed", type=float, default=0.3)
@@ -43,8 +54,10 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--precision", choices=["fp32", "bf16"], default="bf16")
     p.add_argument("--bf16_params", action="store_true", help="store model params in bf16")
-    p.add_argument("--cap_feat_dim", type=int, default=2048,
-                   help="caption feature width (2048: Gemma-2B)")
+    p.add_argument("--cap_feat_dim", type=int, default=None,
+                   help="caption feature width (default: the checkpoint's, else 2048, Gemma-2B)")
+    p.add_argument("--vae_ckpt", type=str, default=None, help="not ported yet")
+    p.add_argument("--text_encoder", type=str, default=None, help="not ported yet")
     p.add_argument("--train_res", type=int, default=1024)
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--debug", action="store_true", help="random weights, no checkpoint needed")
@@ -58,19 +71,42 @@ def parse_resolution(entry: str):
     return int(cat), int(w), int(h)
 
 
+def load_model(args, dtype, param_dtype, device):
+    """The model of `args`: a checkpoint's recorded model args override
+    `--model`, `--qk_norm` and `--cap_feat_dim`, and its `ema` stream
+    replaces the random weights (every parameter must be restored); random
+    weights from `--seed` under `--debug` or without `--ckpt`."""
+    train_args = {}
+    use_ckpt = bool(args.ckpt) and not args.debug
+    if use_ckpt:
+        train_args = load_model_args(args.ckpt)
+        args.model = train_args.get("model", args.model)
+    if args.cap_feat_dim is None:
+        args.cap_feat_dim = int(train_args.get("cap_feat_dim") or 2048)
+    if "qk_norm" in train_args:
+        args.qk_norm = bool(train_args["qk_norm"])
+    torch.manual_seed(args.seed)
+    model = get_model(args.model, qk_norm=args.qk_norm, cap_feat_dim=args.cap_feat_dim,
+                      dtype=dtype, param_dtype=param_dtype, device=device).eval()
+    if use_ckpt:
+        loaded = init_from(args.ckpt, model, "ema")
+        missing = sorted(set(model.state_dict()) - set(loaded))
+        if missing:
+            raise SystemExit(f"error: --ckpt {args.ckpt} does not hold {len(missing)} parameters "
+                             f"of {args.model}: {missing[:4]}...")
+    return model
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if not args.debug:
-        raise SystemExit("error: checkpoint and text-encoder loading are not ported yet; "
-                         "pass --debug to sample with random weights")
+    for flag in ("vae_ckpt", "text_encoder"):
+        if getattr(args, flag):
+            raise SystemExit(f"error: --{flag} is not ported yet (ROADMAP queue 1, item 6)")
     os.makedirs(args.image_save_path, exist_ok=True)
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     param_dtype = torch.bfloat16 if args.bf16_params else torch.float32
-
-    torch.manual_seed(args.seed)
-    model = get_model(args.model, qk_norm=args.qk_norm, cap_feat_dim=args.cap_feat_dim,
-                      dtype=dtype, param_dtype=param_dtype, device=device).eval()
+    model = load_model(args, dtype, param_dtype, device)
 
     prompts = ["a photo of an astronaut riding a horse"]
     if args.caption_path:
@@ -79,7 +115,7 @@ def main(argv=None):
         with open(args.caption_path) as f:
             prompts = [line.strip() for line in f if line.strip()]
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    # debug: 32 random caption tokens stand in for the text encoder's features
+    # no text encoder: 32 random caption tokens stand in for its features
     ly = 32
     cap_feats = torch.randn((2 * len(prompts), ly, args.cap_feat_dim), generator=gen,
                             device=device)
@@ -101,7 +137,7 @@ def main(argv=None):
             model, width=w, height=h, num_steps=args.num_sampling_steps, solver=args.solver,
             cfg_scale=args.cfg_scale, time_shifting_factor=args.time_shifting_factor,
             train_res=args.train_res, scale_watershed=args.scaling_watershed,
-            proportional_attn=proportional,
+            proportional_attn=proportional, static_max=bound,
         )
         z = torch.randn((len(prompts), 4, h // 8, w // 8), generator=gen, device=device)
         t_start = time.perf_counter()

@@ -14,7 +14,7 @@ import torch
 
 from ..models.next_dit import forward_with_cfg as next_dit_cfg
 from ..ops.attention import resolve_impl
-from ..ops.flash_attention import set_flash_static_max, streams_kv
+from ..ops.flash_attention import flash_static_max_scope, streams_kv
 from ..transport import Sampler, create_transport
 from ..transport.solvers import time_shift
 
@@ -55,12 +55,19 @@ def build_t2i_sample_fn(
     path_type: str = "Linear",
     vae_downsample: int = 8,
     time_aware_scaling: bool = True,
+    static_max: Optional[float] = None,
 ):
     """Text-to-image sampler. Returns `sample_fn(z, cap_feats, cap_mask) ->
     latents`: z is the (B, C, H/8, W/8) starting noise, cap_feats holds the
     conditional rows then the unconditional (empty-prompt) rows, (2B, Ly, D).
     The grid has `num_steps` points, so a fixed-step solver takes
-    num_steps - 1 steps (midpoint: two CFG forwards per step)."""
+    num_steps - 1 steps (midpoint: two CFG forwards per step).
+
+    static_max: the softmax bound of the streaming self-attention (from
+    `autocalibrate_flash_static_max`; None: the online kernel). Every run
+    of the sampler uses it, whatever bound other samplers or threads hold,
+    as a JAX sampler bakes in the bound it was traced with; the
+    `LUMINA_FLASH_STATIC_MAX` pin still wins."""
     sampler = Sampler(create_transport(path_type, "velocity"))
     ode_fn = sampler.sample_ode(sampling_method=solver, num_steps=num_steps,
                                 time_shifting_factor=time_shifting_factor)
@@ -74,7 +81,8 @@ def build_t2i_sample_fn(
         def model_fn(x, t):
             return next_dit_cfg(model, x, t, cap_feats, cap_mask, cfg_scale, **kw)
 
-        out = ode_fn(torch.cat([z, z], dim=0), model_fn)
+        with flash_static_max_scope(static_max):
+            out = ode_fn(torch.cat([z, z], dim=0), model_fn)
         return out[:b]
 
     return sample_fn
@@ -101,15 +109,16 @@ def autocalibrate_flash_static_max(
     z: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
 ) -> Optional[float]:
-    """Measure and install a static softmax bound for the streaming
-    self-attention of a qk-norm model.
+    """Measure a static softmax bound for the streaming self-attention of a
+    qk-norm model.
 
     Runs a short Euler probe trajectory (`num_probe_steps`) at the real
     shapes; each streaming self-attention site appends its (max, min) row
     log-sum-exp to an explicit recorder (`lse >= rowmax` always). The bound
-    is max(lse) + margin, installed with `set_flash_static_max` and
-    returned. Returns None, leaving the online kernel in place, when the
-    `LUMINA_FLASH_STATIC_MAX` env var pins a bound, when
+    is max(lse) + margin, returned for `build_t2i_sample_fn(static_max=)`:
+    nothing is installed, and the probe itself runs the online kernel
+    whatever bound the process holds. Returns None (the online kernel) when
+    the `LUMINA_FLASH_STATIC_MAX` env var pins a bound, when
     `LUMINA_FLASH_STATIC_MAX_AUTO=0`, when the model has no qk-norm or does
     not use the flash impl, when the self-attention does not stream
     (<= 1024 tokens), or when the measured spread exceeds `spread_limit`.
@@ -120,7 +129,6 @@ def autocalibrate_flash_static_max(
         return None
     if os.environ.get("LUMINA_FLASH_STATIC_MAX_AUTO", "1") == "0":
         return None
-    set_flash_static_max(None)
     if not getattr(model, "qk_norm", False):
         return None
     if resolve_impl(getattr(model, "attn_impl", "auto")) != "flash":
@@ -141,19 +149,19 @@ def autocalibrate_flash_static_max(
         ts = time_shift(ts, time_shifting_factor)
 
     gmax, gmin = -math.inf, math.inf
-    for i in range(num_probe_steps):
-        t = torch.full((x.shape[0],), float(ts[i]), dtype=torch.float32, device=device)
-        recorder = []
-        vel = next_dit_cfg(model, x, t, cap_feats, cap_mask, cfg_scale, lse_recorder=recorder, **kw)
-        if not recorder:
-            return None
-        ranges = torch.stack(recorder)
-        gmax = max(gmax, float(ranges[:, 0].max()))
-        gmin = min(gmin, float(ranges[:, 1].min()))
-        x = x + (float(ts[i + 1]) - float(ts[i])) * vel
+    with flash_static_max_scope(None):
+        for i in range(num_probe_steps):
+            t = torch.full((x.shape[0],), float(ts[i]), dtype=torch.float32, device=device)
+            recorder = []
+            vel = next_dit_cfg(model, x, t, cap_feats, cap_mask, cfg_scale,
+                               lse_recorder=recorder, **kw)
+            if not recorder:
+                return None
+            ranges = torch.stack(recorder)
+            gmax = max(gmax, float(ranges[:, 0].max()))
+            gmin = min(gmin, float(ranges[:, 1].min()))
+            x = x + (float(ts[i + 1]) - float(ts[i])) * vel
 
     if not math.isfinite(gmax) or not math.isfinite(gmin) or gmax - gmin > spread_limit:
         return None
-    bound = gmax + margin
-    set_flash_static_max(bound)
-    return bound
+    return gmax + margin

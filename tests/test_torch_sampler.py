@@ -146,9 +146,10 @@ def _jax_trajectory(jmodel, params, z, cap, mask, width, height, num_steps):
                                                  jnp.asarray(cap), jnp.asarray(mask))))
 
 
-def _port_trajectory(tmodel, z, cap, mask, width, height, num_steps):
+def _port_trajectory(tmodel, z, cap, mask, width, height, num_steps, static_max=None):
     fn = t_sl.build_t2i_sample_fn(tmodel, width=width, height=height, num_steps=num_steps,
-                                  solver="midpoint", cfg_scale=4.0, time_shifting_factor=4.0)
+                                  solver="midpoint", cfg_scale=4.0, time_shifting_factor=4.0,
+                                  static_max=static_max)
     return fn(*map(torch.from_numpy, (z, cap, mask))).numpy()
 
 
@@ -161,7 +162,8 @@ def _count_calls(monkeypatch, name):
 
 def test_slice_with_calibration_matches_jax(monkeypatch):
     """1088 image tokens (latent 16x272): the self-attention streams, so
-    both packages calibrate a static bound and sample with it."""
+    both packages calibrate a static bound and sample with it (JAX installs
+    it process-wide; the port returns it and the sampler is built with it)."""
     jmodel, params, tmodel = _pair(jax_impl="flash")
     z, cap, mask = _slice_inputs(4, 16, 272)
     width, height = 272 * 8, 16 * 8
@@ -175,11 +177,11 @@ def test_slice_with_calibration_matches_jax(monkeypatch):
         tmodel, torch.from_numpy(cap), torch.from_numpy(mask), z=torch.from_numpy(probe_z), **kw)
     assert j_bound is not None and t_bound is not None
     assert abs(t_bound - j_bound) <= 1e-3
-    assert tfa.get_flash_static_max() == t_bound and jfa.get_flash_static_max() == j_bound
+    assert tfa.get_flash_static_max() is None and jfa.get_flash_static_max() == j_bound
 
     ref = _jax_trajectory(jmodel, params, z, cap, mask, width, height, 3)
     static_calls = _count_calls(monkeypatch, "flash_static_max_plain")
-    got = _port_trajectory(tmodel, z, cap, mask, width, height, 3)
+    got = _port_trajectory(tmodel, z, cap, mask, width, height, 3, static_max=t_bound)
     assert len(static_calls) == 2 * 2 * 2  # 2 midpoint steps x 2 forwards x 2 layers
     assert got.shape == (1, 4, 16, 272) and np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, atol=2e-4, rtol=2e-3)
