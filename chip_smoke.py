@@ -5,9 +5,9 @@
 Phases, each printing its own lines; any failure exits non-zero before the
 last line:
 1. device: CUDA must be available; prints the card's name and power limit;
-2. build: compiles the flash-attention kernels from
-   lumina_t2x_tpu_torch/csrc with nvcc (one process per source, in
-   parallel) and prints the build seconds;
+2. build: compiles every kernel from lumina_t2x_tpu_torch/csrc with nvcc
+   (`ops/cuda_lib.py`: one library per module that owns kernels, one
+   process per source, all started together) and prints the build seconds;
 3. kernels: each CUDA entry point against its plain PyTorch version at the
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
    kernel; the LSE forward and the backward kernels also at the training
@@ -22,6 +22,18 @@ last line:
    against their plain versions, against K2 on `apply_rope`d inputs (equal
    up to one bf16 ulp), and their gradient (`_FlashAttentionRope` through
    the kernels against the plain Function);
+3b. experiments: the static-max variants (K10: `static_max_v0..v3`; K11:
+   `static_max_v4`, which must equal v1 bit for bit) against their plain
+   versions at the experiment's shape (B=2, S=4096, H=32, D=72, bound
+   16.14, timed; library `scaled_dot_product_attention`, with the exp floor
+   B*H*S^2 / 3.9e12 s beside the bound) and with ragged tiles and a masked
+   tail; their static SASS counts (cuobjdump); the tensor-core probe (K12:
+   `mma_chain`) against its plain version at K 8/72/80/1024 and N 72/1024
+   (M=1024, 8 iterations) and timed at K=72, N=1024, 512 iterations
+   (library: one cuBLAS `torch.mm` of the 512 perturbed copies of a side by
+   side along K against w stacked 512 times, fp32 out); then both
+   experiment scripts' `main()`
+   at their full shapes, the main path whose launches are counted;
 4. full-width forward: one CFG forward of NextDiT_2B_patch2 (qk-norm,
    caption dim 2048, bf16, zero-init tensors randomised) at 1024^2 with 256
    caption tokens, through the kernels and through the plain versions;
@@ -75,18 +87,27 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd.cu"
 BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd.cu"
+VPU_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_variants.cu"
+MMA_SOURCE = "lumina_t2x_tpu_torch/csrc/mma_probe.cu"
 TPU_KERNELS = "lumina_t2x_tpu/ops/flash_attention.py"
-KERNELS = {  # entry point -> (source, line of the Pallas kernel it replaces)
-    "small_kv": (FWD_SOURCE, 240),        # _flash_small_kv_kernel
-    "online": (FWD_SOURCE, 228),          # _flash_kernel_fused_sum
-    "static_max": (FWD_SOURCE, 66),       # _flash_kernel_static_max
-    "online_lse": (FWD_SOURCE, 430),      # _flash_kernel_res
-    "static_max_lse": (FWD_SOURCE, 446),  # _flash_kernel_res_static_max
-    "bwd_fused": (BWD_SOURCE, 619),       # _bwd_fused_kernel
-    "bwd_dq": (BWD_SOURCE, 552),          # _bwd_dq_kernel
-    "bwd_dkv": (BWD_SOURCE, 584),         # _bwd_dkv_kernel
-    "rope": (FWD_SOURCE, 956),            # _flash_rope_kernel
-    "rope_q": (FWD_SOURCE, 963),          # _flash_rope_q_kernel
+VPU_EXP = "exps/vpu_op_reduction.py"
+KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replaces)
+    "small_kv": (FWD_SOURCE, f"{TPU_KERNELS}:240"),        # _flash_small_kv_kernel
+    "online": (FWD_SOURCE, f"{TPU_KERNELS}:228"),          # _flash_kernel_fused_sum
+    "static_max": (FWD_SOURCE, f"{TPU_KERNELS}:66"),       # _flash_kernel_static_max
+    "online_lse": (FWD_SOURCE, f"{TPU_KERNELS}:430"),      # _flash_kernel_res
+    "static_max_lse": (FWD_SOURCE, f"{TPU_KERNELS}:446"),  # _flash_kernel_res_static_max
+    "bwd_fused": (BWD_SOURCE, f"{TPU_KERNELS}:619"),       # _bwd_fused_kernel
+    "bwd_dq": (BWD_SOURCE, f"{TPU_KERNELS}:552"),          # _bwd_dq_kernel
+    "bwd_dkv": (BWD_SOURCE, f"{TPU_KERNELS}:584"),         # _bwd_dkv_kernel
+    "rope": (FWD_SOURCE, f"{TPU_KERNELS}:956"),            # _flash_rope_kernel
+    "rope_q": (FWD_SOURCE, f"{TPU_KERNELS}:963"),          # _flash_rope_q_kernel
+    "static_max_v0": (VPU_SOURCE, f"{VPU_EXP}:44"),        # _kernel_v0
+    "static_max_v1": (VPU_SOURCE, f"{VPU_EXP}:64"),        # _kernel_v1
+    "static_max_v2": (VPU_SOURCE, f"{VPU_EXP}:84"),        # _kernel_v2
+    "static_max_v3": (VPU_SOURCE, f"{VPU_EXP}:106"),       # _kernel_v3
+    "static_max_v4": (VPU_SOURCE, f"{VPU_EXP}:127"),       # _kernel_v4
+    "mma_chain": (MMA_SOURCE, "exps/mxu_k_quantum.py:37"),  # _kernel
 }
 SAMPLER_KERNELS = ("small_kv", "online", "static_max", "online_lse")
 ROPE_KERNELS = ("rope", "rope_q")
@@ -100,6 +121,11 @@ GRAD_FLOOR_FACTOR = 1.5
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): bf16 tensor cores,
 # fp32 outside them, device memory
 PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+# exp results per second on the special-function units: 16 per clock per SM x
+# 132 SMs x ~1.83 GHz (the FlashAttention-3 paper's figure)
+EXP_RATE = 3.9e12
+# K12 against its plain version: fp32 sums in another order only
+MMA_REL = 1e-4
 PROMPT = "a photo of an astronaut riding a horse"
 
 
@@ -191,6 +217,17 @@ def library_forward_lse(q, k, v, mask, scale):
     return {"library_ms": time_ms(fn), "library_kernel": top_kernel(fn), "library_lse": fn()[1]}
 
 
+def library_chain(a, w, iters, perturbations):
+    """One library call that computes `mma_chain`'s function: the `iters`
+    perturbed copies of a side by side along K times w stacked `iters`
+    times, summed in fp32 and written in fp32 (`torch.mm` with `out_dtype`,
+    cuBLAS). Returns its time, kernel and output."""
+    a_cat = torch.cat([(a.float() + p).to(torch.bfloat16) for p in perturbations], dim=1)
+    w_cat = w.repeat(iters, 1)
+    fn = lambda: torch.mm(a_cat, w_cat, out_dtype=torch.float32)
+    return {"library_ms": time_ms(fn), "library_kernel": top_kernel(fn), "library_out": fn()}
+
+
 def library_backward(q, k, v, mask, dout, scale):
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = _sdpa(*leaves, mask, scale)
@@ -211,11 +248,18 @@ def device_phase():
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
 
-def build_phase(fa):
+def build_phase():
+    """Every declared library (K1-K9, K10/K11, K12), all nvcc processes
+    started together."""
+    # importing a module that owns kernels declares its library
+    from lumina_t2x_tpu_torch.exps import mxu_k_quantum, vpu_op_reduction  # noqa: F401
+    from lumina_t2x_tpu_torch.ops import cuda_lib, flash_attention  # noqa: F401
+
     t0 = time.perf_counter()
-    fa.build_library()
-    how = "compiled with nvcc" if fa.BUILD_INFO["compiled"] else "already built, loaded"
-    phase("build", f"{time.perf_counter() - t0:.2f} s, {how} ({fa.BUILD_INFO['path']})")
+    cuda_lib.build_libraries()
+    phase("build", f"{time.perf_counter() - t0:.2f} s: " + "; ".join(
+        f"{name} {'compiled with nvcc' if info['compiled'] else 'already built, loaded'} "
+        f"({info['path']})" for name, info in cuda_lib.BUILD_INFO.items()))
 
 
 def _rand(g, *shape, dtype):
@@ -486,6 +530,125 @@ def rope_kernel_phase(fa):
         del q, k, v, dout, grads
         torch.cuda.empty_cache()
     return results
+
+
+# (label, batch, seq, heads, masked keys at the end of batch row 1); the first
+# is the experiment's timed shape
+EXP_CASES = [("B2/S4096/H32/D72, all keys valid", B, S, H, 0),
+             ("B2/S1000/H8/D72, ragged tiles, last 200 keys of row 1 masked", 2, 1000, 8, 200)]
+# (K, N) of the K12 checks at M=1024, 8 iterations; then a ragged tile
+MMA_CHECKS = [(8, 1024), (72, 1024), (80, 1024), (1024, 1024), (1024, 72), (80, 72)]
+
+
+def experiments_phase():
+    """K10 (`static_max_v0..v3`), K11 (`static_max_v4`) and K12
+    (`mma_chain`) against their plain versions on the card, K11 against v1
+    bit for bit, the kernels' static SASS counts; then both experiment
+    `main()`s at their full shapes, whose launches are counted. Returns the
+    kernels' results and launch counts."""
+    from lumina_t2x_tpu_torch.exps import mxu_k_quantum as mxu
+    from lumina_t2x_tpu_torch.exps import vpu_op_reduction as vpu
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    scale = D ** -0.5
+    results = {}
+    for label, b, s, h, tail in EXP_CASES:
+        q, k, v = (_rand(g, b, s, h, D, dtype=torch.bfloat16) for _ in range(3))
+        mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
+        if tail:
+            mask[1, s - tail:] = 0
+        outs, parts = {}, []
+        for variant in vpu.VARIANTS:
+            name = f"static_max_{variant}"
+            kernel, plain = vpu.ENTRIES[variant], vpu.PLAIN[variant]
+            got = kernel(q, k, v, mask, scale, vpu.BOUND)
+            ref = plain(q, k, v, mask, scale, vpu.BOUND)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs()
+            max_err, mean_err = err.max().item(), err.mean().item()
+            require(math.isfinite(max_err) and max_err <= BF16_MAX and mean_err <= BF16_MEAN,
+                    f"{name} {label}: max abs err {max_err}, mean {mean_err}")
+            outs[variant] = got
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
+            part = f"{variant} err {max_err:.3g}/{mean_err:.3g}"
+            if not tail:  # the timed shape
+                entry["ms"] = time_ms(lambda: kernel(q, k, v, mask, scale, vpu.BOUND))
+                entry["plain_ms"] = time_ms(lambda: plain(q, k, v, mask, scale, vpu.BOUND), reps=3)
+                entry.update(least_time(_nbytes(q, k, v, mask, got), attention_ops(q, k, 2),
+                                        torch.bfloat16))
+                part += f" {entry['ms']:.3f} ms (plain {entry['plain_ms']:.3f})"
+            parts.append(part)
+            del got, ref
+        equal = torch.equal(outs["v4"], outs["v1"])
+        require(equal, f"static_max_v4 {label}: not equal to v1 bit for bit")
+        line = f"static-max variants {label}: " + ", ".join(parts) + "; v4 equal to v1 bit for bit"
+        if not tail:
+            library = library_forward(q, k, v, None, scale)  # all keys valid: the unmasked call
+            exp_floor = 1e3 * b * h * s * s / EXP_RATE
+            for variant in vpu.VARIANTS:
+                results[f"static_max_{variant}"].update(library)
+            line += (f"; bound {results['static_max_v0']['bound_ms']:.4f} ms "
+                     f"({results['static_max_v0']['bound_by']}), exp floor {exp_floor:.4f} ms, "
+                     f"library {library['library_ms']:.3f} ms ({library['library_kernel']})")
+        phase("experiments", line)
+        del q, k, v, outs
+        torch.cuda.empty_cache()
+    sass = vpu.sass_counts()
+    for variant, counts in sass.items():
+        phase("experiments", f"SASS static_max_{variant} (head_dim padded to 80): "
+              + ", ".join(f"{op} {n}" for op, n in counts.items()))
+    require(set(sass) == set(vpu.VARIANTS), f"SASS of the variants not found: {sorted(sass)}")
+
+    worst = 0.0
+    for kd, n in MMA_CHECKS + [(40, 20)]:
+        m = 100 if (kd, n) == (40, 20) else mxu.M
+        a = (1e-2 * torch.randn(m, kd, generator=g, device="cuda")).to(torch.bfloat16)
+        w = torch.randn(kd, n, generator=g, device="cuda").to(torch.bfloat16)
+        got, ref = mxu.mma_chain(a, w, 8), mxu.mma_chain_plain(a, w, 8)
+        torch.cuda.synchronize()
+        rel = (got - ref).abs().max().item() / ref.abs().max().item()
+        require(math.isfinite(rel) and rel <= MMA_REL, f"mma_chain M={m} K={kd} N={n}: {rel}")
+        worst = max(worst, (got - ref).abs().max().item())
+        phase("experiments", f"mma_chain M={m} K={kd} N={n}, 8 iterations: max err / max|ref| "
+              f"{rel:.3g}")
+    kd, n, iters = D, mxu.N_DEFAULT, mxu.ITERS  # head_dim 72 as the depth
+    a = torch.randn(mxu.M, kd, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn(kd, n, generator=g, device="cuda").to(torch.bfloat16)
+    got = mxu.mma_chain(a, w, iters)
+    entry = {"max_abs_err": worst, "ms": time_ms(lambda: mxu.mma_chain(a, w, iters)),
+             "plain_ms": time_ms(lambda: mxu.mma_chain_plain(a, w, iters), reps=3),
+             **least_time(_nbytes(a, w) + 4 * mxu.M * n, 2 * mxu.M * n * kd * iters,
+                          torch.bfloat16),
+             **library_chain(a, w, iters, mxu.perturbations(iters))}
+    lib_rel = (entry.pop("library_out") - got).abs().max().item() / got.abs().max().item()
+    # one small call per product instead: launch-bound, so only a note
+    per_call = iters * time_ms(lambda: torch.matmul(a, w))
+    results["mma_chain"] = entry
+    phase("experiments", f"mma_chain M={mxu.M} K={kd} N={n}, {iters} iterations: kernel "
+          f"{entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), library {entry['library_ms']:.3f} ms "
+          f"(one torch.mm over K={iters}x{kd}: {entry['library_kernel']}; max diff from the "
+          f"kernel's output / its max {lib_rel:.3g}); torch.matmul per product x {iters}: "
+          f"{per_call:.3f} ms (launch-bound); {mxu.blocks(mxu.M, n)} blocks")
+    del a, w, got
+    torch.cuda.empty_cache()
+
+    vpu.reset_launch_counts()
+    mxu.reset_launch_counts()
+    t0 = time.perf_counter()
+    vpu.main(["--device", "cuda"])
+    mxu.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {**vpu.LAUNCHES, **mxu.LAUNCHES}
+    phase("experiments", f"both experiment main()s at their full shapes: "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} was not launched by the experiments")
+    torch.cuda.empty_cache()
+    return results, launches
 
 
 def _randomise_zero_init(model, seed):
@@ -911,21 +1074,24 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_phase(fa)
+    build_phase()
     results = kernel_phase(fa)
     results.update(backward_kernel_phase(fa))
     results.update(rope_kernel_phase(fa))
+    exp_results, exp_launches = experiments_phase()
+    results.update(exp_results)
     slice_phase(fa, *forward_phase(fa))
     cli_phase(fa)
     launches = serving_phase(fa)
     gradient_phase(fa)
     recipe_phase(fa)
     launches.update(trainer_phase(fa))  # K4: the training path's count
+    launches.update(exp_launches)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": f"{TPU_KERNELS}:{line}",
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], **{key: results[name][key] for key in keys}}
-        for name, (source, line) in KERNELS.items()]}))
+        for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -28,9 +28,10 @@ whose backward rotates q (and k) in plain PyTorch, runs `flash_online_lse`
 and the backward kernels, and inverse-rotates dq (and dk).
 
 The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_{fwd,bwd}.cu`; they
-are built with `nvcc` at first use into `build/kernels/<source hash>/` at the
-repository root and bound through ctypes. A wrapper takes its plain version
-only for CPU tensors; for CUDA tensors it launches the kernel or raises.
+are built into one library by `ops/cuda_lib.py` at first use, under
+`build/kernels/<source hash>/` at the repository root, and bound through
+ctypes. A wrapper takes its plain version only for CPU tensors; for CUDA
+tensors it launches the kernel or raises.
 
 Contract shared by kernel and plain version: q (B, Sq, Hq, D), k/v
 (B, Sk, Hkv, D), optional key mask (B, Sk) with nonzero on valid keys, GQA
@@ -45,17 +46,13 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from . import cuda_lib
 from .attention import default_attn_scale
 from .rope import apply_rope, rot_tables
 
@@ -269,77 +266,17 @@ def flash_rope_q_plain(q, k, v, angles, kv_mask, scale):
 
 # -- the CUDA library ----------------------------------------------------------
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_lib = None
-BUILD_INFO = {"seconds": None, "path": None, "compiled": False, "ptxas": ""}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if not default.exists():
-        raise RuntimeError("nvcc not found: the flash-attention kernels are built "
-                           "from lumina_t2x_tpu_torch/csrc with the CUDA toolkit")
-    return str(default)
-
-
-def build_library():
-    """Compile `csrc/*.cu` into a shared library keyed by a hash of the
-    sources and flags (once per source version) and load it."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    out_dir = _BUILD_ROOT / digest.hexdigest()[:16]
-    lib_path = out_dir / "liblumina_flash.so"
-    t0 = time.perf_counter()
-    if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        nvcc, pid = _nvcc(), os.getpid()
-        objs = [out_dir / f"{src.stem}.{pid}.o" for src in sources]
-        # one nvcc per source, all started together
-        procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                 for src, obj in zip(sources, objs)]
-        logs = [proc.communicate() for proc in procs]
-        for src, proc, (out, err) in zip(sources, procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}\n{err}")
-        tmp = out_dir / f"liblumina_flash.{pid}.so"
-        proc = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        BUILD_INFO["ptxas"] = "".join(err for _, err in logs)
-        BUILD_INFO["compiled"] = True
-        os.replace(tmp, lib_path)
-        for obj in objs:
-            obj.unlink()
-    lib = ctypes.CDLL(str(lib_path))
-    ptr, meta = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)
-    # forward: q, k, v, mask, out, lse, meta, scale, bound, is_bf16, stream
-    fwd = [ptr] * 6 + [meta, ctypes.c_float, ctypes.c_float, ctypes.c_int, ptr]
-    # backward: q, k, v, mask, dout, lse, delta, dq, dk, dv, meta, scale, is_bf16, stream
-    bwd = [ptr] * 10 + [meta, ctypes.c_float, ctypes.c_int, ptr]
-    # rope: q, k, v, mask, out, cos_full, sin_signed, meta, scale, is_bf16, stream
-    rope = [ptr] * 7 + [meta, ctypes.c_float, ctypes.c_int, ptr]
-    for name in LAUNCHES:
-        fn = getattr(lib, f"lumina_flash_{name}")
-        fn.argtypes = fwd if name in _FWD_ENTRIES else bwd if name in _BWD_ENTRIES else rope
-        fn.restype = ctypes.c_int
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["path"] = str(lib_path)
-    _lib = lib
-    return lib
+_ptr, _meta = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)
+# forward: q, k, v, mask, out, lse, meta, scale, bound, is_bf16, stream
+_FWD_ARGS = [_ptr] * 6 + [_meta, ctypes.c_float, ctypes.c_float, ctypes.c_int, _ptr]
+# backward: q, k, v, mask, dout, lse, delta, dq, dk, dv, meta, scale, is_bf16, stream
+_BWD_ARGS = [_ptr] * 10 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
+# rope: q, k, v, mask, out, cos_full, sin_signed, meta, scale, is_bf16, stream
+_ROPE_ARGS = [_ptr] * 7 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
+LIBRARY = "flash"  # the library of K1-K9 (`ops/cuda_lib.py`)
+cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu"], {
+    f"lumina_flash_{name}": _FWD_ARGS if name in _FWD_ENTRIES else
+    _BWD_ARGS if name in _BWD_ENTRIES else _ROPE_ARGS for name in LAUNCHES})
 
 
 def _check_inputs(q, k, v, kv_mask):
@@ -386,7 +323,7 @@ def _launch(name, q, k, v, kv_mask, scale, bound=0.0, with_lse=False):
     q, k, v, kv_mask = _check_inputs(q, k, v, kv_mask)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
-    lib = build_library()
+    lib = cuda_lib.build_library(LIBRARY)
     with torch.cuda.device(q.device):
         out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
@@ -429,7 +366,7 @@ def _launch_rope(name, q, k, v, angles, kv_mask, scale):
         raise ValueError(f"angles {tuple(angles.shape)} must be (Sq, D/2) = {(sq, d // 2)}")
     if name == "rope" and k.shape[1] != sq:
         raise ValueError(f"flash_rope rotates k by the query positions: Sk {k.shape[1]} != Sq {sq}")
-    lib = build_library()
+    lib = cuda_lib.build_library(LIBRARY)
     with torch.cuda.device(q.device):
         cos_full, sin_signed = _rotation_tables(angles.to(q.device), d)
         out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
@@ -459,7 +396,7 @@ def _launch_bwd(name, q, k, v, kv_mask, out, lse, dout, scale):
     if dout.shape != q.shape or not dout.is_cuda or tuple(lse.shape) != (b, hq, sq):
         raise ValueError(f"bad shapes dout {tuple(dout.shape)} lse {tuple(lse.shape)} "
                          f"for q {tuple(q.shape)}")
-    lib = build_library()
+    lib = cuda_lib.build_library(LIBRARY)
     with torch.cuda.device(q.device):
         dout = dout.to(q.dtype)
         dout = dout if dout.stride(-1) == 1 else dout.contiguous()

@@ -44,6 +44,7 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from lumina_t2x_tpu_torch.models import get_model
+    from lumina_t2x_tpu_torch.ops import cuda_lib
     from lumina_t2x_tpu_torch.ops import flash_attention as fa
     from lumina_t2x_tpu_torch.pipelines import train as train_cli
     from lumina_t2x_tpu_torch.pipelines import train_lib
@@ -51,7 +52,7 @@ def main(argv=None):
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    fa.build_library()
+    cuda_lib.build_library(fa.LIBRARY)
     cli_args = train_cli.parse_args(["--global_batch_size", "2", "--cap_feat_dim", "2048"])
     torch.manual_seed(0)
     model = get_model("NextDiT_2B_patch2", qk_norm=True, dtype=torch.bfloat16, remat=True,
