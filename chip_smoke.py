@@ -7,7 +7,10 @@ last line:
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles every kernel from lumina_t2x_tpu_torch/csrc with nvcc
    (`ops/cuda_lib.py`: one library per module that owns kernels, one
-   process per source, all started together) and prints the build seconds;
+   process per source, all started together) and prints the build seconds,
+   then the resources of the Hopper kernel of bf16 K2/K3
+   (`csrc/flash_fwd_sm90.cu`): registers per thread (as compiled and after
+   setmaxnreg), spill bytes, shared memory per block, blocks per SM;
 3. kernels: each CUDA entry point against its plain PyTorch version at the
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
    kernel; the LSE forward and the backward kernels also at the training
@@ -19,8 +22,10 @@ last line:
    K1-K3, aten's flash attention with its log-sum-exp for K4/K5, the sdpa
    autograd backward for K6-K8); then the fused-RoPE kernels (K9: `rope`
    at Sq=Sk=4096, `rope_q` at Sk=32 and 256 with the 2B's 1024^2 angles)
-   against their plain versions, against K2 on `apply_rope`d inputs (equal
-   up to one bf16 ulp), and their gradient (`_FlashAttentionRope` through
+   against their plain versions, against the online forward of their own
+   template (`flash_online_lse(...)[0]`) on `apply_rope`d inputs (equal up
+   to one bf16 ulp; timed beside K2 on those inputs), and their gradient
+   (`_FlashAttentionRope` through
    the kernels against the plain Function);
 3b. experiments: the static-max variants (K10: `static_max_v0..v3`; K11:
    `static_max_v4`, which must equal v1 bit for bit) against their plain
@@ -86,6 +91,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd.cu"
+SM90_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_sm90.cu"  # bf16 K2 and K3
 BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd.cu"
 VPU_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_variants.cu"
 MMA_SOURCE = "lumina_t2x_tpu_torch/csrc/mma_probe.cu"
@@ -93,8 +99,8 @@ TPU_KERNELS = "lumina_t2x_tpu/ops/flash_attention.py"
 VPU_EXP = "exps/vpu_op_reduction.py"
 KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replaces)
     "small_kv": (FWD_SOURCE, f"{TPU_KERNELS}:240"),        # _flash_small_kv_kernel
-    "online": (FWD_SOURCE, f"{TPU_KERNELS}:228"),          # _flash_kernel_fused_sum
-    "static_max": (FWD_SOURCE, f"{TPU_KERNELS}:66"),       # _flash_kernel_static_max
+    "online": (SM90_SOURCE, f"{TPU_KERNELS}:228"),         # _flash_kernel_fused_sum
+    "static_max": (SM90_SOURCE, f"{TPU_KERNELS}:66"),      # _flash_kernel_static_max
     "online_lse": (FWD_SOURCE, f"{TPU_KERNELS}:430"),      # _flash_kernel_res
     "static_max_lse": (FWD_SOURCE, f"{TPU_KERNELS}:446"),  # _flash_kernel_res_static_max
     "bwd_fused": (BWD_SOURCE, f"{TPU_KERNELS}:619"),       # _bwd_fused_kernel
@@ -260,6 +266,15 @@ def build_phase():
     phase("build", f"{time.perf_counter() - t0:.2f} s: " + "; ".join(
         f"{name} {'compiled with nvcc' if info['compiled'] else 'already built, loaded'} "
         f"({info['path']})" for name, info in cuda_lib.BUILD_INFO.items()))
+    # the Hopper kernel of bf16 K2/K3: its resources from the CUDA runtime
+    for entry in ("online", "static_max"):
+        info = flash_attention.sm90_attributes(entry == "static_max", D)
+        phase("build", f"{SM90_SOURCE} ({entry}, head_dim {D}): {info['registers']} registers per "
+              f"thread as compiled, {info['producer_registers']} (producer) / "
+              f"{info['consumer_registers']} (consumers) after setmaxnreg, "
+              f"{info['local_bytes']} local (spill) bytes per thread, {info['shared_bytes']} bytes "
+              f"of shared memory per block, {info['blocks_per_sm']} block(s) of "
+              f"{info['threads']} threads per SM")
 
 
 def _rand(g, *shape, dtype):
@@ -430,8 +445,10 @@ def rope_angles_2b():
 
 def rope_kernel_phase(fa):
     """K9 (`flash_rope`, `flash_rope_q`) against its plain version (the
-    rotation in the operand dtype, then the fp32 softmax), against K2 on
-    `apply_rope`d inputs, and `_FlashAttentionRope`'s gradient through the
+    rotation in the operand dtype, then the fp32 softmax), against
+    `flash_online_lse(...)[0]` (flash_fwd.cu's online forward, which K9's
+    template shares) on `apply_rope`d inputs, timed beside K2 on them, and
+    `_FlashAttentionRope`'s gradient through the
     kernels against the plain Function. The bf16 forward bar is 1e-2 of
     max(1, max|ref|): the absolute 1e-2 where outputs stay below 1 (every
     Sk=4096 case), one bf16 output rounding above it (Sk=32 outputs reach
@@ -460,7 +477,9 @@ def rope_kernel_phase(fa):
             q_rot = apply_rope(q, angles)
             k_rot = apply_rope(k, angles) if entry == "rope" else k
             ref = fa.flash_online_plain(q_rot.float(), k_rot.float(), v.float(), mask, scale)
-            k2 = fa.flash_online(q_rot, k_rot, v, mask, scale)
+            # K9 shares flash_fwd.cu's template with the LSE forward, whose output
+            # is the online forward of that template (bf16 K2 runs flash_fwd_sm90.cu)
+            k2 = fa.flash_online_lse(q_rot, k_rot, v, mask, scale)[0]
             torch.cuda.synchronize()
             err = (got.float() - ref).abs()
             max_err, mean_err = err.max().item(), err.mean().item()
@@ -474,10 +493,12 @@ def rope_kernel_phase(fa):
                 require(torch.count_nonzero(got[1]).item() == 0, f"{entry}: masked row not 0")
             k2_diff = (got.float() - k2.float()).abs().max().item()
             ulp = 2.0 ** (-7 if dtype == torch.bfloat16 else -23) * k2.float().abs().max().item()
-            require(k2_diff <= ulp, f"{entry} {label}: {k2_diff} from K2 on rotated inputs")
+            require(k2_diff <= ulp, f"{entry} {label}: {k2_diff} from the template's online "
+                    f"forward on rotated inputs")
             worst = max(worst, max_err)
             line = (f"{entry} {label} (Sk={sk}): max abs err {max_err:.3g} (bar {bar:.3g}) mean "
-                    f"{mean_err:.3g}; vs K2 on apply_rope'd inputs max diff {k2_diff:.3g}"
+                    f"{mean_err:.3g}; vs flash_online_lse(...)[0] on apply_rope'd inputs max diff "
+                    f"{k2_diff:.3g}"
                     f"{' (equal)' if torch.equal(got, k2) else ''}")
             if prev["ms"] is None and "ms" not in results.get(entry, {}):
                 ms = time_ms(lambda: kernel(q, k, v, angles, mask, scale))

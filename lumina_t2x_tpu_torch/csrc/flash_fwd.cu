@@ -11,7 +11,9 @@
 //   lumina_flash_rope_q     <- _flash_rope_q_kernel     (_flash_rope_fwd_impl, rotate_k=False)
 // One templated kernel (kStaticMax, kEmitLse, kRope) stands in for all seven;
 // each entry point is a distinct C function so the Python wrapper can count
-// its launches.
+// its launches. For bf16 inputs lumina_flash_online and
+// lumina_flash_static_max launch the Hopper kernel of flash_fwd_sm90.cu
+// instead (registers, exp2, a K/V ring); their fp32 path stays here.
 //
 // What it computes (the Pallas kernels' math, not their TPU mechanics):
 //   s   = scale * q . k            over valid keys (kv_mask != 0, j < Sk)
@@ -58,8 +60,9 @@
 // per K/V re-read sweep, so it is bound by math issue, and in this first
 // version by the shared-memory round trips around each WMMA
 // product (S, P and the O accumulator live in shared memory so the per-row
-// softmax can run on plain threads). Later work: wgmma with register
-// accumulators, TMA loads, a K/V ring with warp specialisation.
+// softmax can run on plain threads). flash_fwd_sm90.cu is the redesign
+// (wgmma with register accumulators, a TMA ring, warp specialisation) that
+// bf16 K2 and K3 run; the other entry points are to follow it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -68,6 +71,8 @@
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
+
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -465,10 +470,12 @@ int lumina_flash_small_kv(LUMINA_FLASH_ARGS) {
 }
 
 int lumina_flash_online(LUMINA_FLASH_ARGS) {
+  if (is_bf16) return flash_fwd_sm90(false, q, k, v, mask, out, meta, scale, 0.f, stream);
   return launch<false, false>(q, k, v, mask, out, nullptr, meta, scale, 0.f, is_bf16, stream);
 }
 
 int lumina_flash_static_max(LUMINA_FLASH_ARGS) {
+  if (is_bf16) return flash_fwd_sm90(true, q, k, v, mask, out, meta, scale, bound, stream);
   return launch<true, false>(q, k, v, mask, out, nullptr, meta, scale, bound, is_bf16, stream);
 }
 

@@ -1,0 +1,750 @@
+// bf16 streaming attention forward for Hopper (sm_90a), hand-written CUDA C++:
+// wgmma warpgroups fed by a producer warp through an asynchronous K/V ring.
+// Replaces the Pallas TPU kernels of lumina_t2x_tpu/ops/flash_attention.py
+//   online     <- _flash_kernel_fused_sum (+ _fused_sum_step), static_max=None
+//   static max <- _flash_kernel_static_max,                     static_max=bound
+// for bf16 inputs; the C entry points lumina_flash_online and
+// lumina_flash_static_max stay in flash_fwd.cu (launch counters "online" and
+// "static_max"), which calls flash_fwd_sm90() for bf16 and keeps its own
+// template for fp32.
+//
+// What it computes, per (batch, q head h, query row), with s = q . k over the
+// valid keys of kv head h / (Hq / Hkv) (kv_mask != 0, j < Sk):
+//   online      p = exp(s*scale - m), m the running row max, with rescale
+//   static max  p = exp(min(s*scale - bound, 55))
+//   out = sum_j p v_j / sum_j p (fp32), 0 for a row without a valid key.
+// Both run in the exp2 domain: the host folds scale*log2(e), bound*log2(e)
+// and 55*log2(e), so each logit costs one FMA (or FMUL), a min and one
+// MUFU.EX2. What the Pallas kernels do for the TPU is not carried over: the
+// ones column appended to v for the denominator (the row sums here are the
+// fp32 p in registers) and the nk+1-step grid.
+//
+// Design. One block of four warpgroups per (192 query rows, q head,
+// batch). Warpgroup 0 is the producer: one thread loads the block's Q tile,
+// then each 64-key K/V tile, with TMA (cp.async.bulk.tensor) into a ring of
+// up to 8 stages in shared memory (5 at head_dim 72); a stage's "full"
+// mbarrier completes when its bytes have landed. The producer warp's two
+// ballots write the tile's 64 key-valid bits beside it (j < Sk and the mask,
+// read one tile ahead).
+// It refills a stage once its "empty" mbarrier, on which every consumer
+// thread arrives, has completed. Warpgroups 1-3 are consumers, 64 query
+// rows each; setmaxnreg moves registers from the producer (24 a thread) to
+// them (160). For key tile j a consumer issues two wgmma groups,
+//   S  = Q K^T   wgmma.m64n64k16, A = Q and B = K from shared memory
+//                (K-major), depth 72 run as 80 (5 steps of 16, columns 72-79 zero)
+//   O += P V     of tile j - 1, wgmma.m64n72k16, A = P from registers, B = V
+//                from shared memory (MN-major, transposed)
+// and runs the exp part of S(j)'s chain as soon as the first group is done,
+// beside the second (FlashAttention-3's intra-warpgroup overlap); it packs
+// P(j) once PV(j - 1) is done with the P registers. Named barriers make the
+// consumers issue their groups in turn (FlashAttention-3's ping-pong, over
+// three warpgroups), so the chains run while another warpgroup's products
+// do; a third consumer (over two) also cuts each K/V tile's reads from L2 per
+// query row by a third. S, P and O never leave registers: S's accumulator
+// layout is PV's A-fragment layout.
+//
+// P as a bf16 pair. P enters PV as hi = bf16(p) and lo = bf16(p - hi): two
+// wgmma over the same V per 16-key slice (~16 mantissa bits of p), and the
+// denominator sums the fp32 p. Rounded once, P put the 2B forward 2.31e-2
+// from plain (over its 2e-2 bar); the pair keeps it at 1.84e-2. The cost:
+// PV's tensor work doubles, from 64*64*72 to 2*64*64*72 multiply-adds per
+// warpgroup and tile, so a tile's products are 64*64*(80 + 144) instead of
+// 64*64*(80 + 72) (1.47x), plus a second pack and a subtraction per logit.
+//
+// Shared memory. Q, K and V are stored in 128-byte-swizzled atoms of 64
+// columns x rows (TMA's SWIZZLE_128B pattern, wgmma layout type 1), one TMA
+// box per atom. An atom is 64 bf16 wide and cannot cover D=72 in one piece:
+// columns 64-127 take a second atom, whose box (at column 64 of a tensor
+// map whose innermost extent is D) reads columns 64-71 and zero-fills the
+// rest, so QK^T's depth padding to 80 reads zeros. The unused columns cost
+// shared memory (5 ring stages of 32 KB fit), not copies; 128-byte boxes
+// keep TMA's reads in whole 32-byte sectors. Descriptors:
+//   Q, K (K-major): SBO = 8 rows = 1024 bytes; k-step kk moves the start
+//                   address 32 bytes along the swizzled row (LBO unused)
+//   V (MN-major):   LBO = the atom stride (64 columns), SBO = 8 keys = 1024
+//                   bytes; the 16-key slice kk starts 2048 bytes further
+//
+// What bounds it on the card: at B=2, S=4096, H=32, D=72 the two products
+// are 4*B*H*S*S*D = 309 GFLOP (0.313 ms at 989 TFLOP/s); with the depth
+// padded to 80 and the hi/lo pair the tensor cores do 1.56x that (0.49 ms),
+// and the 1.07e9 exp take 0.275 ms on the special-function units. K and V
+// are re-read by each of the 22 q tiles of a head: 1.6 GB per call from L2.
+// The consumers' instruction issue (the chain, the pair's packing) sets the
+// pace (`exps/fwd_sm90_breakdown.py` times the parts).
+
+#include <cuda.h>  // CUtensorMap; its encoder is looked up in libcuda at run time
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include <math.h>
+#include <stdint.h>
+
+#include "flash_fwd_sm90.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBK = 64;                            // keys per tile
+constexpr int kRows = 64;                          // query rows per consumer warpgroup
+constexpr int kConsumers = 3;                      // consumer warpgroups
+constexpr int kBQ = kRows * kConsumers;            // query rows per block
+constexpr int kThreads = 128 * (1 + kConsumers);   // producer warpgroup + consumers
+// setmaxnreg: 128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536
+constexpr int kProducerRegs = 24, kConsumerRegs = 160;
+constexpr uint32_t kSmemMax = 232448;              // shared memory a block can use
+constexpr int kBarFirst = 1;                       // named barrier kBarFirst + c: consumer c's turn
+constexpr int kSwizzle = 128;                      // bytes per operand row in an atom
+constexpr int kAtomCols = kSwizzle / 2;            // bf16 columns per atom
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kClamp = 55.f;  // exponent clamp of the static-max kernel (nats)
+
+struct Params {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const int* mask;  // (B, Sk) int32 or null
+  bf16* out;
+  int B, Sq, Sk, Hq, Hkv, D;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
+  long long m_sb;
+  float scale2;  // scale * log2(e)
+  float bound2;  // bound * log2(e)
+  float clamp2;  // 55 * log2(e)
+};
+
+// -- PTX ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// a box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; the barrier counts its bytes as they land (out-of-range elements
+// are zero-filled and count too)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// arrive and expect `bytes` more of asynchronous copies in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(256) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(256) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// keep the compiler from moving accesses of wgmma operands across the asm
+// that issues or waits for the product
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&r)[kBK / 16][4]) {
+#pragma unroll
+  for (int i = 0; i < kBK / 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// wgmma matrix descriptor of an operand in 128-byte-swizzled atoms (layout
+// type 1): start address, leading and stride byte offsets (16-byte units, 14
+// bits each), base offset 0 (atoms start on 1024-byte boundaries)
+__device__ __forceinline__ uint64_t swz_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// d (64 x 64, fp32) = [d +] A (64 x 16) B (16 x 64), both from shared memory, K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, registers) B (16 x 64, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 72, fp32) += A (64 x 16, registers) B (16 x 72, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36], const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35"
+      "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, registers) B (16 x 128, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// -- shared memory ------------------------------------------------------------------
+
+template <int kDK, int kDN>
+struct Smem {
+  // Q, K and V in atoms of 64 columns x rows (128-byte swizzled rows), one
+  // TMA box per atom: columns 0-63, 64-127; columns past D arrive as zeros
+  static constexpr int kAtomsK = (kDK + kAtomCols - 1) / kAtomCols;
+  static constexpr int kAtomsV = (kDN + kAtomCols - 1) / kAtomCols;
+  static constexpr uint32_t kQAtom = kBQ * kSwizzle, kAtom = kBK * kSwizzle;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kQBytes = kAtomsK * kQAtom;
+  static constexpr uint32_t kKBytes = kAtomsK * kAtom;
+  static constexpr uint32_t kVBytes = kAtomsV * kAtom;
+  static constexpr uint32_t kStageBytes = kKBytes + kVBytes;
+  static constexpr uint32_t kAlign = 1024;  // the dynamic base is rounded up to this
+  // ring stages: as many as fit, at most 8 (5 at head_dim 72 and 128)
+  static constexpr int kFit = (kSmemMax - kAlign - kQBytes - 512) / kStageBytes;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static_assert(kStages >= 3, "the ring needs at least 3 stages");
+  static constexpr uint32_t kBits = kQBytes + kStages * kStageBytes;  // u64 per stage
+  static constexpr uint32_t kBars = kBits + 8 * kStages;  // q_full, full[kStages], empty[kStages]
+  static constexpr uint32_t kBytes = kAlign + kBars + 8 * (1 + 2 * kStages);
+  __device__ static uint32_t k(int st) { return kQBytes + st * kStageBytes; }
+  __device__ static uint32_t v(int st) { return kQBytes + st * kStageBytes + kKBytes; }
+  __device__ static uint32_t q_full() { return kBars; }
+  __device__ static uint32_t full(int st) { return kBars + 8 * (1 + st); }
+  __device__ static uint32_t empty(int st) { return kBars + 8 * (1 + kStages + st); }
+};
+
+// -- consumer -----------------------------------------------------------------------
+
+// S = Q K^T over depth kDK in k-steps of 16 columns (32 bytes): step kk
+// reads atom kk / 4 of Q and K at byte kk % 4 * 32 of each 128-byte row;
+// both K-major, SBO = 8 rows (LBO is not used within an atom)
+template <int kDK, uint32_t kQAtom, uint32_t kAtom>
+__device__ __forceinline__ void qk(float (&s)[kBK / 2], uint32_t q_addr, uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < kDK / 16; ++kk) {
+    constexpr int kSteps = kAtomCols / 16;  // k-steps per atom
+    const uint32_t at = kk % kSteps * 32;
+    wgmma_ss_n64(s, swz_desc(q_addr + kk / kSteps * kQAtom + at, 16, 8 * kSwizzle),
+                 swz_desc(k_addr + kk / kSteps * kAtom + at, 16, 8 * kSwizzle), kk > 0);
+  }
+}
+
+template <int kDN>
+__device__ __forceinline__ void wgmma_rs(float (&o)[kDN / 2], const uint32_t (&a)[4],
+                                         uint64_t v_desc) {
+  if constexpr (kDN == 64) wgmma_rs_n64(o, a, v_desc);
+  else if constexpr (kDN == 72) wgmma_rs_n72(o, a, v_desc);
+  else wgmma_rs_n128(o, a, v_desc);
+}
+
+// O += (P_hi + P_lo) V: two products per 16-key slice over the same V. V is
+// MN-major: LBO = the stride of its 64-column atoms, SBO = 8 keys; slice kk
+// starts 16 keys further
+template <int kDN, uint32_t kAtom>
+__device__ __forceinline__ void pv(float (&o)[kDN / 2], const uint32_t (&phi)[kBK / 16][4],
+                                   const uint32_t (&plo)[kBK / 16][4], uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t desc = swz_desc(v_addr + kk * 16 * kSwizzle, kAtom, 8 * kSwizzle);
+    wgmma_rs<kDN>(o, phi[kk], desc);
+    wgmma_rs<kDN>(o, plo[kk], desc);
+  }
+}
+
+// 2^x in one MUFU.EX2 (results below 2^-126 flush to 0: p that small adds
+// nothing next to a row's largest p, which is >= 2^-(55*log2(e)) for K3
+// and 1 for K2)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The per-logit chain of one tile, first half: s holds this thread's 32
+// logits of rows g and g + 8 (s[4n + e]: key 8n + 2t + (e & 1), row g + 8 *
+// (e >> 1)), `bits` the tile's key-valid bits (bit j: key j). Replaces s by
+// the fp32 p and adds it to the row sums l; online, it first moves the
+// running max m and scales l by alpha, which it returns for o (whose
+// product of the previous tile may still be running). A tile whose keys
+// are all valid (every tile but a ragged or masked one) skips the selects.
+template <bool kStaticMax>
+__device__ __forceinline__ void exp_tile(float (&s)[kBK / 2], unsigned long long bits, int t,
+                                         float (&l)[2], float (&m)[2], float (&alpha)[2],
+                                         const Params& p) {
+  const bool all_valid = bits == ~0ull;
+  bits >>= 2 * t;
+  auto valid = [&](int i) { return ((bits >> (8 * (i / 4) + (i & 1))) & 1ull) != 0; };
+  if constexpr (kStaticMax) {
+    if (all_valid) {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i)
+        s[i] = ex2(fminf(fmaf(s[i], p.scale2, -p.bound2), p.clamp2));
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const float e = ex2(fminf(fmaf(s[i], p.scale2, -p.bound2), p.clamp2));
+        s[i] = valid(i) ? e : 0.f;
+      }
+    }
+  } else {
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (all_valid) {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        s[i] *= p.scale2;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        s[i] = valid(i) ? s[i] * p.scale2 : -INFINITY;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+    }
+    float shift[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // a row with no valid key so far keeps m = -inf and o = l = 0
+      alpha[r] = m_new == -INFINITY ? 1.f : ex2(m[r] - m_new);
+      shift[r] = m_new == -INFINITY ? 0.f : m_new;
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) s[i] = ex2(s[i] - shift[(i >> 1) & 1]);  // masked: 0
+  }
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n) {
+    l[0] += s[4 * n] + s[4 * n + 1];
+    l[1] += s[4 * n + 2] + s[4 * n + 3];
+  }
+}
+
+// Second half, once the previous tile's PV has finished with o and the P
+// registers: online, o *= alpha; then P as the hi/lo A fragments of PV.
+template <bool kStaticMax, int kDN>
+__device__ __forceinline__ void pack_tile(const float (&s)[kBK / 2], const float (&alpha)[2],
+                                          float (&o)[kDN / 2], uint32_t (&phi)[kBK / 16][4],
+                                          uint32_t (&plo)[kBK / 16][4]) {
+  if constexpr (!kStaticMax) {
+#pragma unroll
+    for (int i = 0; i < kDN / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+  }
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n) {
+    const uint32_t top = pack_bf16(s[4 * n], s[4 * n + 1]);      // row g,     keys 8n + 2t, +1
+    const uint32_t bot = pack_bf16(s[4 * n + 2], s[4 * n + 3]);  // row g + 8
+    phi[n / 2][2 * (n % 2)] = top;
+    phi[n / 2][2 * (n % 2) + 1] = bot;
+    plo[n / 2][2 * (n % 2)] = pack_bf16(s[4 * n] - bf16_lo(top), s[4 * n + 1] - bf16_hi(top));
+    plo[n / 2][2 * (n % 2) + 1] =
+        pack_bf16(s[4 * n + 2] - bf16_lo(bot), s[4 * n + 3] - bf16_hi(bot));
+  }
+}
+
+template <bool kStaticMax, int kDK, int kDN>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv) {
+  using L = Smem<kDK, kDN>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_addr(smem) + L::kAlign - 1) & ~(L::kAlign - 1);
+  unsigned long long* bits =
+      reinterpret_cast<unsigned long long*>(smem + (base - smem_addr(smem)) + L::kBits);
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int nk = (p.Sk + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(base + L::q_full(), 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(base + L::full(st), 1);                   // the producer's arrive + bytes
+      mbar_init(base + L::empty(st), 128 * kConsumers);   // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one warp keeps the ring full with TMA ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    // the maps are (D, H, S, B) with a box of 64 columns x rows: one box per
+    // atom; columns past D (the pad to kDK) and rows past S arrive as zeros
+    if (lane == 0) {
+      mbar_expect_tx(base + L::q_full(), L::kQBytes);
+      for (int a = 0; a < L::kAtomsK; ++a)
+        tma_load(base + L::kQ + a * L::kQAtom, &tq, base + L::q_full(), kAtomCols * a, h, q0, b);
+    }
+    const int* mask_row = p.mask ? p.mask + b * p.m_sb : nullptr;
+    // mask values of keys j0 + lane and j0 + 32 + lane, read one tile ahead
+    int m0 = mask_row && lane < p.Sk ? mask_row[lane] : 1;
+    int m1 = mask_row && 32 + lane < p.Sk ? mask_row[32 + lane] : 1;
+    for (int j = 0; j < nk; ++j) {
+      const int st = j % kStages, j0 = j * kBK;
+      const unsigned w0 = __ballot_sync(0xffffffffu, j0 + lane < p.Sk && m0 != 0);
+      const unsigned w1 = __ballot_sync(0xffffffffu, j0 + 32 + lane < p.Sk && m1 != 0);
+      if (mask_row && j + 1 < nk) {
+        m0 = j0 + kBK + lane < p.Sk ? mask_row[j0 + kBK + lane] : 0;
+        m1 = j0 + kBK + 32 + lane < p.Sk ? mask_row[j0 + kBK + 32 + lane] : 0;
+      }
+      if (lane == 0) {
+        mbar_wait(base + L::empty(st), ((j / kStages) & 1) ^ 1);  // round 0 passes at once
+        bits[st] = (unsigned long long)w1 << 32 | w0;
+        mbar_expect_tx(base + L::full(st), L::kStageBytes);
+        for (int a = 0; a < L::kAtomsK; ++a)
+          tma_load(base + L::k(st) + a * L::kAtom, &tk, base + L::full(st), a * kAtomCols, hk, j0,
+                   b);
+        for (int a = 0; a < L::kAtomsV; ++a)
+          tma_load(base + L::v(st) + a * L::kAtom, &tv, base + L::full(st), a * kAtomCols, hk, j0,
+                   b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    // the consumers issue their products in turn: 0, 1, ..., kConsumers - 1, 0, ...
+    const int mine = kBarFirst + c, other = kBarFirst + (c + 1) % kConsumers;
+    const uint32_t q_addr = base + L::kQ + c * kRows * kSwizzle;  // this warpgroup's rows
+
+    float o[kDN / 2];
+#pragma unroll
+    for (int i = 0; i < kDN / 2; ++i) o[i] = 0.f;
+    float l[2] = {0.f, 0.f}, m[2] = {-INFINITY, -INFINITY};
+    float s[kBK / 2];
+    uint32_t phi[kBK / 16][4], plo[kBK / 16][4];
+
+    float alpha[2];
+
+    if (c == kConsumers - 1) bar_arrive(kBarFirst);  // consumer 0 issues first
+    mbar_wait(base + L::q_full(), 0);
+    mbar_wait(base + L::full(0), 0);
+    bar_sync(mine);
+    wgmma_fence();
+    qk<kDK, L::kQAtom, L::kAtom>(s, q_addr, base + L::k(0));
+    wgmma_commit();
+    bar_arrive(other);
+    wgmma_wait<0>();
+    pin(s);
+    exp_tile<kStaticMax>(s, bits[0], tid % 4, l, m, alpha, p);
+    pack_tile<kStaticMax, kDN>(s, alpha, o, phi, plo);
+
+    // Per tile j: S(j) = QK^T and O += P(j-1) V(j-1) in two wgmma groups;
+    // the chain of S(j) runs as soon as the first group is done, beside the
+    // second (FlashAttention-3's intra-warpgroup overlap), and packs P(j)
+    // once the second is done with the P registers.
+    for (int j = 1; j < nk; ++j) {
+      const int st = j % kStages, prev = (j - 1) % kStages;
+      mbar_wait(base + L::full(st), (j / kStages) & 1);
+      bar_sync(mine);
+      pin(o);
+      pin(phi);
+      pin(plo);
+      wgmma_fence();
+      qk<kDK, L::kQAtom, L::kAtom>(s, q_addr, base + L::k(st));
+      wgmma_commit();
+      pv<kDN, L::kAtom>(o, phi, plo, base + L::v(prev));
+      wgmma_commit();
+      bar_arrive(other);
+      wgmma_wait<1>();
+      pin(s);
+      exp_tile<kStaticMax>(s, bits[st], tid % 4, l, m, alpha, p);
+      wgmma_wait<0>();
+      pin(o);
+      mbar_arrive(base + L::empty(prev));
+      pack_tile<kStaticMax, kDN>(s, alpha, o, phi, plo);
+    }
+
+    bar_sync(mine);
+    pin(o);
+    pin(phi);
+    pin(plo);
+    wgmma_fence();
+    pv<kDN, L::kAtom>(o, phi, plo, base + L::v((nk - 1) % kStages));
+    wgmma_commit();
+    if (c != kConsumers - 1) bar_arrive(other);  // consumer 0 has no later turn to take
+    wgmma_wait<0>();
+    pin(o);
+
+    const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + c * kRows + 16 * warp + lane / 4 + 8 * r;
+      if (row >= p.Sq) continue;
+      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+      bf16* out = p.out + b * p.o_sb + (long long)row * p.o_ss + h * p.o_sh;
+#pragma unroll
+      for (int n = 0; n < kDN / 8; ++n) {
+        const int col = 8 * n + 2 * (lane % 4);
+        if (col >= p.D) break;
+        *reinterpret_cast<__nv_bfloat162*>(out + col) =
+            __floats2bfloat162_rn(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in libcuda (the library links the CUDA runtime only)
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+// a bf16 (B, S, H, D) tensor with element strides sb, ss, sh as the 4-D TMA
+// map (D, H, S, B), box 64 columns x `rows` rows of one head, 128-byte
+// swizzle: one atom of a tile. Strides in bytes must be multiples of 16, as
+// the caller checked.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, long long sb,
+              long long ss, long long sh, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kAtomCols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  EncodeTiled encode = encoder();
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool kStaticMax, int kDK, int kDN>
+int launch_dims(const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, kBQ) ||
+      !make_map(&tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, kBK) ||
+      !make_map(&tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, kBK))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_fwd_sm90_kernel<kStaticMax, kDK, kDN>;
+  const int bytes = (int)Smem<kDK, kDN>::kBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.Sq + kBQ - 1) / kBQ, p.Hq, p.B);
+  kernel<<<grid, kThreads, bytes, stream>>>(p, tq, tk, tv);
+  return (int)cudaGetLastError();
+}
+
+// QK^T depth and PV width by head_dim: 64/64, 80/72 (the 2B), 128/128
+template <bool kStaticMax>
+int launch(const Params& p, cudaStream_t stream) {
+  if (p.D <= 64) return launch_dims<kStaticMax, 64, 64>(p, stream);
+  if (p.D <= 72) return launch_dims<kStaticMax, 80, 72>(p, stream);
+  return launch_dims<kStaticMax, 128, 128>(p, stream);
+}
+
+template <bool kStaticMax, int kDK, int kDN>
+int attributes_dims(long long* out) {
+  auto kernel = flash_fwd_sm90_kernel<kStaticMax, kDK, kDN>;
+  const int bytes = (int)Smem<kDK, kDN>::kBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = kProducerRegs;
+  out[2] = kConsumerRegs;
+  out[3] = (long long)a.localSizeBytes;
+  out[4] = (long long)a.sharedSizeBytes + bytes;
+  out[5] = blocks;
+  out[6] = kThreads;
+  return 0;
+}
+
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+}  // namespace
+
+int flash_fwd_sm90(bool static_max, const void* q, const void* k, const void* v, const int* mask,
+                   void* out, const long long* meta, float scale, float bound, void* stream) {
+  Params p;
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.mask = mask;
+  p.out = static_cast<bf16*>(out);
+  p.B = (int)meta[0];
+  p.Sq = (int)meta[1];
+  p.Sk = (int)meta[2];
+  p.Hq = (int)meta[3];
+  p.Hkv = (int)meta[4];
+  p.D = (int)meta[5];
+  p.q_sb = meta[6];
+  p.q_ss = meta[7];
+  p.q_sh = meta[8];
+  p.k_sb = meta[9];
+  p.k_ss = meta[10];
+  p.k_sh = meta[11];
+  p.v_sb = meta[12];
+  p.v_ss = meta[13];
+  p.v_sh = meta[14];
+  p.o_sb = meta[15];
+  p.o_ss = meta[16];
+  p.o_sh = meta[17];
+  p.m_sb = meta[18];
+  // the exp2 domain: every constant of the logit chain times log2(e), folded here
+  p.scale2 = scale * kLog2e;
+  p.bound2 = bound * kLog2e;
+  p.clamp2 = kClamp * kLog2e;
+  // TMA moves 16-byte chunks: D, the strides and the bases in whole chunks
+  for (int i = 6; i <= 17; ++i)
+    if (meta[i] % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (p.D <= 0 || p.D > 128 || p.D % 8 != 0 || p.Hkv <= 0 || p.Hq % p.Hkv != 0 || p.Sk <= 0 ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  if (p.Sq == 0 || p.B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_max ? launch<true>(p, s) : launch<false>(p, s);
+}
+
+// The compiled kernel's resources at a head_dim (7 values into out):
+// registers per thread as compiled (the launch bound), the producer's and
+// the consumers' registers after setmaxnreg, local-memory (spill) bytes per
+// thread, shared memory per block, resident blocks per SM, threads per block.
+extern "C" int lumina_flash_fwd_sm90_attributes(int static_max, int head_dim, long long* out) {
+  if (head_dim <= 64)
+    return static_max ? attributes_dims<true, 64, 64>(out) : attributes_dims<false, 64, 64>(out);
+  if (head_dim <= 72)
+    return static_max ? attributes_dims<true, 80, 72>(out) : attributes_dims<false, 80, 72>(out);
+  return static_max ? attributes_dims<true, 128, 128>(out) : attributes_dims<false, 128, 128>(out);
+}

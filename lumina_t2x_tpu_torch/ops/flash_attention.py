@@ -27,11 +27,18 @@ runs `flash_rope` or `flash_rope_q`; under autograd `_FlashAttentionRope`,
 whose backward rotates q (and k) in plain PyTorch, runs `flash_online_lse`
 and the backward kernels, and inverse-rotates dq (and dk).
 
-The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_{fwd,bwd}.cu`; they
-are built into one library by `ops/cuda_lib.py` at first use, under
-`build/kernels/<source hash>/` at the repository root, and bound through
-ctypes. A wrapper takes its plain version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises.
+The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_{fwd,bwd}.cu` and,
+for bf16 `flash_online` / `flash_static_max`, `csrc/flash_fwd_sm90.cu` (the
+Hopper redesign); they are built into one library by `ops/cuda_lib.py` at
+first use, under `build/kernels/<source hash>/` at the repository root, and
+bound through ctypes. A wrapper takes its plain version only for CPU
+tensors; for CUDA tensors it launches the kernel or raises. The bf16
+streaming kernel reads q, k and v through TMA tensor maps in 16-byte chunks:
+it takes head_dim a multiple of 8 (else ValueError), and a q, k or v whose
+base or (b, s, h) strides are not whole chunks, or whose strides do not
+grow from h to s to b, is copied contiguous first (`_chunk_aligned`; a
+strided view such as q, k, v of a fused (B, S, 3, H, D) tensor is read in
+place).
 
 Contract shared by kernel and plain version: q (B, Sq, Hq, D), k/v
 (B, Sk, Hkv, D), optional key mask (B, Sk) with nonzero on valid keys, GQA
@@ -274,9 +281,27 @@ _BWD_ARGS = [_ptr] * 10 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
 # rope: q, k, v, mask, out, cos_full, sin_signed, meta, scale, is_bf16, stream
 _ROPE_ARGS = [_ptr] * 7 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
 LIBRARY = "flash"  # the library of K1-K9 (`ops/cuda_lib.py`)
-cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu"], {
-    f"lumina_flash_{name}": _FWD_ARGS if name in _FWD_ENTRIES else
-    _BWD_ARGS if name in _BWD_ENTRIES else _ROPE_ARGS for name in LAUNCHES})
+cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu"], {
+    **{f"lumina_flash_{name}": _FWD_ARGS if name in _FWD_ENTRIES else
+       _BWD_ARGS if name in _BWD_ENTRIES else _ROPE_ARGS for name in LAUNCHES},
+    # static_max, head_dim, out (int64[7]); launches nothing
+    "lumina_flash_fwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta]})
+_SM90_ATTRIBUTES = ("registers", "producer_registers", "consumer_registers", "local_bytes",
+                    "shared_bytes", "blocks_per_sm", "threads")
+
+
+def sm90_attributes(static_max: bool, head_dim: int = 72) -> dict:
+    """Resources of the compiled bf16 streaming kernel (`csrc/flash_fwd_sm90.cu`)
+    at `head_dim`, from the CUDA runtime: registers per thread as compiled
+    (the launch bound) and per producer / consumer thread after `setmaxnreg`,
+    local-memory (spill) bytes per thread, shared memory per block, resident
+    blocks per SM, threads per block."""
+    out = (ctypes.c_longlong * len(_SM90_ATTRIBUTES))()
+    err = cuda_lib.build_library(LIBRARY).lumina_flash_fwd_sm90_attributes(
+        int(static_max), int(head_dim), out)
+    if err != 0:
+        raise RuntimeError(f"lumina_flash_fwd_sm90_attributes failed: cudaError {err}")
+    return dict(zip(_SM90_ATTRIBUTES, out))
 
 
 def _check_inputs(q, k, v, kv_mask):
@@ -302,6 +327,21 @@ def _check_inputs(q, k, v, kv_mask):
     return q, k, v, kv_mask
 
 
+# the entry points whose bf16 inputs take the Hopper kernel of
+# `csrc/flash_fwd_sm90.cu` (K2, K3)
+_SM90_ENTRIES = ("online", "static_max")
+
+
+def _chunk_aligned(t):
+    """t as the bf16 streaming kernel's TMA tensor map reads it -- base and
+    (b, s, h) element strides in whole 16-byte chunks, 0 < h stride <= s
+    stride <= b stride -- t itself when it is so, else a contiguous copy."""
+    sb, ss, sh = t.stride()[:3]
+    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in (sb, ss, sh)) and 0 < sh <= ss <= sb:
+        return t
+    return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+
+
 def _fwd_meta(q, k, v, out, kv_mask):
     """meta (int64[19]) of the forward entry points: shapes, then element
     strides of q, k, v, out (b, s, h) and the mask (b)."""
@@ -323,6 +363,11 @@ def _launch(name, q, k, v, kv_mask, scale, bound=0.0, with_lse=False):
     q, k, v, kv_mask = _check_inputs(q, k, v, kv_mask)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
+    if name in _SM90_ENTRIES and q.dtype == torch.bfloat16:
+        if d % 8:
+            raise ValueError(f"bf16 flash_{name} takes head_dim a multiple of 8 (16-byte "
+                             f"chunks), got {d}")
+        q, k, v = (_chunk_aligned(t) for t in (q, k, v))
     lib = cuda_lib.build_library(LIBRARY)
     with torch.cuda.device(q.device):
         out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)

@@ -19,7 +19,8 @@ import torch
 
 GROUPS = (  # (pattern on the kernel name, group), first match wins
     (r"flash_bwd", "flash backward kernels (K6/K7/K8)"),
-    (r"flash_fwd", "flash forward kernels (K1-K5)"),
+    (r"flash_fwd_sm90", "Hopper streaming forward (bf16 K2/K3, flash_fwd_sm90.cu)"),
+    (r"flash_fwd", "flash forward template (K1, K4, K5, K9; fp32 K2/K3)"),
     (r"nvjet|gemm|xmma|cutlass|sm90|cublas", "cuBLAS GEMMs"),
     (r"elementwise", "elementwise"),
     (r"reduce", "reductions"),
@@ -39,9 +40,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step needs a CUDA device")
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from lumina_t2x_tpu_torch.models import get_model
     from lumina_t2x_tpu_torch.ops import cuda_lib
@@ -81,16 +79,29 @@ def main(argv=None):
         batch = next(batches)
     print(f"host-clock ms/step {[round(t, 1) for t in times]}")
 
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch, 0)
+
+    report(one_step, "step")
+
+
+def report(fn, what: str) -> None:
+    """Run fn once under `torch.profiler` and print its wall and device time,
+    the device time by kernel group and the 30 costliest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = step(state, batch, 0)
+        fn()
         torch.cuda.synchronize()
         wall = 1000 * (time.perf_counter() - t0)
     rows = sorted(((e.key, e.self_device_time_total / 1000, e.count) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
     total = sum(t for _, t, _ in rows)
-    print(f"profiled step: wall {wall:.1f} ms, device time {total:.1f} ms "
+    print(f"profiled {what}: wall {wall:.1f} ms, device time {total:.1f} ms "
           f"({100 * total / wall:.1f}% busy)")
     groups = {}
     for name, t, n in rows:
