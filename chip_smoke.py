@@ -8,9 +8,10 @@ last line:
 2. build: compiles every kernel from lumina_t2x_tpu_torch/csrc with nvcc
    (`ops/cuda_lib.py`: one library per module that owns kernels, one
    process per source, all started together) and prints the build seconds,
-   then the resources of the Hopper kernel of bf16 K2/K3
-   (`csrc/flash_fwd_sm90.cu`): registers per thread (as compiled and after
-   setmaxnreg), spill bytes, shared memory per block, blocks per SM;
+   then the resources of the Hopper kernels of bf16 K2/K3
+   (`csrc/flash_fwd_sm90.cu`) and bf16 K6/K8 (`csrc/flash_bwd_sm90.cu`):
+   registers per thread (as compiled and after setmaxnreg), spill bytes,
+   shared memory per block, blocks per SM;
 3. kernels: each CUDA entry point against its plain PyTorch version at the
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
    kernel; the LSE forward and the backward kernels also at the training
@@ -20,8 +21,9 @@ last line:
    operations over 989 TFLOP/s bf16, whichever is longer) and the time of
    one library call on the same inputs (`scaled_dot_product_attention` for
    K1-K3, aten's flash attention with its log-sum-exp for K4/K5, the sdpa
-   autograd backward for K6-K8); then the fused-RoPE kernels (K9: `rope`
-   at Sq=Sk=4096, `rope_q` at Sk=32 and 256 with the 2B's 1024^2 angles)
+   autograd backward for K6-K8; K6 and K8 also timed at Sk=32, where the
+   training cross-attention launches them); then the fused-RoPE kernels
+   (K9: `rope` at Sq=Sk=4096, `rope_q` at Sk=32 and 256 with the 2B's 1024^2 angles)
    against their plain versions, against the online forward of their own
    template (`flash_online_lse(...)[0]`) on `apply_rope`d inputs (equal up
    to one bf16 ulp; timed beside K2 on those inputs), and their gradient
@@ -92,7 +94,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd.cu"
 SM90_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_sm90.cu"  # bf16 K2 and K3
-BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd.cu"
+BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd.cu"  # K7; fp32 K6/K8
+SM90_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_sm90.cu"  # bf16 K6 and K8
 VPU_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_variants.cu"
 MMA_SOURCE = "lumina_t2x_tpu_torch/csrc/mma_probe.cu"
 TPU_KERNELS = "lumina_t2x_tpu/ops/flash_attention.py"
@@ -103,9 +106,9 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "static_max": (SM90_SOURCE, f"{TPU_KERNELS}:66"),      # _flash_kernel_static_max
     "online_lse": (FWD_SOURCE, f"{TPU_KERNELS}:430"),      # _flash_kernel_res
     "static_max_lse": (FWD_SOURCE, f"{TPU_KERNELS}:446"),  # _flash_kernel_res_static_max
-    "bwd_fused": (BWD_SOURCE, f"{TPU_KERNELS}:619"),       # _bwd_fused_kernel
+    "bwd_fused": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),  # _bwd_fused_kernel
     "bwd_dq": (BWD_SOURCE, f"{TPU_KERNELS}:552"),          # _bwd_dq_kernel
-    "bwd_dkv": (BWD_SOURCE, f"{TPU_KERNELS}:584"),         # _bwd_dkv_kernel
+    "bwd_dkv": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),    # _bwd_dkv_kernel
     "rope": (FWD_SOURCE, f"{TPU_KERNELS}:956"),            # _flash_rope_kernel
     "rope_q": (FWD_SOURCE, f"{TPU_KERNELS}:963"),          # _flash_rope_q_kernel
     "static_max_v0": (VPU_SOURCE, f"{VPU_EXP}:44"),        # _kernel_v0
@@ -266,15 +269,19 @@ def build_phase():
     phase("build", f"{time.perf_counter() - t0:.2f} s: " + "; ".join(
         f"{name} {'compiled with nvcc' if info['compiled'] else 'already built, loaded'} "
         f"({info['path']})" for name, info in cuda_lib.BUILD_INFO.items()))
-    # the Hopper kernel of bf16 K2/K3: its resources from the CUDA runtime
-    for entry in ("online", "static_max"):
-        info = flash_attention.sm90_attributes(entry == "static_max", D)
-        phase("build", f"{SM90_SOURCE} ({entry}, head_dim {D}): {info['registers']} registers per "
+    # the Hopper kernels of bf16 K2/K3 and K6/K8: their resources from the CUDA runtime
+    for source, entry, info in (
+            (SM90_SOURCE, "online", flash_attention.sm90_attributes(False, D)),
+            (SM90_SOURCE, "static_max", flash_attention.sm90_attributes(True, D)),
+            (SM90_BWD_SOURCE, "bwd_fused", flash_attention.bwd_sm90_attributes(True, D)),
+            (SM90_BWD_SOURCE, "bwd_dkv", flash_attention.bwd_sm90_attributes(False, D))):
+        phase("build", f"{source} ({entry}, head_dim {D}): {info['registers']} registers per "
               f"thread as compiled, {info['producer_registers']} (producer) / "
               f"{info['consumer_registers']} (consumers) after setmaxnreg, "
               f"{info['local_bytes']} local (spill) bytes per thread, {info['shared_bytes']} bytes "
               f"of shared memory per block, {info['blocks_per_sm']} block(s) of "
               f"{info['threads']} threads per SM")
+        require(info["local_bytes"] == 0, f"{source} ({entry}) spills")
 
 
 def _rand(g, *shape, dtype):
@@ -368,9 +375,19 @@ BWD_CASES = [("bf16", torch.bfloat16, S, H, "none"), ("fp32", torch.float32, S, 
              ("bf16 cross-attention", torch.bfloat16, TRAIN_CAP, H, "tail")]
 
 
+def _bwd_bounds(q, k, v, out, dout, lse, dtype):
+    """Least times of K6, K7 and K8: read q, k, v, out, dO, LSE once; write
+    what the kernel writes; 5, 3 and 4 Sq x Sk x D products."""
+    reads = _nbytes(q, k, v, out, dout, lse)
+    return {"bwd_fused": least_time(reads + _nbytes(q, k, v), attention_ops(q, k, 5), dtype),
+            "bwd_dq": least_time(reads + _nbytes(q), attention_ops(q, k, 3), dtype),
+            "bwd_dkv": least_time(reads + _nbytes(k, v), attention_ops(q, k, 4), dtype)}
+
+
 def backward_kernel_phase(fa):
     """K6 and K7 + K8 against `flash_bwd_plain` on the same inputs (q, k, v,
-    dO, and out/LSE from the plain LSE forward)."""
+    dO, and out/LSE from the plain LSE forward); K6 and K8 also timed at the
+    cross-attention's Sk=32."""
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = {name: 0.0 for name in ("bwd_fused", "bwd_dq", "bwd_dkv")}
     times = {}
@@ -418,17 +435,21 @@ def backward_kernel_phase(fa):
                              ("bwd_dkv", fa.flash_bwd_dkv)):
                 times[name] = time_ms(lambda: fn(*args), reps=5)
             times["plain"] = time_ms(lambda: fa.flash_bwd_plain(*args), reps=5)
-            # read q, k, v, out, dO, LSE once; write what the kernel writes
-            reads = _nbytes(q, k, v, out, dout, lse)
-            bounds = {"bwd_fused": least_time(reads + _nbytes(q, k, v), attention_ops(q, k, 5), dtype),
-                      "bwd_dq": least_time(reads + _nbytes(q), attention_ops(q, k, 3), dtype),
-                      "bwd_dkv": least_time(reads + _nbytes(k, v), attention_ops(q, k, 4), dtype)}
+            bounds = _bwd_bounds(q, k, v, out, dout, lse, dtype)
             library = library_backward(q, k, v, mask, dout, scale)
             line += ("; " + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items())
                      + "; bounds " + ", ".join(f"{n} {b_['bound_ms']:.4f} ms ({b_['bound_by']})"
                                               for n, b_ in bounds.items())
                      + f"; library backward {library['library_ms']:.3f} ms "
                        f"({library['library_kernel']})")
+        elif sk == TRAIN_CAP:  # the trainer's cross-attention: 24 of K6's launches a step
+            cross = _bwd_bounds(q, k, v, out, dout, lse, dtype)
+            line += "; " + ", ".join(
+                f"{name} {time_ms(lambda: fn(*args), reps=5):.3f} ms (bound "
+                f"{cross[name]['bound_ms']:.4f} ms, {cross[name]['bound_by']})"
+                for name, fn in (("bwd_fused", fa.flash_bwd_fused), ("bwd_dkv", fa.flash_bwd_dkv)))
+            line += (f"; library backward "
+                     f"{library_backward(q, k, v, mask, dout, scale)['library_ms']:.3f} ms")
         phase("kernels", line)
         del q, k, v, dout, out, lse, args, ref, got
         torch.cuda.empty_cache()

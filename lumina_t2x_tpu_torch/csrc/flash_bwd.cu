@@ -5,6 +5,10 @@
 //   lumina_flash_bwd_fused <- _bwd_fused_kernel (_flash_bwd_fused_impl): one sweep, dK dV and dQ
 //   lumina_flash_bwd_dq    <- _bwd_dq_kernel    (_flash_bwd_impl, first pallas_call)
 //   lumina_flash_bwd_dkv   <- _bwd_dkv_kernel   (_flash_bwd_impl, second pallas_call)
+// For bf16 inputs lumina_flash_bwd_fused and lumina_flash_bwd_dkv launch the
+// Hopper kernel of flash_bwd_sm90.cu instead (wgmma, a TMA ring of Q/dO
+// tiles, dQ by bulk reduce-add); their fp32 path, and lumina_flash_bwd_dq in
+// both dtypes, stay here.
 //
 // What they compute (the Pallas kernels' math, not their TPU mechanics), from
 // the forward's per-row log-sum-exp and delta = rowsum(dO * O):
@@ -23,19 +27,19 @@
 //
 // Design and what bounds it on the card. 64x64 tiles, 4 warps per block, the
 // same building blocks as flash_fwd.cu: bf16 WMMA 16x16x16 products with fp32
-// accumulation (fp32 inputs: fp32 FMA, exact to fp32). P and dS enter their
-// products as a bf16 pair hi + lo (~16 mantissa bits), so the kernels compute
-// the fp32-P/dS backward of their plain version (the Pallas kernels round p
-// and ds to bf16 once). The TPU's dQ partials per KV block (no atomics there)
-// are gone: the fused kernel adds each tile's dQ into a zeroed fp32 buffer
-// with atomicAdd, which the wrapper casts to q's dtype. The dq/dkv pair needs
-// no atomics and is deterministic. At the 2B training shapes (B=2, H=32,
-// S=4096, D=72) one backward does five S x S x D products (s, dp, dV, dK, dQ;
-// three of them twice for the hi/lo pair), ~1.2 TFLOP, against ~0.2 GB of
-// q/k/v/dO traffic per sweep: bound by math issue and, in this first version,
-// by the shared-memory round trips around every WMMA product and by one
-// ~165 KB block per SM. Later work: wgmma with register accumulators, TMA,
-// smaller shared footprint for two blocks per SM.
+// accumulation (bf16 K7; fp32 inputs, all three: fp32 FMA, exact to fp32). P
+// and dS enter the bf16 products as a pair hi + lo (~16 mantissa bits), so
+// the kernels compute the fp32-P/dS backward of their plain version (the
+// Pallas kernels round p and ds to bf16 once). The TPU's dQ partials per KV
+// block (no atomics there) are gone: the fused kernel adds each tile's dQ
+// into a zeroed fp32 buffer with atomicAdd, which the wrapper casts to q's
+// dtype. The dq/dkv pair needs no atomics and is deterministic. At the 2B
+// training shapes (B=2, H=32, S=4096, D=72) one backward does five S x S x D
+// products (s, dp, dV, dK, dQ; three of them twice for the hi/lo pair), ~1.2
+// TFLOP, against ~0.2 GB of q/k/v/dO traffic per sweep: bound by math issue
+// and, in this first version, by the shared-memory round trips around every
+// WMMA product and by one ~165 KB block per SM. flash_bwd_sm90.cu, which bf16 K6/K8 run, is the
+// redesign (wgmma with register accumulators, TMA, bulk dQ reduce-adds).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -44,6 +48,8 @@
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
+
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
@@ -186,37 +192,17 @@ __device__ void mm_abt(const T* A, const T* Bm, int ld, float* C, int ldc, int D
   }
 }
 
-// C (64 x DP, fp32) (+)= (A + Alo)^T . B, A (64 q rows x 64 keys), B (64 q rows
-// x DP); C rows are keys. kAccumulate=false overwrites C.
+// C (64 x DP, fp32) += A^T . B, A (64 q rows x 64 keys), B (64 q rows x DP);
+// C rows are keys. fp32 FMA: the kernel that uses it runs fp32 only (bf16
+// dK/dV run flash_bwd_sm90.cu).
 template <typename T>
-__device__ void mm_atb(const T* A, const T* Alo, int lda, const T* Bm, int ldb, float* C,
-                       int ldc, int DP) {
-  if constexpr (kIsBf16<T>) {
-    using namespace nvcuda;
-    const int w = threadIdx.x / 32;
-    for (int n = 0; n < DP / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      float* c = C + (16 * w) * ldc + 16 * n;
-      wmma::load_matrix_sync(acc, c, ldc, wmma::mem_row_major);
-      for (int kk = 0; kk < kB / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> a, alo;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-        wmma::load_matrix_sync(a, A + (16 * kk) * lda + 16 * w, lda);
-        wmma::load_matrix_sync(alo, Alo + (16 * kk) * lda + 16 * w, lda);
-        wmma::load_matrix_sync(bf, Bm + (16 * kk) * ldb + 16 * n, ldb);
-        wmma::mma_sync(acc, a, bf, acc);
-        wmma::mma_sync(acc, alo, bf, acc);
-      }
-      wmma::store_matrix_sync(c, acc, ldc, wmma::mem_row_major);
-    }
-  } else {
-    const int r = threadIdx.x >> 1;
-    const int c0 = (threadIdx.x & 1) * (DP / 2);
-    for (int c = c0; c < c0 + DP / 2; ++c) {
-      float acc = C[r * ldc + c];
-      for (int j = 0; j < kB; ++j) acc = fmaf(to_f32(A[j * lda + r]), to_f32(Bm[j * ldb + c]), acc);
-      C[r * ldc + c] = acc;
-    }
+__device__ void mm_atb(const T* A, int lda, const T* Bm, int ldb, float* C, int ldc, int DP) {
+  const int r = threadIdx.x >> 1;
+  const int c0 = (threadIdx.x & 1) * (DP / 2);
+  for (int c = c0; c < c0 + DP / 2; ++c) {
+    float acc = C[r * ldc + c];
+    for (int j = 0; j < kB; ++j) acc = fmaf(to_f32(A[j * lda + r]), to_f32(Bm[j * ldb + c]), acc);
+    C[r * ldc + c] = acc;
   }
 }
 
@@ -306,8 +292,10 @@ __device__ void softmax_grad(const float* S, int sld, const float* dP, int dld, 
 // One block per (64-key tile, kv head, batch): sweeps the q tiles of every q
 // head of the group, accumulating dK and dV in shared fp32; with kFusedDq it
 // also adds each tile's dQ into the fp32 buffer p.dq (the fused sweep).
+// fp32 only: bf16 runs flash_bwd_sm90.cu.
 template <typename T, bool kFusedDq>
 __global__ void __launch_bounds__(kThreads) flash_bwd_kv_kernel(Params p) {
+  static_assert(!kIsBf16<T>, "bf16 dK/dV run flash_bwd_sm90.cu");
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout<T> L(p.DP);
   T* Ks = reinterpret_cast<T*>(smem + L.x0);
@@ -355,8 +343,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kv_kernel(Params p) {
       softmax_grad<T>(Ss, L.sld, dPs, L.dld, lse_s, delta_s, kvalid, Ps, Plo, dSs, dSlo, L.pld,
                       p.scale);
       __syncthreads();
-      mm_atb<T>(Ps, Plo, L.pld, dOs, L.tld, dVa, L.ald, DP);
-      mm_atb<T>(dSs, dSlo, L.pld, Qs, L.tld, dKa, L.ald, DP);
+      mm_atb<T>(Ps, L.pld, dOs, L.tld, dVa, L.ald, DP);
+      mm_atb<T>(dSs, L.pld, Qs, L.tld, dKa, L.ald, DP);
       if constexpr (kFusedDq) {
         mm_ab<T, false>(dSs, dSlo, L.pld, Ks, L.tld, Ss, L.sld, DP);  // dQ tile into S
         __syncthreads();
@@ -460,9 +448,13 @@ int launch_typed(Which which, const Params& p, cudaStream_t stream) {
     kernel<<<grid, kThreads, L.total, stream>>>(p);
     return (int)cudaGetLastError();
   };
-  const dim3 kv_grid((p.Sk + kB - 1) / kB, p.Hkv, p.B);
-  if (which == Which::kFused) return run(flash_bwd_kv_kernel<T, true>, kv_grid);
-  if (which == Which::kDkv) return run(flash_bwd_kv_kernel<T, false>, kv_grid);
+  if constexpr (!kIsBf16<T>) {  // bf16 dK/dV and the fused sweep: flash_bwd_sm90.cu
+    const dim3 kv_grid((p.Sk + kB - 1) / kB, p.Hkv, p.B);
+    if (which == Which::kFused) return run(flash_bwd_kv_kernel<T, true>, kv_grid);
+    if (which == Which::kDkv) return run(flash_bwd_kv_kernel<T, false>, kv_grid);
+  } else if (which != Which::kDq) {
+    return (int)cudaErrorInvalidValue;
+  }
   return run(flash_bwd_dq_kernel<T>, dim3((p.Sq + kB - 1) / kB, p.Hq, p.B));
 }
 
@@ -519,10 +511,18 @@ int launch(Which which, const void* q, const void* k, const void* v, const int* 
 
 extern "C" {
 
-int lumina_flash_bwd_fused(LUMINA_FLASH_BWD_ARGS) { return LUMINA_FLASH_BWD_CALL(Which::kFused); }
+int lumina_flash_bwd_fused(LUMINA_FLASH_BWD_ARGS) {
+  if (is_bf16)
+    return flash_bwd_sm90(true, q, k, v, mask, dout, lse, delta, dq, dk, dv, meta, scale, stream);
+  return LUMINA_FLASH_BWD_CALL(Which::kFused);
+}
 
 int lumina_flash_bwd_dq(LUMINA_FLASH_BWD_ARGS) { return LUMINA_FLASH_BWD_CALL(Which::kDq); }
 
-int lumina_flash_bwd_dkv(LUMINA_FLASH_BWD_ARGS) { return LUMINA_FLASH_BWD_CALL(Which::kDkv); }
+int lumina_flash_bwd_dkv(LUMINA_FLASH_BWD_ARGS) {
+  if (is_bf16)
+    return flash_bwd_sm90(false, q, k, v, mask, dout, lse, delta, dq, dk, dv, meta, scale, stream);
+  return LUMINA_FLASH_BWD_CALL(Which::kDkv);
+}
 
 }  // extern "C"

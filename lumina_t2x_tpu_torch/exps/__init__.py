@@ -8,8 +8,9 @@ the JAX package's `exps/` (counterparts of `exps/vpu_op_reduction.py` and
 Both run on the card by default (`--device cuda`); `--device cpu` runs the
 plain versions at the same shapes (module constants), timed with the host
 clock. Beside them, `python -m lumina_t2x_tpu_torch.exps.fwd_sm90_breakdown`
-times the bf16 streaming attention forward (`csrc/flash_fwd_sm90.cu`) with
-parts taken out, on the card only.
+times the bf16 streaming attention forward (`csrc/flash_fwd_sm90.cu`) and
+`python -m lumina_t2x_tpu_torch.exps.bwd_sm90_breakdown` the bf16 backward
+(`csrc/flash_bwd_sm90.cu`) with parts taken out, on the card only.
 """
 
 from __future__ import annotations

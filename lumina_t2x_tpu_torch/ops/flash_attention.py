@@ -27,14 +27,15 @@ runs `flash_rope` or `flash_rope_q`; under autograd `_FlashAttentionRope`,
 whose backward rotates q (and k) in plain PyTorch, runs `flash_online_lse`
 and the backward kernels, and inverse-rotates dq (and dk).
 
-The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_{fwd,bwd}.cu` and,
-for bf16 `flash_online` / `flash_static_max`, `csrc/flash_fwd_sm90.cu` (the
-Hopper redesign); they are built into one library by `ops/cuda_lib.py` at
+The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_{fwd,bwd}.cu` and
+the Hopper redesigns `csrc/flash_fwd_sm90.cu` (bf16 `flash_online` /
+`flash_static_max`) and `csrc/flash_bwd_sm90.cu` (bf16 `flash_bwd_fused` /
+`flash_bwd_dkv`); they are built into one library by `ops/cuda_lib.py` at
 first use, under `build/kernels/<source hash>/` at the repository root, and
 bound through ctypes. A wrapper takes its plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises. The bf16
-streaming kernel reads q, k and v through TMA tensor maps in 16-byte chunks:
-it takes head_dim a multiple of 8 (else ValueError), and a q, k or v whose
+tensors; for CUDA tensors it launches the kernel or raises. The bf16 Hopper
+kernels read q, k, v (and dout) through TMA tensor maps in 16-byte chunks:
+they take head_dim a multiple of 8 (else ValueError), and an operand whose
 base or (b, s, h) strides are not whole chunks, or whose strides do not
 grow from h to s to b, is copied contiguous first (`_chunk_aligned`; a
 strided view such as q, k, v of a fused (B, S, 3, H, D) tensor is read in
@@ -281,13 +282,23 @@ _BWD_ARGS = [_ptr] * 10 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
 # rope: q, k, v, mask, out, cos_full, sin_signed, meta, scale, is_bf16, stream
 _ROPE_ARGS = [_ptr] * 7 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
 LIBRARY = "flash"  # the library of K1-K9 (`ops/cuda_lib.py`)
-cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu"], {
+cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
+                          "flash_bwd_sm90.cu"], {
     **{f"lumina_flash_{name}": _FWD_ARGS if name in _FWD_ENTRIES else
        _BWD_ARGS if name in _BWD_ENTRIES else _ROPE_ARGS for name in LAUNCHES},
-    # static_max, head_dim, out (int64[7]); launches nothing
-    "lumina_flash_fwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta]})
+    # static_max (fused), head_dim, out (int64[7]); launch nothing
+    "lumina_flash_fwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta],
+    "lumina_flash_bwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta]})
 _SM90_ATTRIBUTES = ("registers", "producer_registers", "consumer_registers", "local_bytes",
                     "shared_bytes", "blocks_per_sm", "threads")
+
+
+def _attributes(symbol, flag, head_dim):
+    out = (ctypes.c_longlong * len(_SM90_ATTRIBUTES))()
+    err = getattr(cuda_lib.build_library(LIBRARY), symbol)(int(flag), int(head_dim), out)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: cudaError {err}")
+    return dict(zip(_SM90_ATTRIBUTES, out))
 
 
 def sm90_attributes(static_max: bool, head_dim: int = 72) -> dict:
@@ -296,12 +307,13 @@ def sm90_attributes(static_max: bool, head_dim: int = 72) -> dict:
     (the launch bound) and per producer / consumer thread after `setmaxnreg`,
     local-memory (spill) bytes per thread, shared memory per block, resident
     blocks per SM, threads per block."""
-    out = (ctypes.c_longlong * len(_SM90_ATTRIBUTES))()
-    err = cuda_lib.build_library(LIBRARY).lumina_flash_fwd_sm90_attributes(
-        int(static_max), int(head_dim), out)
-    if err != 0:
-        raise RuntimeError(f"lumina_flash_fwd_sm90_attributes failed: cudaError {err}")
-    return dict(zip(_SM90_ATTRIBUTES, out))
+    return _attributes("lumina_flash_fwd_sm90_attributes", static_max, head_dim)
+
+
+def bwd_sm90_attributes(fused: bool, head_dim: int = 72) -> dict:
+    """`sm90_attributes` of the bf16 backward kernel (`csrc/flash_bwd_sm90.cu`):
+    the fused sweep (K6) or dK/dV only (K8)."""
+    return _attributes("lumina_flash_bwd_sm90_attributes", fused, head_dim)
 
 
 def _check_inputs(q, k, v, kv_mask):
@@ -327,13 +339,20 @@ def _check_inputs(q, k, v, kv_mask):
     return q, k, v, kv_mask
 
 
-# the entry points whose bf16 inputs take the Hopper kernel of
-# `csrc/flash_fwd_sm90.cu` (K2, K3)
+# the entry points whose bf16 inputs take the Hopper kernels of
+# `csrc/flash_fwd_sm90.cu` (K2, K3) and `csrc/flash_bwd_sm90.cu` (K6, K8)
 _SM90_ENTRIES = ("online", "static_max")
+_SM90_BWD_ENTRIES = ("bwd_fused", "bwd_dkv")
+
+
+def _sm90_head_dim(name, d):
+    if d % 8:
+        raise ValueError(f"bf16 flash_{name} takes head_dim a multiple of 8 (16-byte "
+                         f"chunks), got {d}")
 
 
 def _chunk_aligned(t):
-    """t as the bf16 streaming kernel's TMA tensor map reads it -- base and
+    """t as a bf16 Hopper kernel's TMA tensor map reads it -- base and
     (b, s, h) element strides in whole 16-byte chunks, 0 < h stride <= s
     stride <= b stride -- t itself when it is so, else a contiguous copy."""
     sb, ss, sh = t.stride()[:3]
@@ -364,9 +383,7 @@ def _launch(name, q, k, v, kv_mask, scale, bound=0.0, with_lse=False):
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     if name in _SM90_ENTRIES and q.dtype == torch.bfloat16:
-        if d % 8:
-            raise ValueError(f"bf16 flash_{name} takes head_dim a multiple of 8 (16-byte "
-                             f"chunks), got {d}")
+        _sm90_head_dim(name, d)
         q, k, v = (_chunk_aligned(t) for t in (q, k, v))
     lib = cuda_lib.build_library(LIBRARY)
     with torch.cuda.device(q.device):
@@ -445,6 +462,9 @@ def _launch_bwd(name, q, k, v, kv_mask, out, lse, dout, scale):
     with torch.cuda.device(q.device):
         dout = dout.to(q.dtype)
         dout = dout if dout.stride(-1) == 1 else dout.contiguous()
+        if name in _SM90_BWD_ENTRIES and q.dtype == torch.bfloat16:
+            _sm90_head_dim(name, d)
+            q, k, v, dout = (_chunk_aligned(t) for t in (q, k, v, dout))
         delta = _bwd_delta(out, dout)
         lse = lse.float().contiguous()
         new = lambda shape, dtype: torch.empty(shape, dtype=dtype, device=q.device)
@@ -521,8 +541,9 @@ def flash_static_max_lse(q, k, v, kv_mask=None, scale: Optional[float] = None, *
 
 def flash_bwd_fused(q, k, v, kv_mask, out, lse, dout, scale: Optional[float] = None):
     """One-sweep backward: (dq, dk, dv), dk and dv per kv head (replaces
-    `_bwd_fused_kernel`; dQ is summed with atomics in fp32, not as per-KV-block
-    partials)."""
+    `_bwd_fused_kernel`; dQ is summed in fp32 in device memory -- bulk
+    reduce-adds of whole tiles for bf16, atomics for fp32 -- not as
+    per-KV-block partials)."""
     if not q.is_cuda:
         return flash_bwd_plain(q, k, v, kv_mask, out, lse, dout, _scale(q, scale))
     dq, dk, dv = _launch_bwd("bwd_fused", q, k, v, kv_mask, out, lse, dout, _scale(q, scale))

@@ -5,9 +5,10 @@
 Builds the flagship recipe's step (NextDiT_2B_patch2, qk-norm, caption dim
 2048, 1024^2 latents, B=2, bf16 activations, fp32 grads, AdamW with its full
 fp32 state, `dots` remat, calibrated train bound) from a seed, times
-`--timed` steps on the host clock after `--warmup` steps, then runs one step
-under `torch.profiler` and prints its device time by kernel group and the 30
-costliest kernels. Needs a CUDA device and ~42 GiB of its memory.
+`--timed` steps on the host clock after `--warmup` steps (with images/s and
+the peak device memory), then runs one step under `torch.profiler` and
+prints its device time by kernel group and the 30 costliest kernels. Needs
+a CUDA device and ~42 GiB of its memory.
 """
 
 import argparse
@@ -18,7 +19,8 @@ import time
 import torch
 
 GROUPS = (  # (pattern on the kernel name, group), first match wins
-    (r"flash_bwd", "flash backward kernels (K6/K7/K8)"),
+    (r"flash_bwd_sm90", "Hopper backward (bf16 K6/K8, flash_bwd_sm90.cu)"),
+    (r"flash_bwd", "flash backward kernels (K7; fp32 K6/K8)"),
     (r"flash_fwd_sm90", "Hopper streaming forward (bf16 K2/K3, flash_fwd_sm90.cu)"),
     (r"flash_fwd", "flash forward template (K1, K4, K5, K9; fp32 K2/K3)"),
     (r"nvjet|gemm|xmma|cutlass|sm90|cublas", "cuBLAS GEMMs"),
@@ -70,6 +72,7 @@ def main(argv=None):
         state, _ = step(state, batch, 0)
         batch = next(batches)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(args.timed):
         t0 = time.perf_counter()
@@ -77,7 +80,9 @@ def main(argv=None):
         torch.cuda.synchronize()
         times.append(1000 * (time.perf_counter() - t0))
         batch = next(batches)
-    print(f"host-clock ms/step {[round(t, 1) for t in times]}")
+    print(f"host-clock ms/step {[round(t, 1) for t in times]}, "
+          f"{2000 * len(times) / sum(times):.4f} images/s (B=2), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     def one_step():
         nonlocal state

@@ -14,7 +14,8 @@ from lumina_t2x_tpu_torch.ops import flash_attention as fa
 
 
 @pytest.mark.parametrize("module,sources,symbol", [
-    (fa, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu"], "lumina_flash_rope_q"),
+    (fa, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu"],
+     "lumina_flash_rope_q"),
     (vpu, ["static_max_variants.cu"], "lumina_static_max_v4"),
     (mxu, ["mma_probe.cu"], "lumina_mma_chain"),
 ])
@@ -28,8 +29,10 @@ def test_hash_inputs_follow_local_includes():
     assert cuda_lib._inputs(["static_max_variants.cu"]) == ["static_max_variants.cu",
                                                              "warp_mma.cuh"]
     assert cuda_lib._inputs(["mma_probe.cu"]) == ["mma_probe.cu", "warp_mma.cuh"]
-    assert cuda_lib._inputs(["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu"]) == [
-        "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_fwd_sm90.cuh"]
+    assert cuda_lib._inputs(["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
+                             "flash_bwd_sm90.cu"]) == [
+        "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
+        "flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh", "sm90_common.cuh"]
 
 
 def test_an_experiment_edit_leaves_the_flash_library(tmp_path, monkeypatch):

@@ -436,7 +436,10 @@ def test_param_dtypes_match_jax_at_bf16():
 def test_profile_train_step_groups_and_needs_cuda(monkeypatch):
     from lumina_t2x_tpu_torch.pipelines import profile_train_step as prof
 
-    assert prof._group("void flash_bwd_kv_kernel<bf16, true>") == "flash backward kernels (K6/K7/K8)"
+    assert prof._group("void flash_bwd_kv_kernel<float, true>") == \
+        "flash backward kernels (K7; fp32 K6/K8)"
+    assert prof._group("void (anonymous namespace)::flash_bwd_sm90_kernel<80, 72, true>(Params)") \
+        == "Hopper backward (bf16 K6/K8, flash_bwd_sm90.cu)"
     assert prof._group("void (anonymous namespace)::flash_fwd_sm90_kernel<true, 80, 72>(Params)") \
         == "Hopper streaming forward (bf16 K2/K3, flash_fwd_sm90.cu)"
     assert prof._group("void (anonymous namespace)::flash_fwd_kernel<bf16, true, true, 0>") \
