@@ -8,7 +8,7 @@ last line:
 2. build: compiles every kernel from lumina_t2x_tpu_torch/csrc with nvcc
    (`ops/cuda_lib.py`: one library per module that owns kernels, one
    process per source, all started together) and prints the build seconds,
-   then the resources of the Hopper kernels of bf16 K2/K3
+   then the resources of the Hopper kernels of bf16 K2-K5
    (`csrc/flash_fwd_sm90.cu`) and bf16 K6/K8 (`csrc/flash_bwd_sm90.cu`):
    registers per thread (as compiled and after setmaxnreg), spill bytes,
    shared memory per block, blocks per SM;
@@ -16,7 +16,7 @@ last line:
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
    kernel; the LSE forward and the backward kernels also at the training
    cross-attention's Sk=32), bf16 and fp32, GQA, masked tails and a fully masked row, with
-   kernel and plain times (CUDA events, median after a warm-up), the
+   kernel and plain times at each shape (CUDA events, median after a warm-up), the
    least time the card could take (`bound_ms`: bytes over 3.35 TB/s or
    operations over 989 TFLOP/s bf16, whichever is longer) and the time of
    one library call on the same inputs (`scaled_dot_product_attention` for
@@ -24,9 +24,11 @@ last line:
    autograd backward for K6-K8; K6 and K8 also timed at Sk=32, where the
    training cross-attention launches them); then the fused-RoPE kernels
    (K9: `rope` at Sq=Sk=4096, `rope_q` at Sk=32 and 256 with the 2B's 1024^2 angles)
-   against their plain versions, against the online forward of their own
-   template (`flash_online_lse(...)[0]`) on `apply_rope`d inputs (equal up
-   to one bf16 ulp; timed beside K2 on those inputs), and their gradient
+   against their plain versions, on `apply_rope`d inputs against the online
+   forward of their own template (`flash_small_kv`, K1's entry point: equal
+   up to one ulp) and against `flash_online_lse(...)[0]` (fp32: the same
+   template; bf16: the Hopper K4, within the bf16 bar), timed beside K2 on
+   those inputs, and their gradient
    (`_FlashAttentionRope` through
    the kernels against the plain Function);
 3b. experiments: the static-max variants (K10: `static_max_v0..v3`; K11:
@@ -45,14 +47,15 @@ last line:
    caption dim 2048, bf16, zero-init tensors randomised) at 1024^2 with 256
    caption tokens, through the kernels and through the plain versions;
 5. the sampler: a 30-point midpoint trajectory (CFG 4, time-shift 4) of the
-   same model through `sample_lib` with calibration, timed; then the
+   same model through `sample_lib` with calibration, both timed; then the
    `lumina` CLI's `infer` (2B, 1024^2, the repo's settings, --debug: no
    qk-norm, so no calibration, as in the JAX CLI);
 5b. serving: `build_worker` (2B, bf16, --debug, zero-init tensors
    randomised) behind `make_server` on port 0, driven with urllib:
    /api/health, one /api/generate at the defaults (1024^2, 30 steps,
    midpoint, CFG 4, t-shift 4; the main path of K1-K4, with calibration
-   and K3), then under LUMINA_FUSE_ROPE=1 one 1024^2 and one 512x2048
+   and K3; the calibration's seconds printed for each request that builds
+   a sampler), then under LUMINA_FUSE_ROPE=1 one 1024^2 and one 512x2048
    request at 10 steps (the main path of K9: no K1-K4), and the 1024^2
    10-step request again unfused (a setting of its own: calibrated, K3),
    whose preview must agree with the fused one;
@@ -62,7 +65,9 @@ last line:
    distance from the plain versions (the bf16 floor);
 7. recipe: 3 timed train steps of the flagship recipe (2B, 1024^2 latents,
    B=2, bf16, AdamW with its full fp32 state, dots remat, calibrated train
-   bound) through `pipelines/train_lib`, with peak memory;
+   bound) through `pipelines/train_lib`, with images/s and peak memory,
+   then one step under `torch.profiler` (device time by kernel group: the
+   first forward template's share, `csrc/flash_fwd.cu`);
 8. trainer: the trainer CLI (`pipelines.train.main`, 2B at full width and
    depth, 1024^2 latents, B=2, bf16, --checkpointing, --flash_static_max
    auto, bf16 Adafactor so that two checkpoints fit the machine's disk-write
@@ -93,7 +98,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd.cu"
-SM90_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_sm90.cu"  # bf16 K2 and K3
+SM90_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_sm90.cu"  # bf16 K2-K5
 BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd.cu"  # K7; fp32 K6/K8
 SM90_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_sm90.cu"  # bf16 K6 and K8
 VPU_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_variants.cu"
@@ -104,8 +109,8 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "small_kv": (FWD_SOURCE, f"{TPU_KERNELS}:240"),        # _flash_small_kv_kernel
     "online": (SM90_SOURCE, f"{TPU_KERNELS}:228"),         # _flash_kernel_fused_sum
     "static_max": (SM90_SOURCE, f"{TPU_KERNELS}:66"),      # _flash_kernel_static_max
-    "online_lse": (FWD_SOURCE, f"{TPU_KERNELS}:430"),      # _flash_kernel_res
-    "static_max_lse": (FWD_SOURCE, f"{TPU_KERNELS}:446"),  # _flash_kernel_res_static_max
+    "online_lse": (SM90_SOURCE, f"{TPU_KERNELS}:430"),     # _flash_kernel_res
+    "static_max_lse": (SM90_SOURCE, f"{TPU_KERNELS}:446"),  # _flash_kernel_res_static_max
     "bwd_fused": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),  # _bwd_fused_kernel
     "bwd_dq": (BWD_SOURCE, f"{TPU_KERNELS}:552"),          # _bwd_dq_kernel
     "bwd_dkv": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),    # _bwd_dkv_kernel
@@ -269,10 +274,11 @@ def build_phase():
     phase("build", f"{time.perf_counter() - t0:.2f} s: " + "; ".join(
         f"{name} {'compiled with nvcc' if info['compiled'] else 'already built, loaded'} "
         f"({info['path']})" for name, info in cuda_lib.BUILD_INFO.items()))
-    # the Hopper kernels of bf16 K2/K3 and K6/K8: their resources from the CUDA runtime
+    # the Hopper kernels of bf16 K2-K5 and K6/K8: their resources from the CUDA
+    # runtime (K4/K5 are K2/K3's instantiations with an LSE pointer)
     for source, entry, info in (
-            (SM90_SOURCE, "online", flash_attention.sm90_attributes(False, D)),
-            (SM90_SOURCE, "static_max", flash_attention.sm90_attributes(True, D)),
+            (SM90_SOURCE, "online, online_lse", flash_attention.sm90_attributes(False, D)),
+            (SM90_SOURCE, "static_max, static_max_lse", flash_attention.sm90_attributes(True, D)),
             (SM90_BWD_SOURCE, "bwd_fused", flash_attention.bwd_sm90_attributes(True, D)),
             (SM90_BWD_SOURCE, "bwd_dkv", flash_attention.bwd_sm90_attributes(False, D))):
         phase("build", f"{source} ({entry}, head_dim {D}): {info['registers']} registers per "
@@ -296,14 +302,13 @@ CASES = [("bf16", torch.bfloat16, H, "none"), ("fp32", torch.float32, H, "tail")
 def kernel_phase(fa):
     g = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    # (entry, Sk); the first case of an entry is the timed one. online_lse also
+    # (entry, Sk); the first case of each is the timed one. online_lse also
     # runs the training cross-attention: one partial 64-key tile at Sk=32
     for entry, sk in (("small_kv", CAP), ("online", S), ("static_max", S), ("online_lse", S),
                       ("online_lse", TRAIN_CAP), ("static_max_lse", S)):
         kernel = getattr(fa, f"flash_{entry}")
         plain = getattr(fa, f"flash_{entry}_plain")
-        prev = results.get(entry, {"max_abs_err": 0.0, "ms": None, "plain_ms": None})
-        worst, ms, plain_ms = prev["max_abs_err"], prev["ms"], prev["plain_ms"]
+        worst, timed = results.get(entry, {}).get("max_abs_err", 0.0), None
         for label, dtype, hkv, mask_kind in CASES:
             q = _rand(g, B, S, H, D, dtype=dtype)
             k = _rand(g, B, sk, hkv, D, dtype=dtype)
@@ -340,31 +345,35 @@ def kernel_phase(fa):
                 require(torch.count_nonzero(got[1]).item() == 0, f"{entry}: masked row not 0")
             worst = max(worst, max_err)
             line = f"{entry} {label} (Sk={sk}): max abs err {max_err:.3g} mean {mean_err:.3g}"
-            if ms is None:
-                ms = time_ms(lambda: kernel(q, k, v, mask, scale, **kw))
-                plain_ms = time_ms(lambda: plain(q, k, v, mask, scale, *kw.values()))
-                out_bytes = _nbytes(got)
+            if entry.endswith("_lse"):
+                line += f", LSE {lse_err:.3g}"
+            if timed is None:
+                timed = {"ms": time_ms(lambda: kernel(q, k, v, mask, scale, **kw)),
+                         "plain_ms": time_ms(lambda: plain(q, k, v, mask, scale, *kw.values()))}
                 lse_bytes = B * H * S * 4 if entry.endswith("_lse") else 0
-                extra = least_time(_nbytes(q, k, v, mask) + out_bytes + lse_bytes,
-                              attention_ops(q, k, 2), dtype)
+                timed.update(least_time(_nbytes(q, k, v, mask, got) + lse_bytes,
+                                        attention_ops(q, k, 2), dtype))
                 if entry.endswith("_lse"):
-                    extra.update(library_forward_lse(q, k, v, mask, scale))
-                    lib_lse = extra.pop("library_lse")
+                    timed.update(library_forward_lse(q, k, v, mask, scale))
+                    lib_lse = timed.pop("library_lse")
                     line += ("; library LSE vs plain max diff "
                              + (f"{(lib_lse[fin] - ref_lse[fin]).abs().max().item():.3g}"
                                 if lib_lse.shape == ref_lse.shape
                                 else f"not compared (shape {tuple(lib_lse.shape)})"))
                 else:
-                    extra.update(library_forward(q, k, v, mask, scale))
-                line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                         f"{extra['bound_ms']:.4f} ms ({extra['bound_by']}), library "
-                         f"{extra['library_ms']:.3f} ms ({extra['library_kernel']})")
+                    timed.update(library_forward(q, k, v, mask, scale))
+                line += (f"; kernel {timed['ms']:.3f} ms, plain {timed['plain_ms']:.3f} ms, bound "
+                         f"{timed['bound_ms']:.4f} ms ({timed['bound_by']}), library "
+                         f"{timed['library_ms']:.3f} ms ({timed['library_kernel']})")
             phase("kernels", line)
             del q, k, v, got, ref
-        results[entry] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                          **(extra if entry not in results else
-                             {key: results[entry][key] for key in
-                              ("bound_ms", "bound_by", "library_ms", "library_kernel")})}
+        # a second shape of an entry is printed above; the kernels line keeps the first's times
+        results[entry] = {**timed, **results.get(entry, {}), "max_abs_err": worst}
+    # K4/K5 run K2/K3's kernel with the LSE written in its epilogue
+    phase("kernels", "bf16 LSE forwards against the same kernel without the LSE, this run: "
+          + ", ".join(f"{lse} / {base} {results[lse]['ms'] / results[base]['ms']:.3f}x"
+                      for lse, base in (("online_lse", "online"),
+                                        ("static_max_lse", "static_max"))))
     return results
 
 
@@ -466,10 +475,12 @@ def rope_angles_2b():
 
 def rope_kernel_phase(fa):
     """K9 (`flash_rope`, `flash_rope_q`) against its plain version (the
-    rotation in the operand dtype, then the fp32 softmax), against
-    `flash_online_lse(...)[0]` (flash_fwd.cu's online forward, which K9's
-    template shares) on `apply_rope`d inputs, timed beside K2 on them, and
-    `_FlashAttentionRope`'s gradient through the
+    rotation in the operand dtype, then the fp32 softmax), on `apply_rope`d
+    inputs against flash_fwd.cu's online forward, which K9's template shares
+    (`flash_small_kv`, any Sk: equal up to one ulp) and against
+    `flash_online_lse(...)[0]` (fp32: that template; bf16: the Hopper K4,
+    another reduction order, so within the bf16 bar), timed beside K2 on
+    them, and `_FlashAttentionRope`'s gradient through the
     kernels against the plain Function. The bf16 forward bar is 1e-2 of
     max(1, max|ref|): the absolute 1e-2 where outputs stay below 1 (every
     Sk=4096 case), one bf16 output rounding above it (Sk=32 outputs reach
@@ -498,9 +509,10 @@ def rope_kernel_phase(fa):
             q_rot = apply_rope(q, angles)
             k_rot = apply_rope(k, angles) if entry == "rope" else k
             ref = fa.flash_online_plain(q_rot.float(), k_rot.float(), v.float(), mask, scale)
-            # K9 shares flash_fwd.cu's template with the LSE forward, whose output
-            # is the online forward of that template (bf16 K2 runs flash_fwd_sm90.cu)
-            k2 = fa.flash_online_lse(q_rot, k_rot, v, mask, scale)[0]
+            # K9 shares flash_fwd.cu's online template with K1's entry point (and
+            # with fp32 K4); bf16 K4 runs flash_fwd_sm90.cu
+            tmpl = fa.flash_small_kv(q_rot, k_rot, v, mask, scale)
+            k4 = fa.flash_online_lse(q_rot, k_rot, v, mask, scale)[0]
             torch.cuda.synchronize()
             err = (got.float() - ref).abs()
             max_err, mean_err = err.max().item(), err.mean().item()
@@ -512,15 +524,20 @@ def rope_kernel_phase(fa):
                 require(mean_err <= BF16_MEAN, f"{entry} {label}: mean abs err {mean_err}")
             if mask_kind == "row":
                 require(torch.count_nonzero(got[1]).item() == 0, f"{entry}: masked row not 0")
-            k2_diff = (got.float() - k2.float()).abs().max().item()
-            ulp = 2.0 ** (-7 if dtype == torch.bfloat16 else -23) * k2.float().abs().max().item()
-            require(k2_diff <= ulp, f"{entry} {label}: {k2_diff} from the template's online "
+            tmpl_diff = (got.float() - tmpl.float()).abs().max().item()
+            ulp = 2.0 ** (-7 if dtype == torch.bfloat16 else -23) * tmpl.float().abs().max().item()
+            require(tmpl_diff <= ulp, f"{entry} {label}: {tmpl_diff} from the template's online "
                     f"forward on rotated inputs")
+            k4_diff = (got.float() - k4.float()).abs().max().item()
+            k4_bar = ulp if dtype == torch.float32 else BF16_MAX * top
+            require(k4_diff <= k4_bar, f"{entry} {label}: {k4_diff} from flash_online_lse(...)[0] "
+                    f"on rotated inputs (bar {k4_bar})")
             worst = max(worst, max_err)
             line = (f"{entry} {label} (Sk={sk}): max abs err {max_err:.3g} (bar {bar:.3g}) mean "
-                    f"{mean_err:.3g}; vs flash_online_lse(...)[0] on apply_rope'd inputs max diff "
-                    f"{k2_diff:.3g}"
-                    f"{' (equal)' if torch.equal(got, k2) else ''}")
+                    f"{mean_err:.3g}; on apply_rope'd inputs, vs the template's online forward "
+                    f"(flash_small_kv) max diff {tmpl_diff:.3g}"
+                    f"{' (equal)' if torch.equal(got, tmpl) else ''}, vs flash_online_lse(...)[0] "
+                    f"{k4_diff:.3g} (bar {k4_bar:.3g})")
             if prev["ms"] is None and "ms" not in results.get(entry, {}):
                 ms = time_ms(lambda: kernel(q, k, v, angles, mask, scale))
                 plain_ms = time_ms(lambda: getattr(fa, f"flash_{entry}_plain")(
@@ -537,7 +554,7 @@ def rope_kernel_phase(fa):
                          f"{k2_ms:.3f} ms, bound {extra['bound_ms']:.4f} ms ({extra['bound_by']}), "
                          f"library none")
             phase("kernels", line)
-            del q, k, v, got, ref, k2, q_rot, k_rot
+            del q, k, v, got, ref, tmpl, k4, q_rot, k_rot
         results[entry]["max_abs_err"] = worst
     torch.cuda.empty_cache()
 
@@ -747,9 +764,15 @@ def slice_phase(fa, model, cap, cap_mask):
 
     kw = dict(width=1024, height=1024, cfg_scale=4.0, time_shifting_factor=4.0)
     g = torch.Generator(device="cuda").manual_seed(3)
+    before = fa.LAUNCHES["online_lse"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     bound = autocalibrate_flash_static_max(model, cap, cap_mask, generator=g, **kw)
+    torch.cuda.synchronize()
+    calib = time.perf_counter() - t0
     require(bound is not None and math.isfinite(bound), "calibration declined at 2B")
-    phase("slice", f"flash static-max calibrated: {bound:.4f}")
+    phase("slice", f"flash static-max calibrated: {bound:.4f} in {calib:.3f} s "
+          f"({fa.LAUNCHES['online_lse'] - before} K4 calls)")
     sample_fn = build_t2i_sample_fn(model, num_steps=30, solver="midpoint", static_max=bound, **kw)
     z = torch.randn(1, 4, 128, 128, generator=g, device="cuda")
     torch.cuda.synchronize()  # the forward phase and the probe warmed up every path
@@ -825,6 +848,7 @@ def _png_pixels(png):
 def serving_phase(fa):
     """The 2B served over HTTP on the card: returns the launch counts of its
     main paths (K1-K4 from the default request, K9 from the fused ones)."""
+    from lumina_t2x_tpu_torch.pipelines import sample_lib
     from lumina_t2x_tpu_torch.pipelines.demo import build_worker
     from lumina_t2x_tpu_torch.pipelines.serve import DemoApp, make_server
 
@@ -838,8 +862,21 @@ def serving_phase(fa):
     phase("serve", f"build_worker NextDiT_2B_patch2 bf16 --debug ({n} zero-init tensors "
           f"randomised) and server up in {time.perf_counter() - t0:.1f} s at {url}")
 
+    # the worker calibrates each new setting (`demo.InferenceWorker._build_sampler`
+    # looks the probe up at call time): its seconds, timed around it here
+    calibrations, probe = [], sample_lib.autocalibrate_flash_static_max
+
+    def timed_probe(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bound = probe(*args, **kwargs)
+        torch.cuda.synchronize()
+        calibrations.append(time.perf_counter() - t0)
+        return bound
+
     def post(body):
         fa.reset_launch_counts()
+        calibrations.clear()
         req = urllib.request.Request(url + "/api/generate", data=json.dumps(body).encode(),
                                      headers={"Content-Type": "application/json"})
         t0 = time.perf_counter()
@@ -853,11 +890,14 @@ def serving_phase(fa):
         w, h = (int(x) for x in body.get("resolution", "1024x1024").split("x"))
         require(pixels.shape == (h // 8, w // 8, 3), f"preview shape {pixels.shape}")
         require(plain_calls == 0, f"{body}: plain versions ran {plain_calls} times on CUDA")
+        calib = (f"calibration {calibrations[0]:.3f} s" if calibrations
+                 else "no calibration (a cached setting)")
         phase("serve", f"POST /api/generate {body}: {secs:.2f} s (server-side "
-              f"{payload['metadata']['elapsed_s']} s), PNG {w // 8}x{h // 8}; launches "
+              f"{payload['metadata']['elapsed_s']} s; {calib}), PNG {w // 8}x{h // 8}; launches "
               f"{ {k: v for k, v in launches.items() if v} }; plain-version CUDA calls {plain_calls}")
         return launches, pixels
 
+    sample_lib.autocalibrate_flash_static_max = timed_probe
     try:
         with urllib.request.urlopen(url + "/api/health", timeout=60) as resp:
             health = json.loads(resp.read())
@@ -889,6 +929,7 @@ def serving_phase(fa):
         # the 2B forward's bf16 bar (2e-2 relative) over the preview's range
         require(diff.mean() <= 2e-2 * 255, f"fused and unfused previews differ: {diff.mean()}")
     finally:
+        sample_lib.autocalibrate_flash_static_max = probe
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
@@ -977,6 +1018,7 @@ def recipe_phase(fa):
     bound) through the trainer's building blocks, 3 steps, timed. It saves
     no checkpoint: one is 29.6 GiB, and the trainer CLI legs below need two."""
     from lumina_t2x_tpu_torch.models import get_model
+    from lumina_t2x_tpu_torch.pipelines import profile_train_step as prof
     from lumina_t2x_tpu_torch.pipelines import train as train_cli
     from lumina_t2x_tpu_torch.pipelines import train_lib
     from lumina_t2x_tpu_torch.transport import create_transport
@@ -1008,6 +1050,14 @@ def recipe_phase(fa):
         batch = next(batches)
     launches = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    held = [state]
+
+    def one_step():
+        held[0], _ = step_fn(held[0], batch, 0)
+
+    shares = prof.report(one_step, "recipe step (4th)")
+    template, hopper = (dict(prof.GROUPS)[pat] for pat in ("flash_fwd", "flash_fwd_sm90"))
+    state = held[0]
     phase("recipe", f"NextDiT_2B_patch2 ({sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
           f"params), AdamW fp32 state, 1024^2 latents, B={B}, bf16, fp32 grads, dots remat, "
           f"train bound {bound:.4f}: losses {[round(m['loss'], 5) for m in metrics]}, grad norms "
@@ -1015,13 +1065,15 @@ def recipe_phase(fa):
           f"{', '.join(f'{x:.1f}' for x in ms)} ms/step, "
           f"{B / (statistics.mean(ms[1:]) / 1000):.4f} images/s (steps 2-3); peak memory "
           f"{peak:.2f} GiB; launches {launches}; plain-version CUDA calls "
-          f"{fa.PLAIN_CUDA_CALLS['count']}")
+          f"{fa.PLAIN_CUDA_CALLS['count']}; profiled 4th step: {template} "
+          f"{100 * shares.get(template, 0.0):.1f}%, {hopper} {100 * shares.get(hopper, 0.0):.1f}% "
+          f"of the device time")
     require(all(math.isfinite(m["loss"]) and not m["skipped"] for m in metrics),
             "recipe steps not finite")
     for name in ("online_lse", "static_max_lse", "bwd_fused"):
         require(launches[name] > 0, f"kernel {name} was not launched by the recipe step")
     require(fa.PLAIN_CUDA_CALLS["count"] == 0, "plain versions ran on CUDA")
-    del model, state, step_fn, optimizer, batch, batches
+    del model, state, held, one_step, step_fn, optimizer, batch, batches
     fa.set_flash_static_max_train(None)
     torch.cuda.empty_cache()
     return {"ms": ms, "peak": peak}

@@ -9,18 +9,21 @@
 //   lumina_flash_static_max_lse <- _flash_kernel_res_static_max (_flash_fwd_res_impl, static_max=bound)
 //   lumina_flash_rope       <- _flash_rope_kernel       (_flash_rope_fwd_impl, rotate_k=True)
 //   lumina_flash_rope_q     <- _flash_rope_q_kernel     (_flash_rope_fwd_impl, rotate_k=False)
-// One templated kernel (kStaticMax, kEmitLse, kRope) stands in for all seven;
-// each entry point is a distinct C function so the Python wrapper can count
-// its launches. For bf16 inputs lumina_flash_online and
-// lumina_flash_static_max launch the Hopper kernel of flash_fwd_sm90.cu
-// instead (registers, exp2, a K/V ring); their fp32 path stays here.
+// Each entry point is a distinct C function so the Python wrapper can count
+// its launches. For bf16 inputs lumina_flash_online, lumina_flash_static_max,
+// lumina_flash_online_lse and lumina_flash_static_max_lse launch the Hopper
+// kernel of flash_fwd_sm90.cu (registers, exp2, a K/V ring; the LSE written
+// from the consumers' registers). One templated kernel here (kStaticMax,
+// kEmitLse, kRope) runs the rest: all seven entry points for fp32, and
+// lumina_flash_small_kv and the two rope entry points for bf16 (the only
+// bf16 instantiations it has).
 //
 // What it computes (the Pallas kernels' math, not their TPU mechanics):
 //   s   = scale * q . k            over valid keys (kv_mask != 0, j < Sk)
 //   p   = exp(s - m)               online running max m, with rescale, or
 //   p   = exp(min(s - bound, 55))  with a fixed bound (kStaticMax)
 //   out = sum_j p v_j / sum_j p    fp32 accumulation, output in q's dtype
-//   lse = m + log(l) | bound + log(l)   (kEmitLse; plain (B, Hq, Sq) fp32)
+//   lse = m + log(l) | bound + log(l)   (kEmitLse, fp32 only; plain (B, Hq, Sq) fp32)
 // A query row whose keys are all masked outputs 0 and has lse = -inf.
 //
 // Fused RoPE (kRope, the two rope entry points; online softmax, no LSE): q and
@@ -62,7 +65,7 @@
 // product (S, P and the O accumulator live in shared memory so the per-row
 // softmax can run on plain threads). flash_fwd_sm90.cu is the redesign
 // (wgmma with register accumulators, a TMA ring, warp specialisation) that
-// bf16 K2 and K3 run; the other entry points are to follow it.
+// bf16 K2-K5 run; K1 and K9 are to follow it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -439,7 +442,13 @@ int launch(const void* q, const void* k, const void* v, const int* mask, void* o
     return (int)cudaErrorInvalidValue;
   if (p.Sq == 0 || p.B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_typed<__nv_bfloat16, kStaticMax, kEmitLse, kRope>(p, s);
+  // bf16 takes this template only for K1 and K9 (online, no LSE); bf16 K2-K5
+  // go to flash_fwd_sm90.cu before reaching here
+  if constexpr (!kStaticMax && !kEmitLse) {
+    if (is_bf16) return launch_typed<__nv_bfloat16, false, false, kRope>(p, s);
+  } else {
+    if (is_bf16) return (int)cudaErrorInvalidValue;
+  }
   return launch_typed<float, kStaticMax, kEmitLse, kRope>(p, s);
 }
 
@@ -470,20 +479,22 @@ int lumina_flash_small_kv(LUMINA_FLASH_ARGS) {
 }
 
 int lumina_flash_online(LUMINA_FLASH_ARGS) {
-  if (is_bf16) return flash_fwd_sm90(false, q, k, v, mask, out, meta, scale, 0.f, stream);
+  if (is_bf16) return flash_fwd_sm90(false, q, k, v, mask, out, nullptr, meta, scale, 0.f, stream);
   return launch<false, false>(q, k, v, mask, out, nullptr, meta, scale, 0.f, is_bf16, stream);
 }
 
 int lumina_flash_static_max(LUMINA_FLASH_ARGS) {
-  if (is_bf16) return flash_fwd_sm90(true, q, k, v, mask, out, meta, scale, bound, stream);
+  if (is_bf16) return flash_fwd_sm90(true, q, k, v, mask, out, nullptr, meta, scale, bound, stream);
   return launch<true, false>(q, k, v, mask, out, nullptr, meta, scale, bound, is_bf16, stream);
 }
 
 int lumina_flash_online_lse(LUMINA_FLASH_ARGS) {
+  if (is_bf16) return flash_fwd_sm90(false, q, k, v, mask, out, lse, meta, scale, 0.f, stream);
   return launch<false, true>(q, k, v, mask, out, lse, meta, scale, 0.f, is_bf16, stream);
 }
 
 int lumina_flash_static_max_lse(LUMINA_FLASH_ARGS) {
+  if (is_bf16) return flash_fwd_sm90(true, q, k, v, mask, out, lse, meta, scale, bound, stream);
   return launch<true, true>(q, k, v, mask, out, lse, meta, scale, bound, is_bf16, stream);
 }
 

@@ -1,23 +1,33 @@
 // bf16 streaming attention forward for Hopper (sm_90a), hand-written CUDA C++:
 // wgmma warpgroups fed by a producer warp through an asynchronous K/V ring.
 // Replaces the Pallas TPU kernels of lumina_t2x_tpu/ops/flash_attention.py
-//   online     <- _flash_kernel_fused_sum (+ _fused_sum_step), static_max=None
-//   static max <- _flash_kernel_static_max,                     static_max=bound
-// for bf16 inputs; the C entry points lumina_flash_online and
-// lumina_flash_static_max stay in flash_fwd.cu (launch counters "online" and
-// "static_max"), which calls flash_fwd_sm90() for bf16 and keeps its own
-// template for fp32.
+//   online         <- _flash_kernel_fused_sum (+ _fused_sum_step), static_max=None
+//   static max     <- _flash_kernel_static_max,                     static_max=bound
+//   online + LSE   <- _flash_kernel_res,                            static_max=None
+//   static + LSE   <- _flash_kernel_res_static_max,                 static_max=bound
+// for bf16 inputs; the C entry points lumina_flash_online,
+// lumina_flash_static_max, lumina_flash_online_lse and
+// lumina_flash_static_max_lse stay in flash_fwd.cu (launch counters "online",
+// "static_max", "online_lse", "static_max_lse"), which calls flash_fwd_sm90()
+// for bf16 and keeps its own template for fp32.
 //
 // What it computes, per (batch, q head h, query row), with s = q . k over the
 // valid keys of kv head h / (Hq / Hkv) (kv_mask != 0, j < Sk):
 //   online      p = exp(s*scale - m), m the running row max, with rescale
 //   static max  p = exp(min(s*scale - bound, 55))
-//   out = sum_j p v_j / sum_j p (fp32), 0 for a row without a valid key.
+//   out = sum_j p v_j / sum_j p (fp32), 0 for a row without a valid key;
+//   with an lse pointer, also the row's log-sum-exp (B, Hq, Sq) fp32:
+//   lse = ln2 * (m2 + log2 l), m2 the running max (online) or bound*log2(e)
+//   (static max), in log2 units: the static max's bound + ln l
+//   and -inf where l = 0 (a row without a valid key). The lse pointer is a
+//   runtime test in the epilogue, not a template flag: the main loop is the
+//   same, and one store per row costs nothing beside it.
 // Both run in the exp2 domain: the host folds scale*log2(e), bound*log2(e)
 // and 55*log2(e), so each logit costs one FMA (or FMUL), a min and one
 // MUFU.EX2. What the Pallas kernels do for the TPU is not carried over: the
 // ones column appended to v for the denominator (the row sums here are the
-// fp32 p in registers) and the nk+1-step grid.
+// fp32 p in registers), the nk+1-step grid, and the LSE's 1e-30 clamp and
+// lane-replicated (..., 128) layout.
 //
 // Design. One block of four warpgroups per (192 query rows, q head,
 // batch). Warpgroup 0 is the producer: one thread loads the block's Q tile,
@@ -70,7 +80,9 @@
 // and the 1.07e9 exp take 0.275 ms on the special-function units. K and V
 // are re-read by each of the 22 q tiles of a head: 1.6 GB per call from L2.
 // The consumers' instruction issue (the chain, the pair's packing) sets the
-// pace (`exps/fwd_sm90_breakdown.py` times the parts).
+// pace (`exps/fwd_sm90_breakdown.py` times the parts). The LSE adds one
+// log2f and one 4-byte store per row (1 MB at that shape), after the
+// last product.
 
 #include <math.h>
 #include <stdint.h>
@@ -89,6 +101,7 @@ constexpr int kThreads = 128 * (1 + kConsumers);   // producer warpgroup + consu
 constexpr int kProducerRegs = 24, kConsumerRegs = 160;
 constexpr int kBarFirst = 1;                       // named barrier kBarFirst + c: consumer c's turn
 constexpr float kClamp = 55.f;  // exponent clamp of the static-max kernel (nats)
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const bf16* q;
@@ -96,6 +109,7 @@ struct Params {
   const bf16* v;
   const int* mask;  // (B, Sk) int32 or null
   bf16* out;
+  float* lse;       // (B, Hq, Sq) fp32 contiguous, or null (no LSE)
   int B, Sq, Sk, Hq, Hkv, D;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -377,6 +391,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + c * kRows + 16 * warp + lane / 4 + 8 * r;
       if (row >= p.Sq) continue;
+      // l and m are the same on the row's quad: its first lane writes the LSE,
+      // whose base is the running max or the bound, both in log2 units
+      if (p.lse != nullptr && lane % 4 == 0)
+        p.lse[((long long)b * p.Hq + h) * p.Sq + row] =
+            l[r] > 0.f ? kLn2 * ((kStaticMax ? p.bound2 : m[r]) + log2f(l[r])) : -INFINITY;
       const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
       bf16* out = p.out + b * p.o_sb + (long long)row * p.o_ss + h * p.o_sh;
 #pragma unroll
@@ -440,13 +459,15 @@ int attributes_dims(long long* out) {
 }  // namespace
 
 int flash_fwd_sm90(bool static_max, const void* q, const void* k, const void* v, const int* mask,
-                   void* out, const long long* meta, float scale, float bound, void* stream) {
+                   void* out, float* lse, const long long* meta, float scale, float bound,
+                   void* stream) {
   Params p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
   p.mask = mask;
   p.out = static_cast<bf16*>(out);
+  p.lse = lse;
   p.B = (int)meta[0];
   p.Sq = (int)meta[1];
   p.Sk = (int)meta[2];

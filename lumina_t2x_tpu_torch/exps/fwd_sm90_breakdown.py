@@ -68,12 +68,12 @@ _EDITS = {
                       (_LOOP_PACK, "")],
     "P once": [(_LO_PRODUCT, ""), (_LO_PACK, "")],
 }
-# each variant exports the launcher under a C name
+# each variant exports the launcher under a C name (K2/K3: no LSE)
 _ENTRY = """
 extern "C" int breakdown_fwd(int static_max, const void* q, const void* k, const void* v,
                              const int* mask, void* out, const long long* meta, float scale,
                              float bound, void* stream) {
-  return flash_fwd_sm90(static_max != 0, q, k, v, mask, out, meta, scale, bound, stream);
+  return flash_fwd_sm90(static_max != 0, q, k, v, mask, out, nullptr, meta, scale, bound, stream);
 }
 """
 

@@ -28,11 +28,12 @@ whose backward rotates q (and k) in plain PyTorch, runs `flash_online_lse`
 and the backward kernels, and inverse-rotates dq (and dk).
 
 The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_{fwd,bwd}.cu` and
-the Hopper redesigns `csrc/flash_fwd_sm90.cu` (bf16 `flash_online` /
-`flash_static_max`) and `csrc/flash_bwd_sm90.cu` (bf16 `flash_bwd_fused` /
-`flash_bwd_dkv`); they are built into one library by `ops/cuda_lib.py` at
-first use, under `build/kernels/<source hash>/` at the repository root, and
-bound through ctypes. A wrapper takes its plain version only for CPU
+the Hopper redesigns `csrc/flash_fwd_sm90.cu` (bf16 `flash_online`,
+`flash_static_max`, `flash_online_lse`, `flash_static_max_lse`; the LSE
+written from the consumers' registers) and `csrc/flash_bwd_sm90.cu` (bf16
+`flash_bwd_fused` / `flash_bwd_dkv`); they are built into one library by
+`ops/cuda_lib.py` at first use, under `build/kernels/<source hash>/` at the
+repository root, and bound through ctypes. A wrapper takes its plain version only for CPU
 tensors; for CUDA tensors it launches the kernel or raises. The bf16 Hopper
 kernels read q, k, v (and dout) through TMA tensor maps in 16-byte chunks:
 they take head_dim a multiple of 8 (else ValueError), and an operand whose
@@ -302,11 +303,12 @@ def _attributes(symbol, flag, head_dim):
 
 
 def sm90_attributes(static_max: bool, head_dim: int = 72) -> dict:
-    """Resources of the compiled bf16 streaming kernel (`csrc/flash_fwd_sm90.cu`)
-    at `head_dim`, from the CUDA runtime: registers per thread as compiled
-    (the launch bound) and per producer / consumer thread after `setmaxnreg`,
-    local-memory (spill) bytes per thread, shared memory per block, resident
-    blocks per SM, threads per block."""
+    """Resources of the compiled bf16 streaming kernel (`csrc/flash_fwd_sm90.cu`;
+    with or without the LSE, one instantiation) at `head_dim`, from the CUDA
+    runtime: registers per thread as compiled (the launch bound) and per
+    producer / consumer thread after `setmaxnreg`, local-memory (spill) bytes
+    per thread, shared memory per block, resident blocks per SM, threads per
+    block."""
     return _attributes("lumina_flash_fwd_sm90_attributes", static_max, head_dim)
 
 
@@ -340,8 +342,8 @@ def _check_inputs(q, k, v, kv_mask):
 
 
 # the entry points whose bf16 inputs take the Hopper kernels of
-# `csrc/flash_fwd_sm90.cu` (K2, K3) and `csrc/flash_bwd_sm90.cu` (K6, K8)
-_SM90_ENTRIES = ("online", "static_max")
+# `csrc/flash_fwd_sm90.cu` (K2-K5) and `csrc/flash_bwd_sm90.cu` (K6, K8)
+_SM90_ENTRIES = ("online", "static_max", "online_lse", "static_max_lse")
 _SM90_BWD_ENTRIES = ("bwd_fused", "bwd_dkv")
 
 

@@ -21,8 +21,8 @@ import torch
 GROUPS = (  # (pattern on the kernel name, group), first match wins
     (r"flash_bwd_sm90", "Hopper backward (bf16 K6/K8, flash_bwd_sm90.cu)"),
     (r"flash_bwd", "flash backward kernels (K7; fp32 K6/K8)"),
-    (r"flash_fwd_sm90", "Hopper streaming forward (bf16 K2/K3, flash_fwd_sm90.cu)"),
-    (r"flash_fwd", "flash forward template (K1, K4, K5, K9; fp32 K2/K3)"),
+    (r"flash_fwd_sm90", "Hopper streaming forward (bf16 K2-K5, flash_fwd_sm90.cu)"),
+    (r"flash_fwd", "flash forward template (K1, K9; fp32 K2-K5)"),
     (r"nvjet|gemm|xmma|cutlass|sm90|cublas", "cuBLAS GEMMs"),
     (r"elementwise", "elementwise"),
     (r"reduce", "reductions"),
@@ -91,9 +91,10 @@ def main(argv=None):
     report(one_step, "step")
 
 
-def report(fn, what: str) -> None:
+def report(fn, what: str) -> dict:
     """Run fn once under `torch.profiler` and print its wall and device time,
-    the device time by kernel group and the 30 costliest kernels."""
+    the device time by kernel group and the 30 costliest kernels. Returns
+    {group: share of the device time}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -117,6 +118,7 @@ def report(fn, what: str) -> None:
         print(f"GROUP {100 * t / total:5.1f}% {t:9.1f} ms {n:6d} calls  {g}")
     for name, t, n in rows[:30]:
         print(f"{100 * t / total:5.1f}% {t:9.2f} ms {n:6d}  {name[:110]}")
+    return {g: t / total for g, (t, _) in groups.items()}
 
 
 if __name__ == "__main__":

@@ -1,17 +1,21 @@
 """The bf16 streaming attention forward of `lumina_t2x_tpu_torch/csrc/
-flash_fwd_sm90.cu` (K2 `flash_online`, K3 `flash_static_max` on bf16 inputs).
+flash_fwd_sm90.cu` (K2 `flash_online`, K3 `flash_static_max`, K4
+`flash_online_lse`, K5 `flash_static_max_lse` on bf16 inputs).
 
 On the CPU: `emulate` repeats the kernel's arithmetic in fp32 torch -- 64-key
 tiles, the exp2 domain with scale*log2(e), bound*log2(e) and the clamp
 55*log2(e) folded on the host, K2's per-tile row max with the alpha rescale
 and its -inf guard, P split into a bf16 hi + lo pair for PV, the
-denominator summed from the fp32 p, one bf16 rounding of the output -- and
-is held against the JAX package's Pallas K2 and K3 in interpret mode and
-against the port's plain versions. Inputs are bf16-representable fp32 from
-numpy, so every side multiplies the same operands. Bar: one bf16 rounding of
-the output (2^-8 of |ref|) plus 2e-5 for fp32 sums in another order. Fully
-masked rows are left out of the JAX comparison (the Pallas kernels disagree
-on them) and checked to be 0 against the port.
+denominator summed from the fp32 p, one bf16 rounding of the output, and the
+epilogue's row LSE (ln2 * (m + log2 l) from the log2-domain max, or from
+bound*log2(e) for the static max; -inf where l = 0) -- and is held against the JAX
+package's Pallas K2-K5 in interpret mode and against the port's plain
+versions. Inputs are bf16-representable fp32 from numpy, so every side
+multiplies the same operands. Bar: one bf16 rounding of the output (2^-8 of
+|ref|) plus 2e-5 for fp32 sums in another order; the LSE to 1e-4 absolute
+(the JAX LSE kernels' tests' bar). Fully masked rows are left out of the JAX
+comparison (the Pallas kernels disagree on them) and checked to be 0, with
+LSE -inf, against the port.
 
 The `cuda`-marked tests run the kernel itself against its plain version on
 the card (`python -m pytest --noconftest -m cuda tests/test_torch_flash_fwd_sm90.py`)
@@ -21,18 +25,21 @@ and skip without one.
 import importlib
 import itertools
 import math
+import re
 import sys
 
 import numpy as np
 import pytest
 import torch
 
+from lumina_t2x_tpu_torch.ops import cuda_lib
 from lumina_t2x_tpu_torch.ops import flash_attention as tfa
 
 _JFA = "lumina_t2x_tpu.ops.flash_attention"
 LOG2E = 1.4426950408889634
 BK = 64  # keys per tile
 RTOL, ATOL = 2.0 ** -8, 2e-5
+LSE_ATOL = 1e-4
 
 
 class _Lazy:
@@ -64,9 +71,10 @@ def _f32(x):
 
 def emulate(q, k, v, kv_mask, scale, bound=None, p_pair=True, round_out=True):
     """The kernel's arithmetic in fp32 torch on (B, S, H, D) fp32 tensors:
-    K3 with `bound`, K2 without. Returns the output, rounded once to bf16, as
-    fp32. `p_pair=False` drops P's lo half and `round_out=False` the output
-    rounding (for the test of the pair alone)."""
+    K3/K5 with `bound`, K2/K4 without. Returns (out, lse): the output, rounded
+    once to bf16, as fp32, and the (B, Hq, Sq) row LSE the epilogue writes
+    for K4/K5. `p_pair=False` drops P's lo half and `round_out=False` the
+    output rounding (for the test of the pair alone)."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     rep = hq // hkv
@@ -100,7 +108,11 @@ def emulate(q, k, v, kv_mask, scale, bound=None, p_pair=True, round_out=True):
         l = l + p.sum(-1)
     inv = torch.where(l > 0, 1.0 / l.clamp_min(1e-30), torch.zeros_like(l))
     out = (o * inv[..., None]).permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
-    return out.to(torch.bfloat16).float() if round_out else out
+    # the epilogue: ln2 * (base + log2 l), the base the log2-domain max or bound2
+    base = m if bound is None else bound2
+    lse = _f32(math.log(2)) * (base + torch.log2(l))
+    lse = torch.where(l > 0, lse, torch.full_like(l, -math.inf)).reshape(b, hq, sq)
+    return (out.to(torch.bfloat16).float() if round_out else out), lse
 
 
 def _inputs(seed, b, sq, sk, hq, hkv, d=16, tail=0, dead_row=False):
@@ -145,8 +157,43 @@ def test_emulation_matches_pallas(entry, case):
     bound = _bound(q, k, v, mask, scale, 6.0) if entry == "static_max" else None
     ref = jfa._flash_attention_fwd_impl(*map(jnp.asarray, (q, k, v, mask)), scale, 128, 128,
                                         static_max=bound)
-    got = emulate(*map(torch.from_numpy, (q, k, v, mask)), scale, bound)
+    got = emulate(*map(torch.from_numpy, (q, k, v, mask)), scale, bound)[0]
     _close(got, ref)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("entry", ["online_lse", "static_max_lse"])
+def test_lse_emulation_matches_pallas(entry, case):
+    """K4/K5: the output and the epilogue's row LSE against the Pallas
+    `_flash_fwd_res_impl` (whose LSE is lane-replicated to 128 and padded to
+    its q block: sliced to (B, Hq, Sq))."""
+    b, sq, sk, hq, hkv, tail = case
+    q, k, v, mask = _inputs(7, b, sq, sk, hq, hkv, tail=tail)
+    scale = 0.3
+    bound = _bound(q, k, v, mask, scale, 8.0) if entry == "static_max_lse" else None
+    ref_out, ref_lse = jfa._flash_fwd_res_impl(*map(jnp.asarray, (q, k, v, mask)), scale, 128, 128,
+                                               static_max=bound)
+    out, lse = emulate(*map(torch.from_numpy, (q, k, v, mask)), scale, bound)
+    _close(out, ref_out)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[:, :, :sq, 0], rtol=0,
+                               atol=LSE_ATOL)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("entry", ["online_lse", "static_max_lse"])
+def test_lse_emulation_matches_plain(entry, case):
+    b, sq, sk, hq, hkv, tail = case
+    q, k, v, mask = map(torch.from_numpy, _inputs(8, b, sq, sk, hq, hkv, tail=tail))
+    scale = 0.25
+    if entry == "static_max_lse":
+        bound = _bound(*(t.numpy() for t in (q, k, v, mask)), scale, 8.0)
+        ref_out, ref_lse = tfa.flash_static_max_lse_plain(q, k, v, mask, scale, bound)
+    else:
+        bound = None
+        ref_out, ref_lse = tfa.flash_online_lse_plain(q, k, v, mask, scale)
+    out, lse = emulate(q, k, v, mask, scale, bound)
+    _close(out, ref_out)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=LSE_ATOL)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -160,7 +207,7 @@ def test_emulation_matches_plain(entry, case):
         ref = tfa.flash_static_max_plain(q, k, v, mask, scale, bound)
     else:
         bound, ref = None, tfa.flash_online_plain(q, k, v, mask, scale)
-    _close(emulate(q, k, v, mask, scale, bound), ref)
+    _close(emulate(q, k, v, mask, scale, bound)[0], ref)
 
 
 def test_clamp_in_log2_units_matches_pallas():
@@ -174,7 +221,7 @@ def test_clamp_in_log2_units_matches_pallas():
     assert (s - bound > 55).any()  # the clamp is exercised
     ref = jfa._flash_attention_fwd_impl(*map(jnp.asarray, (q, k, v, mask)), scale, 128, 128,
                                         static_max=bound)
-    _close(emulate(*map(torch.from_numpy, (q, k, v, mask)), scale, bound), ref)
+    _close(emulate(*map(torch.from_numpy, (q, k, v, mask)), scale, bound)[0], ref)
 
 
 @pytest.mark.parametrize("entry", ["online", "static_max"])
@@ -184,12 +231,32 @@ def test_fully_masked_row_is_zero(entry):
     version."""
     q, k, v, mask = map(torch.from_numpy, _inputs(4, 2, 20, 90, 4, 1, tail=11, dead_row=True))
     bound = 8.0 if entry == "static_max" else None
-    got = emulate(q, k, v, mask, 0.3, bound)
+    got = emulate(q, k, v, mask, 0.3, bound)[0]
     assert torch.equal(got[1], torch.zeros_like(got[1]))
     ref = (tfa.flash_static_max_plain(q, k, v, mask, 0.3, bound) if bound is not None
            else tfa.flash_online_plain(q, k, v, mask, 0.3))
     assert torch.equal(ref[1], torch.zeros_like(ref[1]))
     _close(got[0], ref[0])
+
+
+@pytest.mark.parametrize("entry", ["online_lse", "static_max_lse"])
+def test_fully_masked_row_has_lse_minus_inf(entry):
+    """K4/K5: a batch row without a valid key outputs 0 and has LSE -inf
+    (l = 0 in the epilogue), the same rows as the plain version's; the other
+    rows' LSE match it."""
+    q, k, v, mask = map(torch.from_numpy, _inputs(9, 2, 20, 90, 4, 1, tail=11, dead_row=True))
+    if entry == "static_max_lse":
+        bound = 8.0
+        ref_out, ref_lse = tfa.flash_static_max_lse_plain(q, k, v, mask, 0.3, bound)
+    else:
+        bound = None
+        ref_out, ref_lse = tfa.flash_online_lse_plain(q, k, v, mask, 0.3)
+    out, lse = emulate(q, k, v, mask, 0.3, bound)
+    assert torch.equal(out[1], torch.zeros_like(out[1])) and torch.isneginf(lse[1]).all()
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(ref_lse))
+    assert torch.isfinite(lse[0]).all()
+    torch.testing.assert_close(lse[0], ref_lse[0], rtol=0, atol=LSE_ATOL)
+    _close(out[0], ref_out[0])
 
 
 def test_online_rescale_across_tiles():
@@ -201,7 +268,7 @@ def test_online_rescale_across_tiles():
     k = torch.from_numpy(k).to(torch.bfloat16).float().numpy()
     mask[0, :BK] = 0
     ref = jfa._flash_attention_fwd_impl(*map(jnp.asarray, (q, k, v, mask)), 0.5, 128, 128)
-    _close(emulate(*map(torch.from_numpy, (q, k, v, mask)), 0.5), ref)
+    _close(emulate(*map(torch.from_numpy, (q, k, v, mask)), 0.5)[0], ref)
 
 
 def test_hi_lo_pair_keeps_p_to_fp32_precision():
@@ -211,10 +278,57 @@ def test_hi_lo_pair_keeps_p_to_fp32_precision():
     q, k, v, mask = map(torch.from_numpy, _inputs(6, 1, 64, 256, 4, 4, d=32))
     ref = tfa.flash_online_plain(q, k, v, mask, 0.2)
     top = ref.abs().max()
-    pair = (emulate(q, k, v, mask, 0.2, round_out=False) - ref).abs().max()
-    once = (emulate(q, k, v, mask, 0.2, p_pair=False, round_out=False) - ref).abs().max()
+    pair = (emulate(q, k, v, mask, 0.2, round_out=False)[0] - ref).abs().max()
+    once = (emulate(q, k, v, mask, 0.2, p_pair=False, round_out=False)[0] - ref).abs().max()
     assert pair <= 2.0 ** -14 * top
     assert once > 8 * pair
+
+
+def _entry_bodies():
+    """{entry name: C source from its signature on} of flash_fwd.cu's
+    extern "C" entry points."""
+    src = (cuda_lib._CSRC / "flash_fwd.cu").read_text()
+    return src, {e.split("(", 1)[0]: e.split("{", 1)[1]
+                 for e in src.split('extern "C" {')[1].split("int lumina_flash_")[1:]}
+
+
+def test_bf16_forwards_route_to_the_hopper_kernel():
+    """bf16 K2-K5 hand their inputs to `flash_fwd_sm90` (K4/K5 with their lse
+    pointer, K2/K3 with none) and fp32 stays on the template; the template
+    keeps a bf16 instantiation only for K1 and K9 (online, no LSE)."""
+    src, bodies = _entry_bodies()
+    for name, static_max, lse in (("online", "false", "nullptr"), ("static_max", "true", "nullptr"),
+                                  ("online_lse", "false", "lse"),
+                                  ("static_max_lse", "true", "lse")):
+        assert re.search(rf"if \(is_bf16\) return flash_fwd_sm90\({static_max}, q, k, v, mask, "
+                         rf"out, {lse}, meta,", bodies[name]), name
+        fp32 = re.search(r"return launch<(true|false), (true|false)>", bodies[name])
+        assert fp32.groups() == (static_max, "true" if lse == "lse" else "false"), name
+    for name in ("small_kv", "rope", "rope_q"):
+        assert "flash_fwd_sm90" not in bodies[name]
+    assert tfa._SM90_ENTRIES == ("online", "static_max", "online_lse", "static_max_lse")
+    assert re.findall(r"launch_typed<__nv_bfloat16, ([^>]*)>", src) == ["false, false, kRope"]
+
+
+def test_breakdown_entry_matches_the_kernel_signature():
+    """`exps/fwd_sm90_breakdown.py` compiles its own C entry around
+    `flash_fwd_sm90`: it passes the header's parameters in their order, with
+    no LSE (it times K2/K3); the definition has the header's parameters."""
+    from lumina_t2x_tpu_torch.exps import fwd_sm90_breakdown as bd
+
+    def names(text, pattern):
+        params = re.search(pattern, text, re.S).group(1)
+        return [p.split()[-1].lstrip("*") for p in params.split(",")]
+
+    header = names((cuda_lib._CSRC / "flash_fwd_sm90.cuh").read_text(),
+                   r"int flash_fwd_sm90\((.*?)\);")
+    assert header == ["static_max", "q", "k", "v", "mask", "out", "lse", "meta", "scale", "bound",
+                      "stream"]
+    assert names((cuda_lib._CSRC / "flash_fwd_sm90.cu").read_text(),
+                 r"\nint flash_fwd_sm90\((.*?)\) \{") == header
+    args = re.search(r"return flash_fwd_sm90\((.*?)\);", bd._ENTRY, re.S).group(1)
+    assert [a.strip() for a in args.split(",")] == [
+        "static_max != 0", *header[1:6], "nullptr", *header[7:]]
 
 
 def test_breakdown_variants_edit_the_kernel():
@@ -259,12 +373,26 @@ def _cuda_inputs(b, sq, sk, hq, hkv, d=72, seed=0, dead_row=True):
     return mk(b, sq, hq, d), mk(b, sk, hkv, d), mk(b, sk, hkv, d), mask.cuda()
 
 
+ENTRIES = ["online", "static_max", "online_lse", "static_max_lse"]
+
+
 def _call(entry, q, k, v, mask, scale=0.2, bound=9.0):
-    kw = {"bound": bound} if entry == "static_max" else {}
+    """The kernel's and the plain version's output; for K4/K5 the LSE is
+    checked here (1e-3 absolute, the same -inf rows) and the outputs
+    returned."""
+    kw = {"bound": bound} if entry.startswith("static_max") else {}
     got = getattr(tfa, f"flash_{entry}")(q, k, v, mask, scale, **kw)
     ref = getattr(tfa, f"flash_{entry}_plain")(q.float(), k.float(), v.float(), mask, scale,
                                                *kw.values())
     torch.cuda.synchronize()
+    if entry.endswith("_lse"):
+        (got, lse), (ref, ref_lse) = got, ref
+        assert lse.dtype == torch.float32 and lse.shape == (q.shape[0], q.shape[2], q.shape[1])
+        fin = torch.isfinite(ref_lse)
+        assert torch.equal(torch.isfinite(lse), fin)
+        assert torch.equal(torch.isneginf(lse), ~fin)
+        if fin.any():
+            assert (lse[fin] - ref_lse[fin]).abs().max().item() <= 1e-3
     return got, ref
 
 
@@ -273,7 +401,7 @@ def _call(entry, q, k, v, mask, scale=0.2, bound=9.0):
     (2, 77, 33, 8, 1, 72), (2, 130, 257, 4, 2, 72), (1, 300, 1000, 8, 8, 72), (3, 1, 1, 2, 1, 72),
     (2, 200, 300, 4, 1, 48), (1, 70, 90, 4, 2, 16), (1, 129, 200, 8, 2, 64),
     (2, 65, 130, 4, 4, 96), (1, 193, 129, 4, 1, 128)])
-@pytest.mark.parametrize("entry", ["online", "static_max"])
+@pytest.mark.parametrize("entry", ENTRIES)
 def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
     """Odd Sq and Sk, GQA, a masked tail and a fully masked batch row, at
     head_dim 72 (the 2B) and in each of the kernel's other instantiations:
@@ -290,7 +418,7 @@ def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["online", "static_max"])
+@pytest.mark.parametrize("entry", ENTRIES)
 def test_fused_qkv_views_read_in_place(cuda_device, entry):
     """q, k, v as strided views of one (B, S, 3, H, D) tensor: whole-chunk
     strides, so the kernel reads them in place."""
@@ -303,7 +431,8 @@ def test_fused_qkv_views_read_in_place(cuda_device, entry):
 
 
 @pytest.mark.cuda
-def test_misaligned_input_is_copied_and_odd_head_dim_raises(cuda_device):
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_misaligned_input_is_copied_and_odd_head_dim_raises(cuda_device, entry):
     """A base that is not on a 16-byte boundary is copied contiguous first
     (documented in `ops/flash_attention.py`); a head_dim that is not a
     multiple of 8 cannot be copied into whole chunks and raises."""
@@ -311,15 +440,18 @@ def test_misaligned_input_is_copied_and_odd_head_dim_raises(cuda_device):
     flat = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
     q_off = flat[1:].view(q.shape).copy_(q)  # base 2 bytes past the allocation
     assert q_off.data_ptr() % 16 != 0 and tfa._chunk_aligned(q_off) is not q_off
-    got, ref = _call("online", q_off, k, v, mask)
+    got, ref = _call(entry, q_off, k, v, mask)
     assert (got.float() - ref).abs().max().item() <= 1e-2
     q, k, v, mask = _cuda_inputs(1, 70, 90, 4, 2, d=36, dead_row=False)
+    kw = {"bound": 9.0} if entry.startswith("static_max") else {}
+    before = tfa.LAUNCHES[entry]
     with pytest.raises(ValueError, match="multiple of 8"):
-        tfa.flash_online(q, k, v, mask, 0.2)
+        getattr(tfa, f"flash_{entry}")(q, k, v, mask, 0.2, **kw)
+    assert tfa.LAUNCHES[entry] == before
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["online", "static_max"])
+@pytest.mark.parametrize("entry", ENTRIES)
 def test_fp32_stays_on_the_first_template(cuda_device, entry):
     """fp32 inputs take flash_fwd.cu's template (fp32 FMA, exact to fp32);
     the Hopper kernel reads bf16 only, so fp32-level agreement shows the
@@ -335,16 +467,19 @@ def test_fp32_stays_on_the_first_template(cuda_device, entry):
 def test_rope_kernel_equals_the_first_template_online_forward(cuda_device):
     """K9 (flash_fwd.cu's template with the rotation) equals that template's
     online forward, `flash_online_lse(...)[0]`, on `apply_rope`d inputs to
-    one bf16 ulp: bf16 `flash_online` runs the Hopper kernel now."""
+    one fp32 ulp: in fp32, where both run the template (bf16 `flash_online`
+    and `flash_online_lse` run the Hopper kernel)."""
     from lumina_t2x_tpu_torch.ops.rope import apply_rope, rope_angles_2d
 
-    q, k, v, mask = _cuda_inputs(2, 256, 256, 4, 2, dead_row=False)
+    q, k, v, mask = (t.float() if t.is_floating_point() else t
+                     for t in _cuda_inputs(2, 256, 256, 4, 2, dead_row=False))
     angles = rope_angles_2d(72, 16, 16, device="cuda").reshape(256, 36)
     got = tfa.flash_rope(q, k, v, angles, mask, 0.2)
     ref = tfa.flash_online_lse(apply_rope(q, angles), apply_rope(k, angles), v, mask, 0.2)[0]
     torch.cuda.synchronize()
-    ulp = 2.0 ** -7 * ref.float().abs().max().item()
-    assert (got.float() - ref.float()).abs().max().item() <= ulp
+    assert got.dtype == ref.dtype == torch.float32
+    ulp = 2.0 ** -23 * ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= ulp
 
 
 @pytest.mark.cuda

@@ -8,8 +8,8 @@ run in interpret mode on the CPU.
 Same numpy inputs on both sides, fp32, bar atol 2e-4 / rtol 2e-3 (the
 port's torch-parity bar). The `cuda`-marked tests hold the CUDA kernels
 against their plain versions and against the online forward of their own
-template (`flash_online_lse(...)[0]`) on rotated inputs on the card, and
-skip without one.
+template (`flash_small_kv`, K1's entry point) on rotated inputs on the
+card, and skip without one.
 """
 
 import importlib
@@ -357,9 +357,9 @@ def test_rope_kernels_match_plain_and_k2_on_card(cuda_device, dtype, entry, sk, 
     q_rot = apply_rope(q, angles)
     k_rot = apply_rope(k, angles) if entry == "rope" else k
     ref = tfa.flash_online_plain(q_rot.float(), k_rot.float(), v.float(), mask, 0.2)
-    # K2's online forward on flash_fwd.cu's template, which K9 shares: the LSE
-    # forward's output (bf16 `flash_online` runs csrc/flash_fwd_sm90.cu)
-    k2 = tfa.flash_online_lse(q_rot, k_rot, v, mask, 0.2)[0]
+    # the online forward of flash_fwd.cu's template, which K9 shares: K1's entry
+    # point (bf16 `flash_online` and `flash_online_lse` run csrc/flash_fwd_sm90.cu)
+    k2 = tfa.flash_small_kv(q_rot, k_rot, v, mask, 0.2)
     torch.cuda.synchronize()
     assert tfa.LAUNCHES[entry] == before + 1
     assert torch.equal(got, k2)  # the in-kernel rotation is apply_rope's, bit for bit
