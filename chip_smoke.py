@@ -8,27 +8,29 @@ last line:
 2. build: compiles every kernel from lumina_t2x_tpu_torch/csrc with nvcc
    (`ops/cuda_lib.py`: one library per module that owns kernels, one
    process per source, all started together) and prints the build seconds,
-   then the resources of the Hopper kernels of bf16 K2-K5
-   (`csrc/flash_fwd_sm90.cu`) and bf16 K6/K8 (`csrc/flash_bwd_sm90.cu`):
-   registers per thread (as compiled and after setmaxnreg), spill bytes,
-   shared memory per block, blocks per SM;
+   then the resources of the Hopper kernels of bf16 K1-K5
+   (`csrc/flash_fwd_sm90.cu`) and bf16 K6-K8 (`csrc/flash_bwd_sm90.cu`: the
+   backward sweep of K6/K8 and the dQ kernel of K7): registers per thread
+   (as compiled and after setmaxnreg), spill bytes, shared memory per
+   block, blocks per SM;
 3. kernels: each CUDA entry point against its plain PyTorch version at the
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
-   kernel; the LSE forward and the backward kernels also at the training
-   cross-attention's Sk=32), bf16 and fp32, GQA, masked tails and a fully masked row, with
+   kernel; it, the LSE forward and the backward kernels also at the served
+   and training cross-attention's Sk=32), bf16 and fp32, GQA, masked tails and a fully masked row, with
    kernel and plain times at each shape (CUDA events, median after a warm-up), the
    least time the card could take (`bound_ms`: bytes over 3.35 TB/s or
    operations over 989 TFLOP/s bf16, whichever is longer) and the time of
    one library call on the same inputs (`scaled_dot_product_attention` for
    K1-K3, aten's flash attention with its log-sum-exp for K4/K5, the sdpa
-   autograd backward for K6-K8; K6 and K8 also timed at Sk=32, where the
-   training cross-attention launches them); then the fused-RoPE kernels
-   (K9: `rope` at Sq=Sk=4096, `rope_q` at Sk=32 and 256 with the 2B's 1024^2 angles)
-   against their plain versions, on `apply_rope`d inputs against the online
-   forward of their own template (`flash_small_kv`, K1's entry point: equal
-   up to one ulp) and against `flash_online_lse(...)[0]` (fp32: the same
-   template; bf16: the Hopper K4, within the bf16 bar), timed beside K2 on
-   those inputs, and their gradient
+   autograd backward for K6-K8; K1 and K6-K8 also timed at Sk=32, where the
+   served worker and the training cross-attention launch them); then the
+   fused-RoPE kernels (K9: `rope` at Sq=Sk=4096, `rope_q` at Sk=32 and 256
+   with the 2B's 1024^2 angles) against their plain versions, against
+   themselves on `apply_rope`d inputs at zero angles (bit for bit: the
+   in-kernel rotation is `apply_rope`'s), and on `apply_rope`d inputs
+   against `flash_small_kv` and `flash_online_lse(...)[0]` (fp32: K9's own
+   template, within one ulp; bf16: the Hopper K1 and K4, within the bf16
+   bar), timed beside K2 on those inputs, and their gradient
    (`_FlashAttentionRope` through
    the kernels against the plain Function);
 3b. experiments: the static-max variants (K10: `static_max_v0..v3`; K11:
@@ -98,21 +100,21 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd.cu"
-SM90_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_sm90.cu"  # bf16 K2-K5
-BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd.cu"  # K7; fp32 K6/K8
-SM90_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_sm90.cu"  # bf16 K6 and K8
+SM90_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_sm90.cu"  # bf16 K1-K5
+BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd.cu"  # fp32 K6-K8
+SM90_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_sm90.cu"  # bf16 K6-K8
 VPU_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_variants.cu"
 MMA_SOURCE = "lumina_t2x_tpu_torch/csrc/mma_probe.cu"
 TPU_KERNELS = "lumina_t2x_tpu/ops/flash_attention.py"
 VPU_EXP = "exps/vpu_op_reduction.py"
 KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replaces)
-    "small_kv": (FWD_SOURCE, f"{TPU_KERNELS}:240"),        # _flash_small_kv_kernel
+    "small_kv": (SM90_SOURCE, f"{TPU_KERNELS}:240"),       # _flash_small_kv_kernel
     "online": (SM90_SOURCE, f"{TPU_KERNELS}:228"),         # _flash_kernel_fused_sum
     "static_max": (SM90_SOURCE, f"{TPU_KERNELS}:66"),      # _flash_kernel_static_max
     "online_lse": (SM90_SOURCE, f"{TPU_KERNELS}:430"),     # _flash_kernel_res
     "static_max_lse": (SM90_SOURCE, f"{TPU_KERNELS}:446"),  # _flash_kernel_res_static_max
     "bwd_fused": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),  # _bwd_fused_kernel
-    "bwd_dq": (BWD_SOURCE, f"{TPU_KERNELS}:552"),          # _bwd_dq_kernel
+    "bwd_dq": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:552"),     # _bwd_dq_kernel
     "bwd_dkv": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),    # _bwd_dkv_kernel
     "rope": (FWD_SOURCE, f"{TPU_KERNELS}:956"),            # _flash_rope_kernel
     "rope_q": (FWD_SOURCE, f"{TPU_KERNELS}:963"),          # _flash_rope_q_kernel
@@ -274,13 +276,14 @@ def build_phase():
     phase("build", f"{time.perf_counter() - t0:.2f} s: " + "; ".join(
         f"{name} {'compiled with nvcc' if info['compiled'] else 'already built, loaded'} "
         f"({info['path']})" for name, info in cuda_lib.BUILD_INFO.items()))
-    # the Hopper kernels of bf16 K2-K5 and K6/K8: their resources from the CUDA
-    # runtime (K4/K5 are K2/K3's instantiations with an LSE pointer)
+    # the Hopper kernels of bf16 K1-K5 and K6-K8: their resources from the CUDA
+    # runtime (K1 and K4/K5 are K2/K3's instantiations, K4/K5 with an LSE pointer)
     for source, entry, info in (
-            (SM90_SOURCE, "online, online_lse", flash_attention.sm90_attributes(False, D)),
+            (SM90_SOURCE, "small_kv, online, online_lse", flash_attention.sm90_attributes(False, D)),
             (SM90_SOURCE, "static_max, static_max_lse", flash_attention.sm90_attributes(True, D)),
-            (SM90_BWD_SOURCE, "bwd_fused", flash_attention.bwd_sm90_attributes(True, D)),
-            (SM90_BWD_SOURCE, "bwd_dkv", flash_attention.bwd_sm90_attributes(False, D))):
+            (SM90_BWD_SOURCE, "bwd_fused", flash_attention.bwd_sm90_attributes("fused", D)),
+            (SM90_BWD_SOURCE, "bwd_dkv", flash_attention.bwd_sm90_attributes("dkv", D)),
+            (SM90_BWD_SOURCE, "bwd_dq", flash_attention.bwd_sm90_attributes("dq", D))):
         phase("build", f"{source} ({entry}, head_dim {D}): {info['registers']} registers per "
               f"thread as compiled, {info['producer_registers']} (producer) / "
               f"{info['consumer_registers']} (consumers) after setmaxnreg, "
@@ -302,10 +305,12 @@ CASES = [("bf16", torch.bfloat16, H, "none"), ("fp32", torch.float32, H, "tail")
 def kernel_phase(fa):
     g = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    # (entry, Sk); the first case of each is the timed one. online_lse also
-    # runs the training cross-attention: one partial 64-key tile at Sk=32
-    for entry, sk in (("small_kv", CAP), ("online", S), ("static_max", S), ("online_lse", S),
-                      ("online_lse", TRAIN_CAP), ("static_max_lse", S)):
+    # (entry, Sk); the first case of each is the timed one. small_kv also runs
+    # the served worker's captions and online_lse the training
+    # cross-attention: one partial 64-key tile at Sk=32
+    for entry, sk in (("small_kv", CAP), ("small_kv", TRAIN_CAP), ("online", S),
+                      ("static_max", S), ("online_lse", S), ("online_lse", TRAIN_CAP),
+                      ("static_max_lse", S)):
         kernel = getattr(fa, f"flash_{entry}")
         plain = getattr(fa, f"flash_{entry}_plain")
         worst, timed = results.get(entry, {}).get("max_abs_err", 0.0), None
@@ -395,7 +400,7 @@ def _bwd_bounds(q, k, v, out, dout, lse, dtype):
 
 def backward_kernel_phase(fa):
     """K6 and K7 + K8 against `flash_bwd_plain` on the same inputs (q, k, v,
-    dO, and out/LSE from the plain LSE forward); K6 and K8 also timed at the
+    dO, and out/LSE from the plain LSE forward); all three also timed at the
     cross-attention's Sk=32."""
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = {name: 0.0 for name in ("bwd_fused", "bwd_dq", "bwd_dkv")}
@@ -451,13 +456,15 @@ def backward_kernel_phase(fa):
                                               for n, b_ in bounds.items())
                      + f"; library backward {library['library_ms']:.3f} ms "
                        f"({library['library_kernel']})")
-        elif sk == TRAIN_CAP:  # the trainer's cross-attention: 24 of K6's launches a step
+        elif sk == TRAIN_CAP:  # the trainer's cross-attention: 24 of K6's (K7's) launches a step
             cross = _bwd_bounds(q, k, v, out, dout, lse, dtype)
             line += "; " + ", ".join(
                 f"{name} {time_ms(lambda: fn(*args), reps=5):.3f} ms (bound "
                 f"{cross[name]['bound_ms']:.4f} ms, {cross[name]['bound_by']})"
-                for name, fn in (("bwd_fused", fa.flash_bwd_fused), ("bwd_dkv", fa.flash_bwd_dkv)))
-            line += (f"; library backward "
+                for name, fn in (("bwd_fused", fa.flash_bwd_fused), ("bwd_dq", fa.flash_bwd_dq),
+                                 ("bwd_dkv", fa.flash_bwd_dkv)))
+            line += (f"; plain {time_ms(lambda: fa.flash_bwd_plain(*args), reps=5):.3f} ms; "
+                     f"library backward "
                      f"{library_backward(q, k, v, mask, dout, scale)['library_ms']:.3f} ms")
         phase("kernels", line)
         del q, k, v, dout, out, lse, args, ref, got
@@ -475,13 +482,14 @@ def rope_angles_2b():
 
 def rope_kernel_phase(fa):
     """K9 (`flash_rope`, `flash_rope_q`) against its plain version (the
-    rotation in the operand dtype, then the fp32 softmax), on `apply_rope`d
-    inputs against flash_fwd.cu's online forward, which K9's template shares
-    (`flash_small_kv`, any Sk: equal up to one ulp) and against
-    `flash_online_lse(...)[0]` (fp32: that template; bf16: the Hopper K4,
-    another reduction order, so within the bf16 bar), timed beside K2 on
-    them, and `_FlashAttentionRope`'s gradient through the
-    kernels against the plain Function. The bf16 forward bar is 1e-2 of
+    rotation in the operand dtype, then the fp32 softmax); against itself on
+    `apply_rope`d inputs at zero angles, where the rotation is x * 1 +
+    swap(x) * 0 = x (bit for bit: the in-kernel rotation is `apply_rope`'s);
+    on `apply_rope`d inputs against `flash_small_kv` (any Sk) and
+    `flash_online_lse(...)[0]` (fp32: K9's own online template, within one
+    ulp; bf16: the Hopper K1 and K4, another reduction order, so within the
+    bf16 bar), timed beside K2 on them, and `_FlashAttentionRope`'s gradient
+    through the kernels against the plain Function. The bf16 forward bar is 1e-2 of
     max(1, max|ref|): the absolute 1e-2 where outputs stay below 1 (every
     Sk=4096 case), one bf16 output rounding above it (Sk=32 outputs reach
     [4, 8), where half an ulp is 1.6e-2)."""
@@ -509,9 +517,10 @@ def rope_kernel_phase(fa):
             q_rot = apply_rope(q, angles)
             k_rot = apply_rope(k, angles) if entry == "rope" else k
             ref = fa.flash_online_plain(q_rot.float(), k_rot.float(), v.float(), mask, scale)
-            # K9 shares flash_fwd.cu's online template with K1's entry point (and
-            # with fp32 K4); bf16 K4 runs flash_fwd_sm90.cu
-            tmpl = fa.flash_small_kv(q_rot, k_rot, v, mask, scale)
+            zero = kernel(q_rot, k_rot, v, torch.zeros_like(angles), mask, scale)
+            # fp32 K1 and K4 share flash_fwd.cu's online template with K9; bf16
+            # K1 and K4 run flash_fwd_sm90.cu
+            k1 = fa.flash_small_kv(q_rot, k_rot, v, mask, scale)
             k4 = fa.flash_online_lse(q_rot, k_rot, v, mask, scale)[0]
             torch.cuda.synchronize()
             err = (got.float() - ref).abs()
@@ -524,20 +533,20 @@ def rope_kernel_phase(fa):
                 require(mean_err <= BF16_MEAN, f"{entry} {label}: mean abs err {mean_err}")
             if mask_kind == "row":
                 require(torch.count_nonzero(got[1]).item() == 0, f"{entry}: masked row not 0")
-            tmpl_diff = (got.float() - tmpl.float()).abs().max().item()
-            ulp = 2.0 ** (-7 if dtype == torch.bfloat16 else -23) * tmpl.float().abs().max().item()
-            require(tmpl_diff <= ulp, f"{entry} {label}: {tmpl_diff} from the template's online "
-                    f"forward on rotated inputs")
-            k4_diff = (got.float() - k4.float()).abs().max().item()
-            k4_bar = ulp if dtype == torch.float32 else BF16_MAX * top
-            require(k4_diff <= k4_bar, f"{entry} {label}: {k4_diff} from flash_online_lse(...)[0] "
-                    f"on rotated inputs (bar {k4_bar})")
+            require(torch.equal(got, zero), f"{entry} {label}: K9 on rotated inputs at zero "
+                    f"angles is not K9 on the unrotated ones bit for bit")
+            ulp = 2.0 ** -23 * k1.float().abs().max().item()
+            other_bar = ulp if dtype == torch.float32 else BF16_MAX * top
+            diffs = {}
+            for name, other in (("flash_small_kv", k1), ("flash_online_lse(...)[0]", k4)):
+                diffs[name] = (got.float() - other.float()).abs().max().item()
+                require(diffs[name] <= other_bar, f"{entry} {label}: {diffs[name]} from {name} "
+                        f"on rotated inputs (bar {other_bar})")
             worst = max(worst, max_err)
             line = (f"{entry} {label} (Sk={sk}): max abs err {max_err:.3g} (bar {bar:.3g}) mean "
-                    f"{mean_err:.3g}; on apply_rope'd inputs, vs the template's online forward "
-                    f"(flash_small_kv) max diff {tmpl_diff:.3g}"
-                    f"{' (equal)' if torch.equal(got, tmpl) else ''}, vs flash_online_lse(...)[0] "
-                    f"{k4_diff:.3g} (bar {k4_bar:.3g})")
+                    f"{mean_err:.3g}; at zero angles on apply_rope'd inputs equal; on them vs "
+                    + ", ".join(f"{name} {d:.3g}" for name, d in diffs.items())
+                    + f" (bar {other_bar:.3g})")
             if prev["ms"] is None and "ms" not in results.get(entry, {}):
                 ms = time_ms(lambda: kernel(q, k, v, angles, mask, scale))
                 plain_ms = time_ms(lambda: getattr(fa, f"flash_{entry}_plain")(
@@ -554,7 +563,7 @@ def rope_kernel_phase(fa):
                          f"{k2_ms:.3f} ms, bound {extra['bound_ms']:.4f} ms ({extra['bound_by']}), "
                          f"library none")
             phase("kernels", line)
-            del q, k, v, got, ref, tmpl, k4, q_rot, k_rot
+            del q, k, v, got, ref, zero, k1, k4, q_rot, k_rot
         results[entry]["max_abs_err"] = worst
     torch.cuda.empty_cache()
 

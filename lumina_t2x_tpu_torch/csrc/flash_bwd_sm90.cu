@@ -1,14 +1,18 @@
 // bf16 flash-attention backward for Hopper (sm_90a), hand-written CUDA C++:
 // wgmma warpgroups with the transposed scores, dK and dV in registers, fed
-// by a producer warp through an asynchronous ring of Q/dO tiles.
+// by a producer warp through an asynchronous ring of Q/dO tiles; and a dQ
+// kernel with the scores and dQ in registers, fed through a ring of K/V
+// tiles.
 // Replaces the Pallas TPU kernels of lumina_t2x_tpu/ops/flash_attention.py
 //   fused (dK, dV and dQ) <- _bwd_fused_kernel (_flash_bwd_fused_impl)
 //   dK and dV only        <- _bwd_dkv_kernel   (_flash_bwd_impl, second pallas_call)
-// for bf16 inputs; the C entry points lumina_flash_bwd_fused and
-// lumina_flash_bwd_dkv stay in flash_bwd.cu (launch counters "bwd_fused" and
-// "bwd_dkv"), which calls flash_bwd_sm90() for bf16 and keeps its own
-// kernels for fp32 and for lumina_flash_bwd_dq. One kernel serves both: a
-// template flag compiles the dQ step out for dK/dV only.
+//   dQ only               <- _bwd_dq_kernel    (_flash_bwd_impl, first pallas_call)
+// for bf16 inputs; the C entry points lumina_flash_bwd_fused,
+// lumina_flash_bwd_dkv and lumina_flash_bwd_dq stay in flash_bwd.cu (launch
+// counters "bwd_fused", "bwd_dkv", "bwd_dq"), which calls flash_bwd_sm90()
+// or flash_bwd_dq_sm90() for bf16 and keeps its own kernels for fp32. One
+// kernel serves the first two: a template flag compiles the dQ step out for
+// dK/dV only. The dQ kernel is described after them ("The dQ kernel").
 //
 // What it computes, from the forward's per-row log-sum-exp and
 // delta = rowsum(dO * O), over the valid keys (kv_mask != 0, j < Sk):
@@ -68,6 +72,39 @@
 // take 0.275 ms on the special-function units. Q and dO are re-read by each
 // of the 32 key tiles of a kv head (2.4 GB from L2), and the dQ reduce adds
 // 2.4 GB of fp32 into L2. `exps/bwd_sm90_breakdown.py` times the parts.
+//
+// The dQ kernel (the split backward's first half: the route the JAX package
+// takes when the fused sweep's fp32 dQ partials would pass 1 GiB). Per q
+// row it computes, over the valid keys in 64-key tiles,
+//   dQ = sum_j dS_j K_j,  dS_j = P_j (dO V_j^T - delta) scale,
+//   P_j = exp2(min(Q K_j^T scale2 - lse2, 0))
+// and writes dQ once, rounded to bf16: no fp32 buffer, no zeroing, no
+// atomics and no reduce-add, so the result is deterministic. The layout is
+// the forward kernel's (sm90_common.cuh: KvRing, produce_kv) with one
+// product more. One block of three warpgroups per (128 q rows, q head,
+// batch): the producer warp loads the block's Q and dO tiles once and rings
+// the kv head's 64-key K/V tiles past them (at least 3 stages, 5 at head_dim
+// 72), with the tiles' key-valid bits from its ballots; two consumer
+// warpgroups of 64 q rows each read their rows' lse*log2(e) (+inf for lse =
+// -inf or a row past Sq, so p = 0) and delta from device memory once.
+// setmaxnreg gives 24 registers to the producer and 240 to the consumers:
+// S and dP take 32 fp32 each, dQ 36 (64 x 72 / 128) and the dS pair's A
+// fragments 32, more than the forward's 160. Per key tile j a consumer
+// issues three wgmma groups,
+//   S  = Q K^T    wgmma.m64n64k16, A = Q, B = K from shared memory (K-major),
+//   dP = dO V^T   depth 72 run as 80 (the forward's qk product)
+//   dQ += dS K    of tile j - 1, wgmma.m64n72k16, A = dS from registers as
+//                 the bf16 pair hi + lo, B = K MN-major (the forward's PV)
+// and runs tile j's chain (P, then dS) as soon as its two products are
+// done, beside dQ's; it packs dS(j) once dQ's product is done with the dS
+// registers and frees the stage of tile j - 1. The two consumers share the
+// ring but not a schedule (no ping-pong): each warpgroup's chain overlaps
+// its own dQ product and the other warpgroup's products.
+// What bounds it: at B=2, S=4096, H=32, D=72 the three products are
+// 6*B*H*S*S*D = 464 GFLOP (0.469 ms at 989 TFLOP/s); with depth 80 and the
+// pair the tensor cores do 1.41x that (0.66 ms), the 1.07e9 exp take 0.275
+// ms on the special-function units, and K and V are re-read by each of the
+// 32 q tiles of a head (2.4 GB from L2).
 
 #include <math.h>
 #include <stdint.h>
@@ -92,11 +129,13 @@ struct Params {
   const int* mask;     // (B, Sk) int32 or null
   const float* lse;    // (B, Hq, Sq)
   const float* delta;  // (B, Hq, Sq)
-  bf16* dk;
+  bf16* dk;            // the dK/dV kernel (dQ fused: through its tensor map)
   bf16* dv;
+  bf16* dq;            // the dQ kernel
   int B, Sq, Sk, Hq, Hkv, D;
   long long dk_sb, dk_ss, dk_sh;
   long long dv_sb, dv_ss, dv_sh;
+  long long dq_sb, dq_ss, dq_sh;
   long long m_sb;
   float scale;   // ds = p * (dp - delta) * scale
   float scale2;  // scale * log2(e)
@@ -147,37 +186,6 @@ struct Smem {
 };
 
 // -- consumer -----------------------------------------------------------------------
-
-// x (a 64 x 64 accumulator: x[4n + e] at row g + 8 * (e >> 1), column
-// 8n + 2t + (e & 1)) as the A fragments of four 16-column k-steps, split
-// into the bf16 pair hi + lo
-__device__ __forceinline__ void pack_pair(const float (&x)[32], uint32_t (&hi)[4][4],
-                                          uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const uint32_t top = pack_bf16(x[4 * n], x[4 * n + 1]);      // row g,     columns 8n + 2t, +1
-    const uint32_t bot = pack_bf16(x[4 * n + 2], x[4 * n + 3]);  // row g + 8
-    hi[n / 2][2 * (n % 2)] = top;
-    hi[n / 2][2 * (n % 2) + 1] = bot;
-    lo[n / 2][2 * (n % 2)] = pack_bf16(x[4 * n] - bf16_lo(top), x[4 * n + 1] - bf16_hi(top));
-    lo[n / 2][2 * (n % 2) + 1] =
-        pack_bf16(x[4 * n + 2] - bf16_lo(bot), x[4 * n + 3] - bf16_hi(bot));
-  }
-}
-
-// acc (64 x kDN) += (A_hi + A_lo) B over 64 rows of K: A from registers, B
-// (rows of 128 bytes per atom, atom stride kAtom) MN-major; slice kk
-// starts 16 rows further
-template <int kDN, uint32_t kAtom>
-__device__ __forceinline__ void mma_pair(float (&acc)[kDN / 2], const uint32_t (&hi)[4][4],
-                                         const uint32_t (&lo)[4][4], uint32_t b_addr) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t desc = swz_desc(b_addr + kk * 16 * kSwizzle, kAtom, 8 * kSwizzle);
-    wgmma_rs<kDN>(acc, hi[kk], desc);
-    wgmma_rs<kDN>(acc, lo[kk], desc);
-  }
-}
 
 // dS^T (hi or lo fragments) into its staging atom: key row r of 128 bytes,
 // q column pair (8n + 2t, +1) in 16-byte chunk n ^ (r % 8) (the 128-byte
@@ -486,10 +494,208 @@ int launch(const Params& p, const void* const* ptrs, const long long* meta, cuda
   return launch_dims<128, 128, kFusedDq>(p, ptrs, meta, stream);
 }
 
-template <int kDK, int kDN, bool kFusedDq>
-int attributes_dims(long long* out) {
-  auto kernel = flash_bwd_sm90_kernel<kDK, kDN, kFusedDq>;
-  const int bytes = (int)Smem<kDK, kDN, kFusedDq>::kBytes;
+// -- the dQ kernel -------------------------------------------------------------------
+
+// Q, dO, then the K/V ring of 64-key tiles (sm90_common.cuh, the forward's
+// layout with a second q-side tile): 5 stages at head_dim 72 and 128, 8 at 64
+constexpr int kDqRows = 64;                  // q rows per consumer warpgroup
+constexpr int kDqBQ = kDqRows * kConsumers;  // q rows per block
+template <int kDK, int kDN>
+using DqSmem = KvRing<kDqBQ, 2, kDK, kDN>;
+
+// P in place of S: p = exp2(min(s * scale2 - lse2, 0)), 0 on an invalid
+// key; rows are q rows (lse2 per row: s[4n + e] at row g + 8 * (e >> 1)),
+// columns keys (the tile's key-valid bits, bit j: key j). A tile whose keys
+// are all valid skips the selects.
+__device__ __forceinline__ void probs_rows(float (&s)[32], unsigned long long bits, int t,
+                                           const float (&lse2)[2], float scale2) {
+  const bool all_valid = bits == ~0ull;
+  bits >>= 2 * t;
+  if (all_valid) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = ex2(fminf(fmaf(s[i], scale2, -lse2[(i >> 1) & 1]), 0.f));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float x = ex2(fminf(fmaf(s[i], scale2, -lse2[(i >> 1) & 1]), 0.f));
+      s[i] = key_valid(bits, i) ? x : 0.f;
+    }
+  }
+}
+
+// dS in place of dP: ds = p * (dp - delta) * scale, rows are q rows
+__device__ __forceinline__ void dscores_rows(float (&dp)[32], const float (&p)[32],
+                                             const float (&delta)[2], float scale) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dp[i] = p[i] * (dp[i] - delta[(i >> 1) & 1]) * scale;
+}
+
+template <int kDK, int kDN>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_sm90_dq_kernel(const __grid_constant__ Params p,
+                             const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv) {
+  using L = DqSmem<kDK, kDN>;
+  static_assert(L::kAtomsV == L::kAtomsK, "dP = dO V^T reads V as deep as S = Q K^T reads K");
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_addr(smem) + L::kAlign - 1) & ~(L::kAlign - 1);
+  unsigned long long* bits =
+      reinterpret_cast<unsigned long long*>(smem + (base - smem_addr(smem)) + L::kBits);
+  const int q0 = blockIdx.x * kDqBQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int nk = (p.Sk + L::kBK - 1) / L::kBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(base + L::q_full(), 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(base + L::full(st), 1);                   // the producer's arrive + bytes
+      mbar_init(base + L::empty(st), 128 * kConsumers);   // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- dQ producer: the Q and dO tiles once, then the K/V ring ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_expect_tx(base + L::q_full(), L::kQBytes);
+      for (int a = 0; a < L::kAtomsK; ++a) {
+        tma_load(base + L::q(0) + a * L::kQAtom, &tq, base + L::q_full(), a * kAtomCols, h, q0,
+                 b);
+        tma_load(base + L::q(1) + a * L::kQAtom, &tdo, base + L::q_full(), a * kAtomCols, h, q0,
+                 b);
+      }
+    }
+    produce_kv<L>(base, bits, &tk, &tv, p.mask ? p.mask + b * p.m_sb : nullptr, p.Sk, hk, b,
+                  lane);
+  } else {
+    // ---- dQ consumers: 64 q rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+    const int row0 = q0 + c * kDqRows + 16 * warp + lane / 4;  // this thread's rows: +0, +8
+    const uint32_t q_addr = base + L::q(0) + c * kDqRows * kSwizzle;
+    const uint32_t do_addr = base + L::q(1) + c * kDqRows * kSwizzle;
+    // +inf: p = exp2(min(s*scale2 - inf, 0)) = 0 for a row past Sq or
+    // without a valid key (lse = -inf)
+    float lse2[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const long long at = ((long long)b * p.Hq + h) * p.Sq + row;
+      const float lse = row < p.Sq ? p.lse[at] : -INFINITY;
+      lse2[r] = lse == -INFINITY ? INFINITY : lse * kLog2e;
+      delta[r] = row < p.Sq ? p.delta[at] : 0.f;
+    }
+
+    float dq[kDN / 2];
+#pragma unroll
+    for (int i = 0; i < kDN / 2; ++i) dq[i] = 0.f;
+    float s[32], dp[32];
+    uint32_t dhi[4][4], dlo[4][4];
+
+    mbar_wait(base + L::q_full(), 0);
+    mbar_wait(base + L::full(0), 0);
+    wgmma_fence();
+    qk<kDK, L::kQAtom, L::kAtom>(s, q_addr, base + L::k(0));
+    wgmma_commit();
+    qk<kDK, L::kQAtom, L::kAtom>(dp, do_addr, base + L::v(0));
+    wgmma_commit();
+    wgmma_wait<1>();
+    pin(s);
+    probs_rows(s, bits[0], t, lse2, p.scale2);
+    wgmma_wait<0>();
+    pin(dp);
+    dscores_rows(dp, s, delta, p.scale);
+    pack_pair(dp, dhi, dlo);
+
+    // Per tile j: S(j) = Q K^T, dP(j) = dO V^T and dQ += dS(j-1) K(j-1) in
+    // three wgmma groups; the chain of tile j runs as soon as its products
+    // are done, beside dQ's, and packs dS(j) once dQ's is done with the dS
+    // registers; the stage of tile j-1 is then free.
+    for (int j = 1; j < nk; ++j) {
+      const int st = j % kStages, prev = (j - 1) % kStages;
+      mbar_wait(base + L::full(st), (j / kStages) & 1);
+      pin(dq);
+      pin(dhi);
+      pin(dlo);
+      wgmma_fence();
+      qk<kDK, L::kQAtom, L::kAtom>(s, q_addr, base + L::k(st));
+      wgmma_commit();
+      qk<kDK, L::kQAtom, L::kAtom>(dp, do_addr, base + L::v(st));
+      wgmma_commit();
+      mma_pair<kDN, L::kAtom>(dq, dhi, dlo, base + L::k(prev));
+      wgmma_commit();
+      wgmma_wait<2>();
+      pin(s);
+      probs_rows(s, bits[st], t, lse2, p.scale2);
+      wgmma_wait<1>();
+      pin(dp);
+      dscores_rows(dp, s, delta, p.scale);
+      wgmma_wait<0>();
+      pin(dq);
+      mbar_arrive(base + L::empty(prev));
+      pack_pair(dp, dhi, dlo);
+    }
+    pin(dq);
+    pin(dhi);
+    pin(dlo);
+    wgmma_fence();
+    mma_pair<kDN, L::kAtom>(dq, dhi, dlo, base + L::k((nk - 1) % kStages));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dq);
+
+    // dQ, rounded once to bf16, for rows < Sq
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= p.Sq) continue;
+      bf16* out = p.dq + b * p.dq_sb + (long long)row * p.dq_ss + h * p.dq_sh;
+#pragma unroll
+      for (int n = 0; n < kDN / 8; ++n) {
+        const int col = 8 * n + 2 * t;
+        if (col >= p.D) break;
+        *reinterpret_cast<__nv_bfloat162*>(out + col) =
+            __floats2bfloat162_rn(dq[4 * n + 2 * r], dq[4 * n + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int kDK, int kDN>
+int launch_dq_dims(const Params& p, const void* const* ptrs, const long long* meta,
+                   cudaStream_t stream) {
+  // ptrs: q, k, v, dout; meta strides from index 6 (q, k, v, dout)
+  CUtensorMap tq, tdo, tk, tv;
+  if (!make_map(&tq, ptrs[0], p.B, p.Sq, p.Hq, p.D, meta[6], meta[7], meta[8], kDqBQ) ||
+      !make_map(&tk, ptrs[1], p.B, p.Sk, p.Hkv, p.D, meta[9], meta[10], meta[11], 64) ||
+      !make_map(&tv, ptrs[2], p.B, p.Sk, p.Hkv, p.D, meta[12], meta[13], meta[14], 64) ||
+      !make_map(&tdo, ptrs[3], p.B, p.Sq, p.Hq, p.D, meta[15], meta[16], meta[17], kDqBQ))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_bwd_sm90_dq_kernel<kDK, kDN>;
+  const int bytes = (int)DqSmem<kDK, kDN>::kBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.Sq + kDqBQ - 1) / kDqBQ, p.Hq, p.B);
+  kernel<<<grid, kThreads, bytes, stream>>>(p, tq, tdo, tk, tv);
+  return (int)cudaGetLastError();
+}
+
+// -- entry helpers --------------------------------------------------------------------
+
+// the compiled kernel's resources (see lumina_flash_bwd_sm90_attributes)
+template <class Kernel>
+int kernel_attributes(Kernel kernel, int bytes, long long* out) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   cudaFuncAttributes a;
@@ -508,30 +714,39 @@ int attributes_dims(long long* out) {
   return 0;
 }
 
-template <bool kFusedDq>
-int attributes(int head_dim, long long* out) {
-  if (head_dim <= 64) return attributes_dims<64, 64, kFusedDq>(out);
-  if (head_dim <= 72) return attributes_dims<80, 72, kFusedDq>(out);
-  return attributes_dims<128, 128, kFusedDq>(out);
+// 0: dK/dV only, 1: fused, 2: dQ
+template <int kDK, int kDN>
+int attributes_dims(int which, long long* out) {
+  if (which == 2)
+    return kernel_attributes(flash_bwd_sm90_dq_kernel<kDK, kDN>, (int)DqSmem<kDK, kDN>::kBytes,
+                             out);
+  if (which == 1)
+    return kernel_attributes(flash_bwd_sm90_kernel<kDK, kDN, true>,
+                             (int)Smem<kDK, kDN, true>::kBytes, out);
+  return kernel_attributes(flash_bwd_sm90_kernel<kDK, kDN, false>,
+                           (int)Smem<kDK, kDN, false>::kBytes, out);
 }
 
-}  // namespace
-
-int flash_bwd_sm90(bool fused, const void* q, const void* k, const void* v, const int* mask,
-                   const void* dout, const float* lse, const float* delta, void* dq, void* dk,
-                   void* dv, const long long* meta, float scale, void* stream) {
-  Params p;
+// Params from the entry points' arguments (dk, dv and dq left unset), or
+// false for what the kernels do not take: D not a multiple of 8 or above
+// 128, q/k/v/dout strides or bases not in whole 16-byte chunks (TMA moves
+// 16-byte chunks)
+bool make_params(Params& p, const void* q, const void* k, const void* v, const int* mask,
+                 const void* dout, const float* lse, const float* delta, const long long* meta,
+                 float scale) {
   p.mask = mask;
   p.lse = lse;
   p.delta = delta;
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
+  p.dk = p.dv = p.dq = nullptr;
   p.B = (int)meta[0];
   p.Sq = (int)meta[1];
   p.Sk = (int)meta[2];
   p.Hq = (int)meta[3];
   p.Hkv = (int)meta[4];
   p.D = (int)meta[5];
+  p.dq_sb = meta[18];
+  p.dq_ss = meta[19];
+  p.dq_sh = meta[20];
   p.dk_sb = meta[21];
   p.dk_ss = meta[22];
   p.dk_sh = meta[23];
@@ -541,17 +756,28 @@ int flash_bwd_sm90(bool fused, const void* q, const void* k, const void* v, cons
   p.m_sb = meta[27];
   p.scale = scale;
   p.scale2 = scale * kLog2e;  // the exp2 domain, folded here
-  // TMA moves 16-byte chunks: D, the strides of q, k, v, dout (bf16) and dq
-  // (fp32) and the bases in whole chunks; dk and dv take bf16 pairs
   for (int i = 6; i <= 17; ++i)
-    if (meta[i] % 8 != 0) return (int)cudaErrorInvalidValue;
+    if (meta[i] % 8 != 0) return false;
+  return p.D > 0 && p.D <= 128 && p.D % 8 == 0 && p.Hkv > 0 && p.Hq % p.Hkv == 0 && p.Sk > 0 &&
+         aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout);
+}
+
+}  // namespace
+
+int flash_bwd_sm90(bool fused, const void* q, const void* k, const void* v, const int* mask,
+                   const void* dout, const float* lse, const float* delta, void* dq, void* dk,
+                   void* dv, const long long* meta, float scale, void* stream) {
+  Params p;
+  if (!make_params(p, q, k, v, mask, dout, lse, delta, meta, scale))
+    return (int)cudaErrorInvalidValue;
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  // the fused dq (fp32) in whole 16-byte chunks; dk and dv take bf16 pairs
   for (int i = 18; i <= 20; ++i)
     if (fused && meta[i] % 4 != 0) return (int)cudaErrorInvalidValue;
   for (int i = 21; i <= 26; ++i)
     if (meta[i] % 2 != 0) return (int)cudaErrorInvalidValue;
-  if (p.D <= 0 || p.D > 128 || p.D % 8 != 0 || p.Hkv <= 0 || p.Hq % p.Hkv != 0 || p.Sk <= 0 ||
-      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
-      (fused && !aligned16(dq)) || reinterpret_cast<uintptr_t>(dk) % 4 != 0 ||
+  if ((fused && !aligned16(dq)) || reinterpret_cast<uintptr_t>(dk) % 4 != 0 ||
       reinterpret_cast<uintptr_t>(dv) % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (p.Sq == 0 || p.B == 0) return 0;
@@ -560,10 +786,34 @@ int flash_bwd_sm90(bool fused, const void* q, const void* k, const void* v, cons
   return fused ? launch<true>(p, ptrs, meta, s) : launch<false>(p, ptrs, meta, s);
 }
 
+int flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const int* mask,
+                      const void* dout, const float* lse, const float* delta, void* dq,
+                      const long long* meta, float scale, void* stream) {
+  Params p;
+  if (!make_params(p, q, k, v, mask, dout, lse, delta, meta, scale))
+    return (int)cudaErrorInvalidValue;
+  p.dq = static_cast<bf16*>(dq);
+  // dq (bf16) takes bf16 pairs
+  for (int i = 18; i <= 20; ++i)
+    if (meta[i] % 2 != 0) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(dq) % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (p.Sq == 0 || p.B == 0) return 0;
+  const void* ptrs[4] = {q, k, v, dout};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // QK^T depth and dQ width by head_dim: 64/64, 80/72 (the 2B), 128/128
+  if (p.D <= 64) return launch_dq_dims<64, 64>(p, ptrs, meta, s);
+  if (p.D <= 72) return launch_dq_dims<80, 72>(p, ptrs, meta, s);
+  return launch_dq_dims<128, 128>(p, ptrs, meta, s);
+}
+
 // The compiled kernel's resources at a head_dim (7 values into out):
 // registers per thread as compiled (the launch bound), the producer's and
 // the consumers' registers after setmaxnreg, local-memory (spill) bytes per
 // thread, shared memory per block, resident blocks per SM, threads per block.
-extern "C" int lumina_flash_bwd_sm90_attributes(int fused, int head_dim, long long* out) {
-  return fused ? attributes<true>(head_dim, out) : attributes<false>(head_dim, out);
+// which: 0 the dK/dV kernel (K8), 1 the fused sweep (K6), 2 the dQ kernel (K7).
+extern "C" int lumina_flash_bwd_sm90_attributes(int which, int head_dim, long long* out) {
+  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
+  if (head_dim <= 64) return attributes_dims<64, 64>(which, out);
+  if (head_dim <= 72) return attributes_dims<80, 72>(which, out);
+  return attributes_dims<128, 128>(which, out);
 }

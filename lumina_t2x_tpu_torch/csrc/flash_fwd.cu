@@ -10,13 +10,13 @@
 //   lumina_flash_rope       <- _flash_rope_kernel       (_flash_rope_fwd_impl, rotate_k=True)
 //   lumina_flash_rope_q     <- _flash_rope_q_kernel     (_flash_rope_fwd_impl, rotate_k=False)
 // Each entry point is a distinct C function so the Python wrapper can count
-// its launches. For bf16 inputs lumina_flash_online, lumina_flash_static_max,
-// lumina_flash_online_lse and lumina_flash_static_max_lse launch the Hopper
-// kernel of flash_fwd_sm90.cu (registers, exp2, a K/V ring; the LSE written
-// from the consumers' registers). One templated kernel here (kStaticMax,
-// kEmitLse, kRope) runs the rest: all seven entry points for fp32, and
-// lumina_flash_small_kv and the two rope entry points for bf16 (the only
-// bf16 instantiations it has).
+// its launches. For bf16 inputs lumina_flash_small_kv, lumina_flash_online,
+// lumina_flash_static_max, lumina_flash_online_lse and
+// lumina_flash_static_max_lse launch the Hopper kernel of flash_fwd_sm90.cu
+// (registers, exp2, a K/V ring; the LSE written from the consumers'
+// registers). One templated kernel here (kStaticMax, kEmitLse, kRope) runs
+// the rest: all seven entry points for fp32, and the two rope entry points
+// for bf16 (its only bf16 instantiations).
 //
 // What it computes (the Pallas kernels' math, not their TPU mechanics):
 //   s   = scale * q . k            over valid keys (kv_mask != 0, j < Sk)
@@ -65,7 +65,7 @@
 // product (S, P and the O accumulator live in shared memory so the per-row
 // softmax can run on plain threads). flash_fwd_sm90.cu is the redesign
 // (wgmma with register accumulators, a TMA ring, warp specialisation) that
-// bf16 K2-K5 run; K1 and K9 are to follow it.
+// bf16 K1-K5 run; bf16 K9 is to follow it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -442,9 +442,9 @@ int launch(const void* q, const void* k, const void* v, const int* mask, void* o
     return (int)cudaErrorInvalidValue;
   if (p.Sq == 0 || p.B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // bf16 takes this template only for K1 and K9 (online, no LSE); bf16 K2-K5
-  // go to flash_fwd_sm90.cu before reaching here
-  if constexpr (!kStaticMax && !kEmitLse) {
+  // bf16 takes this template only for K9 (online, no LSE, rotation); bf16
+  // K1-K5 go to flash_fwd_sm90.cu before reaching here
+  if constexpr (!kStaticMax && !kEmitLse && kRope != kRopeNone) {
     if (is_bf16) return launch_typed<__nv_bfloat16, false, false, kRope>(p, s);
   } else {
     if (is_bf16) return (int)cudaErrorInvalidValue;
@@ -475,6 +475,7 @@ int launch(const void* q, const void* k, const void* v, const int* mask, void* o
 extern "C" {
 
 int lumina_flash_small_kv(LUMINA_FLASH_ARGS) {
+  if (is_bf16) return flash_fwd_sm90(false, q, k, v, mask, out, nullptr, meta, scale, 0.f, stream);
   return launch<false, false>(q, k, v, mask, out, nullptr, meta, scale, 0.f, is_bf16, stream);
 }
 

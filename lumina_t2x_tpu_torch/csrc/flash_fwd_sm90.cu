@@ -1,15 +1,20 @@
 // bf16 streaming attention forward for Hopper (sm_90a), hand-written CUDA C++:
 // wgmma warpgroups fed by a producer warp through an asynchronous K/V ring.
 // Replaces the Pallas TPU kernels of lumina_t2x_tpu/ops/flash_attention.py
+//   small KV       <- _flash_small_kv_kernel,                       static_max=None
 //   online         <- _flash_kernel_fused_sum (+ _fused_sum_step), static_max=None
 //   static max     <- _flash_kernel_static_max,                     static_max=bound
 //   online + LSE   <- _flash_kernel_res,                            static_max=None
 //   static + LSE   <- _flash_kernel_res_static_max,                 static_max=bound
-// for bf16 inputs; the C entry points lumina_flash_online,
-// lumina_flash_static_max, lumina_flash_online_lse and
-// lumina_flash_static_max_lse stay in flash_fwd.cu (launch counters "online",
-// "static_max", "online_lse", "static_max_lse"), which calls flash_fwd_sm90()
-// for bf16 and keeps its own template for fp32.
+// for bf16 inputs; the C entry points lumina_flash_small_kv,
+// lumina_flash_online, lumina_flash_static_max, lumina_flash_online_lse and
+// lumina_flash_static_max_lse stay in flash_fwd.cu (launch counters
+// "small_kv", "online", "static_max", "online_lse", "static_max_lse"), which
+// calls flash_fwd_sm90() for bf16 and keeps its own template for fp32. The
+// small-KV kernel (Sk <= 1024, the caption cross-attention) is the online
+// kernel's function over all keys: the online softmax over 64-key tiles is
+// the single-pass exact softmax up to fp32 rounding, so it is the same
+// kernel, 1-16 key tiles per block.
 //
 // What it computes, per (batch, q head h, query row), with s = q . k over the
 // valid keys of kv head h / (Hq / Hkv) (kv_mask != 0, j < Sk):
@@ -37,7 +42,9 @@
 // ballots write the tile's 64 key-valid bits beside it (j < Sk and the mask,
 // read one tile ahead).
 // It refills a stage once its "empty" mbarrier, on which every consumer
-// thread arrives, has completed. Warpgroups 1-3 are consumers, 64 query
+// thread arrives, has completed. The ring's layout (KvRing), its producer
+// loop (produce_kv) and the pair product (mma_pair) live in
+// sm90_common.cuh, shared with the backward's dQ kernel. Warpgroups 1-3 are consumers, 64 query
 // rows each; setmaxnreg moves registers from the producer (24 a thread) to
 // them (160). For key tile j a consumer issues two wgmma groups,
 //   S  = Q K^T   wgmma.m64n64k16, A = Q and B = K from shared memory
@@ -123,48 +130,11 @@ struct Params {
 
 // -- shared memory ------------------------------------------------------------------
 
+// Q, then the K/V ring (sm90_common.cuh): 5 stages at head_dim 72 and 128, 8 at 64
 template <int kDK, int kDN>
-struct Smem {
-  // Q, K and V in atoms of 64 columns x rows (128-byte swizzled rows), one
-  // TMA box per atom: columns 0-63, 64-127; columns past D arrive as zeros
-  static constexpr int kAtomsK = (kDK + kAtomCols - 1) / kAtomCols;
-  static constexpr int kAtomsV = (kDN + kAtomCols - 1) / kAtomCols;
-  static constexpr uint32_t kQAtom = kBQ * kSwizzle, kAtom = kBK * kSwizzle;
-  static constexpr uint32_t kQ = 0;
-  static constexpr uint32_t kQBytes = kAtomsK * kQAtom;
-  static constexpr uint32_t kKBytes = kAtomsK * kAtom;
-  static constexpr uint32_t kVBytes = kAtomsV * kAtom;
-  static constexpr uint32_t kStageBytes = kKBytes + kVBytes;
-  static constexpr uint32_t kAlign = 1024;  // the dynamic base is rounded up to this
-  // ring stages: as many as fit, at most 8 (5 at head_dim 72 and 128)
-  static constexpr int kFit = (kSmemMax - kAlign - kQBytes - 512) / kStageBytes;
-  static constexpr int kStages = kFit < 8 ? kFit : 8;
-  static_assert(kStages >= 3, "the ring needs at least 3 stages");
-  static constexpr uint32_t kBits = kQBytes + kStages * kStageBytes;  // u64 per stage
-  static constexpr uint32_t kBars = kBits + 8 * kStages;  // q_full, full[kStages], empty[kStages]
-  static constexpr uint32_t kBytes = kAlign + kBars + 8 * (1 + 2 * kStages);
-  __device__ static uint32_t k(int st) { return kQBytes + st * kStageBytes; }
-  __device__ static uint32_t v(int st) { return kQBytes + st * kStageBytes + kKBytes; }
-  __device__ static uint32_t q_full() { return kBars; }
-  __device__ static uint32_t full(int st) { return kBars + 8 * (1 + st); }
-  __device__ static uint32_t empty(int st) { return kBars + 8 * (1 + kStages + st); }
-};
+using Smem = KvRing<kBQ, 1, kDK, kDN>;
 
 // -- consumer -----------------------------------------------------------------------
-
-// O += (P_hi + P_lo) V: two products per 16-key slice over the same V. V is
-// MN-major: LBO = the stride of its 64-column atoms, SBO = 8 keys; slice kk
-// starts 16 keys further
-template <int kDN, uint32_t kAtom>
-__device__ __forceinline__ void pv(float (&o)[kDN / 2], const uint32_t (&phi)[kBK / 16][4],
-                                   const uint32_t (&plo)[kBK / 16][4], uint32_t v_addr) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint64_t desc = swz_desc(v_addr + kk * 16 * kSwizzle, kAtom, 8 * kSwizzle);
-    wgmma_rs<kDN>(o, phi[kk], desc);
-    wgmma_rs<kDN>(o, plo[kk], desc);
-  }
-}
 
 // The per-logit chain of one tile, first half: s holds this thread's 32
 // logits of rows g and g + 8 (s[4n + e]: key 8n + 2t + (e & 1), row g + 8 *
@@ -179,7 +149,6 @@ __device__ __forceinline__ void exp_tile(float (&s)[kBK / 2], unsigned long long
                                          const Params& p) {
   const bool all_valid = bits == ~0ull;
   bits >>= 2 * t;
-  auto valid = [&](int i) { return ((bits >> (8 * (i / 4) + (i & 1))) & 1ull) != 0; };
   if constexpr (kStaticMax) {
     if (all_valid) {
 #pragma unroll
@@ -189,7 +158,7 @@ __device__ __forceinline__ void exp_tile(float (&s)[kBK / 2], unsigned long long
 #pragma unroll
       for (int i = 0; i < kBK / 2; ++i) {
         const float e = ex2(fminf(fmaf(s[i], p.scale2, -p.bound2), p.clamp2));
-        s[i] = valid(i) ? e : 0.f;
+        s[i] = key_valid(bits, i) ? e : 0.f;
       }
     }
   } else {
@@ -203,7 +172,7 @@ __device__ __forceinline__ void exp_tile(float (&s)[kBK / 2], unsigned long long
     } else {
 #pragma unroll
       for (int i = 0; i < kBK / 2; ++i) {
-        s[i] = valid(i) ? s[i] * p.scale2 : -INFINITY;
+        s[i] = key_valid(bits, i) ? s[i] * p.scale2 : -INFINITY;
         mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
       }
     }
@@ -233,22 +202,13 @@ __device__ __forceinline__ void exp_tile(float (&s)[kBK / 2], unsigned long long
 // registers: online, o *= alpha; then P as the hi/lo A fragments of PV.
 template <bool kStaticMax, int kDN>
 __device__ __forceinline__ void pack_tile(const float (&s)[kBK / 2], const float (&alpha)[2],
-                                          float (&o)[kDN / 2], uint32_t (&phi)[kBK / 16][4],
-                                          uint32_t (&plo)[kBK / 16][4]) {
+                                          float (&o)[kDN / 2], uint32_t (&phi)[4][4],
+                                          uint32_t (&plo)[4][4]) {
   if constexpr (!kStaticMax) {
 #pragma unroll
     for (int i = 0; i < kDN / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
   }
-#pragma unroll
-  for (int n = 0; n < kBK / 8; ++n) {
-    const uint32_t top = pack_bf16(s[4 * n], s[4 * n + 1]);      // row g,     keys 8n + 2t, +1
-    const uint32_t bot = pack_bf16(s[4 * n + 2], s[4 * n + 3]);  // row g + 8
-    phi[n / 2][2 * (n % 2)] = top;
-    phi[n / 2][2 * (n % 2) + 1] = bot;
-    plo[n / 2][2 * (n % 2)] = pack_bf16(s[4 * n] - bf16_lo(top), s[4 * n + 1] - bf16_hi(top));
-    plo[n / 2][2 * (n % 2) + 1] =
-        pack_bf16(s[4 * n + 2] - bf16_lo(bot), s[4 * n + 3] - bf16_hi(bot));
-  }
+  pack_pair(s, phi, plo);
 }
 
 template <bool kStaticMax, int kDK, int kDN>
@@ -257,6 +217,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv) {
   using L = Smem<kDK, kDN>;
+  static_assert(L::kBK == kBK, "the chain's tile is the ring's");
   constexpr int kStages = L::kStages;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_addr(smem) + L::kAlign - 1) & ~(L::kAlign - 1);
@@ -289,30 +250,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int a = 0; a < L::kAtomsK; ++a)
         tma_load(base + L::kQ + a * L::kQAtom, &tq, base + L::q_full(), kAtomCols * a, h, q0, b);
     }
-    const int* mask_row = p.mask ? p.mask + b * p.m_sb : nullptr;
-    // mask values of keys j0 + lane and j0 + 32 + lane, read one tile ahead
-    int m0 = mask_row && lane < p.Sk ? mask_row[lane] : 1;
-    int m1 = mask_row && 32 + lane < p.Sk ? mask_row[32 + lane] : 1;
-    for (int j = 0; j < nk; ++j) {
-      const int st = j % kStages, j0 = j * kBK;
-      const unsigned w0 = __ballot_sync(0xffffffffu, j0 + lane < p.Sk && m0 != 0);
-      const unsigned w1 = __ballot_sync(0xffffffffu, j0 + 32 + lane < p.Sk && m1 != 0);
-      if (mask_row && j + 1 < nk) {
-        m0 = j0 + kBK + lane < p.Sk ? mask_row[j0 + kBK + lane] : 0;
-        m1 = j0 + kBK + 32 + lane < p.Sk ? mask_row[j0 + kBK + 32 + lane] : 0;
-      }
-      if (lane == 0) {
-        mbar_wait(base + L::empty(st), ((j / kStages) & 1) ^ 1);  // round 0 passes at once
-        bits[st] = (unsigned long long)w1 << 32 | w0;
-        mbar_expect_tx(base + L::full(st), L::kStageBytes);
-        for (int a = 0; a < L::kAtomsK; ++a)
-          tma_load(base + L::k(st) + a * L::kAtom, &tk, base + L::full(st), a * kAtomCols, hk, j0,
-                   b);
-        for (int a = 0; a < L::kAtomsV; ++a)
-          tma_load(base + L::v(st) + a * L::kAtom, &tv, base + L::full(st), a * kAtomCols, hk, j0,
-                   b);
-      }
-    }
+    produce_kv<L>(base, bits, &tk, &tv, p.mask ? p.mask + b * p.m_sb : nullptr, p.Sk, hk, b,
+                  lane);
   } else {
     // ---- consumers: 64 query rows each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
@@ -327,7 +266,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < kDN / 2; ++i) o[i] = 0.f;
     float l[2] = {0.f, 0.f}, m[2] = {-INFINITY, -INFINITY};
     float s[kBK / 2];
-    uint32_t phi[kBK / 16][4], plo[kBK / 16][4];
+    uint32_t phi[4][4], plo[4][4];
 
     float alpha[2];
 
@@ -358,7 +297,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
       qk<kDK, L::kQAtom, L::kAtom>(s, q_addr, base + L::k(st));
       wgmma_commit();
-      pv<kDN, L::kAtom>(o, phi, plo, base + L::v(prev));
+      mma_pair<kDN, L::kAtom>(o, phi, plo, base + L::v(prev));
       wgmma_commit();
       bar_arrive(other);
       wgmma_wait<1>();
@@ -375,7 +314,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     pin(phi);
     pin(plo);
     wgmma_fence();
-    pv<kDN, L::kAtom>(o, phi, plo, base + L::v((nk - 1) % kStages));
+    mma_pair<kDN, L::kAtom>(o, phi, plo, base + L::v((nk - 1) % kStages));
     wgmma_commit();
     if (c != kConsumers - 1) bar_arrive(other);  // consumer 0 has no later turn to take
     wgmma_wait<0>();

@@ -1,7 +1,8 @@
 // The bf16 streaming attention forward of flash_fwd_sm90.cu, called by the
-// C entry points lumina_flash_online, lumina_flash_static_max,
-// lumina_flash_online_lse and lumina_flash_static_max_lse of flash_fwd.cu
-// (which keep their fp32 path on the forward template there).
+// C entry points lumina_flash_small_kv, lumina_flash_online,
+// lumina_flash_static_max, lumina_flash_online_lse and
+// lumina_flash_static_max_lse of flash_fwd.cu (which keep their fp32 path on
+// the forward template there).
 //
 // meta (int64[19]) as those entry points take it: B, Sq, Sk, Hq, Hkv, D,
 // then element strides of q (b, s, h), k (b, s, h), v (b, s, h), out

@@ -1,9 +1,11 @@
 // PTX helpers shared by the Hopper (sm_90a) attention kernels,
 // flash_fwd_sm90.cu and flash_bwd_sm90.cu: TMA loads and reductions,
-// mbarriers, named barriers, wgmma descriptors and products, bf16 packing,
-// exp2, and the 4-D tensor maps. Everything here lives in an anonymous
-// namespace, so each source that includes it gets its own copy and the
-// library that links both has no duplicate symbols.
+// mbarriers, named barriers, wgmma descriptors and products, bf16 packing
+// and the hi/lo pair products, exp2, the 4-D tensor maps, and the K/V ring
+// (its shared-memory layout and its producer loop) that the forward kernel
+// and the backward's dQ kernel both stream keys through. Everything here
+// lives in an anonymous namespace, so each source that includes it gets its
+// own copy and the library that links both has no duplicate symbols.
 
 #pragma once
 
@@ -266,6 +268,47 @@ __device__ __forceinline__ void qk(float (&s)[32], uint32_t a_addr, uint32_t b_a
   }
 }
 
+// -- bf16 pairs --------------------------------------------------------------------
+//
+// x (a 64 x 64 accumulator: x[4n + e] at row g + 8 * (e >> 1), column
+// 8n + 2t + (e & 1)) as the A fragments of four 16-column k-steps, split
+// into the bf16 pair hi = bf16(x) and lo = bf16(x - hi) (~16 mantissa bits)
+__device__ __forceinline__ void pack_pair(const float (&x)[32], uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const uint32_t top = pack_bf16(x[4 * n], x[4 * n + 1]);      // row g,     columns 8n + 2t, +1
+    const uint32_t bot = pack_bf16(x[4 * n + 2], x[4 * n + 3]);  // row g + 8
+    hi[n / 2][2 * (n % 2)] = top;
+    hi[n / 2][2 * (n % 2) + 1] = bot;
+    lo[n / 2][2 * (n % 2)] = pack_bf16(x[4 * n] - bf16_lo(top), x[4 * n + 1] - bf16_hi(top));
+    lo[n / 2][2 * (n % 2) + 1] =
+        pack_bf16(x[4 * n + 2] - bf16_lo(bot), x[4 * n + 3] - bf16_hi(bot));
+  }
+}
+
+// acc (64 x kDN) += (A_hi + A_lo) B over 64 rows of K: A from registers, B
+// (rows of 128 bytes per atom, atom stride kAtom) MN-major: LBO = the atom
+// stride, SBO = 8 rows; slice kk starts 16 rows further. The forward's
+// O += P V, the backward's dV += P^T dO, dK += dS^T Q and dQ += dS K.
+template <int kDN, uint32_t kAtom>
+__device__ __forceinline__ void mma_pair(float (&acc)[kDN / 2], const uint32_t (&hi)[4][4],
+                                         const uint32_t (&lo)[4][4], uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = swz_desc(b_addr + kk * 16 * kSwizzle, kAtom, 8 * kSwizzle);
+    wgmma_rs<kDN>(acc, hi[kk], desc);
+    wgmma_rs<kDN>(acc, lo[kk], desc);
+  }
+}
+
+// whether the key of a thread's accumulator element i (x[4n + e]: key
+// 8n + 2t + (e & 1)) is valid, from a tile's key-valid bits shifted right
+// by 2t (bit j: key j)
+__device__ __forceinline__ bool key_valid(unsigned long long bits, int i) {
+  return ((bits >> (8 * (i / 4) + (i & 1))) & 1ull) != 0;
+}
+
 // -- tensor maps ------------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -315,5 +358,77 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, lon
 }
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+// -- the K/V ring -------------------------------------------------------------------
+//
+// Shared memory of a block that loads kQTiles tiles of kBQ query rows once
+// (the forward: Q; the dQ kernel: Q, then dO) and streams 64-key K and V
+// tiles through a ring of stages. Each tile is stored in atoms of 64
+// columns x rows (128-byte swizzled rows), one TMA box per atom: columns
+// 0-63, 64-127; columns past D arrive as zeros. After the ring, per stage,
+// the tile's 64 key-valid bits (u64); then the mbarriers q_full, full[],
+// empty[]. The ring has as many stages as fit, at most 8.
+template <int kBQ, int kQTiles, int kDK, int kDN>
+struct KvRing {
+  static constexpr int kBK = 64;  // keys per tile
+  static constexpr int kAtomsK = (kDK + kAtomCols - 1) / kAtomCols;
+  static constexpr int kAtomsV = (kDN + kAtomCols - 1) / kAtomCols;
+  static constexpr uint32_t kQAtom = kBQ * kSwizzle, kAtom = kBK * kSwizzle;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kQTile = kAtomsK * kQAtom;
+  static constexpr uint32_t kQBytes = kQTiles * kQTile;
+  static constexpr uint32_t kKBytes = kAtomsK * kAtom;
+  static constexpr uint32_t kVBytes = kAtomsV * kAtom;
+  static constexpr uint32_t kStageBytes = kKBytes + kVBytes;
+  static constexpr uint32_t kAlign = 1024;  // the dynamic base is rounded up to this
+  static constexpr int kFit = (kSmemMax - kAlign - kQBytes - 512) / kStageBytes;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static_assert(kStages >= 3, "the ring needs at least 3 stages");
+  static constexpr uint32_t kBits = kQBytes + kStages * kStageBytes;  // u64 per stage
+  static constexpr uint32_t kBars = kBits + 8 * kStages;  // q_full, full[kStages], empty[kStages]
+  static constexpr uint32_t kBytes = kAlign + kBars + 8 * (1 + 2 * kStages);
+  __device__ static uint32_t q(int i) { return kQ + i * kQTile; }
+  __device__ static uint32_t k(int st) { return kQBytes + st * kStageBytes; }
+  __device__ static uint32_t v(int st) { return kQBytes + st * kStageBytes + kKBytes; }
+  __device__ static uint32_t q_full() { return kBars; }
+  __device__ static uint32_t full(int st) { return kBars + 8 * (1 + st); }
+  __device__ static uint32_t empty(int st) { return kBars + 8 * (1 + kStages + st); }
+};
+
+// The producer warp's loop over the key tiles of a KvRing: for tile j, the
+// warp's two ballots give its 64 key-valid bits (j0 + i < Sk and the mask,
+// read one tile ahead), and lane 0 waits until the stage is free (its
+// "empty" mbarrier, on which every consumer thread arrives), writes the
+// bits beside it and loads K and V with TMA, one box per atom, counted by
+// the stage's "full" mbarrier. The maps are (D, H, S, B) with a box of 64
+// columns x 64 keys; keys past Sk arrive as zeros.
+template <class L>
+__device__ __forceinline__ void produce_kv(uint32_t base, unsigned long long* bits,
+                                           const CUtensorMap* tk, const CUtensorMap* tv,
+                                           const int* mask_row, int Sk, int hk, int b, int lane) {
+  constexpr int kBK = L::kBK, kStages = L::kStages;
+  const int nk = (Sk + kBK - 1) / kBK;
+  // mask values of keys j0 + lane and j0 + 32 + lane
+  int m0 = mask_row && lane < Sk ? mask_row[lane] : 1;
+  int m1 = mask_row && 32 + lane < Sk ? mask_row[32 + lane] : 1;
+  for (int j = 0; j < nk; ++j) {
+    const int st = j % kStages, j0 = j * kBK;
+    const unsigned w0 = __ballot_sync(0xffffffffu, j0 + lane < Sk && m0 != 0);
+    const unsigned w1 = __ballot_sync(0xffffffffu, j0 + 32 + lane < Sk && m1 != 0);
+    if (mask_row && j + 1 < nk) {
+      m0 = j0 + kBK + lane < Sk ? mask_row[j0 + kBK + lane] : 0;
+      m1 = j0 + kBK + 32 + lane < Sk ? mask_row[j0 + kBK + 32 + lane] : 0;
+    }
+    if (lane == 0) {
+      mbar_wait(base + L::empty(st), ((j / kStages) & 1) ^ 1);  // round 0 passes at once
+      bits[st] = (unsigned long long)w1 << 32 | w0;
+      mbar_expect_tx(base + L::full(st), L::kStageBytes);
+      for (int a = 0; a < L::kAtomsK; ++a)
+        tma_load(base + L::k(st) + a * L::kAtom, tk, base + L::full(st), a * kAtomCols, hk, j0, b);
+      for (int a = 0; a < L::kAtomsV; ++a)
+        tma_load(base + L::v(st) + a * L::kAtom, tv, base + L::full(st), a * kAtomCols, hk, j0, b);
+    }
+  }
+}
 
 }  // namespace

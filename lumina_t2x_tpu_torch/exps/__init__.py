@@ -52,6 +52,36 @@ def device_label(device) -> str:
     return "cpu (plain versions, host clock)"
 
 
+def device_ms(fn, pattern: str, calls: int = 20):
+    """Mean device time (ms) a call of fn of the kernels whose name holds
+    `pattern`, under `torch.profiler`, or None when the trace has no device
+    events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and pattern in e.key)
+    return total / 1000 / calls if total > 0 else None
+
+
+def source_with_common(path) -> str:
+    """A Hopper kernel's source with `sm90_common.cuh` (the PTX helpers, the
+    pair products and the K/V ring its kernels share) pasted in place of its
+    #include, so that a breakdown variant can take parts out of those too."""
+    common = (path.parent / "sm90_common.cuh").read_text().replace("#pragma once\n", "")
+    include = '#include "sm90_common.cuh"\n'
+    source = path.read_text()
+    if source.count(include) != 1:
+        raise RuntimeError(f"{path.name} does not include sm90_common.cuh once")
+    return source.replace(include, common)
+
+
 def require_device(device) -> torch.device:
     """The device to run on; a CUDA device must exist (no fallback to the CPU)."""
     device = torch.device(device)

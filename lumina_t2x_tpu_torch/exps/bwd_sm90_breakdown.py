@@ -1,12 +1,17 @@
 """Where the time of the bf16 flash-attention backward goes on the card
-(`csrc/flash_bwd_sm90.cu`, K6 `flash_bwd_fused` and K8 `flash_bwd_dkv`).
+(`csrc/flash_bwd_sm90.cu`, K6 `flash_bwd_fused` and K8 `flash_bwd_dkv`;
+K7 `flash_bwd_dq` timed whole).
 
     python -m lumina_t2x_tpu_torch.exps.bwd_sm90_breakdown
 
 Builds variants of the kernel's source, each with one part taken out, and
 times each at the 2B training shape (B=2, S=4096, H=32, D=72, bf16), as the
 fused sweep and as dK/dV only (the K8 instantiation: no dQ), beside one
-autograd backward of `scaled_dot_product_attention` on the same inputs:
+autograd backward of `scaled_dot_product_attention` on the same inputs.
+It also times K7 itself at the trainer's key lengths (`DQ_SKS`: the
+self-attention's 4096, the captions' 32): `flash_bwd_dq` by CUDA events
+around the wrapper, and its kernel's device time under `torch.profiler`
+(the difference is the wrapper's, mostly its eager delta). The variants:
 
   kernel         the source as it is
   loads only     the consumers skip the products, the chain and dQ: what the
@@ -18,9 +23,10 @@ autograd backward of `scaled_dot_product_attention` on the same inputs:
   P/dS once      P and dS rounded once to bf16: no lo products, no lo packs
 
 Only "kernel" computes the function; the others are timings. Each variant
-is compiled with nvcc into `build/bwd_sm90_breakdown/` (the source edits
-are checked, so a changed kernel fails here instead of timing something
-else). Needs a CUDA device and nvcc.
+is compiled with nvcc into `build/bwd_sm90_breakdown/` from the source with
+`sm90_common.cuh` pasted in (the pair products live there); the edits are
+checked, so a changed kernel fails here instead of timing something else.
+Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -33,9 +39,10 @@ import torch
 
 from ..ops import cuda_lib
 from ..ops import flash_attention as fa
-from . import device_label, time_ms
+from . import device_label, device_ms, source_with_common, time_ms
 
 B, S, H, D = 2, 4096, 32, 72
+DQ_SKS = (4096, 32)  # K7's key lengths: self-attention, trainer captions
 SOURCE = cuda_lib._CSRC / "flash_bwd_sm90.cu"
 _BUILD = cuda_lib._BUILD_ROOT.parent / "bwd_sm90_breakdown"
 
@@ -79,8 +86,14 @@ extern "C" int breakdown_bwd(int fused, const void* q, const void* k, const void
 """
 
 
+def kernel_source() -> str:
+    """The kernel's source with the shared header pasted in: what the variants edit."""
+    return source_with_common(SOURCE)
+
+
 def variant_source(name: str, source: str) -> str:
-    """The kernel's source with variant `name`'s parts taken out."""
+    """The kernel's source (`kernel_source()`) with variant `name`'s parts
+    taken out."""
     for edit in _EDITS[name]:
         if len(edit) == 2:
             old, new = edit
@@ -99,7 +112,7 @@ def variant_source(name: str, source: str) -> str:
 
 def build(names) -> dict:
     """{variant: ctypes library}, compiled in parallel (once per source)."""
-    source = SOURCE.read_text()
+    source = kernel_source()
     jobs = {}
     for name in names:
         text = variant_source(name, source)
@@ -153,6 +166,16 @@ def main():
                                                retain_graph=True), device)
     print(f"{device_label(device)}; B={B} S={S} H={H} D={D} bf16; scaled_dot_product_attention "
           f"backward {sdpa:.3f} ms")
+    for sk in DQ_SKS:
+        ks, vs = (k, v) if sk == S else (
+            torch.randn(B, sk, H, D, generator=g, device=device).to(torch.bfloat16)
+            for _ in range(2))
+        o, l = fa.flash_online_lse(q, ks, vs, None, scale)
+        k7 = lambda: fa.flash_bwd_dq(q, ks, vs, None, o, l, dout, scale)
+        dev = device_ms(k7, "flash_bwd_sm90_dq")
+        print(f"flash_bwd_dq (K7) Sk={sk}: {time_ms(k7, device):.3f} ms by CUDA events around the "
+              f"wrapper, " + (f"{dev:.3f} ms" if dev is not None else "not traced")
+              + " of its kernel's device time a call under torch.profiler", flush=True)
     for name, lib in libs.items():
         ms = {}
         for fused in (True, False):

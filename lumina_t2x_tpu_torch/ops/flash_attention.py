@@ -28,15 +28,20 @@ whose backward rotates q (and k) in plain PyTorch, runs `flash_online_lse`
 and the backward kernels, and inverse-rotates dq (and dk).
 
 The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_{fwd,bwd}.cu` and
-the Hopper redesigns `csrc/flash_fwd_sm90.cu` (bf16 `flash_online`,
-`flash_static_max`, `flash_online_lse`, `flash_static_max_lse`; the LSE
-written from the consumers' registers) and `csrc/flash_bwd_sm90.cu` (bf16
-`flash_bwd_fused` / `flash_bwd_dkv`); they are built into one library by
-`ops/cuda_lib.py` at first use, under `build/kernels/<source hash>/` at the
-repository root, and bound through ctypes. A wrapper takes its plain version only for CPU
+the Hopper redesigns `csrc/flash_fwd_sm90.cu` (bf16 `flash_small_kv`,
+`flash_online`, `flash_static_max`, `flash_online_lse`,
+`flash_static_max_lse`; the LSE written from the consumers' registers) and
+`csrc/flash_bwd_sm90.cu` (bf16 `flash_bwd_fused` / `flash_bwd_dkv`, and
+`flash_bwd_dq`'s own kernel: q rows as the block, a ring of K/V tiles); they
+are built into one library by `ops/cuda_lib.py` at first use, under
+`build/kernels/<source hash>/` at the repository root, and bound through
+ctypes. The template of `flash_fwd.cu` runs bf16 only for the fused-RoPE
+kernels; `flash_bwd.cu` runs fp32 only. A wrapper takes its plain version only for CPU
 tensors; for CUDA tensors it launches the kernel or raises. The bf16 Hopper
 kernels read q, k, v (and dout) through TMA tensor maps in 16-byte chunks:
-they take head_dim a multiple of 8 (else ValueError), and an operand whose
+they take head_dim a multiple of 8 (else ValueError; so does every bf16
+call but the fused-RoPE ones, `flash_small_kv` and `flash_bwd_dq`
+included), and an operand whose
 base or (b, s, h) strides are not whole chunks, or whose strides do not
 grow from h to s to b, is copied contiguous first (`_chunk_aligned`; a
 strided view such as q, k, v of a fused (B, S, 3, H, D) tensor is read in
@@ -289,6 +294,7 @@ cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
        _BWD_ARGS if name in _BWD_ENTRIES else _ROPE_ARGS for name in LAUNCHES},
     # static_max (fused), head_dim, out (int64[7]); launch nothing
     "lumina_flash_fwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta],
+    # which (0 dK/dV, 1 fused, 2 dQ), head_dim, out (int64[7])
     "lumina_flash_bwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta]})
 _SM90_ATTRIBUTES = ("registers", "producer_registers", "consumer_registers", "local_bytes",
                     "shared_bytes", "blocks_per_sm", "threads")
@@ -312,10 +318,17 @@ def sm90_attributes(static_max: bool, head_dim: int = 72) -> dict:
     return _attributes("lumina_flash_fwd_sm90_attributes", static_max, head_dim)
 
 
-def bwd_sm90_attributes(fused: bool, head_dim: int = 72) -> dict:
-    """`sm90_attributes` of the bf16 backward kernel (`csrc/flash_bwd_sm90.cu`):
-    the fused sweep (K6) or dK/dV only (K8)."""
-    return _attributes("lumina_flash_bwd_sm90_attributes", fused, head_dim)
+_BWD_SM90_KERNELS = ("dkv", "fused", "dq")  # the C entry's `which`, in order
+
+
+def bwd_sm90_attributes(kernel: str, head_dim: int = 72) -> dict:
+    """`sm90_attributes` of a bf16 backward kernel (`csrc/flash_bwd_sm90.cu`):
+    `kernel` is "fused" (the fused sweep, K6), "dkv" (dK/dV only, K8) or "dq"
+    (the dQ kernel, K7)."""
+    if kernel not in _BWD_SM90_KERNELS:
+        raise ValueError(f"kernel must be one of {_BWD_SM90_KERNELS}, not {kernel!r}")
+    return _attributes("lumina_flash_bwd_sm90_attributes", _BWD_SM90_KERNELS.index(kernel),
+                       head_dim)
 
 
 def _check_inputs(q, k, v, kv_mask):
@@ -342,9 +355,9 @@ def _check_inputs(q, k, v, kv_mask):
 
 
 # the entry points whose bf16 inputs take the Hopper kernels of
-# `csrc/flash_fwd_sm90.cu` (K2-K5) and `csrc/flash_bwd_sm90.cu` (K6, K8)
-_SM90_ENTRIES = ("online", "static_max", "online_lse", "static_max_lse")
-_SM90_BWD_ENTRIES = ("bwd_fused", "bwd_dkv")
+# `csrc/flash_fwd_sm90.cu` (K1-K5) and `csrc/flash_bwd_sm90.cu` (K6-K8)
+_SM90_ENTRIES = ("small_kv", "online", "static_max", "online_lse", "static_max_lse")
+_SM90_BWD_ENTRIES = ("bwd_fused", "bwd_dq", "bwd_dkv")
 
 
 def _sm90_head_dim(name, d):

@@ -19,10 +19,10 @@ import time
 import torch
 
 GROUPS = (  # (pattern on the kernel name, group), first match wins
-    (r"flash_bwd_sm90", "Hopper backward (bf16 K6/K8, flash_bwd_sm90.cu)"),
-    (r"flash_bwd", "flash backward kernels (K7; fp32 K6/K8)"),
-    (r"flash_fwd_sm90", "Hopper streaming forward (bf16 K2-K5, flash_fwd_sm90.cu)"),
-    (r"flash_fwd", "flash forward template (K1, K9; fp32 K2-K5)"),
+    (r"flash_bwd_sm90", "Hopper backward (bf16 K6-K8, flash_bwd_sm90.cu)"),
+    (r"flash_bwd", "flash backward kernels (fp32 K6-K8)"),
+    (r"flash_fwd_sm90", "Hopper forward (bf16 K1-K5, flash_fwd_sm90.cu)"),
+    (r"flash_fwd", "flash forward template (template: K9; fp32 K1-K5)"),
     (r"nvjet|gemm|xmma|cutlass|sm90|cublas", "cuBLAS GEMMs"),
     (r"elementwise", "elementwise"),
     (r"reduce", "reductions"),

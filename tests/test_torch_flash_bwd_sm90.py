@@ -1,5 +1,6 @@
 """The bf16 flash-attention backward of `lumina_t2x_tpu_torch/csrc/
-flash_bwd_sm90.cu` (K6 `flash_bwd_fused`, K8 `flash_bwd_dkv` on bf16 inputs).
+flash_bwd_sm90.cu` (K6 `flash_bwd_fused`, K8 `flash_bwd_dkv` and K7
+`flash_bwd_dq` on bf16 inputs).
 
 On the CPU: `emulate_bwd` repeats the kernel's arithmetic in fp32 torch --
 128-key blocks of two 64-key halves; the exp2 domain with scale*log2(e) and
@@ -9,9 +10,12 @@ dQ summed block by block in fp32 (the second half's share, then the
 first's); dK and dV summed over the GQA group, one bf16 rounding of each
 output -- and is held against the JAX package's backward (`jax.vjp` of its
 `flash_attention`, Pallas kernels in interpret mode, both routes by
-LUMINA_FLASH_FUSED_BWD) and against the port's `flash_bwd_plain`. Inputs are
-bf16-representable fp32 from numpy, so every side multiplies the same
-operands. Bar: one bf16 rounding of max|ref| (2^-8) plus 2e-5 for fp32 sums
+LUMINA_FLASH_FUSED_BWD) and against the port's `flash_bwd_plain`.
+`emulate_dq` repeats the dQ kernel's (K7): 64-key tiles in order, the same
+exp2 domain and guard, the dS pair, dQ summed in fp32 across the tiles and
+rounded once -- held against the JAX split route (LUMINA_FLASH_FUSED_BWD=0)
+and `flash_bwd_plain`'s dq. Inputs are bf16-representable fp32 from numpy,
+so every side multiplies the same operands. Bar: one bf16 rounding of max|ref| (2^-8) plus 2e-5 for fp32 sums
 in another order. Fully masked rows are left out of the JAX comparison and
 checked to be 0 against the port.
 
@@ -36,6 +40,7 @@ from lumina_t2x_tpu_torch.ops import flash_attention as tfa
 _JFA = "lumina_t2x_tpu.ops.flash_attention"
 LOG2E = 1.4426950408889634
 BN, HALF = 128, 64  # keys per block, per consumer warpgroup
+BK = 64  # keys per tile of the dQ kernel's ring
 REL, ATOL = 2.0 ** -8, 2e-5
 
 
@@ -118,6 +123,36 @@ def emulate_bwd(q, k, v, kv_mask, out, lse, dout, scale, pair=True, round_out=Tr
     return rnd(dq), rnd(dk), rnd(dv)
 
 
+def emulate_dq(q, k, v, kv_mask, out, lse, dout, scale, pair=True, round_out=True):
+    """The dQ kernel's arithmetic in fp32 torch, per q row over 64-key tiles
+    in order: p = exp2(min(s*scale2 - lse2, 0)) (lse2 = +inf for lse =
+    -inf), 0 on an invalid key; ds = p (dp - delta) scale; dQ += (ds_hi +
+    ds_lo) K in fp32; rounded once to bf16 (as fp32). `pair=False` rounds
+    dS once; `round_out=False` skips the output rounding."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    rep = hq // hkv
+    scale2 = _f32(scale) * _f32(LOG2E)
+    lse2 = torch.where(lse == -math.inf, torch.tensor(math.inf), lse * _f32(LOG2E))
+    lse2 = lse2.reshape(b, hkv, rep, sq)[..., None]  # (B, Hkv, rep, Sq, 1): q rows x keys
+    delta = (dout * out).sum(-1).permute(0, 2, 1).reshape(b, hkv, rep, sq)[..., None]
+    qg, dog = q.reshape(b, sq, hkv, rep, d), dout.reshape(b, sq, hkv, rep, d)
+    valid = torch.ones(b, sk, dtype=torch.bool) if kv_mask is None else kv_mask != 0
+    dq = torch.zeros(b, hkv, rep, sq, d)
+    for j0 in range(0, sk, BK):  # the last tile is ragged: keys past Sk add nothing
+        kt, vt = k[:, j0:j0 + BK], v[:, j0:j0 + BK]
+        ok = valid[:, None, None, None, j0:j0 + BK]  # (B, 1, 1, 1, keys)
+        s = torch.einsum("bqhrd,bkhd->bhrqk", qg, kt)
+        dp = torch.einsum("bqhrd,bkhd->bhrqk", dog, vt)
+        p = torch.exp2(torch.clamp(s * scale2 - lse2, max=0.0))
+        p = torch.where(ok, p, torch.zeros_like(p))
+        ds_hi, ds_lo = _pair(p * (dp - delta) * scale, pair)
+        dq = dq + (torch.einsum("bhrqk,bkhd->bhrqd", ds_hi, kt)
+                   + torch.einsum("bhrqk,bkhd->bhrqd", ds_lo, kt))
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    return dq.to(torch.bfloat16).float() if round_out else dq
+
+
 def _inputs(seed, b, sq, sk, hq, hkv, d=16, tail=0, dead_row=False):
     """bf16-representable fp32 numpy q, k, v, dout and an int32 mask: the
     last `tail` keys of batch row 0 masked, and with `dead_row` every key of
@@ -182,6 +217,51 @@ def test_emulation_matches_plain(case):
         _close(a, r)
 
 
+def _emulate_dq_np(q, k, v, dout, mask, scale, **kw):
+    """emulate_dq on numpy inputs, with out and LSE from the port's plain LSE
+    forward."""
+    tq, tk, tv, tdo, tm = map(torch.from_numpy, (q, k, v, dout, mask))
+    out, lse = tfa.flash_online_lse_plain(tq, tk, tv, tm, scale)
+    return emulate_dq(tq, tk, tv, tm, out, lse, tdo, scale, **kw), (tq, tk, tv, tm, out, lse, tdo)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_dq_emulation_matches_jax_split_route(monkeypatch, case):
+    """K7's arithmetic against the dq of the JAX package's two-kernel
+    backward (`_bwd_dq_kernel`, LUMINA_FLASH_FUSED_BWD=0, Pallas in
+    interpret mode)."""
+    b, sq, sk, hq, hkv, tail, scale = case
+    q, k, v, dout, mask = _inputs(3 * sk + hq, b, sq, sk, hq, hkv, tail=tail)
+    scale = 16 ** -0.5 if scale is None else scale
+    monkeypatch.setenv("LUMINA_FLASH_FUSED_BWD", "0")
+    _, vjp = jax.vjp(lambda q_, k_, v_: jfa.flash_attention(q_, k_, v_, jnp.asarray(mask), scale),
+                     *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(dout))[0]
+    got, _ = _emulate_dq_np(q, k, v, dout, mask, scale)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_dq_emulation_matches_plain(case):
+    b, sq, sk, hq, hkv, tail, scale = case
+    q, k, v, dout, mask = _inputs(4 * sk + hq, b, sq, sk, hq, hkv, tail=tail)
+    scale = 16 ** -0.5 if scale is None else scale
+    got, args = _emulate_dq_np(q, k, v, dout, mask, scale)
+    _close(got, tfa.flash_bwd_plain(*args[:6], args[6], scale)[0])
+
+
+@pytest.mark.parametrize("sk", [32, 200])
+def test_dq_fully_masked_row_is_zero(sk):
+    """K7: a batch row without a valid key (lse = -inf, +inf in the exp2
+    domain) gets dq = 0 exactly; the other row matches the plain version."""
+    q, k, v, dout, mask = _inputs(10, 2, 50, sk, 4, 2, tail=7, dead_row=True)
+    got, args = _emulate_dq_np(q, k, v, dout, mask, 0.3)
+    assert torch.isinf(args[5][1]).all()
+    ref = tfa.flash_bwd_plain(*args[:6], args[6], 0.3)[0]
+    assert torch.equal(got[1], torch.zeros_like(got[1])) and not ref[1].any()
+    _close(got[0], ref[0])
+
+
 @pytest.mark.parametrize("sk", [32, 200])
 def test_fully_masked_row_is_zero(sk):
     """A batch row without a valid key (lse = -inf) gets dq = 0 and adds
@@ -215,9 +295,10 @@ def test_hi_lo_pair_keeps_p_and_ds_to_fp32_precision():
 
 def test_bf16_fused_and_dkv_route_to_the_new_source():
     """bf16 `bwd_fused` and `bwd_dkv` run `csrc/flash_bwd_sm90.cu` (their C
-    entry points hand bf16 to `flash_bwd_sm90`); fp32 and `bwd_dq` stay on
-    `flash_bwd.cu`'s kernels. The new source is built into the flash library
-    and holds no library kernel."""
+    entry points hand bf16 to `flash_bwd_sm90`), and so does bf16 `bwd_dq`
+    (to `flash_bwd_dq_sm90`, the dQ kernel); fp32 stays on `flash_bwd.cu`'s
+    kernels, which have no bf16 path left. The new source is built into the
+    flash library and holds no library kernel."""
     src = (cuda_lib._CSRC / "flash_bwd.cu").read_text()
     entries = src.split('extern "C" {')[1].split("int lumina_flash_")[1:]
     bodies = {e.split("(", 1)[0]: e.split("{", 1)[1] for e in entries}
@@ -225,14 +306,19 @@ def test_bf16_fused_and_dkv_route_to_the_new_source():
     for name, fused in (("bwd_fused", "true"), ("bwd_dkv", "false")):
         assert re.search(r"if \(is_bf16\)\s+return flash_bwd_sm90\(" + fused + ",", bodies[name])
         assert "LUMINA_FLASH_BWD_CALL" in bodies[name]  # fp32
-    assert "flash_bwd_sm90" not in bodies["bwd_dq"]
-    assert tfa._SM90_BWD_ENTRIES == ("bwd_fused", "bwd_dkv")
+    assert re.search(r"if \(is_bf16\)\s+return flash_bwd_dq_sm90\(q, k, v, mask, dout, lse, "
+                     r"delta, dq, meta, scale, stream\);", bodies["bwd_dq"])
+    assert "LUMINA_FLASH_BWD_CALL(Which::kDq)" in bodies["bwd_dq"]  # fp32
+    assert "__nv_bfloat16" not in src and "wmma" not in src
+    assert tfa._SM90_BWD_ENTRIES == ("bwd_fused", "bwd_dq", "bwd_dkv")
     sources, symbols = cuda_lib._DECLARED[tfa.LIBRARY]
     assert "flash_bwd_sm90.cu" in sources and "lumina_flash_bwd_sm90_attributes" in symbols
     new = (cuda_lib._CSRC / "flash_bwd_sm90.cu").read_text()
     assert "wgmma.mma_async" in (cuda_lib._CSRC / "sm90_common.cuh").read_text()
     assert not re.search(r"#include\s*[<\"](cublas|cudnn|cutlass|cute)", new)
-    assert "flash_bwd_sm90_kernel" in new  # profile_train_step groups kernels by "flash_bwd"
+    # profile_train_step groups the kernels by "flash_bwd_sm90"
+    assert "flash_bwd_sm90_kernel" in new and "flash_bwd_sm90_dq_kernel" in new
+    assert "produce_kv<L>(" in new and "using DqSmem = KvRing<" in new  # the forward's ring
 
 
 def test_breakdown_variants_edit_the_kernel():
@@ -241,12 +327,28 @@ def test_breakdown_variants_edit_the_kernel():
     kernel fails here instead of timing something else)."""
     from lumina_t2x_tpu_torch.exps import bwd_sm90_breakdown as bd
 
-    source = bd.SOURCE.read_text()
+    source = bd.kernel_source()
+    assert "void mma_pair(" in source  # the header pasted in
     texts = {name: bd.variant_source(name, source) for name in bd._EDITS}
     assert texts["kernel"].startswith(source) and "breakdown_bwd" in texts["kernel"]
     assert len(set(texts.values())) == len(texts)
-    assert "qk<" not in texts["loads only"].split("---- consumers")[1]
-    assert "tma_reduce_add(" not in texts["no dQ reduce"].split("---- consumers")[1]
+    # the consumers of K6/K8's kernel (the dQ kernel follows them)
+    consumers = lambda text: text.split("---- consumers")[1].split("-- the dQ kernel --")[0]
+    assert "qk<" not in consumers(texts["loads only"])
+    assert "tma_reduce_add(" not in consumers(texts["no dQ reduce"])
+
+
+def test_bwd_attributes_name_the_kernel(monkeypatch):
+    """`bwd_sm90_attributes` maps the kernel's name onto the C entry's
+    `which` (0 dK/dV, 1 fused, 2 dQ) and refuses another name before it
+    builds anything."""
+    calls = []
+    monkeypatch.setattr(tfa, "_attributes", lambda *a: calls.append(a) or {})
+    for kernel in ("dkv", "fused", "dq"):
+        tfa.bwd_sm90_attributes(kernel, 64)
+    assert calls == [("lumina_flash_bwd_sm90_attributes", which, 64) for which in (0, 1, 2)]
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        tfa.bwd_sm90_attributes(True)
 
 
 def test_breakdown_needs_the_card(monkeypatch):
@@ -289,6 +391,8 @@ def _run(entry, q, k, v, mask, dout, scale=0.2):
     ref = tfa.flash_bwd_plain(*args)
     torch.cuda.synchronize()
     assert tfa.LAUNCHES[entry] == before + 1  # one launch per call
+    if entry == "bwd_dq":
+        return (got, None, None), ref
     return (got if entry == "bwd_fused" else (None, *got)), ref
 
 
@@ -312,7 +416,7 @@ def _assert_near(got, ref, rel):
     (2, 77, 33, 8, 1, 72), (2, 200, 300, 4, 2, 72), (1, 300, 1000, 8, 8, 72), (3, 1, 1, 2, 1, 72),
     (2, 130, 257, 4, 4, 64), (1, 129, 200, 8, 2, 64), (2, 70, 200, 8, 1, 16),
     (1, 193, 129, 4, 1, 128), (2, 65, 130, 4, 2, 96)])
-@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv"])
+@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
 def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
     """Odd Sq and Sk, GQA, a masked tail and a fully masked batch row, at
     head_dim 72 (the 2B) and in the kernel's other instantiations: 64 (16,
@@ -326,7 +430,7 @@ def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv"])
+@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
 def test_strided_dout_and_fused_qkv_views_read_in_place(cuda_device, entry):
     """q, k, v as views of one (B, S, 3, H, D) tensor and dout as a view of a
     wider tensor: whole-chunk strides, so the kernel reads them in place."""
@@ -340,24 +444,25 @@ def test_strided_dout_and_fused_qkv_views_read_in_place(cuda_device, entry):
 
 
 @pytest.mark.cuda
-def test_misaligned_input_is_copied_and_odd_head_dim_raises(cuda_device):
+@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dq"])
+def test_misaligned_input_is_copied_and_odd_head_dim_raises(cuda_device, entry):
     """A dout whose base is not on a 16-byte boundary is copied contiguous
     first; a head_dim that is not a multiple of 8 raises."""
     q, k, v, mask, dout = _cuda_inputs(1, 70, 90, 4, 2, dead_row=False)
     flat = torch.empty(dout.numel() + 1, dtype=dout.dtype, device="cuda")
     d_off = flat[1:].view(dout.shape).copy_(dout)
     assert d_off.data_ptr() % 16 != 0 and tfa._chunk_aligned(d_off) is not d_off
-    got, ref = _run("bwd_fused", q, k, v, mask, d_off)
+    got, ref = _run(entry, q, k, v, mask, d_off)
     _assert_near(got, ref, 1e-2)
     q, k, v, mask, dout = _cuda_inputs(1, 70, 90, 4, 2, d=36, dead_row=False)
     out, lse = tfa.flash_online_lse_plain(q, k, v, mask, 0.2)
-    for fn in (tfa.flash_bwd_fused, tfa.flash_bwd_dkv):
+    for fn in (tfa.flash_bwd_fused, tfa.flash_bwd_dkv, tfa.flash_bwd_dq):
         with pytest.raises(ValueError, match="multiple of 8"):
             fn(q, k, v, mask, out, lse, dout, 0.2)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv"])
+@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
 def test_fp32_stays_on_the_first_kernels(cuda_device, entry):
     """fp32 inputs take flash_bwd.cu's kernels (fp32 FMA, exact to fp32): the
     Hopper kernel reads bf16 only, so fp32-level agreement shows the route;
@@ -371,9 +476,10 @@ def test_fp32_stays_on_the_first_kernels(cuda_device, entry):
 def test_kernel_resources(cuda_device):
     """A block of whole warpgroups (the producer's and two consumers')
     resident on an SM, the registers setmaxnreg hands out within the SM's
-    65536, no local-memory spills, at each instantiation's head_dim."""
-    for fused, head_dim in itertools.product((True, False), (64, 72, 128)):
-        info = tfa.bwd_sm90_attributes(fused, head_dim)
+    65536, no local-memory spills, at each instantiation's head_dim: the
+    fused sweep (K6), dK/dV only (K8) and the dQ kernel (K7)."""
+    for kernel, head_dim in itertools.product(("fused", "dkv", "dq"), (64, 72, 128)):
+        info = tfa.bwd_sm90_attributes(kernel, head_dim)
         consumers = info["threads"] - 128
         assert info["threads"] == 384 and info["blocks_per_sm"] >= 1
         assert 128 * info["producer_registers"] + consumers * info["consumer_registers"] <= 65536

@@ -1,6 +1,7 @@
-"""The bf16 streaming attention forward of `lumina_t2x_tpu_torch/csrc/
-flash_fwd_sm90.cu` (K2 `flash_online`, K3 `flash_static_max`, K4
-`flash_online_lse`, K5 `flash_static_max_lse` on bf16 inputs).
+"""The bf16 attention forward of `lumina_t2x_tpu_torch/csrc/flash_fwd_sm90.cu`
+(K1 `flash_small_kv`, K2 `flash_online`, K3 `flash_static_max`, K4
+`flash_online_lse`, K5 `flash_static_max_lse` on bf16 inputs; K1 is K2's
+kernel over at most 1024 keys).
 
 On the CPU: `emulate` repeats the kernel's arithmetic in fp32 torch -- 64-key
 tiles, the exp2 domain with scale*log2(e), bound*log2(e) and the clamp
@@ -9,7 +10,7 @@ and its -inf guard, P split into a bf16 hi + lo pair for PV, the
 denominator summed from the fp32 p, one bf16 rounding of the output, and the
 epilogue's row LSE (ln2 * (m + log2 l) from the log2-domain max, or from
 bound*log2(e) for the static max; -inf where l = 0) -- and is held against the JAX
-package's Pallas K2-K5 in interpret mode and against the port's plain
+package's Pallas K1-K5 in interpret mode and against the port's plain
 versions. Inputs are bf16-representable fp32 from numpy, so every side
 multiplies the same operands. Bar: one bf16 rounding of the output (2^-8 of
 |ref|) plus 2e-5 for fp32 sums in another order; the LSE to 1e-4 absolute
@@ -148,17 +149,38 @@ def _bound(q, k, v, mask, scale, offset):
     return float(lse[torch.isfinite(lse)].max()) + offset
 
 
+def _pallas_forward(entry, q, k, v, mask, scale, bound):
+    """The JAX package's Pallas forward of `entry` in interpret mode: K1's
+    single-pass small-KV kernel, or the streaming K2/K3."""
+    args = tuple(map(jnp.asarray, (q, k, v, mask)))
+    if entry == "small_kv":
+        return jfa._flash_small_kv_impl(*args, scale, 128)
+    return jfa._flash_attention_fwd_impl(*args, scale, 128, 128, static_max=bound)
+
+
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("entry", ["online", "static_max"])
+@pytest.mark.parametrize("entry", ["small_kv", "online", "static_max"])
 def test_emulation_matches_pallas(entry, case):
+    """K1 is the online kernel over all keys: the same emulation holds the
+    single-pass exact softmax of `_flash_small_kv_kernel`."""
     b, sq, sk, hq, hkv, tail = case
     q, k, v, mask = _inputs(1, b, sq, sk, hq, hkv, tail=tail)
     scale = 0.3
     bound = _bound(q, k, v, mask, scale, 6.0) if entry == "static_max" else None
-    ref = jfa._flash_attention_fwd_impl(*map(jnp.asarray, (q, k, v, mask)), scale, 128, 128,
-                                        static_max=bound)
+    ref = _pallas_forward(entry, q, k, v, mask, scale, bound)
     got = emulate(*map(torch.from_numpy, (q, k, v, mask)), scale, bound)[0]
     _close(got, ref)
+
+
+def test_small_kv_emulation_at_the_jax_limit():
+    """K1 at Sk = 1024, the most keys the JAX package sends it (16 tiles of
+    64 keys, the running max moving across them), against the Pallas kernel,
+    which holds all 1024 in one block."""
+    q, k, v, mask = _inputs(11, 1, 20, 1024, 2, 1, tail=100)
+    k = k * np.linspace(0.3, 2.0, 1024, dtype=np.float32)[None, :, None, None]
+    k = torch.from_numpy(k).to(torch.bfloat16).float().numpy()
+    ref = _pallas_forward("small_kv", q, k, v, mask, 0.4, None)
+    _close(emulate(*map(torch.from_numpy, (q, k, v, mask)), 0.4)[0], ref)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -197,7 +219,7 @@ def test_lse_emulation_matches_plain(entry, case):
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("entry", ["online", "static_max"])
+@pytest.mark.parametrize("entry", ["small_kv", "online", "static_max"])
 def test_emulation_matches_plain(entry, case):
     b, sq, sk, hq, hkv, tail = case
     q, k, v, mask = map(torch.from_numpy, _inputs(2, b, sq, sk, hq, hkv, tail=tail))
@@ -206,7 +228,7 @@ def test_emulation_matches_plain(entry, case):
         bound = _bound(*(t.numpy() for t in (q, k, v, mask)), scale, 6.0)
         ref = tfa.flash_static_max_plain(q, k, v, mask, scale, bound)
     else:
-        bound, ref = None, tfa.flash_online_plain(q, k, v, mask, scale)
+        bound, ref = None, getattr(tfa, f"flash_{entry}_plain")(q, k, v, mask, scale)
     _close(emulate(q, k, v, mask, scale, bound)[0], ref)
 
 
@@ -293,21 +315,25 @@ def _entry_bodies():
 
 
 def test_bf16_forwards_route_to_the_hopper_kernel():
-    """bf16 K2-K5 hand their inputs to `flash_fwd_sm90` (K4/K5 with their lse
-    pointer, K2/K3 with none) and fp32 stays on the template; the template
-    keeps a bf16 instantiation only for K1 and K9 (online, no LSE)."""
+    """bf16 K1-K5 hand their inputs to `flash_fwd_sm90` (K4/K5 with their lse
+    pointer, K1-K3 with none) and fp32 stays on the template; the template
+    keeps a bf16 instantiation only for K9 (online, no LSE, a rotation)."""
     src, bodies = _entry_bodies()
-    for name, static_max, lse in (("online", "false", "nullptr"), ("static_max", "true", "nullptr"),
+    for name, static_max, lse in (("small_kv", "false", "nullptr"), ("online", "false", "nullptr"),
+                                  ("static_max", "true", "nullptr"),
                                   ("online_lse", "false", "lse"),
                                   ("static_max_lse", "true", "lse")):
         assert re.search(rf"if \(is_bf16\) return flash_fwd_sm90\({static_max}, q, k, v, mask, "
                          rf"out, {lse}, meta,", bodies[name]), name
         fp32 = re.search(r"return launch<(true|false), (true|false)>", bodies[name])
         assert fp32.groups() == (static_max, "true" if lse == "lse" else "false"), name
-    for name in ("small_kv", "rope", "rope_q"):
+    for name in ("rope", "rope_q"):
         assert "flash_fwd_sm90" not in bodies[name]
-    assert tfa._SM90_ENTRIES == ("online", "static_max", "online_lse", "static_max_lse")
+    assert tfa._SM90_ENTRIES == ("small_kv", "online", "static_max", "online_lse",
+                                 "static_max_lse")
     assert re.findall(r"launch_typed<__nv_bfloat16, ([^>]*)>", src) == ["false, false, kRope"]
+    guard = src[:src.index("launch_typed<__nv_bfloat16,")].rsplit("if constexpr", 1)[1]
+    assert guard.startswith(" (!kStaticMax && !kEmitLse && kRope != kRopeNone)")
 
 
 def test_breakdown_entry_matches_the_kernel_signature():
@@ -337,7 +363,8 @@ def test_breakdown_variants_edit_the_kernel():
     kernel fails here instead of timing something else)."""
     from lumina_t2x_tpu_torch.exps import fwd_sm90_breakdown as bd
 
-    source = bd.SOURCE.read_text()
+    source = bd.kernel_source()
+    assert "struct KvRing" in source and "produce_kv<L>(" in source  # the header pasted in
     texts = {name: bd.variant_source(name, source) for name in bd._EDITS}
     assert texts["kernel"].startswith(source) and "breakdown_fwd" in texts["kernel"]
     assert len(set(texts.values())) == len(texts)
@@ -373,7 +400,7 @@ def _cuda_inputs(b, sq, sk, hq, hkv, d=72, seed=0, dead_row=True):
     return mk(b, sq, hq, d), mk(b, sk, hkv, d), mk(b, sk, hkv, d), mask.cuda()
 
 
-ENTRIES = ["online", "static_max", "online_lse", "static_max_lse"]
+ENTRIES = ["small_kv", "online", "static_max", "online_lse", "static_max_lse"]
 
 
 def _call(entry, q, k, v, mask, scale=0.2, bound=9.0):
@@ -406,7 +433,8 @@ def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
     """Odd Sq and Sk, GQA, a masked tail and a fully masked batch row, at
     head_dim 72 (the 2B) and in each of the kernel's other instantiations:
     depth and width 64 (head_dim 48 of the 600M, 16 of the Tiny model, 64)
-    and 128 (96, 128)."""
+    and 128 (96, 128); K1 at Sk <= 1024 like every other entry, one partial
+    tile to 16 tiles."""
     q, k, v, mask = _cuda_inputs(*shape)
     before = tfa.LAUNCHES[entry]
     got, ref = _call(entry, q, k, v, mask)
@@ -453,9 +481,9 @@ def test_misaligned_input_is_copied_and_odd_head_dim_raises(cuda_device, entry):
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_fp32_stays_on_the_first_template(cuda_device, entry):
-    """fp32 inputs take flash_fwd.cu's template (fp32 FMA, exact to fp32);
-    the Hopper kernel reads bf16 only, so fp32-level agreement shows the
-    route."""
+    """fp32 inputs take flash_fwd.cu's template (fp32 FMA, exact to fp32),
+    K1's too; the Hopper kernel reads bf16 only, so fp32-level agreement
+    shows the route."""
     q, k, v, mask = (t.float() if t.is_floating_point() else t
                      for t in _cuda_inputs(2, 100, 150, 4, 2))
     got, ref = _call(entry, q, k, v, mask)

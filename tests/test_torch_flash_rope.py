@@ -7,9 +7,11 @@ run in interpret mode on the CPU.
 
 Same numpy inputs on both sides, fp32, bar atol 2e-4 / rtol 2e-3 (the
 port's torch-parity bar). The `cuda`-marked tests hold the CUDA kernels
-against their plain versions and against the online forward of their own
-template (`flash_small_kv`, K1's entry point) on rotated inputs on the
-card, and skip without one.
+against their plain versions, against themselves on rotated inputs at zero
+angles (bit for bit: the in-kernel rotation is `apply_rope`'s), and against
+`flash_small_kv` (K1's entry point) on rotated inputs -- equal in fp32,
+where both run the template, within the bf16 bar in bf16, where K1 runs the
+Hopper kernel -- on the card, and skip without one.
 """
 
 import importlib
@@ -353,16 +355,25 @@ def test_rope_kernels_match_plain_and_k2_on_card(cuda_device, dtype, entry, sk, 
     mask = mask.cuda()
     angles = torch.from_numpy(_angles(sq, 72)).cuda()
     before = tfa.LAUNCHES[entry]
-    got = getattr(tfa, f"flash_{entry}")(q, k, v, angles, mask, 0.2)
+    kernel = getattr(tfa, f"flash_{entry}")
+    got = kernel(q, k, v, angles, mask, 0.2)
     q_rot = apply_rope(q, angles)
     k_rot = apply_rope(k, angles) if entry == "rope" else k
     ref = tfa.flash_online_plain(q_rot.float(), k_rot.float(), v.float(), mask, 0.2)
-    # the online forward of flash_fwd.cu's template, which K9 shares: K1's entry
-    # point (bf16 `flash_online` and `flash_online_lse` run csrc/flash_fwd_sm90.cu)
-    k2 = tfa.flash_small_kv(q_rot, k_rot, v, mask, 0.2)
+    # at zero angles the rotation is x * 1 + swap(x) * 0 = x exactly: K9 on
+    # rotated inputs runs the same kernel on the same operands
+    same = kernel(q_rot, k_rot, v, torch.zeros_like(angles), mask, 0.2)
+    # K1's entry point: fp32 runs flash_fwd.cu's online template, which K9
+    # shares; bf16 runs csrc/flash_fwd_sm90.cu
+    k1 = tfa.flash_small_kv(q_rot, k_rot, v, mask, 0.2)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES[entry] == before + 1
-    assert torch.equal(got, k2)  # the in-kernel rotation is apply_rope's, bit for bit
+    assert tfa.LAUNCHES[entry] == before + 2
+    assert torch.equal(got, same)  # the in-kernel rotation is apply_rope's, bit for bit
+    top = max(1.0, ref.abs().max().item())
+    if dtype == torch.float32:
+        assert torch.equal(got, k1)
+    else:
+        assert (got.float() - k1.float()).abs().max().item() <= 1e-2 * top
     rel = 8e-3 if dtype == torch.bfloat16 else 1e-5
-    assert (got.float() - ref).abs().max().item() <= rel * max(1.0, ref.abs().max().item())
+    assert (got.float() - ref).abs().max().item() <= rel * top
     assert not got[1].any()

@@ -436,14 +436,16 @@ def test_param_dtypes_match_jax_at_bf16():
 def test_profile_train_step_groups_and_needs_cuda(monkeypatch):
     from lumina_t2x_tpu_torch.pipelines import profile_train_step as prof
 
-    assert prof._group("void flash_bwd_kv_kernel<float, true>") == \
-        "flash backward kernels (K7; fp32 K6/K8)"
+    assert prof._group("void flash_bwd_kv_kernel<true>") == \
+        "flash backward kernels (fp32 K6-K8)"
     assert prof._group("void (anonymous namespace)::flash_bwd_sm90_kernel<80, 72, true>(Params)") \
-        == "Hopper backward (bf16 K6/K8, flash_bwd_sm90.cu)"
+        == "Hopper backward (bf16 K6-K8, flash_bwd_sm90.cu)"
+    assert prof._group("void (anonymous namespace)::flash_bwd_sm90_dq_kernel<80, 72>(Params)") \
+        == "Hopper backward (bf16 K6-K8, flash_bwd_sm90.cu)"
     assert prof._group("void (anonymous namespace)::flash_fwd_sm90_kernel<true, 80, 72>(Params)") \
-        == "Hopper streaming forward (bf16 K2-K5, flash_fwd_sm90.cu)"
+        == "Hopper forward (bf16 K1-K5, flash_fwd_sm90.cu)"
     assert prof._group("void (anonymous namespace)::flash_fwd_kernel<float, true, true, 0>") \
-        == "flash forward template (K1, K9; fp32 K2-K5)"
+        == "flash forward template (template: K9; fp32 K1-K5)"
     assert prof._group("nvjet_tst_128x256_64x4") == "cuBLAS GEMMs"
     assert prof._group("Memset (Device)") == "copies/memset"
     assert prof._group("some_kernel") == "other"
