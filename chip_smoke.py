@@ -9,10 +9,12 @@ last line:
    (`ops/cuda_lib.py`: one library per module that owns kernels, one
    process per source, all started together) and prints the build seconds,
    then the resources of the Hopper kernels of bf16 K1-K5
-   (`csrc/flash_fwd_sm90.cu`) and bf16 K6-K8 (`csrc/flash_bwd_sm90.cu`: the
-   backward sweep of K6/K8 and the dQ kernel of K7): registers per thread
-   (as compiled and after setmaxnreg), spill bytes, shared memory per
-   block, blocks per SM;
+   (`csrc/flash_fwd_sm90.cu`), bf16 K6-K8 (`csrc/flash_bwd_sm90.cu`: the
+   backward sweep of K6/K8 and the dQ kernel of K7), K11 and its serial
+   anchor (`csrc/static_max_sm90.cu`) and K12 (`csrc/mma_probe.cu`, at the
+   widths of its timed shape and of K=1024): registers per thread (as
+   compiled and after setmaxnreg), spill bytes (0 required), shared memory
+   per block, blocks per SM; and what ptxas says of their wgmma;
 3. kernels: each CUDA entry point against its plain PyTorch version at the
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
    kernel; it, the LSE forward and the backward kernels also at the served
@@ -34,17 +36,19 @@ last line:
    (`_FlashAttentionRope` through
    the kernels against the plain Function);
 3b. experiments: the static-max variants (K10: `static_max_v0..v3`; K11:
-   `static_max_v4`, which must equal v1 bit for bit) against their plain
-   versions at the experiment's shape (B=2, S=4096, H=32, D=72, bound
-   16.14, timed; library `scaled_dot_product_attention`, with the exp floor
-   B*H*S^2 / 3.9e12 s beside the bound) and with ragged tiles and a masked
-   tail; their static SASS counts (cuobjdump); the tensor-core probe (K12:
-   `mma_chain`) against its plain version at K 8/72/80/1024 and N 72/1024
-   (M=1024, 8 iterations) and timed at K=72, N=1024, 512 iterations
-   (library: one cuBLAS `torch.mm` of the 512 perturbed copies of a side by
-   side along K against w stacked 512 times, fp32 out); then both
-   experiment scripts' `main()`
-   at their full shapes, the main path whose launches are counted;
+   `static_max_v4`, which must equal its serial anchor bit for bit and lie
+   within the bf16 bar of v1) against their plain versions at the
+   experiment's shape (B=2, S=4096, H=32, D=72, bound 16.14, timed, v4
+   beside its anchor and v1; library `scaled_dot_product_attention`, with
+   the exp floor B*H*S^2 / 3.9e12 s beside the bound) and with ragged tiles
+   and a masked tail; their static SASS counts (cuobjdump; v4 and K12 must
+   run HGMMA, K12 no HMMA); the tensor-core probe (K12: `mma_chain`)
+   against its plain version at K 8/72/80/1024 and N 72/1024 (M=1024, 8
+   iterations) and timed at K=72, N=1024, 512 iterations with its plan's
+   width, j-slices and blocks (library: one cuBLAS `torch.mm` of the 512
+   perturbed copies of a side by side along K against w stacked 512 times,
+   fp32 out); then both experiment scripts' `main()` at their full shapes,
+   the main path whose launches are counted;
 4. full-width forward: one CFG forward of NextDiT_2B_patch2 (qk-norm,
    caption dim 2048, bf16, zero-init tensors randomised) at 1024^2 with 256
    caption tokens, through the kernels and through the plain versions;
@@ -103,7 +107,8 @@ FWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd.cu"
 SM90_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_sm90.cu"  # bf16 K1-K5
 BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd.cu"  # fp32 K6-K8
 SM90_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_sm90.cu"  # bf16 K6-K8
-VPU_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_variants.cu"
+VPU_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_variants.cu"  # K10
+VPU_SM90_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_sm90.cu"  # K11
 MMA_SOURCE = "lumina_t2x_tpu_torch/csrc/mma_probe.cu"
 TPU_KERNELS = "lumina_t2x_tpu/ops/flash_attention.py"
 VPU_EXP = "exps/vpu_op_reduction.py"
@@ -122,7 +127,7 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "static_max_v1": (VPU_SOURCE, f"{VPU_EXP}:64"),        # _kernel_v1
     "static_max_v2": (VPU_SOURCE, f"{VPU_EXP}:84"),        # _kernel_v2
     "static_max_v3": (VPU_SOURCE, f"{VPU_EXP}:106"),       # _kernel_v3
-    "static_max_v4": (VPU_SOURCE, f"{VPU_EXP}:127"),       # _kernel_v4
+    "static_max_v4": (VPU_SM90_SOURCE, f"{VPU_EXP}:127"),  # _kernel_v4
     "mma_chain": (MMA_SOURCE, "exps/mxu_k_quantum.py:37"),  # _kernel
 }
 SAMPLER_KERNELS = ("small_kv", "online", "static_max", "online_lse")
@@ -268,22 +273,26 @@ def build_phase():
     """Every declared library (K1-K9, K10/K11, K12), all nvcc processes
     started together."""
     # importing a module that owns kernels declares its library
-    from lumina_t2x_tpu_torch.exps import mxu_k_quantum, vpu_op_reduction  # noqa: F401
-    from lumina_t2x_tpu_torch.ops import cuda_lib, flash_attention  # noqa: F401
+    from lumina_t2x_tpu_torch.exps import mxu_k_quantum, vpu_op_reduction
+    from lumina_t2x_tpu_torch.ops import cuda_lib, flash_attention
 
     t0 = time.perf_counter()
     cuda_lib.build_libraries()
     phase("build", f"{time.perf_counter() - t0:.2f} s: " + "; ".join(
         f"{name} {'compiled with nvcc' if info['compiled'] else 'already built, loaded'} "
         f"({info['path']})" for name, info in cuda_lib.BUILD_INFO.items()))
-    # the Hopper kernels of bf16 K1-K5 and K6-K8: their resources from the CUDA
-    # runtime (K1 and K4/K5 are K2/K3's instantiations, K4/K5 with an LSE pointer)
+    # the Hopper kernels of bf16 K1-K5, K6-K8 and K11: their resources from
+    # the CUDA runtime (K1 and K4/K5 are K2/K3's instantiations, K4/K5 with
+    # an LSE pointer)
     for source, entry, info in (
             (SM90_SOURCE, "small_kv, online, online_lse", flash_attention.sm90_attributes(False, D)),
             (SM90_SOURCE, "static_max, static_max_lse", flash_attention.sm90_attributes(True, D)),
             (SM90_BWD_SOURCE, "bwd_fused", flash_attention.bwd_sm90_attributes("fused", D)),
             (SM90_BWD_SOURCE, "bwd_dkv", flash_attention.bwd_sm90_attributes("dkv", D)),
-            (SM90_BWD_SOURCE, "bwd_dq", flash_attention.bwd_sm90_attributes("dq", D))):
+            (SM90_BWD_SOURCE, "bwd_dq", flash_attention.bwd_sm90_attributes("dq", D)),
+            (VPU_SM90_SOURCE, "static_max_v4", vpu_op_reduction.sm90_attributes(True, D)),
+            (VPU_SM90_SOURCE, "static_max_v4 serial anchor",
+             vpu_op_reduction.sm90_attributes(False, D))):
         phase("build", f"{source} ({entry}, head_dim {D}): {info['registers']} registers per "
               f"thread as compiled, {info['producer_registers']} (producer) / "
               f"{info['consumer_registers']} (consumers) after setmaxnreg, "
@@ -291,6 +300,21 @@ def build_phase():
               f"of shared memory per block, {info['blocks_per_sm']} block(s) of "
               f"{info['threads']} threads per SM")
         require(info["local_bytes"] == 0, f"{source} ({entry}) spills")
+    # K12 (no setmaxnreg: two consumer warpgroups, no producer) at the width
+    # of its timed shape and of K=1024
+    for kd, n in ((D, mxu_k_quantum.N_DEFAULT), (1024, mxu_k_quantum.N_DEFAULT)):
+        info = mxu_k_quantum.attributes(mxu_k_quantum.M, n, kd)
+        phase("build", f"{MMA_SOURCE} (mma_chain, K={kd}, N={n}: BN={info['bn']}, "
+              f"{info['slices']} j-slices, {info['blocks']} blocks): {info['registers']} registers "
+              f"per thread, {info['local_bytes']} local (spill) bytes per thread, "
+              f"{info['shared_bytes']} bytes of shared memory per block, "
+              f"{info['blocks_per_sm']} block(s) of {info['threads']} threads per SM")
+        require(info["local_bytes"] == 0, f"{MMA_SOURCE} (K={kd}) spills")
+    # ptxas reports a wgmma pipeline it had to serialize; print what it says
+    for name in ("flash", "static_max_variants", "mma_probe"):
+        notes = sorted({line.strip() for line in cuda_lib.BUILD_INFO[name]["ptxas"].splitlines()
+                        if "wgmma" in line.lower()})
+        phase("build", f"ptxas on {name}'s wgmma: " + ("; ".join(notes) if notes else "nothing"))
 
 
 def _rand(g, *shape, dtype):
@@ -610,12 +634,15 @@ MMA_CHECKS = [(8, 1024), (72, 1024), (80, 1024), (1024, 1024), (1024, 72), (80, 
 
 def experiments_phase():
     """K10 (`static_max_v0..v3`), K11 (`static_max_v4`) and K12
-    (`mma_chain`) against their plain versions on the card, K11 against v1
-    bit for bit, the kernels' static SASS counts; then both experiment
+    (`mma_chain`) against their plain versions on the card, K11 against its
+    serial anchor bit for bit and timed beside it and v1, the kernels'
+    static SASS counts; then both experiment
     `main()`s at their full shapes, whose launches are counted. Returns the
     kernels' results and launch counts."""
+    from lumina_t2x_tpu_torch import exps
     from lumina_t2x_tpu_torch.exps import mxu_k_quantum as mxu
     from lumina_t2x_tpu_torch.exps import vpu_op_reduction as vpu
+    from lumina_t2x_tpu_torch.ops import cuda_lib
 
     t_phase = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -649,25 +676,61 @@ def experiments_phase():
                 part += f" {entry['ms']:.3f} ms (plain {entry['plain_ms']:.3f})"
             parts.append(part)
             del got, ref
-        equal = torch.equal(outs["v4"], outs["v1"])
-        require(equal, f"static_max_v4 {label}: not equal to v1 bit for bit")
-        line = f"static-max variants {label}: " + ", ".join(parts) + "; v4 equal to v1 bit for bit"
+        # K11 against its serial anchor (bit for bit: the same products in the
+        # same order) and v1 (the bf16 bar: mma.sync sums in another order)
+        serial = vpu._static_max_v4_serial(q, k, v, mask, scale, vpu.BOUND)
+        torch.cuda.synchronize()
+        require(torch.equal(outs["v4"], serial),
+                f"static_max_v4 {label}: not equal to its serial anchor bit for bit")
+        err = (outs["v4"].float() - outs["v1"].float()).abs()
+        v1_max, v1_mean = err.max().item(), err.mean().item()
+        require(v1_max <= BF16_MAX and v1_mean <= BF16_MEAN,
+                f"static_max_v4 {label}: {v1_max} / {v1_mean} from v1")
+        line = (f"static-max variants {label}: " + ", ".join(parts)
+                + f"; v4 equal to its serial anchor bit for bit, {v1_max:.3g}/{v1_mean:.3g} "
+                  f"from v1")
         if not tail:
             library = library_forward(q, k, v, None, scale)  # all keys valid: the unmasked call
             exp_floor = 1e3 * b * h * s * s / EXP_RATE
             for variant in vpu.VARIANTS:
                 results[f"static_max_{variant}"].update(library)
+            # v4, its anchor and v1 in turns, on the same inputs
+            timed = {"v4": lambda: vpu.static_max_v4(q, k, v, mask, scale, vpu.BOUND),
+                     "serial": lambda: vpu._static_max_v4_serial(q, k, v, mask, scale, vpu.BOUND),
+                     "v1": lambda: vpu.static_max_v1(q, k, v, mask, scale, vpu.BOUND)}
+            turns = {name: [] for name in timed}
+            for order in (("v4", "serial", "v1"), ("v1", "serial", "v4")):
+                for name in order:
+                    turns[name].append(time_ms(timed[name]))
+            side = {name: statistics.median(ms) for name, ms in turns.items()}
             line += (f"; bound {results['static_max_v0']['bound_ms']:.4f} ms "
                      f"({results['static_max_v0']['bound_by']}), exp floor {exp_floor:.4f} ms, "
-                     f"library {library['library_ms']:.3f} ms ({library['library_kernel']})")
+                     f"library {library['library_ms']:.3f} ms ({library['library_kernel']}); "
+                     f"side by side (two turns each): v4 {side['v4']:.3f} ms "
+                     f"{[round(x, 4) for x in turns['v4']]}, serial anchor {side['serial']:.3f} "
+                     f"{[round(x, 4) for x in turns['serial']]}, v1 {side['v1']:.3f} "
+                     f"{[round(x, 4) for x in turns['v1']]}: v4 "
+                     f"{100 * (1 - side['v4'] / side['serial']):+.1f}% vs its anchor")
         phase("experiments", line)
-        del q, k, v, outs
+        del q, k, v, outs, serial
         torch.cuda.empty_cache()
     sass = vpu.sass_counts()
     for variant, counts in sass.items():
         phase("experiments", f"SASS static_max_{variant} (head_dim padded to 80): "
               + ", ".join(f"{op} {n}" for op, n in counts.items()))
-    require(set(sass) == set(vpu.VARIANTS), f"SASS of the variants not found: {sorted(sass)}")
+    require(set(sass) == {*vpu.VARIANTS, "v4_serial"},
+            f"SASS of the variants not found: {sorted(sass)}")
+    for variant in ("v4", "v4_serial"):
+        require(sass[variant]["HGMMA"] > 0 and sass[variant]["HMMA"] == 0,
+                f"static_max_{variant} does not run on wgmma alone")
+    probe = {name: ops for name, ops in
+             cuda_lib.dump_sass(cuda_lib.BUILD_INFO[mxu.LIBRARY]["path"]).items()
+             if "mma_chain_kernel" in name}
+    hgmma = sum(op.startswith("HGMMA") for ops in probe.values() for op in ops)
+    hmma = sum(op == "HMMA" or op.startswith("HMMA.") for ops in probe.values() for op in ops)
+    phase("experiments", f"SASS mma_chain ({len(probe)} widths): HGMMA {hgmma}, HMMA {hmma}")
+    require(len(probe) == len(mxu.WIDTHS) and hgmma >= len(probe) and hmma == 0,
+            "mma_chain does not run on wgmma alone")
 
     worst = 0.0
     for kd, n in MMA_CHECKS + [(40, 20)]:
@@ -679,13 +742,19 @@ def experiments_phase():
         rel = (got - ref).abs().max().item() / ref.abs().max().item()
         require(math.isfinite(rel) and rel <= MMA_REL, f"mma_chain M={m} K={kd} N={n}: {rel}")
         worst = max(worst, (got - ref).abs().max().item())
-        phase("experiments", f"mma_chain M={m} K={kd} N={n}, 8 iterations: max err / max|ref| "
-              f"{rel:.3g}")
+        plan = mxu.plan(m, n, kd, 8, torch.cuda.get_device_properties(0).multi_processor_count)
+        phase("experiments", f"mma_chain M={m} K={kd} N={n}, 8 iterations (BN={plan['bn']}, "
+              f"{plan['slices']} j-slices, {plan['blocks']} blocks): max err / max|ref| {rel:.3g}")
     kd, n, iters = D, mxu.N_DEFAULT, mxu.ITERS  # head_dim 72 as the depth
     a = torch.randn(mxu.M, kd, generator=g, device="cuda").to(torch.bfloat16)
     w = torch.randn(kd, n, generator=g, device="cuda").to(torch.bfloat16)
     got = mxu.mma_chain(a, w, iters)
-    entry = {"max_abs_err": worst, "ms": time_ms(lambda: mxu.mma_chain(a, w, iters)),
+    plan = mxu.plan(mxu.M, n, kd, iters, torch.cuda.get_device_properties(0).multi_processor_count)
+    # bursts of calls: the wrapper's host work (about half the kernel's time)
+    # runs while the queued launches do
+    burst = 8
+    entry = {"max_abs_err": worst,
+             "ms": time_ms(lambda: [mxu.mma_chain(a, w, iters) for _ in range(burst)]) / burst,
              "plain_ms": time_ms(lambda: mxu.mma_chain_plain(a, w, iters), reps=3),
              **least_time(_nbytes(a, w) + 4 * mxu.M * n, 2 * mxu.M * n * kd * iters,
                           torch.bfloat16),
@@ -694,12 +763,16 @@ def experiments_phase():
     # one small call per product instead: launch-bound, so only a note
     per_call = iters * time_ms(lambda: torch.matmul(a, w))
     results["mma_chain"] = entry
+    device = exps.device_ms(lambda: mxu.mma_chain(a, w, iters), "mma_chain")
     phase("experiments", f"mma_chain M={mxu.M} K={kd} N={n}, {iters} iterations: kernel "
-          f"{entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, bound "
-          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), library {entry['library_ms']:.3f} ms "
+          f"{entry['ms']:.4f} ms (bursts of {burst}; one call "
+          f"{time_ms(lambda: mxu.mma_chain(a, w, iters)):.4f}, device time "
+          f"{device if device is None else round(device, 4)}), plain {entry['plain_ms']:.3f} ms, "
+          f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), library {entry['library_ms']:.3f} ms "
           f"(one torch.mm over K={iters}x{kd}: {entry['library_kernel']}; max diff from the "
           f"kernel's output / its max {lib_rel:.3g}); torch.matmul per product x {iters}: "
-          f"{per_call:.3f} ms (launch-bound); {mxu.blocks(mxu.M, n)} blocks")
+          f"{per_call:.3f} ms (launch-bound); plan: BN={plan['bn']}, {plan['slices']} j-slices, "
+          f"{plan['blocks']} blocks")
     del a, w, got
     torch.cuda.empty_cache()
 

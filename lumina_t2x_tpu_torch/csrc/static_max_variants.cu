@@ -1,9 +1,9 @@
-// Static-max attention with four per-logit op chains (K10) and a
-// software-pipelined key loop (K11), hand-written CUDA C++ for Hopper
-// (sm_90a). The kernels of the per-logit-work experiment
+// Static-max attention with four per-logit op chains (K10), hand-written
+// CUDA C++ for Hopper (sm_90a). The kernels of the per-logit-work experiment
 // (`lumina_t2x_tpu_torch/exps/vpu_op_reduction.py`):
 //   lumina_static_max_v0..v3 <- _kernel_v0.._kernel_v3 (exps/vpu_op_reduction.py, `_loop`)
-//   lumina_static_max_v4     <- _kernel_v4             (exps/vpu_op_reduction.py, `_loop_v4`)
+// K11 (v4, v1's function with the next key tile's QK^T issued first) runs
+// on the Hopper forward's K/V ring in static_max_sm90.cu.
 // They are kept apart from flash_fwd.cu so that the experiment cannot change
 // the model's attention kernels (K1-K9).
 //
@@ -14,13 +14,12 @@
 //   v2  p = exp2(min(fma(s, c1, -b2), clamp2)), c1 = scale*log2(e), b2 = bound*log2(e),
 //       clamp2 = clamp*log2(e) folded on the host; p = 0 on masked keys
 //   v3  v2 with no mask (the mask is ignored, as in the JAX kernel)
-//   v4  v1's function; its output equals v1's bit for bit
 //   out = sum_j bf16(p_j) v_j / max(sum_j bf16(p_j), 1e-30), in bf16
 // P is rounded once to bf16, as `p.astype(v_ref.dtype)` does, and the
 // denominator sums those same bf16 values (the JAX kernels get it from a
 // ones column appended to v; here it is summed directly). Keys past Sk add
 // nothing in every variant. The chains are written with __fmul_rn /
-// __fsub_rn (v0: no FMA contraction, two roundings) and fmaf (v1-v4: one), so
+// __fsub_rn (v0: no FMA contraction, two roundings) and fmaf (v1-v3: one), so
 // v0 and v1 compile to different code: nvcc would contract v0's mul and sub
 // into one FFMA by default. v2/v3 call exp2f, one MUFU.EX2 with a denormal
 // fix-up, where expf adds a range reduction around it.
@@ -42,12 +41,7 @@
 // products are 4*B*H*S*S*D = 309 GFLOP (0.313 ms at 989 TFLOP/s), and the
 // 1.07e9 logits need 0.275 ms of exp alone on the special-function units
 // (16 results per clock per SM): two floors of nearly the same size, which
-// is what the variants probe. K11 issues the QK^T of key tile j+1 into a
-// second register S before the chain and PV of tile j, so the tensor cores
-// have independent work while the chain runs; the accumulation order over
-// key tiles is v1's, so only the issue order differs. This replaces the TPU
-// grid's nk+1 steps and clamped index maps, which exist only because a
-// Pallas grid runs in order.
+// is what the variants probe.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -298,60 +292,12 @@ __global__ void __launch_bounds__(kThreads) static_max_kernel(Params p) {
   write_out<kDP>(o, rowsum, p, b, h, q0);
 }
 
-// K11: v1's function with the QK^T of tile j+1 issued before the chain and
-// PV of tile j, into a second register S
-template <int kDP>
-__global__ void __launch_bounds__(kThreads) static_max_v4_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int nk = (p.Sk + kBK - 1) / kBK;
-
-  load_tile<kDP>(Smem<kDP>::q(smem), p.q, p.q_sb, p.q_ss, p.q_sh, b, h, q0, p.Sq, p.D);
-  load_keys<kDP>(smem, 0, p, b, h, 0);
-  cp_async_commit();
-  if (nk > 1) load_keys<kDP>(smem, 1, p, b, h, kBK);
-  cp_async_commit();
-
-  uint32_t qf[kDP / 16][4];
-  float o[kDP / 8][4];
-#pragma unroll
-  for (int n = 0; n < kDP / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float rowsum[2] = {0.f, 0.f};
-
-  cp_async_wait<1>();  // Q and tile 0 landed
-  __syncthreads();
-  load_q_frags<kDP>(qf, Smem<kDP>::q(smem));
-  float s_cur[kNT][4], s_next[kNT][4];
-  qk<kDP>(s_cur, qf, Smem<kDP>::k(smem, 0));
-
-  for (int j = 0; j < nk; ++j) {
-    const int st = j % kStages;
-    if (j + 2 < nk) load_keys<kDP>(smem, (j + 2) % kStages, p, b, h, (j + 2) * kBK);
-    cp_async_commit();
-    if (j + 1 < nk) {
-      cp_async_wait<1>();  // tile j+1 landed
-      __syncthreads();
-      qk<kDP>(s_next, qf, Smem<kDP>::k(smem, (j + 1) % kStages));
-    }
-    tile_update<1, kDP>(o, rowsum, s_cur, smem, st, j * kBK, p);
-    if (j + 1 < nk) {
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s_cur[n][e] = s_next[n][e];
-    }
-    __syncthreads();  // stage st is refilled at the next iteration
-  }
-  write_out<kDP>(o, rowsum, p, b, h, q0);
-}
-
 template <int kDP>
 int launch_dp(int variant, const Params& p, cudaStream_t stream) {
   void (*kernel)(Params) = variant == 0   ? static_max_kernel<0, kDP>
                            : variant == 1 ? static_max_kernel<1, kDP>
                            : variant == 2 ? static_max_kernel<2, kDP>
-                           : variant == 3 ? static_max_kernel<3, kDP>
-                                          : static_max_v4_kernel<kDP>;
+                                          : static_max_kernel<3, kDP>;
   const int bytes = (int)Smem<kDP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -422,6 +368,5 @@ int lumina_static_max_v0(LUMINA_STATIC_MAX_ARGS) { return launch(0, LUMINA_STATI
 int lumina_static_max_v1(LUMINA_STATIC_MAX_ARGS) { return launch(1, LUMINA_STATIC_MAX_CALL); }
 int lumina_static_max_v2(LUMINA_STATIC_MAX_ARGS) { return launch(2, LUMINA_STATIC_MAX_CALL); }
 int lumina_static_max_v3(LUMINA_STATIC_MAX_ARGS) { return launch(3, LUMINA_STATIC_MAX_CALL); }
-int lumina_static_max_v4(LUMINA_STATIC_MAX_ARGS) { return launch(4, LUMINA_STATIC_MAX_CALL); }
 
 }  // extern "C"

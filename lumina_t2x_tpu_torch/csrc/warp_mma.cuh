@@ -1,5 +1,5 @@
-// Warp-level building blocks shared by the experiment kernels
-// (static_max_variants.cu, mma_probe.cu): bf16 tensor-core products with
+// Warp-level building blocks of the experiment kernels (static_max_variants.cu;
+// mma_probe.cu takes its ldmatrix): bf16 tensor-core products with
 // mma.sync.m16n8k16 (fp32 accumulators in registers), ldmatrix fragment
 // loads from shared memory, and 16-byte cp.async copies with zero fill.
 //

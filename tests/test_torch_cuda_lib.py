@@ -16,7 +16,7 @@ from lumina_t2x_tpu_torch.ops import flash_attention as fa
 @pytest.mark.parametrize("module,sources,symbol", [
     (fa, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu"],
      "lumina_flash_rope_q"),
-    (vpu, ["static_max_variants.cu"], "lumina_static_max_v4"),
+    (vpu, ["static_max_variants.cu", "static_max_sm90.cu"], "lumina_static_max_v4"),
     (mxu, ["mma_probe.cu"], "lumina_mma_chain"),
 ])
 def test_each_module_declares_its_library(module, sources, symbol):
@@ -28,7 +28,10 @@ def test_each_module_declares_its_library(module, sources, symbol):
 def test_hash_inputs_follow_local_includes():
     assert cuda_lib._inputs(["static_max_variants.cu"]) == ["static_max_variants.cu",
                                                              "warp_mma.cuh"]
-    assert cuda_lib._inputs(["mma_probe.cu"]) == ["mma_probe.cu", "warp_mma.cuh"]
+    assert cuda_lib._inputs(["static_max_variants.cu", "static_max_sm90.cu"]) == [
+        "static_max_variants.cu", "static_max_sm90.cu", "warp_mma.cuh", "sm90_common.cuh"]
+    assert cuda_lib._inputs(["mma_probe.cu"]) == ["mma_probe.cu", "mma_probe_wgmma.cuh",
+                                                  "sm90_common.cuh", "warp_mma.cuh"]
     assert cuda_lib._inputs(["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
                              "flash_bwd_sm90.cu"]) == [
         "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",

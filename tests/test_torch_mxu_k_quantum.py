@@ -9,7 +9,8 @@ module's kernel body in `pl.pallas_call(..., interpret=True)` with `_run`'s
 specs and read the (M, N) output. Inputs come from numpy with a seed, bf16
 on both sides; a is scaled by 1e-3 in one case so that the perturbation
 j*1e-6 moves the result. Bar: max abs 1e-5 of max|ref| (fp32 sums in
-another order only). The `cuda`-marked tests compare the kernel with its
+another order only). `plan`, the kernel's grid, is checked on the CPU at
+every sweep shape. The `cuda`-marked tests compare the kernel with its
 plain version on the card and skip without one.
 """
 
@@ -101,23 +102,57 @@ def test_bad_inputs_raise():
 
 
 def test_blocks():
-    assert mxu.blocks(1024, 8) == 16
-    assert mxu.blocks(1024, 72) == 48
-    assert mxu.blocks(1024, 1024) == 512
-    assert mxu.blocks(100, 33) == 4
+    """The plan's grids at the sweeps' corners: one product of width N where
+    it fits, column tiles at K=1024 (BN <= 48), j-slices to >= 120 blocks."""
+    assert mxu.plan(1024, 8, 1024, 512) == {"bn": 8, "slices": 8, "blocks": 128,
+                                            "shared_bytes": 149504}
+    assert mxu.plan(1024, 72, 1024, 512)["bn"] == 24  # three tiles, no padding
+    assert mxu.plan(1024, 1024, 72, 512) == {"bn": 256, "slices": 2, "blocks": 128,
+                                             "shared_bytes": 132096}
+    assert mxu.plan(1024, 1024, 1024, 512)["blocks"] == 512  # 16 x 32 tiles, one slice
+    assert mxu.plan(100, 20, 40, 512)["bn"] == 24
+    assert mxu.plan(100, 20, 40, 7)["slices"] == 7  # never more slices than iterations
+    assert mxu.plan(64, 8, 8, 0)["slices"] == 1
+    assert mxu.shared_bytes(1024, 56) > mxu.SMEM_MAX >= mxu.shared_bytes(1024, 48)
+
+
+def _plan_shapes():
+    import chip_smoke
+
+    return sorted(set(mxu.K_SWEEP + mxu.N_SWEEP + chip_smoke.MMA_CHECKS))
+
+
+@pytest.mark.parametrize("k,n", _plan_shapes())
+def test_plan(k, n):
+    """At every sweep and chip_smoke shape (M=1024, 512 products, 132 SMs):
+    the tiles fit, BN is a legal wgmma width covering N (or a column tile),
+    the j-slices split the iterations into non-empty ranges, and the grid
+    has at least 120 blocks."""
+    m, iters = mxu.M, mxu.ITERS
+    p = mxu.plan(m, n, k, iters, sms=132)
+    assert p["shared_bytes"] == mxu.shared_bytes(k, p["bn"]) <= mxu.SMEM_MAX
+    assert p["bn"] in mxu.WIDTHS and p["bn"] % 8 == 0 and 8 <= p["bn"] <= 256
+    covers = p["bn"] >= -(-min(n, 256) // 8) * 8
+    assert covers or mxu.shared_bytes(k, -(-min(n, 256) // 8) * 8) > mxu.SMEM_MAX
+    tiles = -(-m // 64) * -(-n // p["bn"])
+    assert p["blocks"] == tiles * p["slices"] >= 120
+    bounds = [z * iters // p["slices"] for z in range(p["slices"] + 1)]
+    assert bounds[0] == 0 and bounds[-1] == iters
+    assert all(lo < hi for lo, hi in zip(bounds, bounds[1:]))
 
 
 def test_sweep_and_main_run_on_cpu(capsys, monkeypatch):
     monkeypatch.setattr(mxu, "M", 16)  # the sweeps' rows and products, made tiny
     monkeypatch.setattr(mxu, "ITERS", 2)
     rows = mxu.sweep("tiny", [(8, 16), (72, 8)], device="cpu")
-    assert [(r["K"], r["N"], r["blocks"]) for r in rows] == [(8, 16, 1), (72, 8, 1)]
+    assert [(r["K"], r["N"], r["bn"], r["slices"], r["blocks"]) for r in rows] == \
+        [(8, 16, 16, 2, 2), (72, 8, 8, 2, 2)]
     assert all(r["us_per_dot"] > 0 and r["tflops"] > 0 for r in rows)
     out = mxu.main(["--device", "cpu"])
     assert [r["K"] for r in out["K"]] == [k for k, _ in mxu.K_SWEEP]
     assert [r["N"] for r in out["N"]] == [n for _, n in mxu.N_SWEEP]
     text = capsys.readouterr().out
-    assert "us/dot" in text and "blocks" in text and "cpu" in text
+    assert "us/dot" in text and "j-slices" in text and "blocks" in text and "cpu" in text
     assert "M=16, 2 chained" in text
     assert mxu.LAUNCHES == {"mma_chain": 0}
 
@@ -133,16 +168,31 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1024, 8, 1024), (1024, 72, 1024), (1024, 80, 72),
-                                   (1024, 1024, 72), (100, 40, 20), (64, 1024, 8)])
-def test_kernel_matches_plain_on_card(cuda_device, m, k, n):
+@pytest.mark.parametrize("m,k,n,iters", [
+    (1024, 8, 1024, 8), (1024, 72, 1024, 8), (1024, 80, 72, 8), (1024, 1024, 72, 8),
+    (100, 40, 20, 8), (64, 1024, 8, 8), (1024, 72, 20, 8), (1024, 72, 72, 8),
+    (1024, 72, 256, 8), (1024, 8, 256, 8), (1024, 1024, 256, 8), (1024, 72, 1024, 7),
+    (1024, 1024, 72, 7)])
+def test_kernel_matches_plain_on_card(cuda_device, m, k, n, iters):
+    """Every width class of the plan (one product, column tiles at K=1024),
+    j-slices that do not divide the iterations (7); the same output from
+    run to run (fixed-order sums, no atomics)."""
     g = torch.Generator().manual_seed(k + n)
     a = (1e-2 * torch.randn(m, k, generator=g)).to("cuda", torch.bfloat16)
     w = torch.randn(k, n, generator=g).to("cuda", torch.bfloat16)
     before = mxu.LAUNCHES["mma_chain"]
-    got = mxu.mma_chain(a, w, 8)
-    ref = mxu.mma_chain_plain(a, w, 8)
+    got = mxu.mma_chain(a, w, iters)
+    ref = mxu.mma_chain_plain(a, w, iters)
     torch.cuda.synchronize()
     assert mxu.LAUNCHES["mma_chain"] == before + 1
     top = ref.abs().max().item()
     assert (got - ref).abs().max().item() <= 1e-4 * top
+    assert torch.equal(got, mxu.mma_chain(a, w, iters))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(72, 1024), (1024, 1024), (1024, 72)])
+def test_resources_on_card(cuda_device, k, n):
+    info = mxu.attributes(mxu.M, n, k)
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
+    assert info["shared_bytes"] == mxu.shared_bytes(k, info["bn"])

@@ -249,8 +249,36 @@ def test_measure_and_main_run_on_cpu(capsys, monkeypatch):
 
 
 def test_check_v4_on_cpu():
+    """On the CPU the serial anchor runs v4's plain version: check_v4 returns
+    it, equal to `static_max_v4_plain` on check_v4's inputs."""
     res = vpu.check_v4(b=1, s=64, h=2, d=8, device="cpu")
-    assert res["v4_equals_v1"] and set(res["errors"]) == set(vpu.VARIANTS)
+    assert res["v4_equals_serial"] and set(res["errors"]) == set(vpu.VARIANTS)
+    assert res["v4_vs_v1"] == (0.0, 0.0)
+    q, k, v, mask = vpu._inputs(1, 64, 2, 8, "cpu", seed=9, masked_tail=37)
+    assert torch.equal(res["serial"], vpu.static_max_v4_plain(q, k, v, mask, 8 ** -0.5, vpu.BOUND))
+
+
+# mangled names as cuobjdump prints them (anonymous namespaces, template
+# arguments), and names the counts must skip
+_NAMES = {
+    "_ZN45_GLOBAL__N__5f0c1e2a_22_static_max_variants_cu_8d7e9a1b17static_max_kernelILi2ELi80EEEvNS_6ParamsE":
+        ("v2", 80),
+    "_ZN45_GLOBAL__N__5f0c1e2a_22_static_max_variants_cu_8d7e9a1b17static_max_kernelILi0ELi128EEEvNS_6ParamsE":
+        ("v0", 128),
+    "_ZN40_GLOBAL__N__1a2b3c4d_18_static_max_sm90_cu_9e8f7a6b22static_max_sm90_kernelILb1ELi80ELi72EEEvNS_6ParamsE14CUtensorMap_stS2_S2_":
+        ("v4", 80),
+    "_ZN40_GLOBAL__N__1a2b3c4d_18_static_max_sm90_cu_9e8f7a6b22static_max_sm90_kernelILb0ELi64ELi64EEEvNS_6ParamsE14CUtensorMap_stS2_S2_":
+        ("v4_serial", 64),
+    "_ZN45_GLOBAL__N__0aa1b2c3_15_mma_probe_cu_55aa66bb16mma_chain_kernelILi256EEEvPK13__nv_bfloat16S3_Pfiiiii":
+        None,
+    "_ZN40_GLOBAL__N__1a2b3c4d_18_flash_fwd_sm90_cu_9e8f7a6b21flash_fwd_sm90_kernelILb1ELi80ELi72EEEvNS_6ParamsE":
+        None,
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NAMES))
+def test_sass_kernel_names(name):
+    assert vpu.sass_kernel(name) == _NAMES[name]
 
 
 def test_experiment_modules_import_no_jax():
@@ -288,10 +316,13 @@ def _cuda_inputs(b, s, h, d, masked_tail, seed=0):
     return q, k, v, mask.cuda()
 
 
+# ragged q and key tiles, a masked tail, D 8 / 72 / 128
+_CARD_CASES = [(2, 1000, 4, 72, 200), (1, 256, 2, 8, 0), (1, 130, 2, 128, 17)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", vpu.VARIANTS)
-@pytest.mark.parametrize("b,s,h,d,tail", [(2, 1000, 4, 72, 200), (1, 256, 2, 8, 0),
-                                          (1, 130, 2, 128, 17)])
+@pytest.mark.parametrize("b,s,h,d,tail", _CARD_CASES)
 def test_kernel_matches_plain_on_card(cuda_device, variant, b, s, h, d, tail):
     """Ragged q and key tiles (S=1000, 130), a masked tail, D 8/72/128."""
     q, k, v, mask = _cuda_inputs(b, s, h, d, tail)
@@ -305,20 +336,42 @@ def test_kernel_matches_plain_on_card(cuda_device, variant, b, s, h, d, tail):
 
 
 @pytest.mark.cuda
-def test_v4_equals_v1_on_card(cuda_device):
-    q, k, v, mask = _cuda_inputs(2, 1000, 4, 72, 200)
-    assert torch.equal(vpu.static_max_v4(q, k, v, mask, 72 ** -0.5, vpu.BOUND),
-                       vpu.static_max_v1(q, k, v, mask, 72 ** -0.5, vpu.BOUND))
+@pytest.mark.parametrize("b,s,h,d,tail", _CARD_CASES)
+def test_v4_equals_serial_on_card(cuda_device, b, s, h, d, tail):
+    """v4 and its serial anchor sum the same products in the same order."""
+    q, k, v, mask = _cuda_inputs(b, s, h, d, tail)
+    assert torch.equal(vpu.static_max_v4(q, k, v, mask, d ** -0.5, vpu.BOUND),
+                       vpu._static_max_v4_serial(q, k, v, mask, d ** -0.5, vpu.BOUND))
 
 
 @pytest.mark.cuda
-def test_strided_inputs_on_card(cuda_device):
+@pytest.mark.parametrize("b,s,h,d,tail", _CARD_CASES)
+def test_v4_close_to_v1_on_card(cuda_device, b, s, h, d, tail):
+    """v1 (mma.sync) sums the products in another order than v4 (wgmma):
+    within the bf16 bar of each other."""
+    q, k, v, mask = _cuda_inputs(b, s, h, d, tail)
+    err = (vpu.static_max_v4(q, k, v, mask, d ** -0.5, vpu.BOUND).float()
+           - vpu.static_max_v1(q, k, v, mask, d ** -0.5, vpu.BOUND).float()).abs()
+    assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_v4_resources_on_card(cuda_device, pipelined):
+    info = vpu.sm90_attributes(pipelined, 72)
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] == 1
+    assert (info["producer_registers"], info["consumer_registers"]) == (24, 240)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["v2", "v4"])
+def test_strided_inputs_on_card(cuda_device, variant):
     """q, k, v read in place from a (B, S, 3, H, D) buffer, as a fused QKV
     projection lays them out."""
     g = torch.Generator().manual_seed(1)
     qkv = torch.randn(2, 300, 3, 4, 72, generator=g).to("cuda", torch.bfloat16)
     q, k, v = qkv.unbind(2)
-    got = vpu.static_max_v2(q, k, v, None, 72 ** -0.5, vpu.BOUND)
-    ref = vpu.static_max_v2_plain(q, k, v, None, 72 ** -0.5, vpu.BOUND)
+    got = vpu.ENTRIES[variant](q, k, v, None, 72 ** -0.5, vpu.BOUND)
+    ref = vpu.PLAIN[variant](q, k, v, None, 72 ** -0.5, vpu.BOUND)
     torch.cuda.synchronize()
     assert (got.float() - ref.float()).abs().max().item() <= 1e-2
