@@ -6,11 +6,13 @@
 //   static max     <- _flash_kernel_static_max,                     static_max=bound
 //   online + LSE   <- _flash_kernel_res,                            static_max=None
 //   static + LSE   <- _flash_kernel_res_static_max,                 static_max=bound
+//   fused RoPE     <- _flash_rope_kernel, _flash_rope_q_kernel       (online, q rotated)
 // for bf16 inputs; the C entry points lumina_flash_small_kv,
-// lumina_flash_online, lumina_flash_static_max, lumina_flash_online_lse and
-// lumina_flash_static_max_lse stay in flash_fwd.cu (launch counters
-// "small_kv", "online", "static_max", "online_lse", "static_max_lse"), which
-// calls flash_fwd_sm90() for bf16 and keeps its own template for fp32. The
+// lumina_flash_online, lumina_flash_static_max, lumina_flash_online_lse,
+// lumina_flash_static_max_lse, lumina_flash_rope and lumina_flash_rope_q
+// stay in flash_fwd.cu (launch counters "small_kv", "online", "static_max",
+// "online_lse", "static_max_lse", "rope", "rope_q"), which calls
+// flash_fwd_sm90() for bf16 and keeps its own template for fp32. The
 // small-KV kernel (Sk <= 1024, the caption cross-attention) is the online
 // kernel's function over all keys: the online softmax over 64-key tiles is
 // the single-pass exact softmax up to fp32 rounding, so it is the same
@@ -27,6 +29,17 @@
 //   and -inf where l = 0 (a row without a valid key). The lse pointer is a
 //   runtime test in the epilogue, not a template flag: the main loop is the
 //   same, and one store per row costs nothing beside it.
+// Fused RoPE (the online kernel, no LSE): with the rope_cos / rope_sin
+// pointers, the (Sq, D) fp32 tables cos_full and sin_signed of
+// `ops/rope.rot_tables`, q arrives unrotated and each consumer warpgroup
+// rotates its own 64 rows of the Q tile in shared memory once, before its
+// first product: x*cos_full + swap_pairs(x)*sin_signed, each product and the
+// sum rounded separately (no FMA contraction), then once to bf16, so the
+// rotated tile equals `apply_rope` bit for bit. Each q row is rotated once
+// in the whole grid. k is rotated before the launch, once per kv head, by
+// rope_rotate.cu: rotating it here would repeat the work and the table
+// reads for each of the 22 q blocks of a head. Like the lse pointer, the
+// tables are a runtime test outside the main loop.
 // Both run in the exp2 domain: the host folds scale*log2(e), bound*log2(e)
 // and 55*log2(e), so each logit costs one FMA (or FMUL), a min and one
 // MUFU.EX2. What the Pallas kernels do for the TPU is not carried over: the
@@ -89,7 +102,9 @@
 // The consumers' instruction issue (the chain, the pair's packing) sets the
 // pace (`exps/fwd_sm90_breakdown.py` times the parts). The LSE adds one
 // log2f and one 4-byte store per row (1 MB at that shape), after the
-// last product.
+// last product. The rotation reads 8 table bytes per q element from L2
+// (151 MB at that shape, from a 2.4 MB table) and does 3 fp32 operations
+// per element before the first product.
 
 #include <math.h>
 #include <stdint.h>
@@ -107,6 +122,7 @@ constexpr int kThreads = 128 * (1 + kConsumers);   // producer warpgroup + consu
 // setmaxnreg: 128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536
 constexpr int kProducerRegs = 24, kConsumerRegs = 160;
 constexpr int kBarFirst = 1;                       // named barrier kBarFirst + c: consumer c's turn
+constexpr int kBarRope = kBarFirst + kConsumers;   // kBarRope + c: consumer c's rotated rows
 constexpr float kClamp = 55.f;  // exponent clamp of the static-max kernel (nats)
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -117,6 +133,8 @@ struct Params {
   const int* mask;  // (B, Sk) int32 or null
   bf16* out;
   float* lse;       // (B, Hq, Sq) fp32 contiguous, or null (no LSE)
+  const float* rope_cos;  // (Sq, D) fp32 cos_full, or null (q arrives rotated)
+  const float* rope_sin;  // (Sq, D) fp32 sin_signed
   int B, Sq, Sk, Hq, Hkv, D;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -211,6 +229,43 @@ __device__ __forceinline__ void pack_tile(const float (&s)[kBK / 2], const float
   pack_pair(s, phi, plo);
 }
 
+// Rotates a consumer's 64 rows of the Q tile in place (`q_rows`: their first
+// row in the swizzled atoms; `row0`: its query position): each thread takes
+// whole 16-byte chunks, 4 bf16 pairs (2i, 2i+1), which never straddle a
+// chunk. A chunk's column c sits at chunk c % 8 ^ (row % 8) of the row in
+// atom c / 8 (the 128-byte swizzle). Rows at or past Sq (zero-filled) and
+// the columns past D are left as they are. The writes go through the
+// generic proxy: each thread fences them for the async proxy (wgmma), and
+// the warpgroup waits for all of them on its own named barrier.
+template <uint32_t kQAtom>
+__device__ __forceinline__ void rotate_q(unsigned char* q_rows, int row0, int c, int tid,
+                                         const Params& p) {
+  const int chunks = p.D / 8;
+  for (int i = tid; i < kRows * chunks; i += 128) {
+    const int r = i / chunks, cc = i - r * chunks;
+    const int row = row0 + r;
+    if (row >= p.Sq) continue;
+    uint4* at = reinterpret_cast<uint4*>(q_rows + (cc / 8) * kQAtom + r * kSwizzle +
+                                         ((cc % 8 ^ r % 8) << 4));
+    const float4* cs = reinterpret_cast<const float4*>(p.rope_cos + (long long)row * p.D + 8 * cc);
+    const float4* sn = reinterpret_cast<const float4*>(p.rope_sin + (long long)row * p.D + 8 * cc);
+    const float4 c0 = __ldg(cs), c1 = __ldg(cs + 1), s0 = __ldg(sn), s1 = __ldg(sn + 1);
+    const float cf[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+    const float sf[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    const uint4 x = *at;
+    uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x0 = bf16_lo(w[j]), x1 = bf16_hi(w[j]);
+      w[j] = pack_bf16(__fadd_rn(__fmul_rn(x0, cf[2 * j]), __fmul_rn(x1, sf[2 * j])),
+                       __fadd_rn(__fmul_rn(x1, cf[2 * j + 1]), __fmul_rn(x0, sf[2 * j + 1])));
+    }
+    *at = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  fence_async_smem();
+  bar_sync<128>(kBarRope + c);
+}
+
 template <bool kStaticMax, int kDK, int kDN>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
@@ -272,6 +327,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     if (c == kConsumers - 1) bar_arrive(kBarFirst);  // consumer 0 issues first
     mbar_wait(base + L::q_full(), 0);
+    if (p.rope_cos != nullptr)
+      rotate_q<L::kQAtom>(smem + (base - smem_addr(smem)) + L::kQ + c * kRows * kSwizzle,
+                          q0 + c * kRows, c, tid, p);
     mbar_wait(base + L::full(0), 0);
     bar_sync(mine);
     wgmma_fence();
@@ -398,8 +456,8 @@ int attributes_dims(long long* out) {
 }  // namespace
 
 int flash_fwd_sm90(bool static_max, const void* q, const void* k, const void* v, const int* mask,
-                   void* out, float* lse, const long long* meta, float scale, float bound,
-                   void* stream) {
+                   void* out, float* lse, const float* rope_cos, const float* rope_sin,
+                   const long long* meta, float scale, float bound, void* stream) {
   Params p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
@@ -407,6 +465,8 @@ int flash_fwd_sm90(bool static_max, const void* q, const void* k, const void* v,
   p.mask = mask;
   p.out = static_cast<bf16*>(out);
   p.lse = lse;
+  p.rope_cos = rope_cos;
+  p.rope_sin = rope_sin;
   p.B = (int)meta[0];
   p.Sq = (int)meta[1];
   p.Sk = (int)meta[2];
@@ -435,6 +495,11 @@ int flash_fwd_sm90(bool static_max, const void* q, const void* k, const void* v,
     if (meta[i] % 8 != 0) return (int)cudaErrorInvalidValue;
   if (p.D <= 0 || p.D > 128 || p.D % 8 != 0 || p.Hkv <= 0 || p.Hq % p.Hkv != 0 || p.Sk <= 0 ||
       !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  // the rotation: both tables, 16-byte aligned rows of D floats, online and no LSE
+  if ((rope_cos == nullptr) != (rope_sin == nullptr) ||
+      (rope_cos != nullptr && (static_max || lse != nullptr || !aligned16(rope_cos) ||
+                               !aligned16(rope_sin))))
     return (int)cudaErrorInvalidValue;
   if (p.Sq == 0 || p.B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,18 +1,29 @@
-// K11 on the Hopper forward's K/V ring, hand-written CUDA C++ for sm_90a:
-//   lumina_static_max_v4 <- _kernel_v4 (exps/vpu_op_reduction.py, `_loop_v4`)
-// and its serial anchor (lumina_static_max_v4_serial: the same products in
-// the same order, issued one after the other). The per-logit-work
-// experiment's (`lumina_t2x_tpu_torch/exps/vpu_op_reduction.py`) question:
-// does issuing the next key tile's QK^T before this tile's chain and PV hide
-// the chain? K10's v0-v3 stay in static_max_variants.cu.
+// K10 and K11 on the Hopper forward's K/V ring, hand-written CUDA C++ for
+// sm_90a: one kernel, static_max_sm90_kernel<kVariant, kPipelined>, for the
+// per-logit-work experiment (`lumina_t2x_tpu_torch/exps/vpu_op_reduction.py`):
+//   lumina_static_max_v0..v3 <- _kernel_v0.._kernel_v3 (exps/vpu_op_reduction.py,
+//                               `_loop`): <kVariant, false>, the serial order
+//   lumina_static_max_v4     <- _kernel_v4 (`_loop_v4`): <1, true>
+// Its questions: which per-logit chain (kVariant) is cheapest on this
+// layout, and does issuing the next key tile's QK^T before this tile's chain
+// and PV (kPipelined) hide the chain? v1 is v4's serial anchor: the same
+// products in the same order, issued one after the other, so the two agree
+// bit for bit.
 //
-// What it computes is v1's function, per (batch, head, query row), with s =
-// q . k the fp32 dot of a query row and a key row:
-//   p = expf(fminf(fmaf(s, scale, -bound), clamp)); p = 0 on a key whose
-//   valid bit is 0 (j >= Sk or mask 0)
+// What it computes, per (batch, head, query row), with s = q . k the fp32
+// dot of a query row and a key row, and a key's valid bit 0 where j >= Sk
+// or mask 0 (v3 is launched with no mask: only j >= Sk):
+//   v0  t = s*scale (rounded); t = -2.3819763e38 on an invalid key;
+//       p = expf(min(t - bound, clamp)) (rounded subtraction, no FMA)
+//   v1  p = expf(min(fmaf(s, scale, -bound), clamp)); p = 0 on an invalid key
+//   v2  p = exp2f(min(fmaf(s, scale, -bound), clamp)), with scale, bound and
+//       clamp multiplied by log2(e) on the host; p = 0 on an invalid key
+//   v3  v2 with no mask
 //   out = sum_j bf16(p_j) v_j / max(sum_j bf16(p_j), 1e-30), in bf16
 // P is rounded once to bf16 and the row sums add those same bf16 values in
-// fp32, v1's order (the low then the high key of each pair, row by row).
+// fp32 (the low then the high key of each pair, row by row). v2/v3 call
+// exp2f, one MUFU.EX2 with a denormal fix-up, where expf adds a range
+// reduction (FFMAs) around it.
 //
 // Layout: q, k, v bf16 (B, S, H, D), read in place from element strides
 // (last dim contiguous, strides and base 16-byte aligned); D a multiple of
@@ -32,23 +43,23 @@
 //   O += P V     wgmma m64n72k16, P from registers (rounded once: one
 //                product, where the forward's K3 carries the hi/lo pair), V
 //                MN-major
-// kPipelined (v4), for tile j: issue S(j+1) into the second accumulator; run
-// the chain of S(j) and pack P(j); issue O += P(j) V(j); wait for both, then
-// release stage j. The serial anchor: issue S(j), wait, run the chain, issue
-// PV(j), wait. Both sum the same products in the same order, so they agree
-// bit for bit, and only the issue order differs: v4's tensor cores run
-// S(j+1) while the chain of S(j) runs. v4 waits for PV(j) too, not only for
+// The serial order (v0-v3), for tile j: issue S(j), wait, run the chain,
+// issue PV(j), wait. kPipelined (v4): issue S(j+1) into the second
+// accumulator; run the chain of S(j) and pack P(j); issue O += P(j) V(j);
+// wait for both, then release stage j. v4 waits for PV(j) too, not only for
 // S(j+1): every loop that kept PV(j) in flight into the next tile (each
 // variant tried, one group count per tile or not) made ptxas serialize the
 // products (C7514 / C7515 / C7517 / C7519 in -Xptxas -v), which runs them
-// in the serial anchor's order.
+// in the serial order. A tile whose 64 keys are all valid (v3: every whole
+// tile) skips the chain's selects.
 //
 // What bounds it on the card: at B=2, S=4096, H=32, D=72 the two products
 // are 4*B*H*S*S*D = 309 GFLOP (0.313 ms at 989 TFLOP/s; the depth padded to
 // 80 adds 1/18), and the 1.07e9 logits' exp 0.275 ms on the special-function
-// units; expf's range reduction and the bf16 packing add to each logit's
-// chain on the FMA pipes. K and V are re-read by each of the 32 q tiles of
-// a head from L2.
+// units; the chain's other instructions (expf's range reduction, the
+// roundings, selects and bf16 packing) run on the FMA and ALU pipes and are
+// what the variants differ in. K and V are re-read by each of the 32 q
+// tiles of a head from L2.
 
 #include <math.h>
 #include <stdint.h>
@@ -64,6 +75,8 @@ constexpr int kBQ = kRows * kConsumers;            // query rows per block
 constexpr int kThreads = 128 * (1 + kConsumers);   // producer warpgroup + consumers
 // setmaxnreg: 128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr float kMaskedLogit = -2.3819763e38f;  // v0's select value (JAX's _NEG_INF)
+constexpr int kV4 = 4;                          // the host's index of v4 (<1, true>)
 
 struct Params {
   const bf16* q;
@@ -77,18 +90,20 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   long long m_sb;
-  float scale, bound, clamp;
+  float scale, bound, clamp;  // v2/v3: already multiplied by log2(e)
 };
 
 // Q, then the K/V ring (sm90_common.cuh)
 template <int kDK, int kDN>
 using Smem = KvRing<kBQ, 1, kDK, kDN>;
 
-// v1's chain on this thread's 32 logits of a tile (s[4n + e]: key 8n + 2t +
-// (e & 1), row g + 8 * (e >> 1)), P rounded once to bf16 into the A
-// fragments of PV (k-step n / 2), and the row sums of the same bf16 values.
-// `bits`: the tile's key-valid bits (bit j: key j); a tile whose keys are
-// all valid skips the selects.
+// The chain of variant kVariant on this thread's 32 logits of a tile
+// (s[4n + e]: key 8n + 2t + (e & 1), row g + 8 * (e >> 1)), P rounded once
+// to bf16 into the A fragments of PV (k-step n / 2), and the row sums of the
+// same bf16 values. `bits`: the tile's key-valid bits (bit j: key j); v0
+// selects an invalid key's logit before the exp, v1-v3 zero its p after it,
+// and a tile whose keys are all valid skips the selects.
+template <int kVariant>
 __device__ __forceinline__ void chain_pack(const float (&s)[32], unsigned long long bits, int t,
                                            uint32_t (&pf)[4][4], float (&rowsum)[2],
                                            const Params& p) {
@@ -97,8 +112,14 @@ __device__ __forceinline__ void chain_pack(const float (&s)[32], unsigned long l
   float e[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    e[i] = expf(fminf(fmaf(s[i], p.scale, -p.bound), p.clamp));
-    if (!all_valid && !key_valid(bits, i)) e[i] = 0.f;
+    if constexpr (kVariant == 0) {
+      const float t0 = all_valid || key_valid(bits, i) ? __fmul_rn(s[i], p.scale) : kMaskedLogit;
+      e[i] = expf(fminf(__fsub_rn(t0, p.bound), p.clamp));
+    } else {
+      e[i] = kVariant == 1 ? expf(fminf(fmaf(s[i], p.scale, -p.bound), p.clamp))
+                           : exp2f(fminf(fmaf(s[i], p.scale, -p.bound), p.clamp));
+      if (!all_valid && !key_valid(bits, i)) e[i] = 0.f;
+    }
   }
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -123,7 +144,7 @@ __device__ __forceinline__ void pv(float (&o)[kDN / 2], const uint32_t (&pf)[4][
     wgmma_rs<kDN>(o, pf[kk], swz_desc(v_addr + kk * 16 * kSwizzle, kAtom, 8 * kSwizzle));
 }
 
-template <bool kPipelined, int kDK, int kDN>
+template <int kVariant, bool kPipelined, int kDK, int kDN>
 __global__ void __launch_bounds__(kThreads, 1)
     static_max_sm90_kernel(const __grid_constant__ Params p,
                            const __grid_constant__ CUtensorMap tq,
@@ -216,7 +237,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           wgmma_wait<0>();
           pin(s[u]);
         }
-        chain_pack(s[u], bits[st], t, pf, rowsum, p);
+        chain_pack<kVariant>(s[u], bits[st], t, pf, rowsum, p);
         wgmma_fence();
         pv<kDN, L::kAtom>(o, pf, base + L::v(st));
         wgmma_commit();
@@ -253,14 +274,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <bool kPipelined, int kDK, int kDN>
+template <int kVariant, bool kPipelined, int kDK, int kDN>
 int launch_dims(const Params& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb, p.q_ss, p.q_sh, kBQ) ||
       !make_map(&tk, p.k, p.B, p.Sk, p.H, p.D, p.k_sb, p.k_ss, p.k_sh, kBK) ||
       !make_map(&tv, p.v, p.B, p.Sk, p.H, p.D, p.v_sb, p.v_ss, p.v_sh, kBK))
     return (int)cudaErrorInvalidValue;
-  auto kernel = static_max_sm90_kernel<kPipelined, kDK, kDN>;
+  auto kernel = static_max_sm90_kernel<kVariant, kPipelined, kDK, kDN>;
   const int bytes = (int)Smem<kDK, kDN>::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -270,21 +291,61 @@ int launch_dims(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// QK^T depth and PV width by head_dim: 64/64, 80/72 (the 2B), 128/128
-template <bool kPipelined>
-int launch(const Params& p, cudaStream_t stream) {
-  if (p.D <= 64) return launch_dims<kPipelined, 64, 64>(p, stream);
-  if (p.D <= 72) return launch_dims<kPipelined, 80, 72>(p, stream);
-  return launch_dims<kPipelined, 128, 128>(p, stream);
+template <int kVariant, bool kPipelined, int kDK, int kDN>
+int attributes_dims(long long* out) {
+  auto kernel = static_max_sm90_kernel<kVariant, kPipelined, kDK, kDN>;
+  const int bytes = (int)Smem<kDK, kDN>::kBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = kProducerRegs;
+  out[2] = kConsumerRegs;
+  out[3] = (long long)a.localSizeBytes;
+  out[4] = (long long)a.sharedSizeBytes + bytes;
+  out[5] = blocks;
+  out[6] = kThreads;
+  return 0;
 }
 
-int run(bool pipelined, const void* q, const void* k, const void* v, const int* mask, void* out,
+// The launch (or, with `out`, the resources) of one instantiation. QK^T
+// depth and PV width by head_dim: 64/64, 80/72 (the 2B), 128/128.
+template <int kVariant, bool kPipelined>
+int dispatch_dims(int head_dim, const Params* p, cudaStream_t stream, long long* out) {
+  if (head_dim <= 64)
+    return out ? attributes_dims<kVariant, kPipelined, 64, 64>(out)
+               : launch_dims<kVariant, kPipelined, 64, 64>(*p, stream);
+  if (head_dim <= 72)
+    return out ? attributes_dims<kVariant, kPipelined, 80, 72>(out)
+               : launch_dims<kVariant, kPipelined, 80, 72>(*p, stream);
+  return out ? attributes_dims<kVariant, kPipelined, 128, 128>(out)
+             : launch_dims<kVariant, kPipelined, 128, 128>(*p, stream);
+}
+
+// variant 0-3: v0-v3 in the serial order; kV4: v1's chain, pipelined
+int dispatch(int variant, int head_dim, const Params* p, cudaStream_t stream, long long* out) {
+  switch (variant) {
+    case 0: return dispatch_dims<0, false>(head_dim, p, stream, out);
+    case 1: return dispatch_dims<1, false>(head_dim, p, stream, out);
+    case 2: return dispatch_dims<2, false>(head_dim, p, stream, out);
+    case 3: return dispatch_dims<3, false>(head_dim, p, stream, out);
+    case kV4: return dispatch_dims<1, true>(head_dim, p, stream, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int run(int variant, const void* q, const void* k, const void* v, const int* mask, void* out,
         const long long* meta, float scale, float bound, float clamp, void* stream) {
   Params p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
-  p.mask = mask;
+  p.mask = variant == 3 ? nullptr : mask;
   p.out = static_cast<bf16*>(out);
   p.B = (int)meta[0];
   p.Sq = (int)meta[1];
@@ -314,67 +375,36 @@ int run(bool pipelined, const void* q, const void* k, const void* v, const int* 
       !aligned16(v) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
   if (p.Sq == 0 || p.B == 0 || p.H == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return pipelined ? launch<true>(p, s) : launch<false>(p, s);
-}
-
-template <bool kPipelined, int kDK, int kDN>
-int attributes_dims(long long* out) {
-  auto kernel = static_max_sm90_kernel<kPipelined, kDK, kDN>;
-  const int bytes = (int)Smem<kDK, kDN>::kBytes;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  cudaFuncAttributes a;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, bytes);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = kProducerRegs;
-  out[2] = kConsumerRegs;
-  out[3] = (long long)a.localSizeBytes;
-  out[4] = (long long)a.sharedSizeBytes + bytes;
-  out[5] = blocks;
-  out[6] = kThreads;
-  return 0;
-}
-
-template <bool kPipelined>
-int attributes(int head_dim, long long* out) {
-  if (head_dim <= 64) return attributes_dims<kPipelined, 64, 64>(out);
-  if (head_dim <= 72) return attributes_dims<kPipelined, 80, 72>(out);
-  return attributes_dims<kPipelined, 128, 128>(out);
+  return dispatch(variant, p.D, &p, static_cast<cudaStream_t>(stream), nullptr);
 }
 
 }  // namespace
 
-// The entry points take static_max_variants.cu's arguments: meta (int64[18]):
-// B, Sq, Sk, H, D, then element strides of q (b, s, h), k (b, s, h), v (b,
-// s, h), out (b, s, h) and the mask (b); mask may be null (every key
-// valid). Each returns the cudaError_t of the launch (0 on success).
+// Every entry point takes the same arguments. meta (int64[18]): B, Sq, Sk,
+// H, D, then element strides of q (b, s, h), k (b, s, h), v (b, s, h), out
+// (b, s, h) and the mask (b). mask may be null (every key valid; v3 ignores
+// it). scale, bound and clamp as the variant uses them (v2/v3: times
+// log2(e)). Each returns the cudaError_t of the launch (0 on success).
+#define LUMINA_STATIC_MAX_ARGS                                                         \
+  const void *q, const void *k, const void *v, const int *mask, void *out,            \
+      const long long *meta, float scale, float bound, float clamp, void *stream
+#define LUMINA_STATIC_MAX_CALL q, k, v, mask, out, meta, scale, bound, clamp, stream
+
 extern "C" {
 
-int lumina_static_max_v4(const void* q, const void* k, const void* v, const int* mask, void* out,
-                         const long long* meta, float scale, float bound, float clamp,
-                         void* stream) {
-  return run(true, q, k, v, mask, out, meta, scale, bound, clamp, stream);
-}
+int lumina_static_max_v0(LUMINA_STATIC_MAX_ARGS) { return run(0, LUMINA_STATIC_MAX_CALL); }
+int lumina_static_max_v1(LUMINA_STATIC_MAX_ARGS) { return run(1, LUMINA_STATIC_MAX_CALL); }
+int lumina_static_max_v2(LUMINA_STATIC_MAX_ARGS) { return run(2, LUMINA_STATIC_MAX_CALL); }
+int lumina_static_max_v3(LUMINA_STATIC_MAX_ARGS) { return run(3, LUMINA_STATIC_MAX_CALL); }
+int lumina_static_max_v4(LUMINA_STATIC_MAX_ARGS) { return run(kV4, LUMINA_STATIC_MAX_CALL); }
 
-// the serial anchor: v4's products in v4's order, each waited for in turn
-int lumina_static_max_v4_serial(const void* q, const void* k, const void* v, const int* mask,
-                                void* out, const long long* meta, float scale, float bound,
-                                float clamp, void* stream) {
-  return run(false, q, k, v, mask, out, meta, scale, bound, clamp, stream);
-}
-
-// The compiled kernel's resources at a head_dim (7 values into out, as
-// lumina_flash_fwd_sm90_attributes): registers per thread as compiled, the
-// producer's and the consumers' registers after setmaxnreg, local-memory
-// (spill) bytes per thread, shared memory per block, resident blocks per
-// SM, threads per block.
-int lumina_static_max_sm90_attributes(int pipelined, int head_dim, long long* out) {
-  return pipelined ? attributes<true>(head_dim, out) : attributes<false>(head_dim, out);
+// The compiled kernel of `variant` (0-4: v0-v4) at a head_dim: 7 values into
+// out, as lumina_flash_fwd_sm90_attributes: registers per thread as
+// compiled, the producer's and the consumers' registers after setmaxnreg,
+// local-memory (spill) bytes per thread, shared memory per block, resident
+// blocks per SM, threads per block.
+int lumina_static_max_sm90_attributes(int variant, int head_dim, long long* out) {
+  return dispatch(variant, head_dim, nullptr, nullptr, out);
 }
 
 }  // extern "C"

@@ -74,12 +74,13 @@ _EDITS = {
     "products only": [(_KV_LOADS, _NO_KV), (_LOOP_EXP, ""), (_LOOP_PACK, "")],
     "P once": [(_LO_PRODUCT, ""), (_LO_PACK, "")],
 }
-# each variant exports the launcher under a C name (K2/K3: no LSE)
+# each variant exports the launcher under a C name (K2/K3: no LSE, no rotation)
 _ENTRY = """
 extern "C" int breakdown_fwd(int static_max, const void* q, const void* k, const void* v,
                              const int* mask, void* out, const long long* meta, float scale,
                              float bound, void* stream) {
-  return flash_fwd_sm90(static_max != 0, q, k, v, mask, out, nullptr, meta, scale, bound, stream);
+  return flash_fwd_sm90(static_max != 0, q, k, v, mask, out, nullptr, nullptr, nullptr, meta,
+                        scale, bound, stream);
 }
 """
 

@@ -7,18 +7,18 @@ attention forward (scale, mask, subtract, clamp, exp, cast) or the matrix
 unit sets its pace; the answer there was the matrix unit. On an H100 the
 balance differs: at B=2, S=4096, H=32, D=72 the two products need 0.313 ms
 at 989 TFLOP/s and the 1.07e9 logits 0.275 ms of exp alone on the
-special-function units. The variants, one CUDA kernel each
-(v0-v3: `csrc/static_max_variants.cu`, mma.sync; v4: `csrc/static_max_sm90.cu`,
-wgmma on the Hopper forward's K/V ring):
+special-function units. The variants are instantiations of one CUDA
+kernel (`csrc/static_max_sm90.cu`: wgmma on the Hopper forward's K/V ring),
+each chain a template argument:
 
   v0  s*scale; select -2.3819763e38 on masked keys; exp(min(s - bound, 55))
   v1  exp(min(s*scale - bound, 55)) as one FMA, then zero masked keys
   v2  exp2(min(s*c1 - b2, 55*log2e)), c1 = scale*log2e, b2 = bound*log2e
   v3  v2 without the mask (the mask is ignored)
   v4  v1's function with the QK^T of the next key tile issued before this
-      tile's exp and PV; equal bit for bit to its serial anchor (the same
-      kernel issuing each product after the last has finished), and within
-      the bf16 bar of v1, whose mma.sync sums products in another order
+      tile's exp and PV; equal to v1 bit for bit (v1 is its serial anchor:
+      the same products in the same order, each issued after the last has
+      finished)
 
 Every variant rounds P once to bf16 and divides the bf16-P weighted sum of
 v by the sum of the same bf16 P. q, k, v are bf16 (B, S, H, D) with as many
@@ -61,9 +61,9 @@ _ptr = ctypes.c_void_p
 _meta = ctypes.POINTER(ctypes.c_longlong)
 # q, k, v, mask, out, meta (int64[18]), scale, bound, clamp, stream
 _ARGS = [_ptr] * 5 + [_meta, ctypes.c_float, ctypes.c_float, ctypes.c_float, _ptr]
-cuda_lib.declare(LIBRARY, ["static_max_variants.cu", "static_max_sm90.cu"], {
-    **{f"lumina_static_max_{variant}": _ARGS for variant in (*VARIANTS, "v4_serial")},
-    # pipelined, head_dim, out (int64[7])
+cuda_lib.declare(LIBRARY, ["static_max_sm90.cu"], {
+    **{f"lumina_static_max_{variant}": _ARGS for variant in VARIANTS},
+    # variant (0-4: v0-v4), head_dim, out (int64[7])
     "lumina_static_max_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta]})
 _SM90_ATTRIBUTES = ("registers", "producer_registers", "consumer_registers", "local_bytes",
                     "shared_bytes", "blocks_per_sm", "threads")
@@ -102,7 +102,7 @@ def _plain(variant, q, k, v, mask, scale, bound, clamp):
             t = t.masked_fill(~valid, _NEG_INF)
         p = torch.exp(torch.clamp(t - bound, max=clamp))
     else:
-        if variant in ("v1", "v4", "v4_serial"):
+        if variant in ("v1", "v4"):
             p = torch.exp(torch.clamp(s * scale - bound, max=clamp))
         else:
             p = torch.exp2(torch.clamp(s * (scale * LOG2E) - bound * LOG2E, max=clamp * LOG2E))
@@ -171,8 +171,7 @@ def _launch(variant, q, k, v, mask, scale, bound, clamp):
             out.data_ptr(), meta, scale, bound, clamp, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"static-max kernel {variant} launch failed: cudaError {err}")
-    if variant in VARIANTS:  # the serial anchor, v4's yardstick, has no count
-        LAUNCHES[f"static_max_{variant}"] += 1
+    LAUNCHES[f"static_max_{variant}"] += 1
     return out
 
 
@@ -209,15 +208,8 @@ def static_max_v3(q, k, v, mask, scale, bound, clamp=CLAMP):
 def static_max_v4(q, k, v, mask, scale, bound, clamp=CLAMP):
     """v4: v1's function with a software-pipelined key loop, the next key
     tile's QK^T issued before this tile's chain and PV (replaces
-    `_kernel_v4`)."""
+    `_kernel_v4`); equal to `static_max_v1` bit for bit."""
     return _entry("v4", q, k, v, mask, scale, bound, clamp)
-
-
-def _static_max_v4_serial(q, k, v, mask, scale, bound, clamp=CLAMP):
-    """v4's serial anchor: the same kernel's products in the same order, each
-    issued after the last has finished; equal to `static_max_v4` bit for bit
-    (the experiment's baseline on v4's layout; not a variant)."""
-    return _entry("v4_serial", q, k, v, mask, scale, bound, clamp)
 
 
 ENTRIES = {variant: globals()[f"static_max_{variant}"] for variant in VARIANTS}
@@ -260,64 +252,55 @@ MAX_ABS, MEAN_ABS = 1e-2, 1e-3
 
 
 def check_v4(b=B, s=S, h=4, d=D, device="cuda"):
-    """v4 against its serial anchor (equal bit for bit) and v1 (within the
-    bf16 bar: v1's mma.sync sums in another order), every variant against
-    its plain version, with the last 37 keys masked. Returns
-    {"v4_equals_serial": bool, "v4_vs_v1": (max abs, mean abs), "errors":
-    {variant: (max abs, mean abs)}, "serial": the anchor's output}; raises on
-    a mismatch. (The JAX check compares sums of a bf16 carry that the
-    outputs barely move.)"""
+    """v4 against v1, its serial anchor (equal bit for bit), and every
+    variant against its plain version, with the last 37 keys masked.
+    Returns {"v4_equals_v1": bool, "errors": {variant: (max abs, mean
+    abs)}}; raises on a mismatch. (The JAX check compares sums of a bf16
+    carry that the outputs barely move.)"""
     q, k, v, mask = _inputs(b, s, h, d, device, seed=9, masked_tail=min(37, s - 1))
     scale = 1.0 / math.sqrt(d)
     outs = {variant: ENTRIES[variant](q, k, v, mask, scale, BOUND) for variant in VARIANTS}
-    serial = _static_max_v4_serial(q, k, v, mask, scale, BOUND)
     errors = {}
     for variant, got in outs.items():
         err = (got.float() - PLAIN[variant](q, k, v, mask, scale, BOUND).float()).abs()
         errors[variant] = (err.max().item(), err.mean().item())
-    same = torch.equal(outs["v4"], serial)
-    err = (outs["v4"].float() - outs["v1"].float()).abs()
-    v4_v1 = (err.max().item(), err.mean().item())
-    print(f"  v4 check (B{b}/S{s}/H{h}/D{d}, last {min(37, s - 1)} keys masked): v4 equal to its "
-          f"serial anchor bit for bit: {same}; v4 vs v1 max/mean abs {v4_v1[0]:.3g}/"
-          f"{v4_v1[1]:.3g}; max/mean abs vs plain: "
+    same = torch.equal(outs["v4"], outs["v1"])
+    print(f"  v4 check (B{b}/S{s}/H{h}/D{d}, last {min(37, s - 1)} keys masked): v4 equal to v1 "
+          f"bit for bit: {same}; max/mean abs vs plain: "
           + ", ".join(f"{variant} {mx:.3g}/{mean:.3g}" for variant, (mx, mean) in errors.items()),
           flush=True)
-    bad = [variant for variant, (mx, mean) in {**errors, "v4 vs v1": v4_v1}.items()
+    bad = [variant for variant, (mx, mean) in errors.items()
            if not (mx <= MAX_ABS and mean <= MEAN_ABS)]
     if not same or bad:
-        raise RuntimeError(f"v4 equal to its serial anchor: {same}; off the bar: {bad}")
-    return {"v4_equals_serial": same, "v4_vs_v1": v4_v1, "errors": errors, "serial": serial}
+        raise RuntimeError(f"v4 equal to v1: {same}; off the bar: {bad}")
+    return {"v4_equals_v1": same, "errors": errors}
 
 
 # SASS mnemonics (with any modifiers) that the per-logit chains differ in;
 # HGMMA is wgmma
 SASS_OPS = ("FFMA", "FMUL", "FADD", "FMNMX", "MUFU.EX2", "FSEL", "HMMA", "HGMMA")
-# mangled kernel names: static_max_kernel<variant, head_dim padding> (v0-v3)
-# and static_max_sm90_kernel<pipelined, QK^T depth, PV width> (v4, its anchor)
-SASS_NAMES = re.compile(r"static_max_kernelILi(?P<variant>\d)ELi(?P<dp>\d+)E"
-                        r"|static_max_sm90_kernelILb(?P<pipelined>[01])ELi(?P<dk>\d+)ELi\d+E")
+# mangled kernel names: static_max_sm90_kernel<chain, pipelined, QK^T depth,
+# PV width>; v0-v3 are <v, false>, v4 is <1, true>
+SASS_NAMES = re.compile(r"static_max_sm90_kernelILi(?P<chain>\d)ELb(?P<pipelined>[01])"
+                        r"ELi(?P<dk>\d+)ELi\d+E")
 
 
 def sass_kernel(name):
-    """(variant, head_dim padding) of a kernel's mangled name, or None: "v0"
-    to "v3", "v4" (the pipelined kernel) and "v4_serial" (its anchor)."""
+    """(variant, QK^T depth) of a kernel's mangled name, or None: "v0" to
+    "v3" (the serial instantiations), "v4" (the pipelined one)."""
     hit = SASS_NAMES.search(name)
     if not hit:
         return None
-    if hit.group("variant") is not None:
-        return f"v{hit.group('variant')}", int(hit.group("dp"))
-    return ("v4" if hit.group("pipelined") == "1" else "v4_serial"), int(hit.group("dk"))
+    variant = "v4" if hit.group("pipelined") == "1" else f"v{hit.group('chain')}"
+    return variant, int(hit.group("dk"))
 
 
 def sass_counts(dp=80):
-    """Static SASS instruction counts of the six kernels (the variants and
-    v4's serial anchor) at head_dim padding `dp` (80 serves D=72; for v4
-    the QK^T depth), from `cuobjdump --dump-sass` of the built library:
+    """Static SASS instruction counts of the five kernels at QK^T depth `dp`
+    (80 serves D=72), from `cuobjdump --dump-sass` of the built library:
     {variant: {mnemonic: count, "total": count}}. The counts cover the whole
-    kernel (v3 carries a second, selecting copy of the chain for the ragged
-    last key tile; v4 a producer warp); compare the variants with each
-    other."""
+    kernel (the producer warp and the epilogue too); compare the variants
+    with each other."""
     cuda_lib.build_library(LIBRARY)
     counts = {}
     for name, ops in cuda_lib.dump_sass(cuda_lib.BUILD_INFO[LIBRARY]["path"]).items():
@@ -330,15 +313,17 @@ def sass_counts(dp=80):
     return dict(sorted(counts.items()))
 
 
-def sm90_attributes(pipelined: bool = True, head_dim: int = D) -> dict:
-    """Resources of the compiled v4 kernel (`csrc/static_max_sm90.cu`; its
-    serial anchor with `pipelined` False) at `head_dim`, from the CUDA
-    runtime: registers per thread as compiled and per producer / consumer
-    thread after `setmaxnreg`, local-memory (spill) bytes per thread, shared
-    memory per block, resident blocks per SM, threads per block."""
+def sm90_attributes(variant: str = "v4", head_dim: int = D) -> dict:
+    """Resources of a variant's compiled kernel (`csrc/static_max_sm90.cu`)
+    at `head_dim`, from the CUDA runtime: registers per thread as compiled
+    and per producer / consumer thread after `setmaxnreg`, local-memory
+    (spill) bytes per thread, shared memory per block, resident blocks per
+    SM, threads per block."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, not {variant!r}")
     out = (ctypes.c_longlong * len(_SM90_ATTRIBUTES))()
     err = cuda_lib.build_library(LIBRARY).lumina_static_max_sm90_attributes(
-        int(pipelined), int(head_dim), out)
+        VARIANTS.index(variant), int(head_dim), out)
     if err != 0:
         raise RuntimeError(f"lumina_static_max_sm90_attributes failed: cudaError {err}")
     return dict(zip(_SM90_ATTRIBUTES, out))

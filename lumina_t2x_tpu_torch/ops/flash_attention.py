@@ -2,7 +2,8 @@
 versions (counterpart of `lumina_t2x_tpu/ops/flash_attention.py`).
 
 Ten entry points, each with its own launch counter (`LAUNCHES`), each
-standing in for one Pallas TPU kernel:
+standing in for one Pallas TPU kernel, and `rope_rotate`, the rotation the
+fused-RoPE route runs before its forward:
 
 | entry point            | Pallas kernel (lumina_t2x_tpu/ops/flash_attention.py)   |
 | ---------------------- | -------------------------------------------------------- |
@@ -16,6 +17,7 @@ standing in for one Pallas TPU kernel:
 | `flash_bwd_dkv`        | `_bwd_dkv_kernel` (two-kernel backward, dK and dV)        |
 | `flash_rope`           | `_flash_rope_kernel` (online, q and k rotated in-kernel)  |
 | `flash_rope_q`         | `_flash_rope_q_kernel` (online, q rotated in-kernel)      |
+| `rope_rotate`          | `_rotate_tile` of `_flash_rope_kernel`'s k (once a call)  |
 
 The first three serve inference (no autograd); under autograd
 `flash_attention` runs `_FlashAttention`, whose forward is `flash_online_lse`
@@ -30,18 +32,19 @@ and the backward kernels, and inverse-rotates dq (and dk).
 The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_{fwd,bwd}.cu` and
 the Hopper redesigns `csrc/flash_fwd_sm90.cu` (bf16 `flash_small_kv`,
 `flash_online`, `flash_static_max`, `flash_online_lse`,
-`flash_static_max_lse`; the LSE written from the consumers' registers) and
+`flash_static_max_lse`, `flash_rope`, `flash_rope_q`; the LSE written from
+the consumers' registers, q rotated in shared memory) and
 `csrc/flash_bwd_sm90.cu` (bf16 `flash_bwd_fused` / `flash_bwd_dkv`, and
-`flash_bwd_dq`'s own kernel: q rows as the block, a ring of K/V tiles); they
-are built into one library by `ops/cuda_lib.py` at first use, under
-`build/kernels/<source hash>/` at the repository root, and bound through
-ctypes. The template of `flash_fwd.cu` runs bf16 only for the fused-RoPE
-kernels; `flash_bwd.cu` runs fp32 only. A wrapper takes its plain version only for CPU
+`flash_bwd_dq`'s own kernel: q rows as the block, a ring of K/V tiles), with
+`csrc/rope_rotate.cu` (`rope_rotate`); they are built into one library by
+`ops/cuda_lib.py` at first use, under `build/kernels/<source hash>/` at the
+repository root, and bound through ctypes. The templates of `flash_fwd.cu`
+and `flash_bwd.cu` run fp32 only. A wrapper takes its plain version only for CPU
 tensors; for CUDA tensors it launches the kernel or raises. The bf16 Hopper
 kernels read q, k, v (and dout) through TMA tensor maps in 16-byte chunks:
 they take head_dim a multiple of 8 (else ValueError; so does every bf16
-call but the fused-RoPE ones, `flash_small_kv` and `flash_bwd_dq`
-included), and an operand whose
+call, `flash_small_kv`, `flash_bwd_dq` and the fused-RoPE ones included),
+and an operand whose
 base or (b, s, h) strides are not whole chunks, or whose strides do not
 grow from h to s to b, is copied contiguous first (`_chunk_aligned`; a
 strided view such as q, k, v of a fused (B, S, 3, H, D) tensor is read in
@@ -81,7 +84,7 @@ _STATIC_MAX_CLAMP = 55.0
 _FWD_ENTRIES = ("small_kv", "online", "static_max", "online_lse", "static_max_lse")
 _BWD_ENTRIES = ("bwd_fused", "bwd_dq", "bwd_dkv")
 _ROPE_ENTRIES = ("rope", "rope_q")
-LAUNCHES = {name: 0 for name in _FWD_ENTRIES + _BWD_ENTRIES + _ROPE_ENTRIES}
+LAUNCHES = {name: 0 for name in _FWD_ENTRIES + _BWD_ENTRIES + _ROPE_ENTRIES + ("rope_rotate",)}
 # calls of the plain versions on CUDA tensors (the main path should make none)
 PLAIN_CUDA_CALLS = {"count": 0}
 
@@ -287,11 +290,15 @@ _FWD_ARGS = [_ptr] * 6 + [_meta, ctypes.c_float, ctypes.c_float, ctypes.c_int, _
 _BWD_ARGS = [_ptr] * 10 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
 # rope: q, k, v, mask, out, cos_full, sin_signed, meta, scale, is_bf16, stream
 _ROPE_ARGS = [_ptr] * 7 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
+# rope_rotate: x, out, cos_full, sin_signed, meta (int64[7]), is_bf16, stream
+_ROTATE_ARGS = [_ptr] * 4 + [_meta, ctypes.c_int, _ptr]
 LIBRARY = "flash"  # the library of K1-K9 (`ops/cuda_lib.py`)
 cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
-                          "flash_bwd_sm90.cu"], {
-    **{f"lumina_flash_{name}": _FWD_ARGS if name in _FWD_ENTRIES else
-       _BWD_ARGS if name in _BWD_ENTRIES else _ROPE_ARGS for name in LAUNCHES},
+                          "flash_bwd_sm90.cu", "rope_rotate.cu"], {
+    **{f"lumina_flash_{name}": _FWD_ARGS for name in _FWD_ENTRIES},
+    **{f"lumina_flash_{name}": _BWD_ARGS for name in _BWD_ENTRIES},
+    **{f"lumina_flash_{name}": _ROPE_ARGS for name in _ROPE_ENTRIES},
+    "lumina_rope_rotate": _ROTATE_ARGS,
     # static_max (fused), head_dim, out (int64[7]); launch nothing
     "lumina_flash_fwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta],
     # which (0 dK/dV, 1 fused, 2 dQ), head_dim, out (int64[7])
@@ -432,26 +439,83 @@ def _rotation_tables(angles, d):
     return cos_full, sin_signed
 
 
-def _launch_rope(name, q, k, v, angles, kv_mask, scale):
-    """Check what the fused-RoPE kernels take, build the (Sq, D) fp32
-    rotation tables on the card with `rot_tables` (the plain version's
-    arithmetic; `_rotation_tables` reuses them across a forward's calls) and
-    launch `lumina_flash_<name>`; returns out."""
-    q, k, v, kv_mask = _check_inputs(q, k, v, kv_mask)
-    b, sq, hq, d = q.shape
+def _rotatable(t):
+    """t as `lumina_rope_rotate` reads it -- base and (b, s, h) element
+    strides in whole vectors of 8 bf16 or 2 fp32 elements -- t itself when
+    it is so, else a contiguous copy."""
+    n = 8 if t.dtype == torch.bfloat16 else 2
+    if t.data_ptr() % (n * t.element_size()) == 0 and all(st % n == 0 for st in t.stride()[:3]):
+        return t
+    return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+
+
+def _rotate(x, cos_full, sin_signed):
+    """Launch `lumina_rope_rotate` on a CUDA (B, S, H, D) tensor with the
+    contiguous (S, D) fp32 tables; returns the rotated tensor, contiguous."""
+    x = _rotatable(x if x.stride(-1) == 1 else x.contiguous())
+    b, s, h, d = x.shape
+    out = torch.empty((b, s, h, d), dtype=x.dtype, device=x.device)
+    err = cuda_lib.build_library(LIBRARY).lumina_rope_rotate(
+        x.data_ptr(), out.data_ptr(), cos_full.data_ptr(), sin_signed.data_ptr(),
+        (ctypes.c_longlong * 7)(b, s, h, d, *x.stride()[:3]), int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rope_rotate launch failed: cudaError {err}")
+    LAUNCHES["rope_rotate"] += 1
+    return out
+
+
+def _check_rope_args(name, q, k, angles):
+    """What the fused-RoPE route takes beyond `_check_inputs`: (S, D/2)
+    angles for an even head_dim, Sk == Sq for `rope`, and head_dim a
+    multiple of 8 in bf16 (the Hopper forward's and `rope_rotate`'s 16-byte
+    chunks). Raises ValueError before anything is launched."""
+    sq, d = q.shape[1], q.shape[-1]
     if d % 2 or tuple(angles.shape) != (sq, d // 2):
         raise ValueError(f"angles {tuple(angles.shape)} must be (Sq, D/2) = {(sq, d // 2)}")
     if name == "rope" and k.shape[1] != sq:
         raise ValueError(f"flash_rope rotates k by the query positions: Sk {k.shape[1]} != Sq {sq}")
+    if q.dtype == torch.bfloat16:
+        _sm90_head_dim(name, d)
+
+
+def _rope_rotated_first(name, dtype):
+    """The operands `rope_rotate` turns before the forward of `name` runs:
+    k for `rope` (bf16 q is rotated inside the Hopper forward), and q as
+    well in fp32 (the fp32 template rotates nothing)."""
+    first = ("k",) if name == "rope" else ()
+    return first if dtype == torch.bfloat16 else ("q", *first)
+
+
+def _launch_rope(name, q, k, v, angles, kv_mask, scale):
+    """Check what the fused-RoPE route takes, build the (Sq, D) fp32
+    rotation tables on the card with `rot_tables` (the plain version's
+    arithmetic; `_rotation_tables` reuses them across a forward's calls),
+    rotate the operands `_rope_rotated_first` names with `rope_rotate`'s
+    kernel and launch `lumina_flash_<name>`: in bf16 the Hopper forward,
+    handed the tables to rotate q in shared memory; in fp32 the online
+    template. Returns out."""
+    _check_rope_args(name, q, k, angles)
+    q, k, v, kv_mask = _check_inputs(q, k, v, kv_mask)
+    b, sq, hq, d = q.shape
+    bf16 = q.dtype == torch.bfloat16
     lib = cuda_lib.build_library(LIBRARY)
     with torch.cuda.device(q.device):
         cos_full, sin_signed = _rotation_tables(angles.to(q.device), d)
+        first = _rope_rotated_first(name, q.dtype)
+        if "q" in first:
+            q = _rotate(q, cos_full, sin_signed)
+        if "k" in first:
+            k = _rotate(k, cos_full, sin_signed)
+        if bf16:
+            q, k, v = (_chunk_aligned(t) for t in (q, k, v))
         out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
         err = getattr(lib, f"lumina_flash_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kv_mask.data_ptr() if kv_mask is not None else None, out.data_ptr(),
-            cos_full.data_ptr(), sin_signed.data_ptr(), _fwd_meta(q, k, v, out, kv_mask), scale,
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+            cos_full.data_ptr() if bf16 else None, sin_signed.data_ptr() if bf16 else None,
+            _fwd_meta(q, k, v, out, kv_mask), scale, int(bf16),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash kernel {name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -582,18 +646,39 @@ def flash_bwd_dkv(q, k, v, kv_mask, out, lse, dout, scale: Optional[float] = Non
 
 def flash_rope(q, k, v, angles, kv_mask=None, scale: Optional[float] = None):
     """Online-softmax attention of unrotated q and k (Sq == Sk), both rotated
-    in-kernel by the (Sq, D/2) fp32 `angles` (replaces `_flash_rope_kernel`)."""
+    by the (Sq, D/2) fp32 `angles` (replaces `_flash_rope_kernel`): k once by
+    `rope_rotate`'s kernel, bf16 q inside the Hopper forward (fp32 q by
+    `rope_rotate` too)."""
     if not q.is_cuda:
         return flash_rope_plain(q, k, v, angles, kv_mask, _scale(q, scale))
     return _launch_rope("rope", q, k, v, angles, kv_mask, _scale(q, scale))
 
 
 def flash_rope_q(q, k, v, angles, kv_mask=None, scale: Optional[float] = None):
-    """Online-softmax attention of unrotated q, rotated in-kernel, to keys
-    that carry no rotation, any Sk (replaces `_flash_rope_q_kernel`)."""
+    """Online-softmax attention of unrotated q, rotated in-kernel (bf16; fp32
+    by `rope_rotate`), to keys that carry no rotation, any Sk (replaces
+    `_flash_rope_q_kernel`)."""
     if not q.is_cuda:
         return flash_rope_q_plain(q, k, v, angles, kv_mask, _scale(q, scale))
     return _launch_rope("rope_q", q, k, v, angles, kv_mask, _scale(q, scale))
+
+
+def rope_rotate(x, angles):
+    """`apply_rope(x, angles)` of a (B, S, H, D) bf16 or fp32 tensor by
+    (S, D/2) angles, as one kernel (`csrc/rope_rotate.cu`; the key half of
+    `flash_rope`) on the card, bit for bit; the plain version (`apply_rope`)
+    on the CPU. The result is contiguous."""
+    if not x.is_cuda:
+        return apply_rope(x, angles)
+    if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 4:
+        raise TypeError(f"rope_rotate takes a bf16 or fp32 (B, S, H, D) tensor, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    s, d = x.shape[1], x.shape[3]
+    if d % (8 if x.dtype == torch.bfloat16 else 2) or tuple(angles.shape) != (s, d // 2):
+        raise ValueError(f"rope_rotate takes head_dim a multiple of 8 (bf16) or 2 (fp32) and "
+                         f"(S, D/2) angles: x {tuple(x.shape)}, angles {tuple(angles.shape)}")
+    with torch.cuda.device(x.device):
+        return _rotate(x, *_rotation_tables(angles.to(x.device), d))
 
 
 def _round_up(x: int, m: int) -> int:

@@ -14,9 +14,9 @@ from lumina_t2x_tpu_torch.ops import flash_attention as fa
 
 
 @pytest.mark.parametrize("module,sources,symbol", [
-    (fa, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu"],
-     "lumina_flash_rope_q"),
-    (vpu, ["static_max_variants.cu", "static_max_sm90.cu"], "lumina_static_max_v4"),
+    (fa, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
+          "rope_rotate.cu"], "lumina_rope_rotate"),
+    (vpu, ["static_max_sm90.cu"], "lumina_static_max_v3"),
     (mxu, ["mma_probe.cu"], "lumina_mma_chain"),
 ])
 def test_each_module_declares_its_library(module, sources, symbol):
@@ -26,21 +26,18 @@ def test_each_module_declares_its_library(module, sources, symbol):
 
 
 def test_hash_inputs_follow_local_includes():
-    assert cuda_lib._inputs(["static_max_variants.cu"]) == ["static_max_variants.cu",
-                                                             "warp_mma.cuh"]
-    assert cuda_lib._inputs(["static_max_variants.cu", "static_max_sm90.cu"]) == [
-        "static_max_variants.cu", "static_max_sm90.cu", "warp_mma.cuh", "sm90_common.cuh"]
+    assert cuda_lib._inputs(["static_max_sm90.cu"]) == ["static_max_sm90.cu", "sm90_common.cuh"]
     assert cuda_lib._inputs(["mma_probe.cu"]) == ["mma_probe.cu", "mma_probe_wgmma.cuh",
                                                   "sm90_common.cuh", "warp_mma.cuh"]
     assert cuda_lib._inputs(["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
-                             "flash_bwd_sm90.cu"]) == [
+                             "flash_bwd_sm90.cu", "rope_rotate.cu"]) == [
         "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
-        "flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh", "sm90_common.cuh"]
+        "rope_rotate.cu", "flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh", "sm90_common.cuh"]
 
 
 def test_an_experiment_edit_leaves_the_flash_library(tmp_path, monkeypatch):
-    """Editing an experiment source or the header only the experiments share
-    changes their libraries' paths, never K1-K9's."""
+    """Editing an experiment source or the header only the probe includes
+    changes that library's path alone, never K1-K9's."""
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_lib._CSRC, csrc)
     monkeypatch.setattr(cuda_lib, "_CSRC", csrc)
@@ -51,8 +48,13 @@ def test_an_experiment_edit_leaves_the_flash_library(tmp_path, monkeypatch):
     assert after[mxu.LIBRARY] != before[mxu.LIBRARY]
     (csrc / "warp_mma.cuh").write_text((csrc / "warp_mma.cuh").read_text() + "\n// edit\n")
     again = {name: cuda_lib._lib_path(name) for name in before}
-    assert again[fa.LIBRARY] == before[fa.LIBRARY]
-    assert again[vpu.LIBRARY] != before[vpu.LIBRARY] and again[mxu.LIBRARY] != after[mxu.LIBRARY]
+    assert again[fa.LIBRARY] == before[fa.LIBRARY] and again[vpu.LIBRARY] == before[vpu.LIBRARY]
+    assert again[mxu.LIBRARY] != after[mxu.LIBRARY]
+    (csrc / "static_max_sm90.cu").write_text(
+        (csrc / "static_max_sm90.cu").read_text() + "\n// edit\n")
+    third = {name: cuda_lib._lib_path(name) for name in before}
+    assert third[fa.LIBRARY] == before[fa.LIBRARY] and third[mxu.LIBRARY] == again[mxu.LIBRARY]
+    assert third[vpu.LIBRARY] != before[vpu.LIBRARY]
     assert after[fa.LIBRARY].name == "libflash.so"
 
 

@@ -316,24 +316,27 @@ def _entry_bodies():
 
 def test_bf16_forwards_route_to_the_hopper_kernel():
     """bf16 K1-K5 hand their inputs to `flash_fwd_sm90` (K4/K5 with their lse
-    pointer, K1-K3 with none) and fp32 stays on the template; the template
-    keeps a bf16 instantiation only for K9 (online, no LSE, a rotation)."""
+    pointer, K1-K3 with none, none with rotation tables), and bf16 K9 with
+    the tables and no LSE (`rope_forward`); fp32 stays on the template,
+    which has no bf16 code left."""
     src, bodies = _entry_bodies()
     for name, static_max, lse in (("small_kv", "false", "nullptr"), ("online", "false", "nullptr"),
                                   ("static_max", "true", "nullptr"),
                                   ("online_lse", "false", "lse"),
                                   ("static_max_lse", "true", "lse")):
-        assert re.search(rf"if \(is_bf16\) return flash_fwd_sm90\({static_max}, q, k, v, mask, "
-                         rf"out, {lse}, meta,", bodies[name]), name
+        assert re.search(rf"if \(is_bf16\)\s+return flash_fwd_sm90\({static_max}, q, k, v, mask, "
+                         rf"out, {lse}, nullptr, nullptr, meta,", bodies[name]), name
         fp32 = re.search(r"return launch<(true|false), (true|false)>", bodies[name])
         assert fp32.groups() == (static_max, "true" if lse == "lse" else "false"), name
     for name in ("rope", "rope_q"):
-        assert "flash_fwd_sm90" not in bodies[name]
+        assert "return rope_forward(q, k, v, mask, out, rope_cos, rope_sin, meta," in bodies[name]
+    rope = src[src.index("int rope_forward("):src.index("}  // namespace")]
+    assert re.search(r"if \(is_bf16\) \{.*return flash_fwd_sm90\(false, q, k, v, mask, out, nullptr, "
+                     r"rope_cos, rope_sin, meta,", rope, re.S)
+    assert "return launch<false, false>(" in rope
     assert tfa._SM90_ENTRIES == ("small_kv", "online", "static_max", "online_lse",
                                  "static_max_lse")
-    assert re.findall(r"launch_typed<__nv_bfloat16, ([^>]*)>", src) == ["false, false, kRope"]
-    guard = src[:src.index("launch_typed<__nv_bfloat16,")].rsplit("if constexpr", 1)[1]
-    assert guard.startswith(" (!kStaticMax && !kEmitLse && kRope != kRopeNone)")
+    assert "__nv_bfloat16" not in src and "wmma" not in src and "kRope" not in src
 
 
 def test_breakdown_entry_matches_the_kernel_signature():
@@ -348,13 +351,13 @@ def test_breakdown_entry_matches_the_kernel_signature():
 
     header = names((cuda_lib._CSRC / "flash_fwd_sm90.cuh").read_text(),
                    r"int flash_fwd_sm90\((.*?)\);")
-    assert header == ["static_max", "q", "k", "v", "mask", "out", "lse", "meta", "scale", "bound",
-                      "stream"]
+    assert header == ["static_max", "q", "k", "v", "mask", "out", "lse", "rope_cos", "rope_sin",
+                      "meta", "scale", "bound", "stream"]
     assert names((cuda_lib._CSRC / "flash_fwd_sm90.cu").read_text(),
                  r"\nint flash_fwd_sm90\((.*?)\) \{") == header
     args = re.search(r"return flash_fwd_sm90\((.*?)\);", bd._ENTRY, re.S).group(1)
     assert [a.strip() for a in args.split(",")] == [
-        "static_max != 0", *header[1:6], "nullptr", *header[7:]]
+        "static_max != 0", *header[1:6], "nullptr", "nullptr", "nullptr", *header[9:]]
 
 
 def test_breakdown_variants_edit_the_kernel():
@@ -493,10 +496,9 @@ def test_fp32_stays_on_the_first_template(cuda_device, entry):
 
 @pytest.mark.cuda
 def test_rope_kernel_equals_the_first_template_online_forward(cuda_device):
-    """K9 (flash_fwd.cu's template with the rotation) equals that template's
-    online forward, `flash_online_lse(...)[0]`, on `apply_rope`d inputs to
-    one fp32 ulp: in fp32, where both run the template (bf16 `flash_online`
-    and `flash_online_lse` run the Hopper kernel)."""
+    """fp32 K9 (`rope_rotate` on q and k, then flash_fwd.cu's online
+    template) equals that template's `flash_online_lse(...)[0]` on
+    `apply_rope`d inputs to one fp32 ulp."""
     from lumina_t2x_tpu_torch.ops.rope import apply_rope, rope_angles_2d
 
     q, k, v, mask = (t.float() if t.is_floating_point() else t

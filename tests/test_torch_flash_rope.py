@@ -6,12 +6,15 @@ the JAX package's `flash_attention_rope`, whose Pallas kernels
 run in interpret mode on the CPU.
 
 Same numpy inputs on both sides, fp32, bar atol 2e-4 / rtol 2e-3 (the
-port's torch-parity bar). The `cuda`-marked tests hold the CUDA kernels
-against their plain versions, against themselves on rotated inputs at zero
-angles (bit for bit: the in-kernel rotation is `apply_rope`'s), and against
-`flash_small_kv` (K1's entry point) on rotated inputs -- equal in fp32,
-where both run the template, within the bf16 bar in bf16, where K1 runs the
-Hopper kernel -- on the card, and skip without one.
+port's torch-parity bar); `rope_rotate` against JAX's `_rotate_tile` to
+four fp32 ulps of max|x| (the two libraries' sin/cos differ by an ulp, and
+XLA may contract a product into an FMA), bf16 bit for bit. The
+`cuda`-marked tests hold the CUDA kernels against their plain versions,
+against themselves on rotated inputs at zero angles, against
+`flash_small_kv` (K1's entry point) on `apply_rope`d inputs bit for bit
+(the in-kernel rotation is `apply_rope`'s, and K9 runs K1's kernel: the
+Hopper forward in bf16, the online template in fp32), and `rope_rotate`
+against `apply_rope` bit for bit, on the card, and skip without one.
 """
 
 import importlib
@@ -176,6 +179,69 @@ def test_cpu_calls_launch_no_kernel():
     tfa.flash_attention_rope(*leaves, torch.from_numpy(angles)).sum().backward()
     assert all(n == 0 for n in tfa.LAUNCHES.values())
     assert tfa.PLAIN_CUDA_CALLS["count"] == 0
+
+
+def _jax_rotate_tile(x, cos_full, sin_signed):
+    """JAX's `_rotate_tile` (the rotation inside `_flash_rope_kernel`) on a
+    (rows, D) tile, through `pallas_call` in interpret mode."""
+    pl = importlib.import_module("jax.experimental.pallas")
+
+    def kernel(x_ref, c_ref, s_ref, o_ref):
+        o_ref[...] = jfa._rotate_tile(x_ref[...], c_ref[...], s_ref[...])
+
+    return pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype),
+                          interpret=True)(x, cos_full, sin_signed)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_rotate_matches_jax_rotate_tile(dtype):
+    """`rope_rotate` (on the CPU its plain version, `apply_rope`) against
+    the Pallas kernels' `_rotate_tile` per (batch, head) tile, with the JAX
+    package's own tables: bf16 bit for bit, fp32 within four ulps of
+    max|x|."""
+    rng = np.random.default_rng(21)
+    b, s, h, d = 2, 40, 3, 16
+    x = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    angles = _angles(s, d)
+    got = tfa.rope_rotate(torch.from_numpy(x).to(getattr(torch, dtype)), torch.from_numpy(angles))
+    assert got.shape == x.shape and got.dtype == getattr(torch, dtype)
+    cos_full, sin_signed = importlib.import_module("lumina_t2x_tpu.ops.rope").rot_tables(
+        jnp.asarray(angles), d)
+    bar = 0.0 if dtype == "bfloat16" else 2.0 ** -21 * np.abs(x).max()
+    for bi in range(b):
+        for hi in range(h):
+            ref = _jax_rotate_tile(jnp.asarray(x[bi, :, hi]).astype(dtype), cos_full, sin_signed)
+            err = np.abs(got[bi, :, hi].float().numpy() - np.asarray(ref.astype(jnp.float32)))
+            assert err.max() <= bar, (bi, hi, err.max())
+
+
+@pytest.mark.parametrize("name,dtype,first", [
+    ("rope", torch.bfloat16, ("k",)), ("rope_q", torch.bfloat16, ()),
+    ("rope", torch.float32, ("q", "k")), ("rope_q", torch.float32, ("q",))])
+def test_rope_route_rotates_each_operand_once(name, dtype, first):
+    """`rope_rotate` turns k for `rope` (bf16 q turns inside the Hopper
+    forward), and q too in fp32, where the template rotates nothing."""
+    assert tfa._rope_rotated_first(name, dtype) == first
+
+
+@pytest.mark.parametrize("name,sk,d,dtype,angle_rows,match", [
+    ("rope", 37, 16, torch.float32, 40, "Sk 37 != Sq 40"),
+    ("rope_q", 37, 15, torch.float32, 40, "must be"),
+    ("rope_q", 37, 16, torch.float32, 39, "must be"),
+    ("rope", 40, 12, torch.bfloat16, 40, "multiple of 8")])
+def test_launch_rope_checks_raise_before_any_launch(name, sk, d, dtype, angle_rows, match):
+    """`_launch_rope` refuses Sk != Sq for `rope`, an odd head_dim, angles
+    that are not (Sq, D/2) and a bf16 head_dim that is not whole 16-byte
+    chunks, before it builds or launches anything (here on CPU tensors,
+    which would reach no kernel)."""
+    tfa.reset_launch_counts()
+    rng = np.random.default_rng(22)
+    q = torch.from_numpy(rng.standard_normal((1, 40, 2, d)).astype(np.float32)).to(dtype)
+    k = torch.from_numpy(rng.standard_normal((1, sk, 2, d)).astype(np.float32)).to(dtype)
+    angles = torch.zeros(angle_rows, d // 2)
+    with pytest.raises(ValueError, match=match):
+        tfa._launch_rope(name, q, k, k, angles, None, 0.25)
+    assert all(n == 0 for n in tfa.LAUNCHES.values())
 
 
 def test_rotation_tables_are_built_once_per_angles_tensor():
@@ -343,7 +409,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("entry,sk,hkv", [("rope", 300, 2), ("rope_q", 37, 1), ("rope_q", 300, 4)])
+@pytest.mark.parametrize("entry,sk,hkv", [("rope", 300, 2), ("rope_q", 37, 1), ("rope_q", 300, 4),
+                                          ("rope_q", 32, 2), ("rope_q", 256, 1)])
 def test_rope_kernels_match_plain_and_k2_on_card(cuda_device, dtype, entry, sk, hkv):
     g = torch.Generator().manual_seed(0)
     mk = lambda *s: torch.randn(*s, generator=g).to("cuda", dtype)
@@ -360,20 +427,39 @@ def test_rope_kernels_match_plain_and_k2_on_card(cuda_device, dtype, entry, sk, 
     q_rot = apply_rope(q, angles)
     k_rot = apply_rope(k, angles) if entry == "rope" else k
     ref = tfa.flash_online_plain(q_rot.float(), k_rot.float(), v.float(), mask, 0.2)
-    # at zero angles the rotation is x * 1 + swap(x) * 0 = x exactly: K9 on
-    # rotated inputs runs the same kernel on the same operands
+    # at zero angles the rotation is x * 1 + swap(x) * 0 = x exactly
     same = kernel(q_rot, k_rot, v, torch.zeros_like(angles), mask, 0.2)
-    # K1's entry point: fp32 runs flash_fwd.cu's online template, which K9
-    # shares; bf16 runs csrc/flash_fwd_sm90.cu
+    # K1's entry point runs K9's kernel (bf16: csrc/flash_fwd_sm90.cu, fp32:
+    # flash_fwd.cu's online template) on operands rotated as apply_rope does
     k1 = tfa.flash_small_kv(q_rot, k_rot, v, mask, 0.2)
     torch.cuda.synchronize()
     assert tfa.LAUNCHES[entry] == before + 2
-    assert torch.equal(got, same)  # the in-kernel rotation is apply_rope's, bit for bit
+    assert torch.equal(got, same)
+    assert torch.equal(got, k1)
     top = max(1.0, ref.abs().max().item())
-    if dtype == torch.float32:
-        assert torch.equal(got, k1)
-    else:
-        assert (got.float() - k1.float()).abs().max().item() <= 1e-2 * top
     rel = 8e-3 if dtype == torch.bfloat16 else 1e-5
     assert (got.float() - ref).abs().max().item() <= rel * top
     assert not got[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["contiguous", "fused qkv view", "odd offset"])
+def test_rope_rotate_equals_apply_rope_on_card(cuda_device, dtype, layout):
+    """`rope_rotate`'s kernel equals `apply_rope` bit for bit, on a
+    contiguous tensor, a strided view of a fused (B, S, 3, H, D) buffer
+    (read in place) and a view whose base is off the kernel's vectors
+    (copied first); one launch a call."""
+    g = torch.Generator().manual_seed(3)
+    if layout == "fused qkv view":
+        x = torch.randn(2, 300, 3, 4, 72, generator=g).to("cuda", dtype)[:, :, 1]
+    elif layout == "odd offset":
+        x = torch.randn(2 * 300 * 4 * 72 + 1, generator=g).to("cuda", dtype)[1:].view(2, 300, 4, 72)
+    else:
+        x = torch.randn(2, 300, 4, 72, generator=g).to("cuda", dtype)
+    angles = torch.from_numpy(_angles(300, 72)).cuda()
+    before = tfa.LAUNCHES["rope_rotate"]
+    got = tfa.rope_rotate(x, angles)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["rope_rotate"] == before + 1
+    assert got.is_contiguous() and torch.equal(got, apply_rope(x, angles))

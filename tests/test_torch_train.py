@@ -443,9 +443,9 @@ def test_profile_train_step_groups_and_needs_cuda(monkeypatch):
     assert prof._group("void (anonymous namespace)::flash_bwd_sm90_dq_kernel<80, 72>(Params)") \
         == "Hopper backward (bf16 K6-K8, flash_bwd_sm90.cu)"
     assert prof._group("void (anonymous namespace)::flash_fwd_sm90_kernel<true, 80, 72>(Params)") \
-        == "Hopper forward (bf16 K1-K5, flash_fwd_sm90.cu)"
-    assert prof._group("void (anonymous namespace)::flash_fwd_kernel<float, true, true, 0>") \
-        == "flash forward template (template: K9; fp32 K1-K5)"
+        == "Hopper forward (bf16 K1-K5, K9, flash_fwd_sm90.cu)"
+    assert prof._group("void (anonymous namespace)::flash_fwd_kernel<true, true>(Params)") \
+        == "flash forward template (fp32 K1-K5, K9)"
     assert prof._group("nvjet_tst_128x256_64x4") == "cuBLAS GEMMs"
     assert prof._group("Memset (Device)") == "copies/memset"
     assert prof._group("some_kernel") == "other"
