@@ -35,7 +35,9 @@ last line:
    their kernel, with q rotated in it and k by `rope_rotate`), timed beside
    that entry point, and their gradient (`_FlashAttentionRope` through the
    kernels against the plain Function); `rope_rotate` against `apply_rope`
-   bit for bit, timed at the 2B's k;
+   bit for bit, timed at the 2B's k; then K1 at the class-conditional 600M's
+   self-attention (bf16 (8, 256, 32, 48): 4 labels under CFG at 256^2),
+   kernel and sdpa timed in bursts of 8;
 3b. experiments: the static-max variants (K10: `static_max_v0..v3`; K11:
    `static_max_v4`, which must equal v1 bit for bit) against their plain
    versions at the experiment's shape (B=2, S=4096, H=32, D=72, bound
@@ -54,10 +56,23 @@ last line:
    caption dim 2048, bf16, zero-init tensors randomised) at 1024^2 with 256
    caption tokens, through the kernels and through the plain versions;
 5. the sampler: a 30-point midpoint trajectory (CFG 4, time-shift 4) of the
-   same model through `sample_lib` with calibration, both timed; then the
-   `lumina` CLI's `infer` (2B, 1024^2, the repo's settings, --debug: no
-   qk-norm, so no calibration, as in the JAX CLI);
-5b. serving: `build_worker` (2B, bf16, --debug, zero-init tensors
+   same model through `sample_lib` with calibration, both timed;
+5a. vae: the SD-VAE (`codecs/vae.py`: ch 128, (1, 2, 4, 4), 2 resnets, z 4,
+   quant convs) from a seed, written as `.safetensors` and read back with
+   `load_vae`; the trajectory's 1024^2 latent decoded in fp32 with cuDNN's
+   TF32 convolutions off and on (median of 3, peak memory, FLOPs, bound);
+   decode and `encode_to_latent` on the card against the CPU at 256^2 under
+   both (relative L2 within 1e-3 / 1e-2); the SD3 layout decoded once;
+5b. classcond: `pipelines.sample.main` with the randomised
+   NextDiT_ImageNet_600M_patch2 saved as a checkpoint (`--ckpt`), 4 labels
+   at 256^2, 30-point midpoint, CFG 4, `--vae_ckpt`: four PNGs from exactly
+   928 K1 launches (16 layers x 58 evaluations; the main path of K1's
+   600M line) and no plain-version call; then `--num_fid_samples 8
+   --batch_size 4` (the ADM npz) and `--pixel_space` at 64^2; and the 2B
+   through the same CLI at 1024^2, 10 steps, `--vae_ckpt`: one 1024^2 PNG;
+   then the `lumina` CLI's `infer` (2B, 1024^2, the repo's settings,
+   --debug: no qk-norm, so no calibration, as in the JAX CLI);
+5c. serving: `build_worker` (2B, bf16, --debug, zero-init tensors
    randomised) behind `make_server` on port 0, driven with urllib:
    /api/health, one /api/generate at the defaults (1024^2, 30 steps,
    midpoint, CFG 4, t-shift 4; the main path of K1-K4, with calibration
@@ -129,6 +144,8 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "static_max_v3": (VPU_SOURCE, f"{VPU_EXP}:106"),       # _kernel_v3
     "static_max_v4": (VPU_SOURCE, f"{VPU_EXP}:127"),       # _kernel_v4
     "mma_chain": (MMA_SOURCE, "exps/mxu_k_quantum.py:37"),  # _kernel
+    # K1 at the class-conditional 600M's self-attention (the classcond path)
+    "small_kv_imagenet_600m": (SM90_SOURCE, f"{TPU_KERNELS}:240"),
 }
 SAMPLER_KERNELS = ("small_kv", "online", "static_max", "online_lse")
 ROPE_KERNELS = ("rope", "rope_q", "rope_rotate")
@@ -148,6 +165,16 @@ EXP_RATE = 3.9e12
 # K12 against its plain version: fp32 sums in another order only
 MMA_REL = 1e-4
 PROMPT = "a photo of an astronaut riding a horse"
+# NextDiT_ImageNet_600M_patch2 at 256^2 under CFG: 4 labels doubled, 16 x 16
+# tokens, 32 heads of 48; 16 layers x 58 evaluations of a 30-point midpoint grid
+IMAGENET_SHAPE, IMAGENET_LAUNCHES = (8, 256, 32, 48), 16 * 58
+LABELS = "207,360,387,974"
+# H100 SXM dense TF32 tensor-core peak (NVIDIA's data sheet, 700 W)
+PEAK_TF32 = 495e12
+# the VAE's decode on the card against the CPU's, relative L2: fp32 convolutions
+# only sum in another order; TF32 rounds each convolution's operands to 10
+# mantissa bits (2^-11 relative), about 30 convolutions in series
+VAE_REL_FP32, VAE_REL_TF32 = 1e-3, 1e-2
 
 
 def phase(name, msg):
@@ -284,17 +311,20 @@ def build_phase():
     # the Hopper kernels of bf16 K1-K9, K10 and K11: their resources from
     # the CUDA runtime (K1, K4/K5 and K9 are K2/K3's instantiations, K4/K5
     # with an LSE pointer, K9 with rotation tables)
-    for source, entry, info in (
-            (SM90_SOURCE, "small_kv, online, online_lse, rope, rope_q",
+    for source, entry, head_dim, info in (
+            (SM90_SOURCE, "small_kv, online, online_lse, rope, rope_q", D,
              flash_attention.sm90_attributes(False, D)),
-            (SM90_SOURCE, "static_max, static_max_lse", flash_attention.sm90_attributes(True, D)),
-            (SM90_BWD_SOURCE, "bwd_fused", flash_attention.bwd_sm90_attributes("fused", D)),
-            (SM90_BWD_SOURCE, "bwd_dkv", flash_attention.bwd_sm90_attributes("dkv", D)),
-            (SM90_BWD_SOURCE, "bwd_dq", flash_attention.bwd_sm90_attributes("dq", D)),
-            *((VPU_SOURCE, f"static_max_{variant}", vpu_op_reduction.sm90_attributes(variant, D))
+            (SM90_SOURCE, "static_max, static_max_lse", D,
+             flash_attention.sm90_attributes(True, D)),
+            (SM90_SOURCE, "small_kv, the ImageNet 600M's 64/64 instantiation", IMAGENET_SHAPE[3],
+             flash_attention.sm90_attributes(False, IMAGENET_SHAPE[3])),
+            (SM90_BWD_SOURCE, "bwd_fused", D, flash_attention.bwd_sm90_attributes("fused", D)),
+            (SM90_BWD_SOURCE, "bwd_dkv", D, flash_attention.bwd_sm90_attributes("dkv", D)),
+            (SM90_BWD_SOURCE, "bwd_dq", D, flash_attention.bwd_sm90_attributes("dq", D)),
+            *((VPU_SOURCE, f"static_max_{variant}", D, vpu_op_reduction.sm90_attributes(variant, D))
               for variant in vpu_op_reduction.VARIANTS)):
-        phase("build", f"{source} ({entry}, head_dim {D}): {info['registers']} registers per "
-              f"thread as compiled, {info['producer_registers']} (producer) / "
+        phase("build", f"{source} ({entry}, head_dim {head_dim}): {info['registers']} registers "
+              f"per thread as compiled, {info['producer_registers']} (producer) / "
               f"{info['consumer_registers']} (consumers) after setmaxnreg, "
               f"{info['local_bytes']} local (spill) bytes per thread, {info['shared_bytes']} bytes "
               f"of shared memory per block, {info['blocks_per_sm']} block(s) of "
@@ -648,6 +678,39 @@ def rope_kernel_phase(fa):
 
 # (label, batch, seq, heads, masked keys at the end of batch row 1); the first
 # is the experiment's timed shape
+def imagenet_kernel_phase(fa):
+    """K1 (`flash_small_kv`) as the class-conditional 600M's self-attention:
+    bf16 (B, S, H, D) = IMAGENET_SHAPE, no mask, against its plain version;
+    kernel and sdpa timed in bursts of 8 calls (and one call each)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    b, s, h, d = IMAGENET_SHAPE
+    q, k, v = (_rand(g, b, s, h, d, dtype=torch.bfloat16) for _ in range(3))
+    scale = d ** -0.5
+    got = fa.flash_small_kv(q, k, v, None, scale)
+    ref = fa.flash_small_kv_plain(q.float(), k.float(), v.float(), None, scale)
+    err = (got.float() - ref).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    require(math.isfinite(max_err) and max_err <= BF16_MAX,
+            f"small_kv at {IMAGENET_SHAPE}: max abs err {max_err} > {BF16_MAX}")
+    require(mean_err <= BF16_MEAN, f"small_kv at {IMAGENET_SHAPE}: mean abs err {mean_err}")
+    burst = 8
+    timed = {"ms": time_ms(lambda: [fa.flash_small_kv(q, k, v, None, scale)
+                                    for _ in range(burst)]) / burst,
+             "plain_ms": time_ms(lambda: fa.flash_small_kv_plain(q, k, v, None, scale)),
+             "library_ms": time_ms(lambda: [_sdpa(q, k, v, None, scale)
+                                            for _ in range(burst)]) / burst,
+             **least_time(_nbytes(q, k, v, got), attention_ops(q, k, 2), torch.bfloat16)}
+    one = time_ms(lambda: fa.flash_small_kv(q, k, v, None, scale))
+    one_lib = time_ms(lambda: _sdpa(q, k, v, None, scale))
+    phase("kernels", f"small_kv bf16 {IMAGENET_SHAPE} (NextDiT_ImageNet_600M self-attention, "
+          f"256^2 under CFG): max abs err {max_err:.3g} mean {mean_err:.3g}; kernel "
+          f"{timed['ms']:.4f} ms (bursts of {burst}; one call {one:.4f}), plain "
+          f"{timed['plain_ms']:.3f} ms, bound {timed['bound_ms']:.4f} ms ({timed['bound_by']}), "
+          f"library {timed['library_ms']:.4f} ms (sdpa, bursts of {burst}; one call "
+          f"{one_lib:.4f}, {top_kernel(lambda: _sdpa(q, k, v, None, scale))})")
+    return {"small_kv_imagenet_600m": {**timed, "max_abs_err": max_err}}
+
+
 EXP_CASES = [("B2/S4096/H32/D72, all keys valid", B, S, H, 0),
              ("B2/S1000/H8/D72, ragged tiles, last 200 keys of row 1 masked", 2, 1000, 8, 200)]
 # (K, N) of the K12 checks at M=1024, 8 iterations; then a ragged tile
@@ -882,6 +945,7 @@ def slice_phase(fa, model, cap, cap_mask):
           f"batch 2), {1 / total:.4f} samples/s; latents finite, std {latents.std().item():.3f}")
     del model, sample_fn
     torch.cuda.empty_cache()
+    return latents
 
 
 def lumina_infer(fa, label, extra_argv, config=None, steps=30):
@@ -1033,6 +1097,220 @@ def serving_phase(fa):
     torch.cuda.empty_cache()
     return {**{name: default[name] for name in SAMPLER_KERNELS},
             **{name: fused[name] + wide[name] for name in ROPE_KERNELS}}
+
+
+def _rel_l2(got, ref):
+    return ((got.float().cpu() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def _write_random_vae(path, seed, **arch):
+    """A full-width AutoencoderKL with random weights from `seed` (CPU, fp32),
+    written as a diffusers-layout `.safetensors`; returns the module."""
+    from lumina_t2x_tpu_torch.codecs.vae import AutoencoderKL
+    from lumina_t2x_tpu_torch.core.checkpoint import save_safetensors
+
+    torch.manual_seed(seed)
+    vae = AutoencoderKL(**arch).eval()
+    save_safetensors(vae.state_dict(), path)
+    return vae
+
+
+def vae_phase(latent_1024, vae_dir):
+    """The SD-VAE (`codecs/vae.py`, plain torch: convolutions and the
+    bottleneck attention's matmuls) on the card: the full SD config from a
+    seed, written as `.safetensors` and read back with `load_vae`; the slice
+    phase's 1024^2 latent decoded in fp32 (median of 3, peak memory, FLOPs
+    and the bound at the TF32 and fp32 peaks), with cuDNN's TF32
+    convolutions off (this script's setting) and on (torch's default); the
+    card's decode and encode against the CPU's at 256^2 under both; the SD3
+    layout decoded once. Returns the VAE file's path."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from lumina_t2x_tpu_torch.codecs.vae import decode_from_latent, encode_to_latent, load_vae
+
+    path = os.path.join(vae_dir, "sd_vae.safetensors")
+    ref = _write_random_vae(path, 6)
+    t0 = time.perf_counter()
+    vae = load_vae(path, device="cuda")
+    load_s = time.perf_counter() - t0
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(vae.state_dict().values(),
+                                                         ref.state_dict().values())),
+            "load_vae did not restore the written weights")
+    z = latent_1024.float()
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        out = decode_from_latent(vae, z)
+    flops = counter.get_total_flops()
+    # the decode reads the decoder's and post_quant_conv's weights, z, writes the image
+    nbytes = _nbytes(z, out, *(p for name, p in vae.named_parameters()
+                                if not name.startswith(("encoder.", "quant_conv."))))
+    g = torch.Generator().manual_seed(9)
+    z_small = torch.randn(1, 4, 32, 32, generator=g)
+    x_small = torch.rand(1, 3, 256, 256, generator=g) * 2 - 1
+    noise = torch.randn(1, 4, 32, 32, generator=g)
+    with torch.no_grad():
+        cpu_dec = decode_from_latent(ref, z_small)
+        cpu_enc = encode_to_latent(ref, x_small, noise)
+    tf32_default = torch.backends.cudnn.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                decode = lambda: decode_from_latent(vae, z)
+                out = decode()
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = decode()
+                    torch.cuda.synchronize()
+                    times.append(1000 * (time.perf_counter() - t0))
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                dec = _rel_l2(decode_from_latent(vae, z_small.cuda()), cpu_dec)
+                enc = _rel_l2(encode_to_latent(vae, x_small.cuda(), noise.cuda()), cpu_enc)
+            bar = VAE_REL_TF32 if tf32 else VAE_REL_FP32
+            require(out.shape == (1, 3, 8 * z.shape[2], 8 * z.shape[3])
+                    and bool(torch.isfinite(out).all()),
+                    f"1024^2 decode (TF32 {tf32}): bad shape or non-finite")
+            peak_rate = PEAK_TF32 if tf32 else PEAK_FP32
+            bound = 1e3 * max(flops / peak_rate, nbytes / HBM_BYTES_S)
+            phase("vae", f"cuDNN TF32 convolutions {'on' if tf32 else 'off'}: 1024^2 fp32 decode "
+                  f"of the slice's latent {statistics.median(times):.1f} ms (median of 3: "
+                  f"{', '.join(f'{t:.1f}' for t in times)}), peak memory {peak:.2f} GiB, output "
+                  f"[{out.min().item():.3f}, {out.max().item():.3f}] finite; {flops / 1e12:.3f} "
+                  f"TFLOP (conv + matmul), bound {bound:.2f} ms at {peak_rate / 1e12:.0f} "
+                  f"TFLOP/s; card vs CPU at 256^2: decode rel L2 {dec:.3g}, encode_to_latent "
+                  f"(explicit noise) rel L2 {enc:.3g} (bar {bar:g})")
+            require(dec <= bar and enc <= bar, f"VAE card vs CPU (TF32 {tf32}): decode {dec}, "
+                    f"encode {enc} > {bar}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_default
+    sd3_path = os.path.join(vae_dir, "sd3_vae.safetensors")
+    _write_random_vae(sd3_path, 10, z_channels=16, use_quant_conv=False)
+    sd3 = load_vae(sd3_path, device="cuda")
+    require(sd3.z_channels == 16 and not sd3.use_quant_conv, "SD3 layout not read off its weights")
+    with torch.no_grad():
+        out3 = decode_from_latent(sd3, torch.randn(1, 16, 32, 32, generator=g).cuda(), "sd3")
+    require(out3.shape == (1, 3, 256, 256) and bool(torch.isfinite(out3).all()),
+            "SD3 decode: bad shape or non-finite")
+    phase("vae", f"AutoencoderKL ch 128, ch_mult (1, 2, 4, 4), 2 resnets, z 4, quant convs "
+          f"({sum(p.numel() for p in vae.parameters()) / 1e6:.2f}M params, seed 6): "
+          f".safetensors -> load_vae in {load_s:.2f} s; SD3 layout (z 16, no quant conv) read "
+          f"off its file and decoded at 256^2: finite")
+    del vae, sd3, ref
+    torch.cuda.empty_cache()
+    return path
+
+
+def _sample_cli(fa, argv):
+    """`pipelines.sample.main(argv)` on the card: (manifest, wall seconds incl.
+    set-up, the trajectory seconds the CLI prints, launches, plain-version
+    CUDA calls)."""
+    import contextlib
+    import io
+    import re
+
+    from lumina_t2x_tpu_torch.pipelines import sample as sample_cli
+
+    buf = io.StringIO()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        manifest = sample_cli.main(["--device", "cuda", *argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    said = re.findall(r" in ([0-9.]+)s", buf.getvalue())
+    return (manifest, wall, float(said[-1]) if said else None, dict(fa.LAUNCHES),
+            fa.PLAIN_CUDA_CALLS["count"])
+
+
+def _pngs(manifest, shape):
+    pixels = []
+    for item in manifest["items"]:
+        require(item["path"].endswith(".png"), f"not a PNG: {item['path']}")
+        with open(item["path"], "rb") as f:
+            pixels.append(_png_pixels(f.read()))
+        require(pixels[-1].shape == shape, f"{item['path']}: {pixels[-1].shape} != {shape}")
+    return pixels
+
+
+def classcond_phase(fa, vae_path):
+    """The class-conditional sampler through `pipelines.sample.main`:
+    NextDiT_ImageNet_600M_patch2 (zero-init tensors randomised, saved as a
+    port checkpoint with its model_args, passed with --ckpt), 4 labels at
+    256^2, 30-point midpoint, CFG 4, decoded by the VAE into PNGs: the main
+    path of K1 at the 600M's shape; then the FID npz of 8 and --pixel_space
+    at 64^2. Returns K1's launch count on that path."""
+    from lumina_t2x_tpu_torch.core.checkpoint import save_weights
+    from lumina_t2x_tpu_torch.models import get_model
+
+    torch.manual_seed(0)
+    model = get_model("NextDiT_ImageNet_600M_patch2", device="cuda")
+    n = _randomise_zero_init(model, 7)
+    params = sum(p.numel() for p in model.parameters()) / 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_weights(os.path.join(tmp, "ckpt"), model.state_dict(),
+                            {"model": "NextDiT_ImageNet_600M_patch2", "num_classes": 1000})
+        del model
+        torch.cuda.empty_cache()
+        common = ["--ckpt", ckpt, "--resolution", "1:256x256", "--num_sampling_steps", "30",
+                  "--solver", "midpoint", "--cfg_scale", "4.0", "--vae_ckpt", vae_path]
+        manifest, wall, secs, launches, plain = _sample_cli(
+            fa, common + ["--labels", LABELS, "--image_save_path", os.path.join(tmp, "pngs")])
+        pixels = _pngs(manifest, (256, 256, 3))
+        require(len(pixels) == 4, f"{len(pixels)} PNGs for 4 labels")
+        require(plain == 0, f"class-conditional sampler: plain versions ran {plain} times on CUDA")
+        require(launches["small_kv"] == IMAGENET_LAUNCHES,
+                f"K1 launched {launches['small_kv']} times, expected {IMAGENET_LAUNCHES}")
+        phase("classcond", f"sample.main --ckpt (NextDiT_ImageNet_600M_patch2, {params:.1f}M "
+              f"params, {n} zero-init tensors randomised) --labels {LABELS} 256^2, 30-point "
+              f"midpoint, CFG 4, bf16, --vae_ckpt: 4 PNGs 256x256 (means "
+              f"{[round(float(p.mean()), 1) for p in pixels]}); trajectory and decode {secs} s, "
+              f"wall {wall:.1f} s incl. set-up; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; plain-version CUDA calls {plain}")
+
+        out = os.path.join(tmp, "fid")
+        manifest, wall, _, fid_launches, plain = _sample_cli(
+            fa, common + ["--num_fid_samples", "8", "--batch_size", "4", "--image_save_path", out])
+        data = np.load(manifest["items"][0]["fid_npz"])
+        arr, labels = data["arr_0"], data["arr_1"]
+        require(arr.shape == (8, 256, 256, 3) and arr.dtype == np.uint8, f"FID arr_0 {arr.shape}")
+        require(labels.shape == (8,) and labels.min() >= 0 and labels.max() < 1000,
+                f"FID arr_1 {labels}")
+        require(fid_launches["small_kv"] == 2 * IMAGENET_LAUNCHES and plain == 0,
+                f"FID launches {fid_launches}, plain calls {plain}")
+        phase("classcond", f"--num_fid_samples 8 --batch_size 4: arr_0 {arr.shape} {arr.dtype}, "
+              f"arr_1 {labels.tolist()}; wall {wall:.1f} s; K1 launches "
+              f"{fid_launches['small_kv']}")
+
+        manifest, wall, secs, px_launches, plain = _sample_cli(
+            fa, ["--model", "NextDiT_ImageNet_600M_patch2", "--debug", "--pixel_space",
+                 "--resolution", "1:64x64", "--num_sampling_steps", "10",
+                 "--image_save_path", os.path.join(tmp, "pixels")])
+        require(len(_pngs(manifest, (64, 64, 3))) == 4 and plain == 0
+                and px_launches["small_kv"] > 0, f"--pixel_space: {px_launches}, {plain}")
+        phase("classcond", f"--pixel_space 64^2 --debug, 10 steps, no VAE: 4 PNGs 64x64; "
+              f"{secs} s, wall {wall:.1f} s; K1 launches {px_launches['small_kv']}")
+    torch.cuda.empty_cache()
+    return {"small_kv_imagenet_600m": launches["small_kv"]}
+
+
+def t2i_vae_phase(fa, vae_path):
+    """The text-to-image branch of `pipelines.sample.main` with --vae_ckpt:
+    NextDiT_2B_patch2 --debug at 1024^2, 10 steps, one 1024x1024 PNG."""
+    with tempfile.TemporaryDirectory() as out:
+        manifest, wall, secs, launches, plain = _sample_cli(
+            fa, ["--model", "NextDiT_2B_patch2", "--debug", "--resolution", "1:1024x1024",
+                 "--num_sampling_steps", "10", "--time_shifting_factor", "4",
+                 "--vae_ckpt", vae_path, "--image_save_path", out])
+        pixels = _pngs(manifest, (1024, 1024, 3))
+    require(len(pixels) == 1 and plain == 0, f"2B --vae_ckpt: {len(pixels)} PNGs, {plain} plain")
+    require(launches["small_kv"] > 0 and launches["online"] > 0, f"2B launches {launches}")
+    phase("t2i", f"sample.main NextDiT_2B_patch2 --debug 1024^2, 10 steps, --vae_ckpt: one PNG "
+          f"1024x1024 (mean {pixels[0].mean():.1f}); trajectory and decode {secs} s, wall "
+          f"{wall:.1f} s incl. set-up; launches { {k: v for k, v in launches.items() if v} }")
+    torch.cuda.empty_cache()
 
 
 def _train_inputs(seed):
@@ -1268,11 +1546,17 @@ def main():
     results = kernel_phase(fa)
     results.update(backward_kernel_phase(fa))
     results.update(rope_kernel_phase(fa))
+    results.update(imagenet_kernel_phase(fa))
     exp_results, exp_launches = experiments_phase()
     results.update(exp_results)
-    slice_phase(fa, *forward_phase(fa))
+    latent_1024 = slice_phase(fa, *forward_phase(fa))
+    with tempfile.TemporaryDirectory() as vae_dir:
+        vae_path = vae_phase(latent_1024, vae_dir)
+        imagenet_launches = classcond_phase(fa, vae_path)
+        t2i_vae_phase(fa, vae_path)
     cli_phase(fa)
     launches = serving_phase(fa)
+    launches.update(imagenet_launches)
     gradient_phase(fa)
     recipe_phase(fa)
     launches.update(trainer_phase(fa))  # K4: the training path's count

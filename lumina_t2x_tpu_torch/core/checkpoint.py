@@ -14,6 +14,9 @@ dicts of numpy arrays, transformer layers stacked under `layers/`, or per
 layer under `blocks_<i>/`) into the reference-layout state dict that the
 port's `NextDiT.load_state_dict(..., strict=True)` takes.
 `train_state_from_jax` extends it to the EMA tree and the optimizer state.
+`imagenet_state_dict_from_jax_params` does the same for NextDiT-ImageNet
+and `vae_state_dict_from_jax` turns a JAX `AutoencoderKL` tree into the
+diffusers layout of the port's VAE (`codecs/vae.py`).
 
 Reference release weights (`.pth` / `.safetensors` state dicts) load with
 `load_torch_state_dict` and are written with `save_safetensors`: the
@@ -63,45 +66,102 @@ def _torch_name(sub: str, layer: int) -> str:
     return f"{name}.{leaf}"
 
 
-def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax NextDiT params -> reference-layout state dict of fp32-or-stored
-    dtype CPU tensors: each Dense `kernel` is transposed into a `weight`,
-    stacked layers are unstacked into `layers.<i>.*`."""
-    flat = _flatten(params)
-    out: Dict[str, np.ndarray] = {}
+def _put_linear(out, flat, torch_name, base):
+    """A flax Dense `<base>/kernel` (and bias) as `<torch_name>.weight`."""
+    out[f"{torch_name}.weight"] = flat[f"{base}/kernel"].T
+    if f"{base}/bias" in flat:
+        out[f"{torch_name}.bias"] = flat[f"{base}/bias"]
 
-    def put_linear(torch_name, base):
-        out[f"{torch_name}.weight"] = flat[f"{base}/kernel"].T
-        if f"{base}/bias" in flat:
-            out[f"{torch_name}.bias"] = flat[f"{base}/bias"]
 
-    put_linear("x_embedder", "x_embedder")
-    out["pad_token"] = flat["pad_token"]
-    put_linear("t_embedder.mlp.0", "t_embedder/mlp_0")
-    put_linear("t_embedder.mlp.2", "t_embedder/mlp_2")
-    out["cap_embedder.0.weight"] = flat["cap_embedder/norm/weight"]
-    out["cap_embedder.0.bias"] = flat["cap_embedder/norm/bias"]
-    put_linear("cap_embedder.1", "cap_embedder/proj")
-    put_linear("final_layer.linear", "final_layer/linear")
-    put_linear("final_layer.adaLN_modulation.1", "final_layer/adaLN_modulation")
-
+def _layer_items(flat, per_layer_prefix):
+    """The transformer layers of a flat tree, one {sub-path: array} dict
+    each: stacked under `layers/`, or one subtree per `<per_layer_prefix><i>/`."""
     if any(k.startswith("layers/") for k in flat):
         stacked = {k[len("layers/"):]: v for k, v in flat.items() if k.startswith("layers/")}
         n_layers = stacked["adaLN_modulation/kernel"].shape[0]
-        per_layer = [{sub: arr[i] for sub, arr in stacked.items()} for i in range(n_layers)]
-    else:
-        idxs = sorted({int(k.split("/", 1)[0][len("blocks_"):])
-                       for k in flat if k.startswith("blocks_")})
-        if not idxs:
-            raise ValueError("no transformer layers found: expected a stacked "
-                             "'layers/' subtree or per-layer 'blocks_<i>/' keys")
-        per_layer = [{k[len(f"blocks_{i}/"):]: v for k, v in flat.items()
-                      if k.startswith(f"blocks_{i}/")} for i in idxs]
+        return [{sub: arr[i] for sub, arr in stacked.items()} for i in range(n_layers)]
+    pattern = re.compile(rf"{per_layer_prefix}(\d+)/")
+    idxs = sorted({int(m.group(1)) for m in map(pattern.match, flat) if m})
+    if not idxs:
+        raise ValueError("no transformer layers found: expected a stacked 'layers/' subtree "
+                         f"or per-layer '{per_layer_prefix}<i>/' keys")
+    return [{k[len(f"{per_layer_prefix}{i}/"):]: v for k, v in flat.items()
+             if k.startswith(f"{per_layer_prefix}{i}/")} for i in idxs]
 
-    for i, items in enumerate(per_layer):
+
+def _with_layers(out, flat, per_layer_prefix):
+    """`out` plus the layers of `flat` under `layers.<i>.*`, as CPU tensors."""
+    for i, items in enumerate(_layer_items(flat, per_layer_prefix)):
         for sub, arr in items.items():
             out[_torch_name(sub, i)] = arr.T if sub.endswith("kernel") else arr
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
 
+
+def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax NextDiT params -> reference-layout state dict of fp32-or-stored
+    dtype CPU tensors: each Dense `kernel` is transposed into a `weight`,
+    stacked layers (or per-layer `blocks_<i>/` subtrees) are unstacked into
+    `layers.<i>.*`."""
+    flat = _flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    _put_linear(out, flat, "x_embedder", "x_embedder")
+    out["pad_token"] = flat["pad_token"]
+    _put_linear(out, flat, "t_embedder.mlp.0", "t_embedder/mlp_0")
+    _put_linear(out, flat, "t_embedder.mlp.2", "t_embedder/mlp_2")
+    out["cap_embedder.0.weight"] = flat["cap_embedder/norm/weight"]
+    out["cap_embedder.0.bias"] = flat["cap_embedder/norm/bias"]
+    _put_linear(out, flat, "cap_embedder.1", "cap_embedder/proj")
+    _put_linear(out, flat, "final_layer.linear", "final_layer/linear")
+    _put_linear(out, flat, "final_layer.adaLN_modulation.1", "final_layer/adaLN_modulation")
+    return _with_layers(out, flat, "blocks_")
+
+
+def imagenet_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax NextDiTImageNet params (layers stacked under `layers/`, or per
+    layer under `layers_<i>/`) -> the reference Next-DiT-ImageNet state dict
+    that the port's `NextDiTImageNet` loads with `strict=True`: the inverse
+    of the JAX package's `import_next_dit_imagenet_weights`."""
+    flat = _flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    _put_linear(out, flat, "x_embedder", "x_embedder")
+    _put_linear(out, flat, "t_embedder.mlp.0", "t_embedder/mlp_0")
+    _put_linear(out, flat, "t_embedder.mlp.2", "t_embedder/mlp_2")
+    out["y_embedder.embedding_table.weight"] = flat["y_embedder/embedding"]
+    _put_linear(out, flat, "final_layer.linear", "final_layer/linear")
+    _put_linear(out, flat, "final_layer.adaLN_modulation.1", "final_layer/adaLN_modulation")
+    return _with_layers(out, flat, "layers_")
+
+
+_VAE_RENAMES = ((r"down_(\d+)_block_(\d+)", r"down_blocks.\1.resnets.\2"),
+                (r"down_(\d+)_downsample", r"down_blocks.\1.downsamplers.0"),
+                (r"mid_block_1", "mid_block.resnets.0"), (r"mid_block_2", "mid_block.resnets.1"),
+                (r"mid_attn_1", "mid_block.attentions.0"), (r"\.to_out$", ".to_out.0"),
+                (r"\.norm_out$", ".conv_norm_out"))
+
+
+def vae_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX `AutoencoderKL` param tree -> the diffusers-layout state dict
+    (the inverse of the JAX package's `import_autoencoder_kl_weights`): conv
+    kernels (kh, kw, I, O) -> (O, I, kh, kw), attention Dense kernels ->
+    2-D linear weights, GroupNorm `scale` -> `weight`; the decoder's
+    `up_<i>_*` (encoder level i) -> `up_blocks.<levels - 1 - i>` (deepest
+    first)."""
+    flat = _flatten(params)
+    levels = 1 + max(int(m.group(1)) for m in
+                     map(re.compile(r"encoder/down_(\d+)_").match, flat) if m)
+    up_block = lambda m: f"up_blocks.{levels - 1 - int(m.group(1))}"
+    out = {}
+    for key, arr in flat.items():
+        module, leaf = key.rsplit("/", 1)
+        name = module.replace("/", ".")
+        name = re.sub(r"up_(\d+)_block_(\d+)", lambda m: f"{up_block(m)}.resnets.{m.group(2)}",
+                      name)
+        name = re.sub(r"up_(\d+)_upsample", lambda m: f"{up_block(m)}.upsamplers.0", name)
+        for pattern, repl in _VAE_RENAMES:
+            name = re.sub(pattern, repl, name)
+        if leaf == "kernel":
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        out[f"{name}.{'bias' if leaf == 'bias' else 'weight'}"] = arr
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
 
 

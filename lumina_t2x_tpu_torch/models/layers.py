@@ -58,10 +58,12 @@ def _linear(in_f, out_f, *, bias=True, init="xavier", device=None, dtype=torch.f
     return lin
 
 
-def modulate(x, scale):
-    """x * (1 + scale); scale is (B, D), x is (B, S, D). (The JAX package's
-    shift term serves the families not ported yet.)"""
-    return x * (1.0 + scale[:, None, :]).to(x.dtype)
+def modulate(x, scale, shift=None):
+    """x * (1 + scale) (+ shift); scale/shift are (B, D), x is (B, S, D)."""
+    out = x * (1.0 + scale[:, None, :]).to(x.dtype)
+    if shift is not None:
+        out = out + shift[:, None, :].to(x.dtype)
+    return out
 
 
 class RMSNorm(nn.Module):
@@ -118,6 +120,38 @@ class TimestepEmbedder(nn.Module):
 
     def forward(self, t):
         return self.mlp(timestep_embedding(t, self.frequency_embedding_size).to(self.dtype))
+
+
+class LabelEmbedder(nn.Module):
+    """Class-label embedding with CFG dropout (`y_embedder.embedding_table`).
+
+    A null class is appended when dropout_prob > 0: its row is
+    `num_classes`, and dropped labels map to it. Under `train` the drop mask
+    is drawn from `generator`; `force_drop_ids` (B,), 1 where a label is
+    dropped, applies in any mode."""
+
+    def __init__(self, num_classes: int, hidden_size: int, dropout_prob: float = 0.0,
+                 dtype=torch.float32, param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.dropout_prob = dropout_prob
+        self.dtype = dtype
+        self.embedding_table = nn.Embedding(num_classes + int(dropout_prob > 0), hidden_size,
+                                            device=device, dtype=param_dtype)
+        nn.init.normal_(self.embedding_table.weight, std=0.02)
+
+    def forward(self, labels, train: bool = False, force_drop_ids=None,
+                generator: Optional[torch.Generator] = None):
+        if force_drop_ids is not None:
+            drop = force_drop_ids == 1
+        elif train and self.dropout_prob > 0:
+            drop = torch.rand(labels.shape, generator=generator,
+                              device=labels.device) < self.dropout_prob
+        else:
+            drop = None
+        if drop is not None:
+            labels = torch.where(drop, self.num_classes, labels)
+        return self.embedding_table(labels).to(self.dtype)
 
 
 class CaptionEmbedder(nn.Sequential):
@@ -255,20 +289,31 @@ class Attention(nn.Module):
 
 
 class FinalLayer(nn.Module):
-    """Final LayerNorm + scale-only adaLN modulate + zero-init projection (the
-    NextDiT T2I head; the JAX package's shift+scale variant belongs to the
-    Flag-DiT and ImageNet families, not ported yet)."""
+    """Final LayerNorm + adaLN modulate + zero-init projection.
+
+    modulation="scale": the NextDiT T2I head, scale only;
+    modulation="shift_scale": the ImageNet head, a 2-chunk (shift, scale)
+    adaLN."""
 
     def __init__(self, hidden_size: int, patch_size: int, out_channels: int,
-                 cond_dim: int, param_dtype=torch.float32, device=None):
+                 cond_dim: int, modulation: str = "scale", param_dtype=torch.float32,
+                 device=None):
         super().__init__()
+        if modulation not in ("scale", "shift_scale"):
+            raise ValueError(f"unknown modulation {modulation!r} (use 'scale' or 'shift_scale')")
+        self.modulation = modulation
         kw = dict(init="zeros", device=device, dtype=param_dtype)
+        mod_dim = hidden_size if modulation == "scale" else 2 * hidden_size
         self.norm_final = LayerNorm(hidden_size, eps=1e-6, use_affine=False)
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), _linear(cond_dim, hidden_size, **kw))
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), _linear(cond_dim, mod_dim, **kw))
         self.linear = _linear(hidden_size, patch_size * patch_size * out_channels, **kw)
 
     def forward(self, x, c):
-        return self.linear(modulate(self.norm_final(x), self.adaLN_modulation(c)))
+        mod = self.adaLN_modulation(c)
+        if self.modulation == "scale":
+            return self.linear(modulate(self.norm_final(x), mod))
+        shift, scale = mod.chunk(2, dim=-1)
+        return self.linear(modulate(self.norm_final(x), scale, shift))
 
 
 def patchify(x, patch_size: int):

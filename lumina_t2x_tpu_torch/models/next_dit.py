@@ -91,7 +91,7 @@ class NextDiT(nn.Module):
                              f"(use one of {sorted(REMAT_POLICIES)})")
         if seq_shard_axis is not None:
             raise NotImplementedError("sequence sharding belongs to the multi-GPU slice "
-                                      "(ROADMAP queue 1, item 11)")
+                                      "(ROADMAP queue 1, item 9)")
         self.patch_size = patch_size
         self.in_channels = in_channels
         self.dim = dim
@@ -146,10 +146,10 @@ class NextDiT(nn.Module):
         JAX t2i model (it has no dropout)."""
         if img_sizes is not None:
             raise NotImplementedError("the img_sizes list path is not ported yet "
-                                      "(ROADMAP queue 1, item 3)")
+                                      "(ROADMAP queue 1, item 5)")
         if kv_merge_ratio > 1:
             raise NotImplementedError("kv_merge_ratio > 1 (pool_kv_2d) is not ported yet "
-                                      "(ROADMAP queue 1, item 3)")
+                                      "(ROADMAP queue 1, item 5)")
         b, c, h, w = x.shape
         p = self.patch_size
         head_dim = self.dim // self.n_heads

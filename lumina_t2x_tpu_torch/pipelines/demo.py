@@ -271,7 +271,8 @@ def build_worker(model_name: str = "NextDiT_2B_patch2", precision: str = "bf16",
     from .sample import load_model
 
     args = argparse.Namespace(model=model_name, ckpt=ckpt, debug=debug, qk_norm=True,
-                              cap_feat_dim=None, seed=seed)
+                              cap_feat_dim=None, seed=seed, labels=None, num_classes=None,
+                              pixel_space=False)
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     devices = _devices(device, num_workers)
     model = load_model(args, dtype, torch.float32, devices[0])

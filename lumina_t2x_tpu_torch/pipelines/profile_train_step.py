@@ -31,8 +31,8 @@ GROUPS = (  # (pattern on the kernel name, group), first match wins
 )
 
 
-def _group(name: str) -> str:
-    return next((g for pat, g in GROUPS if re.search(pat, name, re.I)), "other")
+def _group(name: str, groups=GROUPS) -> str:
+    return next((g for pat, g in groups if re.search(pat, name, re.I)), "other")
 
 
 def main(argv=None):
@@ -91,10 +91,11 @@ def main(argv=None):
     report(one_step, "step")
 
 
-def report(fn, what: str) -> dict:
+def report(fn, what: str, groups=GROUPS) -> dict:
     """Run fn once under `torch.profiler` and print its wall and device time,
-    the device time by kernel group and the 30 costliest kernels. Returns
-    {group: share of the device time}."""
+    the device time by kernel group (`groups`: (pattern, group) pairs, first
+    match wins) and the 30 costliest kernels. Returns {group: share of the
+    device time}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -109,16 +110,16 @@ def report(fn, what: str) -> dict:
     total = sum(t for _, t, _ in rows)
     print(f"profiled {what}: wall {wall:.1f} ms, device time {total:.1f} ms "
           f"({100 * total / wall:.1f}% busy)")
-    groups = {}
+    shares = {}
     for name, t, n in rows:
-        acc = groups.setdefault(_group(name), [0.0, 0])
+        acc = shares.setdefault(_group(name, groups), [0.0, 0])
         acc[0] += t
         acc[1] += n
-    for g, (t, n) in sorted(groups.items(), key=lambda x: -x[1][0]):
+    for g, (t, n) in sorted(shares.items(), key=lambda x: -x[1][0]):
         print(f"GROUP {100 * t / total:5.1f}% {t:9.1f} ms {n:6d} calls  {g}")
     for name, t, n in rows[:30]:
         print(f"{100 * t / total:5.1f}% {t:9.2f} ms {n:6d}  {name[:110]}")
-    return {g: t / total for g, (t, _) in groups.items()}
+    return {g: t / total for g, (t, _) in shares.items()}
 
 
 if __name__ == "__main__":

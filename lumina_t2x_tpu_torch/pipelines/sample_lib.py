@@ -1,7 +1,8 @@
-"""Text-to-image sampling (counterpart of
-`lumina_t2x_tpu/pipelines/sample_lib.py`): CFG duplication, time-aware RoPE
-scaling and the fixed-step ODE solver, driven as a plain Python step loop,
-plus the static-max calibration of the streaming attention kernel.
+"""Sampling (counterpart of `lumina_t2x_tpu/pipelines/sample_lib.py`): the
+class-conditional and the text-to-image samplers (CFG duplication,
+time-aware RoPE scaling, the fixed-step ODE solver, driven as a plain Python
+step loop), plus the static-max calibration of the streaming attention
+kernel.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Optional
 import torch
 
 from ..models.next_dit import forward_with_cfg as next_dit_cfg
+from ..models.next_dit_imagenet import forward_with_cfg as imagenet_cfg
 from ..ops.attention import resolve_impl
 from ..ops.flash_attention import flash_static_max_scope, streams_kv
 from ..transport import Sampler, create_transport
@@ -22,6 +24,47 @@ from ..transport.solvers import time_shift
 def resolution_scale_factor(width: int, height: int, train_res: int = 1024) -> float:
     """`scale_factor = sqrt(w*h / train_res^2)`."""
     return math.sqrt(width * height / train_res**2)
+
+
+def build_class_cond_sample_fn(
+    model,
+    *,
+    num_steps: int = 30,
+    solver: str = "midpoint",
+    cfg_scale: float = 4.0,
+    time_shifting_factor: Optional[float] = None,
+    latent_size: int = 32,
+    in_channels: int = 4,
+    path_type: str = "Linear",
+    rope_scaling_factor: float = 1.0,
+    ntk_factor: float = 1.0,
+):
+    """Class-conditional sampler. Returns `sample_fn(z, labels) -> latents`:
+    z is the (B, in_channels, latent_size, latent_size) starting noise,
+    labels the (B,) class ids; the unconditional half-batch takes the null
+    class (`model.num_classes`). The self-attention runs the online kernels
+    (no static bound), as the JAX sampler calibrates none."""
+    sampler = Sampler(create_transport(path_type, "velocity"))
+    ode_fn = sampler.sample_ode(sampling_method=solver, num_steps=num_steps,
+                                time_shifting_factor=time_shifting_factor)
+    shape = (in_channels, latent_size, latent_size)
+
+    @torch.no_grad()
+    def sample_fn(z, labels):
+        if tuple(z.shape[1:]) != shape:
+            raise ValueError(f"noise of shape {tuple(z.shape)}: expected (B, *{shape})")
+        b = z.shape[0]
+        y = torch.cat([labels, torch.full_like(labels, model.num_classes)])
+
+        def model_fn(x, t):
+            return imagenet_cfg(model, x, t, y, cfg_scale, rope_scaling_factor=rope_scaling_factor,
+                                ntk_factor=ntk_factor)
+
+        with flash_static_max_scope(None):
+            out = ode_fn(torch.cat([z, z], dim=0), model_fn)
+        return out[:b]
+
+    return sample_fn
 
 
 def _cfg_kwargs(model, width, height, train_res, scale_watershed, proportional_attn,

@@ -10,7 +10,7 @@ the `InferenceWorker` / `WorkerPool` of `pipelines/demo.py`.
 - Knobs, defaults and ranges are the gradio UI's, enforced by
   `parse_request`.
 - Failures come back as HTTP 500 with the traceback in a JSON body.
-- PNGs are written with `zlib` and `struct` (no imaging package needed).
+- PNGs are written by `utils.png_bytes` (no imaging package needed).
 - `LUMINA_FUSE_ROPE=1` serves every attention call through the fused-RoPE
   kernels.
 
@@ -27,14 +27,11 @@ from __future__ import annotations
 import argparse
 import base64
 import json
-import struct
 import traceback
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-import numpy as np
-
+from ..utils import png_bytes
 from .demo import (RESOLUTION_CHOICES, InferenceRequest, ModelFailure, build_worker,
                    result_to_image)
 
@@ -116,24 +113,6 @@ def parse_request(payload: dict) -> InferenceRequest:
     if w % 16 or h % 16 or not 64 <= w <= 2048 or not 64 <= h <= 2048:
         raise ValueError("resolution sides must be multiples of 16 in [64, 2048]")
     return req
-
-
-def _png_chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-
-def _to_png_bytes(img_hwc: np.ndarray) -> bytes:
-    """HWC uint8 RGB -> PNG bytes: 8-bit RGB, one IDAT of filter-0 rows."""
-    img = np.ascontiguousarray(img_hwc, dtype=np.uint8)
-    if img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"expected an HWC RGB image, got shape {img.shape}")
-    h, w = img.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-    return (b"\x89PNG\r\n\x1a\n"
-            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes()))
-            + _png_chunk(b"IEND", b""))
 
 
 _PAGE = """<!doctype html>
@@ -225,7 +204,7 @@ class DemoApp:
         if isinstance(result, ModelFailure):
             return 500, "application/json", json.dumps(
                 {"error": f"generation failed:\n{result.error}"}).encode()
-        png = _to_png_bytes(result_to_image(result))
+        png = png_bytes(result_to_image(result))
         return 200, "application/json", json.dumps({
             "image_png_b64": base64.b64encode(png).decode(),
             "metadata": result["metadata"],

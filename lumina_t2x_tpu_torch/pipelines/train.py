@@ -21,10 +21,9 @@ step and draws each step's times and noise from (seed, step), so a resumed
 run takes the steps an uninterrupted one would.
 
 Not ported (each raises `NotImplementedError` naming its ROADMAP item):
-class-conditional models (queue 1 item 8), yaml and ImageNet data (the VAE,
-item 6), `--text_encoder` (item 6), `--model_parallel_size > 1` and several
-processes (item 11), `--async_save` and `--profile_steps` (item 7's
-remainder); `--h2d_diet` is TPU-only ("Do not port"). `--data_parallel` is
+class-conditional models and ImageNet data (queue 1 item 6), yaml data
+(item 7), `--text_encoder` (item 4), `--model_parallel_size > 1` and several
+processes (item 9), `--async_save` and `--profile_steps` (item 7); `--h2d_diet` is TPU-only ("Do not port"). `--data_parallel` is
 accepted and means nothing on one process.
 """
 
@@ -113,16 +112,16 @@ def parse_args(argv=None):
 
 def _check_ported(args):
     if "ImageNet" in args.model or "MoE" in args.model:
-        raise NotImplementedError("class-conditional models are not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
+        raise NotImplementedError("training class-conditional models is not ported yet "
+                                  "(ROADMAP queue 1, item 6)")
     if not args.data_path.startswith("synthetic://"):
-        raise NotImplementedError("yaml and ImageNet data need the VAE encoder, not ported yet "
-                                  "(ROADMAP queue 1, item 6); use synthetic://HxW")
+        raise NotImplementedError("yaml data (ROADMAP queue 1, item 7) and ImageNet data "
+                                  "(item 6) are not ported yet; use synthetic://HxW")
     if args.text_encoder:
-        raise NotImplementedError("--text_encoder is not ported yet (ROADMAP queue 1, item 6)")
+        raise NotImplementedError("--text_encoder is not ported yet (ROADMAP queue 1, item 4)")
     if args.model_parallel_size > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("model parallelism and several processes belong to the "
-                                  "multi-GPU slice (ROADMAP queue 1, item 11)")
+                                  "multi-GPU slice (ROADMAP queue 1, item 9)")
     if args.async_save or args.profile_steps:
         raise NotImplementedError("--async_save and --profile_steps are not ported yet "
                                   "(ROADMAP queue 1, item 7)")

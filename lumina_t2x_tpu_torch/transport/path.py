@@ -1,6 +1,6 @@
 """Coupling plans (counterpart of `lumina_t2x_tpu/transport/path.py`): the
 linear path x_t = t * x1 + (1 - t) * x0. The VP and GVP paths are not ported
-yet (ROADMAP queue 1, item 4)."""
+yet (ROADMAP queue 1, item 5)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Fixed-step ODE solvers (counterpart of `lumina_t2x_tpu/transport/solvers.py`)
 as a plain Python step loop. The adaptive dopri5/dopri8 solvers and the SDE
-solvers are not ported yet (ROADMAP queue 1, item 4)."""
+solvers are not ported yet (ROADMAP queue 1, item 5)."""
 
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ ODE sampler. Model callables have the signature `model_fn(x, t) -> out` with
 t of shape (B,). Random draws come from an explicit `torch.Generator`, or are
 handed in as tensors.
 
-Not ported yet (ROADMAP queue 1, item 4): the adaptive ODE methods,
+Not ported yet (ROADMAP queue 1, item 5): the adaptive ODE methods,
 `sample_sde` and the likelihood sampler.
 """
 
@@ -78,7 +78,7 @@ class Transport:
 
     def __init__(self, *, model_type, path_type, loss_type, train_eps, sample_eps, snr_type):
         if path_type != PathType.LINEAR:
-            raise NotImplementedError(f"{path_type} is not ported yet (ROADMAP queue 1, item 4)")
+            raise NotImplementedError(f"{path_type} is not ported yet (ROADMAP queue 1, item 5)")
         self.model_type = model_type
         self.path_type = path_type
         self.loss_type = loss_type
@@ -167,7 +167,7 @@ class Sampler:
         method (euler, midpoint, heun, rk4)."""
         if sampling_method.lower() in _ADAPTIVE:
             raise NotImplementedError(f"adaptive ODE method {sampling_method!r} is not "
-                                      "ported yet (ROADMAP queue 1, item 4)")
+                                      "ported yet (ROADMAP queue 1, item 5)")
         base_drift = self.drift
         if reverse:
             drift = lambda x, t, model_fn: base_drift(x, torch.ones_like(t) * (1.0 - t), model_fn)

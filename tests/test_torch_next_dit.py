@@ -137,7 +137,7 @@ def test_unported_paths_raise():
         t_nd.NextDiT(seq_shard_axis="data", **TINY)
 
 
-@pytest.mark.parametrize("name", sorted(MODELS))
+@pytest.mark.parametrize("name", sorted(n for n in MODELS if "ImageNet" not in n))
 def test_registry_param_counts_match_jax(name):
     """Each registry config has the JAX config's parameter count (built on
     the meta device and through jax.eval_shape: nothing is allocated)."""

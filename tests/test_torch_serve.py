@@ -26,7 +26,7 @@ from lumina_t2x_tpu_torch.ops import flash_attention as tfa
 from lumina_t2x_tpu_torch.pipelines import demo as t_demo
 from lumina_t2x_tpu_torch.pipelines import sample_lib as t_sl
 from lumina_t2x_tpu_torch.pipelines import serve as t_serve
-from lumina_t2x_tpu_torch.utils import stable_text_seed
+from lumina_t2x_tpu_torch.utils import png_bytes, stable_text_seed
 
 from test_torch_next_dit import _pair
 
@@ -240,11 +240,11 @@ def test_submit_handler_round_trip():
 @pytest.mark.parametrize("shape", [(5, 7, 3), (1, 1, 3), (64, 256, 3)])
 def test_png_decodes_to_the_same_pixels(shape):
     img = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
-    decoded = Image.open(io.BytesIO(t_serve._to_png_bytes(img)))
+    decoded = Image.open(io.BytesIO(png_bytes(img)))
     assert decoded.mode == "RGB"
     np.testing.assert_array_equal(np.asarray(decoded), img)
     with pytest.raises(ValueError):
-        t_serve._to_png_bytes(img[..., 0])
+        png_bytes(img[..., 0])
 
 
 class _FailingWorker:
