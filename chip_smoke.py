@@ -4,7 +4,9 @@
 
 Phases, each printing its own lines; any failure exits non-zero before the
 last line:
-1. device: CUDA must be available; prints the card's name and power limit;
+1. device: CUDA must be available; prints the card's name and power limit,
+   and the installations the data path depends on (Pillow, PyYAML, h5py,
+   tokenizers, transformers, g++, libjpeg's and libpng's headers);
 2. build: compiles every kernel from lumina_t2x_tpu_torch/csrc with nvcc
    (`ops/cuda_lib.py`: one library per module that owns kernels, one
    process per source, all started together) and prints the build seconds,
@@ -37,7 +39,10 @@ last line:
    kernels against the plain Function); `rope_rotate` against `apply_rope`
    bit for bit, timed at the 2B's k; then K1 at the class-conditional 600M's
    self-attention (bf16 (8, 256, 32, 48): 4 labels under CFG at 256^2),
-   kernel and sdpa timed in bursts of 8;
+   kernel and sdpa timed in bursts of 8; K1 and K4 (forward) and K6-K8
+   (backward) also at Gemma caption lengths Sk = 8, 40 and 136 with masks
+   ending inside a key tile (`CAPTION_LENGTHS`), bf16, fp32 and GQA, within
+   the same bars;
 3b. experiments: the static-max variants (K10: `static_max_v0..v3`; K11:
    `static_max_v4`, which must equal v1 bit for bit) against their plain
    versions at the experiment's shape (B=2, S=4096, H=32, D=72, bound
@@ -70,6 +75,20 @@ last line:
    600M line) and no plain-version call; then `--num_fid_samples 8
    --batch_size 4` (the ADM npz) and `--pixel_space` at 64^2; and the 2B
    through the same CLI at 1024^2, 10 steps, `--vae_ckpt`: one 1024^2 PNG;
+5d. textenc: GemmaModel at Gemma-2B's published widths (`GEMMA_2B`), bf16,
+   random from seed 0, with the port's in-memory character-level tokenizer,
+   saved to build/ and read back by `DecoderTextEncoder.from_pretrained`;
+   features equal to decoder layer L-2's output (a forward hook) bit for
+   bit; the encode of 2 prompts + 2 empty captions (up to 256 tokens) timed,
+   with its peak memory; then `pipelines.sample.main --text_encoder` (2B,
+   qk-norm, 1024^2, 10 steps, `--vae_ckpt`): one PNG, K1 at Sk=40;
+5e. t2idata: the trainer CLI on a block-YAML meta dataset of 8 PNGs
+   (1024x1024 and 1536x768) at --image_size 1024: 2B, 3 steps, bf16
+   Adafactor, B=2, --checkpointing, Gemma-2B and the VAE in the loop,
+   decoded by Pillow (the trainer's one decoder), captions encoded in the
+   loader's collate thread; finite losses over at least 2 buckets, data
+   wait, encoder and VAE-encode ms, peak memory; then
+   `pipelines.encode_latents.main` on 4 images;
    then the `lumina` CLI's `infer` (2B, 1024^2, the repo's settings,
    --debug: no qk-norm, so no calibration, as in the JAX CLI);
 5c. serving: `build_worker` (2B, bf16, --debug, zero-init tensors
@@ -105,6 +124,7 @@ import base64
 import json
 import math
 import os
+import shutil
 import statistics
 import struct
 import subprocess
@@ -175,6 +195,19 @@ PEAK_TF32 = 495e12
 # only sum in another order; TF32 rounds each convolution's operands to 10
 # mantissa bits (2^-11 relative), about 30 convolutions in series
 VAE_REL_FP32, VAE_REL_TF32 = 1e-3, 1e-2
+
+
+# Gemma captions: Sk a multiple of 8 up to 256, the CFG's empty caption one
+# token (<bos>); the valid keys of the two batch rows end inside a 64-key tile
+CAPTION_LENGTHS = {8: (1, 5), 40: (37, 21), 136: (130, 67)}
+# google/gemma-2b's published config.json
+GEMMA_2B = dict(vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+                num_hidden_layers=18, num_attention_heads=8, num_key_value_heads=1, head_dim=256,
+                max_position_embeddings=8192)
+LONG_PROMPT = ("a wide photograph of a mountain lake at sunrise, mist over the water, pine "
+               "forest on both shores, a wooden rowing boat tied to a small jetty, snow on the "
+               "distant peaks, soft golden light, reflections of the clouds, a heron standing in "
+               "the shallows, high detail, natural colours, long exposure, 35mm film grain")
 
 
 def phase(name, msg):
@@ -294,6 +327,23 @@ def device_phase():
     print(smi.stdout.strip().splitlines()[0], flush=True)
     phase("device", f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    # what decides the training image decoder (t2idata) and the data options
+    import importlib
+
+    found = []
+    for module in ("PIL", "yaml", "h5py", "tokenizers", "transformers"):
+        try:
+            found.append(f"{module} {getattr(importlib.import_module(module), '__version__', '?')}")
+        except ImportError:
+            found.append(f"{module} absent")
+    try:
+        gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+        found.append(gxx.splitlines()[0] if gxx else "g++ silent")
+    except FileNotFoundError:
+        found.append("g++ absent")
+    found += [f"{h} {'present' if os.path.exists(h) else 'absent'}"
+              for h in ("/usr/include/jpeglib.h", "/usr/include/png.h")]
+    phase("device", "installed: " + "; ".join(found))
 
 
 def build_phase():
@@ -349,6 +399,13 @@ def build_phase():
 
 def _rand(g, *shape, dtype):
     return torch.randn(*shape, generator=g, device="cuda", dtype=torch.float32).to(dtype)
+
+
+def caption_mask(sk):
+    mask = torch.zeros(B, sk, dtype=torch.int32, device="cuda")
+    for row, n in enumerate(CAPTION_LENGTHS[sk]):
+        mask[row, :n] = 1
+    return mask
 
 
 # (label, dtype, n_kv_heads, mask kind); the first is the timed main-path case
@@ -436,11 +493,71 @@ def kernel_phase(fa):
     return results
 
 
+def caption_kernel_phase(fa, results):
+    """K1 (`flash_small_kv`, the sampler's cross-attention) and K4
+    (`flash_online_lse`, the trainer's) at Gemma caption lengths Sk = 8, 40,
+    136 with masks ending inside a key tile (`CAPTION_LENGTHS`; no row fully
+    masked), bf16, fp32 and bf16 GQA, against their plain versions within the
+    bf16 bar as K9's, 1e-2 of max(1, max|ref|): a row with one valid key (the
+    empty caption) outputs that key's value itself, and a value in [4, 8)
+    carries one bf16 output rounding of up to 1.6e-2; the bf16 case timed.
+    The worst errors join the kernels line."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    scale = D ** -0.5
+    for entry in ("small_kv", "online_lse"):
+        kernel = getattr(fa, f"flash_{entry}")
+        plain = getattr(fa, f"flash_{entry}_plain")
+        for sk in CAPTION_LENGTHS:
+            mask = caption_mask(sk)
+            for label, dtype, hkv in (("bf16", torch.bfloat16, H), ("fp32", torch.float32, H),
+                                      ("bf16 gqa8", torch.bfloat16, 8)):
+                q = _rand(g, B, S, H, D, dtype=dtype)
+                k = _rand(g, B, sk, hkv, D, dtype=dtype)
+                v = _rand(g, B, sk, hkv, D, dtype=dtype)
+                got = kernel(q, k, v, mask, scale)
+                ref = plain(q.float(), k.float(), v.float(), mask, scale)
+                torch.cuda.synchronize()
+                line = f"{entry} {label} (caption Sk={sk}, valid keys {CAPTION_LENGTHS[sk]}): "
+                if entry.endswith("_lse"):
+                    (got, lse), (ref, ref_lse) = got, ref
+                    require(bool(torch.isfinite(lse).all()), f"{entry} {label} Sk={sk}: LSE -inf")
+                    lse_err = (lse - ref_lse).abs().max().item()
+                    require(lse_err <= LSE_MAX, f"{entry} {label} Sk={sk}: LSE err {lse_err}")
+                    line += f"LSE {lse_err:.3g}, "
+                err = (got.float() - ref).abs()
+                max_err, mean_err = err.max().item(), err.mean().item()
+                top = max(1.0, ref.abs().max().item())
+                bar = FP32_MAX if dtype == torch.float32 else BF16_MAX * top
+                require(math.isfinite(max_err) and max_err <= bar,
+                        f"{entry} {label} Sk={sk}: max abs err {max_err} > {bar}")
+                if dtype == torch.bfloat16:
+                    require(mean_err <= BF16_MEAN, f"{entry} {label} Sk={sk}: mean {mean_err}")
+                results[entry]["max_abs_err"] = max(results[entry]["max_abs_err"], max_err)
+                line += f"max abs err {max_err:.3g} (bar {bar:.3g}) mean {mean_err:.3g}"
+                if label == "bf16":
+                    ms = time_ms(lambda: kernel(q, k, v, mask, scale))
+                    lse_bytes = B * H * S * 4 if entry.endswith("_lse") else 0
+                    # the keys this run's masks leave valid
+                    valid = sum(CAPTION_LENGTHS[sk]) / B
+                    bound = least_time(_nbytes(q, k, v, mask, got) + lse_bytes,
+                                       attention_ops(q, k, 2) * valid / sk, dtype)
+                    line += (f"; kernel {ms:.3f} ms, plain "
+                             f"{time_ms(lambda: plain(q, k, v, mask, scale)):.3f} ms, bound "
+                             f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), library "
+                             f"{time_ms(lambda: _sdpa(q, k, v, mask, scale)):.3f} ms (sdpa)")
+                phase("kernels", line)
+                del q, k, v, got, ref
+    torch.cuda.empty_cache()
+
+
 # (label, dtype, sk, n_kv_heads, mask kind); the first is the timed main-path case
 BWD_CASES = [("bf16", torch.bfloat16, S, H, "none"), ("fp32", torch.float32, S, H, "tail"),
              ("bf16 gqa8", torch.bfloat16, S, 8, "tail"),
              ("bf16 masked-row", torch.bfloat16, S, H, "row"),
-             ("bf16 cross-attention", torch.bfloat16, TRAIN_CAP, H, "tail")]
+             ("bf16 cross-attention", torch.bfloat16, TRAIN_CAP, H, "tail"),
+             *(("bf16 caption", torch.bfloat16, sk, H, "caption") for sk in CAPTION_LENGTHS),
+             ("fp32 caption", torch.float32, 40, H, "caption"),
+             ("bf16 gqa8 caption", torch.bfloat16, 136, 8, "caption")]
 
 
 def _bwd_bounds(q, k, v, out, dout, lse, dtype):
@@ -465,7 +582,9 @@ def backward_kernel_phase(fa):
         v = _rand(g, B, sk, hkv, D, dtype=dtype)
         dout = _rand(g, B, S, H, D, dtype=dtype)
         mask = None
-        if mask_kind != "none":
+        if mask_kind == "caption":
+            mask = caption_mask(sk)
+        elif mask_kind != "none":
             mask = torch.ones(B, sk, dtype=torch.int32, device="cuda")
             mask[1, sk - sk // 5:] = 0
             if mask_kind == "row":
@@ -510,7 +629,8 @@ def backward_kernel_phase(fa):
                                               for n, b_ in bounds.items())
                      + f"; library backward {library['library_ms']:.3f} ms "
                        f"({library['library_kernel']})")
-        elif sk == TRAIN_CAP:  # the trainer's cross-attention: 24 of K6's (K7's) launches a step
+        elif label in ("bf16 cross-attention", "bf16 caption"):
+            # the trainer's cross-attention: 24 of K6's (K7's) launches a step
             cross = _bwd_bounds(q, k, v, out, dout, lse, dtype)
             line += "; " + ", ".join(
                 f"{name} {time_ms(lambda: fn(*args), reps=5):.3f} ms (bound "
@@ -1535,6 +1655,206 @@ def trainer_phase(fa):
     return {name: launches[name] + resumed[name] for name in TRAIN_KERNELS}
 
 
+def textenc_phase(fa):
+    """Gemma-2B at its published widths (`GEMMA_2B`), random bf16 weights from
+    seed 0, and the port's in-memory character-level tokenizer, saved to
+    build/ and read back through `DecoderTextEncoder.from_pretrained`; its
+    features must equal, bit for bit, the output of decoder layer L-2 taken
+    by a forward hook. Times the encode of 2 prompts and 2 empty captions at
+    up to 256 tokens. Returns the directory."""
+    from transformers import GemmaConfig, GemmaModel
+
+    from lumina_t2x_tpu_torch.codecs.text_encoders import DecoderTextEncoder, char_tokenizer
+
+    path = os.path.join(ROOT, "build", "gemma_2b_random")
+    fa.reset_launch_counts()
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    default_dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.bfloat16)
+    try:
+        with torch.device("cuda"):
+            model = GemmaModel(GemmaConfig(**GEMMA_2B))
+    finally:
+        torch.set_default_dtype(default_dtype)
+    n_params = sum(p.numel() for p in model.parameters())
+    model.save_pretrained(path)
+    char_tokenizer().save_pretrained(path)
+    del model
+    torch.cuda.empty_cache()
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = DecoderTextEncoder.from_pretrained(path, dtype=torch.bfloat16, max_length=256,
+                                             device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    prompts = [LONG_PROMPT, PROMPT, "", ""]
+    taken = []
+    layers = enc.model.layers
+    hook = layers[len(layers) - 2].register_forward_hook(
+        lambda mod, args, out: taken.append(out[0] if isinstance(out, tuple) else out))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats, mask = enc.encode(prompts)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    hook.remove()
+    lengths = mask.sum(dim=1).tolist()
+    require(feats.shape == (4, 256, 2048) and feats.dtype == torch.bfloat16,
+            f"Gemma features {tuple(feats.shape)} {feats.dtype}")
+    require(lengths == [256, len(PROMPT) + 1, 1, 1], f"caption lengths {lengths}")
+    require(bool(torch.isfinite(feats).all()), "Gemma features not finite")
+    require(len(taken) == 1 and torch.equal(feats, taken[0]),
+            "hidden_states[-2] is not decoder layer L-2's output bit for bit")
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: enc.encode(prompts))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # 2 FLOPs per weight per token over the decoder layers, plus QK^T and PV
+    per_layer = sum(p.numel() for p in layers[0].parameters())
+    tokens = feats.shape[0] * feats.shape[1]
+    flops = 2 * per_layer * len(layers) * tokens \
+        + 2 * 2 * len(layers) * feats.shape[0] * 256 * 256 * GEMMA_2B["num_attention_heads"] \
+        * GEMMA_2B["head_dim"]
+    bound = least_time(2 * (n_params - enc.model.embed_tokens.weight.numel()), flops,
+                       torch.bfloat16)
+    phase("textenc", f"GemmaModel at Gemma-2B's widths ({n_params / 1e9:.3f}B params, bf16, "
+          f"random from seed 0) saved in {t_save:.1f} s, loaded by from_pretrained in "
+          f"{t_load:.1f} s; char tokenizer; 2 prompts + 2 empty captions -> {tuple(feats.shape)}, "
+          f"caption tokens {lengths}; equal to layer {len(layers) - 2}'s output by hook bit for "
+          f"bit; encode {ms:.2f} ms (median of 7; the first call {first_ms:.1f} ms), "
+          f"{flops / 1e12:.3f} TFLOP, bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); peak memory {peak:.2f} GiB; "
+          f"plain-version CUDA calls {fa.PLAIN_CUDA_CALLS['count']}")
+    del enc, feats, taken
+    torch.cuda.empty_cache()
+    return path
+
+
+def t2i_encoder_phase(fa, vae_path, gemma_path):
+    """`pipelines.sample.main --text_encoder`: the prompt and one empty
+    caption through the random Gemma-2B into NextDiT_2B_patch2 (qk-norm,
+    random weights from --seed), 1024^2, 10 steps, --vae_ckpt: one PNG."""
+    with tempfile.TemporaryDirectory() as out:
+        prompts = os.path.join(out, "prompts.txt")
+        with open(prompts, "w") as f:
+            f.write(PROMPT + "\n")
+        manifest, wall, secs, launches, plain = _sample_cli(
+            fa, ["--model", "NextDiT_2B_patch2", "--qk_norm", "--text_encoder", gemma_path,
+                 "--caption_path", prompts, "--resolution", "1:1024x1024",
+                 "--num_sampling_steps", "10", "--time_shifting_factor", "4",
+                 "--vae_ckpt", vae_path, "--image_save_path", os.path.join(out, "png")])
+        pixels = _pngs(manifest, (1024, 1024, 3))
+    require(len(pixels) == 1 and plain == 0, f"--text_encoder: {len(pixels)} PNGs, {plain} plain")
+    require(manifest["args"]["cap_feat_dim"] == 2048, "cap_feat_dim is not Gemma's hidden size")
+    require(manifest["caption_tokens"] == [len(PROMPT) + 1, 1],
+            f"caption tokens {manifest['caption_tokens']}")
+    require(launches["small_kv"] > 0, f"K1 not launched: {launches}")
+    phase("t2i", f"sample.main NextDiT_2B_patch2 --qk_norm --text_encoder <Gemma-2B> 1024^2, 10 "
+          f"steps, --vae_ckpt: one PNG 1024x1024 (mean {pixels[0].mean():.1f}); caption tokens "
+          f"{manifest['caption_tokens']} (K1 at Sk=40); K1 launches {launches['small_kv']}; "
+          f"trajectory and decode {secs} s, wall {wall:.1f} s incl. set-up and the encoder's "
+          f"load; launches { {k: v for k, v in launches.items() if v} }; plain-version CUDA "
+          f"calls {plain}")
+    torch.cuda.empty_cache()
+
+
+def _smoke_image(w, h, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 255.0 / w, yy * 255.0 / h, np.full((h, w), 40.0 * seed)], -1)
+    return np.clip(base + rng.normal(0, 8, base.shape), 0, 255).astype(np.uint8)
+
+
+def t2idata_phase(fa, vae_path, gemma_path):
+    """The trainer on a meta dataset: 8 PNGs (4 square, 4 at 2:1) in a
+    block-YAML config at --image_size 1024, NextDiT_2B_patch2 for 3 steps,
+    bf16, global batch 2, --checkpointing, bf16 Adafactor, the random
+    Gemma-2B (--text_encoder) and the VAE (--vae_ckpt) in the loop, decoded
+    by Pillow. Then encode_latents on 4 of the images."""
+    from lumina_t2x_tpu_torch.pipelines import encode_latents
+    from lumina_t2x_tpu_torch.pipelines import train as train_cli
+    from lumina_t2x_tpu_torch.utils import png_bytes
+
+    captions = ["a lighthouse", PROMPT, LONG_PROMPT[:130], "a red fox in the snow at dusk",
+                "", "two boats", LONG_PROMPT[:70], "macro photograph of a honey bee on a flower"]
+    sizes = [(1024, 1024)] * 4 + [(1536, 768)] * 4
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = []
+        for i, ((w, h), cap) in enumerate(zip(sizes, captions)):
+            with open(os.path.join(tmp, f"{i}.png"), "wb") as f:
+                f.write(png_bytes(_smoke_image(w, h, i)))
+            rows.append({"path": f"{i}.png", "caption": cap})
+        with open(os.path.join(tmp, "ann.json"), "w") as f:
+            json.dump(rows, f)
+        cfg = os.path.join(tmp, "data.yaml")
+        with open(cfg, "w") as f:
+            f.write(f"META:\n  - path: {tmp}/ann.json\n    type: default\n    root: {tmp}\n")
+        results = os.path.join(tmp, "results")
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_cli.main(
+            ["--model", "NextDiT_2B_patch2", "--data_path", cfg, "--image_size", "1024",
+             "--global_batch_size", str(B), "--precision", "bf16", "--grad_precision", "fp32",
+             "--qk_norm", "--checkpointing", "--flash_static_max", "auto", "--optimizer",
+             "adafactor", "--param_dtype", "bf16", "--text_encoder", gemma_path, "--vae_ckpt",
+             vae_path, "--num_workers", "4", "--results_dir", results,
+             "--max_steps", "3", "--log_every", "1", "--ckpt_every", "1000", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        plain = fa.PLAIN_CUDA_CALLS["count"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(state.step == 3, f"meta trainer stopped at step {state.step}")
+        del state
+        fa.set_flash_static_max_train(None)
+        torch.cuda.empty_cache()
+        metrics = _train_metrics(results)
+        with open(os.path.join(results, "NextDiT_2B_patch2", "log.txt")) as f:
+            said = [line for line in f if "image decoder" in line]
+        buckets = [(int(m["train/bucket_w"]), int(m["train/bucket_h"])) for m in metrics]
+        require(len(metrics) == 3 and all(math.isfinite(m["train/loss"]) for m in metrics),
+                "meta trainer losses not finite")
+        require(len(set(buckets)) >= 2, f"one bucket only: {buckets}")
+        require(said and "image decoder pil" in said[0], f"decoder line {said}")
+        require(plain == 0, f"meta trainer: plain versions ran {plain} times on CUDA")
+        for name in ("online_lse", "static_max_lse", "bwd_fused"):
+            require(launches[name] > 0, f"kernel {name} was not launched by the meta trainer")
+        steady = metrics[1:]
+        mean = lambda key: statistics.mean(m[key] for m in steady)
+        phase("t2idata", f"train.main on a block-YAML meta dataset of 8 PNGs (1024x1024 and "
+              f"1536x768) at --image_size 1024, NextDiT_2B_patch2, bf16 Adafactor, B={B}, dots "
+              f"remat, Gemma-2B and the VAE in the loop; image decoder pil; buckets {buckets}; "
+              f"losses {[round(m['train/loss'], 5) for m in metrics]}; "
+              f"step 1 {metrics[0]['train/secs_per_step']:.3f} s (calibration included), steps "
+              f"2-3 {mean('train/secs_per_step'):.3f} s/step; data wait "
+              f"{[round(m['train/data_wait_ms'], 1) for m in metrics]} ms, text encode "
+              f"{[round(m['train/text_encode_ms'], 2) for m in metrics]} ms, VAE encode "
+              f"{[round(m['train/vae_encode_ms'], 1) for m in metrics]} ms; peak memory "
+              f"{peak:.2f} GiB; wall {wall:.1f} s incl. set-up and save; launches {launches}; "
+              f"plain-version CUDA calls {plain}")
+
+        out = os.path.join(tmp, "encoded")
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        encode_latents.main(["--data_path", cfg, "--out", out, "--image_size", "1024",
+                             "--vae_ckpt", vae_path, "--text_encoder", gemma_path, "--limit", "4",
+                             "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out, "index.json")) as f:
+            index = json.load(f)
+        shapes = [tuple(np.load(os.path.join(out, "latents", f"{i}.npy")).shape) for i in range(4)]
+        caps = [np.load(os.path.join(out, "captions", f"{i}.npy")) for i in range(4)]
+        require(len(index) == 4 and all(s[0] == 4 and s[1] * s[2] * 64 <= 1024 * 1024 * 1.01
+                                        for s in shapes), f"latents {shapes}")
+        require([c.shape for c in caps] == [(len(captions[i]) + 1, 2048) for i in range(4)]
+                and all(np.isfinite(c).all() for c in caps), "caption features")
+        phase("t2idata", f"encode_latents --limit 4 at 1024: latents {shapes}, caption features "
+              f"{[c.shape for c in caps]}; wall {wall:.1f} s incl. the encoder's load; "
+              f"plain-version CUDA calls {fa.PLAIN_CUDA_CALLS['count']}")
+    torch.cuda.empty_cache()
+
+
 def main():
     device_phase()
     sys.path.insert(0, ROOT)
@@ -1544,6 +1864,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     build_phase()
     results = kernel_phase(fa)
+    caption_kernel_phase(fa, results)
     results.update(backward_kernel_phase(fa))
     results.update(rope_kernel_phase(fa))
     results.update(imagenet_kernel_phase(fa))
@@ -1554,6 +1875,10 @@ def main():
         vae_path = vae_phase(latent_1024, vae_dir)
         imagenet_launches = classcond_phase(fa, vae_path)
         t2i_vae_phase(fa, vae_path)
+        gemma_path = textenc_phase(fa)
+        t2i_encoder_phase(fa, vae_path, gemma_path)
+        t2idata_phase(fa, vae_path, gemma_path)
+        shutil.rmtree(gemma_path)
     cli_phase(fa)
     launches = serving_phase(fa)
     launches.update(imagenet_launches)

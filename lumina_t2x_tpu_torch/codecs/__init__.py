@@ -1,2 +1,3 @@
-"""Codecs between pixels and the model's latents (counterpart of
-`lumina_t2x_tpu/codecs`): the SD-VAE (`vae.py`)."""
+"""Codecs between pixels or text and the model's inputs (counterpart of
+`lumina_t2x_tpu/codecs`): the SD-VAE (`vae.py`) and the caption encoder
+(`text_encoders.py`)."""

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -284,7 +284,12 @@ class AutoencoderKL(nn.Module):
 def encode_to_latent(vae: AutoencoderKL, x, noise=None, vae_type: str = "ema"):
     """Sampled, scaled latent, as in training: `noise` is the posterior's
     standard-normal draw (a tensor), or a `torch.Generator` to draw it from."""
-    z = DiagonalGaussian(vae.encode_moments(x), dim=1).sample(noise)
+    return latent_from_moments(vae.encode_moments(x), noise, vae_type)
+
+
+def latent_from_moments(moments, noise=None, vae_type: str = "ema"):
+    """`encode_to_latent` from the encoder's moments (B, 2z, h, w)."""
+    z = DiagonalGaussian(moments, dim=1).sample(noise)
     return (z - VAE_SHIFT[vae_type]) * VAE_SCALE[vae_type]
 
 
@@ -323,3 +328,14 @@ def load_vae(vae_ckpt: str, device=None, dtype=torch.float32) -> AutoencoderKL:
     vae = AutoencoderKL(**architecture(state_dict), dtype=dtype, device=device)
     vae.load_state_dict(state_dict, strict=True)
     return vae.eval()
+
+
+def load_or_init_vae(vae_ckpt: Optional[str], device=None, dtype=torch.float32) -> AutoencoderKL:
+    """`load_vae(vae_ckpt)`, or without a file the default SD-VAE with
+    weights from seed 0, built on the CPU so that they are the same on every
+    device (the JAX pipelines' smoke mode)."""
+    if vae_ckpt:
+        return load_vae(vae_ckpt, device=device, dtype=dtype)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        return AutoencoderKL(dtype=dtype).to(device).eval()

@@ -17,6 +17,8 @@ port's `NextDiT.load_state_dict(..., strict=True)` takes.
 `imagenet_state_dict_from_jax_params` does the same for NextDiT-ImageNet
 and `vae_state_dict_from_jax` turns a JAX `AutoencoderKL` tree into the
 diffusers layout of the port's VAE (`codecs/vae.py`).
+`gemma_state_dict_from_flax` carries a Flax Gemma tree into transformers'
+torch `GemmaModel` (the caption encoder, `codecs/text_encoders.py`).
 
 Reference release weights (`.pth` / `.safetensors` state dicts) load with
 `load_torch_state_dict` and are written with `save_safetensors`: the
@@ -163,6 +165,23 @@ def vae_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         out[f"{name}.{'bias' if leaf == 'bias' else 'weight'}"] = arr
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def gemma_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Flax Gemma parameter tree (`FlaxGemmaModel.params`: `embed_tokens/
+    embedding`, `layers/<i>/{self_attn,mlp}/<proj>/kernel`,
+    `layers/<i>/*_layernorm/weight`, `norm/weight`; numpy arrays) -> the
+    state dict of transformers' torch `GemmaModel`: Dense kernels (in, out)
+    transposed to (out, in), the embedding and the RMSNorm weights as they
+    are (both stacks apply a norm as `1 + weight`)."""
+    out = {}
+    for key, arr in _flatten(params).items():
+        module, leaf = key.rsplit("/", 1)
+        name = module.replace("/", ".")
+        if leaf == "kernel":
+            arr = arr.T
+        out[f"{name}.weight"] = arr
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
 def train_state_from_jax(params, ema, opt_state):

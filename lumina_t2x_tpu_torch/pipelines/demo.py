@@ -11,9 +11,11 @@
 - `WorkerPool` fans requests out over devices (default: every CUDA device),
   pick-first-free, else round-robin.
 - Failures travel as the `ModelFailure` sentinel with the traceback.
-- Captions become hashed pseudo-features (the JAX worker's exactly) and the
-  result is a latent preview: the text encoder and the VAE wait until their
-  weights are in the repository, as the JAX serving path attaches neither.
+- Captions go through the worker's `text_encode_fn` hook (e.g. a
+  `DecoderTextEncoder`'s `encode`), else become hashed pseudo-features (the
+  JAX worker's exactly); `vae_decode_fn` (latents -> images in [-1, 1]) adds
+  a uint8 `image` to the result. The served CLI attaches neither, as the
+  JAX serving path does not: the result is a latent preview.
 - gradio is optional: `main` falls back to the stdlib HTTP server
   (`pipelines/serve.py`) when it is missing.
 
@@ -35,7 +37,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils import stable_text_seed
+from ..utils import hashed_caption_features
 
 
 class ModelFailure:
@@ -81,10 +83,12 @@ class InferenceWorker:
 
     MAX_CACHED_SAMPLERS = 8
 
-    def __init__(self, model, *, train_res: int = 1024, cap_feat_dim: int = 2048, device=None,
-                 compile_lock=None):
+    def __init__(self, model, *, text_encode_fn=None, vae_decode_fn=None, train_res: int = 1024,
+                 cap_feat_dim: int = 2048, device=None, compile_lock=None):
         self.device = torch.device(device) if device is not None else _model_device(model)
         self.model = model.to(self.device)
+        self.text_encode_fn = text_encode_fn
+        self.vae_decode_fn = vae_decode_fn
         self.train_res = train_res
         self.cap_feat_dim = cap_feat_dim
         self._sampler_cache: Dict[Tuple, object] = {}  # key -> sample_fn
@@ -136,17 +140,16 @@ class InferenceWorker:
         self._sampler_cache[key] = fn
 
     def _encode_captions(self, cap: str, neg_cap: str):
-        """(cap_feats (2, Ly, D) fp32, cap_mask (2, Ly) int32) on the device:
-        deterministic hashed pseudo-features of the caption and the negative
-        caption."""
-        ly = 32
-        feats = np.stack([
-            np.random.default_rng(stable_text_seed(c)).standard_normal(
-                (ly, self.cap_feat_dim)).astype(np.float32)
-            for c in (cap, neg_cap or "")
-        ])
+        """(cap_feats (2, Ly, D), cap_mask (2, Ly)) on the device for the
+        caption and the negative caption: `text_encode_fn`'s, else
+        deterministic hashed pseudo-features (fp32, int32)."""
+        if self.text_encode_fn is not None:
+            feats, mask = self.text_encode_fn([cap, neg_cap or ""])
+            return feats.to(self.device), mask.to(self.device)
+        feats = np.stack([hashed_caption_features(c, self.cap_feat_dim)
+                          for c in (cap, neg_cap or "")])
         return (torch.from_numpy(feats).to(self.device),
-                torch.ones((2, ly), dtype=torch.int32, device=self.device))
+                torch.ones((2, feats.shape[1]), dtype=torch.int32, device=self.device))
 
     def _noise(self, req: InferenceRequest) -> torch.Tensor:
         w, h = self._resolution(req.resolution)
@@ -170,6 +173,10 @@ class InferenceWorker:
                 "device": str(self.device),
             }}
             print(json.dumps(out["metadata"]))
+            if self.vae_decode_fn is not None:
+                with torch.no_grad():
+                    img = self.vae_decode_fn(latents).float().cpu().numpy()
+                out["image"] = np.clip((img + 1) / 2 * 255, 0, 255).astype(np.uint8)
             return out
         except Exception:  # the serving boundary: report, keep serving
             return ModelFailure(traceback.format_exc())
@@ -224,8 +231,10 @@ class WorkerPool:
 
 
 def result_to_image(result: dict) -> np.ndarray:
-    """Worker result -> HWC uint8: a min-max-scaled preview of the first
-    three latent channels."""
+    """Worker result -> HWC uint8: the decoded RGB when a VAE is attached,
+    else a min-max-scaled preview of the first three latent channels."""
+    if "image" in result:
+        return result["image"][0].transpose(1, 2, 0)
     lat = result["latents"][0, :3]
     lat = (lat - lat.min()) / (np.ptp(lat) + 1e-6)
     return (lat.transpose(1, 2, 0) * 255).astype(np.uint8)

@@ -1,7 +1,8 @@
 """Sampling CLI (counterpart of `lumina_t2x_tpu/pipelines/sample.py`): the
 class-conditional branch (a NextDiT-ImageNet model, `--labels`, the
 ADM-evaluator FID npz of `--num_fid_samples`) and the text-to-image branch
-(random caption features, static-max calibration), each an ODE trajectory;
+(caption features from the LM of `--text_encoder`, static-max calibration),
+each an ODE trajectory;
 PNGs through the SD-VAE of `--vae_ckpt` (or directly under `--pixel_space`),
 `.npy` latents otherwise, and a `data.json` manifest.
 
@@ -15,10 +16,14 @@ PNGs through the SD-VAE of `--vae_ckpt` (or directly under `--pixel_space`),
 Weights come from `--ckpt` (the `ema` stream of a checkpoint directory,
 whose `model_args` override `--model`, `--qk_norm`, `--cap_feat_dim`,
 `--num_classes` and `--pixel_space`) or are random from `--seed`;
-`--debug` ignores `--ckpt`, as in the JAX package. The branch is chosen on
-the resolved model name. Noise is drawn on the device from `--seed`. Not
-ported yet (ROADMAP queue 1): the text encoder (`--text_encoder`, item 4)
-and the adaptive solvers that `--atol` / `--rtol` configure (item 5).
+`--debug` ignores `--ckpt` and `--text_encoder`, as in the JAX package. The
+text-to-image branch encodes the prompts (`--caption_path`, one per line)
+and as many empty captions for CFG with `--text_encoder` (a local directory
+of the LM and its tokenizer, `codecs/text_encoders.py`); without one, 32
+random caption tokens per prompt stand in. The branch is chosen on the
+resolved model name. Noise is drawn on the device from `--seed`. Not ported
+yet (ROADMAP queue 1, item 5): the adaptive solvers that `--atol` / `--rtol`
+configure.
 """
 
 from __future__ import annotations
@@ -78,9 +83,11 @@ def parse_args(argv=None):
     p.add_argument("--num_classes", type=int, default=None,
                    help="class-conditional label-embedding size (default: the checkpoint's, "
                         "else the model's)")
-    p.add_argument("--text_encoder", type=str, default=None, help="not ported yet")
+    p.add_argument("--text_encoder", type=str, default=None,
+                   help="local directory of the caption LM (Gemma-2B) and its tokenizer")
     p.add_argument("--cap_feat_dim", type=int, default=None,
-                   help="caption feature width (default: the checkpoint's, else 2048, Gemma-2B)")
+                   help="caption feature width (default: the checkpoint's, else the text "
+                        "encoder's hidden size, else 2048, Gemma-2B)")
     p.add_argument("--train_res", type=int, default=1024)
     p.add_argument("--batch_size", type=int, default=1,
                    help="labels per trajectory of --num_fid_samples")
@@ -146,13 +153,24 @@ def load_model(args, dtype, param_dtype, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.text_encoder:
-        raise SystemExit("error: --text_encoder is not ported yet (ROADMAP queue 1, item 4)")
     os.makedirs(args.image_save_path, exist_ok=True)
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     param_dtype = torch.bfloat16 if args.bf16_params else torch.float32
+    encoder = None
+    if args.text_encoder and not args.debug and not is_class_cond(args):
+        if not os.path.isdir(args.text_encoder):
+            raise SystemExit(f"error: --text_encoder directory not found: {args.text_encoder}")
+        from ..codecs.text_encoders import DecoderTextEncoder
+
+        encoder = DecoderTextEncoder.from_pretrained(args.text_encoder, dtype=dtype,
+                                                     device=device)
+        if args.cap_feat_dim is None and not args.ckpt:
+            args.cap_feat_dim = encoder.hidden_size
     model = load_model(args, dtype, param_dtype, device)
+    if encoder is not None and encoder.hidden_size != args.cap_feat_dim:
+        raise SystemExit(f"error: --text_encoder gives {encoder.hidden_size}-wide features, "
+                         f"the model takes {args.cap_feat_dim}")
     # fp32, as the JAX sampler decodes (`load_vae(args.vae_ckpt)`); loaded once
     vae = load_vae(args.vae_ckpt, device=device) if args.vae_ckpt else None
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -160,7 +178,7 @@ def main(argv=None):
     if is_class_cond(args):
         _sample_class_cond(args, model, vae, gen, manifest)
     else:
-        _sample_t2i(args, model, vae, gen, manifest)
+        _sample_t2i(args, model, vae, gen, manifest, encoder)
     with open(os.path.join(args.image_save_path, "data.json"), "w") as f:
         json.dump(manifest, f, indent=2, default=str)
     return manifest
@@ -187,7 +205,7 @@ def _sample_class_cond(args, model, vae, gen, manifest):
     print(f"sampled {len(labels)} class-conditional images in {time.perf_counter() - t_start:.2f}s")
 
 
-def _sample_t2i(args, model, vae, gen, manifest):
+def _sample_t2i(args, model, vae, gen, manifest, encoder=None):
     prompts = ["a photo of an astronaut riding a horse"]
     if args.caption_path:
         if not os.path.exists(args.caption_path):
@@ -195,11 +213,19 @@ def _sample_t2i(args, model, vae, gen, manifest):
         with open(args.caption_path) as f:
             prompts = [line.strip() for line in f if line.strip()]
     device = gen.device
-    # no text encoder: 32 random caption tokens stand in for its features
-    ly = 32
-    cap_feats = torch.randn((2 * len(prompts), ly, args.cap_feat_dim), generator=gen,
-                            device=device)
-    cap_mask = torch.ones((2 * len(prompts), ly), dtype=torch.int32, device=device)
+    if encoder is not None:
+        # the prompts, then as many empty captions (CFG's unconditional half)
+        t_start = time.perf_counter()
+        cap_feats, cap_mask = encoder.encode(prompts + [""] * len(prompts))
+        print(f"encoded {2 * len(prompts)} captions ({cap_mask.shape[1]} tokens) in "
+              f"{time.perf_counter() - t_start:.3f}s")
+        manifest["caption_tokens"] = cap_mask.sum(dim=1).tolist()
+    else:
+        # no text encoder: 32 random caption tokens stand in for its features
+        ly = 32
+        cap_feats = torch.randn((2 * len(prompts), ly, args.cap_feat_dim), generator=gen,
+                                device=device)
+        cap_mask = torch.ones((2 * len(prompts), ly), dtype=torch.int32, device=device)
     for res in args.resolution:
         _, w, h = parse_resolution(res)
         proportional = args.proportional_attn or (w * h > args.train_res**2)

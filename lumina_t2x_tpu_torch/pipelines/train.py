@@ -4,6 +4,9 @@ text-to-image NextDiT trainer on one process and one device.
     python -m lumina_t2x_tpu_torch.pipelines.train --model NextDiT_2B_patch2 \
         --data_path synthetic://128x128 --global_batch_size 2 --precision bf16 \
         --grad_precision fp32 --qk_norm --checkpointing --flash_static_max auto
+    python -m lumina_t2x_tpu_torch.pipelines.train --model NextDiT_2B_patch2 \
+        --data_path configs/data/example.yaml --image_size 1024 --text_encoder <gemma dir> \
+        --vae_ckpt sd-vae-ft-ema.safetensors --global_batch_size 2 --qk_norm --checkpointing
 
 It takes the JAX trainer's flags and runs its loop: SIGTERM save-and-exit,
 gc tuning, resume / auto-resume / `--init_from` (which seeds the EMA too),
@@ -14,26 +17,43 @@ and the final save at `--max_steps`. `--checkpointing` runs each block under
 chain), `fused_adamw` / `--fused_optimizer`, `adafactor` (pair with
 `--param_dtype bf16`).
 
-Data: `--data_path synthetic://HxW` gives random (B, 4, H, W) latents and 32
-random caption tokens of `--cap_feat_dim`, from `--global_seed`. Unlike the
-JAX trainer, a resumed run fast-forwards the synthetic stream to its start
-step and draws each step's times and noise from (seed, step), so a resumed
-run takes the steps an uninterrupted one would.
+Data:
+- `--data_path synthetic://HxW`: random (B, 4, H, W) latents and 32 random
+  caption tokens of `--cap_feat_dim`, from `--global_seed`.
+- `--data_path <meta config>` (json or block YAML, `data/dataset.py`):
+  image-caption items in aspect buckets of `--image_size`
+  (`t2i_batches`), decoded by Pillow, encoded to latents by the VAE of
+  `--vae_ckpt` (else a VAE initialised from seed 0) in `--precision`.
+  Captions go through the frozen LM of `--text_encoder` (a local directory;
+  its hidden size sets `--cap_feat_dim`), else they become hashed
+  pseudo-features, as in JAX. As in JAX, the captions are encoded in the
+  loader's collate thread, ahead of the step that takes them (on a CUDA
+  stream of their own on the card), and the VAE encodes each batch in the
+  loop.
+
+A resumed run continues the stream where it stopped: the synthetic stream
+and the meta stream are fast-forwarded by the steps taken, and each step
+draws its times and noise, its caption dropout and its VAE posterior noise
+from (seed, step) and each item its crop origin from (seed, position in the
+stream), so a resumed run takes the steps an uninterrupted one would.
 
 Not ported (each raises `NotImplementedError` naming its ROADMAP item):
-class-conditional models and ImageNet data (queue 1 item 6), yaml data
-(item 7), `--text_encoder` (item 4), `--model_parallel_size > 1` and several
-processes (item 9), `--async_save` and `--profile_steps` (item 7); `--h2d_diet` is TPU-only ("Do not port"). `--data_parallel` is
-accepted and means nothing on one process.
+class-conditional models and ImageNet data (queue 1 item 6),
+`--model_parallel_size > 1` and several processes (item 9), `--async_save`
+and `--profile_steps` (item 7); `--h2d_diet` is TPU-only ("Do not port").
+`--data_parallel` is accepted and means nothing on one process.
 """
 
 from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import os
+import random
 import signal
 import socket
+import time
 from typing import Dict, Iterator
 
 import numpy as np
@@ -45,6 +65,7 @@ from ..core.logging import MetricsWriter, Throughput, create_logger
 from ..models import get_model
 from ..ops.flash_attention import set_flash_static_max_train
 from ..transport import create_transport
+from ..utils import hashed_caption_features
 from .train_lib import (FusedAdafactorEMA, FusedAdamWEMA, autocalibrate_flash_static_max_train,
                         create_optimizer, create_train_state, make_train_step)
 
@@ -87,11 +108,15 @@ def parse_args(argv=None):
     p.add_argument("--pixel_space", action="store_true",
                    help="train on 3-channel inputs with no VAE (synthetic data here)")
     p.add_argument("--num_classes", type=int, default=None)
-    p.add_argument("--text_encoder", type=str, default=None)
+    p.add_argument("--text_encoder", type=str, default=None,
+                   help="local directory of the caption LM (Gemma-2B) and its tokenizer; omit "
+                        "for hashed pseudo-features")
     p.add_argument("--cap_feat_dim", type=int, default=2048)
     p.add_argument("--max_caption_len", type=int, default=256)
-    p.add_argument("--cache_data_on_disk", action="store_true")
-    p.add_argument("--pin_bucket", type=str, default=None, metavar="WxH")
+    p.add_argument("--cache_data_on_disk", action="store_true",
+                   help="keep the meta dataset's annotations in an h5 cache (needs h5py)")
+    p.add_argument("--pin_bucket", type=str, default=None, metavar="WxH",
+                   help="force every t2i batch into one (W, H) crop bucket")
     p.add_argument("--global_seed", type=int, default=0)
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--log_every", type=int, default=100)
@@ -114,11 +139,12 @@ def _check_ported(args):
     if "ImageNet" in args.model or "MoE" in args.model:
         raise NotImplementedError("training class-conditional models is not ported yet "
                                   "(ROADMAP queue 1, item 6)")
-    if not args.data_path.startswith("synthetic://"):
-        raise NotImplementedError("yaml data (ROADMAP queue 1, item 7) and ImageNet data "
-                                  "(item 6) are not ported yet; use synthetic://HxW")
-    if args.text_encoder:
-        raise NotImplementedError("--text_encoder is not ported yet (ROADMAP queue 1, item 4)")
+    if os.path.isdir(args.data_path):
+        raise NotImplementedError("ImageNet-folder data is not ported yet (ROADMAP queue 1, "
+                                  "item 6); use synthetic://HxW or a meta config")
+    if args.pixel_space and not args.data_path.startswith("synthetic://"):
+        raise SystemExit("--pixel_space supports synthetic:// data, not the meta-dataset "
+                         "text-to-image pipeline")
     if args.model_parallel_size > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("model parallelism and several processes belong to the "
                                   "multi-GPU slice (ROADMAP queue 1, item 9)")
@@ -144,6 +170,122 @@ def synthetic_batches(args, latent_hw: int, device, channels: int = 4,
         if step >= start_step:
             yield {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         step += 1
+
+
+def t2i_batches(args, text_encoder=None, device="cpu", start_step: int = 0) -> Iterator[Dict]:
+    """Meta-dataset pipeline (JAX `t2i_batches`, the reference's
+    `train.py:478-520`): bucketed (image, caption) batches, each of one
+    (H, W) from `generate_crop_size_list((image_size // 16) ** 2, 16)`.
+
+    Every item's bucket comes from its metadata (annotation size keys, else
+    a header read) by `choose_bucket`, seeded by (seed, index), so it is the
+    same on every rank and in every run; `--pin_bucket WxH` forces one.
+    Items are decoded by Pillow on `--num_workers` threads, each at a random
+    crop origin drawn from (seed, the item's position in the stream). The
+    collate thread encodes each batch's captions (`caption_features`, the
+    dropout drawn from (seed, step)), as JAX's collate does, on a CUDA stream
+    of its own when `device` is a card, and times the encode there.
+    `start_step` batches are skipped without decoding (resume).
+    Yields {"x": (B, 3, H, W) float32 in [-1, 1] numpy, "captions": [str],
+    "cap_feats", "cap_mask" on `device`, "text_encode_ms"}."""
+    from ..data.dataset import MetaDataset, T2IItemProcessor, resumable_sampler_indices
+    from ..data.imgproc import center_crop, choose_bucket, generate_crop_size_list, to_latent_input
+    from ..data.loader import bucket_batched_global
+
+    crop_size_list = generate_crop_size_list((args.image_size // 16) ** 2, 16)
+    dataset = MetaDataset(args.data_path, T2IItemProcessor(None),
+                          cache_on_disk=args.cache_data_on_disk)
+    # (position in the stream, dataset index): the position seeds the crop
+    positions = enumerate(resumable_sampler_indices(len(dataset), args.global_batch_size,
+                                                    rank=0, world_size=1, seed=args.global_seed))
+    pinned = None
+    if args.pin_bucket:
+        pinned = tuple(int(v) for v in args.pin_bucket.lower().split("x"))
+
+    def bucket_of(item):
+        if pinned is not None:
+            return pinned
+        _, idx = item
+        try:
+            w, h = dataset.image_size(idx)
+        except Exception:
+            # an unreadable item: the fetch's neighbour retry handles it
+            w = h = args.image_size
+        return choose_bucket(w, h, crop_size_list, seed=args.global_seed, index=idx)
+
+    def fetch(item, key):
+        pos, idx = item
+        img, caption = dataset[idx]
+        rng = random.Random(f"crop:{args.global_seed}:{pos}")
+        return to_latent_input(center_crop(img, key, rng)), caption
+
+    # one collate thread takes the batches in order, so this counts the steps
+    steps = itertools.count(start_step)
+    side = torch.cuda.Stream(device) if torch.device(device).type == "cuda" else None
+
+    def collate(items):
+        captions = [c for _, c in items]
+        rng = random.Random(f"caption:{args.global_seed}:{next(steps)}")
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            cap_feats, cap_mask = caption_features(captions, args, text_encoder, device, rng)
+        if side is not None:
+            side.synchronize()  # waits in this thread only
+        return {"x": np.stack([a for a, _ in items]), "captions": captions, "cap_feats": cap_feats,
+                "cap_mask": cap_mask, "text_encode_ms": 1e3 * (time.perf_counter() - t0)}
+
+    gen = bucket_batched_global(positions, bucket_of, args.global_batch_size, fetch=fetch,
+                                collate=collate, num_workers=args.num_workers,
+                                skip_batches=start_step)
+    for _, batch in gen:
+        yield batch
+
+
+def caption_features(captions, args, text_encoder, device, rng: random.Random):
+    """(cap_feats, cap_mask) on `device`: the frozen LM's features of the
+    captions after `--caption_dropout_prob` dropout drawn from `rng`, or,
+    without an encoder, 32 hashed pseudo-feature tokens per caption (the
+    JAX trainer's smoke mode)."""
+    if text_encoder is not None:
+        return text_encoder.encode(captions, proportion_empty_prompts=args.caption_dropout_prob,
+                                   rng=rng)
+    feats = np.stack([hashed_caption_features(c, args.cap_feat_dim) for c in captions])
+    return (torch.from_numpy(feats).to(device),
+            torch.ones(feats.shape[:2], dtype=torch.int32, device=device))
+
+
+def vae_generator(seed: int, step: int, device) -> torch.Generator:
+    """The VAE posterior noise of one step, from (seed, step), apart from the
+    step's own draws (`train_lib.step_generator`)."""
+    return torch.Generator(device=device).manual_seed((int(seed) << 32) + (1 << 31) + int(step))
+
+
+class _Span:
+    """Milliseconds from construction to `stop()`: the device time of the
+    work queued on the current CUDA stream in between, read by `float()`
+    after it finished (so the loop does not synchronize), or host time on
+    the CPU."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.start, self.end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self):
+        if self.cuda:
+            self.end.record()
+        else:
+            self.ms = 1e3 * (time.perf_counter() - self.t0)
+        return self
+
+    def __float__(self):
+        if self.cuda:
+            self.end.synchronize()
+            return self.start.elapsed_time(self.end)
+        return self.ms
 
 
 def _cond(batch):
@@ -185,10 +327,27 @@ def main(argv=None):
         with open(os.path.join(resume_dir, "resume_step.txt")) as f:
             resume_step = int(f.read().strip())
 
-    hw = args.data_path[len("synthetic://"):]
-    latent_hw = int(hw.split("x")[0]) if hw else args.image_size // 8
+    synthetic = args.data_path.startswith("synthetic://")
     channels = 3 if args.pixel_space else 4
-    batches = synthetic_batches(args, latent_hw, device, channels, start_step=resume_step)
+    text_encoder = vae = None
+    if synthetic:
+        hw = args.data_path[len("synthetic://"):]
+        latent_hw = int(hw.split("x")[0]) if hw else args.image_size // 8
+        batches = synthetic_batches(args, latent_hw, device, channels, start_step=resume_step)
+    else:
+        if args.text_encoder:
+            from ..codecs.text_encoders import DecoderTextEncoder
+
+            text_encoder = DecoderTextEncoder.from_pretrained(
+                args.text_encoder, dtype=dtype, max_length=args.max_caption_len, device=device)
+            args.cap_feat_dim = text_encoder.hidden_size
+            logger.info(f"text encoder {args.text_encoder}: {type(text_encoder.model).__name__}, "
+                        f"{sum(p.numel() for p in text_encoder.model.parameters()) / 1e6:.1f}M "
+                        f"params, hidden size {args.cap_feat_dim}")
+        batches = t2i_batches(args, text_encoder, device, start_step=resume_step)
+        logger.info(f"data: {args.data_path}, buckets of {args.image_size}^2 "
+                    f"(pinned {args.pin_bucket}), image decoder pil, "
+                    f"{args.num_workers} decode threads")
 
     torch.manual_seed(args.global_seed)
     model = get_model(args.model, qk_norm=args.qk_norm, dtype=dtype, remat=args.checkpointing,
@@ -219,6 +378,37 @@ def main(argv=None):
         state.ema = {n: p.detach().clone() for n, p in model.named_parameters()}
         logger.info(f"initialized weights (and EMA) from {args.init_from}")
 
+    if not synthetic:
+        from ..codecs.vae import encode_to_latent, load_or_init_vae
+
+        vae = load_or_init_vae(args.vae_ckpt, device=device, dtype=dtype)
+        if args.vae_ckpt:
+            logger.info(f"loaded VAE weights from {args.vae_ckpt}")
+        else:
+            logger.warning("no --vae_ckpt: a VAE initialised from seed 0 (smoke mode)")
+
+    def next_batch(step):
+        """The step's batch and its times: the data wait and, for meta data,
+        the caption encode (in the collate thread) and the VAE encode (on the
+        card, CUDA events read once the step's log is due; no synchronize)."""
+        t0 = time.perf_counter()
+        raw = next(batches)
+        times = {"data_wait_ms": 1e3 * (time.perf_counter() - t0)}
+        if synthetic:
+            return raw, times
+        cap_feats, cap_mask = raw["cap_feats"], raw["cap_mask"]
+        if device.type == "cuda":  # made on the collate thread's stream
+            for t in (cap_feats, cap_mask):
+                t.record_stream(torch.cuda.current_stream(device))
+        x = torch.from_numpy(raw["x"]).to(device)
+        vae_span = _Span(device)
+        with torch.no_grad():
+            latents = encode_to_latent(vae, x, vae_generator(args.global_seed, step, device),
+                                       args.vae).float()
+        times.update(text_encode_ms=raw["text_encode_ms"], vae_encode_ms=vae_span.stop(),
+                     bucket_w=x.shape[-1], bucket_h=x.shape[-2])
+        return {"x": latents, "cap_feats": cap_feats, "cap_mask": cap_mask}, times
+
     micro = (args.global_batch_size // args.micro_batch_size) if args.micro_batch_size else 1
     grad_dtype = {"fp32": None, "fp16": torch.float16, "bf16": torch.bfloat16}[args.grad_precision]
     step_fn = make_train_step(model, transport, optimizer, _cond, grad_clip=args.grad_clip,
@@ -245,8 +435,7 @@ def main(argv=None):
         set_flash_static_max_train(None)
 
     start_step = state.step
-    batch = next(batches)
-    running = []
+    running, data_times = [], []
     for step in range(start_step, args.max_steps):
         if preempted["flag"]:
             path = _save(step, state)
@@ -255,6 +444,8 @@ def main(argv=None):
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
             return state
+        batch, times = next_batch(step)
+        data_times.append(times)
         if needs_calibration:
             needs_calibration = False
             gen = torch.Generator(device=device).manual_seed(args.global_seed + 999983)
@@ -276,18 +467,24 @@ def main(argv=None):
                                f"{len(running)} updates")
             tp = meter.step(len(running) * args.global_batch_size, device=device)
             secs_per_step = tp["secs_per_step"] / len(running)
+            # data: window means; the bucket is the last step's
+            data = {k: (v if k.startswith("bucket") else
+                        sum(float(t[k]) for t in data_times) / len(data_times))
+                    for k, v in data_times[-1].items()}
             logger.info(f"(step={step + 1:07d}) Train Loss: {loss:.4f}, "
                         f"Train Grad Norm: {gnorm:.4f}, imgs/sec: {tp['items_per_sec']:.2f}, "
-                        f"secs/step: {secs_per_step:.3f}")
+                        f"secs/step: {secs_per_step:.3f}, "
+                        + ", ".join(f"{k}: {v:.1f}" if k.endswith("ms") else f"{k}: {v}"
+                                    for k, v in data.items()))
             metrics_writer.write(step + 1, {"train/loss": loss, "train/grad_norm": gnorm,
                                             "train/imgs_per_sec": tp["items_per_sec"],
                                             "train/secs_per_step": secs_per_step,
-                                            "train/lr": args.lr})
-            running = []
+                                            "train/lr": args.lr,
+                                            **{f"train/{k}": v for k, v in data.items()}})
+            running, data_times = [], []
         if (step + 1) % args.ckpt_every == 0 or (step + 1) == args.max_steps:
             logger.info("saved checkpoint to " + _save(step + 1, state))
             meter.start()  # the save is not step time
-        batch = next(batches)
 
     metrics_writer.close()
     if prev_handler is not None:

@@ -13,6 +13,14 @@ def stable_text_seed(text: str) -> int:
     return zlib.crc32(text.encode("utf-8")) & 0x7FFFFFFF
 
 
+def hashed_caption_features(caption: str, dim: int, tokens: int = 32) -> np.ndarray:
+    """(tokens, dim) float32 pseudo caption features seeded by the caption's
+    `stable_text_seed`: the JAX package's stand-in for the LM's features
+    where no text encoder is loaded."""
+    return np.random.default_rng(stable_text_seed(caption)).standard_normal(
+        (tokens, dim)).astype(np.float32)
+
+
 def _png_chunk(tag: bytes, data: bytes) -> bytes:
     return (struct.pack(">I", len(data)) + tag + data
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
@@ -32,4 +40,4 @@ def png_bytes(img_hwc: np.ndarray) -> bytes:
             + _png_chunk(b"IEND", b""))
 
 
-__all__ = ["png_bytes", "stable_text_seed"]
+__all__ = ["hashed_caption_features", "png_bytes", "stable_text_seed"]

@@ -228,8 +228,10 @@ def test_sample_ckpt_must_hold_every_parameter(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--text_encoder"])
 def test_unported_options_raise(tmp_path, flag):
-    with pytest.raises(SystemExit, match=r"not ported yet \(ROADMAP queue 1, item 4\)"):
-        t_sample.main(_sample_argv(tmp_path, "--debug", flag, "x"))
+    """--text_encoder is ported: a directory that is not there is a clean error."""
+    with pytest.raises(SystemExit, match=r"--text_encoder directory not found"):
+        t_sample.main(_sample_argv(tmp_path, "--model", "NextDiT_Tiny_patch2", flag,
+                                   str(tmp_path / "missing")))
 
 
 def test_lumina_infer_with_a_checkpoint(tmp_path):

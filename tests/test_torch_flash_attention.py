@@ -224,3 +224,39 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, entry):
         torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
     atol = 1e-2 if dtype == torch.bfloat16 else 2e-3
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
+
+
+# Gemma caption lengths: Sk a multiple of 8 up to 256, valid keys per batch
+# row ending inside a 64-key tile, the CFG's empty caption one key (<bos>)
+CAPTION_LENGTHS = {8: (1, 5), 40: (37, 21), 136: (130, 67)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sk", sorted(CAPTION_LENGTHS))
+@pytest.mark.parametrize("entry", ["small_kv", "online_lse"])
+def test_caption_lengths_match_plain_on_card(cuda_device, dtype, sk, entry):
+    """K1 (the sampler's cross-attention) and K4 (the trainer's) at the 2B's
+    head_dim over Gemma caption keys, every row keeping a key. The bf16 bar is
+    chip_smoke's for K9 and these lengths, 1e-2 of max(1, max|ref|): a row
+    with one valid key outputs that key's value, whose bf16 rounding reaches
+    1.6e-2 in [4, 8)."""
+    g = torch.Generator().manual_seed(sk)
+    mk = lambda *s: torch.randn(*s, generator=g).to("cuda", dtype)
+    q, k, v = mk(2, 300, 8, 72), mk(2, sk, 8, 72), mk(2, sk, 8, 72)
+    mask = torch.zeros(2, sk, dtype=torch.int32)
+    for row, n in enumerate(CAPTION_LENGTHS[sk]):
+        mask[row, :n] = 1
+    mask = mask.cuda()
+    before = tfa.LAUNCHES[entry]
+    got = getattr(tfa, f"flash_{entry}")(q, k, v, mask, 72 ** -0.5)
+    ref = getattr(tfa, f"flash_{entry}_plain")(q, k, v, mask, 72 ** -0.5)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES[entry] == before + 1
+    if entry == "online_lse":
+        (got, lse), (ref, ref_lse) = got, ref
+        assert bool(torch.isfinite(lse).all())
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    top = max(1.0, ref.float().abs().max().item())
+    atol = 1e-2 * top if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)

@@ -430,6 +430,21 @@ def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sk,lengths", [(8, (1, 5)), (40, (37, 21)), (136, (130, 67))])
+@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
+def test_caption_lengths_match_plain_on_card(cuda_device, entry, sk, lengths):
+    """The trainer's cross-attention over Gemma captions: Sk a multiple of 8,
+    each row's valid keys ending inside a 64-key tile (the empty caption one
+    key), head_dim 72, 8 q heads on 2 kv heads."""
+    q, k, v, mask, dout = _cuda_inputs(2, 300, sk, 8, 2, dead_row=False)
+    mask.zero_()
+    for row, n in enumerate(lengths):
+        mask[row, :n] = 1
+    got, ref = _run(entry, q, k, v, mask, dout)
+    _assert_near(got, ref, 1e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
 def test_strided_dout_and_fused_qkv_views_read_in_place(cuda_device, entry):
     """q, k, v as views of one (B, S, 3, H, D) tensor and dout as a view of a
