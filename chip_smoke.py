@@ -42,7 +42,11 @@ last line:
    kernel and sdpa timed in bursts of 8; K1 and K4 (forward) and K6-K8
    (backward) also at Gemma caption lengths Sk = 8, 40 and 136 with masks
    ending inside a key tile (`CAPTION_LENGTHS`), bf16, fp32 and GQA, within
-   the same bars;
+   the same bars; K4 and K6-K8 at head_dim 48 (the 64/64 instantiations) at
+   the class-conditional trainers' shapes (`D48_SHAPES`: the 600M recipe's
+   (256, 256, 32, 48), the Small's (64, 1024, 8, 48)) and K1 at the Small's
+   sampler shape, timed with bounds and library calls, then with 4:1 GQA, a
+   masked tail and a fully masked row;
 3b. experiments: the static-max variants (K10: `static_max_v0..v3`; K11:
    `static_max_v4`, which must equal v1 bit for bit) against their plain
    versions at the experiment's shape (B=2, S=4096, H=32, D=72, bound
@@ -75,6 +79,15 @@ last line:
    600M line) and no plain-version call; then `--num_fid_samples 8
    --batch_size 4` (the ADM npz) and `--pixel_space` at 64^2; and the 2B
    through the same CLI at 1024^2, 10 steps, `--vae_ckpt`: one 1024^2 PNG;
+5f. classtrain: README's "ImageNet training" recipe through the trainer CLI
+   (NextDiT_ImageNet_600M_patch2, 256^2, B=256, lr 5e-4, qk-norm, lognorm,
+   `--vae_ckpt` the random VAE, `--checkpointing`, bf16 Adafactor) on a
+   shapes ImageFolder of 16 x 16 PNGs at 256^2: 3 steps, then
+   `--auto_resume` for a 4th under LUMINA_FLASH_FUSED_BWD=0 (the head_dim-48
+   600M rows' main path); s/step, imgs/s, data wait, VAE-encode ms, peak
+   memory, launches; then `pipelines.sample.main --ckpt` on it with
+   `--solver dopri5` and `dopri8` (4 labels at 256^2, `--vae_ckpt`): PNGs,
+   NFE and seconds;
 5d. textenc: GemmaModel at Gemma-2B's published widths (`GEMMA_2B`), bf16,
    random from seed 0, with the port's in-memory character-level tokenizer,
    saved to build/ and read back by `DecoderTextEncoder.from_pretrained`;
@@ -115,7 +128,12 @@ last line:
    limit) for 3 steps, then --auto_resume for a 4th step with
    LUMINA_FLASH_FUSED_BWD=0: the second main path, whose training kernel
    launches are counted; then `lumina infer --ckpt` on that checkpoint
-   (10 steps, settings written to a temporary YAML file).
+   (10 steps, settings written to a temporary YAML file);
+9. pixel: NextDiT_ImageNet_Small_patch2 in pixel space at 64^2 through the
+   trainer CLI on a shapes ImageFolder, B=64, 5 steps; quality:
+   `lumina_t2x_tpu_torch/exps/quality_flow.py` cut to QUALITY_STEPS steps
+   and QUALITY_FID_SAMPLES samples, its summary printed (the main path of
+   the head_dim-48 Small rows).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -166,6 +184,16 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "mma_chain": (MMA_SOURCE, "exps/mxu_k_quantum.py:37"),  # _kernel
     # K1 at the class-conditional 600M's self-attention (the classcond path)
     "small_kv_imagenet_600m": (SM90_SOURCE, f"{TPU_KERNELS}:240"),
+    # head_dim 48, the class-conditional trainers: the 600M recipe at 256^2
+    # (classtrain; K7/K8 on its resumed step) and the Small in pixel space at
+    # 64^2 (pixel and quality; K1 from the quality flow's sampler)
+    "online_lse_d48_600m": (SM90_SOURCE, f"{TPU_KERNELS}:430"),
+    "bwd_fused_d48_600m": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),
+    "bwd_dq_d48_600m": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:552"),
+    "bwd_dkv_d48_600m": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),
+    "online_lse_d48_small": (SM90_SOURCE, f"{TPU_KERNELS}:430"),
+    "bwd_fused_d48_small": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),
+    "small_kv_d48_small": (SM90_SOURCE, f"{TPU_KERNELS}:240"),
 }
 SAMPLER_KERNELS = ("small_kv", "online", "static_max", "online_lse")
 ROPE_KERNELS = ("rope", "rope_q", "rope_rotate")
@@ -189,6 +217,17 @@ PROMPT = "a photo of an astronaut riding a horse"
 # tokens, 32 heads of 48; 16 layers x 58 evaluations of a 30-point midpoint grid
 IMAGENET_SHAPE, IMAGENET_LAUNCHES = (8, 256, 32, 48), 16 * 58
 LABELS = "207,360,387,974"
+# head_dim 48 at the class-conditional trainers' shapes (B, S, H): the 600M's
+# README recipe (B=256 at 256^2: 16 x 16 tokens, 32 heads) and the Small's
+# quality run (B=64 at 64^2 in pixel space: 32 x 32 tokens, 8 heads); the
+# Small's sampler runs K1 on the FID batches of 64 under CFG
+D48_SHAPES = {"600m": (256, 256, 32), "small": (64, 1024, 8)}
+D48_K1_SMALL = (128, 1024, 8)
+# the classtrain phase: README's "ImageNet training" recipe on a 16-class
+# shapes ImageFolder of 16 images each at 256^2 (one batch of 256)
+CLASSTRAIN_IMAGES_PER_CLASS, CLASSTRAIN_B = 16, 256
+# the quality phase: exps/quality_flow.py cut to fit this script's time
+QUALITY_STEPS, QUALITY_FID_SAMPLES, QUALITY_PER_CLASS = 200, 128, 50
 # H100 SXM dense TF32 tensor-core peak (NVIDIA's data sheet, 700 W)
 PEAK_TF32 = 495e12
 # the VAE's decode on the card against the CPU's, relative L2: fp32 convolutions
@@ -831,6 +870,141 @@ def imagenet_kernel_phase(fa):
     return {"small_kv_imagenet_600m": {**timed, "max_abs_err": max_err}}
 
 
+def _d48_inputs(g, b, s, h, hkv, masked):
+    q = _rand(g, b, s, h, 48, dtype=torch.bfloat16)
+    k, v = (_rand(g, b, s, hkv, 48, dtype=torch.bfloat16) for _ in range(2))
+    mask = None
+    if masked:  # a masked tail and a fully masked batch row
+        mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
+        mask[0, s - s // 5:] = 0
+        mask[-1] = 0
+    return q, k, v, mask
+
+
+def _check_forward(fa, entry, q, k, v, mask, label):
+    """One forward entry against its plain version: (output, max abs err,
+    line). K4's LSE is held to LSE_MAX on the rows that keep a key."""
+    scale = 48 ** -0.5
+    got = getattr(fa, f"flash_{entry}")(q, k, v, mask, scale)
+    ref = getattr(fa, f"flash_{entry}_plain")(q.float(), k.float(), v.float(), mask, scale)
+    torch.cuda.synchronize()
+    line = ""
+    if entry == "online_lse":
+        (got, lse), (ref, ref_lse) = got, ref
+        fin = torch.isfinite(ref_lse)
+        require(torch.equal(fin, torch.isfinite(lse)), f"{entry} {label}: LSE -inf rows")
+        lse_err = (lse[fin] - ref_lse[fin]).abs().max().item()
+        require(lse_err <= LSE_MAX, f"{entry} {label}: LSE err {lse_err} > {LSE_MAX}")
+        line = f", LSE {lse_err:.3g}"
+    err = (got.float() - ref).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    require(math.isfinite(max_err) and max_err <= BF16_MAX,
+            f"{entry} {label}: max abs err {max_err} > {BF16_MAX}")
+    require(mean_err <= BF16_MEAN, f"{entry} {label}: mean abs err {mean_err} > {BF16_MEAN}")
+    if mask is not None:
+        require(torch.count_nonzero(got[-1]).item() == 0, f"{entry} {label}: masked row not 0")
+    return got, max_err, f"max abs err {max_err:.3g} mean {mean_err:.3g}{line}"
+
+
+def _check_backward(fa, q, k, v, mask, dout, label):
+    """K6, K7 and K8 against `flash_bwd_plain` (out and LSE from the plain
+    LSE forward): ({entry: max abs err}, args, line)."""
+    scale = 48 ** -0.5
+    out, lse = fa.flash_online_lse_plain(q, k, v, mask, scale)
+    args = (q, k, v, mask, out, lse, dout, scale)
+    ref = fa.flash_bwd_plain(*args)
+    got = {"bwd_fused": fa.flash_bwd_fused(*args), "bwd_dq": (fa.flash_bwd_dq(*args), None, None),
+           "bwd_dkv": (None, *fa.flash_bwd_dkv(*args))}
+    torch.cuda.synchronize()
+    worst, parts = {}, []
+    for name, outs in got.items():
+        for grad, r, what in zip(outs, ref, ("dq", "dk", "dv")):
+            if grad is None:
+                continue
+            top = max(r.float().abs().max().item(), 1e-30)
+            err = (grad.float() - r.float()).abs()
+            rel_max, rel_mean = err.max().item() / top, err.mean().item() / top
+            require(math.isfinite(rel_max) and rel_max <= BWD_BF16_MAX,
+                    f"{name} {what} {label}: max err {rel_max} of max|ref| > {BWD_BF16_MAX}")
+            require(rel_mean <= BWD_BF16_MEAN, f"{name} {what} {label}: mean err {rel_mean}")
+            if mask is not None:
+                require(torch.count_nonzero(grad[-1]).item() == 0,
+                        f"{name} {what} {label}: fully masked row not 0")
+            worst[name] = max(worst.get(name, 0.0), err.max().item())
+            parts.append(f"{name}.{what} {rel_max:.2g}")
+    return worst, args, "max err / max|ref| " + ", ".join(parts)
+
+
+def d48_kernel_phase(fa):
+    """K4 and K6-K8 at head_dim 48 (the 64/64 instantiations) at the
+    class-conditional trainers' shapes (`D48_SHAPES`), and K1 at the Small's
+    sampler shape, each against its plain version within the bars of the
+    head_dim-72 checks: first all heads and no mask (timed, with its bound and
+    its library call: aten's flash attention with LSE for K4, the sdpa
+    autograd backward for K6-K8, sdpa for K1), then 4:1 GQA with a masked
+    tail and a fully masked batch row."""
+    g = torch.Generator(device="cuda").manual_seed(48)
+    results = {}
+    cases = [(f"{entry}_d48_{tag}", entry, shape) for tag, shape in D48_SHAPES.items()
+             for entry in ("online_lse", "bwd")] + [("small_kv_d48_small", "small_kv",
+                                                     D48_K1_SMALL)]
+    for row, entry, (b, s, h) in cases:
+        for masked in (False, True):
+            hkv = h // 4 if masked else h
+            label = f"bf16 ({b}, {s}, {h}/{hkv}, 48)" + (", masked" if masked else "")
+            q, k, v, mask = _d48_inputs(g, b, s, h, hkv, masked)
+            if entry == "bwd":
+                dout = _rand(g, b, s, h, 48, dtype=torch.bfloat16)
+                worst, args, line = _check_backward(fa, q, k, v, mask, dout, label)
+                tag = row[len("bwd_d48_"):]
+                for name, err in worst.items():
+                    key = f"{name}_d48_{tag}"
+                    results.setdefault(key, {"max_abs_err": 0.0})
+                    results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+                if not masked:
+                    plain_ms = time_ms(lambda: fa.flash_bwd_plain(*args), reps=3)
+                    lib = library_backward(q, k, v, mask, dout, 48 ** -0.5)
+                    bounds = _bwd_bounds(q, k, v, args[4], dout, args[5], torch.bfloat16)
+                    timed = []
+                    for name in ("bwd_fused", "bwd_dq", "bwd_dkv"):
+                        fn = getattr(fa, f"flash_{name}")
+                        ms = time_ms(lambda: fn(*args), reps=5)
+                        results[f"{name}_d48_{tag}"].update(
+                            ms=ms, plain_ms=plain_ms, library_ms=lib["library_ms"],
+                            **bounds[name])
+                        timed.append(f"{name} {ms:.3f} ms (bound {bounds[name]['bound_ms']:.4f} "
+                                     f"ms, {bounds[name]['bound_by']})")
+                    line += (f"; {', '.join(timed)}; plain {plain_ms:.3f} ms; library backward "
+                             f"{lib['library_ms']:.3f} ms ({lib['library_kernel']})")
+                phase("kernels", f"backward {label}: {line}")
+                del dout, args
+            else:
+                got, err, line = _check_forward(fa, entry, q, k, v, mask, label)
+                results.setdefault(row, {"max_abs_err": 0.0})
+                results[row]["max_abs_err"] = max(results[row]["max_abs_err"], err)
+                if not masked:
+                    scale = 48 ** -0.5
+                    kernel = getattr(fa, f"flash_{entry}")
+                    plain = getattr(fa, f"flash_{entry}_plain")
+                    lse_bytes = b * h * s * 4 if entry == "online_lse" else 0
+                    timed = {"ms": time_ms(lambda: kernel(q, k, v, None, scale)),
+                             "plain_ms": time_ms(lambda: plain(q, k, v, None, scale), reps=3),
+                             **least_time(_nbytes(q, k, v, got) + lse_bytes,
+                                          attention_ops(q, k, 2), torch.bfloat16)}
+                    lib = (library_forward_lse if entry == "online_lse" else library_forward)(
+                        q, k, v, None, scale)
+                    timed["library_ms"] = lib["library_ms"]
+                    results[row].update(timed)
+                    line += (f"; kernel {timed['ms']:.3f} ms, plain {timed['plain_ms']:.3f} ms, "
+                             f"bound {timed['bound_ms']:.4f} ms ({timed['bound_by']}), library "
+                             f"{timed['library_ms']:.3f} ms ({lib['library_kernel']})")
+                phase("kernels", f"{entry} {label}: {line}")
+                del got
+            del q, k, v, mask
+            torch.cuda.empty_cache()
+    return results
+
+
 EXP_CASES = [("B2/S4096/H32/D72, all keys valid", B, S, H, 0),
              ("B2/S1000/H8/D72, ragged tiles, last 200 keys of row 1 masked", 2, 1000, 8, 200)]
 # (K, N) of the K12 checks at M=1024, 8 iterations; then a ragged tile
@@ -1416,6 +1590,179 @@ def classcond_phase(fa, vae_path):
     return {"small_kv_imagenet_600m": launches["small_kv"]}
 
 
+def _class_metrics(results_dir, model):
+    with open(os.path.join(results_dir, model, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _run_trainer(fa, argv, fused_bwd=True):
+    """`pipelines.train.main(argv)` with the launch counts reset: (state, wall
+    seconds, launches, plain-version CUDA calls, peak GiB)."""
+    from lumina_t2x_tpu_torch.pipelines import train as train_cli
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    if not fused_bwd:
+        os.environ["LUMINA_FLASH_FUSED_BWD"] = "0"
+    try:
+        t0 = time.perf_counter()
+        state = train_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("LUMINA_FLASH_FUSED_BWD", None)
+    return (state, wall, dict(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"],
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def classtrain_phase(fa, vae_path):
+    """README's "ImageNet training" recipe through the trainer CLI:
+    NextDiT_ImageNet_600M_patch2 at 256^2, B=256, lr 5e-4, qk-norm, lognorm
+    times, --vae_ckpt (the vae phase's random VAE), on a shapes ImageFolder of
+    16 classes x 16 PNGs at 256^2 (a cut of ImageNet's 1.28M images, which the
+    repository does not hold), with --checkpointing (dots remat) and bf16
+    Adafactor (two fp32 AdamW checkpoints of the 600M, 18 GiB, would take
+    this run past the machine's 45 GiB of disk writes). 3 steps, then
+    --auto_resume for a 4th under LUMINA_FLASH_FUSED_BWD=0 (K7/K8); then
+    `pipelines.sample.main --ckpt` on that checkpoint, 4 labels at 256^2,
+    --solver dopri5 and dopri8, --vae_ckpt: PNGs, NFE and seconds. Returns
+    the launch counts of the head_dim-48 600M rows."""
+    from lumina_t2x_tpu_torch.data.shapes import write_imagefolder
+
+    model = "NextDiT_ImageNet_600M_patch2"
+    with tempfile.TemporaryDirectory() as tmp:
+        data, results = os.path.join(tmp, "shapes"), os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        n = write_imagefolder(data, CLASSTRAIN_IMAGES_PER_CLASS, seed=0, size=256)
+        render_s = time.perf_counter() - t0
+        argv = ["--model", model, "--data_path", data, "--image_size", "256",
+                "--global_batch_size", str(CLASSTRAIN_B), "--lr", "5e-4", "--qk_norm",
+                "--snr_type", "lognorm", "--vae_ckpt", vae_path, "--checkpointing",
+                "--optimizer", "adafactor", "--param_dtype", "bf16", "--results_dir", results,
+                "--log_every", "1", "--ckpt_every", "1000", "--keep_last", "1",
+                "--num_workers", "8", "--device", "cuda"]
+        state, wall, launches, plain, peak = _run_trainer(fa, argv + ["--max_steps", "3"])
+        require(state.step == 3, f"class trainer stopped at step {state.step}")
+        del state
+        torch.cuda.empty_cache()
+        m = _class_metrics(results, model)
+        steady = [r["train/secs_per_step"] for r in m[1:]]
+        phase("classtrain", f"train.main {model} --image_size 256 --global_batch_size "
+              f"{CLASSTRAIN_B} --lr 5e-4 --qk_norm --snr_type lognorm --vae_ckpt --checkpointing, "
+              f"bf16 Adafactor, on {n} shapes PNGs at 256^2 ({render_s:.1f} s to render): losses "
+              f"{[round(r['train/loss'], 5) for r in m]}, grad norms "
+              f"{[round(r['train/grad_norm'], 4) for r in m]}; step 1 "
+              f"{m[0]['train/secs_per_step']:.3f} s, steps 2-3 "
+              f"{', '.join(f'{x:.3f}' for x in steady)} s/step, "
+              f"{CLASSTRAIN_B / statistics.mean(steady):.1f} imgs/s; data wait "
+              f"{[round(r['train/data_wait_ms'], 1) for r in m]} ms, VAE encode "
+              f"{[round(r['train/vae_encode_ms'], 1) for r in m]} ms; peak memory {peak:.2f} GiB; "
+              f"wall {wall:.1f} s incl. set-up and save; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; plain-version CUDA calls {plain}")
+        require(all(math.isfinite(r["train/loss"]) for r in m) and len(m) == 3,
+                "class trainer losses not finite")
+        require(plain == 0, f"class trainer: plain versions ran {plain} times on CUDA")
+        for name in ("online_lse", "bwd_fused"):
+            require(launches[name] > 0, f"kernel {name} was not launched by the class trainer")
+
+        state, wall2, resumed, plain, peak2 = _run_trainer(
+            fa, argv + ["--max_steps", "4", "--auto_resume"], fused_bwd=False)
+        require(state.step == 4, f"resumed class trainer stopped at step {state.step}")
+        del state
+        torch.cuda.empty_cache()
+        m = _class_metrics(results, model)
+        require(len(m) == 4 and math.isfinite(m[-1]["train/loss"]), "resumed step not finite")
+        require(plain == 0 and resumed["bwd_fused"] == 0, f"resumed step: {resumed}, {plain}")
+        for name in ("online_lse", "bwd_dq", "bwd_dkv"):
+            require(resumed[name] > 0, f"kernel {name} was not launched by the resumed step")
+        phase("classtrain", f"--auto_resume from step 3 with LUMINA_FLASH_FUSED_BWD=0: step 4 "
+              f"loss {m[-1]['train/loss']:.5f}, {m[-1]['train/secs_per_step']:.3f} s; peak memory "
+              f"{peak2:.2f} GiB; wall {wall2:.1f} s incl. load and save; launches "
+              f"{ {k: v for k, v in resumed.items() if v} }")
+
+        ckpt = os.path.join(results, model, "checkpoints", "0000004")
+        for solver in ("dopri5", "dopri8"):
+            manifest, wall, secs, sl, plain = _sample_cli(
+                fa, ["--ckpt", ckpt, "--labels", LABELS, "--resolution", "1:256x256",
+                     "--num_sampling_steps", "30", "--solver", solver, "--cfg_scale", "4.0",
+                     "--vae_ckpt", vae_path, "--image_save_path", os.path.join(tmp, solver)])
+            pixels = _pngs(manifest, (256, 256, 3))
+            require(len(pixels) == 4 and plain == 0 and sl["small_kv"] == 16 * manifest["nfe"],
+                    f"{solver}: {len(pixels)} PNGs, launches {sl}, NFE {manifest['nfe']}")
+            phase("classtrain", f"sample.main --ckpt <step 4> --solver {solver} (default "
+                  f"tolerances: the class-conditional branch takes none) --labels {LABELS} "
+                  f"256^2, CFG 4, --vae_ckpt: 4 PNGs; NFE {manifest['nfe']}, trajectory "
+                  f"{manifest['seconds']:.2f} s, with decode {secs} s, wall {wall:.1f} s; K1 "
+                  f"launches {sl['small_kv']}")
+    torch.cuda.empty_cache()
+    return {"online_lse_d48_600m": launches["online_lse"] + resumed["online_lse"],
+            "bwd_fused_d48_600m": launches["bwd_fused"], "bwd_dq_d48_600m": resumed["bwd_dq"],
+            "bwd_dkv_d48_600m": resumed["bwd_dkv"]}
+
+
+def pixel_phase(fa):
+    """The Small in pixel space through the trainer CLI: a shapes ImageFolder
+    of 16 classes x 4 PNGs at 64^2, B=64, 5 steps, --pixel_space --qk_norm
+    --checkpointing (1024 tokens of head_dim 48: K4 and K6). Returns its
+    launch counts."""
+    from lumina_t2x_tpu_torch.data.shapes import write_imagefolder
+
+    model = "NextDiT_ImageNet_Small_patch2"
+    with tempfile.TemporaryDirectory() as tmp:
+        data, results = os.path.join(tmp, "shapes"), os.path.join(tmp, "run")
+        write_imagefolder(data, 4, seed=1, size=64)
+        state, wall, launches, plain, peak = _run_trainer(fa, [
+            "--model", model, "--data_path", data, "--image_size", "64", "--pixel_space",
+            "--num_classes", "16", "--global_batch_size", "64", "--lr", "5e-4", "--qk_norm",
+            "--checkpointing", "--results_dir", results, "--log_every", "1", "--max_steps", "5",
+            "--num_workers", "4", "--device", "cuda"])
+        m = _class_metrics(results, model)
+    require(state.step == 5 and all(math.isfinite(r["train/loss"]) for r in m),
+            f"pixel-space trainer: step {state.step}, losses {[r['train/loss'] for r in m]}")
+    require(plain == 0 and launches["online_lse"] > 0 and launches["bwd_fused"] > 0,
+            f"pixel-space trainer: launches {launches}, plain calls {plain}")
+    steady = [f"{1000 * r['train/secs_per_step']:.1f}" for r in m[1:]]
+    phase("pixel", f"train.main {model} --pixel_space 64^2, B=64, --qk_norm --checkpointing, 5 "
+          f"steps: losses {[round(r['train/loss'], 4) for r in m]}; steps 2-5 "
+          f"{', '.join(steady)} ms/step; "
+          f"peak memory {peak:.2f} GiB; wall {wall:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def quality_phase(fa):
+    """`exps/quality_flow.py` cut to fit: QUALITY_STEPS steps at B=64,
+    QUALITY_FID_SAMPLES FID samples, QUALITY_PER_CLASS images per class. It
+    shows that the flow runs on the card, not the quality. Returns its launch
+    counts (K4 and K6 training, K1 sampling)."""
+    from lumina_t2x_tpu_torch.exps import quality_flow
+
+    fa.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        summary = quality_flow.main([
+            "--steps", str(QUALITY_STEPS), "--batch", "64", "--fid_samples",
+            str(QUALITY_FID_SAMPLES), "--n_per_class", str(QUALITY_PER_CLASS),
+            "--out", os.path.join(tmp, "out"), "--work", os.path.join(tmp, "work"),
+            "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        grid = sorted(os.listdir(os.path.join(tmp, "out", "grid")))
+    launches, plain = dict(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"]
+    require(len(grid) == 16 and summary["train"]["steps"] == QUALITY_STEPS
+            and math.isfinite(summary["train"]["loss_last"]), f"quality flow: {summary}, {grid}")
+    require(plain == 0 and all(launches[k] > 0 for k in ("online_lse", "bwd_fused", "small_kv")),
+            f"quality flow: launches {launches}, plain calls {plain}")
+    phase("quality", f"quality_flow --steps {QUALITY_STEPS} --batch 64 --fid_samples "
+          f"{QUALITY_FID_SAMPLES}: wall {wall:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; summary " + json.dumps(
+              {"train": summary["train"], "faithfulness": {
+                  k: summary["faithfulness"][k] for k in ("accuracy", "rejected_frac", "chance")},
+               "pixel_fid": summary["pixel_fid"], "passed": summary["passed"]}))
+    return launches
+
+
 def t2i_vae_phase(fa, vae_path):
     """The text-to-image branch of `pipelines.sample.main` with --vae_ckpt:
     NextDiT_2B_patch2 --debug at 1024^2, 10 steps, one 1024x1024 PNG."""
@@ -1868,12 +2215,14 @@ def main():
     results.update(backward_kernel_phase(fa))
     results.update(rope_kernel_phase(fa))
     results.update(imagenet_kernel_phase(fa))
+    results.update(d48_kernel_phase(fa))
     exp_results, exp_launches = experiments_phase()
     results.update(exp_results)
     latent_1024 = slice_phase(fa, *forward_phase(fa))
     with tempfile.TemporaryDirectory() as vae_dir:
         vae_path = vae_phase(latent_1024, vae_dir)
         imagenet_launches = classcond_phase(fa, vae_path)
+        imagenet_launches.update(classtrain_phase(fa, vae_path))
         t2i_vae_phase(fa, vae_path)
         gemma_path = textenc_phase(fa)
         t2i_encoder_phase(fa, vae_path, gemma_path)
@@ -1885,6 +2234,11 @@ def main():
     gradient_phase(fa)
     recipe_phase(fa)
     launches.update(trainer_phase(fa))  # K4: the training path's count
+    small = pixel_phase(fa)
+    quality = quality_phase(fa)
+    launches.update({"online_lse_d48_small": small["online_lse"] + quality["online_lse"],
+                     "bwd_fused_d48_small": small["bwd_fused"] + quality["bwd_fused"],
+                     "small_kv_d48_small": quality["small_kv"]})
     launches.update(exp_launches)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

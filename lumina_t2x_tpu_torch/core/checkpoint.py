@@ -92,11 +92,13 @@ def _layer_items(flat, per_layer_prefix):
 
 
 def _with_layers(out, flat, per_layer_prefix):
-    """`out` plus the layers of `flat` under `layers.<i>.*`, as CPU tensors."""
+    """`out` plus the layers of `flat` under `layers.<i>.*`, as CPU tensors
+    that own their memory: the arrays may be read-only views of JAX buffers,
+    and the port's optimizers update their state in place."""
     for i, items in enumerate(_layer_items(flat, per_layer_prefix)):
         for sub, arr in items.items():
             out[_torch_name(sub, i)] = arr.T if sub.endswith("kernel") else arr
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
 
 
 def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -164,7 +166,7 @@ def vae_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         if leaf == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         out[f"{name}.{'bias' if leaf == 'bias' else 'weight'}"] = arr
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
 
 
 def gemma_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -184,15 +186,19 @@ def gemma_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
-def train_state_from_jax(params, ema, opt_state):
+def train_state_from_jax(params, ema, opt_state, state_dict_fn=None):
     """A JAX train state (flax params, EMA tree, optax/fused optimizer state)
     -> (model state dict, EMA state dict, optimizer state) in the port's
-    layouts. The optimizer state may hold AdamW's `mu`/`nu`/`count` (optax
-    chain or `FusedAdamWEMA`, plus a schedule count under warmup) or
+    layouts, each tree mapped by `state_dict_fn` (default: the NextDiT's
+    `state_dict_from_jax_params`; `imagenet_state_dict_from_jax_params` for
+    the class-conditional model). The optimizer state may hold AdamW's
+    `mu`/`nu`/`count` (optax chain or `FusedAdamWEMA`, plus a schedule count
+    under warmup) or
     Adafactor's factored stats (`FusedAdafactorEMA`). Adafactor's row/column
     roles swap for square weights: the JAX rule factors the (in, out) kernel
     and the port the (out, in) weight, and a stable argsort breaks the tie
     on opposite axes."""
+    to_sd = state_dict_fn or state_dict_from_jax_params
     state = {}
     parts = (list(opt_state) if isinstance(opt_state, tuple) and not hasattr(opt_state, "_fields")
              else [opt_state])
@@ -202,20 +208,19 @@ def train_state_from_jax(params, ema, opt_state):
     for part in parts:
         if hasattr(part, "mu"):
             state["count"] = count(part.count)
-            state["mu"] = state_dict_from_jax_params(part.mu)
-            state["nu"] = state_dict_from_jax_params(part.nu)
+            state["mu"] = to_sd(part.mu)
+            state["nu"] = to_sd(part.nu)
         elif hasattr(part, "v_row"):
             state["count"] = count(part.count)
             for slot in ("v_row", "v_col", "v"):
-                state[slot] = state_dict_from_jax_params(
-                    _unstackable(getattr(part, slot), n_layers))
-            for name, w in state_dict_from_jax_params(params).items():
+                state[slot] = to_sd(_unstackable(getattr(part, slot), n_layers))
+            for name, w in to_sd(params).items():
                 if w.dim() == 2 and w.shape[0] == w.shape[1] and state["v_row"][name].shape != (1,):
                     state["v_row"][name], state["v_col"][name] = (state["v_col"][name],
                                                                   state["v_row"][name])
         elif "count" in getattr(part, "_fields", ()):  # optax's ScaleByScheduleState
             state["schedule_count"] = count(part.count)
-    return state_dict_from_jax_params(params), state_dict_from_jax_params(ema), state
+    return to_sd(params), to_sd(ema), state
 
 
 def _unstackable(tree, n_layers, stacked=False):

@@ -5,7 +5,9 @@ SandwichNorm2 blocks: parameter-free fp32 RMSNorm inner norms
 (`attention_norm1`, `ffn_norm1`) with scale-modulate, learned RMSNorm outer
 norms (`attention_norm`, `ffn_norm`), a 4-chunk adaLN (scale, tanh gate; no
 shift); timestep + label embedding as the conditioning; 2-D RoPE; a
-shift+scale final layer. No cross-attention and no token mask. Parameter
+shift+scale final layer. No cross-attention and no token mask. With `remat`
+each block runs under `torch.utils.checkpoint` with the `remat_policy` of
+`layers.maybe_remat` while gradients are enabled. Parameter
 names are the reference Next-DiT-ImageNet state-dict keys
 (`core/checkpoint.imagenet_state_dict_from_jax_params`).
 """
@@ -28,6 +30,7 @@ from .layers import (
     RMSNorm,
     TimestepEmbedder,
     _linear,
+    maybe_remat,
     modulate,
     patchify,
     unpatchify,
@@ -72,8 +75,10 @@ class NextDiTImageNet(nn.Module):
                  norm_eps: float = 1e-5, class_dropout_prob: float = 0.1,
                  num_classes: int = 1000, learn_sigma: bool = True, qk_norm: bool = False,
                  rope_theta: float = 10000.0, dtype=torch.float32, param_dtype=torch.float32,
-                 attn_impl: str = "auto", device=None):
+                 attn_impl: str = "auto", remat: bool = False, remat_policy: str = "dots",
+                 device=None):
         super().__init__()
+        maybe_remat(None, False, remat_policy)  # rejects an unknown policy
         self.patch_size = patch_size
         self.in_channels = in_channels
         self.dim = dim
@@ -84,6 +89,9 @@ class NextDiTImageNet(nn.Module):
         self.qk_norm = qk_norm
         self.rope_theta = rope_theta
         self.dtype = dtype
+        self.attn_impl = attn_impl
+        self.remat = remat
+        self.remat_policy = remat_policy
         cond_dim = min(dim, 1024)
         self.x_embedder = _linear(patch_size * patch_size * in_channels, dim, device=device,
                                   dtype=param_dtype)
@@ -122,8 +130,9 @@ class NextDiTImageNet(nn.Module):
         tokens = self.x_embedder(patchify(x.to(self.dtype), p))
         adaln_input = self.t_embedder(t) + self.y_embedder(
             y, train=train, force_drop_ids=force_drop_ids, generator=generator)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            tokens = layer(tokens, angles, adaln_input)
+            tokens = maybe_remat(layer, remat, self.remat_policy)(tokens, angles, adaln_input)
         tokens = self.final_layer(tokens, adaln_input)
         out = unpatchify(tokens, h, w, p, self.out_channels)
         if self.learn_sigma:

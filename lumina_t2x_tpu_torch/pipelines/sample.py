@@ -21,9 +21,11 @@ text-to-image branch encodes the prompts (`--caption_path`, one per line)
 and as many empty captions for CFG with `--text_encoder` (a local directory
 of the LM and its tokenizer, `codecs/text_encoders.py`); without one, 32
 random caption tokens per prompt stand in. The branch is chosen on the
-resolved model name. Noise is drawn on the device from `--seed`. Not ported
-yet (ROADMAP queue 1, item 5): the adaptive solvers that `--atol` / `--rtol`
-configure.
+resolved model name. Noise is drawn on the device from `--seed`. `--solver
+dopri5|dopri8` integrates adaptively; the text-to-image branch passes it
+`--atol` / `--rtol`, while the class-conditional branch runs it at the
+default tolerances, as the JAX sampler does. Each run prints its model
+evaluations (NFE).
 """
 
 from __future__ import annotations
@@ -59,11 +61,11 @@ def parse_args(argv=None):
     p.add_argument("--resolution", type=str, nargs="+", default=["1:256x256"])
     p.add_argument("--num_sampling_steps", type=int, default=30)
     p.add_argument("--solver", type=str, default="midpoint",
-                   choices=["euler", "midpoint", "heun", "rk4"])
+                   choices=["euler", "midpoint", "heun", "rk4", "dopri5", "dopri8"])
     p.add_argument("--atol", type=float, default=1e-6,
-                   help="adaptive-solver absolute tolerance (the adaptive solvers are not ported)")
+                   help="adaptive-solver absolute tolerance (dopri5/dopri8, text-to-image)")
     p.add_argument("--rtol", type=float, default=1e-3,
-                   help="adaptive-solver relative tolerance (the adaptive solvers are not ported)")
+                   help="adaptive-solver relative tolerance (dopri5/dopri8, text-to-image)")
     p.add_argument("--cfg_scale", type=float, default=4.0)
     p.add_argument("--time_shifting_factor", type=float, default=1.0)
     p.add_argument("--scaling_watershed", type=float, default=0.3)
@@ -201,8 +203,9 @@ def _sample_class_cond(args, model, vae, gen, manifest):
     z = torch.randn((len(labels), *shape), generator=gen, device=gen.device)
     t_start = time.perf_counter()
     latents = sample_fn(z, y)
+    seconds = time.perf_counter() - t_start
     _save_outputs(latents, args, vae, manifest, [str(label) for label in labels])
-    print(f"sampled {len(labels)} class-conditional images in {time.perf_counter() - t_start:.2f}s")
+    _report(manifest, sample_fn, seconds, f"sampled {len(labels)} class-conditional images", args)
 
 
 def _sample_t2i(args, model, vae, gen, manifest, encoder=None):
@@ -241,13 +244,22 @@ def _sample_t2i(args, model, vae, gen, manifest, encoder=None):
             model, width=w, height=h, num_steps=args.num_sampling_steps, solver=args.solver,
             cfg_scale=args.cfg_scale, time_shifting_factor=args.time_shifting_factor,
             train_res=args.train_res, scale_watershed=args.scaling_watershed,
-            proportional_attn=proportional, static_max=bound,
+            proportional_attn=proportional, static_max=bound, atol=args.atol, rtol=args.rtol,
         )
         z = torch.randn((len(prompts), 4, h // 8, w // 8), generator=gen, device=device)
         t_start = time.perf_counter()
         latents = sample_fn(z, cap_feats, cap_mask)
+        seconds = time.perf_counter() - t_start
         _save_outputs(latents, args, vae, manifest, prompts, res_tag=f"{w}x{h}")
-        print(f"sampled {len(prompts)} prompts at {w}x{h} in {time.perf_counter() - t_start:.2f}s")
+        _report(manifest, sample_fn, seconds, f"sampled {len(prompts)} prompts at {w}x{h}", args)
+
+
+def _report(manifest, sample_fn, seconds, what, args):
+    """Record and print the trajectory's seconds and its model evaluations
+    (`sample_fn.nfe`; None for a sample function that does not count)."""
+    nfe = getattr(sample_fn, "nfe", None)
+    manifest["nfe"], manifest["seconds"] = nfe, seconds
+    print(f"{what} in {seconds:.2f}s ({args.solver}, NFE {nfe})")
 
 
 def to_uint8(images: torch.Tensor) -> np.ndarray:

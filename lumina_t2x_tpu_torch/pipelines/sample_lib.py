@@ -1,8 +1,9 @@
 """Sampling (counterpart of `lumina_t2x_tpu/pipelines/sample_lib.py`): the
 class-conditional and the text-to-image samplers (CFG duplication,
-time-aware RoPE scaling, the fixed-step ODE solver, driven as a plain Python
-step loop), plus the static-max calibration of the streaming attention
-kernel.
+time-aware RoPE scaling, the fixed-step or adaptive ODE solver, driven as a
+plain Python step loop), plus the static-max calibration of the streaming
+attention kernel. Each `sample_fn` records the model evaluations of its last
+call as `sample_fn.nfe`.
 """
 
 from __future__ import annotations
@@ -43,7 +44,9 @@ def build_class_cond_sample_fn(
     z is the (B, in_channels, latent_size, latent_size) starting noise,
     labels the (B,) class ids; the unconditional half-batch takes the null
     class (`model.num_classes`). The self-attention runs the online kernels
-    (no static bound), as the JAX sampler calibrates none."""
+    (no static bound), as the JAX sampler calibrates none. An adaptive
+    solver runs at the default tolerances (atol 1e-6, rtol 1e-3): the JAX
+    class-conditional sampler takes none."""
     sampler = Sampler(create_transport(path_type, "velocity"))
     ode_fn = sampler.sample_ode(sampling_method=solver, num_steps=num_steps,
                                 time_shifting_factor=time_shifting_factor)
@@ -62,8 +65,10 @@ def build_class_cond_sample_fn(
 
         with flash_static_max_scope(None):
             out = ode_fn(torch.cat([z, z], dim=0), model_fn)
+        sample_fn.nfe = ode_fn.nfe
         return out[:b]
 
+    sample_fn.nfe = 0
     return sample_fn
 
 
@@ -99,12 +104,15 @@ def build_t2i_sample_fn(
     vae_downsample: int = 8,
     time_aware_scaling: bool = True,
     static_max: Optional[float] = None,
+    atol: float = 1e-6,
+    rtol: float = 1e-3,
 ):
     """Text-to-image sampler. Returns `sample_fn(z, cap_feats, cap_mask) ->
     latents`: z is the (B, C, H/8, W/8) starting noise, cap_feats holds the
     conditional rows then the unconditional (empty-prompt) rows, (2B, Ly, D).
     The grid has `num_steps` points, so a fixed-step solver takes
-    num_steps - 1 steps (midpoint: two CFG forwards per step).
+    num_steps - 1 steps (midpoint: two CFG forwards per step); atol / rtol
+    are the tolerances of the adaptive solvers (dopri5, dopri8).
 
     static_max: the softmax bound of the streaming self-attention (from
     `autocalibrate_flash_static_max`; None: the online kernel). Every run
@@ -113,7 +121,7 @@ def build_t2i_sample_fn(
     `LUMINA_FLASH_STATIC_MAX` pin still wins."""
     sampler = Sampler(create_transport(path_type, "velocity"))
     ode_fn = sampler.sample_ode(sampling_method=solver, num_steps=num_steps,
-                                time_shifting_factor=time_shifting_factor)
+                                time_shifting_factor=time_shifting_factor, atol=atol, rtol=rtol)
     kw = _cfg_kwargs(model, width, height, train_res, scale_watershed, proportional_attn,
                      vae_downsample, time_aware_scaling)
 
@@ -126,8 +134,10 @@ def build_t2i_sample_fn(
 
         with flash_static_max_scope(static_max):
             out = ode_fn(torch.cat([z, z], dim=0), model_fn)
+        sample_fn.nfe = ode_fn.nfe
         return out[:b]
 
+    sample_fn.nfe = 0
     return sample_fn
 
 

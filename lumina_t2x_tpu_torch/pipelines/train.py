@@ -1,6 +1,10 @@
-"""Training CLI (counterpart of `lumina_t2x_tpu/pipelines/train.py`), the
-text-to-image NextDiT trainer on one process and one device.
+"""Training CLI (counterpart of `lumina_t2x_tpu/pipelines/train.py`): the
+class-conditional NextDiT-ImageNet trainer and the text-to-image NextDiT
+trainer, on one process and one device.
 
+    python -m lumina_t2x_tpu_torch.pipelines.train --model NextDiT_ImageNet_600M_patch2 \
+        --data_path /path/to/imagenet/train --image_size 256 --global_batch_size 256 \
+        --lr 5e-4 --qk_norm --snr_type lognorm --vae_ckpt sd-vae-ft-ema.safetensors
     python -m lumina_t2x_tpu_torch.pipelines.train --model NextDiT_2B_patch2 \
         --data_path synthetic://128x128 --global_batch_size 2 --precision bf16 \
         --grad_precision fp32 --qk_norm --checkpointing --flash_static_max auto
@@ -8,18 +12,28 @@ text-to-image NextDiT trainer on one process and one device.
         --data_path configs/data/example.yaml --image_size 1024 --text_encoder <gemma dir> \
         --vae_ckpt sd-vae-ft-ema.safetensors --global_batch_size 2 --qk_norm --checkpointing
 
-It takes the JAX trainer's flags and runs its loop: SIGTERM save-and-exit,
-gc tuning, resume / auto-resume / `--init_from` (which seeds the EMA too),
-the train static-max bound (`--flash_static_max off|auto|<float>`), the
-window mean of finite losses, log and checkpoint cadence with `--keep_last`
-and the final save at `--max_steps`. `--checkpointing` runs each block under
+It takes the JAX trainer's flags and defaults (the 600M ImageNet model on
+synthetic 32x32 latents) and runs its loop: SIGTERM save-and-exit, gc
+tuning, resume / auto-resume / `--init_from` (which seeds the EMA too), the
+train static-max bound (`--flash_static_max off|auto|<float>`), the window
+mean of finite losses, log and checkpoint cadence with `--keep_last` and the
+final save at `--max_steps`. `--checkpointing` runs each block under
 `torch.utils.checkpoint` with `--remat_policy`. Optimizers: `adamw` (optax's
 chain), `fused_adamw` / `--fused_optimizer`, `adafactor` (pair with
-`--param_dtype bf16`).
+`--param_dtype bf16`). `--path_type Linear|GVP|VP` and `--prediction` pick
+the transport (training is velocity-only, as in JAX).
 
 Data:
-- `--data_path synthetic://HxW`: random (B, 4, H, W) latents and 32 random
-  caption tokens of `--cap_feat_dim`, from `--global_seed`.
+- `--data_path synthetic://HxW`: random (B, C, H, W) latents and, for a
+  class-conditional model (an `ImageNet` name), labels below its
+  `num_classes`; else 32 random caption tokens of `--cap_feat_dim`; from
+  `--global_seed`.
+- `--data_path <ImageFolder directory>` (class-conditional models): ADM
+  center crops at `--image_size`, flipped at random, with the folder's
+  labels, decoded by Pillow on `--num_workers` threads and encoded to
+  latents by the VAE of `--vae_ckpt` (else one initialised from seed 0),
+  or fed as pixels under `--pixel_space`. `--num_classes` sizes the label
+  table and `--class_dropout_prob` its dropout.
 - `--data_path <meta config>` (json or block YAML, `data/dataset.py`):
   image-caption items in aspect buckets of `--image_size`
   (`t2i_batches`), decoded by Pillow, encoded to latents by the VAE of
@@ -31,17 +45,18 @@ Data:
   stream of their own on the card), and the VAE encodes each batch in the
   loop.
 
-A resumed run continues the stream where it stopped: the synthetic stream
-and the meta stream are fast-forwarded by the steps taken, and each step
-draws its times and noise, its caption dropout and its VAE posterior noise
-from (seed, step) and each item its crop origin from (seed, position in the
-stream), so a resumed run takes the steps an uninterrupted one would.
+A resumed run continues the stream where it stopped: every stream is
+fast-forwarded by the steps taken, and each step draws its times and noise,
+its caption or label dropout and its VAE posterior noise from (seed, step)
+and each item its crop origin or flip from (seed, position in the stream),
+so a resumed run takes the steps an uninterrupted one would. (JAX flips
+with the unseeded global `np.random`, so its folder runs do not repeat.)
 
-Not ported (each raises `NotImplementedError` naming its ROADMAP item):
-class-conditional models and ImageNet data (queue 1 item 6),
-`--model_parallel_size > 1` and several processes (item 9), `--async_save`
-and `--profile_steps` (item 7); `--h2d_diet` is TPU-only ("Do not port").
-`--data_parallel` is accepted and means nothing on one process.
+Not ported (each raises `NotImplementedError` naming its ROADMAP item): MoE
+models (queue 1 item 8), `--model_parallel_size > 1` and several processes
+(item 9), `--async_save` and `--profile_steps` (item 7); `--h2d_diet` is
+TPU-only ("Do not port"). `--data_parallel` is accepted and means nothing on
+one process.
 """
 
 from __future__ import annotations
@@ -71,8 +86,8 @@ from .train_lib import (FusedAdafactorEMA, FusedAdamWEMA, autocalibrate_flash_st
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="lumina-t2x PyTorch trainer (text-to-image)")
-    p.add_argument("--model", type=str, default="NextDiT_2B_patch2")
+    p = argparse.ArgumentParser(description="lumina-t2x PyTorch trainer")
+    p.add_argument("--model", type=str, default="NextDiT_ImageNet_600M_patch2")
     p.add_argument("--data_path", type=str, default="synthetic://32x32")
     p.add_argument("--results_dir", type=str, default="results")
     p.add_argument("--image_size", type=int, default=256)
@@ -106,8 +121,10 @@ def parse_args(argv=None):
     p.add_argument("--vae", type=str, choices=["ema", "mse", "sdxl", "sd3"], default="ema")
     p.add_argument("--vae_ckpt", type=str, default=None)
     p.add_argument("--pixel_space", action="store_true",
-                   help="train on 3-channel inputs with no VAE (synthetic data here)")
-    p.add_argument("--num_classes", type=int, default=None)
+                   help="train the denoiser directly on RGB pixels (in_channels=3, no VAE): "
+                        "class-conditional folder or synthetic data")
+    p.add_argument("--num_classes", type=int, default=None,
+                   help="class-conditional label-embedding size (default: the model's, 1000)")
     p.add_argument("--text_encoder", type=str, default=None,
                    help="local directory of the caption LM (Gemma-2B) and its tokenizer; omit "
                         "for hashed pseudo-features")
@@ -135,16 +152,20 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def is_class_cond(args) -> bool:
+    return "ImageNet" in args.model
+
+
 def _check_ported(args):
-    if "ImageNet" in args.model or "MoE" in args.model:
-        raise NotImplementedError("training class-conditional models is not ported yet "
-                                  "(ROADMAP queue 1, item 6)")
-    if os.path.isdir(args.data_path):
-        raise NotImplementedError("ImageNet-folder data is not ported yet (ROADMAP queue 1, "
-                                  "item 6); use synthetic://HxW or a meta config")
-    if args.pixel_space and not args.data_path.startswith("synthetic://"):
-        raise SystemExit("--pixel_space supports synthetic:// data, not the meta-dataset "
-                         "text-to-image pipeline")
+    if "MoE" in args.model:
+        raise NotImplementedError("MoE models are not ported yet (ROADMAP queue 1, item 8)")
+    folder = os.path.isdir(args.data_path)
+    if folder and not is_class_cond(args):
+        raise SystemExit("an ImageFolder --data_path trains a class-conditional (ImageNet) "
+                         "model; text-to-image models take synthetic:// or a meta config")
+    if args.pixel_space and not (folder or args.data_path.startswith("synthetic://")):
+        raise SystemExit("--pixel_space supports class-cond folder or synthetic:// data, not "
+                         "the meta-dataset text-to-image pipeline")
     if args.model_parallel_size > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("model parallelism and several processes belong to the "
                                   "multi-GPU slice (ROADMAP queue 1, item 9)")
@@ -156,20 +177,70 @@ def _check_ported(args):
                                   "(ROADMAP, 'Do not port')")
 
 
-def synthetic_batches(args, latent_hw: int, device, channels: int = 4,
-                      start_step: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
-    """Random latents and caption features from `--global_seed` (the JAX
-    trainer's t2i branch), fast-forwarded past `start_step` batches."""
+def synthetic_batches(args, latent_hw: int, device, channels: int = 4, start_step: int = 0,
+                      num_classes: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+    """Random latents from `--global_seed` (the JAX trainer's stream), with
+    labels below `num_classes` for a class-conditional model, else caption
+    features; fast-forwarded past `start_step` batches."""
     rng = np.random.default_rng(args.global_seed)
     b = args.global_batch_size
     step = 0
     while True:
-        batch = {"x": rng.standard_normal((b, channels, latent_hw, latent_hw), np.float32),
-                 "cap_feats": rng.standard_normal((b, 32, args.cap_feat_dim), np.float32),
-                 "cap_mask": np.ones((b, 32), np.int32)}
+        batch = {"x": rng.standard_normal((b, channels, latent_hw, latent_hw), np.float32)}
+        if num_classes:
+            batch["y"] = rng.integers(0, num_classes, (b,)).astype(np.int64)
+        else:
+            batch["cap_feats"] = rng.standard_normal((b, 32, args.cap_feat_dim), np.float32)
+            batch["cap_mask"] = np.ones((b, 32), np.int32)
         if step >= start_step:
             yield {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         step += 1
+
+
+def flip_of(seed: int, position: int) -> bool:
+    """The random horizontal flip of the item at `position` in the stream."""
+    return random.Random(f"flip:{seed}:{position}").random() < 0.5
+
+
+def imagenet_batches(args, start_step: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """ImageFolder pipeline (JAX `imagenet_batches`): the resumable index
+    stream over `list_imagenet_folder`, each image ADM-center-cropped to
+    `--image_size` (`center_crop_arr`) and flipped by `flip_of` (seed, the
+    item's position in the stream), decoded by Pillow on `--num_workers`
+    threads up to two batches ahead. Yields {"x": (B, 3, S, S) float32 in
+    [-1, 1], "y": (B,) int32}."""
+    from PIL import Image
+
+    from ..data.dataset import resumable_sampler_indices
+    from ..data.imgproc import center_crop_arr, to_latent_input
+    from ..data.loader import collate_image_label, list_imagenet_folder, threaded_prefetch
+
+    samples, _ = list_imagenet_folder(args.data_path)
+    first = start_step * args.global_batch_size
+    indices = resumable_sampler_indices(len(samples), args.global_batch_size, rank=0,
+                                        world_size=1, seed=args.global_seed,
+                                        start_step=start_step)
+
+    def fetch(item):
+        pos, idx = item
+        path, label = samples[idx]
+        with Image.open(path) as im:
+            img = center_crop_arr(im.convert("RGB"), args.image_size)
+        if flip_of(args.global_seed, pos):
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        return to_latent_input(img), label
+
+    # two batches in flight, so that the threads decode the next batch while
+    # the step runs
+    stream = threaded_prefetch(enumerate(indices, start=first), fetch,
+                               num_workers=args.num_workers,
+                               prefetch=2 * args.global_batch_size)
+    buf = []
+    for item in stream:
+        buf.append(item)
+        if len(buf) == args.global_batch_size:
+            yield collate_image_label(buf)
+            buf = []
 
 
 def t2i_batches(args, text_encoder=None, device="cpu", start_step: int = 0) -> Iterator[Dict]:
@@ -292,6 +363,10 @@ def _cond(batch):
     return {"cap_feats": batch["cap_feats"], "cap_mask": batch["cap_mask"]}
 
 
+def _class_cond(batch):
+    return {"y": batch["y"]}
+
+
 def main(argv=None):
     args = parse_args(argv)
     _check_ported(args)
@@ -328,12 +403,25 @@ def main(argv=None):
             resume_step = int(f.read().strip())
 
     synthetic = args.data_path.startswith("synthetic://")
+    class_cond = is_class_cond(args)
+    folder = os.path.isdir(args.data_path)
     channels = 3 if args.pixel_space else 4
+    # the model's label table: --num_classes, else the registry default
+    num_classes = (args.num_classes or 1000) if class_cond else 0
+    # only the folder and meta streams carry images for the VAE
+    encode_images = not synthetic and not (folder and args.pixel_space)
     text_encoder = vae = None
     if synthetic:
         hw = args.data_path[len("synthetic://"):]
-        latent_hw = int(hw.split("x")[0]) if hw else args.image_size // 8
-        batches = synthetic_batches(args, latent_hw, device, channels, start_step=resume_step)
+        latent_hw = int(hw.split("x")[0]) if hw else (
+            args.image_size if args.pixel_space else args.image_size // 8)
+        batches = synthetic_batches(args, latent_hw, device, channels, start_step=resume_step,
+                                    num_classes=num_classes)
+    elif folder:
+        batches = imagenet_batches(args, start_step=resume_step)
+        logger.info(f"data: ImageFolder {args.data_path}, {args.image_size}^2 center crops, "
+                    f"random flips, {args.num_workers} decode threads"
+                    + (", pixel space" if args.pixel_space else ""))
     else:
         if args.text_encoder:
             from ..codecs.text_encoders import DecoderTextEncoder
@@ -350,10 +438,15 @@ def main(argv=None):
                     f"{args.num_workers} decode threads")
 
     torch.manual_seed(args.global_seed)
-    model = get_model(args.model, qk_norm=args.qk_norm, dtype=dtype, remat=args.checkpointing,
-                      remat_policy=args.remat_policy, cap_feat_dim=args.cap_feat_dim,
-                      in_channels=channels, device=device,
-                      param_dtype=torch.bfloat16 if args.param_dtype == "bf16" else torch.float32)
+    model_kwargs = dict(qk_norm=args.qk_norm, dtype=dtype, remat=args.checkpointing,
+                        remat_policy=args.remat_policy, in_channels=channels, device=device,
+                        param_dtype=torch.bfloat16 if args.param_dtype == "bf16"
+                        else torch.float32)
+    if class_cond:
+        model_kwargs.update(class_dropout_prob=args.class_dropout_prob, num_classes=num_classes)
+    else:
+        model_kwargs["cap_feat_dim"] = args.cap_feat_dim
+    model = get_model(args.model, **model_kwargs)
     transport = create_transport(args.path_type, args.prediction, snr_type=args.snr_type)
     if args.optimizer and args.fused_optimizer and args.optimizer != "fused_adamw":
         raise SystemExit(f"--optimizer {args.optimizer} conflicts with --fused_optimizer "
@@ -378,7 +471,7 @@ def main(argv=None):
         state.ema = {n: p.detach().clone() for n, p in model.named_parameters()}
         logger.info(f"initialized weights (and EMA) from {args.init_from}")
 
-    if not synthetic:
+    if encode_images:
         from ..codecs.vae import encode_to_latent, load_or_init_vae
 
         vae = load_or_init_vae(args.vae_ckpt, device=device, dtype=dtype)
@@ -396,22 +489,30 @@ def main(argv=None):
         times = {"data_wait_ms": 1e3 * (time.perf_counter() - t0)}
         if synthetic:
             return raw, times
-        cap_feats, cap_mask = raw["cap_feats"], raw["cap_mask"]
-        if device.type == "cuda":  # made on the collate thread's stream
-            for t in (cap_feats, cap_mask):
-                t.record_stream(torch.cuda.current_stream(device))
         x = torch.from_numpy(raw["x"]).to(device)
+        if folder:
+            cond = {"y": torch.from_numpy(raw["y"]).long().to(device)}
+        else:
+            cond = {"cap_feats": raw["cap_feats"], "cap_mask": raw["cap_mask"]}
+            if device.type == "cuda":  # made on the collate thread's stream
+                for t in cond.values():
+                    t.record_stream(torch.cuda.current_stream(device))
+            times.update(text_encode_ms=raw["text_encode_ms"])
+        if not encode_images:  # --pixel_space folder data
+            return {"x": x, **cond}, times
         vae_span = _Span(device)
         with torch.no_grad():
             latents = encode_to_latent(vae, x, vae_generator(args.global_seed, step, device),
                                        args.vae).float()
-        times.update(text_encode_ms=raw["text_encode_ms"], vae_encode_ms=vae_span.stop(),
-                     bucket_w=x.shape[-1], bucket_h=x.shape[-2])
-        return {"x": latents, "cap_feats": cap_feats, "cap_mask": cap_mask}, times
+        times["vae_encode_ms"] = vae_span.stop()
+        if not folder:
+            times.update(bucket_w=x.shape[-1], bucket_h=x.shape[-2])
+        return {"x": latents, **cond}, times
 
     micro = (args.global_batch_size // args.micro_batch_size) if args.micro_batch_size else 1
     grad_dtype = {"fp32": None, "fp16": torch.float16, "bf16": torch.bfloat16}[args.grad_precision]
-    step_fn = make_train_step(model, transport, optimizer, _cond, grad_clip=args.grad_clip,
+    cond_fn = _class_cond if class_cond else _cond
+    step_fn = make_train_step(model, transport, optimizer, cond_fn, grad_clip=args.grad_clip,
                               micro_batches=micro, grad_dtype=grad_dtype)
 
     # GC tuning for the steady-state loop: what exists now is long-lived
@@ -450,7 +551,7 @@ def main(argv=None):
             needs_calibration = False
             gen = torch.Generator(device=device).manual_seed(args.global_seed + 999983)
             bound = autocalibrate_flash_static_max_train(
-                model, batch, _cond, generator=gen, path_sampler=transport.path_sampler)
+                model, batch, cond_fn, generator=gen, path_sampler=transport.path_sampler)
             logger.info("flash static-max calibrated: "
                         + (f"{bound:.4f}" if bound is not None
                            else "n/a (online-max kernels kept)"))

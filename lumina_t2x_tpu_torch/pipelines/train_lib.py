@@ -10,9 +10,10 @@ dicts keyed by the parameter names (the reference state-dict keys). Every
 update runs in place under `torch.no_grad()`, one tensor at a time, so the
 same code runs on the CPU and on the card (no fused CUDA optimizer).
 
-Random draws: a step's training times and noise come from a
-`torch.Generator` seeded from (seed, step), or are handed in as tensors
-(`draws`), which is how the tests give the port the JAX step's draws.
+Random draws: a step's training times and noise, and a class-conditional
+model's label dropout, come from a `torch.Generator` seeded from (seed,
+step), or are handed in as tensors (`draws`), which is how the tests give the
+port the JAX step's draws.
 """
 
 from __future__ import annotations
@@ -417,21 +418,29 @@ def make_train_step(
     """Build `train_step(state, batch, seed, draws=None) -> (state, metrics)`.
 
     cond_kwargs_fn(batch) -> model keywords beyond (x, t), e.g.
-    {"cap_feats": ..., "cap_mask": ...}. Gradients are cast to `grad_dtype`
+    {"cap_feats": ..., "cap_mask": ...}, or {"y": ...} for a class-conditional
+    model, whose label dropout is then drawn from the step's generator after
+    the times and the noise. Gradients are cast to `grad_dtype`
     right after each backward, and micro-batch accumulation runs in it; the
     grad norm, the clip and the optimizer run in fp32. A step whose loss or
     grad norm is not finite leaves params, optimizer state (count included)
     and EMA untouched and reports `skipped` = 1; the step counter advances
-    either way. `draws`: optional list, one (t, x0) pair per micro-batch,
-    replacing the generator's draws."""
+    either way. `draws`: optional list, one (t, x0) or (t, x0, drop) per
+    micro-batch, replacing the generator's draws (`drop`: the (B,) label
+    dropout mask, 1 where a label is dropped)."""
     params = dict(model.named_parameters())
     names, leaves = list(params), list(params.values())
 
     def compute_grads(batch, generator, draw):
-        def model_fn(xt, t):
-            return model(xt, t, train=True, **cond_kwargs_fn(batch))
+        t, x0, drop = (tuple(draw) + (None,))[:3] if draw is not None else (None, None, None)
+        cond = cond_kwargs_fn(batch)
+        if "y" in cond:  # class-conditional: the label dropout of this step
+            cond = dict(cond, generator=generator) if drop is None else \
+                dict(cond, force_drop_ids=drop)
 
-        t, x0 = draw if draw is not None else (None, None)
+        def model_fn(xt, t):
+            return model(xt, t, train=True, **cond)
+
         loss_mask = loss_mask_fn(batch) if loss_mask_fn else None
         terms = transport.training_losses(model_fn, batch["x"], loss_mask=loss_mask,
                                           generator=generator, t=t, x0=x0)
@@ -454,7 +463,7 @@ def make_train_step(
         return loss_sum / micro_batches, [a / micro_batches for a in acc]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int,
-                   draws: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None):
+                   draws: Optional[List[Tuple[torch.Tensor, ...]]] = None):
         device = batch["x"].device
         generator = step_generator(seed, state.step, device)
         loss, grads = local_grads(batch, generator, draws)

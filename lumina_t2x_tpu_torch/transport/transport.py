@@ -1,24 +1,28 @@
 """Flow-matching transport (counterpart of
 `lumina_t2x_tpu/transport/transport.py`): the enums, the integration
 interval, the training times (`sample_t`) and the velocity-matching loss
-(`Transport.training_losses`), the probability-flow drift and the fixed-step
-ODE sampler. Model callables have the signature `model_fn(x, t) -> out` with
-t of shape (B,). Random draws come from an explicit `torch.Generator`, or are
-handed in as tensors.
+(`Transport.training_losses`), the prior, the probability-flow drift and the
+score under each parameterization, and the samplers: `sample_ode` (fixed-step
+or adaptive dopri5/dopri8) and `sample_sde` with its last-step options.
+Model callables have the signature `model_fn(x, t) -> out` with t of shape
+(B,). Random draws come from an explicit `torch.Generator`, or are handed in
+as tensors.
 
-Not ported yet (ROADMAP queue 1, item 5): the adaptive ODE methods,
-`sample_sde` and the likelihood sampler.
+Not ported yet (ROADMAP queue 1, item 5): the likelihood sampler, which
+needs forward-mode derivatives through the flash-attention kernels.
 """
 
 from __future__ import annotations
 
 import enum
+import math
 from typing import Callable, Optional
 
 import torch
 
 from . import path as path_mod
-from .solvers import make_time_grid, odeint_fixed
+from .solvers import (fixed_nfe, make_time_grid, odeint_adaptive, odeint_dopri8, odeint_fixed,
+                      sdeint)
 
 
 class ModelType(enum.Enum):
@@ -40,6 +44,11 @@ class WeightType(enum.Enum):
 
 
 _ADAPTIVE = ("dopri5", "dopri8", "adaptive")
+_PATHS = {
+    PathType.LINEAR: path_mod.LinearPath,
+    PathType.GVP: path_mod.GVPPath,
+    PathType.VP: path_mod.VPPath,
+}
 
 
 def sample_t(batch: int, snr_type: str = "uniform", t0: float = 0.0, t1: float = 1.0, *,
@@ -77,28 +86,34 @@ class Transport:
     """Holds the transport configuration."""
 
     def __init__(self, *, model_type, path_type, loss_type, train_eps, sample_eps, snr_type):
-        if path_type != PathType.LINEAR:
-            raise NotImplementedError(f"{path_type} is not ported yet (ROADMAP queue 1, item 5)")
         self.model_type = model_type
         self.path_type = path_type
         self.loss_type = loss_type
-        self.path_sampler = path_mod.LinearPath()
+        self.path_sampler = _PATHS[path_type]()
         self.train_eps = train_eps
         self.sample_eps = sample_eps
         self.snr_type = snr_type
 
     def check_interval(self, train_eps, sample_eps, *, diffusion_form="SBDM", sde=False,
                        reverse=False, eval=False, last_step_size=0.0):
-        """Integration interval selection (the linear path's branch: the only
-        path the port has)."""
+        """Integration interval selection: VP stops eps short of t=1; the
+        linear and GVP paths step in by eps from the ends for non-velocity
+        models and SDEs."""
         t0, t1 = 0.0, 1.0
         eps = train_eps if not eval else sample_eps
-        if self.model_type != ModelType.VELOCITY or sde:
+        if self.path_type == PathType.VP:
+            t1 = 1.0 - eps if (not sde or last_step_size == 0) else 1.0 - last_step_size
+        elif self.model_type != ModelType.VELOCITY or sde:
             t0 = eps if (diffusion_form == "SBDM" and sde) or self.model_type != ModelType.VELOCITY else 0
             t1 = 1.0 - eps if (not sde or last_step_size == 0) else 1.0 - last_step_size
         if reverse:
             t0, t1 = 1.0 - t0, 1.0 - t1
         return t0, t1
+
+    def prior_logp(self, z):
+        """Standard normal log-density per batch element."""
+        z = z.reshape(z.shape[0], -1)
+        return -z.shape[1] / 2.0 * math.log(2 * math.pi) - (z**2).sum(dim=-1) / 2.0
 
     def training_losses(self, model_fn: Callable, x1, loss_mask=None, *,
                         generator: Optional[torch.Generator] = None, t=None, x0=None):
@@ -145,13 +160,25 @@ class Transport:
             return score_ode
         return velocity_ode
 
+    def get_score(self):
+        """Score function under the chosen parameterization."""
+        path = self.path_sampler
+        if self.model_type == ModelType.NOISE:
+            return lambda x, t, model_fn: model_fn(x, t) / -path.sigma_t(
+                path_mod.expand_t_like_x(t, x))[0]
+        if self.model_type == ModelType.SCORE:
+            return lambda x, t, model_fn: model_fn(x, t)
+        return lambda x, t, model_fn: path.velocity_to_score(model_fn(x, t), x, t)
+
 
 class Sampler:
-    """Sampling-side companion to Transport."""
+    """Sampling-side companion to Transport. Each `sample_fn` it returns
+    records the drift evaluations of its last call as `sample_fn.nfe`."""
 
     def __init__(self, transport: Transport):
         self.transport = transport
         self.drift = transport.get_drift()
+        self.score = transport.get_score()
 
     def time_grid(self, num_steps: int, time_shifting_factor=None, reverse=False):
         """The (num_steps,) fp32 grid `sample_ode` integrates over."""
@@ -161,27 +188,95 @@ class Sampler:
         )
         return make_time_grid(t0, t1, num_steps, time_shifting_factor)
 
-    def sample_ode(self, *, sampling_method="midpoint", num_steps=50, atol=1e-6, rtol=1e-3,
+    def sample_ode(self, *, sampling_method="dopri5", num_steps=50, atol=1e-6, rtol=1e-3,
                    reverse=False, time_shifting_factor=None, return_all=False):
-        """Return `sample_fn(x_init, model_fn) -> samples` for a fixed-step
-        method (euler, midpoint, heun, rk4)."""
-        if sampling_method.lower() in _ADAPTIVE:
-            raise NotImplementedError(f"adaptive ODE method {sampling_method!r} is not "
-                                      "ported yet (ROADMAP queue 1, item 5)")
+        """Return `sample_fn(x_init, model_fn) -> samples`: a fixed-step
+        method (euler, midpoint, heun, rk4) over the `num_steps` points of the
+        grid, or an adaptive one (dopri5 / adaptive, dopri8) saving at them
+        with tolerances `atol` / `rtol`. x_init is a tensor or a tuple of
+        tensors."""
         base_drift = self.drift
         if reverse:
             drift = lambda x, t, model_fn: base_drift(x, torch.ones_like(t) * (1.0 - t), model_fn)
         else:
             drift = base_drift
         ts = self.time_grid(num_steps, time_shifting_factor, reverse=reverse)
+        method = sampling_method.lower()
 
         def sample_fn(x, model_fn):
-            b = x.shape[0]
+            first = x[0] if isinstance(x, (tuple, list)) else x
+            b = first.shape[0]
 
             def f(xx, t_scalar):
-                t = torch.full((b,), float(t_scalar), dtype=torch.float32, device=xx.device)
+                t = torch.full((b,), float(t_scalar), dtype=torch.float32, device=first.device)
                 return drift(xx, t, model_fn)
 
-            return odeint_fixed(f, x, ts, method=sampling_method, return_all=return_all)
+            if method in _ADAPTIVE:
+                solver = odeint_dopri8 if method == "dopri8" else odeint_adaptive
+                out, sample_fn.nfe = solver(f, x, ts, atol=atol, rtol=rtol,
+                                            return_all=return_all)
+                return out
+            out = odeint_fixed(f, x, ts, method=method, return_all=return_all)
+            sample_fn.nfe = fixed_nfe(method, ts.shape[0])
+            return out
+
+        sample_fn.nfe = 0
+        return sample_fn
+
+    def _sde_drift_diffusion(self, diffusion_form, diffusion_norm):
+        def diffusion_fn(x, t, model_fn):
+            return self.transport.path_sampler.diffusion(x, t, form=diffusion_form,
+                                                         norm=diffusion_norm)
+
+        def sde_drift(x, t, model_fn):
+            return self.drift(x, t, model_fn) + diffusion_fn(x, t, model_fn) * self.score(
+                x, t, model_fn)
+
+        return sde_drift, diffusion_fn
+
+    def _last_step_fn(self, sde_drift, last_step, last_step_size):
+        """The configurable final step: none, Mean, Tweedie or Euler."""
+        if last_step is None:
+            return lambda x, t, model_fn: x
+        if last_step == "Mean":
+            return lambda x, t, model_fn: x + sde_drift(x, t, model_fn) * last_step_size
+        if last_step == "Tweedie":
+            alpha = self.transport.path_sampler.alpha_t
+            sigma = self.transport.path_sampler.sigma_t
+            return lambda x, t, model_fn: x / alpha(t)[0][0] + (sigma(t)[0][0] ** 2) / alpha(
+                t)[0][0] * self.score(x, t, model_fn)
+        if last_step == "Euler":
+            return lambda x, t, model_fn: x + self.drift(x, t, model_fn) * last_step_size
+        raise NotImplementedError(last_step)
+
+    def sample_sde(self, *, sampling_method="Euler", diffusion_form="SBDM", diffusion_norm=1.0,
+                   last_step="Mean", last_step_size=0.04, num_steps=250):
+        """Return `sample_fn(x_init, model_fn, generator=None, noise=None) ->
+        x_final`: Euler-Maruyama or Heun steps over the grid, then the last
+        step. The Gaussian draws come from `generator`, or are the
+        num_steps - 1 tensors of `noise`."""
+        if last_step is None:
+            last_step_size = 0.0
+        sde_drift, sde_diffusion = self._sde_drift_diffusion(diffusion_form, diffusion_norm)
+        t0, t1 = self.transport.check_interval(
+            self.transport.train_eps, self.transport.sample_eps,
+            diffusion_form=diffusion_form, sde=True, eval=True, reverse=False,
+            last_step_size=last_step_size,
+        )
+        ts = make_time_grid(t0, t1, num_steps)
+        last_fn = self._last_step_fn(sde_drift, last_step, last_step_size)
+
+        def sample_fn(x, model_fn, generator: Optional[torch.Generator] = None, noise=None):
+            b = x.shape[0]
+
+            def batched(fn):
+                return lambda xx, t_scalar: fn(
+                    xx, torch.full((b,), float(t_scalar), dtype=torch.float32, device=x.device),
+                    model_fn)
+
+            x_last, _ = sdeint(batched(sde_drift), batched(sde_diffusion), x, ts,
+                               generator=generator, method=sampling_method.lower(), noise=noise)
+            t_last = torch.full((b,), float(t1), dtype=torch.float32, device=x.device)
+            return last_fn(x_last, t_last, model_fn)
 
         return sample_fn

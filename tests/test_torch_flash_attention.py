@@ -226,6 +226,37 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, entry):
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 256, 32, 32), (4, 1024, 8, 8), (2, 256, 32, 8),
+                                   (2, 1024, 8, 2)])
+@pytest.mark.parametrize("entry", ["small_kv", "online_lse"])
+def test_head_dim_48_matches_plain_on_card(cuda_device, entry, shape):
+    """K1 (sampling) and K4 (the training forward) at the class-conditional
+    models' head_dim 48: the 600M's (B, 256, 32, 48), the Small's
+    (B, 1024, 8, 48) in pixel space, and both with GQA, a masked tail and a
+    fully masked batch row. Bars: 1e-2 max and 1e-3 mean; LSE 1e-3."""
+    b, s, hq, hkv = shape
+    g = torch.Generator().manual_seed(s + hkv)
+    mk = lambda *sh: torch.randn(*sh, generator=g).to("cuda", torch.bfloat16)
+    q, k, v = mk(b, s, hq, 48), mk(b, s, hkv, 48), mk(b, s, hkv, 48)
+    mask = torch.ones(b, s, dtype=torch.int32)
+    if hkv < hq:
+        mask[0, s - 37:] = 0
+        mask[-1] = 0
+    mask = mask.cuda()
+    before = tfa.LAUNCHES[entry]
+    got = getattr(tfa, f"flash_{entry}")(q, k, v, mask, 48 ** -0.5)
+    ref = getattr(tfa, f"flash_{entry}_plain")(q, k, v, mask, 48 ** -0.5)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES[entry] == before + 1
+    if entry == "online_lse":
+        (got, lse), (ref, ref_lse) = got, ref
+        live = mask.bool().any(dim=1)
+        torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-3, rtol=0)
+    err = (got.float() - ref.float()).abs()
+    assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
+
+
 # Gemma caption lengths: Sk a multiple of 8 up to 256, valid keys per batch
 # row ending inside a 64-key tile, the CFG's empty caption one key (<bos>)
 CAPTION_LENGTHS = {8: (1, 5), 40: (37, 21), 136: (130, 67)}

@@ -429,6 +429,28 @@ def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
         assert not any(t[-1].any() for t in got if t is not None)
 
 
+# the class-conditional models' head_dim 48 (the 64/64 instantiations, the
+# product depth padded past column 48): the 600M's (B, 256, 32, 48) at 256^2
+# and the Small's (B, 1024, 8, 48) at 64^2 in pixel space; (b, sq, sk, hq, hkv)
+CLASS_COND_SHAPES = {"600m": (8, 256, 256, 32, 32), "small": (4, 1024, 1024, 8, 8),
+                     "600m_gqa_masked": (2, 256, 256, 32, 8), "small_gqa_masked": (2, 1024, 1024, 8, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CLASS_COND_SHAPES))
+@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
+def test_head_dim_48_matches_plain_on_card(cuda_device, entry, case):
+    """K6-K8 at head_dim 48 on the class-conditional shapes, unmasked, and
+    with GQA, a masked tail and a fully masked batch row. Bar: 1e-2 of
+    max|ref|, mean 1e-3."""
+    masked = case.endswith("masked")
+    q, k, v, mask, dout = _cuda_inputs(*CLASS_COND_SHAPES[case], d=48, dead_row=masked)
+    if not masked:
+        mask.fill_(1)
+    got, ref = _run(entry, q, k, v, mask, dout, scale=48 ** -0.5)
+    _assert_near(got, ref, 1e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sk,lengths", [(8, (1, 5)), (40, (37, 21)), (136, (130, 67))])
 @pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])

@@ -117,10 +117,17 @@ def test_sample_ode_and_guards():
     ref = j_tr.Sampler(j_tr.create_transport()).sample_ode(**kw)(
         jnp.asarray(x0), lambda x, t: _toy_drift_j(x, t[:, None]))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6, rtol=1e-5)
+    # the adaptive method and the VP path are ported: both agree with JAX
+    kw = dict(sampling_method="dopri5", num_steps=3, atol=1e-5, rtol=1e-5)
+    for path in ("Linear", "VP"):
+        got = t_tr.Sampler(t_tr.create_transport(path)).sample_ode(**kw)(
+            torch.from_numpy(x0), lambda x, t: _toy_drift_t(x, t[:, None]))
+        ref = j_tr.Sampler(j_tr.create_transport(path)).sample_ode(**kw)(
+            jnp.asarray(x0), lambda x, t: _toy_drift_j(x, t[:, None]))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
     with pytest.raises(NotImplementedError):
-        t_tr.Sampler(t_tr.create_transport()).sample_ode(sampling_method="dopri5")
-    with pytest.raises(NotImplementedError):
-        t_tr.create_transport("VP")
+        t_tr.Sampler(t_tr.create_transport()).sample_ode(sampling_method="nope")(
+            torch.from_numpy(x0), lambda x, t: _toy_drift_t(x, t[:, None]))
 
 
 # -- the slice: tiny NextDiT, CFG 4, time-shift 4, midpoint ------------------------

@@ -251,7 +251,8 @@ def test_captions_are_encoded_in_the_collate_thread(assets, tmp_path, monkeypatc
 def test_cli_rejects_what_the_meta_path_cannot_take(assets, tmp_path):
     with pytest.raises(SystemExit, match="pixel_space"):
         _cli(assets, tmp_path, 1, "--pixel_space")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # an ImageFolder trains class-conditional models only
+    with pytest.raises(SystemExit, match="class-conditional"):
         _cli(assets, tmp_path, 1, "--data_path", str(assets["root"]))
 
 
