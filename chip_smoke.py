@@ -46,7 +46,11 @@ last line:
    the class-conditional trainers' shapes (`D48_SHAPES`: the 600M recipe's
    (256, 256, 32, 48), the Small's (64, 1024, 8, 48)) and K1 at the Small's
    sampler shape, timed with bounds and library calls, then with 4:1 GQA, a
-   masked tail and a fully masked row;
+   masked tail and a fully masked row; K2-K8 at head_dim 96 (the 128/128
+   instantiations) at the Flag-DiT 5B's (2, 4160, 32, 96), K1 there against
+   128 caption keys (100 valid), K4 and K6-K8 against 32, and K1 at head_dim
+   128 at the ImageNet 7B's (8, 256, 32, 128), the same way
+   (`wide_head_kernel_phase`);
 3b. experiments: the static-max variants (K10: `static_max_v0..v3`; K11:
    `static_max_v4`, which must equal v1 bit for bit) against their plain
    versions at the experiment's shape (B=2, S=4096, H=32, D=72, bound
@@ -101,7 +105,17 @@ last line:
    decoded by Pillow (the trainer's one decoder), captions encoded in the
    loader's collate thread; finite losses over at least 2 buckets, data
    wait, encoder and VAE-encode ms, peak memory; then
-   `pipelines.encode_latents.main` on 4 images;
+   `pipelines.encode_latents.main` on 4 images (no checkpoint is written: the
+   call's 45 GiB of disk writes);
+5g. flagdit: the Flag-DiT 5B (`DiT_Llama_5B_patch2`, 5.05B, bf16 parameters,
+   zero-init tensors randomised) CFG forward at 1024^2 through the kernels,
+   the plain versions and sdpa; the sampler CLI on it (`--bf16_params
+   --qk_norm`, 10 points, the captions of a random LLaMA-2-7B-wide LM of 2
+   layers, `--vae_ckpt`): calibrated bound, s a step, peak, launches; the
+   ImageNet 7B at 256^2 (K1 at head_dim 128); compositional: the app at
+   1024^2 with a 1 x 4 region grid, 30 points (K2; the region
+   cross-attention plain, as in JAX); img2img: the 2B at 1024^2, strength
+   0.6, 30 points (VAE encode ms, bound, seconds, PNG);
    then the `lumina` CLI's `infer` (2B, 1024^2, the repo's settings,
    --debug: no qk-norm, so no calibration, as in the JAX CLI);
 5c. serving: `build_worker` (2B, bf16, --debug, zero-init tensors
@@ -133,15 +147,22 @@ last line:
    trainer CLI on a shapes ImageFolder, B=64, 5 steps; quality:
    `lumina_t2x_tpu_torch/exps/quality_flow.py` cut to QUALITY_STEPS steps
    and QUALITY_FID_SAMPLES samples, its summary printed (the main path of
-   the head_dim-48 Small rows).
+   the head_dim-48 Small rows);
+10. flagtrain: the 5B trainer (1024^2, B=2, bf16 Adafactor, remat, qk-norm,
+   train bound, 3 steps, the last under LUMINA_FLASH_FUSED_BWD=0, no
+   checkpoint) and the Flag-DiT ImageNet 600M (256^2, B=256, 2 steps); moe:
+   the three Next-DiT-MoE 600M trainers (256^2, B=256, `dots_slim` remat, 2
+   steps), Both's checkpoint sampled, the others with random weights.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 
 import base64
+import gc
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import struct
@@ -194,6 +215,20 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "online_lse_d48_small": (SM90_SOURCE, f"{TPU_KERNELS}:430"),
     "bwd_fused_d48_small": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),
     "small_kv_d48_small": (SM90_SOURCE, f"{TPU_KERNELS}:240"),
+    # head_dim 96, the Flag-DiT 5B (the 128/128 instantiations): its sampler
+    # (K1 on the captions, K2 and K4 in the calibration probe, K3 on the
+    # trajectory) and its trainer (K4, K5 under the train bound, K6; K7/K8 on
+    # its last step)
+    "small_kv_d96_5b": (SM90_SOURCE, f"{TPU_KERNELS}:240"),
+    "online_d96_5b": (SM90_SOURCE, f"{TPU_KERNELS}:228"),
+    "static_max_d96_5b": (SM90_SOURCE, f"{TPU_KERNELS}:66"),
+    "online_lse_d96_5b": (SM90_SOURCE, f"{TPU_KERNELS}:430"),
+    "static_max_lse_d96_5b": (SM90_SOURCE, f"{TPU_KERNELS}:446"),
+    "bwd_fused_d96_5b": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),
+    "bwd_dq_d96_5b": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:552"),
+    "bwd_dkv_d96_5b": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),
+    # head_dim 128: K1 as the Flag-DiT ImageNet 7B's self-attention
+    "small_kv_d128_7b": (SM90_SOURCE, f"{TPU_KERNELS}:240"),
 }
 SAMPLER_KERNELS = ("small_kv", "online", "static_max", "online_lse")
 ROPE_KERNELS = ("rope", "rope_q", "rope_rotate")
@@ -223,6 +258,21 @@ LABELS = "207,360,387,974"
 # Small's sampler runs K1 on the FID batches of 64 under CFG
 D48_SHAPES = {"600m": (256, 256, 32), "small": (64, 1024, 8)}
 D48_K1_SMALL = (128, 1024, 8)
+# head_dim 96 and 128: the Flag-DiT 5B at 1024^2 under CFG (2 rows of 64 x 65
+# tokens with the [eol] column, 32 heads of 96) against up to 128 caption
+# keys (the kernel check: 100 of them valid); the Flag-DiT ImageNet 7B's
+# self-attention at 256^2, 4 labels under CFG
+D96_SHAPE, D96_CAPTION, D128_K1 = (2, 4160, 32, 96), (128, 100), (8, 256, 32, 128)
+# meta-llama/Llama-2-7b-hf's config.json (the 5B's caption LM), depth cut to
+# LLAMA_LAYERS decoder layers: the features are hidden_states[-2]
+LLAMA_2_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                  num_attention_heads=32, num_key_value_heads=32, max_position_embeddings=4096)
+LLAMA_LAYERS = 2
+# the 5B sampler's prompt: 127 characters + <bos> = 128 caption tokens
+FLAG_PROMPT_CHARS = 127
+# the new class-conditional trainers: 256^2 latents, B=256, 2 steps
+MOE_MODELS = ("NextDiT_MoE_600M_patch2_Time", "NextDiT_MoE_600M_patch2_Spatial",
+              "NextDiT_MoE_600M_patch2_Both")
 # the classtrain phase: README's "ImageNet training" recipe on a 16-class
 # shapes ImageFolder of 16 images each at 256^2 (one batch of 256)
 CLASSTRAIN_IMAGES_PER_CLASS, CLASSTRAIN_B = 16, 256
@@ -410,6 +460,13 @@ def build_phase():
             (SM90_BWD_SOURCE, "bwd_fused", D, flash_attention.bwd_sm90_attributes("fused", D)),
             (SM90_BWD_SOURCE, "bwd_dkv", D, flash_attention.bwd_sm90_attributes("dkv", D)),
             (SM90_BWD_SOURCE, "bwd_dq", D, flash_attention.bwd_sm90_attributes("dq", D)),
+            *((SM90_SOURCE, f"{entries}, the 128/128 instantiation", d,
+               flash_attention.sm90_attributes(static, d))
+              for d in (96, 128) for static, entries in (
+                  (False, "small_kv, online, online_lse"), (True, "static_max, static_max_lse"))),
+            *((SM90_BWD_SOURCE, f"bwd_{kernel}, the 128/128 instantiation", d,
+               flash_attention.bwd_sm90_attributes(kernel, d))
+              for d in (96, 128) for kernel in ("fused", "dkv", "dq")),
             *((VPU_SOURCE, f"static_max_{variant}", D, vpu_op_reduction.sm90_attributes(variant, D))
               for variant in vpu_op_reduction.VARIANTS)):
         phase("build", f"{source} ({entry}, head_dim {head_dim}): {info['registers']} registers "
@@ -870,26 +927,44 @@ def imagenet_kernel_phase(fa):
     return {"small_kv_imagenet_600m": {**timed, "max_abs_err": max_err}}
 
 
-def _d48_inputs(g, b, s, h, hkv, masked):
-    q = _rand(g, b, s, h, 48, dtype=torch.bfloat16)
-    k, v = (_rand(g, b, s, hkv, 48, dtype=torch.bfloat16) for _ in range(2))
+def _shape_inputs(g, b, s, h, hkv, d, masked, sk=None, valid=None):
+    """bf16 q (b, s, h, d) and k, v (b, sk, hkv, d), sk = s by default, with
+    no mask, the first `valid` keys of each row valid, or (`masked`) a masked
+    tail and a fully masked last batch row."""
+    sk = sk or s
+    q = _rand(g, b, s, h, d, dtype=torch.bfloat16)
+    k, v = (_rand(g, b, sk, hkv, d, dtype=torch.bfloat16) for _ in range(2))
     mask = None
-    if masked:  # a masked tail and a fully masked batch row
-        mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
-        mask[0, s - s // 5:] = 0
-        mask[-1] = 0
+    if masked or valid:
+        mask = torch.ones(b, sk, dtype=torch.int32, device="cuda")
+        mask[:, valid or sk:] = 0
+        if masked:
+            mask[0, sk - sk // 5:] = 0
+            mask[-1] = 0
     return q, k, v, mask
+
+
+def _static_bound(fa, q, k, v, mask, entry):
+    """The calibrated bound of a static-max entry: max row LSE + the
+    sampler's (6) or the trainer's (8) margin; {} for the others."""
+    if not entry.startswith("static_max"):
+        return {}
+    lse = fa.flash_online_lse_plain(q, k, v, mask, q.shape[-1] ** -0.5)[1]
+    return {"bound": float(lse[torch.isfinite(lse)].max()) + (8.0 if entry.endswith("_lse")
+                                                               else 6.0)}
 
 
 def _check_forward(fa, entry, q, k, v, mask, label):
     """One forward entry against its plain version: (output, max abs err,
-    line). K4's LSE is held to LSE_MAX on the rows that keep a key."""
-    scale = 48 ** -0.5
-    got = getattr(fa, f"flash_{entry}")(q, k, v, mask, scale)
-    ref = getattr(fa, f"flash_{entry}_plain")(q.float(), k.float(), v.float(), mask, scale)
+    line). The LSE of K4/K5 is held to LSE_MAX on the rows that keep a key."""
+    scale = q.shape[-1] ** -0.5
+    kw = _static_bound(fa, q, k, v, mask, entry)
+    got = getattr(fa, f"flash_{entry}")(q, k, v, mask, scale, **kw)
+    ref = getattr(fa, f"flash_{entry}_plain")(q.float(), k.float(), v.float(), mask, scale,
+                                              *kw.values())
     torch.cuda.synchronize()
     line = ""
-    if entry == "online_lse":
+    if entry.endswith("_lse"):
         (got, lse), (ref, ref_lse) = got, ref
         fin = torch.isfinite(ref_lse)
         require(torch.equal(fin, torch.isfinite(lse)), f"{entry} {label}: LSE -inf rows")
@@ -901,7 +976,7 @@ def _check_forward(fa, entry, q, k, v, mask, label):
     require(math.isfinite(max_err) and max_err <= BF16_MAX,
             f"{entry} {label}: max abs err {max_err} > {BF16_MAX}")
     require(mean_err <= BF16_MEAN, f"{entry} {label}: mean abs err {mean_err} > {BF16_MEAN}")
-    if mask is not None:
+    if mask is not None and not bool(mask[-1].any()):
         require(torch.count_nonzero(got[-1]).item() == 0, f"{entry} {label}: masked row not 0")
     return got, max_err, f"max abs err {max_err:.3g} mean {mean_err:.3g}{line}"
 
@@ -909,7 +984,7 @@ def _check_forward(fa, entry, q, k, v, mask, label):
 def _check_backward(fa, q, k, v, mask, dout, label):
     """K6, K7 and K8 against `flash_bwd_plain` (out and LSE from the plain
     LSE forward): ({entry: max abs err}, args, line)."""
-    scale = 48 ** -0.5
+    scale = q.shape[-1] ** -0.5
     out, lse = fa.flash_online_lse_plain(q, k, v, mask, scale)
     args = (q, k, v, mask, out, lse, dout, scale)
     ref = fa.flash_bwd_plain(*args)
@@ -927,7 +1002,7 @@ def _check_backward(fa, q, k, v, mask, dout, label):
             require(math.isfinite(rel_max) and rel_max <= BWD_BF16_MAX,
                     f"{name} {what} {label}: max err {rel_max} of max|ref| > {BWD_BF16_MAX}")
             require(rel_mean <= BWD_BF16_MEAN, f"{name} {what} {label}: mean err {rel_mean}")
-            if mask is not None:
+            if mask is not None and not bool(mask[-1].any()):
                 require(torch.count_nonzero(grad[-1]).item() == 0,
                         f"{name} {what} {label}: fully masked row not 0")
             worst[name] = max(worst.get(name, 0.0), err.max().item())
@@ -935,46 +1010,45 @@ def _check_backward(fa, q, k, v, mask, dout, label):
     return worst, args, "max err / max|ref| " + ", ".join(parts)
 
 
-def d48_kernel_phase(fa):
-    """K4 and K6-K8 at head_dim 48 (the 64/64 instantiations) at the
-    class-conditional trainers' shapes (`D48_SHAPES`), and K1 at the Small's
-    sampler shape, each against its plain version within the bars of the
-    head_dim-72 checks: first all heads and no mask (timed, with its bound and
-    its library call: aten's flash attention with LSE for K4, the sdpa
-    autograd backward for K6-K8, sdpa for K1), then 4:1 GQA with a masked
-    tail and a fully masked batch row."""
-    g = torch.Generator(device="cuda").manual_seed(48)
+def shape_rows(fa, g, d, cases):
+    """Kernel rows at one head_dim: each case (row, entry, (b, s, h), sk,
+    valid) runs twice against its plain version, first with all heads (and
+    the first `valid` of `sk` keys, for a caption) timed with its bound and
+    library call (sdpa for K1-K3, aten's flash attention with LSE for K4/K5,
+    the sdpa autograd backward for K6-K8; `entry` "bwd" stands for all three,
+    rows `bwd_fused<tail>`, `bwd_dq<tail>`, `bwd_dkv<tail>` of row
+    `bwd<tail>`), then with 4:1 GQA, a masked tail and a fully masked batch
+    row. A row with no timed case (sk given as a check) only adds its error."""
     results = {}
-    cases = [(f"{entry}_d48_{tag}", entry, shape) for tag, shape in D48_SHAPES.items()
-             for entry in ("online_lse", "bwd")] + [("small_kv_d48_small", "small_kv",
-                                                     D48_K1_SMALL)]
-    for row, entry, (b, s, h) in cases:
+    for row, entry, (b, s, h), sk, valid, timed in cases:
         for masked in (False, True):
             hkv = h // 4 if masked else h
-            label = f"bf16 ({b}, {s}, {h}/{hkv}, 48)" + (", masked" if masked else "")
-            q, k, v, mask = _d48_inputs(g, b, s, h, hkv, masked)
+            label = (f"bf16 ({b}, {s}, {h}/{hkv}, {d})" + (f", Sk={sk}" if sk else "")
+                     + (f" ({valid} valid)" if valid else "") + (", masked" if masked else ""))
+            q, k, v, mask = _shape_inputs(g, b, s, h, hkv, d, masked, sk, valid)
+            keys = (valid or k.shape[1]) / k.shape[1]  # the products this run's mask needs
+            scale = d ** -0.5
             if entry == "bwd":
-                dout = _rand(g, b, s, h, 48, dtype=torch.bfloat16)
+                dout = _rand(g, b, s, h, d, dtype=torch.bfloat16)
                 worst, args, line = _check_backward(fa, q, k, v, mask, dout, label)
-                tag = row[len("bwd_d48_"):]
                 for name, err in worst.items():
-                    key = f"{name}_d48_{tag}"
+                    key = f"{name}{row[len('bwd'):]}"
                     results.setdefault(key, {"max_abs_err": 0.0})
                     results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
-                if not masked:
+                if not masked and timed:
                     plain_ms = time_ms(lambda: fa.flash_bwd_plain(*args), reps=3)
-                    lib = library_backward(q, k, v, mask, dout, 48 ** -0.5)
+                    lib = library_backward(q, k, v, mask, dout, scale)
                     bounds = _bwd_bounds(q, k, v, args[4], dout, args[5], torch.bfloat16)
-                    timed = []
+                    parts = []
                     for name in ("bwd_fused", "bwd_dq", "bwd_dkv"):
                         fn = getattr(fa, f"flash_{name}")
                         ms = time_ms(lambda: fn(*args), reps=5)
-                        results[f"{name}_d48_{tag}"].update(
+                        results[f"{name}{row[len('bwd'):]}"].update(
                             ms=ms, plain_ms=plain_ms, library_ms=lib["library_ms"],
                             **bounds[name])
-                        timed.append(f"{name} {ms:.3f} ms (bound {bounds[name]['bound_ms']:.4f} "
+                        parts.append(f"{name} {ms:.3f} ms (bound {bounds[name]['bound_ms']:.4f} "
                                      f"ms, {bounds[name]['bound_by']})")
-                    line += (f"; {', '.join(timed)}; plain {plain_ms:.3f} ms; library backward "
+                    line += (f"; {', '.join(parts)}; plain {plain_ms:.3f} ms; library backward "
                              f"{lib['library_ms']:.3f} ms ({lib['library_kernel']})")
                 phase("kernels", f"backward {label}: {line}")
                 del dout, args
@@ -982,26 +1056,58 @@ def d48_kernel_phase(fa):
                 got, err, line = _check_forward(fa, entry, q, k, v, mask, label)
                 results.setdefault(row, {"max_abs_err": 0.0})
                 results[row]["max_abs_err"] = max(results[row]["max_abs_err"], err)
-                if not masked:
-                    scale = 48 ** -0.5
+                if not masked and timed:
                     kernel = getattr(fa, f"flash_{entry}")
                     plain = getattr(fa, f"flash_{entry}_plain")
-                    lse_bytes = b * h * s * 4 if entry == "online_lse" else 0
-                    timed = {"ms": time_ms(lambda: kernel(q, k, v, None, scale)),
-                             "plain_ms": time_ms(lambda: plain(q, k, v, None, scale), reps=3),
-                             **least_time(_nbytes(q, k, v, got) + lse_bytes,
-                                          attention_ops(q, k, 2), torch.bfloat16)}
-                    lib = (library_forward_lse if entry == "online_lse" else library_forward)(
-                        q, k, v, None, scale)
-                    timed["library_ms"] = lib["library_ms"]
-                    results[row].update(timed)
-                    line += (f"; kernel {timed['ms']:.3f} ms, plain {timed['plain_ms']:.3f} ms, "
-                             f"bound {timed['bound_ms']:.4f} ms ({timed['bound_by']}), library "
-                             f"{timed['library_ms']:.3f} ms ({lib['library_kernel']})")
+                    kw = _static_bound(fa, q, k, v, mask, entry)
+                    lse_bytes = b * h * s * 4 if entry.endswith("_lse") else 0
+                    stats = {"ms": time_ms(lambda: kernel(q, k, v, mask, scale, **kw)),
+                             "plain_ms": time_ms(lambda: plain(q, k, v, mask, scale,
+                                                               *kw.values()), reps=3),
+                             **least_time(_nbytes(q, k, v, mask, got) + lse_bytes,
+                                          attention_ops(q, k, 2) * keys, torch.bfloat16)}
+                    lib = (library_forward_lse if entry.endswith("_lse") and mask is None
+                           else library_forward)(q, k, v, mask, scale)
+                    stats["library_ms"] = lib["library_ms"]
+                    results[row].update(stats)
+                    line += (f"; kernel {stats['ms']:.3f} ms, plain {stats['plain_ms']:.3f} ms, "
+                             f"bound {stats['bound_ms']:.4f} ms ({stats['bound_by']}), library "
+                             f"{stats['library_ms']:.3f} ms ({lib['library_kernel']})")
                 phase("kernels", f"{entry} {label}: {line}")
                 del got
             del q, k, v, mask
             torch.cuda.empty_cache()
+    return results
+
+
+def d48_kernel_phase(fa):
+    """K4 and K6-K8 at head_dim 48 (the 64/64 instantiations) at the
+    class-conditional trainers' shapes (`D48_SHAPES`), and K1 at the Small's
+    sampler shape (`shape_rows`)."""
+    cases = [(f"{entry}_d48_{tag}", entry, shape, None, None, True)
+             for tag, shape in D48_SHAPES.items() for entry in ("online_lse", "bwd")]
+    cases.append(("small_kv_d48_small", "small_kv", D48_K1_SMALL, None, None, True))
+    return shape_rows(fa, torch.Generator(device="cuda").manual_seed(48), 48, cases)
+
+
+def wide_head_kernel_phase(fa):
+    """K1-K8 at head_dim 96 (Flag-DiT 5B: dim 3072 over 32 heads; 64 x 65
+    tokens at 1024^2 with the [eol] column) and K1 at head_dim 128 (Flag-DiT
+    ImageNet 7B: 4096 over 32): the 128/128 instantiations (`shape_rows`).
+    K2-K8 at D96_SHAPE; K1 at Sq 4160 against the sampler's 128 caption keys
+    (100 valid); K4 and K6-K8 also against the trainer's 32 caption keys;
+    K1 at D128_K1."""
+    b, s, h, _ = D96_SHAPE
+    sk, valid = D96_CAPTION
+    cases = [(f"{entry}_d96_5b", entry, (b, s, h), None, None, True)
+             for entry in ("online", "static_max", "online_lse", "static_max_lse", "bwd")]
+    cases += [("small_kv_d96_5b", "small_kv", (b, s, h), sk, valid, True),
+              ("online_lse_d96_5b", "online_lse", (b, s, h), TRAIN_CAP, None, False),
+              ("bwd_d96_5b", "bwd", (b, s, h), TRAIN_CAP, None, False)]
+    g = torch.Generator(device="cuda").manual_seed(96)
+    results = shape_rows(fa, g, 96, cases)
+    results.update(shape_rows(fa, g, 128, [("small_kv_d128_7b", "small_kv", D128_K1[:3], None,
+                                            None, True)]))
     return results
 
 
@@ -1503,7 +1609,6 @@ def _sample_cli(fa, argv):
     CUDA calls)."""
     import contextlib
     import io
-    import re
 
     from lumina_t2x_tpu_torch.pipelines import sample as sample_cli
 
@@ -1515,6 +1620,7 @@ def _sample_cli(fa, argv):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     said = re.findall(r" in ([0-9.]+)s", buf.getvalue())
+    manifest["stdout"] = buf.getvalue()
     return (manifest, wall, float(said[-1]) if said else None, dict(fa.LAUNCHES),
             fa.PLAIN_CUDA_CALLS["count"])
 
@@ -1595,21 +1701,36 @@ def _class_metrics(results_dir, model):
         return [json.loads(line) for line in f]
 
 
-def _run_trainer(fa, argv, fused_bwd=True):
+def _run_trainer(fa, argv, save=True, unfused_from=None):
     """`pipelines.train.main(argv)` with the launch counts reset: (state, wall
-    seconds, launches, plain-version CUDA calls, peak GiB)."""
+    seconds, launches, plain-version CUDA calls, peak GiB). `save=False` turns
+    the trainer's checkpoint writes into no-ops (the call's 45 GiB of disk
+    writes); `unfused_from=n` sets LUMINA_FLASH_FUSED_BWD=0 from step n
+    (1-based) on, so that those steps run K7/K8."""
     from lumina_t2x_tpu_torch.pipelines import train as train_cli
 
+    saved = (train_cli.save_checkpoint, train_cli.make_train_step)
+    if not save:
+        train_cli.save_checkpoint = lambda *args, **kwargs: "(not written)"
+    if unfused_from:
+        def make_train_step(*args, **kwargs):
+            step_fn = saved[1](*args, **kwargs)
+
+            def step(state, *rest, **kw):
+                if state.step + 1 >= unfused_from:
+                    os.environ["LUMINA_FLASH_FUSED_BWD"] = "0"
+                return step_fn(state, *rest, **kw)
+            return step
+        train_cli.make_train_step = make_train_step
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    if not fused_bwd:
-        os.environ["LUMINA_FLASH_FUSED_BWD"] = "0"
     try:
         t0 = time.perf_counter()
         state = train_cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
+        train_cli.save_checkpoint, train_cli.make_train_step = saved
         os.environ.pop("LUMINA_FLASH_FUSED_BWD", None)
     return (state, wall, dict(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"],
             torch.cuda.max_memory_allocated() / 2**30)
@@ -1666,7 +1787,7 @@ def classtrain_phase(fa, vae_path):
             require(launches[name] > 0, f"kernel {name} was not launched by the class trainer")
 
         state, wall2, resumed, plain, peak2 = _run_trainer(
-            fa, argv + ["--max_steps", "4", "--auto_resume"], fused_bwd=False)
+            fa, argv + ["--max_steps", "4", "--auto_resume"], unfused_from=1)
         require(state.step == 4, f"resumed class trainer stopped at step {state.step}")
         del state
         torch.cuda.empty_cache()
@@ -2119,7 +2240,6 @@ def t2idata_phase(fa, vae_path, gemma_path):
     Gemma-2B (--text_encoder) and the VAE (--vae_ckpt) in the loop, decoded
     by Pillow. Then encode_latents on 4 of the images."""
     from lumina_t2x_tpu_torch.pipelines import encode_latents
-    from lumina_t2x_tpu_torch.pipelines import train as train_cli
     from lumina_t2x_tpu_torch.utils import png_bytes
 
     captions = ["a lighthouse", PROMPT, LONG_PROMPT[:130], "a red fox in the snow at dusk",
@@ -2137,21 +2257,16 @@ def t2idata_phase(fa, vae_path, gemma_path):
         with open(cfg, "w") as f:
             f.write(f"META:\n  - path: {tmp}/ann.json\n    type: default\n    root: {tmp}\n")
         results = os.path.join(tmp, "results")
-        torch.cuda.reset_peak_memory_stats()
-        fa.reset_launch_counts()
-        t0 = time.perf_counter()
-        state = train_cli.main(
-            ["--model", "NextDiT_2B_patch2", "--data_path", cfg, "--image_size", "1024",
-             "--global_batch_size", str(B), "--precision", "bf16", "--grad_precision", "fp32",
-             "--qk_norm", "--checkpointing", "--flash_static_max", "auto", "--optimizer",
-             "adafactor", "--param_dtype", "bf16", "--text_encoder", gemma_path, "--vae_ckpt",
-             vae_path, "--num_workers", "4", "--results_dir", results,
-             "--max_steps", "3", "--log_every", "1", "--ckpt_every", "1000", "--device", "cuda"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(fa.LAUNCHES)
-        plain = fa.PLAIN_CUDA_CALLS["count"]
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        # no checkpoint: the trainer phase writes and resumes the 2B's, and this
+        # one's 7.4 GiB would take the call past its 45 GiB of disk writes
+        state, wall, launches, plain, peak = _run_trainer(fa, [
+            "--model", "NextDiT_2B_patch2", "--data_path", cfg, "--image_size", "1024",
+            "--global_batch_size", str(B), "--precision", "bf16", "--grad_precision", "fp32",
+            "--qk_norm", "--checkpointing", "--flash_static_max", "auto", "--optimizer",
+            "adafactor", "--param_dtype", "bf16", "--text_encoder", gemma_path, "--vae_ckpt",
+            vae_path, "--num_workers", "4", "--results_dir", results,
+            "--max_steps", "3", "--log_every", "1", "--ckpt_every", "1000", "--device", "cuda"],
+            save=False)
         require(state.step == 3, f"meta trainer stopped at step {state.step}")
         del state
         fa.set_flash_static_max_train(None)
@@ -2178,8 +2293,8 @@ def t2idata_phase(fa, vae_path, gemma_path):
               f"{[round(m['train/data_wait_ms'], 1) for m in metrics]} ms, text encode "
               f"{[round(m['train/text_encode_ms'], 2) for m in metrics]} ms, VAE encode "
               f"{[round(m['train/vae_encode_ms'], 1) for m in metrics]} ms; peak memory "
-              f"{peak:.2f} GiB; wall {wall:.1f} s incl. set-up and save; launches {launches}; "
-              f"plain-version CUDA calls {plain}")
+              f"{peak:.2f} GiB; wall {wall:.1f} s incl. set-up, no checkpoint written; launches "
+              f"{launches}; plain-version CUDA calls {plain}")
 
         out = os.path.join(tmp, "encoded")
         fa.reset_launch_counts()
@@ -2202,6 +2317,326 @@ def t2idata_phase(fa, vae_path, gemma_path):
     torch.cuda.empty_cache()
 
 
+# -- Flag-DiT, Next-DiT-MoE, compositional generation, img2img -------------------------
+
+
+def _steady(metrics):
+    """Mean seconds a step after the first (the first builds and warms up)."""
+    rest = [r["train/secs_per_step"] for r in metrics[1:]] or [metrics[0]["train/secs_per_step"]]
+    return statistics.mean(rest)
+
+
+def _launched(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def _write_llama(path):
+    """A LlamaModel at LLaMA-2-7B's widths (`LLAMA_2_7B`), LLAMA_LAYERS
+    decoder layers, bf16, random from seed 0, with the port's character-level
+    tokenizer, saved for `--text_encoder`. Returns its parameter count."""
+    from transformers import LlamaConfig, LlamaModel
+
+    from lumina_t2x_tpu_torch.codecs.text_encoders import char_tokenizer
+
+    torch.manual_seed(0)
+    default_dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.bfloat16)
+    try:
+        with torch.device("cuda"):
+            model = LlamaModel(LlamaConfig(num_hidden_layers=LLAMA_LAYERS, **LLAMA_2_7B))
+    finally:
+        torch.set_default_dtype(default_dtype)
+    n = sum(p.numel() for p in model.parameters())
+    model.save_pretrained(path)
+    char_tokenizer().save_pretrained(path)
+    del model
+    torch.cuda.empty_cache()
+    return n
+
+
+def flag_dit_phase(fa, vae_path):
+    """The Flag-DiT 5B (`DiT_Llama_5B_patch2` at its published widths, bf16
+    parameters, qk-norm): one CFG forward at 1024^2 (zero-init tensors
+    randomised) through the kernels, the plain versions and sdpa; then the
+    sampler CLI with `--bf16_params --qk_norm`, 1024^2, CFG 4, t-shift 4, a
+    10-point midpoint trajectory, random weights from --seed, the captions
+    of a random LLaMA-2-7B-wide LM (`_write_llama`: 128 tokens) and
+    `--vae_ckpt`; then FlagDiT_ImageNet_7B_patch2 --bf16_params, 4 labels at
+    256^2, 10 points. Returns the launches of the head_dim-96 sampler rows
+    and of K1 at head_dim 128."""
+    from lumina_t2x_tpu_torch.models import get_model
+    from lumina_t2x_tpu_torch.models.flag_dit import forward_with_cfg
+
+    torch.manual_seed(0)
+    model = get_model("DiT_Llama_5B_patch2", qk_norm=True, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16, device="cuda").eval()
+    n = _randomise_zero_init(model, 5)
+    params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(1, 4, 128, 128, generator=g, device="cuda").repeat(2, 1, 1, 1)
+    cap = torch.randn(2, 128, 4096, generator=g, device="cuda")
+    cap_mask = torch.ones(2, 128, dtype=torch.int32, device="cuda")
+    cap_mask[1, 1:] = 0  # the empty caption: <bos> only
+    t = torch.zeros(2, device="cuda")
+    outs = {}
+    with torch.no_grad():
+        for impl in ("flash", "plain", "xla"):
+            model.set_attn_impl(impl)
+            outs[impl] = forward_with_cfg(model, x, t, 4.0, cap_feats=cap, cap_mask=cap_mask)
+    torch.cuda.synchronize()
+    fast, ref = outs["flash"], outs["plain"]
+    require(fast.shape == (2, 4, 128, 128) and bool(torch.isfinite(fast).all()),
+            "5B forward: bad shape or non-finite output")
+    rel = ((fast - ref).norm() / ref.norm()).item()
+    floor = ((outs["xla"] - ref).norm() / ref.norm()).item()
+    phase("flagdit", f"DiT_Llama_5B_patch2 ({params / 1e9:.3f}B params, {2 * params / 2**30:.2f} "
+          f"GiB in bf16, {n} zero-init tensors randomised) CFG forward at 1024^2 (64 x 65 tokens "
+          f"with [eol], head_dim 96), 128 caption tokens: rel L2 kernels vs plain {rel:.4g} "
+          f"(sdpa vs plain {floor:.4g})")
+    require(rel <= max(2e-2, GRAD_FLOOR_FACTOR * floor), f"5B forward rel L2 {rel}")
+    del model, outs, fast, ref
+    torch.cuda.empty_cache()
+
+    llama = os.path.join(ROOT, "build", "llama_2_7b_cut")
+    with tempfile.TemporaryDirectory() as out:
+        n_llama = _write_llama(llama)
+        prompts = os.path.join(out, "prompts.txt")
+        with open(prompts, "w") as f:
+            f.write((LONG_PROMPT * 2)[:FLAG_PROMPT_CHARS - 1] + ".\n")  # no trailing space
+        torch.cuda.reset_peak_memory_stats()
+        manifest, wall, secs, launches, plain = _sample_cli(
+            fa, ["--model", "DiT_Llama_5B_patch2", "--bf16_params", "--qk_norm",
+                 "--text_encoder", llama, "--caption_path", prompts, "--resolution",
+                 "1:1024x1024", "--num_sampling_steps", "10", "--cfg_scale", "4.0",
+                 "--time_shifting_factor", "4", "--seed", "0", "--vae_ckpt", vae_path,
+                 "--image_save_path", os.path.join(out, "png")])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pixels = _pngs(manifest, (1024, 1024, 3))
+        shutil.rmtree(llama)
+    bound = re.findall(r"static-max calibrated: ([0-9.]+)", manifest["stdout"])
+    require(len(pixels) == 1 and plain == 0, f"5B sampler: {len(pixels)} PNGs, {plain} plain")
+    require(manifest["args"]["cap_feat_dim"] == 4096 and manifest["caption_tokens"] == [128, 1],
+            f"5B captions: {manifest['args']['cap_feat_dim']}, {manifest['caption_tokens']}")
+    require(bool(bound), "the 5B sampler did not calibrate")
+    for name in SAMPLER_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched by the 5B sampler")
+    phase("flagdit", f"sample.main DiT_Llama_5B_patch2 --bf16_params --qk_norm --text_encoder "
+          f"<LLaMA-2-7B widths, {LLAMA_LAYERS} layers, {n_llama / 1e9:.3f}B params> 1024^2, "
+          f"10-point midpoint, CFG 4, t-shift 4, --vae_ckpt: one PNG 1024x1024 (mean "
+          f"{pixels[0].mean():.1f}); caption tokens {manifest['caption_tokens']}; calibrated "
+          f"bound {bound[0]}; trajectory and decode {secs} s, {manifest['seconds'] / 9:.3f} s a "
+          f"midpoint step (2 CFG forwards); peak memory {peak:.2f} GiB; wall {wall:.1f} s incl. "
+          f"set-up; launches {_launched(launches)}; plain-version CUDA calls {plain}")
+
+    gc.collect()  # what the 5B sampler left to the cycle collector (its model)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.reset_peak_memory_stats()
+        manifest7, wall7, secs7, launches7, plain7 = _sample_cli(
+            fa, ["--model", "FlagDiT_ImageNet_7B_patch2", "--bf16_params", "--debug",
+                 "--labels", LABELS, "--resolution", "1:256x256", "--num_sampling_steps", "10",
+                 "--cfg_scale", "4.0", "--vae_ckpt", vae_path, "--image_save_path", out])
+        peak7 = torch.cuda.max_memory_allocated() / 2**30
+        pixels7 = _pngs(manifest7, (256, 256, 3))
+    require(len(pixels7) == 4 and plain7 == 0 and launches7["small_kv"] == 32 * manifest7["nfe"],
+            f"7B sampler: {len(pixels7)} PNGs, launches {launches7}, plain {plain7}")
+    phase("flagdit", f"sample.main FlagDiT_ImageNet_7B_patch2 --bf16_params --debug --labels "
+          f"{LABELS} 256^2, 10-point midpoint, CFG 4, --vae_ckpt: 4 PNGs; trajectory "
+          f"{manifest7['seconds']:.2f} s, with decode {secs7} s; peak memory {peak7:.2f} GiB; "
+          f"wall {wall7:.1f} s; launches {_launched(launches7)} (K1 at {D128_K1})")
+    torch.cuda.empty_cache()
+    return {**{f"{name}_d96_5b": launches[name] for name in SAMPLER_KERNELS},
+            "small_kv_d128_7b": launches7["small_kv"]}
+
+
+def flag_dit_train_phase(fa):
+    """The 5B trainer on `synthetic://128x128` (1024^2 latents), B=2, bf16
+    Adafactor, --param_dtype bf16, --checkpointing, --cap_feat_dim 4096,
+    --qk_norm, --flash_static_max auto, 3 steps, the third under
+    LUMINA_FLASH_FUSED_BWD=0, no checkpoint written (a 5B one is 19 GiB of
+    the call's 45 GiB of writes); then FlagDiT_ImageNet_600M_patch2 through
+    the class-conditional trainer at 256^2, B=256, 2 steps. Returns the
+    launches of the head_dim-96 trainer rows and the 600M's."""
+    with tempfile.TemporaryDirectory() as results:
+        state, wall, launches, plain, peak = _run_trainer(fa, [
+            "--model", "DiT_Llama_5B_patch2", "--data_path", "synthetic://128x128",
+            "--global_batch_size", "2", "--max_steps", "3", "--precision", "bf16",
+            "--optimizer", "adafactor", "--param_dtype", "bf16", "--checkpointing",
+            "--cap_feat_dim", "4096", "--qk_norm", "--flash_static_max", "auto",
+            "--results_dir", results, "--log_every", "1", "--device", "cuda"],
+            save=False, unfused_from=3)
+        m = _class_metrics(results, "DiT_Llama_5B_patch2")
+    params = sum(p.numel() for p in state.model.parameters())
+    require(state.step == 3 and len(m) == 3 and all(math.isfinite(r["train/loss"]) for r in m),
+            f"5B trainer: step {state.step}, losses {[r['train/loss'] for r in m]}")
+    require(plain == 0, f"5B trainer: plain versions ran {plain} times on CUDA")
+    for name in TRAIN_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched by the 5B trainer")
+    del state
+    torch.cuda.empty_cache()
+    phase("flagtrain", f"train.main DiT_Llama_5B_patch2 ({params / 1e9:.3f}B params) "
+          f"synthetic 1024^2 latents, B=2, bf16 Adafactor, --checkpointing, --qk_norm "
+          f"--flash_static_max auto, 3 steps (the third with LUMINA_FLASH_FUSED_BWD=0), no "
+          f"checkpoint: losses {[round(r['train/loss'], 5) for r in m]}; s/step "
+          f"{[round(r['train/secs_per_step'], 3) for r in m]}; peak memory {peak:.2f} GiB; wall "
+          f"{wall:.1f} s; launches {_launched(launches)}")
+    rows = {f"{name}_d96_5b": launches[name] for name in TRAIN_KERNELS}
+    fa.set_flash_static_max_train(None)
+
+    model = "FlagDiT_ImageNet_600M_patch2"
+    with tempfile.TemporaryDirectory() as results:
+        state, wall, l600, plain, peak = _run_trainer(fa, [
+            "--model", model, "--data_path", "synthetic://32x32", "--global_batch_size", "256",
+            "--max_steps", "2", "--precision", "bf16", "--optimizer", "adafactor",
+            "--param_dtype", "bf16", "--checkpointing", "--qk_norm", "--results_dir", results,
+            "--log_every", "1", "--device", "cuda"], save=False)
+        m = _class_metrics(results, model)
+    require(state.step == 2 and all(math.isfinite(r["train/loss"]) for r in m) and plain == 0
+            and l600["online_lse"] > 0 and l600["bwd_fused"] > 0,
+            f"{model}: step {state.step}, launches {l600}, plain {plain}")
+    phase("flagtrain", f"train.main {model} synthetic 256^2 latents, B=256, bf16 Adafactor, "
+          f"--checkpointing --qk_norm, 2 steps: losses {[round(r['train/loss'], 5) for r in m]}; "
+          f"s/step {[round(r['train/secs_per_step'], 3) for r in m]} "
+          f"({CLASSTRAIN_B / _steady(m):.1f} imgs/s after the first); peak memory {peak:.2f} GiB; "
+          f"wall {wall:.1f} s; launches {_launched(l600)}")
+    del state
+    torch.cuda.empty_cache()
+    return rows, l600
+
+
+def moe_phase(fa):
+    """Each Next-DiT-MoE 600M variant through the trainer on
+    `synthetic://32x32` (256^2 latents), B=256, bf16 Adafactor,
+    --checkpointing with `dots_slim` (`dots` would keep ~54 GB of matmul
+    outputs for Time and Spatial, ~94 GB for Both: two top-2 FFNs), --qk_norm,
+    2 steps; `Both` writes its step-2 checkpoint
+    (the bytes reckoned first) and the sampler CLI loads it for 4 labels at
+    256^2 (10 points); `Time` and `Spatial` write none and are sampled with
+    --debug random weights. Returns the launches at the 600M's head_dim-48
+    shapes."""
+    from lumina_t2x_tpu_torch.models import get_model
+
+    total = {}
+    for model in MOE_MODELS:
+        both = model.endswith("Both")
+        n = sum(p.numel() for p in get_model(model, device="meta").parameters())
+        with tempfile.TemporaryDirectory() as results:
+            state, wall, launches, plain, peak = _run_trainer(fa, [
+                "--model", model, "--data_path", "synthetic://32x32",
+                "--global_batch_size", "256", "--max_steps", "2", "--precision", "bf16",
+                "--optimizer", "adafactor", "--param_dtype", "bf16", "--checkpointing",
+                "--remat_policy", "dots_slim", "--qk_norm", "--results_dir", results,
+                "--log_every", "1", "--device", "cuda"], save=both)
+            m = _class_metrics(results, model)
+            require(state.step == 2 and all(math.isfinite(r["train/loss"]) for r in m)
+                    and plain == 0 and launches["online_lse"] > 0 and launches["bwd_fused"] > 0,
+                    f"{model}: step {state.step}, launches {launches}, plain {plain}")
+            del state
+            torch.cuda.empty_cache()
+            written = ""
+            argv = ["--debug", "--model", model]
+            if both:
+                ckpt = os.path.join(results, model, "checkpoints", "0000002")
+                size = sum(os.path.getsize(os.path.join(d, f))
+                           for d, _, files in os.walk(ckpt) for f in files)
+                written = (f"; checkpoint {size / 2**30:.2f} GiB (reckoned: model and EMA "
+                           f"{2 * 2 * n / 2**30:.2f} GiB in bf16 + Adafactor's factored stats)")
+                argv = ["--ckpt", ckpt]
+            manifest, swall, secs, sl, splain = _sample_cli(fa, argv + [
+                "--labels", LABELS, "--resolution", "1:256x256", "--num_sampling_steps", "10",
+                "--cfg_scale", "4.0", "--image_save_path", os.path.join(results, "samples")])
+            samples = [np.load(item["path"]) for item in manifest["items"]]
+        require(len(samples) == 4 and all(a.shape == (4, 32, 32) and np.isfinite(a).all()
+                                          for a in samples) and splain == 0
+                and sl["small_kv"] == 16 * manifest["nfe"],
+                f"{model} samples: {[a.shape for a in samples]}, launches {sl}, plain {splain}")
+        phase("moe", f"train.main {model} ({n / 1e9:.3f}B params) synthetic 256^2 latents, "
+              f"B=256, bf16 Adafactor, --checkpointing --qk_norm, 2 steps: losses "
+              f"{[round(r['train/loss'], 5) for r in m]}; s/step "
+              f"{[round(r['train/secs_per_step'], 3) for r in m]}; peak memory {peak:.2f} GiB; "
+              f"wall {wall:.1f} s{written}; launches {_launched(launches)}; sample.main "
+              f"{'--ckpt <step 2>' if both else '--debug'} --labels {LABELS} 256^2, 10 points: "
+              f"4 latents {samples[0].shape}, finite, std "
+              f"{[round(float(a.std()), 3) for a in samples]}; trajectory "
+              f"{manifest['seconds']:.2f} s; K1 launches {sl['small_kv']}")
+        for key, value in {**launches, "small_kv": sl["small_kv"]}.items():
+            total[key] = total.get(key, 0) + value
+    torch.cuda.empty_cache()
+    return total
+
+
+def compositional_phase(fa, vae_path):
+    """`pipelines.compositional_app.main` on NextDiT_2B_patch2_Compositional
+    (random weights from --seed, hashed caption features) at 1024^2 with a
+    1 x 4 region grid, 30 points, --vae_ckpt: seconds, K2's launches (the
+    self-attention; the region cross-attention is plain, as in JAX) and the
+    PNG. Returns its launches."""
+    from lumina_t2x_tpu_torch.pipelines import compositional_app
+
+    fa.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        manifest = compositional_app.main([
+            "--region_prompts", "a red fox", "a snowy field", "a frozen lake", "a pine forest",
+            "--global_prompt", "a winter landscape at dawn", "--h_split_num", "1",
+            "--w_split_num", "4", "--resolution", "1024x1024", "--num_sampling_steps", "30",
+            "--vae_ckpt", vae_path, "--image_save_path", out, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(manifest["png"], "rb") as f:
+            pixels = _png_pixels(f.read())
+        latent = np.load(manifest["output"])
+    launches, plain = dict(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"]
+    require(pixels.shape == (1024, 1024, 3) and latent.shape == (1, 4, 128, 128)
+            and np.isfinite(latent).all(), f"compositional: PNG {pixels.shape}, {latent.shape}")
+    require(plain == 0 and launches["online"] == 24 * manifest["nfe"],
+            f"compositional: launches {launches}, NFE {manifest['nfe']}, plain {plain}")
+    phase("compositional", f"compositional_app NextDiT_2B_patch2_Compositional 1024^2, 1 x 4 "
+          f"regions, 30-point midpoint, CFG 4, --vae_ckpt: PNG {pixels.shape} (mean "
+          f"{pixels.mean():.1f}); trajectory {manifest['seconds']:.2f} s (NFE {manifest['nfe']}), "
+          f"wall {wall:.1f} s incl. set-up and decode; K2 launches {launches['online']}; "
+          f"launches {_launched(launches)}; plain-version CUDA calls {plain}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def img2img_phase(fa, vae_path):
+    """`pipelines.sample_img2img.main` on NextDiT_2B_patch2 (random weights
+    from --seed, qk-norm) at --image_size 1024, strength 0.6, 30 points,
+    --vae_ckpt, from a generated 1280x1024 PNG: the VAE-encode ms, the
+    calibrated bound, the trajectory seconds and the PNG. Returns its
+    launches."""
+    from lumina_t2x_tpu_torch.pipelines import sample_img2img
+    from lumina_t2x_tpu_torch.utils import png_bytes
+
+    fa.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as out:
+        image = os.path.join(out, "in.png")
+        with open(image, "wb") as f:
+            f.write(png_bytes(_smoke_image(1280, 1024, 9)))
+        t0 = time.perf_counter()
+        manifest = sample_img2img.main([
+            "--image_path", image, "--caption", PROMPT, "--image_size", "1024",
+            "--strength", "0.6", "--num_sampling_steps", "30", "--vae_ckpt", vae_path,
+            "--image_save_path", os.path.join(out, "out"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(manifest["output"], "rb") as f:
+            pixels = _png_pixels(f.read())
+    launches, plain = dict(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"]
+    require(pixels.shape == (1024, 1024, 3) and plain == 0 and manifest["static_max"] is not None,
+            f"img2img: PNG {pixels.shape}, bound {manifest['static_max']}, plain {plain}")
+    for name in SAMPLER_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched by img2img")
+    phase("img2img", f"sample_img2img NextDiT_2B_patch2 --image_size 1024 --strength 0.6, "
+          f"30 points, --vae_ckpt: VAE encode {manifest['encode_ms']:.1f} ms; calibrated bound "
+          f"{manifest['static_max']:.4f}; trajectory {manifest['seconds']:.2f} s (NFE "
+          f"{manifest['nfe']}); PNG {pixels.shape} (mean {pixels.mean():.1f}); wall {wall:.1f} s "
+          f"incl. set-up; launches {_launched(launches)}; plain-version CUDA calls {plain}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     device_phase()
     sys.path.insert(0, ROOT)
@@ -2216,6 +2651,7 @@ def main():
     results.update(rope_kernel_phase(fa))
     results.update(imagenet_kernel_phase(fa))
     results.update(d48_kernel_phase(fa))
+    results.update(wide_head_kernel_phase(fa))
     exp_results, exp_launches = experiments_phase()
     results.update(exp_results)
     latent_1024 = slice_phase(fa, *forward_phase(fa))
@@ -2228,14 +2664,33 @@ def main():
         t2i_encoder_phase(fa, vae_path, gemma_path)
         t2idata_phase(fa, vae_path, gemma_path)
         shutil.rmtree(gemma_path)
+        flag_launches = flag_dit_phase(fa, vae_path)
+        composed = compositional_phase(fa, vae_path)
+        edited = img2img_phase(fa, vae_path)
     cli_phase(fa)
     launches = serving_phase(fa)
+    # the 2B's other main paths at the rows' self-attention shape: the
+    # compositional app (K2; its region cross-attention is plain) and img2img
+    # (K2/K3; its K1 runs against 32 stand-in caption keys, not the row's
+    # Sk=256, and its K4 calibration is outside the trainer's K4 row)
+    for name in ("online", "static_max"):
+        launches[name] += composed[name] + edited[name]
     launches.update(imagenet_launches)
     gradient_phase(fa)
     recipe_phase(fa)
     launches.update(trainer_phase(fa))  # K4: the training path's count
     small = pixel_phase(fa)
     quality = quality_phase(fa)
+    flag_train, flag_600m = flag_dit_train_phase(fa)
+    moe = moe_phase(fa)
+    # head_dim 96: the 5B sampler's and trainer's; the 600M shapes: the
+    # Flag-DiT ImageNet and MoE trainers and the MoE samplers join classcond's and classtrain's
+    flag_launches["online_lse_d96_5b"] += flag_train.pop("online_lse_d96_5b")
+    launches.update(flag_launches)
+    launches.update(flag_train)
+    for name in ("online_lse", "bwd_fused"):
+        launches[f"{name}_d48_600m"] += flag_600m[name] + moe[name]
+    launches["small_kv_imagenet_600m"] += moe["small_kv"]
     launches.update({"online_lse_d48_small": small["online_lse"] + quality["online_lse"],
                      "bwd_fused_d48_small": small["bwd_fused"] + quality["bwd_fused"],
                      "small_kv_d48_small": quality["small_kv"]})

@@ -14,8 +14,9 @@ dicts of numpy arrays, transformer layers stacked under `layers/`, or per
 layer under `blocks_<i>/`) into the reference-layout state dict that the
 port's `NextDiT.load_state_dict(..., strict=True)` takes.
 `train_state_from_jax` extends it to the EMA tree and the optimizer state.
-`imagenet_state_dict_from_jax_params` does the same for NextDiT-ImageNet
-and `vae_state_dict_from_jax` turns a JAX `AutoencoderKL` tree into the
+`imagenet_state_dict_from_jax_params`, `flag_dit_state_dict_from_jax_params`
+and `moe_state_dict_from_jax_params` do the same for NextDiT-ImageNet,
+Flag-DiT and Next-DiT-MoE (the compositional model takes NextDiT's), and `vae_state_dict_from_jax` turns a JAX `AutoencoderKL` tree into the
 diffusers layout of the port's VAE (`codecs/vae.py`).
 `gemma_state_dict_from_flax` carries a Flax Gemma tree into transformers'
 torch `GemmaModel` (the caption encoder, `codecs/text_encoders.py`).
@@ -91,13 +92,24 @@ def _layer_items(flat, per_layer_prefix):
              if k.startswith(f"{per_layer_prefix}{i}/")} for i in idxs]
 
 
+_EXPERT_STACK = re.compile(r"(.+)/(w[123])")
+
+
 def _with_layers(out, flat, per_layer_prefix):
     """`out` plus the layers of `flat` under `layers.<i>.*`, as CPU tensors
     that own their memory: the arrays may be read-only views of JAX buffers,
-    and the port's optimizers update their state in place."""
+    and the port's optimizers update their state in place. A MoE layer's
+    stacked (E, in, out) expert matrices `<ffn>/w{1,2,3}` become
+    `layers.<i>.<ffn>.experts.<j>.w{1,2,3}.weight`."""
     for i, items in enumerate(_layer_items(flat, per_layer_prefix)):
         for sub, arr in items.items():
-            out[_torch_name(sub, i)] = arr.T if sub.endswith("kernel") else arr
+            experts = _EXPERT_STACK.fullmatch(sub)
+            if experts:
+                base = f"layers.{i}.{experts.group(1).replace('/', '.')}.experts"
+                for j in range(arr.shape[0]):
+                    out[f"{base}.{j}.{experts.group(2)}.weight"] = arr[j].T
+            else:
+                out[_torch_name(sub, i)] = arr.T if sub.endswith("kernel") else arr
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
 
 
@@ -127,12 +139,51 @@ def imagenet_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, tor
     of the JAX package's `import_next_dit_imagenet_weights`."""
     flat = _flatten(params)
     out: Dict[str, np.ndarray] = {}
+    _put_stem(out, flat)
+    return _with_layers(out, flat, "layers_")
+
+
+def _put_stem(out, flat):
+    """The class-conditional and Flag-DiT stems: the patch embedding, the
+    timestep MLP, the label table or the caption embedder, the [eol] token
+    and the final layer, whichever the tree holds."""
     _put_linear(out, flat, "x_embedder", "x_embedder")
     _put_linear(out, flat, "t_embedder.mlp.0", "t_embedder/mlp_0")
     _put_linear(out, flat, "t_embedder.mlp.2", "t_embedder/mlp_2")
-    out["y_embedder.embedding_table.weight"] = flat["y_embedder/embedding"]
+    if "y_embedder/embedding" in flat:
+        out["y_embedder.embedding_table.weight"] = flat["y_embedder/embedding"]
+    if "cap_embedder/proj/kernel" in flat:
+        out["cap_embedder.0.weight"] = flat["cap_embedder/norm/weight"]
+        out["cap_embedder.0.bias"] = flat["cap_embedder/norm/bias"]
+        _put_linear(out, flat, "cap_embedder.1", "cap_embedder/proj")
+    if "eol_token" in flat:
+        out["eol_token"] = flat["eol_token"]
     _put_linear(out, flat, "final_layer.linear", "final_layer/linear")
     _put_linear(out, flat, "final_layer.adaLN_modulation.1", "final_layer/adaLN_modulation")
+
+
+def flag_dit_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax FlagDiT params (text or class-conditional; layers stacked under
+    `layers/`, or per layer under `layers_<i>/`) -> the reference `DiT_Llama`
+    state dict that the port's `FlagDiT` loads with `strict=True`: the
+    inverse of the JAX package's `import_flag_dit_weights`."""
+    flat = _flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    _put_stem(out, flat)
+    return _with_layers(out, flat, "layers_")
+
+
+def moe_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax NextDiTMoE params (any mode; layers stacked under `layers/`, or
+    per layer under `layers_<i>/`) -> the reference Next-DiT-MoE state dict
+    that the port's `NextDiTMoE` loads with `strict=True`: each stacked
+    (E, in, out) expert matrix becomes E `experts.<j>.w*.weight`s, the gate
+    kernel `gate.weight`; the inverse of the JAX package's
+    `import_next_dit_moe_weights`. (AdamW moments map the same way; the
+    (1,) placeholders of Adafactor's factored stats do not.)"""
+    flat = _flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    _put_stem(out, flat)
     return _with_layers(out, flat, "layers_")
 
 
@@ -190,8 +241,9 @@ def train_state_from_jax(params, ema, opt_state, state_dict_fn=None):
     """A JAX train state (flax params, EMA tree, optax/fused optimizer state)
     -> (model state dict, EMA state dict, optimizer state) in the port's
     layouts, each tree mapped by `state_dict_fn` (default: the NextDiT's
-    `state_dict_from_jax_params`; `imagenet_state_dict_from_jax_params` for
-    the class-conditional model). The optimizer state may hold AdamW's
+    `state_dict_from_jax_params`; `imagenet_state_dict_from_jax_params`,
+    `flag_dit_state_dict_from_jax_params` or `moe_state_dict_from_jax_params`
+    for the other families). The optimizer state may hold AdamW's
     `mu`/`nu`/`count` (optax chain or `FusedAdamWEMA`, plus a schedule count
     under warmup) or
     Adafactor's factored stats (`FusedAdafactorEMA`). Adafactor's row/column

@@ -316,6 +316,17 @@ class FinalLayer(nn.Module):
         return self.linear(modulate(self.norm_final(x), scale, shift))
 
 
+def cfg_mix(out, cfg_scale, num_cfg_channels: int = 3):
+    """Classifier-free guidance over a (cond, uncond) batch: the first
+    `num_cfg_channels` channels of both halves become
+    `uncond + cfg_scale * (cond - uncond)`, the rest pass through."""
+    eps, rest = out[:, :num_cfg_channels], out[:, num_cfg_channels:]
+    b = eps.shape[0] // 2
+    cond_eps, uncond_eps = eps[:b], eps[b:]
+    half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
+    return torch.cat([torch.cat([half_eps, half_eps], dim=0), rest], dim=1)
+
+
 def patchify(x, patch_size: int):
     """(B, C, H, W) -> (B, L, p*p*C) tokens, last dim ordered (C, ph, pw)."""
     b, c, h, w = x.shape

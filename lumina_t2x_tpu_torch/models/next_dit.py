@@ -31,6 +31,7 @@ from .layers import (
     RMSNorm,
     TimestepEmbedder,
     _linear,
+    cfg_mix,
     maybe_remat,
     modulate,
     patchify,
@@ -40,7 +41,10 @@ from .layers import (
 
 
 class NextDiTBlock(nn.Module):
-    """Sandwich-norm transformer block with 4-chunk adaLN."""
+    """Sandwich-norm transformer block with 4-chunk adaLN; its attention
+    module is an `attention_cls`."""
+
+    attention_cls = Attention
 
     def __init__(self, dim: int, n_heads: int, n_kv_heads: Optional[int], multiple_of: int,
                  ffn_dim_multiplier: Optional[float], norm_eps: float, qk_norm: bool,
@@ -51,8 +55,9 @@ class NextDiTBlock(nn.Module):
             nn.SiLU(), _linear(cond_dim, 4 * dim, init="zeros", device=device, dtype=param_dtype))
         nk = dict(eps=norm_eps, device=device)
         self.attention_y_norm = RMSNorm(y_dim, **nk)
-        self.attention = Attention(dim, n_heads, n_kv_heads, qk_norm=qk_norm, y_dim=y_dim,
-                                   attn_impl=attn_impl, param_dtype=param_dtype, device=device)
+        self.attention = self.attention_cls(dim, n_heads, n_kv_heads, qk_norm=qk_norm,
+                                            y_dim=y_dim, attn_impl=attn_impl,
+                                            param_dtype=param_dtype, device=device)
         self.attention_norm1 = RMSNorm(dim, **nk)
         self.attention_norm2 = RMSNorm(dim, **nk)
         self.feed_forward = FeedForward(dim, 4 * dim, multiple_of, ffn_dim_multiplier,
@@ -75,7 +80,9 @@ class NextDiTBlock(nn.Module):
 
 class NextDiT(nn.Module):
     """See module docstring. `dtype` is the activation dtype; parameters are
-    stored in `param_dtype`."""
+    stored in `param_dtype`; the layers are `block_cls` blocks."""
+
+    block_cls = NextDiTBlock
 
     def __init__(self, patch_size: int = 2, in_channels: int = 4, dim: int = 4096,
                  n_layers: int = 32, n_heads: int = 32, n_kv_heads: Optional[int] = None,
@@ -117,9 +124,9 @@ class NextDiT(nn.Module):
         self.cap_embedder = CaptionEmbedder(cap_feat_dim, cond_dim, param_dtype=param_dtype,
                                             device=device)
         self.layers = nn.ModuleList([
-            NextDiTBlock(dim, n_heads, n_kv_heads, multiple_of, ffn_dim_multiplier, norm_eps,
-                         qk_norm, cap_feat_dim, attn_impl=attn_impl, param_dtype=param_dtype,
-                         device=device)
+            self.block_cls(dim, n_heads, n_kv_heads, multiple_of, ffn_dim_multiplier, norm_eps,
+                           qk_norm, cap_feat_dim, attn_impl=attn_impl, param_dtype=param_dtype,
+                           device=device)
             for _ in range(n_layers)
         ])
         self.final_layer = FinalLayer(dim, patch_size, self.out_channels, cond_dim,
@@ -204,12 +211,7 @@ def forward_with_cfg(model: NextDiT, x, t, cap_feats, cap_mask, cfg_scale, *,
                 proportional_attn=proportional_attn, base_seqlen=base_seqlen,
                 attn_scale_variant=attn_scale_variant, kv_merge_ratio=kv_merge_ratio,
                 lse_recorder=lse_recorder)
-    eps, rest = out[:, :num_cfg_channels], out[:, num_cfg_channels:]
-    b = eps.shape[0] // 2
-    cond_eps, uncond_eps = eps[:b], eps[b:]
-    half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
-    eps = torch.cat([half_eps, half_eps], dim=0)
-    return torch.cat([eps, rest], dim=1)
+    return cfg_mix(out, cfg_scale, num_cfg_channels)
 
 
 # -- configs -------------------------------------------------------------------

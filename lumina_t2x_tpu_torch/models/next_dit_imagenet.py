@@ -30,6 +30,7 @@ from .layers import (
     RMSNorm,
     TimestepEmbedder,
     _linear,
+    cfg_mix,
     maybe_remat,
     modulate,
     patchify,
@@ -145,14 +146,12 @@ def forward_with_cfg(model: NextDiTImageNet, x, t, y, cfg_scale, num_cfg_channel
     """Duplicated-half-batch CFG: the first half of x runs with the labels
     and the null labels of `y`; guidance is applied to the first
     `num_cfg_channels` channels only (3 of 4, as in the reference), the rest
-    pass through."""
+    pass through. `y` goes by keyword, so the class-conditional Flag-DiT and
+    Next-DiT-MoE models take it too (Flag-DiT's third positional slot is
+    cap_feats)."""
     half = x[: x.shape[0] // 2]
-    out = model(torch.cat([half, half], dim=0), t, y, **kwargs)
-    eps, rest = out[:, :num_cfg_channels], out[:, num_cfg_channels:]
-    b = eps.shape[0] // 2
-    cond_eps, uncond_eps = eps[:b], eps[b:]
-    half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
-    return torch.cat([torch.cat([half_eps, half_eps], dim=0), rest], dim=1)
+    out = model(torch.cat([half, half], dim=0), t, y=y, **kwargs)
+    return cfg_mix(out, cfg_scale, num_cfg_channels)
 
 
 # -- configs -------------------------------------------------------------------

@@ -276,7 +276,9 @@ def build_worker(model_name: str = "NextDiT_2B_patch2", precision: str = "bf16",
     """The demo model and its worker (or pool) from CLI-level options. A
     checkpoint's model args (model, qk_norm, cap_feat_dim) override the
     defaults and its `ema` stream is loaded; `--debug` ignores `ckpt` and
-    keeps random weights from `seed`."""
+    keeps random weights from `seed`. The caption width is 2048 for every
+    model, `DiT_Llama_5B_patch2` included, unless the checkpoint says
+    otherwise, as in the JAX demo."""
     from .sample import load_model
 
     args = argparse.Namespace(model=model_name, ckpt=ckpt, debug=debug, qk_norm=True,
@@ -284,7 +286,7 @@ def build_worker(model_name: str = "NextDiT_2B_patch2", precision: str = "bf16",
                               pixel_space=False)
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     devices = _devices(device, num_workers)
-    model = load_model(args, dtype, torch.float32, devices[0])
+    model = load_model(args, dtype, torch.float32, devices[0], cap_feat_dim=2048)
     if num_workers != 1:
         return WorkerPool(model, devices=devices, cap_feat_dim=args.cap_feat_dim)
     return InferenceWorker(model, cap_feat_dim=args.cap_feat_dim)

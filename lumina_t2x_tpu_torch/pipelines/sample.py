@@ -1,7 +1,8 @@
 """Sampling CLI (counterpart of `lumina_t2x_tpu/pipelines/sample.py`): the
-class-conditional branch (a NextDiT-ImageNet model, `--labels`, the
-ADM-evaluator FID npz of `--num_fid_samples`) and the text-to-image branch
-(caption features from the LM of `--text_encoder`, static-max calibration),
+class-conditional branch (a NextDiT-ImageNet, Flag-DiT ImageNet or
+Next-DiT-MoE model, `--labels`, the ADM-evaluator FID npz of
+`--num_fid_samples`) and the text-to-image branch (NextDiT or Flag-DiT;
+caption features from the LM of `--text_encoder`, static-max calibration),
 each an ODE trajectory;
 PNGs through the SD-VAE of `--vae_ckpt` (or directly under `--pixel_space`),
 `.npy` latents otherwise, and a `data.json` manifest.
@@ -16,11 +17,15 @@ PNGs through the SD-VAE of `--vae_ckpt` (or directly under `--pixel_space`),
 Weights come from `--ckpt` (the `ema` stream of a checkpoint directory,
 whose `model_args` override `--model`, `--qk_norm`, `--cap_feat_dim`,
 `--num_classes` and `--pixel_space`) or are random from `--seed`;
+`--bf16_params` stores them in bf16 (what lets the 5B and 7B sample on one
+card);
 `--debug` ignores `--ckpt` and `--text_encoder`, as in the JAX package. The
 text-to-image branch encodes the prompts (`--caption_path`, one per line)
 and as many empty captions for CFG with `--text_encoder` (a local directory
 of the LM and its tokenizer, `codecs/text_encoders.py`); without one, 32
-random caption tokens per prompt stand in. The branch is chosen on the
+random caption tokens per prompt stand in. The caption width is
+`--cap_feat_dim`, else the checkpoint's, else the text encoder's, else the
+model's own (Flag-DiT 5B: 4096, LLaMA-2-7B's) or 2048 (Gemma-2B's). The branch is chosen on the
 resolved model name. Noise is drawn on the device from `--seed`. `--solver
 dopri5|dopri8` integrates adaptively; the text-to-image branch passes it
 `--atol` / `--rtol`, while the class-conditional branch runs it at the
@@ -41,7 +46,8 @@ import torch
 
 from ..codecs.vae import decode_from_latent, load_vae
 from ..core.checkpoint import init_from, load_model_args
-from ..models import get_model
+from ..models import default_cap_feat_dim, get_model
+from ..models import is_class_cond as class_cond_model
 from ..utils import png_bytes
 from .sample_lib import (autocalibrate_flash_static_max, build_class_cond_sample_fn,
                          build_t2i_sample_fn)
@@ -109,16 +115,18 @@ def parse_resolution(entry: str):
 
 
 def is_class_cond(args) -> bool:
-    """Class-conditional sampling: labels given, or an ImageNet model."""
-    return args.labels is not None or "ImageNet" in args.model
+    """Class-conditional sampling: labels given, or an ImageNet or MoE model."""
+    return args.labels is not None or class_cond_model(args.model)
 
 
-def load_model(args, dtype, param_dtype, device):
+def load_model(args, dtype, param_dtype, device, cap_feat_dim=None):
     """The model of `args`: a checkpoint's recorded model args override
     `--model`, `--qk_norm`, `--cap_feat_dim`, `--num_classes` and
     `--pixel_space`, and its `ema` stream replaces the random weights (every
     parameter must be restored); random weights from `--seed` under
-    `--debug` or without `--ckpt`."""
+    `--debug` or without `--ckpt`. A text-to-image model's caption width is
+    `args.cap_feat_dim`, else the checkpoint's, else `cap_feat_dim`, else
+    the registry's `default_cap_feat_dim`."""
     train_args = {}
     use_ckpt = bool(args.ckpt) and not args.debug
     if use_ckpt:
@@ -140,7 +148,8 @@ def load_model(args, dtype, param_dtype, device):
         if args.pixel_space:
             raise SystemExit("error: --pixel_space needs a class-conditional model")
         if args.cap_feat_dim is None:
-            args.cap_feat_dim = int(train_args.get("cap_feat_dim") or 2048)
+            args.cap_feat_dim = int(train_args.get("cap_feat_dim") or cap_feat_dim
+                                    or default_cap_feat_dim(args.model))
         kwargs["cap_feat_dim"] = args.cap_feat_dim
     torch.manual_seed(args.seed)
     model = get_model(args.model, **kwargs).eval()

@@ -1,9 +1,10 @@
 """Sampling (counterpart of `lumina_t2x_tpu/pipelines/sample_lib.py`): the
-class-conditional and the text-to-image samplers (CFG duplication,
-time-aware RoPE scaling, the fixed-step or adaptive ODE solver, driven as a
-plain Python step loop), plus the static-max calibration of the streaming
-attention kernel. Each `sample_fn` records the model evaluations of its last
-call as `sample_fn.nfe`.
+class-conditional, text-to-image and image-to-image samplers (CFG
+duplication, time-aware RoPE scaling for NextDiT or the NTK extrapolation of
+Flag-DiT, the fixed-step or adaptive ODE solver, driven as a plain Python
+step loop), plus the static-max calibration of the streaming attention
+kernel. Each `sample_fn` records the model evaluations of its last call as
+`sample_fn.nfe`.
 """
 
 from __future__ import annotations
@@ -14,12 +15,14 @@ from typing import Optional
 
 import torch
 
+from ..models.flag_dit import FlagDiT
+from ..models.flag_dit import forward_with_cfg as flag_dit_cfg
 from ..models.next_dit import forward_with_cfg as next_dit_cfg
 from ..models.next_dit_imagenet import forward_with_cfg as imagenet_cfg
 from ..ops.attention import resolve_impl
 from ..ops.flash_attention import flash_static_max_scope, streams_kv
 from ..transport import Sampler, create_transport
-from ..transport.solvers import time_shift
+from ..transport.solvers import fixed_nfe, odeint_fixed, time_shift
 
 
 def resolution_scale_factor(width: int, height: int, train_res: int = 1024) -> float:
@@ -40,7 +43,8 @@ def build_class_cond_sample_fn(
     rope_scaling_factor: float = 1.0,
     ntk_factor: float = 1.0,
 ):
-    """Class-conditional sampler. Returns `sample_fn(z, labels) -> latents`:
+    """Class-conditional sampler (NextDiT-ImageNet, Flag-DiT ImageNet,
+    Next-DiT-MoE). Returns `sample_fn(z, labels) -> latents`:
     z is the (B, in_channels, latent_size, latent_size) starting noise,
     labels the (B,) class ids; the unconditional half-batch takes the null
     class (`model.num_classes`). The self-attention runs the online kernels
@@ -72,20 +76,33 @@ def build_class_cond_sample_fn(
     return sample_fn
 
 
-def _cfg_kwargs(model, width, height, train_res, scale_watershed, proportional_attn,
-                vae_downsample, time_aware_scaling=True):
-    """The forward_with_cfg keywords the sampler and the probe share."""
+def _t2i_cfg(model, width, height, train_res, scale_watershed, proportional_attn,
+             vae_downsample, time_aware_scaling=True):
+    """The CFG forward the sampler and the probe share:
+    `fn(x, t, cap_feats, cap_mask, cfg_scale, lse_recorder=None)`. NextDiT
+    scales its RoPE time-aware beyond `train_res`^2; Flag-DiT instead takes
+    the NTK factor seq_len / base_seqlen over the image tokens (the [eol]
+    column left out), with no time-aware scaling."""
     do_extrapolation = (width * height) > (train_res * train_res)
+    base_seqlen = (train_res // vae_downsample // model.patch_size) ** 2
+    proportional_attn = proportional_attn and do_extrapolation
+    if isinstance(model, FlagDiT):
+        seq_len = ((height // vae_downsample // model.patch_size)
+                   * (width // vae_downsample // model.patch_size))
+        kw = dict(ntk_factor=seq_len / base_seqlen if do_extrapolation else 1.0,
+                  proportional_attn=proportional_attn, base_seqlen=base_seqlen)
+        return lambda x, t, cap_feats, cap_mask, cfg_scale, lse_recorder=None: flag_dit_cfg(
+            model, x, t, cfg_scale, cap_feats=cap_feats, cap_mask=cap_mask,
+            lse_recorder=lse_recorder, **kw)
     if not time_aware_scaling:
         scale_factor, scale_watershed = 1.0, 1.0
     else:
         scale_factor = resolution_scale_factor(width, height, train_res) if do_extrapolation else 1.0
-    return dict(
-        scale_factor=scale_factor,
-        scale_watershed=scale_watershed if do_extrapolation else 1.0,
-        proportional_attn=proportional_attn and do_extrapolation,
-        base_seqlen=(train_res // vae_downsample // model.patch_size) ** 2,
-    )
+    kw = dict(scale_factor=scale_factor,
+              scale_watershed=scale_watershed if do_extrapolation else 1.0,
+              proportional_attn=proportional_attn, base_seqlen=base_seqlen)
+    return lambda x, t, cap_feats, cap_mask, cfg_scale, lse_recorder=None: next_dit_cfg(
+        model, x, t, cap_feats, cap_mask, cfg_scale, lse_recorder=lse_recorder, **kw)
 
 
 def build_t2i_sample_fn(
@@ -107,7 +124,7 @@ def build_t2i_sample_fn(
     atol: float = 1e-6,
     rtol: float = 1e-3,
 ):
-    """Text-to-image sampler. Returns `sample_fn(z, cap_feats, cap_mask) ->
+    """Text-to-image sampler (NextDiT, Flag-DiT). Returns `sample_fn(z, cap_feats, cap_mask) ->
     latents`: z is the (B, C, H/8, W/8) starting noise, cap_feats holds the
     conditional rows then the unconditional (empty-prompt) rows, (2B, Ly, D).
     The grid has `num_steps` points, so a fixed-step solver takes
@@ -122,15 +139,15 @@ def build_t2i_sample_fn(
     sampler = Sampler(create_transport(path_type, "velocity"))
     ode_fn = sampler.sample_ode(sampling_method=solver, num_steps=num_steps,
                                 time_shifting_factor=time_shifting_factor, atol=atol, rtol=rtol)
-    kw = _cfg_kwargs(model, width, height, train_res, scale_watershed, proportional_attn,
-                     vae_downsample, time_aware_scaling)
+    cfg = _t2i_cfg(model, width, height, train_res, scale_watershed, proportional_attn,
+                   vae_downsample, time_aware_scaling)
 
     @torch.no_grad()
     def sample_fn(z, cap_feats, cap_mask):
         b = z.shape[0]
 
         def model_fn(x, t):
-            return next_dit_cfg(model, x, t, cap_feats, cap_mask, cfg_scale, **kw)
+            return cfg(x, t, cap_feats, cap_mask, cfg_scale)
 
         with flash_static_max_scope(static_max):
             out = ode_fn(torch.cat([z, z], dim=0), model_fn)
@@ -190,8 +207,8 @@ def autocalibrate_flash_static_max(
     if not streams_kv((lh // model.patch_size) * (lw // model.patch_size)):
         return None
 
-    kw = _cfg_kwargs(model, width, height, train_res, scale_watershed, proportional_attn,
-                     vae_downsample)
+    cfg = _t2i_cfg(model, width, height, train_res, scale_watershed, proportional_attn,
+                   vae_downsample)
     device = cap_feats.device
     if z is None:
         z = torch.randn((cap_feats.shape[0] // 2, in_channels, lh, lw), generator=generator,
@@ -206,8 +223,7 @@ def autocalibrate_flash_static_max(
         for i in range(num_probe_steps):
             t = torch.full((x.shape[0],), float(ts[i]), dtype=torch.float32, device=device)
             recorder = []
-            vel = next_dit_cfg(model, x, t, cap_feats, cap_mask, cfg_scale,
-                               lse_recorder=recorder, **kw)
+            vel = cfg(x, t, cap_feats, cap_mask, cfg_scale, lse_recorder=recorder)
             if not recorder:
                 return None
             ranges = torch.stack(recorder)
@@ -218,3 +234,52 @@ def autocalibrate_flash_static_max(
     if not math.isfinite(gmax) or not math.isfinite(gmin) or gmax - gmin > spread_limit:
         return None
     return gmax + margin
+
+
+def build_img2img_sample_fn(
+    model,
+    *,
+    strength: float = 0.6,
+    num_steps: int = 30,
+    solver: str = "midpoint",
+    cfg_scale: float = 4.0,
+    time_shifting_factor: Optional[float] = 4.0,
+    static_max: Optional[float] = None,
+):
+    """SDEdit-style image-to-image: the ODE starts from `z * (1 - t0) + x1 * t0`,
+    t0 = 1 - strength, over the `num_steps`-point grid of [t0, 1], time-shifted
+    and re-normalised to start at t0 and end at 1. Returns
+    `sample_fn(z, x1, cap_feats, cap_mask) -> latents`: z the starting noise
+    and x1 the image's latent, both (B, C, h, w); cap_feats holds the
+    conditional rows then the unconditional ones. The model runs the plain
+    NextDiT CFG forward (no RoPE scaling), as in JAX. `static_max`: the
+    bound of the streaming self-attention, as in `build_t2i_sample_fn`."""
+    if not 0.0 < strength <= 1.0:
+        raise ValueError(f"strength must be in (0, 1], got {strength} "
+                         "(0 would leave a degenerate single-point schedule)")
+    if num_steps < 2:
+        raise ValueError(f"num_steps must be >= 2, got {num_steps} "
+                         "(the truncated grid renormalization needs a span)")
+    t0 = 1.0 - strength
+    ts = torch.linspace(t0, 1.0, num_steps, dtype=torch.float32)
+    ts = time_shift(ts, time_shifting_factor) if time_shifting_factor else ts
+    ts = t0 + (ts - ts[0]) * (1.0 - t0) / (ts[-1] - ts[0])
+
+    @torch.no_grad()
+    def sample_fn(z, x1, cap_feats, cap_mask):
+        if z.shape != x1.shape:
+            raise ValueError(f"noise {tuple(z.shape)} and latent {tuple(x1.shape)} differ")
+        b = x1.shape[0]
+        x_start = z * (1.0 - t0) + x1 * t0
+
+        def drift(x, t_scalar):
+            t = torch.full((x.shape[0],), float(t_scalar), dtype=torch.float32, device=x.device)
+            return next_dit_cfg(model, x, t, cap_feats, cap_mask, cfg_scale)
+
+        with flash_static_max_scope(static_max):
+            out = odeint_fixed(drift, torch.cat([x_start, x_start], dim=0), ts, method=solver)
+        sample_fn.nfe = fixed_nfe(solver, num_steps)
+        return out[:b]
+
+    sample_fn.nfe = 0
+    return sample_fn

@@ -1,6 +1,7 @@
 """Training CLI (counterpart of `lumina_t2x_tpu/pipelines/train.py`): the
-class-conditional NextDiT-ImageNet trainer and the text-to-image NextDiT
-trainer, on one process and one device.
+class-conditional trainer (NextDiT-ImageNet, Flag-DiT ImageNet,
+Next-DiT-MoE) and the text-to-image trainer (NextDiT, `DiT_Llama_5B_patch2`),
+on one process and one device.
 
     python -m lumina_t2x_tpu_torch.pipelines.train --model NextDiT_ImageNet_600M_patch2 \
         --data_path /path/to/imagenet/train --image_size 256 --global_batch_size 256 \
@@ -8,6 +9,9 @@ trainer, on one process and one device.
     python -m lumina_t2x_tpu_torch.pipelines.train --model NextDiT_2B_patch2 \
         --data_path synthetic://128x128 --global_batch_size 2 --precision bf16 \
         --grad_precision fp32 --qk_norm --checkpointing --flash_static_max auto
+    python -m lumina_t2x_tpu_torch.pipelines.train --model NextDiT_MoE_600M_patch2_Both \
+        --data_path synthetic://32x32 --global_batch_size 256 --optimizer adafactor \
+        --param_dtype bf16 --checkpointing
     python -m lumina_t2x_tpu_torch.pipelines.train --model NextDiT_2B_patch2 \
         --data_path configs/data/example.yaml --image_size 1024 --text_encoder <gemma dir> \
         --vae_ckpt sd-vae-ft-ema.safetensors --global_batch_size 2 --qk_norm --checkpointing
@@ -25,7 +29,7 @@ the transport (training is velocity-only, as in JAX).
 
 Data:
 - `--data_path synthetic://HxW`: random (B, C, H, W) latents and, for a
-  class-conditional model (an `ImageNet` name), labels below its
+  class-conditional model (an `ImageNet` or `MoE` name), labels below its
   `num_classes`; else 32 random caption tokens of `--cap_feat_dim`; from
   `--global_seed`.
 - `--data_path <ImageFolder directory>` (class-conditional models): ADM
@@ -52,9 +56,9 @@ and each item its crop origin or flip from (seed, position in the stream),
 so a resumed run takes the steps an uninterrupted one would. (JAX flips
 with the unseeded global `np.random`, so its folder runs do not repeat.)
 
-Not ported (each raises `NotImplementedError` naming its ROADMAP item): MoE
-models (queue 1 item 8), `--model_parallel_size > 1` and several processes
-(item 9), `--async_save` and `--profile_steps` (item 7); `--h2d_diet` is
+Not ported (each raises `NotImplementedError` naming its ROADMAP item):
+`--model_parallel_size > 1` and several processes (queue 1 item 9),
+`--async_save` and `--profile_steps` (item 7); `--h2d_diet` is
 TPU-only ("Do not port"). `--data_parallel` is accepted and means nothing on
 one process.
 """
@@ -77,7 +81,8 @@ import torch
 from ..core.checkpoint import (find_auto_resume, init_from as init_from_ckpt, load_checkpoint,
                                save_checkpoint)
 from ..core.logging import MetricsWriter, Throughput, create_logger
-from ..models import get_model
+from ..models import default_cap_feat_dim, get_model
+from ..models import is_class_cond as class_cond_model
 from ..ops.flash_attention import set_flash_static_max_train
 from ..transport import create_transport
 from ..utils import hashed_caption_features
@@ -128,7 +133,9 @@ def parse_args(argv=None):
     p.add_argument("--text_encoder", type=str, default=None,
                    help="local directory of the caption LM (Gemma-2B) and its tokenizer; omit "
                         "for hashed pseudo-features")
-    p.add_argument("--cap_feat_dim", type=int, default=2048)
+    p.add_argument("--cap_feat_dim", type=int, default=None,
+                   help="caption width (default: the registry's, 4096 for the Flag-DiT 5B, "
+                        "2048 for the others)")
     p.add_argument("--max_caption_len", type=int, default=256)
     p.add_argument("--cache_data_on_disk", action="store_true",
                    help="keep the meta dataset's annotations in an h5 cache (needs h5py)")
@@ -149,20 +156,21 @@ def parse_args(argv=None):
     p.add_argument("--async_save", action="store_true")
     p.add_argument("--h2d_diet", action="store_true")
     p.add_argument("--device", type=str, default="cuda")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.cap_feat_dim is None:
+        args.cap_feat_dim = default_cap_feat_dim(args.model)
+    return args
 
 
 def is_class_cond(args) -> bool:
-    return "ImageNet" in args.model
+    return class_cond_model(args.model)
 
 
 def _check_ported(args):
-    if "MoE" in args.model:
-        raise NotImplementedError("MoE models are not ported yet (ROADMAP queue 1, item 8)")
     folder = os.path.isdir(args.data_path)
     if folder and not is_class_cond(args):
-        raise SystemExit("an ImageFolder --data_path trains a class-conditional (ImageNet) "
-                         "model; text-to-image models take synthetic:// or a meta config")
+        raise SystemExit("an ImageFolder --data_path trains a class-conditional (ImageNet or "
+                         "MoE) model; text-to-image models take synthetic:// or a meta config")
     if args.pixel_space and not (folder or args.data_path.startswith("synthetic://")):
         raise SystemExit("--pixel_space supports class-cond folder or synthetic:// data, not "
                          "the meta-dataset text-to-image pipeline")

@@ -189,15 +189,29 @@ def _stochastic_round_bf16(x32: torch.Tensor, key: Sequence[int]) -> torch.Tenso
 # -- Adafactor ---------------------------------------------------------------------
 
 _LAYER = re.compile(r"^layers\.\d+\.")
+_EXPERT = re.compile(r"\.experts\.\d+\.")
+
+
+def _leaf_key(name: str) -> str:
+    return _EXPERT.sub(".experts.*.", _LAYER.sub("layers.*.", name))
 
 
 def _leaf_groups(names: Sequence[str]) -> List[List[str]]:
     """Parameter names grouped as the JAX package's leaves: `layers.<i>.X`
-    for every i is one (stacked) leaf, every other name its own."""
+    for every i is one (stacked) leaf, and so is `...experts.<j>.X` for
+    every j (a MoE layer stacks its experts); every other name is its own."""
     groups: Dict[str, List[str]] = {}
     for name in names:
-        groups.setdefault(_LAYER.sub("layers.*.", name), []).append(name)
+        groups.setdefault(_leaf_key(name), []).append(name)
     return list(groups.values())
+
+
+def _stacked_axes(group: Sequence[str]) -> List[int]:
+    """The sizes of the axes a JAX leaf stacks over the group's names: the
+    layer count and, for MoE expert weights, the expert count."""
+    layers = {m.group() for m in map(_LAYER.match, group) if m}
+    experts = {m.group() for m in map(_EXPERT.search, group) if m}
+    return [len(s) for s in (layers, experts) if len(s) > 1]
 
 
 class FusedAdafactorEMA:
@@ -210,10 +224,11 @@ class FusedAdafactorEMA:
 
     The JAX model stacks its layers, so there a leaf is (L, ...) and the
     update-clip RMS and the parameter scale are taken over all layers of a
-    parameter together. The port keeps that: `layers.<i>.X` over i is one
+    parameter together (a MoE layer stacks its experts too: (L, E, ...)). The
+    port keeps that: `layers.<i>.X` over i (and `experts.<j>` over j) is one
     leaf for those two statistics, while the factored row/column statistics
     are per layer, over each torch weight's own two largest axes (the axes
-    the JAX rule picks too while the layer count is below
+    the JAX rule picks too while the layer and expert counts are below
     `min_dim_size_to_factor`; a square weight swaps the row/column roles,
     which `core.checkpoint.train_state_from_jax` undoes)."""
 
@@ -245,10 +260,11 @@ class FusedAdafactorEMA:
         z1 = lambda: torch.zeros((1,), dtype=torch.float32, device=device)
         state = {"count": _count_tensor(device), "v_row": {}, "v_col": {}, "v": {}}
         for group in _leaf_groups(list(params)):
-            if len(group) > 1 and len(group) >= self.min_dim_size_to_factor:
-                raise ValueError(f"{len(group)} layers >= min_dim_size_to_factor "
-                                 f"{self.min_dim_size_to_factor}: the JAX rule would factor "
-                                 "over the layer axis")
+            stacked = _stacked_axes(group)
+            if stacked and max(stacked) >= self.min_dim_size_to_factor:
+                raise ValueError(f"{max(stacked)} stacked layers or experts >= "
+                                 f"min_dim_size_to_factor {self.min_dim_size_to_factor}: the "
+                                 "JAX rule would factor over the stacking axis")
             for name in group:
                 shape = tuple(params[name].shape)
                 fd = self.factored_dims(shape)

@@ -257,6 +257,48 @@ def test_head_dim_48_matches_plain_on_card(cuda_device, entry, shape):
     assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
 
 
+# Flag-DiT's head_dims (the 128/128 instantiations): the 5B's 1024^2 CFG pair,
+# 64 x 65 tokens with the [eol] column, against itself and its 128 caption keys
+# (100 valid); the ImageNet 7B's 256^2 self-attention; (b, sq, sk, hq, hkv, d, valid)
+FLAG_DIT_SHAPES = {"5b": (2, 4160, 4160, 32, 32, 96, None),
+                   "5b_gqa_masked": (2, 4160, 4160, 32, 8, 96, None),
+                   "5b_captions": (2, 4160, 128, 32, 32, 96, 100),
+                   "7b": (8, 256, 256, 32, 32, 128, None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,case", [
+    *((entry, case) for entry in ("online", "static_max", "online_lse")
+      for case in ("5b", "5b_gqa_masked")),
+    ("small_kv", "5b_captions"), ("online_lse", "5b_captions"), ("small_kv", "7b")])
+def test_flag_dit_head_dims_match_plain_on_card(cuda_device, entry, case):
+    """K1-K4 at head_dim 96 and 128 on Flag-DiT's shapes (K2-K4 where the
+    keys stream), the GQA case with a masked tail and a fully masked batch
+    row. Bars: 1e-2 max and 1e-3 mean; LSE 1e-3."""
+    b, sq, sk, hq, hkv, d, valid = FLAG_DIT_SHAPES[case]
+    g = torch.Generator().manual_seed(sq + hkv + d)
+    mk = lambda *sh: torch.randn(*sh, generator=g).to("cuda", torch.bfloat16)
+    q, k, v = mk(b, sq, hq, d), mk(b, sk, hkv, d), mk(b, sk, hkv, d)
+    mask = torch.ones(b, sk, dtype=torch.int32)
+    mask[:, valid or sk:] = 0
+    if hkv < hq:
+        mask[0, sk - 37:] = 0
+        mask[-1] = 0
+    mask = mask.cuda()
+    kw = {"bound": 12.0} if entry == "static_max" else {}
+    before = tfa.LAUNCHES[entry]
+    got = getattr(tfa, f"flash_{entry}")(q, k, v, mask, d ** -0.5, **kw)
+    ref = getattr(tfa, f"flash_{entry}_plain")(q, k, v, mask, d ** -0.5, *kw.values())
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES[entry] == before + 1
+    if entry == "online_lse":
+        (got, lse), (ref, ref_lse) = got, ref
+        live = mask.bool().any(dim=1)
+        torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-3, rtol=0)
+    err = (got.float() - ref.float()).abs()
+    assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
+
+
 # Gemma caption lengths: Sk a multiple of 8 up to 256, valid keys per batch
 # row ending inside a 64-key tile, the CFG's empty caption one key (<bos>)
 CAPTION_LENGTHS = {8: (1, 5), 40: (37, 21), 136: (130, 67)}

@@ -451,6 +451,28 @@ def test_head_dim_48_matches_plain_on_card(cuda_device, entry, case):
     _assert_near(got, ref, 1e-2)
 
 
+# the Flag-DiT 5B's training attention at head_dim 96 (the 128/128
+# instantiations): 1024^2 latents, B=2, 64 x 65 tokens with the [eol] column,
+# and its cross-attention to 32 caption keys; (b, sq, sk, hq, hkv)
+FLAG_DIT_5B_SHAPES = {"self": (2, 4160, 4160, 32, 32), "self_gqa_masked": (2, 4160, 4160, 32, 8),
+                      "cross": (2, 4160, 32, 32, 32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLAG_DIT_5B_SHAPES))
+@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
+def test_head_dim_96_matches_plain_on_card(cuda_device, entry, case):
+    """K6-K8 at head_dim 96 on the Flag-DiT 5B trainer's shapes, unmasked,
+    and with GQA, a masked tail and a fully masked batch row. Bar: 1e-2 of
+    max|ref|, mean 1e-3."""
+    masked = case.endswith("masked")
+    q, k, v, mask, dout = _cuda_inputs(*FLAG_DIT_5B_SHAPES[case], d=96, dead_row=masked)
+    if not masked:
+        mask.fill_(1)
+    got, ref = _run(entry, q, k, v, mask, dout, scale=96 ** -0.5)
+    _assert_near(got, ref, 1e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sk,lengths", [(8, (1, 5)), (40, (37, 21)), (136, (130, 67))])
 @pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])

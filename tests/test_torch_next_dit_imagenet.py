@@ -161,10 +161,11 @@ def test_class_cond_sampler_matches_jax(shift):
                                                       torch.from_numpy(labels).long())
 
 
-@pytest.mark.parametrize("name", sorted(n for n in MODELS if "ImageNet" in n))
+@pytest.mark.parametrize("name", sorted(n for n in MODELS if n.startswith("NextDiT_ImageNet")))
 def test_registry_param_counts_match_jax(name):
-    """Each ImageNet registry config has the JAX config's parameter count
-    (built on the meta device and through jax.eval_shape)."""
+    """Each NextDiT-ImageNet registry config has the JAX config's parameter
+    count (built on the meta device and through jax.eval_shape); the
+    Flag-DiT ImageNet configs are held in `test_torch_flag_dit.py`."""
     tmodel = get_model(name, qk_norm=True, device="meta")
     jmodel = j_get_model(name, qk_norm=True)
     shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.zeros((1, 4, 8, 8)),

@@ -409,7 +409,8 @@ def test_cli_resume_equals_uninterrupted_run(tmp_path, opt):
     assert len(losses) == 3 and np.isfinite(losses).all()
 
 
-@pytest.mark.parametrize("flag", [["--model", "NextDiT_MoE_600M_patch2_Both"], ["--async_save"],
+@pytest.mark.parametrize("flag", [["--model", "NextDiT_MoE_600M_patch2_Both", "--async_save"],
+                                  ["--async_save"],
                                   ["--model_parallel_size", "2"], ["--h2d_diet"],
                                   ["--profile_steps", "2"]])
 def test_cli_unported_paths_raise(tmp_path, flag):
