@@ -50,7 +50,11 @@ last line:
    instantiations) at the Flag-DiT 5B's (2, 4160, 32, 96), K1 there against
    128 caption keys (100 valid), K4 and K6-K8 against 32, and K1 at head_dim
    128 at the ImageNet 7B's (8, 256, 32, 128), the same way
-   (`wide_head_kernel_phase`);
+   (`wide_head_kernel_phase`); K1 behind 4096 queries over kv_merge's 1024
+   pooled keys and K4/K6-K8 at the 2B's DreamBooth self-attention (2, 256,
+   32, 72), K2 on MMDiT-SD3-Medium's unmasked joint sequence (2, 4429, 24,
+   64) and K4/K6-K8 on DreamBooth's (2, 589, 24, 64), the same way
+   (`anagram_sd3_kernel_phase`);
 3b. experiments: the static-max variants (K10: `static_max_v0..v3`; K11:
    `static_max_v4`, which must equal v1 bit for bit) against their plain
    versions at the experiment's shape (B=2, S=4096, H=32, D=72, bound
@@ -116,6 +120,18 @@ last line:
    1024^2 with a 1 x 4 region grid, 30 points (K2; the region
    cross-attention plain, as in JAX); img2img: the 2B at 1024^2, strength
    0.6, 30 points (VAE encode ms, bound, seconds, PNG);
+   anagrams: `anagrams_app` on the 2B (2 prompts, identity / rotate_180,
+   256^2 -> 1024^2 through the random VAE) at 30 steps, phase 2
+   calibrated under the anagram scale, and at --kv_merge_ratio 2 and 10
+   steps (K1 over the pooled keys); sd3: `sample_sd3` on MMDiT-SD3-Medium
+   (random weights written as a bf16 diffusers-layout file and read back
+   through the importer; CLIP-L and CLIP-G at their published widths,
+   random, with the hash tokenizer) at 1024^2, 28 Euler steps, CFG 7, the
+   z=16 VAE, and one forward through the kernels against the plain
+   versions; dreambooth: 3 full-width steps of the 2B and of MMDiT with
+   prior preservation at 256^2 (fp32 AdamW; the third under
+   LUMINA_FLASH_FUSED_BWD=0), then the CLI in both modes cut to one layer
+   or block, with its checkpoint;
    then the `lumina` CLI's `infer` (2B, 1024^2, the repo's settings,
    --debug: no qk-norm, so no calibration, as in the JAX CLI);
 5c. serving: `build_worker` (2B, bf16, --debug, zero-init tensors
@@ -229,6 +245,22 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "bwd_dkv_d96_5b": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),
     # head_dim 128: K1 as the Flag-DiT ImageNet 7B's self-attention
     "small_kv_d128_7b": (SM90_SOURCE, f"{TPU_KERNELS}:240"),
+    # K1 over kv_merge's 1024 pooled keys behind 4096 queries (the anagram
+    # app's phase 2 at --kv_merge_ratio 2)
+    "small_kv_kv1024": (SM90_SOURCE, f"{TPU_KERNELS}:240"),
+    # head_dim 64, MMDiT-SD3-Medium: K2 on the sampler's unmasked joint
+    # [context; image] sequence at 1024^2 (333 + 4096 keys, no tile-aligned
+    # length), K4 and K6-K8 on DreamBooth's at 256^2 (333 + 256)
+    "online_d64_sd3": (SM90_SOURCE, f"{TPU_KERNELS}:228"),
+    "online_lse_d64_sd3": (SM90_SOURCE, f"{TPU_KERNELS}:430"),
+    "bwd_fused_d64_sd3": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),
+    "bwd_dq_d64_sd3": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:552"),
+    "bwd_dkv_d64_sd3": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),
+    # K4 and K6-K8 at the 2B's DreamBooth self-attention (256^2: 16 x 16 tokens)
+    "online_lse_db_2b": (SM90_SOURCE, f"{TPU_KERNELS}:430"),
+    "bwd_fused_db_2b": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),
+    "bwd_dq_db_2b": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:552"),
+    "bwd_dkv_db_2b": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),
 }
 SAMPLER_KERNELS = ("small_kv", "online", "static_max", "online_lse")
 ROPE_KERNELS = ("rope", "rope_q", "rope_rotate")
@@ -280,6 +312,19 @@ CLASSTRAIN_IMAGES_PER_CLASS, CLASSTRAIN_B = 16, 256
 QUALITY_STEPS, QUALITY_FID_SAMPLES, QUALITY_PER_CLASS = 200, 128, 50
 # H100 SXM dense TF32 tensor-core peak (NVIDIA's data sheet, 700 W)
 PEAK_TF32 = 495e12
+# the anagram app: NextDiT_2B_patch2, 2 prompts and views, 256^2 -> 1024^2; the
+# kv_merge run is cut to fewer steps (each phase costs (steps - 1) x views x 2
+# CFG forwards)
+ANAGRAM_VIEWS, ANAGRAM_STEPS, ANAGRAM_KV_STEPS = ("identity", "rotate_180"), 30, 10
+ANAGRAM_PROMPTS = ("an oil painting of a snowy mountain village", "an oil painting of a horse")
+# K1 behind phase 2's 4096 queries over kv_merge's 1024 pooled keys
+KV1024 = (2, 4096, 32)
+# MMDiT-SD3-Medium: 24 heads of 64; the joint sequence is 77 CLIP + 256 T5
+# (zeros) context tokens before the image's 64 x 64 (1024^2) or 16 x 16 (256^2)
+SD3_CONTEXT, SD3_STEPS = 77 + 256, 28
+SD3_JOINT_1024, SD3_JOINT_256 = (2, SD3_CONTEXT + 4096, 24), (2, SD3_CONTEXT + 256, 24)
+# DreamBooth: the 2B's self-attention at 256^2 (instance + class row)
+DB_2B = (2, 256, 32)
 # the VAE's decode on the card against the CPU's, relative L2: fp32 convolutions
 # only sum in another order; TF32 rounds each convolution's operands to 10
 # mantissa bits (2^-11 relative), about 30 convolutions in series
@@ -1111,6 +1156,24 @@ def wide_head_kernel_phase(fa):
     return results
 
 
+def anagram_sd3_kernel_phase(fa):
+    """The new shapes of the anagram, SD3 and DreamBooth paths
+    (`shape_rows`): K1 over kv_merge's 1024 pooled keys behind 4096 queries
+    and K4/K6-K8 at the 2B's DreamBooth self-attention (head_dim 72); K2 on
+    MMDiT-SD3-Medium's unmasked joint sequence of 4429 keys and K4/K6-K8 on
+    DreamBooth's 589 (head_dim 64, the 64/64 instantiations)."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    results = shape_rows(fa, g, 72, [
+        ("small_kv_kv1024", "small_kv", KV1024, 1024, None, True),
+        ("online_lse_db_2b", "online_lse", DB_2B, None, None, True),
+        ("bwd_db_2b", "bwd", DB_2B, None, None, True)])
+    results.update(shape_rows(fa, g, 64, [
+        ("online_d64_sd3", "online", SD3_JOINT_1024, None, None, True),
+        ("online_lse_d64_sd3", "online_lse", SD3_JOINT_256, None, None, True),
+        ("bwd_d64_sd3", "bwd", SD3_JOINT_256, None, None, True)]))
+    return results
+
+
 EXP_CASES = [("B2/S4096/H32/D72, all keys valid", B, S, H, 0),
              ("B2/S1000/H8/D72, ragged tiles, last 200 keys of row 1 masked", 2, 1000, 8, 200)]
 # (K, N) of the K12 checks at M=1024, 8 iterations; then a ragged tile
@@ -1523,7 +1586,8 @@ def vae_phase(latent_1024, vae_dir):
     and the bound at the TF32 and fp32 peaks), with cuDNN's TF32
     convolutions off (this script's setting) and on (torch's default); the
     card's decode and encode against the CPU's at 256^2 under both; the SD3
-    layout decoded once. Returns the VAE file's path."""
+    layout decoded once. Returns the paths of the SD-VAE file and of the SD3
+    (z=16) one."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from lumina_t2x_tpu_torch.codecs.vae import decode_from_latent, encode_to_latent, load_vae
@@ -1600,7 +1664,7 @@ def vae_phase(latent_1024, vae_dir):
           f"off its file and decoded at 256^2: finite")
     del vae, sd3, ref
     torch.cuda.empty_cache()
-    return path
+    return path, sd3_path
 
 
 def _sample_cli(fa, argv):
@@ -2637,6 +2701,385 @@ def img2img_phase(fa, vae_path):
     return launches
 
 
+def _randomised(get_model):
+    """`get_model` whose models have their zero-init tensors randomised (a
+    fresh NextDiT or MMDiT outputs exactly 0), for a CLI's `--seed` weights."""
+    def build(*args, **kwargs):
+        model = get_model(*args, **kwargs)
+        _randomise_zero_init(model, 21)
+        return model
+    return build
+
+
+def anagram_phase(fa, vae_path):
+    """`pipelines.anagrams_app.main` on NextDiT_2B_patch2 (qk-norm, full width
+    and depth, weights from --seed with the zero-init tensors randomised), 2
+    prompts and the views identity and rotate_180, 256^2 -> 1024^2 with the
+    random SD-VAE: once at the app's 30 steps (phase 2 calibrated under the
+    anagram scale: K2 and K4 in the probe, K3 on the trajectory), once at
+    --kv_merge_ratio 2 and ANAGRAM_KV_STEPS steps (phase 2's self-attention
+    on K1 over 1024 pooled keys; nothing streams, so no bound). Seconds per phase, the bound, 4 PNGs
+    a run, launches, 0 plain-version calls. Returns (K2/K3 launches of the
+    first run, K1 launches over the pooled keys)."""
+    from PIL import Image
+
+    from lumina_t2x_tpu_torch.pipelines import anagrams_app
+
+    saved = (anagrams_app.get_model, anagrams_app.anagram_upscale_phase)
+    phase2 = {}
+
+    def upscale(*args, **kwargs):  # phase 2's own launches
+        before = dict(fa.LAUNCHES)
+        out = saved[1](*args, **kwargs)
+        phase2.update({k: v - before[k] for k, v in fa.LAUNCHES.items()})
+        return out
+
+    anagrams_app.get_model = _randomised(saved[0])
+    anagrams_app.anagram_upscale_phase = upscale
+    runs = []
+    try:
+        for ratio, steps in ((1, ANAGRAM_STEPS), (2, ANAGRAM_KV_STEPS)):
+            fa.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            with tempfile.TemporaryDirectory() as out:
+                t0 = time.perf_counter()
+                manifest = anagrams_app.main([
+                    "--prompts", *ANAGRAM_PROMPTS, "--views", *ANAGRAM_VIEWS,
+                    "--base_res", "256", "--resolution", "1024", "--num_inference_steps",
+                    str(steps), "--kv_merge_ratio", str(ratio), "--vae_ckpt", vae_path,
+                    "--save_dir", out, "--device", "cuda"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                sizes = [Image.open(path).size for path in manifest["paths"]]
+                lat = np.load(manifest["phase2_npy"])
+            launches, plain = dict(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"]
+            views = len(ANAGRAM_VIEWS)
+            forwards = (steps - 1) * views * 2 * 24  # attention calls of one kind in a phase
+            require(sizes == [(256, 256)] * views + [(1024, 1024)] * views
+                    and lat.shape == (1, 4, 128, 128) and np.isfinite(lat).all() and plain == 0,
+                    f"anagrams (ratio {ratio}): PNGs {sizes}, latent {lat.shape}, plain {plain}")
+            if ratio == 1:
+                require(manifest["static_max"] is not None and phase2["static_max"] == forwards
+                        and phase2["small_kv"] == forwards and launches["online_lse"] > 0,
+                        f"anagrams: bound {manifest['static_max']}, phase 2 {phase2}")
+            else:  # self-attention on 1024 pooled keys and captions: both K1
+                require(manifest["static_max"] is None and phase2["small_kv"] == 2 * forwards
+                        and phase2["static_max"] == phase2["online"] == 0,
+                        f"anagrams kv_merge: bound {manifest['static_max']}, phase 2 {phase2}")
+            bound = manifest["static_max"]
+            phase("anagrams", f"anagrams_app NextDiT_2B_patch2 --kv_merge_ratio {ratio}, "
+                  f"{' / '.join(ANAGRAM_VIEWS)}, 256^2 -> 1024^2, {steps} steps, --vae_ckpt: "
+                  f"phase 1 {manifest['phase1_seconds']:.2f} s, decode + bicubic + tiled "
+                  f"re-encode + calibration {manifest['reencode_calibrate_seconds']:.2f} s, "
+                  f"phase 2 {manifest['phase2_seconds']:.2f} s ("
+                  f"{manifest['phase2_seconds'] / (forwards // 24):.4f} s a CFG forward); bound "
+                  f"{'none' if bound is None else f'{bound:.4f}'}; 4 PNGs {sizes}; wall "
+                  f"{wall:.1f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                  f"launches {_launched(launches)}, phase 2's {_launched(phase2)}; "
+                  f"plain-version CUDA calls {plain}")
+            runs.append((launches, dict(phase2)))
+    finally:
+        anagrams_app.get_model, anagrams_app.anagram_upscale_phase = saved
+    torch.cuda.empty_cache()
+    first = runs[0][0]
+    return ({"online": first["online"], "static_max": first["static_max"]},
+            runs[1][1]["small_kv"] // 2)
+
+
+def _sd3_diffusers_state_dict(model):
+    """The inverse of `codecs/mmdit_import.import_sd3_mmdit_weights`: the
+    port's MMDiT as diffusers' `SD3Transformer2DModel` names (bf16 CPU
+    tensors), with the persistent 192 x 192 position buffer."""
+    from lumina_t2x_tpu_torch.models.mmdit import sincos_pos_embed_2d
+
+    sd = {k: v.detach() for k, v in model.state_dict().items()}
+    out = {}
+
+    def lin(dst, src, swap=False):
+        for leaf in ("weight", "bias"):
+            if f"{src}.{leaf}" in sd:
+                t = sd[f"{src}.{leaf}"]
+                out[f"{dst}.{leaf}"] = torch.cat(t.chunk(2, dim=0)[::-1]) if swap else t
+
+    w, p = sd["x_embedder.weight"], model.patch_size
+    out["pos_embed.proj.weight"] = w.reshape(w.shape[0], model.in_channels, p, p)
+    out["pos_embed.proj.bias"] = sd["x_embedder.bias"]
+    out["pos_embed.pos_embed"] = sincos_pos_embed_2d(model.dim, 192, 192, 192, 64)[None]
+    for dst, src in (("context_embedder", "context_embedder"),
+                     ("time_text_embed.timestep_embedder.linear_1", "t_embedder.mlp.0"),
+                     ("time_text_embed.timestep_embedder.linear_2", "t_embedder.mlp.2"),
+                     ("time_text_embed.text_embedder.linear_1", "pooled_hidden"),
+                     ("time_text_embed.text_embedder.linear_2", "pooled_in"),
+                     ("proj_out", "final_linear")):
+        lin(dst, src)
+    lin("norm_out.linear", "final_adaLN", swap=True)
+    for i, block in enumerate(model.blocks):
+        pre, blk = f"transformer_blocks.{i}", f"blocks.{i}"
+        lin(f"{pre}.norm1.linear", f"{blk}.x_adaLN")
+        lin(f"{pre}.norm1_context.linear", f"{blk}.c_adaLN", swap=block.context_pre_only)
+        for dst, src in (("attn.to_q", "x_q"), ("attn.to_k", "x_k"), ("attn.to_v", "x_v"),
+                         ("attn.add_q_proj", "c_q"), ("attn.add_k_proj", "c_k"),
+                         ("attn.add_v_proj", "c_v"), ("attn.to_out.0", "x_proj"),
+                         ("ff.net.0.proj", "x_mlp_in"), ("ff.net.2", "x_mlp_out"),
+                         ("attn.to_add_out", "c_proj"), ("ff_context.net.0.proj", "c_mlp_in"),
+                         ("ff_context.net.2", "c_mlp_out")):
+            lin(f"{pre}.{dst}", f"{blk}.{src}")
+        for dst, src in (("norm_q", "x_q_norm"), ("norm_k", "x_k_norm"),
+                         ("norm_added_q", "c_q_norm"), ("norm_added_k", "c_k_norm")):
+            if f"{blk}.{src}" in sd:
+                out[f"{pre}.attn.{dst}.weight"] = sd[f"{blk}.{src}"]
+    return {k: v.to("cpu", torch.bfloat16).contiguous() for k, v in out.items()}
+
+
+def _sd3_prompt_encoder(seed=30):
+    """The SD3 triple encoder over CLIP-L and CLIP-G at their published
+    widths (`CLIP_L_CONFIG`, `CLIP_G_CONFIG`), random from `seed`, fp32 on
+    the card, with the hash tokenizer; T5 left out (diffusers' zeros)."""
+    from lumina_t2x_tpu_torch.codecs.clip_text import (CLIP_G_CONFIG, CLIP_L_CONFIG,
+                                                       CLIPTextTower, DebugHashTokenizer,
+                                                       SD3PromptEncoder)
+
+    towers = []
+    for i, cfg in enumerate((CLIP_L_CONFIG, CLIP_G_CONFIG)):
+        torch.manual_seed(seed + i)
+        towers.append(CLIPTextTower(**cfg, device="cuda").eval())
+    tok = DebugHashTokenizer()
+    return SD3PromptEncoder(towers[0], tok, towers[1], tok)
+
+
+def sd3_phase(fa, sd3_vae_path):
+    """`pipelines.sample_sd3.main` on MMDiT_SD3_Medium at 1024^2, 28 Euler
+    steps, CFG 7, shift 3, bf16: random weights (seed 31, zero-init tensors
+    randomised) written in diffusers' layout as bf16 `.safetensors` and read
+    back through the importer (`load_sd3_mmdit`: architecture and qk-norm
+    off the file; every weight must come back equal), CLIP-L and CLIP-G at
+    their published widths with random weights and the hash tokenizer (T5
+    left out: diffusers' zeros), the random z=16 VAE to a PNG. Seconds a
+    step, K2's launches (24 a forward, on the unmasked 4429-key joint
+    sequence), the peak, and one forward through the kernels against the
+    plain versions (relative L2, with sdpa's distance as the bf16 floor).
+    Returns the K2 launches."""
+    from lumina_t2x_tpu_torch.models import get_model
+    from lumina_t2x_tpu_torch.pipelines import sample_sd3
+
+    torch.manual_seed(31)
+    model = get_model("MMDiT_SD3_Medium", device="cuda")
+    n_random = _randomise_zero_init(model, 32)
+    n_params = sum(p.numel() for p in model.parameters())
+    diffusers_sd = _sd3_diffusers_state_dict(model)
+    written = {k: v.detach().to("cpu", torch.bfloat16) for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    encoder = _sd3_prompt_encoder()
+    captured = {}
+    saved = (sample_sd3.load_model, sample_sd3.build_prompt_encoder)
+    sample_sd3.load_model = lambda *a: captured.setdefault("model", saved[0](*a))
+    sample_sd3.build_prompt_encoder = lambda *a, **k: encoder
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            from lumina_t2x_tpu_torch.core.checkpoint import save_safetensors
+
+            ckpt = os.path.join(out, "sd3_transformer.safetensors")
+            t0 = time.perf_counter()
+            save_safetensors(diffusers_sd, ckpt)
+            size = os.path.getsize(ckpt)
+            write_s = time.perf_counter() - t0
+            captions = os.path.join(out, "captions.txt")
+            with open(captions, "w") as f:
+                f.write(PROMPT + "\n")
+            fa.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            info = sample_sd3.main(["--ckpt", ckpt, "--vae_ckpt", sd3_vae_path, "--caption_path",
+                                    captions, "--image_save_path", os.path.join(out, "samples"),
+                                    "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            launches, plain = dict(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"]
+            with open(info[0]["path"], "rb") as f:
+                pixels = _png_pixels(f.read())
+    finally:
+        sample_sd3.load_model, sample_sd3.build_prompt_encoder = saved
+    model = captured["model"]
+    mismatched = [k for k, v in model.state_dict().items()
+                  if not torch.equal(v.detach().to("cpu", torch.bfloat16), written[k])]
+    del diffusers_sd, written
+    evals = SD3_STEPS - 1
+    require(pixels.shape == (1024, 1024, 3) and plain == 0 and not mismatched
+            and model.qk_norm and launches["online"] == 24 * evals,
+            f"sd3: PNG {pixels.shape}, plain {plain}, mismatched {mismatched[:4]}, launches "
+            f"{launches}")
+    # one forward through the kernels, the plain versions and sdpa
+    g = torch.Generator(device="cuda").manual_seed(33)
+    x = torch.randn(1, 16, 128, 128, generator=g, device="cuda").repeat(2, 1, 1, 1)
+    context, pooled = encoder.encode_cfg_pair(PROMPT)
+    t = torch.full((2,), 500.0, device="cuda")
+    outs = {}
+    with torch.no_grad():
+        for impl in ("flash", "plain", "xla"):
+            model.set_attn_impl(impl)
+            outs[impl] = model(x, t, context, pooled)
+    torch.cuda.synchronize()
+    rel, floor = (((outs[impl] - outs["plain"]).norm() / outs["plain"].norm()).item()
+                  for impl in ("flash", "xla"))
+    require(bool(torch.isfinite(outs["flash"]).all()) and rel <= 2e-2,
+            f"sd3 forward: rel L2 kernels vs plain {rel}")
+    phase("sd3", f"sample_sd3.main MMDiT_SD3_Medium ({n_params / 1e9:.3f}B params, {n_random} "
+          f"zero-init tensors randomised; diffusers-layout bf16 .safetensors "
+          f"{size / 2**30:.2f} GiB written in {write_s:.1f} s, read back through the importer "
+          f"with qk-norm off the file, every weight equal) 1024^2, {SD3_STEPS}-point Euler, CFG "
+          f"7, shift 3, bf16, CLIP-L/G at published widths (random, hash tokenizer), T5 zeros, "
+          f"z=16 VAE: PNG {pixels.shape} (mean {pixels.mean():.1f}); trajectory "
+          f"{info[0]['seconds']:.2f} s = {info[0]['seconds'] / evals:.4f} s a step ({evals} "
+          f"steps); wall {wall:.1f} s incl. load and encode; peak {peak:.2f} GiB; K2 launches "
+          f"{launches['online']} (24 a forward); launches {_launched(launches)}; plain-version "
+          f"CUDA calls {plain}; one CFG forward rel L2 kernels vs plain {rel:.4g} (sdpa vs plain "
+          f"{floor:.4g})")
+    del model, outs, captured, encoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["online"]
+
+
+def _dreambooth_args(root, sd3):
+    """The DreamBooth CLI's arguments on the script's instance and class PNGs."""
+    return ["--instance_data_dir", os.path.join(root, "instance"), "--class_data_dir",
+            os.path.join(root, "class"), "--instance_prompt", "a photo of sks dog",
+            "--class_prompt", "a photo of a dog", "--with_prior_preservation",
+            "--resolution", "256", "--model", "MMDiT_SD3_Medium" if sd3 else "NextDiT_2B_patch2"]
+
+
+def _dreambooth_steps(fa, dreambooth, root, sd3, vae_path):
+    """3 full-width steps of `make_dreambooth_step` (prior preservation at
+    256^2, AdamW with its fp32 state, the third under
+    LUMINA_FLASH_FUSED_BWD=0) on `dreambooth_batches` of the PNGs through
+    the VAE; no checkpoint. Returns (seconds per step, peak GiB, launches,
+    plain calls, losses)."""
+    from lumina_t2x_tpu_torch.codecs.vae import load_vae
+    from lumina_t2x_tpu_torch.models import get_model
+    from lumina_t2x_tpu_torch.pipelines.train_lib import create_optimizer, create_train_state
+
+    args = dreambooth.parse_args(_dreambooth_args(root, sd3))
+    torch.manual_seed(40)
+    kw = {} if sd3 else dict(cap_feat_dim=2048, qk_norm=True)
+    model = get_model(args.model, dtype=torch.bfloat16, device="cuda", **kw).train()
+    _randomise_zero_init(model, 41)
+    encoder = _sd3_prompt_encoder() if sd3 else None
+    vae = load_vae(vae_path, device="cuda")
+    batches = dreambooth.dreambooth_batches(args, vae=vae, sd3_encoder=encoder,
+                                            latent_channels=16 if sd3 else 4, device="cuda")
+    opt = create_optimizer(1e-5)
+    state = create_train_state(model, opt)
+    step = dreambooth.make_dreambooth_step(model, opt, 1.0, True, sd3=sd3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    times, losses = [], []
+    try:
+        for i in range(3):
+            batch = next(batches)
+            if i == 2:
+                os.environ["LUMINA_FLASH_FUSED_BWD"] = "0"
+            t0 = time.perf_counter()
+            state, m = step(state, batch, 40)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(m)
+    finally:
+        os.environ.pop("LUMINA_FLASH_FUSED_BWD", None)
+    out = (times, torch.cuda.max_memory_allocated() / 2**30, dict(fa.LAUNCHES),
+           fa.PLAIN_CUDA_CALLS["count"], losses, sum(p.numel() for p in model.parameters()))
+    del state, model, encoder, vae, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dreambooth_phase(fa, vae_path, sd3_vae_path):
+    """DreamBooth: 4 instance and 4 class PNGs written by the script; per
+    mode (NextDiT_2B_patch2 with hashed caption features; MMDiT_SD3_Medium
+    with the published-width CLIP towers) 3 full-width steps with prior
+    preservation at 256^2 (`_dreambooth_steps`; the 2B's launches are half
+    self-attention, half caption cross-attention); then the CLI
+    (`pipelines.dreambooth.main`) in both modes at a depth cut to one layer
+    or block, 2 steps, with its final checkpoint. Returns the launches of
+    the full-width steps at the rows' shapes."""
+    from lumina_t2x_tpu_torch.core.checkpoint import find_auto_resume
+    from lumina_t2x_tpu_torch.pipelines import dreambooth
+    from lumina_t2x_tpu_torch.utils import png_bytes
+
+    rows = {}
+    with tempfile.TemporaryDirectory() as root:
+        for kind, seed in (("instance", 50), ("class", 60)):
+            os.makedirs(os.path.join(root, kind))
+            for i in range(4):
+                with open(os.path.join(root, kind, f"{i}.png"), "wb") as f:
+                    f.write(png_bytes(_smoke_image(320, 288, seed + i)))
+        for sd3, tag in ((False, "db_2b"), (True, "d64_sd3")):
+            times, peak, launches, plain, metrics, n = _dreambooth_steps(
+                fa, dreambooth, root, sd3, sd3_vae_path if sd3 else vae_path)
+            sites = 24 if sd3 else 48  # attention calls a forward: joint, or self + caption
+            require(plain == 0 and all(math.isfinite(m["loss"]) for m in metrics)
+                    and launches["online_lse"] == 3 * sites
+                    and launches["bwd_fused"] == 2 * sites
+                    and launches["bwd_dq"] == launches["bwd_dkv"] == sites,
+                    f"dreambooth {tag}: launches {launches}, plain {plain}, {metrics}")
+            share = 1 if sd3 else 2
+            for name in ("online_lse", "bwd_fused", "bwd_dq", "bwd_dkv"):
+                rows[f"{name}_{tag}"] = launches[name] // share
+            phase("dreambooth", f"make_dreambooth_step "
+                  f"{'MMDiT_SD3_Medium' if sd3 else 'NextDiT_2B_patch2'} ({n / 1e9:.3f}B params, "
+                  f"fp32 AdamW state, bf16 activations) 256^2, 1 instance + 1 class row, prior "
+                  f"preservation, VAE-encoded PNGs, 3 steps (the third under "
+                  f"LUMINA_FLASH_FUSED_BWD=0): s/step {[round(t, 3) for t in times]}; losses "
+                  f"{[round(m['loss'], 4) for m in metrics]}; grad norms "
+                  f"{[round(m['grad_norm'], 3) for m in metrics]}; peak {peak:.2f} GiB; "
+                  f"launches {_launched(launches)}; plain-version CUDA calls {plain}")
+
+        def cut(get_model):  # one layer (NextDiT) or the last block (MMDiT)
+            def build(*args, **kwargs):
+                model = get_model(*args, **kwargs)
+                if hasattr(model, "blocks"):
+                    model.blocks = torch.nn.ModuleList(list(model.blocks)[-1:])
+                else:
+                    model.layers = torch.nn.ModuleList(list(model.layers)[:1])
+                return model
+            return build
+
+        saved = dreambooth.get_model
+        dreambooth.get_model = cut(saved)
+        try:
+            for sd3 in (False, True):
+                out = os.path.join(root, f"out_{int(sd3)}")
+                fa.reset_launch_counts()
+                t0 = time.perf_counter()
+                state = dreambooth.main(_dreambooth_args(root, sd3) + [
+                    "--max_train_steps", "2", "--vae_ckpt", sd3_vae_path if sd3 else vae_path,
+                    "--output_dir", out, "--device", "cuda"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                ckpt = find_auto_resume(out)
+                size = sum(os.path.getsize(os.path.join(d, f))
+                           for d, _, files in os.walk(ckpt) for f in files) if ckpt else 0
+                n = sum(p.numel() for p in state.model.parameters())
+                launches, plain = dict(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"]
+                require(state.step == 2 and ckpt and plain == 0 and launches["bwd_fused"] > 0,
+                        f"dreambooth CLI: step {state.step}, ckpt {ckpt}, launches {launches}")
+                phase("dreambooth", f"dreambooth.main {_dreambooth_args(root, sd3)[-1]} cut to "
+                      f"one {'block' if sd3 else 'layer'} ({n / 1e6:.1f}M params), 256^2, prior "
+                      f"preservation, 2 steps, --vae_ckpt: wall {wall:.1f} s incl. set-up; "
+                      f"checkpoint {size / 2**30:.2f} GiB (reckoned: model, EMA, Adam's mu and "
+                      f"nu in fp32, {16 * n / 2**30:.2f} GiB); launches {_launched(launches)}; "
+                      f"plain-version CUDA calls {plain}")
+                del state
+                shutil.rmtree(out)
+                torch.cuda.empty_cache()
+        finally:
+            dreambooth.get_model = saved
+    return rows
+
+
 def main():
     device_phase()
     sys.path.insert(0, ROOT)
@@ -2652,11 +3095,12 @@ def main():
     results.update(imagenet_kernel_phase(fa))
     results.update(d48_kernel_phase(fa))
     results.update(wide_head_kernel_phase(fa))
+    results.update(anagram_sd3_kernel_phase(fa))
     exp_results, exp_launches = experiments_phase()
     results.update(exp_results)
     latent_1024 = slice_phase(fa, *forward_phase(fa))
     with tempfile.TemporaryDirectory() as vae_dir:
-        vae_path = vae_phase(latent_1024, vae_dir)
+        vae_path, sd3_vae_path = vae_phase(latent_1024, vae_dir)
         imagenet_launches = classcond_phase(fa, vae_path)
         imagenet_launches.update(classtrain_phase(fa, vae_path))
         t2i_vae_phase(fa, vae_path)
@@ -2667,14 +3111,18 @@ def main():
         flag_launches = flag_dit_phase(fa, vae_path)
         composed = compositional_phase(fa, vae_path)
         edited = img2img_phase(fa, vae_path)
+        anagram, kv1024 = anagram_phase(fa, vae_path)
+        sd3_k2 = sd3_phase(fa, sd3_vae_path)
+        dreambooth_rows = dreambooth_phase(fa, vae_path, sd3_vae_path)
     cli_phase(fa)
     launches = serving_phase(fa)
     # the 2B's other main paths at the rows' self-attention shape: the
-    # compositional app (K2; its region cross-attention is plain) and img2img
+    # compositional app (K2; its region cross-attention is plain), img2img
     # (K2/K3; its K1 runs against 32 stand-in caption keys, not the row's
-    # Sk=256, and its K4 calibration is outside the trainer's K4 row)
+    # Sk=256, and its K4 calibration is outside the trainer's K4 row) and the
+    # anagram app (K2 in its phase-2 calibration probe, K3 on phase 2)
     for name in ("online", "static_max"):
-        launches[name] += composed[name] + edited[name]
+        launches[name] += composed[name] + edited[name] + anagram[name]
     launches.update(imagenet_launches)
     gradient_phase(fa)
     recipe_phase(fa)
@@ -2695,6 +3143,7 @@ def main():
                      "bwd_fused_d48_small": small["bwd_fused"] + quality["bwd_fused"],
                      "small_kv_d48_small": quality["small_kv"]})
     launches.update(exp_launches)
+    launches.update({"small_kv_kv1024": kv1024, "online_d64_sd3": sd3_k2, **dreambooth_rows})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

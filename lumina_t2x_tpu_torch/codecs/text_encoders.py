@@ -10,9 +10,11 @@
   its draws come from an explicit `random.Random`, in the JAX function's
   order (one `random()` per caption, one `choice` per list caption).
 
-T5 and CLAP stay with the audio family. `char_tokenizer` builds an in-memory
-character-level tokenizer for runs with random LM weights and no tokenizer
-files.
+`T5TextEncoder` is the T5 encoder's `last_hidden_state` over `max_length`
+padding (the SD3 prompt encoder's third tower and FLAN-T5 for music), on
+transformers' torch `T5EncoderModel`. CLAP stays with the audio family.
+`char_tokenizer` builds an in-memory character-level tokenizer for runs
+with random LM weights and no tokenizer files.
 """
 
 from __future__ import annotations
@@ -100,6 +102,43 @@ class DecoderTextEncoder:
         return out.hidden_states[-2], attention_mask.to(device=device, dtype=torch.int32)
 
 
+class T5TextEncoder:
+    """T5 encoder features: `last_hidden_state` of prompts padded to
+    `max_length`, with their attention mask."""
+
+    def __init__(self, model, tokenizer, max_length: int = 77):
+        self.model = model.eval().requires_grad_(False)
+        self.tokenizer = tokenizer
+        self.max_length = max_length
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16, max_length: int = 77,
+                        device="cuda"):
+        """Tokenizer and encoder from a local directory (`save_pretrained`'s
+        layout); nothing is downloaded."""
+        from transformers import AutoTokenizer, T5EncoderModel
+
+        tokenizer = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        model = T5EncoderModel.from_pretrained(path, dtype=dtype, local_files_only=True)
+        return cls(model.to(device), tokenizer, max_length)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    @torch.no_grad()
+    def encode(self, prompts: Sequence[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (features (B, max_length, D) in the encoder's dtype, mask
+        (B, max_length) int32), both on its device."""
+        batch = self.tokenizer(list(prompts), truncation=True, max_length=self.max_length,
+                               padding="max_length", return_tensors="np")
+        device = self.device
+        ids = torch.from_numpy(np.asarray(batch.input_ids, np.int64)).to(device)
+        mask = torch.from_numpy(np.asarray(batch.attention_mask, np.int64)).to(device)
+        out = self.model(input_ids=ids, attention_mask=mask)
+        return out.last_hidden_state, mask.to(torch.int32)
+
+
 def char_tokenizer(max_length: int = 256):
     """An in-memory character-level tokenizer with Gemma's special ids (pad 0,
     eos 1, bos 2, unk 3; printable ASCII from 4): `tokenizers`' WordLevel
@@ -121,5 +160,5 @@ def char_tokenizer(max_length: int = 256):
                                    model_max_length=max_length)
 
 
-__all__ = ["DecoderTextEncoder", "apply_empty_prompt_dropout", "char_tokenizer",
-           "tokenize_prompts"]
+__all__ = ["DecoderTextEncoder", "T5TextEncoder", "apply_empty_prompt_dropout",
+           "char_tokenizer", "tokenize_prompts"]

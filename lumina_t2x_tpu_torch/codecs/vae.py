@@ -298,6 +298,14 @@ def decode_from_latent(vae: AutoencoderKL, z, vae_type: str = "ema"):
     return vae.decode(z / VAE_SCALE[vae_type] + VAE_SHIFT[vae_type])
 
 
+def pooled_latent_standin(pixels: torch.Tensor, channels: int = 4) -> torch.Tensor:
+    """The latent stand-in without a VAE: (B, 3, H, W) pixels average-pooled
+    by 8, the pixel channels tiled to `channels` latent channels."""
+    b, c, h, w = pixels.shape
+    pooled = pixels.reshape(b, c, h // 8, 8, w // 8, 8).mean(dim=(3, 5))
+    return pooled.repeat(1, -(-channels // c), 1, 1)[:, :channels]
+
+
 def _levels(state_dict, pattern):
     """1 + the largest index `pattern`'s group takes over the keys."""
     return 1 + max(int(m.group(1)) for m in map(re.compile(pattern).match, state_dict) if m)

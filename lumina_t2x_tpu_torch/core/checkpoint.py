@@ -19,7 +19,10 @@ and `moe_state_dict_from_jax_params` do the same for NextDiT-ImageNet,
 Flag-DiT and Next-DiT-MoE (the compositional model takes NextDiT's), and `vae_state_dict_from_jax` turns a JAX `AutoencoderKL` tree into the
 diffusers layout of the port's VAE (`codecs/vae.py`).
 `gemma_state_dict_from_flax` carries a Flax Gemma tree into transformers'
-torch `GemmaModel` (the caption encoder, `codecs/text_encoders.py`).
+torch `GemmaModel` (the caption encoder, `codecs/text_encoders.py`);
+`mmdit_state_dict_from_jax_params` a JAX MMDiT tree into the port's MMDiT
+(`models/mmdit.py`) and `clip_text_state_dict_from_jax` a JAX CLIP text
+tower into the port's, which has HF's names (`codecs/clip_text.py`).
 
 Reference release weights (`.pth` / `.safetensors` state dicts) load with
 `load_torch_state_dict` and are written with `save_safetensors`: the
@@ -235,6 +238,48 @@ def gemma_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor
             arr = arr.T
         out[f"{name}.weight"] = arr
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def mmdit_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX MMDiT param tree -> the port's MMDiT state dict: `blocks_<i>`
+    -> `blocks.<i>`, `t_embedder/mlp_<j>` -> `t_embedder.mlp.<j>`, Dense
+    kernels transposed into weights, the qk-norm gains as they are."""
+    out = {}
+    for key, arr in _flatten(params).items():
+        module, leaf = key.rsplit("/", 1)
+        module = re.sub(r"(blocks|mlp)_(\d+)", r"\1.\2", module).replace("/", ".")
+        if leaf == "kernel":
+            out[f"{module}.weight"] = arr.T
+        else:  # a bias, or a qk-norm gain (`blocks_<i>/x_q_norm`)
+            out[f"{module}.{leaf}"] = arr
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+_CLIP_LAYER_PARTS = {"ln1": "layer_norm1", "ln2": "layer_norm2", "q": "self_attn.q_proj",
+                     "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+                     "out": "self_attn.out_proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def clip_text_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX `CLIPTextTower` param tree -> the port's tower state dict (HF's
+    `CLIPTextModelWithProjection` names): `layers_<i>_<part>` ->
+    `text_model.encoder.layers.<i>.<HF part>`, LayerNorm `scale` ->
+    `weight`, Dense kernels transposed, the embedding tables as they are."""
+    out = {}
+    for key, arr in _flatten(params).items():
+        module, leaf = key.rsplit("/", 1) if "/" in key else (key, "")
+        m = re.fullmatch(r"layers_(\d+)_(\w+)", module)
+        if m:
+            name = f"text_model.encoder.layers.{m.group(1)}.{_CLIP_LAYER_PARTS[m.group(2)]}"
+        else:
+            name = {"token_embedding": "text_model.embeddings.token_embedding",
+                    "position_embedding": "text_model.embeddings.position_embedding",
+                    "final_ln": "text_model.final_layer_norm",
+                    "text_projection": "text_projection"}[module]
+        if leaf == "kernel":
+            arr = arr.T
+        out[f"{name}.{'bias' if leaf == 'bias' else 'weight'}"] = arr
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
 
 
 def train_state_from_jax(params, ema, opt_state, state_dict_fn=None):

@@ -1,7 +1,7 @@
 """Model registry (counterpart of `lumina_t2x_tpu/models/__init__.py`): the
 NextDiT text-to-image, class-conditional NextDiT-ImageNet, Flag-DiT,
-Next-DiT-MoE and region-controlled compositional entries. Not ported yet
-(ROADMAP queue 1, item 8): `FlagDiT1D_*` and `MMDiT_SD3_Medium`."""
+Next-DiT-MoE, region-controlled compositional and SD3 MMDiT entries. Not
+ported yet (ROADMAP queue 1, item 8): `FlagDiT1D_*`, the audio family."""
 
 from .compositional import NextDiTCompositional, NextDiT_2B_patch2_Compositional
 from .flag_dit import (
@@ -11,6 +11,7 @@ from .flag_dit import (
     FlagDiT_ImageNet_600M_patch2,
     FlagDiT_ImageNet_7B_patch2,
 )
+from .mmdit import MMDiT, MMDiT_SD3_Medium
 from .moe import (
     NextDiTMoE,
     NextDiT_MoE_600M_patch2_Both,
@@ -56,6 +57,8 @@ MODELS = {
     "NextDiT_MoE_600M_patch2_Both": NextDiT_MoE_600M_patch2_Both,
     # region-controlled compositional generation
     "NextDiT_2B_patch2_Compositional": NextDiT_2B_patch2_Compositional,
+    # SD3 (MMDiT), the SD3 sampler and DreamBooth
+    "MMDiT_SD3_Medium": MMDiT_SD3_Medium,
 }
 
 
@@ -77,5 +80,5 @@ def default_cap_feat_dim(name: str) -> int:
     return 4096 if name == "DiT_Llama_5B_patch2" else 2048
 
 
-__all__ = ["MODELS", "get_model", "is_class_cond", "default_cap_feat_dim", "FlagDiT", "NextDiT", "NextDiTCompositional",
+__all__ = ["MODELS", "get_model", "is_class_cond", "default_cap_feat_dim", "FlagDiT", "MMDiT", "NextDiT", "NextDiTCompositional",
            "NextDiTImageNet", "NextDiTMoE"]

@@ -17,7 +17,7 @@ from __future__ import annotations
 import functools
 import math
 import os
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +26,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.attention import attention as attention_op
-from ..ops.attention import default_attn_scale, resolve_impl
+from ..ops.attention import default_attn_scale, pool_kv_2d, resolve_impl
 from ..ops.flash_attention import (flash_attention_rope, flash_attention_rope_plain,
                                    flash_lse_range, streams_kv)
 from ..ops.norms import layer_norm, rms_norm
@@ -207,8 +207,15 @@ class Attention(nn.Module):
     log-sum-exp of its self-attention rows (`flash_lse_range`): the
     static-max calibration probe (`pipelines/sample_lib.py`).
 
+    `kv_merge` = (grid_h, grid_w, r): the visual-anagrams `kv_merge` trick.
+    After RoPE has rotated k, K and V are average-pooled over the token grid
+    with kernel = stride = r (`pool_kv_2d`); a pooled key is valid if any key
+    of its window is. The queries stay full length, and the LSE recorder
+    sees the pooled keys (it records only when they still stream).
+
     `LUMINA_FUSE_ROPE=1` (default 0), with the `flash` impl (or `plain`, over
-    the plain versions) and a 2-D angle table: q and k stay unrotated and
+    the plain versions), a 2-D angle table and no `kv_merge` (the pooling
+    needs the rotated k): q and k stay unrotated and
     both attentions run the fused-RoPE kernels (`flash_attention_rope`):
     self-attention rotates q and k, cross-attention only q, as the JAX
     package's branch does. That branch records no LSE, so calibration
@@ -245,7 +252,8 @@ class Attention(nn.Module):
 
     def forward(self, x, x_mask, angles, y=None, y_mask=None,
                 attn_scale: Optional[float] = None,
-                lse_recorder: Optional[List[torch.Tensor]] = None):
+                lse_recorder: Optional[List[torch.Tensor]] = None,
+                kv_merge: Optional[Tuple[int, int, int]] = None):
         b, s, _ = x.shape
         hd, nh, nkv = self.head_dim, self.n_heads, self.n_kv_heads
         xq, xk, xv = self.wq(x), self.wk(x), self.wv(x)
@@ -258,7 +266,7 @@ class Attention(nn.Module):
         scale = attn_scale if attn_scale is not None else default_attn_scale(hd)
         impl = resolve_impl(self.attn_impl)
         fuse_rope = (angles is not None and impl in ("flash", "plain") and angles.dim() == 2
-                     and os.environ.get("LUMINA_FUSE_ROPE", "0") == "1")
+                     and kv_merge is None and os.environ.get("LUMINA_FUSE_ROPE", "0") == "1")
         if fuse_rope:
             rope_attention = flash_attention_rope if impl == "flash" else flash_attention_rope_plain
             out = rope_attention(xq, xk, xv, angles, kv_mask=x_mask, scale=scale)
@@ -266,9 +274,16 @@ class Attention(nn.Module):
             if angles is not None:
                 xq = apply_rope(xq, angles)
                 xk = apply_rope(xk, angles)
-            out = attention_op(xq, xk, xv, kv_mask=x_mask, scale=scale, impl=impl)
-            if lse_recorder is not None and impl == "flash" and streams_kv(xk.shape[1]):
-                lse_recorder.append(flash_lse_range(xq, xk, xv, x_mask, scale))
+            xk_s, xv_s, x_mask_s = xk, xv, x_mask
+            if kv_merge is not None:
+                gh, gw, r = kv_merge
+                xk_s, xv_s = pool_kv_2d(xk, xv, gh, gw, r)
+                if x_mask_s is not None:
+                    x_mask_s = x_mask_s.reshape(b, gh // r, r, gw // r, r).amax(dim=(2, 4))
+                    x_mask_s = x_mask_s.reshape(b, -1)
+            out = attention_op(xq, xk_s, xv_s, kv_mask=x_mask_s, scale=scale, impl=impl)
+            if lse_recorder is not None and impl == "flash" and streams_kv(xk_s.shape[1]):
+                lse_recorder.append(flash_lse_range(xq, xk_s, xv_s, x_mask_s, scale))
 
         if self.y_dim > 0 and y is not None:
             yk = self.wk_y(y)

@@ -8,9 +8,10 @@ plain Python loop over `layers`; with `remat` each block runs under
 `torch.utils.checkpoint` with the `remat_policy` of `layers.maybe_remat`
 whenever autograd is on.
 
-Not ported yet (ROADMAP queue 1): the variable-aspect `img_sizes` list path,
-`kv_merge_ratio > 1` (`pool_kv_2d`) and sequence sharding; each raises
-`NotImplementedError`.
+`kv_merge_ratio > 1` average-pools the self-attention's rotated K and V over
+the token grid (`ops/attention.pool_kv_2d`, the visual-anagrams trick).
+Not ported yet (ROADMAP queue 1): the variable-aspect `img_sizes` list path
+and sequence sharding; each raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -66,13 +67,13 @@ class NextDiTBlock(nn.Module):
         self.ffn_norm2 = RMSNorm(dim, **nk)
 
     def forward(self, x, x_mask, angles, y, y_mask, adaln_input, attn_scale=None,
-                lse_recorder: Optional[List[torch.Tensor]] = None):
+                lse_recorder: Optional[List[torch.Tensor]] = None, kv_merge=None):
         mod = self.adaLN_modulation(adaln_input)
         scale_msa, gate_msa, scale_mlp, gate_mlp = mod.chunk(4, dim=-1)
         y_normed = self.attention_y_norm(y) if y is not None else None
         attn_out = self.attention(
             modulate(self.attention_norm1(x), scale_msa), x_mask, angles, y_normed, y_mask,
-            attn_scale, lse_recorder)
+            attn_scale, lse_recorder, kv_merge)
         x = x + torch.tanh(gate_msa)[:, None, :].to(x.dtype) * self.attention_norm2(attn_out)
         mlp_out = self.feed_forward(modulate(self.ffn_norm1(x), scale_mlp))
         return x + torch.tanh(gate_mlp)[:, None, :].to(x.dtype) * self.ffn_norm2(mlp_out)
@@ -154,14 +155,17 @@ class NextDiT(nn.Module):
         if img_sizes is not None:
             raise NotImplementedError("the img_sizes list path is not ported yet "
                                       "(ROADMAP queue 1, item 5)")
-        if kv_merge_ratio > 1:
-            raise NotImplementedError("kv_merge_ratio > 1 (pool_kv_2d) is not ported yet "
-                                      "(ROADMAP queue 1, item 5)")
         b, c, h, w = x.shape
         p = self.patch_size
         head_dim = self.dim // self.n_heads
         gh, gw = h // p, w // p
         seq_len = gh * gw
+        kv_merge = None
+        if kv_merge_ratio > 1:
+            if gh % kv_merge_ratio or gw % kv_merge_ratio:
+                raise ValueError(f"kv_merge_ratio {kv_merge_ratio} does not divide the "
+                                 f"{gh} x {gw} token grid")
+            kv_merge = (gh, gw, kv_merge_ratio)
 
         angles = rope_angles_2d_timeaware(
             head_dim, gh, gw, self.rope_theta, scale_factor=scale_factor,
@@ -186,7 +190,7 @@ class NextDiT(nn.Module):
         for layer in self.layers:
             tokens = maybe_remat(layer, remat, self.remat_policy)(
                 tokens, x_mask, angles, cap_feats_c, cap_mask, adaln_input, attn_scale,
-                lse_recorder)
+                lse_recorder, kv_merge)
 
         tokens = self.final_layer(tokens, adaln_input)
         out = unpatchify(tokens, h, w, p, self.out_channels)

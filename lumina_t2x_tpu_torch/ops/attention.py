@@ -1,6 +1,7 @@
 """Attention ops (counterpart of `lumina_t2x_tpu/ops/attention.py`): the
-softmax scale functions, a plain masked GQA `sdpa`, and the dispatcher
-between it and the hand-written flash kernels (`ops/flash_attention.py`).
+softmax scale functions, the K/V pooling of `kv_merge` (`pool_kv_2d`), a
+plain masked GQA `sdpa`, and the dispatcher between it and the hand-written
+flash kernels (`ops/flash_attention.py`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,28 @@ def default_attn_scale(head_dim: int) -> float:
 def anagram_attn_scale(seqlen: int, base_seqlen: int, head_dim: int) -> float:
     """Visual-anagrams' altered proportional scale log_base(seqlen)/sqrt(d)."""
     return math.log(seqlen, base_seqlen) / math.sqrt(head_dim)
+
+
+def pool_kv_2d(k, v, grid_h: int, grid_w: int, merge_ratio: int):
+    """Average-pool K and V over the (grid_h, grid_w) token grid with
+    kernel = stride = merge_ratio: the visual-anagrams `kv_merge` trick,
+    which shortens the keys by merge_ratio^2 while the queries stay full
+    length. The grid is cropped to a multiple of merge_ratio.
+
+    k, v: (B, S, Hkv, D) with S == grid_h * grid_w. Returns the pooled
+    (k, v) of length (grid_h // r) * (grid_w // r)."""
+    if merge_ratio <= 1:
+        return k, v
+    r = merge_ratio
+    gh, gw = grid_h // r, grid_w // r
+
+    def pool(x):
+        b, _, hh, d = x.shape
+        x = x.reshape(b, grid_h, grid_w, hh, d)[:, : gh * r, : gw * r]
+        x = x.reshape(b, gh, r, gw, r, hh, d).mean(dim=(2, 4))
+        return x.reshape(b, gh * gw, hh, d)
+
+    return pool(k), pool(v)
 
 
 def sdpa(q, k, v, kv_mask=None, scale: Optional[float] = None):

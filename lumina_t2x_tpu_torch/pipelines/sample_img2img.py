@@ -29,7 +29,8 @@ import time
 import numpy as np
 import torch
 
-from ..codecs.vae import decode_from_latent, encode_to_latent, load_vae
+from ..codecs.vae import (decode_from_latent, encode_to_latent, load_vae,
+                          pooled_latent_standin)
 from ..core.checkpoint import init_from
 from ..data.imgproc import center_crop_arr, to_latent_input
 from ..models import get_model
@@ -59,14 +60,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def stand_in_latent(pixels: torch.Tensor) -> torch.Tensor:
-    """The latent stand-in without a VAE: (B, 3, H, W) pixels average-pooled
-    by 8, the first channel repeated as the fourth."""
-    b, c, h, w = pixels.shape
-    pooled = pixels.reshape(b, c, h // 8, 8, w // 8, 8).mean(dim=(3, 5))
-    return torch.cat([pooled, pooled[:, :1]], dim=1)
-
-
 def _synchronize(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -92,7 +85,7 @@ def main(argv=None):
         with torch.no_grad():
             x1 = encode_to_latent(vae, pixels.to(dtype), gen).float()
     else:
-        x1 = stand_in_latent(pixels)
+        x1 = pooled_latent_standin(pixels)
     _synchronize(device)
     manifest["encode_ms"] = 1e3 * (time.perf_counter() - t_start)
 

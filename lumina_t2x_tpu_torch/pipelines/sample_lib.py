@@ -77,12 +77,14 @@ def build_class_cond_sample_fn(
 
 
 def _t2i_cfg(model, width, height, train_res, scale_watershed, proportional_attn,
-             vae_downsample, time_aware_scaling=True):
+             vae_downsample, time_aware_scaling=True, attn_scale_variant="proportional",
+             kv_merge_ratio=1):
     """The CFG forward the sampler and the probe share:
     `fn(x, t, cap_feats, cap_mask, cfg_scale, lse_recorder=None)`. NextDiT
-    scales its RoPE time-aware beyond `train_res`^2; Flag-DiT instead takes
-    the NTK factor seq_len / base_seqlen over the image tokens (the [eol]
-    column left out), with no time-aware scaling."""
+    scales its RoPE time-aware beyond `train_res`^2 and takes the anagram
+    scale variant and `kv_merge_ratio`; Flag-DiT instead takes the NTK
+    factor seq_len / base_seqlen over the image tokens (the [eol] column
+    left out), with no time-aware scaling."""
     do_extrapolation = (width * height) > (train_res * train_res)
     base_seqlen = (train_res // vae_downsample // model.patch_size) ** 2
     proportional_attn = proportional_attn and do_extrapolation
@@ -100,7 +102,8 @@ def _t2i_cfg(model, width, height, train_res, scale_watershed, proportional_attn
         scale_factor = resolution_scale_factor(width, height, train_res) if do_extrapolation else 1.0
     kw = dict(scale_factor=scale_factor,
               scale_watershed=scale_watershed if do_extrapolation else 1.0,
-              proportional_attn=proportional_attn, base_seqlen=base_seqlen)
+              proportional_attn=proportional_attn, base_seqlen=base_seqlen,
+              attn_scale_variant=attn_scale_variant, kv_merge_ratio=kv_merge_ratio)
     return lambda x, t, cap_feats, cap_mask, cfg_scale, lse_recorder=None: next_dit_cfg(
         model, x, t, cap_feats, cap_mask, cfg_scale, lse_recorder=lse_recorder, **kw)
 
@@ -178,6 +181,8 @@ def autocalibrate_flash_static_max(
     spread_limit: float = 60.0,
     z: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    attn_scale_variant: str = "proportional",
+    kv_merge_ratio: int = 1,
 ) -> Optional[float]:
     """Measure a static softmax bound for the streaming self-attention of a
     qk-norm model.
@@ -194,6 +199,9 @@ def autocalibrate_flash_static_max(
     (<= 1024 tokens), or when the measured spread exceeds `spread_limit`.
 
     z: the (B, C, H/8, W/8) probe noise; drawn from `generator` when None.
+    attn_scale_variant, kv_merge_ratio: the NextDiT forward's (the anagram
+    app's phase 2); under `kv_merge_ratio` > 1 only sites whose pooled keys
+    still stream record, so a probe with none returns None.
     """
     if os.environ.get("LUMINA_FLASH_STATIC_MAX", ""):
         return None
@@ -208,7 +216,8 @@ def autocalibrate_flash_static_max(
         return None
 
     cfg = _t2i_cfg(model, width, height, train_res, scale_watershed, proportional_attn,
-                   vae_downsample)
+                   vae_downsample, attn_scale_variant=attn_scale_variant,
+                   kv_merge_ratio=kv_merge_ratio)
     device = cap_feats.device
     if z is None:
         z = torch.randn((cap_feats.shape[0] // 2, in_channels, lh, lw), generator=generator,

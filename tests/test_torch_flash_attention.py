@@ -299,6 +299,39 @@ def test_flag_dit_head_dims_match_plain_on_card(cuda_device, entry, case):
     assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
 
 
+# the anagram and SD3 paths: K1 behind phase 2's 4096 queries over kv_merge's
+# 1024 pooled keys (head_dim 72); K2 on MMDiT-SD3-Medium's unmasked joint
+# sequence at 1024^2 (333 context + 4096 image tokens, 24 heads of 64, no
+# tile-aligned length) and K4 on DreamBooth's at 256^2 (333 + 256);
+# (b, sq, sk, hq, hkv, d)
+ANAGRAM_SD3_SHAPES = {"kv1024": (2, 4096, 1024, 32, 32, 72),
+                      "sd3_joint": (2, 4429, 4429, 24, 24, 64),
+                      "sd3_dreambooth": (2, 589, 589, 24, 24, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,case", [("small_kv", "kv1024"), ("online", "sd3_joint"),
+                                        ("online_lse", "sd3_dreambooth")])
+def test_anagram_sd3_shapes_match_plain_on_card(cuda_device, entry, case):
+    """K1, K2 and K4 at the anagram and SD3 paths' new shapes, with no key
+    mask (the kernel masks the key tail past Sk itself). Bars: 1e-2 max and
+    1e-3 mean; LSE 1e-3."""
+    b, sq, sk, hq, hkv, d = ANAGRAM_SD3_SHAPES[case]
+    g = torch.Generator().manual_seed(sq + sk + d)
+    mk = lambda *sh: torch.randn(*sh, generator=g).to("cuda", torch.bfloat16)
+    q, k, v = mk(b, sq, hq, d), mk(b, sk, hkv, d), mk(b, sk, hkv, d)
+    before = tfa.LAUNCHES[entry]
+    got = getattr(tfa, f"flash_{entry}")(q, k, v, None, d ** -0.5)
+    ref = getattr(tfa, f"flash_{entry}_plain")(q, k, v, None, d ** -0.5)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES[entry] == before + 1
+    if entry == "online_lse":
+        (got, lse), (ref, ref_lse) = got, ref
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    err = (got.float() - ref.float()).abs()
+    assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
+
+
 # Gemma caption lengths: Sk a multiple of 8 up to 256, valid keys per batch
 # row ending inside a 64-key tile, the CFG's empty caption one key (<bos>)
 CAPTION_LENGTHS = {8: (1, 5), 40: (37, 21), 136: (130, 67)}

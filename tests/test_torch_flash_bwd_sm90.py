@@ -473,6 +473,25 @@ def test_head_dim_96_matches_plain_on_card(cuda_device, entry, case):
     _assert_near(got, ref, 1e-2)
 
 
+# DreamBooth's training attention at 256^2: MMDiT-SD3-Medium's joint
+# sequence (333 context + 256 image tokens, head_dim 64) and the 2B's
+# self-attention (head_dim 72); (b, sq, sk, hq, hkv, d)
+DREAMBOOTH_SHAPES = {"sd3": (2, 589, 589, 24, 24, 64), "2b": (2, 256, 256, 32, 32, 72)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DREAMBOOTH_SHAPES))
+@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
+def test_dreambooth_shapes_match_plain_on_card(cuda_device, entry, case):
+    """K6-K8 at DreamBooth's shapes with every key valid. Bar: 1e-2 of
+    max|ref|, mean 1e-3."""
+    *shape, d = DREAMBOOTH_SHAPES[case]
+    q, k, v, mask, dout = _cuda_inputs(*shape, d=d)
+    mask.fill_(1)
+    got, ref = _run(entry, q, k, v, mask, dout, scale=d ** -0.5)
+    _assert_near(got, ref, 1e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sk,lengths", [(8, (1, 5)), (40, (37, 21)), (136, (130, 67))])
 @pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])

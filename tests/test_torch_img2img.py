@@ -19,6 +19,7 @@ from PIL import Image
 
 from lumina_t2x_tpu.pipelines import sample_lib as j_sl
 from lumina_t2x_tpu.pipelines import sample_img2img as j_app
+from lumina_t2x_tpu_torch.codecs.vae import pooled_latent_standin
 from lumina_t2x_tpu_torch.core import checkpoint as t_ckpt
 from lumina_t2x_tpu_torch.pipelines import sample_img2img as t_app
 from lumina_t2x_tpu_torch.pipelines import sample_lib as t_sl
@@ -62,7 +63,7 @@ def test_strength_and_step_errors(kw, match):
 def test_stand_in_latent_matches_jax():
     """Without a VAE: the pixels average-pooled by 8, channel 0 repeated."""
     pixels = np.random.default_rng(5).uniform(-1, 1, (1, 3, 16, 24)).astype(np.float32)
-    got = t_app.stand_in_latent(torch.from_numpy(pixels))
+    got = pooled_latent_standin(torch.from_numpy(pixels))
     pooled = pixels.reshape(1, 3, 2, 8, 3, 8).mean((3, 5))
     ref = np.concatenate([pooled, pooled[:, :1]], axis=1)
     assert got.shape == (1, 4, 2, 3)

@@ -132,8 +132,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         tmodel(*args, img_sizes=[(8, 8), (8, 8)])
     with pytest.raises(NotImplementedError):
-        tmodel(*args, kv_merge_ratio=2)
-    with pytest.raises(NotImplementedError):
         t_nd.NextDiT(seq_shard_axis="data", **TINY)
 
 
