@@ -168,7 +168,29 @@ last line:
    train bound, 3 steps, the last under LUMINA_FLASH_FUSED_BWD=0, no
    checkpoint) and the Flag-DiT ImageNet 600M (256^2, B=256, 2 steps); moe:
    the three Next-DiT-MoE 600M trainers (256^2, B=256, `dots_slim` remat, 2
-   steps), Both's checkpoint sampled, the others with random weights.
+   steps), Both's checkpoint sampled, the others with random weights;
+11. audio: the audio and music family. Kernel rows (`audio_kernel_phase`,
+   in phase 3's list): K1 in fp32 (the forward template of
+   `csrc/flash_fwd.cu`: the app builds FlagDiT-1D in fp32) and bf16 at the
+   served request's (2, 128, 16, 72) over its 128 frames and over the 16
+   caption tokens, K4 and K6-K8 at the trainer's (32, 256, 16, 72) over 256
+   and over 77 keys; `audio`: `build_audio_stack(debug=False)` (FlagDiT-1D
+   1152 wide, 28 layers, 16 heads, ~0.74B, fp32, zero-init tensors
+   randomised; the random 1-D VAE ch 128; BigVGAN 1536 wide), one CFG forward
+   through the kernels, the plain versions and sdpa in fp32 and in bf16
+   activations, then `serve_audio.AudioDemoApp` behind `make_server`: one
+   25-point CFG-3 request (128 latent frames -> 256 mel frames -> 65,536
+   samples: exactly 1344 fp32 K1 launches, no plain-version call), a 400;
+   a CFG forward, the VAE decode and the vocoder timed; `audio_app.main`
+   twice, the second with `--vae_ckpt` / `--vocoder_ckpt` on random
+   Make-An-Audio-2 (ch 384) and BigVGAN (weight_g / weight_v) files written
+   by the phase; `audiotrain`: `train_audio.main` at its defaults (B=32, 256
+   frames, 77 caption tokens, bf16, AdamW) for 3 steps without a checkpoint,
+   then cut to one layer for 3 steps, a checkpoint and an `--auto_resume`
+   step under LUMINA_FLASH_FUSED_BWD=0; `judge`: `clap_eval_directory` over
+   the three WAVs with Cnn14 and a BERT-base-wide caption tower (random, the
+   hash tokenizer), then MPD and MRD forward and backward with the three
+   GAN losses.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -187,6 +209,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import zlib
 
@@ -195,6 +218,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SM90_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_sm90.cu"  # bf16 K1-K5, K9
+FWD_TEMPLATE_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd.cu"  # fp32 K1-K5
 SM90_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_sm90.cu"  # bf16 K6-K8
 ROTATE_SOURCE = "lumina_t2x_tpu_torch/csrc/rope_rotate.cu"  # K9's k
 VPU_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_sm90.cu"  # K10, K11
@@ -261,6 +285,15 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "bwd_fused_db_2b": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),
     "bwd_dq_db_2b": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:552"),
     "bwd_dkv_db_2b": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),
+    # FlagDiT-1D (audio and music, head_dim 72): K1 in fp32 (the served app
+    # builds the model in fp32: the forward template) and bf16 at the served
+    # request's self-attention, K4 and K6-K8 at the trainer's
+    "small_kv_fp32_audio": (FWD_TEMPLATE_SOURCE, f"{TPU_KERNELS}:240"),
+    "small_kv_audio": (SM90_SOURCE, f"{TPU_KERNELS}:240"),
+    "online_lse_audio": (SM90_SOURCE, f"{TPU_KERNELS}:430"),
+    "bwd_fused_audio": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),
+    "bwd_dq_audio": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:552"),
+    "bwd_dkv_audio": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),
 }
 SAMPLER_KERNELS = ("small_kv", "online", "static_max", "online_lse")
 ROPE_KERNELS = ("rope", "rope_q", "rope_rotate")
@@ -325,6 +358,19 @@ SD3_CONTEXT, SD3_STEPS = 77 + 256, 28
 SD3_JOINT_1024, SD3_JOINT_256 = (2, SD3_CONTEXT + 4096, 24), (2, SD3_CONTEXT + 256, 24)
 # DreamBooth: the 2B's self-attention at 256^2 (instance + class row)
 DB_2B = (2, 256, 32)
+# FlagDiT-1D (1152 wide, 28 layers, 16 heads of 72). The served request: a CFG
+# batch of 2 over 128 latent frames against the 16 pseudo caption tokens, 25
+# points (24 Euler steps), a self- and a cross-attention K1 call per layer
+AUDIO_SERVE, AUDIO_CONTEXT, AUDIO_POINTS, AUDIO_LAYERS = (2, 128, 16), 16, 25, 28
+AUDIO_K1_LAUNCHES = (AUDIO_POINTS - 1) * AUDIO_LAYERS * 2
+# the trainer's defaults: B=32 over 256 latent frames against 77 caption tokens
+AUDIO_TRAIN, AUDIO_TRAIN_CONTEXT = (32, 256, 16), 77
+AUDIO_PROMPTS = ("gentle rain on a tin roof followed by distant thunder",
+                 "a slow cello melody over soft piano chords",
+                 "birds chirping, then a dog barks")
+# CLAP 2022's audio tower (Cnn14 at its published widths, AudioSet's 527
+# classes) and its 1024-wide projection
+CNN14_CHANNELS, CLAP_CLASSES, CLAP_PROJ = (64, 128, 256, 512, 1024, 2048), 527, 1024
 # the VAE's decode on the card against the CPU's, relative L2: fp32 convolutions
 # only sum in another order; TF32 rounds each convolution's operands to 10
 # mantissa bits (2^-11 relative), about 30 convolutions in series
@@ -972,13 +1018,13 @@ def imagenet_kernel_phase(fa):
     return {"small_kv_imagenet_600m": {**timed, "max_abs_err": max_err}}
 
 
-def _shape_inputs(g, b, s, h, hkv, d, masked, sk=None, valid=None):
-    """bf16 q (b, s, h, d) and k, v (b, sk, hkv, d), sk = s by default, with
-    no mask, the first `valid` keys of each row valid, or (`masked`) a masked
-    tail and a fully masked last batch row."""
+def _shape_inputs(g, b, s, h, hkv, d, masked, sk=None, valid=None, dtype=torch.bfloat16):
+    """q (b, s, h, d) and k, v (b, sk, hkv, d) in `dtype`, sk = s by default,
+    with no mask, the first `valid` keys of each row valid, or (`masked`) a
+    masked tail and a fully masked last batch row."""
     sk = sk or s
-    q = _rand(g, b, s, h, d, dtype=torch.bfloat16)
-    k, v = (_rand(g, b, sk, hkv, d, dtype=torch.bfloat16) for _ in range(2))
+    q = _rand(g, b, s, h, d, dtype=dtype)
+    k, v = (_rand(g, b, sk, hkv, d, dtype=dtype) for _ in range(2))
     mask = None
     if masked or valid:
         mask = torch.ones(b, sk, dtype=torch.int32, device="cuda")
@@ -1018,9 +1064,11 @@ def _check_forward(fa, entry, q, k, v, mask, label):
         line = f", LSE {lse_err:.3g}"
     err = (got.float() - ref).abs()
     max_err, mean_err = err.max().item(), err.mean().item()
-    require(math.isfinite(max_err) and max_err <= BF16_MAX,
-            f"{entry} {label}: max abs err {max_err} > {BF16_MAX}")
-    require(mean_err <= BF16_MEAN, f"{entry} {label}: mean abs err {mean_err} > {BF16_MEAN}")
+    bar = FP32_MAX if q.dtype == torch.float32 else BF16_MAX
+    require(math.isfinite(max_err) and max_err <= bar,
+            f"{entry} {label}: max abs err {max_err} > {bar}")
+    if q.dtype == torch.bfloat16:
+        require(mean_err <= BF16_MEAN, f"{entry} {label}: mean abs err {mean_err} > {BF16_MEAN}")
     if mask is not None and not bool(mask[-1].any()):
         require(torch.count_nonzero(got[-1]).item() == 0, f"{entry} {label}: masked row not 0")
     return got, max_err, f"max abs err {max_err:.3g} mean {mean_err:.3g}{line}"
@@ -1055,9 +1103,10 @@ def _check_backward(fa, q, k, v, mask, dout, label):
     return worst, args, "max err / max|ref| " + ", ".join(parts)
 
 
-def shape_rows(fa, g, d, cases):
-    """Kernel rows at one head_dim: each case (row, entry, (b, s, h), sk,
-    valid) runs twice against its plain version, first with all heads (and
+def shape_rows(fa, g, d, cases, dtype=torch.bfloat16):
+    """Kernel rows at one head_dim, in `dtype` (bf16, or fp32 for the
+    forwards: the fp32 bar, no mean bar): each case (row, entry, (b, s, h),
+    sk, valid) runs twice against its plain version, first with all heads (and
     the first `valid` of `sk` keys, for a caption) timed with its bound and
     library call (sdpa for K1-K3, aten's flash attention with LSE for K4/K5,
     the sdpa autograd backward for K6-K8; `entry` "bwd" stands for all three,
@@ -1068,9 +1117,10 @@ def shape_rows(fa, g, d, cases):
     for row, entry, (b, s, h), sk, valid, timed in cases:
         for masked in (False, True):
             hkv = h // 4 if masked else h
-            label = (f"bf16 ({b}, {s}, {h}/{hkv}, {d})" + (f", Sk={sk}" if sk else "")
+            label = (f"{'fp32' if dtype == torch.float32 else 'bf16'} ({b}, {s}, {h}/{hkv}, {d})"
+                     + (f", Sk={sk}" if sk else "")
                      + (f" ({valid} valid)" if valid else "") + (", masked" if masked else ""))
-            q, k, v, mask = _shape_inputs(g, b, s, h, hkv, d, masked, sk, valid)
+            q, k, v, mask = _shape_inputs(g, b, s, h, hkv, d, masked, sk, valid, dtype)
             keys = (valid or k.shape[1]) / k.shape[1]  # the products this run's mask needs
             scale = d ** -0.5
             if entry == "bwd":
@@ -1110,7 +1160,7 @@ def shape_rows(fa, g, d, cases):
                              "plain_ms": time_ms(lambda: plain(q, k, v, mask, scale,
                                                                *kw.values()), reps=3),
                              **least_time(_nbytes(q, k, v, mask, got) + lse_bytes,
-                                          attention_ops(q, k, 2) * keys, torch.bfloat16)}
+                                          attention_ops(q, k, 2) * keys, dtype)}
                     lib = (library_forward_lse if entry.endswith("_lse") and mask is None
                            else library_forward)(q, k, v, mask, scale)
                     stats["library_ms"] = lib["library_ms"]
@@ -3080,6 +3130,456 @@ def dreambooth_phase(fa, vae_path, sd3_vae_path):
     return rows
 
 
+# -- the audio and music family ----------------------------------------------------------
+
+
+def audio_kernel_phase(fa):
+    """FlagDiT-1D's shapes (`shape_rows`, head_dim 72): K1 in fp32 (the
+    forward template, `csrc/flash_fwd.cu`: the served app is fp32) and in
+    bf16 at the served request's self-attention AUDIO_SERVE over its 128 keys
+    (the rows) and over the 16 caption keys; K4 and K6-K8 at the trainer's
+    AUDIO_TRAIN over its 256 keys (the rows) and over the 77 caption keys.
+    The caption cases are timed and printed, under row names the kernels line
+    does not list."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    results = shape_rows(fa, g, 72, [
+        ("small_kv_fp32_audio", "small_kv", AUDIO_SERVE, None, None, True),
+        ("small_kv_fp32_audio_ctx", "small_kv", AUDIO_SERVE, AUDIO_CONTEXT, None, True)],
+        dtype=torch.float32)
+    results.update(shape_rows(fa, g, 72, [
+        ("small_kv_audio", "small_kv", AUDIO_SERVE, None, None, True),
+        ("small_kv_audio_ctx", "small_kv", AUDIO_SERVE, AUDIO_CONTEXT, None, True),
+        ("online_lse_audio", "online_lse", AUDIO_TRAIN, None, None, True),
+        ("online_lse_audio_ctx", "online_lse", AUDIO_TRAIN, AUDIO_TRAIN_CONTEXT, None, True),
+        ("bwd_audio", "bwd", AUDIO_TRAIN, None, None, True),
+        ("bwd_audio_ctx", "bwd", AUDIO_TRAIN, AUDIO_TRAIN_CONTEXT, None, True)]))
+    return results
+
+
+def _wav_frames(data):
+    """(frames, sample rate) of a mono 16-bit WAV's bytes."""
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(data), "rb") as f:
+        require(f.getnchannels() == 1 and f.getsampwidth() == 2, "WAV not mono 16-bit")
+        return f.getnframes(), f.getframerate()
+
+
+def _write_audio_reference_files(root):
+    """Random stand-ins for the real weight files, in the reference layouts:
+    Make-An-Audio-2's mel VAE (ch 384) as a Lightning `maa2.ckpt`
+    (`state_dict` of `first_stage_model.*` plus a loss entry) and BigVGAN
+    (1536 wide) as `best_netG.pt` (`generator`, every convolution as
+    weight_g / weight_v, the resamplers' filter buffers), both stored in
+    bf16 for the call's disk writes. Returns the two paths and their bytes."""
+    from lumina_t2x_tpu_torch.codecs.vae1d import make_an_audio_2_vae
+    from lumina_t2x_tpu_torch.codecs.vocoder import BigVGAN
+
+    torch.manual_seed(18)
+    with torch.device("cuda"):
+        vae, voc = make_an_audio_2_vae(), BigVGAN()
+    sd = {f"first_stage_model.{k}": v.to(torch.bfloat16).cpu() for k, v in vae.state_dict().items()}
+    sd["first_stage_model.loss.logvar"] = torch.zeros(())
+    vae_path = os.path.join(root, "maa2.ckpt")
+    torch.save({"state_dict": sd}, vae_path)
+    wn = {}
+    for key, w in voc.state_dict().items():
+        w = w.to(torch.bfloat16).cpu()
+        if key.endswith(".weight") and w.dim() == 3:
+            name = key[: -len(".weight")]
+            wn[f"{name}.weight_v"] = w
+            wn[f"{name}.weight_g"] = w.float().pow(2).sum(dim=(1, 2), keepdim=True).sqrt().to(
+                torch.bfloat16)
+        else:
+            wn[key] = w
+    wn["resblocks.0.activations.0.upsample.filter"] = torch.ones(1, 1, 12)
+    voc_path = os.path.join(root, "best_netG.pt")
+    torch.save({"generator": wn}, voc_path)
+    del vae, voc
+    torch.cuda.empty_cache()
+    return vae_path, voc_path, os.path.getsize(vae_path) + os.path.getsize(voc_path)
+
+
+def _audio_cli(fa, argv, label, wav_path):
+    """`audio_app.main(argv)` into a temporary directory: its WAV (65,536
+    frames at 16 kHz), copied to `wav_path`, its K1 launches (exactly
+    AUDIO_K1_LAUNCHES, nothing else) and no plain-version call."""
+    from lumina_t2x_tpu_torch.pipelines import audio_app
+
+    with tempfile.TemporaryDirectory() as out:
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = audio_app.main(argv + ["--output_dir", out, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = _launched(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"]
+        with open(path, "rb") as f:
+            data = f.read()
+        shutil.copy(path, wav_path)
+    frames = _wav_frames(data)
+    require(frames == (256 * 256, 16000) and launches == {"small_kv": AUDIO_K1_LAUNCHES}
+            and plain == 0, f"{label}: WAV {frames}, launches {launches}, plain {plain}")
+    phase("audio", f"{label}: sample.wav {frames[0]} frames at {frames[1]} Hz; wall {wall:.1f} s "
+          f"incl. set-up; launches {launches}; plain-version CUDA calls {plain}")
+    gc.collect()  # the CLI's stack
+    torch.cuda.empty_cache()
+    return launches["small_kv"]
+
+
+def audio_phase(fa, wav_dir):
+    """The audio app at full width: `build_audio_stack(debug=False)`
+    (FlagDiT-1D 1152 wide, 28 layers, fp32; the random VAE ch 128, (1, 2);
+    BigVGAN 1536 wide), zero-init tensors randomised. One CFG forward through
+    the kernels, the plain versions and sdpa in fp32 (the app's) and in bf16
+    (the trainer's activations: the bf16 K1 row's main path); then the
+    served path: `serve_audio.AudioDemoApp` behind `make_server`, a 25-point
+    CFG-3 request over 128 latent frames -> 256 mel frames -> 65,536 samples
+    (exactly AUDIO_K1_LAUNCHES fp32 K1 calls, no plain-version call), a bad
+    request (400); the CUDA-event times of a CFG forward, the VAE decode and
+    the vocoder; then `audio_app.main` twice, the second with `--vae_ckpt`
+    and `--vocoder_ckpt` on random reference-layout files. The three WAVs go
+    to `wav_dir`. Returns the K1 rows' launches."""
+    from lumina_t2x_tpu_torch.pipelines import audio_app
+    from lumina_t2x_tpu_torch.pipelines.serve import make_server
+    from lumina_t2x_tpu_torch.pipelines.serve_audio import AudioDemoApp
+
+    t0 = time.perf_counter()
+    denoiser, vae_decode, vocode = audio_app.build_audio_stack(debug=False, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n = _randomise_zero_init(denoiser, 16)
+    vae, voc = vae_decode.__self__, vocode.__self__.model
+    count = lambda module: sum(p.numel() for p in module.parameters())  # noqa: E731
+    phase("audio", f"build_audio_stack(debug=False) in {build_s:.1f} s: FlagDiT-1D "
+          f"{count(denoiser) / 1e9:.4f}B params (1152 wide, 28 layers, 16 heads of 72, fp32; {n} "
+          f"zero-init tensors randomised), 1-D VAE {count(vae) / 1e6:.2f}M (ch 128, (1, 2)), "
+          f"BigVGAN {count(voc) / 1e6:.2f}M (1536 wide, rates (4, 4, 2, 2, 2, 2))")
+
+    b, s, h = AUDIO_SERVE
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn(1, 20, s, generator=g, device="cuda").repeat(2, 1, 1)
+    t = torch.full((2,), 480.0, device="cuda")
+    ctx = torch.cat([torch.randn(1, AUDIO_CONTEXT, 1024, generator=g, device="cuda"),
+                     torch.zeros(1, AUDIO_CONTEXT, 1024, device="cuda")])
+    bf16_k1 = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        denoiser.dtype = denoiser.t_embedder.dtype = dtype  # activations; parameters stay fp32
+        outs = {}
+        with torch.no_grad():
+            for impl in ("flash", "plain", "xla"):
+                denoiser.set_attn_impl(impl)
+                fa.reset_launch_counts()
+                outs[impl] = denoiser(x, t, ctx)
+                if impl == "flash":
+                    launched = _launched(fa.LAUNCHES)
+        torch.cuda.synchronize()
+        fast, ref = outs["flash"], outs["plain"]
+        require(fast.shape == (2, 20, s) and bool(torch.isfinite(fast).all())
+                and launched == {"small_kv": 2 * AUDIO_LAYERS},
+                f"FlagDiT-1D {dtype} forward: shape {tuple(fast.shape)}, launches {launched}")
+        rel = ((fast - ref).norm() / ref.norm()).item()
+        floor = ((outs["xla"] - ref).norm() / ref.norm()).item()
+        phase("audio", f"FlagDiT-1D CFG forward, {str(dtype)[6:]} activations, {s} latent "
+              f"frames, {AUDIO_CONTEXT} caption tokens: rel L2 kernels vs plain {rel:.4g} (sdpa "
+              f"vs plain {floor:.4g}); launches {launched}")
+        require(rel <= max(2e-2, GRAD_FLOOR_FACTOR * floor), f"FlagDiT-1D forward rel L2 {rel}")
+        if dtype == torch.bfloat16:
+            bf16_k1 = launched["small_kv"]
+    denoiser.dtype = denoiser.t_embedder.dtype = torch.float32
+    denoiser.set_attn_impl("auto")
+    del outs, fast, ref
+
+    worker = audio_app.AudioWorker(denoiser, vae_decode, vocode, task="music", latent_length=s,
+                                   device="cuda")
+    worker.generate(AUDIO_PROMPTS[0], num_steps=2)  # warm-up (cuDNN picks its algorithms)
+    server = make_server(AudioDemoApp(worker, task="music"), port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/api/health", timeout=60) as resp:
+            health = json.loads(resp.read())
+        require(health == {"ok": True, "task": "music"}, f"audio health {health}")
+        body = {"prompt": AUDIO_PROMPTS[0], "num_steps": AUDIO_POINTS, "guidance_scale": 3.0}
+        req = urllib.request.Request(url + "/api/generate", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, payload = resp.status, json.loads(resp.read())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches, plain = _launched(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"]
+        bad = urllib.request.Request(url + "/api/generate", data=b'{"prompt": "x", "num_steps": 0}',
+                                     headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(bad, timeout=60)
+            bad_status = 200
+        except urllib.error.HTTPError as e:
+            bad_status = e.code
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    wav = base64.b64decode(payload["audio_wav_b64"])
+    frames = _wav_frames(wav)
+    with open(os.path.join(wav_dir, "1.wav"), "wb") as f:
+        f.write(wav)
+    require(status == 200 and frames == (256 * 256, 16000) and bad_status == 400,
+            f"audio server: HTTP {status}, WAV {frames}, bad request HTTP {bad_status}")
+    require(launches == {"small_kv": AUDIO_K1_LAUNCHES} and plain == 0,
+            f"audio request: launches {launches}, plain {plain}")
+
+    z = torch.randn(1, 20, s, generator=g, device="cuda")
+    with torch.no_grad():
+        forward_ms = time_ms(lambda: denoiser(x, t, ctx))
+        mel = vae_decode(z)
+        decode_ms = time_ms(lambda: vae_decode(z))
+        vocoder_ms = time_ms(lambda: voc(mel))
+    per_forward = (wall - (decode_ms + vocoder_ms) / 1e3) / (AUDIO_POINTS - 1)
+    phase("audio", f"POST /api/generate {body}: HTTP 200 in {wall:.3f} s (server-side "
+          f"{payload['metadata']['elapsed_s']} s), {AUDIO_POINTS} points (CFG 3, batch 2), {s} "
+          f"latent frames -> {tuple(mel.shape)} mel -> WAV {frames[0]} frames at {frames[1]} Hz; "
+          f"{per_forward:.4f} s a CFG forward in the request (wall less decode and vocoder, over "
+          f"{AUDIO_POINTS - 1}); one CFG forward {forward_ms:.3f} ms, VAE decode {decode_ms:.3f} "
+          f"ms, vocoder {vocoder_ms:.3f} ms (CUDA events, median of 7); peak memory {peak:.2f} "
+          f"GiB; launches {launches}; plain-version CUDA calls {plain}; bad request HTTP "
+          f"{bad_status}")
+    del worker, denoiser, vae_decode, vocode, vae, voc, mel
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fp32_k1 = launches["small_kv"]
+    fp32_k1 += _audio_cli(fa, ["--prompt", AUDIO_PROMPTS[1], "--seed", "1"],
+                          "audio_app.main --prompt <music>", os.path.join(wav_dir, "2.wav"))
+    with tempfile.TemporaryDirectory() as root:
+        vae_path, voc_path, nbytes = _write_audio_reference_files(root)
+        phase("audio", f"random Make-An-Audio-2 VAE (ch 384) and BigVGAN (1536) files in the "
+              f"reference layouts, bf16: {nbytes / 2**30:.3f} GiB")
+        fp32_k1 += _audio_cli(fa, ["--task", "audio", "--struct_caption", "--prompt",
+                                   AUDIO_PROMPTS[2], "--seed", "2", "--vae_ckpt", vae_path,
+                                   "--vocoder_ckpt", voc_path],
+                              "audio_app.main --task audio --struct_caption --vae_ckpt maa2.ckpt "
+                              "--vocoder_ckpt best_netG.pt", os.path.join(wav_dir, "3.wav"))
+    return {"small_kv_fp32_audio": fp32_k1, "small_kv_audio": bf16_k1}
+
+
+def _audio_metrics(results_dir):
+    with open(os.path.join(results_dir, "music", "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def audio_train_phase(fa):
+    """`train_audio.main` at the JAX trainer's defaults (FlagDiT-1D 1152 wide,
+    28 layers; synthetic://, B=32, 256 latent frames, 77 caption tokens,
+    bf16, AdamW): 3 steps with no checkpoint written (a full-depth one, fp32
+    parameters, EMA and both moments, is 11 GiB, twice that with the resume,
+    past what the call's 45 GiB of disk writes leave); then the same CLI cut
+    to one layer: 3 steps and a checkpoint, and a 4th step by --auto_resume
+    under LUMINA_FLASH_FUSED_BWD=0 (K7/K8). Returns the trainer rows'
+    launches."""
+    from lumina_t2x_tpu_torch.pipelines import train_audio
+
+    fa.set_flash_static_max_train(None)  # K4 and K6-K8, no train bound
+    b, s, _ = AUDIO_TRAIN
+    base = ["--data_path", "synthetic://", "--global_batch_size", str(b), "--latent_length",
+            str(s), "--context_len", str(AUDIO_TRAIN_CONTEXT), "--precision", "bf16",
+            "--log_every", "1", "--ckpt_every", "1000", "--device", "cuda"]
+    saved = train_audio.save_checkpoint
+    with tempfile.TemporaryDirectory() as results:
+        train_audio.save_checkpoint = lambda *args, **kwargs: "(not written)"
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            state = train_audio.main(base + ["--results_dir", results, "--max_steps", "3"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            train_audio.save_checkpoint = saved
+        full, plain = _launched(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        params = sum(p.numel() for p in state.model.parameters())
+        m = _audio_metrics(results)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(len(m) == 3 and all(math.isfinite(r["train/loss"]) for r in m) and plain == 0
+            and full.get("online_lse", 0) > 0 and full.get("bwd_fused", 0) > 0,
+            f"audio trainer: metrics {m}, launches {full}, plain {plain}")
+    phase("audiotrain", f"train_audio.main FlagDiT-1D ({params / 1e9:.4f}B params) synthetic, "
+          f"B={b}, {s} latent frames, {AUDIO_TRAIN_CONTEXT} caption tokens, bf16, AdamW, 3 steps, "
+          f"no checkpoint: losses {[round(r['train/loss'], 5) for r in m]}; s/step "
+          f"{[round(r['train/secs_per_step'], 4) for r in m]} ({b / _steady(m):.1f} items/s after "
+          f"the first); peak memory {peak:.2f} GiB; wall {wall:.1f} s; launches {full}")
+
+    with tempfile.TemporaryDirectory() as results:
+        argv = base + ["--depth", "1", "--results_dir", results, "--keep_last", "1"]
+        fa.reset_launch_counts()
+        state = train_audio.main(argv + ["--max_steps", "3"])
+        cut = _launched(fa.LAUNCHES)
+        ckpt = os.path.join(results, "music", "checkpoints", "0000003")
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(ckpt)
+                     for f in files)
+        del state
+        fa.reset_launch_counts()
+        os.environ["LUMINA_FLASH_FUSED_BWD"] = "0"
+        try:
+            state = train_audio.main(argv + ["--max_steps", "4", "--auto_resume"])
+        finally:
+            os.environ.pop("LUMINA_FLASH_FUSED_BWD")
+        resumed, plain = _launched(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"]
+        m = _audio_metrics(results)
+        ckpts = os.listdir(os.path.join(results, "music", "checkpoints"))
+        step = state.step
+        del state
+    torch.cuda.empty_cache()
+    require(step == 4 and ckpts == ["0000004"] and len(m) == 4 and plain == 0
+            and all(math.isfinite(r["train/loss"]) for r in m) and resumed.get("bwd_dq", 0) > 0
+            and resumed.get("bwd_dkv", 0) > 0 and "bwd_fused" not in resumed,
+            f"audio trainer resume: step {step}, checkpoints {ckpts}, launches {resumed}")
+    per_layer = nbytes / 2**30
+    phase("audiotrain", f"the CLI cut to 1 layer: 3 steps and a checkpoint of {per_layer:.3f} GiB "
+          f"(written twice: {2 * per_layer:.3f} GiB of the call's 45 GiB of disk writes; at full "
+          f"depth {16 * params / 2**30:.2f} GiB each), then --auto_resume for step 4 with "
+          f"LUMINA_FLASH_FUSED_BWD=0: losses {[round(r['train/loss'], 5) for r in m]}; launches "
+          f"{cut}, resumed {resumed}")
+    return {"online_lse_audio": full["online_lse"] + cut["online_lse"] + resumed["online_lse"],
+            "bwd_fused_audio": full["bwd_fused"] + cut["bwd_fused"],
+            "bwd_dq_audio": resumed["bwd_dq"], "bwd_dkv_audio": resumed["bwd_dkv"]}
+
+
+def _random_clap_state_dict(g):
+    """A CLAP 2022 checkpoint's audio branch at its published widths, random
+    from `g`: `audio_encoder.base.*` (Cnn14: conv blocks CNN14_CHANNELS, batch
+    norms with running statistics, fc1 2048, the AudioSet head) and
+    `audio_encoder.projection.*` (2048 -> CLAP_PROJ)."""
+    sd, cin = {}, 1
+
+    def rand(*shape, std=1.0):
+        return std * torch.randn(*shape, generator=g)
+
+    def bn(prefix, n):
+        sd.update({f"{prefix}.weight": 1 + 0.1 * rand(n), f"{prefix}.bias": 0.1 * rand(n),
+                   f"{prefix}.running_mean": 0.1 * rand(n),
+                   f"{prefix}.running_var": 1 + 0.1 * rand(n).abs()})
+
+    bn("audio_encoder.base.bn0", 64)
+    for i, c in enumerate(CNN14_CHANNELS, start=1):
+        blk = f"audio_encoder.base.conv_block{i}"
+        sd[f"{blk}.conv1.weight"] = rand(c, cin, 3, 3, std=(2 / (9 * cin)) ** 0.5)
+        sd[f"{blk}.conv2.weight"] = rand(c, c, 3, 3, std=(2 / (9 * c)) ** 0.5)
+        bn(f"{blk}.bn1", c)
+        bn(f"{blk}.bn2", c)
+        cin = c
+    width = CNN14_CHANNELS[-1]
+    sd.update({"audio_encoder.base.fc1.weight": rand(width, width, std=width ** -0.5),
+               "audio_encoder.base.fc1.bias": torch.zeros(width),
+               "audio_encoder.base.fc_audioset.weight": rand(CLAP_CLASSES, width, std=width ** -0.5),
+               "audio_encoder.base.fc_audioset.bias": torch.zeros(CLAP_CLASSES),
+               "audio_encoder.projection.linear1.weight": rand(CLAP_PROJ, width, std=width ** -0.5),
+               "audio_encoder.projection.linear2.weight": rand(CLAP_PROJ, CLAP_PROJ,
+                                                               std=CLAP_PROJ ** -0.5),
+               "audio_encoder.projection.layer_norm.weight": torch.ones(CLAP_PROJ),
+               "audio_encoder.projection.layer_norm.bias": torch.zeros(CLAP_PROJ),
+               "logit_scale": torch.tensor(math.log(1 / 0.07))})
+    return sd
+
+
+def audio_judge_phase(fa, wav_dir):
+    """The CLAP judge on the card over the WAVs of the audio phase: Cnn14 at
+    its published widths (44.1 kHz, 1024 / 320 / 64 mels; random, through
+    `import_clap_audio_weights`) and a BERT-base-wide caption tower (random
+    transformers `BertModel`, 1024-wide projection, through
+    `CLAPTextEncoder.from_clap_state_dict`) with the hash tokenizer (no BERT
+    vocabulary here); `clap_eval_directory` resamples the 16 kHz clips to
+    44.1 kHz and tiles them to 5 s. Then MPD and MRD (BigVGAN-base widths)
+    forward and backward on the clips with the three GAN losses."""
+    from transformers import BertConfig, BertModel
+
+    from lumina_t2x_tpu_torch.codecs import vocoder_discriminators as vd
+    from lumina_t2x_tpu_torch.codecs.clap_audio import CLAPAudioEncoder, import_clap_audio_weights
+    from lumina_t2x_tpu_torch.codecs.text_encoders import BertHashTokenizer, CLAPTextEncoder
+    from lumina_t2x_tpu_torch.eval.audio_eval import clap_eval_directory, read_wav
+
+    g = torch.Generator().manual_seed(19)
+    torch.manual_seed(19)
+    bert = BertModel(BertConfig())  # bert-base-uncased's widths
+    sd = _random_clap_state_dict(g)
+    sd.update({f"caption_encoder.base.{k}": v for k, v in bert.state_dict().items()})
+    width = bert.config.hidden_size
+    sd.update({"caption_encoder.projection.linear1.weight": width ** -0.5 * torch.randn(
+        CLAP_PROJ, width, generator=g),
+        "caption_encoder.projection.linear2.weight": CLAP_PROJ ** -0.5 * torch.randn(
+            CLAP_PROJ, CLAP_PROJ, generator=g),
+        "caption_encoder.projection.layer_norm.weight": torch.ones(CLAP_PROJ),
+        "caption_encoder.projection.layer_norm.bias": torch.zeros(CLAP_PROJ)})
+    text_enc = CLAPTextEncoder.from_clap_state_dict(sd, BertModel(BertConfig()).cuda(),
+                                                    BertHashTokenizer())
+    audio_enc = CLAPAudioEncoder(import_clap_audio_weights(sd), device="cuda")
+    n_text = sum(p.numel() for p in text_enc.model.parameters())
+
+    def numel(tree):
+        return (sum(numel(v) for v in tree.values()) if isinstance(tree, dict)
+                else tree.numel())
+    n_audio = numel(audio_enc.params["cnn14"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = clap_eval_directory(text_enc, audio_enc, wav_dir, list(AUDIO_PROMPTS))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    scores = list(report["per_file"].values())
+    require(report["n"] == 3 and all(math.isfinite(x) and -1.0 <= x <= 1.0 for x in scores),
+            f"CLAP report {report}")
+    phase("judge", f"clap_eval_directory over {sorted(report['per_file'])} (16 kHz -> 44.1 kHz, "
+          f"tiled to 5 s): Cnn14 {n_audio / 1e6:.1f}M params, BERT-base caption tower "
+          f"{n_text / 1e6:.1f}M, both random; scores {[round(x, 4) for x in scores]}, mean "
+          f"{report['mean_clap_score']:.4f}; {secs:.3f} s")
+    del text_enc, audio_enc, bert
+
+    waves = [torch.from_numpy(read_wav(os.path.join(wav_dir, f"{i}.wav"))[0]) for i in (1, 2, 3)]
+    y = torch.stack(waves[:2]).cuda()
+    y_hat = torch.stack(waves[1:]).cuda().requires_grad_()
+    torch.cuda.reset_peak_memory_stats()
+    for name, disc in (("MPD", vd.MultiPeriodDiscriminator()),
+                       ("MRD", vd.MultiResolutionDiscriminator())):
+        disc = disc.cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sr, sg, _, _ = disc(y, y_hat.detach())
+        d_loss, _, _ = vd.discriminator_loss(sr, sg)
+        d_loss.backward()
+        torch.cuda.synchronize()
+        d_secs = time.perf_counter() - t0
+        d_grads = [p.grad for p in disc.parameters()]
+        require(all(gr is not None and bool(torch.isfinite(gr).all()) for gr in d_grads),
+                f"{name}: discriminator gradients")
+        disc.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        _, sg, fr, fg = disc(y, y_hat)
+        g_loss, _ = vd.generator_loss(sg)
+        f_loss = vd.feature_loss(fr, fg)
+        (g_loss + f_loss).backward()
+        torch.cuda.synchronize()
+        g_secs = time.perf_counter() - t0
+        require(all(math.isfinite(float(v.detach())) for v in (d_loss, g_loss, f_loss))
+                and bool(torch.isfinite(y_hat.grad).all()) and y_hat.grad.abs().sum() > 0,
+                f"{name}: losses {d_loss}, {g_loss}, {f_loss}")
+        phase("judge", f"{name} ({sum(p.numel() for p in disc.parameters()) / 1e6:.2f}M params) "
+              f"on 2 x {y.shape[-1]} samples: discriminator loss {float(d_loss.detach()):.4f} "
+              f"(forward + backward {1e3 * d_secs:.1f} ms, first call), generator loss "
+              f"{float(g_loss.detach()):.4f}, feature loss {float(f_loss.detach()):.4f} "
+              f"(forward + backward to the waveform {1e3 * g_secs:.1f} ms)")
+        y_hat.grad = None
+        del disc
+    phase("judge", f"discriminators' peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; plain-version CUDA calls {fa.PLAIN_CUDA_CALLS['count']}")
+    torch.cuda.empty_cache()
+
+
 def main():
     device_phase()
     sys.path.insert(0, ROOT)
@@ -3096,6 +3596,7 @@ def main():
     results.update(d48_kernel_phase(fa))
     results.update(wide_head_kernel_phase(fa))
     results.update(anagram_sd3_kernel_phase(fa))
+    results.update(audio_kernel_phase(fa))
     exp_results, exp_launches = experiments_phase()
     results.update(exp_results)
     latent_1024 = slice_phase(fa, *forward_phase(fa))
@@ -3131,6 +3632,10 @@ def main():
     quality = quality_phase(fa)
     flag_train, flag_600m = flag_dit_train_phase(fa)
     moe = moe_phase(fa)
+    with tempfile.TemporaryDirectory() as wav_dir:
+        audio = audio_phase(fa, wav_dir)
+        audio.update(audio_train_phase(fa))
+        audio_judge_phase(fa, wav_dir)
     # head_dim 96: the 5B sampler's and trainer's; the 600M shapes: the
     # Flag-DiT ImageNet and MoE trainers and the MoE samplers join classcond's and classtrain's
     flag_launches["online_lse_d96_5b"] += flag_train.pop("online_lse_d96_5b")
@@ -3144,6 +3649,7 @@ def main():
                      "small_kv_d48_small": quality["small_kv"]})
     launches.update(exp_launches)
     launches.update({"small_kv_kv1024": kv1024, "online_d64_sd3": sd3_k2, **dreambooth_rows})
+    launches.update(audio)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -23,6 +23,11 @@ torch `GemmaModel` (the caption encoder, `codecs/text_encoders.py`);
 `mmdit_state_dict_from_jax_params` a JAX MMDiT tree into the port's MMDiT
 (`models/mmdit.py`) and `clip_text_state_dict_from_jax` a JAX CLIP text
 tower into the port's, which has HF's names (`codecs/clip_text.py`).
+The audio family's bridges: `flag_dit_1d_state_dict_from_jax_params`,
+`vae1d_state_dict_from_jax` (KL and VQ), `bigvgan_state_dict_from_jax`,
+`clap_audio_params_from_jax`, `clap_projection_from_jax` and
+`discriminator_state_dict_from_jax`;
+`import_flag_dit_1d_weights` reads a reference FlagDiT-1D file.
 
 Reference release weights (`.pth` / `.safetensors` state dicts) load with
 `load_torch_state_dict` and are written with `save_safetensors`: the
@@ -42,7 +47,7 @@ import os
 import re
 import shutil
 import struct
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -280,6 +285,163 @@ def clip_text_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Ten
             arr = arr.T
         out[f"{name}.{'bias' if leaf == 'bias' else 'weight'}"] = arr
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+# -- the audio family ----------------------------------------------------------------
+
+
+def flag_dit_1d_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax FlagDiT1D params (blocks stacked under `blocks/`, or per block
+    under `blocks_<i>/`) -> the reference music/audio FlagDiT state dict that
+    the port's `FlagDiT1D` loads with `strict=True`: the inverse of the JAX
+    package's `import_flag_dit_1d_weights`."""
+    flat = {("layers/" + k[len("blocks/"):] if k.startswith("blocks/") else k): v
+            for k, v in _flatten(params).items()}
+    out: Dict[str, np.ndarray] = {}
+    _put_linear(out, flat, "proj_in", "proj_in")
+    _put_linear(out, flat, "t_embedder.mlp.0", "t_embedder/mlp_0")
+    _put_linear(out, flat, "t_embedder.mlp.2", "t_embedder/mlp_2")
+    out["cap_embedder.0.weight"] = flat["cap_embedder_norm/weight"]
+    out["cap_embedder.0.bias"] = flat["cap_embedder_norm/bias"]
+    _put_linear(out, flat, "cap_embedder.1", "cap_embedder_proj")
+    _put_linear(out, flat, "final_layer.adaLN_modulation.1", "final_adaLN_modulation")
+    _put_linear(out, flat, "final_layer.linear", "final_linear")
+    sd = _with_layers(out, flat, "blocks_")
+    return {re.sub(r"^layers\.", "blocks.", k): v for k, v in sd.items()}
+
+
+_FLAG_DIT_1D_KEYS = re.compile(r"(proj_in|t_embedder|cap_embedder|blocks|final_layer)\.")
+
+
+def import_flag_dit_1d_weights(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A reference music/audio FlagDiT state dict (`.pth` / `.safetensors`,
+    tensors or numpy arrays) -> the port's `FlagDiT1D` state dict: the keys
+    are the same, so this keeps the model's entries (dropping buffers such
+    as the RoPE table) as CPU tensors; `load_state_dict(..., strict=True)`
+    checks the architecture."""
+    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+            for k, v in state_dict.items() if _FLAG_DIT_1D_KEYS.match(k)}
+
+
+_VAE1D_RENAMES = ((r"(down|up)_(\d+)_(block|attn)_(\d+)", r"\1.\2.\3.\4"),
+                  (r"(down|up)_(\d+)_(downsample|upsample)", r"\1.\2.\3"),
+                  (r"mid_(block_1|block_2|attn_1)", r"mid.\1"))
+
+
+def vae1d_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX `AutoencoderKL1D` or `VQModel1D` tree -> the reference
+    (CompVis) layout of the port's `codecs/vae1d.py`: the inverse of the JAX
+    package's `import_autoencoder_kl_1d_weights` /
+    `import_vq_model_1d_weights`. Conv kernels (k, I, O) -> (O, I, k),
+    GroupNorm `scale` -> `weight`, the VQ codebook -> `quantize.embedding.weight`."""
+    out = {}
+    for key, arr in _flatten(params).items():
+        module, leaf = key.rsplit("/", 1)
+        name = module.replace("/", ".")
+        for pattern, repl in _VAE1D_RENAMES:
+            name = re.sub(pattern, repl, name)
+        if leaf == "kernel":
+            arr = arr.transpose(2, 1, 0)
+        elif leaf == "embedding":
+            name, leaf = f"{name}.embedding", "weight"
+        out[f"{name}.{'bias' if leaf == 'bias' else 'weight'}"] = arr
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+def bigvgan_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX `BigVGAN` tree -> the port's `codecs/vocoder.BigVGAN` state dict
+    (the reference generator's names after weight-norm removal): conv
+    kernels (k, I, O) -> (O, I, k); the transposed convolutions' (k, I, O)
+    kernels, which the JAX importer stored time-flipped, flipped back into
+    torch's (I, O, k); `resblocks_<i>_<j>` -> `resblocks.<i * n_kernels + j>`
+    with its `act1_<d>` / `act2_<d>` as `activations.<2d>` / `<2d + 1>`."""
+    flat = _flatten(params)
+    n_kernels = 1 + max(int(m.group(1)) for m in
+                        map(re.compile(r"resblocks_\d+_(\d+)/").match, flat) if m)
+    out = {}
+    for key, arr in flat.items():
+        module, leaf = key.rsplit("/", 1)
+        m = re.match(r"resblocks_(\d+)_(\d+)/(convs[12])_(\d+)$", module)
+        if m:
+            name = (f"resblocks.{int(m.group(1)) * n_kernels + int(m.group(2))}."
+                    f"{m.group(3)}.{m.group(4)}")
+        elif (m := re.match(r"resblocks_(\d+)_(\d+)/act([12])_(\d+)/snake$", module)):
+            act = 2 * int(m.group(4)) + int(m.group(3)) - 1
+            name = (f"resblocks.{int(m.group(1)) * n_kernels + int(m.group(2))}."
+                    f"activations.{act}.act")
+        elif module == "activation_post/snake":
+            name = "activation_post.act"
+        elif (m := re.match(r"ups_(\d+)$", module)):
+            name = f"ups.{m.group(1)}.0"
+            if leaf == "kernel":
+                arr = arr[::-1].transpose(1, 2, 0)
+        else:
+            name = module
+        if leaf == "kernel" and arr.ndim == 3 and not name.startswith("ups."):
+            arr = arr.transpose(2, 1, 0)
+        out[f"{name}.{'weight' if leaf == 'kernel' else leaf}"] = arr
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+def _clap_tree_from_jax(tree: Dict[str, Any], parent: str = "") -> Dict[str, Any]:
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = _clap_tree_from_jax(value, key)
+            continue
+        arr = np.asarray(value, np.float32)
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        elif key == "kernel":
+            key, arr = "weight", arr.T
+        elif key == "scale" and parent == "layer_norm":
+            key = "weight"
+        out[key] = torch.from_numpy(np.array(arr))
+    return out
+
+
+def clap_projection_from_jax(params: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX CLAP projection head (`{"linear1": {"kernel"}, "linear2":
+    {"kernel"}, "layer_norm": {"scale", "bias"}}`, as `CLAPTextEncoder` and
+    the audio tower hold it) -> the port's `clap_projection` parameters:
+    (out, in) `weight`s, the LayerNorm's `weight` and `bias`, tensors."""
+    return _clap_tree_from_jax(params)
+
+
+def clap_audio_params_from_jax(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX CLAP audio tower's parameter dict (`import_clap_audio_weights`:
+    folded batch norms, HWIO conv kernels, (in, out) linear kernels) -> the
+    port's (`codecs/clap_audio.py`): the same nesting with conv kernels as
+    torch's OIHW and the linears and the projection as in
+    `clap_projection_from_jax`; the front-end geometry and the logit scale
+    as they are."""
+    return {"cnn14": _clap_tree_from_jax(params["cnn14"]),
+            "projection": clap_projection_from_jax(params["projection"]),
+            "frontend": dict(params["frontend"]),
+            **({"logit_scale": params["logit_scale"]} if "logit_scale" in params else {})}
+
+
+def discriminator_state_dict_from_jax(params: Dict[str, Any],
+                                      names: Sequence[str]) -> Dict[str, torch.Tensor]:
+    """A JAX `MultiPeriodDiscriminator` or `MultiResolutionDiscriminator`
+    tree (`{"params": {"p<period>" | "r<n_fft>": {"conv<j>" | "conv_post":
+    {v, g, bias}}}}`) -> the reference state dict the port's discriminators
+    load: `discriminators.<i>.convs.<j>.weight_v` (OI[H]W), `.weight_g`
+    (O, 1[, 1], 1), `.bias`, where sub-discriminator i is `names[i]`
+    (`p2`, `p3`, ... or `r1024`, `r2048`, `r512`)."""
+    tree = params.get("params", params)
+    out = {}
+    for i, sub_name in enumerate(names):
+        for conv, leaves in tree[sub_name].items():
+            name = f"discriminators.{i}." + (
+                "conv_post" if conv == "conv_post" else f"convs.{conv[len('conv'):]}")
+            v = np.asarray(leaves["v"], np.float32)
+            v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.transpose(2, 1, 0)
+            out[f"{name}.weight_v"] = v
+            out[f"{name}.weight_g"] = np.asarray(leaves["g"], np.float32).reshape(
+                (-1,) + (1,) * (v.ndim - 1))
+            out[f"{name}.bias"] = np.asarray(leaves["bias"], np.float32)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
 def train_state_from_jax(params, ema, opt_state, state_dict_fn=None):

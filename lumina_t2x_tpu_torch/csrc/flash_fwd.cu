@@ -16,7 +16,8 @@
 // consumers' registers; the rope entry points with q rotated in shared
 // memory by the (Sq, D) tables, k rotated beforehand by rope_rotate.cu).
 // The template here (kStaticMax, kEmitLse) runs fp32 inputs only: exact to
-// fp32, for tests and an fp32 model; no workload runs it. The fp32 rope
+// fp32, for tests and an fp32 model: the audio app's FlagDiT-1D, which runs
+// in fp32, calls it through `lumina_flash_small_kv`. The fp32 rope
 // entry points take q and k already rotated (rope_rotate.cu, the same
 // formula in fp32) and run the online template.
 //

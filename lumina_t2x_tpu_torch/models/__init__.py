@@ -1,9 +1,10 @@
 """Model registry (counterpart of `lumina_t2x_tpu/models/__init__.py`): the
 NextDiT text-to-image, class-conditional NextDiT-ImageNet, Flag-DiT,
-Next-DiT-MoE, region-controlled compositional and SD3 MMDiT entries. Not
-ported yet (ROADMAP queue 1, item 8): `FlagDiT1D_*`, the audio family."""
+Next-DiT-MoE, region-controlled compositional, FlagDiT-1D (audio and music)
+and SD3 MMDiT entries."""
 
 from .compositional import NextDiTCompositional, NextDiT_2B_patch2_Compositional
+from .flag_dit_1d import FlagDiT1D
 from .flag_dit import (
     FlagDiT,
     FlagDiT_5B_patch2,
@@ -57,6 +58,9 @@ MODELS = {
     "NextDiT_MoE_600M_patch2_Both": NextDiT_MoE_600M_patch2_Both,
     # region-controlled compositional generation
     "NextDiT_2B_patch2_Compositional": NextDiT_2B_patch2_Compositional,
+    # 1-D temporal denoisers (audio and music)
+    "FlagDiT1D_audio": lambda **kw: FlagDiT1D(**{**dict(in_channels=20, context_dim=1024), **kw}),
+    "FlagDiT1D_music": lambda **kw: FlagDiT1D(**{**dict(in_channels=20, context_dim=1024), **kw}),
     # SD3 (MMDiT), the SD3 sampler and DreamBooth
     "MMDiT_SD3_Medium": MMDiT_SD3_Medium,
 }
@@ -80,5 +84,5 @@ def default_cap_feat_dim(name: str) -> int:
     return 4096 if name == "DiT_Llama_5B_patch2" else 2048
 
 
-__all__ = ["MODELS", "get_model", "is_class_cond", "default_cap_feat_dim", "FlagDiT", "MMDiT", "NextDiT", "NextDiTCompositional",
+__all__ = ["MODELS", "get_model", "is_class_cond", "default_cap_feat_dim", "FlagDiT", "FlagDiT1D", "MMDiT", "NextDiT", "NextDiTCompositional",
            "NextDiTImageNet", "NextDiTMoE"]

@@ -49,13 +49,16 @@ from .layers import (
 
 
 class FlagDiTBlock(nn.Module):
-    """Pre-norm block with a 6-chunk adaLN whose gates are not tanh'd."""
+    """Pre-norm block with a 6-chunk adaLN whose gates are not tanh'd. The
+    adaLN takes a `cond_dim`-wide input: min(dim, 1024) in the image models,
+    the full width in FlagDiT-1D."""
 
     def __init__(self, dim: int, n_heads: int, n_kv_heads: Optional[int], multiple_of: int,
                  ffn_dim_multiplier: Optional[float], norm_eps: float, qk_norm: bool,
-                 y_dim: int, attn_impl: str = "auto", param_dtype=torch.float32, device=None):
+                 y_dim: int, attn_impl: str = "auto", param_dtype=torch.float32, device=None,
+                 cond_dim: Optional[int] = None):
         super().__init__()
-        cond_dim = min(dim, 1024)
+        cond_dim = cond_dim or min(dim, 1024)
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), _linear(cond_dim, 6 * dim, init="zeros", device=device, dtype=param_dtype))
         nk = dict(eps=norm_eps, device=device)

@@ -332,6 +332,41 @@ def test_anagram_sd3_shapes_match_plain_on_card(cuda_device, entry, case):
     assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
 
 
+# FlagDiT-1D (the audio family, 16 heads of 72): the served request's CFG
+# batch over 128 latent frames (self) and its 16 caption tokens (cross), in
+# fp32 (the app's, the forward template) and bf16; the trainer's B=32 over
+# 256 frames and its 77 caption tokens; (b, sq, sk, h)
+AUDIO_SHAPES = {"serve_self": (2, 128, 128, 16), "serve_cross": (2, 128, 16, 16),
+                "train_self": (32, 256, 256, 16), "train_cross": (32, 256, 77, 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,case,dtype", [
+    ("small_kv", "serve_self", torch.float32), ("small_kv", "serve_cross", torch.float32),
+    ("small_kv", "serve_self", torch.bfloat16), ("small_kv", "serve_cross", torch.bfloat16),
+    ("online_lse", "train_self", torch.bfloat16), ("online_lse", "train_cross", torch.bfloat16)])
+def test_audio_shapes_match_plain_on_card(cuda_device, entry, case, dtype):
+    """K1 and K4 at FlagDiT-1D's shapes, every key valid. Bars: bf16 1e-2 max
+    and 1e-3 mean, fp32 2e-3 max; LSE 1e-3."""
+    b, sq, sk, h = AUDIO_SHAPES[case]
+    g = torch.Generator().manual_seed(sq + sk)
+    mk = lambda *sh: torch.randn(*sh, generator=g).to("cuda", dtype)  # noqa: E731
+    q, k, v = mk(b, sq, h, 72), mk(b, sk, h, 72), mk(b, sk, h, 72)
+    before = tfa.LAUNCHES[entry]
+    got = getattr(tfa, f"flash_{entry}")(q, k, v, None, 72 ** -0.5)
+    ref = getattr(tfa, f"flash_{entry}_plain")(q.float(), k.float(), v.float(), None, 72 ** -0.5)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES[entry] == before + 1
+    if entry == "online_lse":
+        (got, lse), (ref, ref_lse) = got, ref
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    err = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 2e-3
+    else:
+        assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
+
+
 # Gemma caption lengths: Sk a multiple of 8 up to 256, valid keys per batch
 # row ending inside a 64-key tile, the CFG's empty caption one key (<bos>)
 CAPTION_LENGTHS = {8: (1, 5), 40: (37, 21), 136: (130, 67)}

@@ -492,6 +492,23 @@ def test_dreambooth_shapes_match_plain_on_card(cuda_device, entry, case):
     _assert_near(got, ref, 1e-2)
 
 
+# FlagDiT-1D's trainer: B=32 over 256 latent frames (self) and its 77
+# caption tokens (cross), 16 heads of 72; (b, sq, sk, hq, hkv)
+AUDIO_TRAIN_SHAPES = {"self": (32, 256, 256, 16, 16), "cross": (32, 256, 77, 16, 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(AUDIO_TRAIN_SHAPES))
+@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
+def test_audio_train_shapes_match_plain_on_card(cuda_device, entry, case):
+    """K6-K8 at the audio trainer's shapes with every key valid. Bar: 1e-2
+    of max|ref|, mean 1e-3."""
+    q, k, v, mask, dout = _cuda_inputs(*AUDIO_TRAIN_SHAPES[case])
+    mask.fill_(1)
+    got, ref = _run(entry, q, k, v, mask, dout, scale=72 ** -0.5)
+    _assert_near(got, ref, 1e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sk,lengths", [(8, (1, 5)), (40, (37, 21)), (136, (130, 67))])
 @pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
