@@ -16,8 +16,10 @@ last line:
    (`csrc/static_max_sm90.cu`, one instantiation each) and K12
    (`csrc/mma_probe.cu`, at the widths of its timed shape and of K=1024):
    registers per thread (as compiled and after setmaxnreg), spill bytes (0
-   required), shared memory per block, blocks per SM; and what ptxas says
-   of their wgmma;
+   required), shared memory per block, blocks per SM; the fp32 forward's
+   (`csrc/flash_fwd_fp32_sm90.cu`, fp32 K1-K5 and K9) plan and resources
+   at the served audio shape and the 2B's; and what ptxas says of their
+   wgmma;
 3. kernels: each CUDA entry point against its plain PyTorch version at the
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
    kernel; it, the LSE forward and the backward kernels also at the served
@@ -54,7 +56,10 @@ last line:
    pooled keys and K4/K6-K8 at the 2B's DreamBooth self-attention (2, 256,
    32, 72), K2 on MMDiT-SD3-Medium's unmasked joint sequence (2, 4429, 24,
    64) and K4/K6-K8 on DreamBooth's (2, 589, 24, 64), the same way
-   (`anagram_sd3_kernel_phase`);
+   (`anagram_sd3_kernel_phase`); fp32 K2-K5 at the 2B's (2, 4096, 32, 72)
+   against the fp32 rate's bound and fp32 sdpa / aten's memory-efficient
+   attention with its LSE (`fp32_forward_phase`; printed, not on the
+   kernels line: no main path runs them);
 3b. experiments: the static-max variants (K10: `static_max_v0..v3`; K11:
    `static_max_v4`, which must equal v1 bit for bit) against their plain
    versions at the experiment's shape (B=2, S=4096, H=32, D=72, bound
@@ -151,7 +156,8 @@ last line:
    B=2, bf16, AdamW with its full fp32 state, dots remat, calibrated train
    bound) through `pipelines/train_lib`, with images/s and peak memory,
    then one step under `torch.profiler` (device time by kernel group: the
-   first forward template's share, `csrc/flash_fwd.cu`);
+   fp32 forward's share, `csrc/flash_fwd_fp32_sm90.cu`, and the Hopper
+   forward's);
 8. trainer: the trainer CLI (`pipelines.train.main`, 2B at full width and
    depth, 1024^2 latents, B=2, bf16, --checkpointing, --flash_static_max
    auto, bf16 Adafactor so that two checkpoints fit the machine's disk-write
@@ -170,10 +176,11 @@ last line:
    the three Next-DiT-MoE 600M trainers (256^2, B=256, `dots_slim` remat, 2
    steps), Both's checkpoint sampled, the others with random weights;
 11. audio: the audio and music family. Kernel rows (`audio_kernel_phase`,
-   in phase 3's list): K1 in fp32 (the forward template of
-   `csrc/flash_fwd.cu`: the app builds FlagDiT-1D in fp32) and bf16 at the
-   served request's (2, 128, 16, 72) over its 128 frames and over the 16
-   caption tokens, K4 and K6-K8 at the trainer's (32, 256, 16, 72) over 256
+   in phase 3's list): K1 in fp32 (the fp32 kernel of
+   `csrc/flash_fwd_fp32_sm90.cu`: the app builds FlagDiT-1D in fp32; its
+   device time under `torch.profiler` and the wrapper's host time beside the
+   CUDA-event time) and bf16 at the served request's (2, 128, 16, 72) over
+   its 128 frames and over the 16 caption tokens, K4 and K6-K8 at the trainer's (32, 256, 16, 72) over 256
    and over 77 keys; `audio`: `build_audio_stack(debug=False)` (FlagDiT-1D
    1152 wide, 28 layers, 16 heads, ~0.74B, fp32, zero-init tensors
    randomised; the random 1-D VAE ch 128; BigVGAN 1536 wide), one CFG forward
@@ -218,7 +225,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SM90_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_sm90.cu"  # bf16 K1-K5, K9
-FWD_TEMPLATE_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd.cu"  # fp32 K1-K5
+FP32_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_fp32_sm90.cu"  # fp32 K1-K5, K9
 SM90_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_sm90.cu"  # bf16 K6-K8
 ROTATE_SOURCE = "lumina_t2x_tpu_torch/csrc/rope_rotate.cu"  # K9's k
 VPU_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_sm90.cu"  # K10, K11
@@ -286,9 +293,9 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "bwd_dq_db_2b": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:552"),
     "bwd_dkv_db_2b": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),
     # FlagDiT-1D (audio and music, head_dim 72): K1 in fp32 (the served app
-    # builds the model in fp32: the forward template) and bf16 at the served
+    # builds the model in fp32: the fp32 kernel) and bf16 at the served
     # request's self-attention, K4 and K6-K8 at the trainer's
-    "small_kv_fp32_audio": (FWD_TEMPLATE_SOURCE, f"{TPU_KERNELS}:240"),
+    "small_kv_fp32_audio": (FP32_SOURCE, f"{TPU_KERNELS}:240"),
     "small_kv_audio": (SM90_SOURCE, f"{TPU_KERNELS}:240"),
     "online_lse_audio": (SM90_SOURCE, f"{TPU_KERNELS}:430"),
     "bwd_fused_audio": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),
@@ -469,13 +476,19 @@ def library_forward(q, k, v, mask, scale):
 def library_forward_lse(q, k, v, mask, scale):
     """One library call that returns the output and the (B, H, Sq) fp32
     log-sum-exp, as K4/K5 do (K5's fixed bound is an implementation detail
-    of the same function): aten's flash attention, which takes the timed
-    case (bf16, no mask, as many kv heads as q heads). Returns its time,
-    kernel and LSE."""
-    assert mask is None and q.dtype == torch.bfloat16 and k.shape[2] == q.shape[2]
+    of the same function): aten's flash attention in bf16, its
+    memory-efficient attention (cutlass) in fp32, each on the timed case (no
+    mask, as many kv heads as q heads). Returns its time, kernel and LSE."""
+    assert mask is None and k.shape[2] == q.shape[2]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    fn = lambda: torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, scale=scale)
-    return {"library_ms": time_ms(fn), "library_kernel": top_kernel(fn), "library_lse": fn()[1]}
+    if q.dtype == torch.float32:
+        fn = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731
+            qt, kt, vt, None, True, scale=scale)
+    else:
+        fn = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
+            qt, kt, vt, scale=scale)
+    lse = fn()[1][..., :q.shape[1]]
+    return {"library_ms": time_ms(fn), "library_kernel": top_kernel(fn), "library_lse": lse}
 
 
 def library_chain(a, w, iters, perturbations):
@@ -567,6 +580,21 @@ def build_phase():
               f"of shared memory per block, {info['blocks_per_sm']} block(s) of "
               f"{info['threads']} threads per SM")
         require(info["local_bytes"] == 0, f"{source} ({entry}) spills")
+    # the fp32 forward (K1-K5, K9 in fp32): the plan the host makes and the
+    # resources of the instantiation it launches, at the served audio shape
+    # (the keys split over 4 warps) and at the 2B's (128 rows a block)
+    for label, shape in (("FlagDiT-1D served", (*AUDIO_SERVE[:2], AUDIO_SERVE[1],
+                                                 AUDIO_SERVE[2], AUDIO_SERVE[2], 72)),
+                         ("2B", (B, S, S, H, H, D))):
+        for static in (False, True):
+            info = flash_attention.fp32_attributes(static, *shape)
+            phase("build", f"{FP32_SOURCE} ({'static_max' if static else 'online'}, {label} "
+                  f"{shape}): {info['rows_per_block']} query rows a block, keys split over "
+                  f"{info['key_warps']} warp(s), {info['grid_blocks']} blocks; "
+                  f"{info['registers']} registers per thread, {info['local_bytes']} local (spill) "
+                  f"bytes per thread, {info['shared_bytes']} bytes of shared memory per block, "
+                  f"{info['blocks_per_sm']} block(s) of {info['threads']} threads per SM")
+            require(info["local_bytes"] == 0, f"{FP32_SOURCE} ({label}) spills")
     # K12 (no setmaxnreg: two consumer warpgroups, no producer) at the width
     # of its timed shape and of K=1024
     for kd, n in ((D, mxu_k_quantum.N_DEFAULT), (1024, mxu_k_quantum.N_DEFAULT)):
@@ -2132,7 +2160,7 @@ def recipe_phase(fa):
         held[0], _ = step_fn(held[0], batch, 0)
 
     shares = prof.report(one_step, "recipe step (4th)")
-    template, hopper = (dict(prof.GROUPS)[pat] for pat in ("flash_fwd", "flash_fwd_sm90"))
+    template, hopper = (dict(prof.GROUPS)[pat] for pat in ("flash_fwd_fp32", "flash_fwd_sm90"))
     state = held[0]
     phase("recipe", f"NextDiT_2B_patch2 ({sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
           f"params), AdamW fp32 state, 1024^2 latents, B={B}, bf16, fp32 grads, dots remat, "
@@ -3134,18 +3162,44 @@ def dreambooth_phase(fa, vae_path, sd3_vae_path):
 
 
 def audio_kernel_phase(fa):
-    """FlagDiT-1D's shapes (`shape_rows`, head_dim 72): K1 in fp32 (the
-    forward template, `csrc/flash_fwd.cu`: the served app is fp32) and in
+    """FlagDiT-1D's shapes (`shape_rows`, head_dim 72): K1 in fp32 (the fp32
+    kernel, `csrc/flash_fwd_fp32_sm90.cu`: the served app is fp32) and in
     bf16 at the served request's self-attention AUDIO_SERVE over its 128 keys
     (the rows) and over the 16 caption keys; K4 and K6-K8 at the trainer's
     AUDIO_TRAIN over its 256 keys (the rows) and over the 77 caption keys.
     The caption cases are timed and printed, under row names the kernels line
-    does not list."""
+    does not list. fp32 K1 is also split into its kernel's device time under
+    `torch.profiler` and the wrapper's host time, beside sdpa's."""
+    from lumina_t2x_tpu_torch.exps import device_ms
+
     g = torch.Generator(device="cuda").manual_seed(16)
     results = shape_rows(fa, g, 72, [
         ("small_kv_fp32_audio", "small_kv", AUDIO_SERVE, None, None, True),
         ("small_kv_fp32_audio_ctx", "small_kv", AUDIO_SERVE, AUDIO_CONTEXT, None, True)],
         dtype=torch.float32)
+    b, s, h = AUDIO_SERVE
+    scale = 72 ** -0.5
+    for row, sk in (("small_kv_fp32_audio", s), ("small_kv_fp32_audio_ctx", AUDIO_CONTEXT)):
+        q, k, v, _ = _shape_inputs(g, b, s, h, h, 72, False, sk, dtype=torch.float32)
+        k1 = lambda: fa.flash_small_kv(q, k, v, None, scale)  # noqa: E731
+        lib = lambda: _sdpa(q, k, v, None, scale)  # noqa: E731
+        dev, lib_dev = device_ms(k1, "flash_fwd_fp32"), device_ms(lib, "")
+        calls = 200
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            k1()
+        host_ms = 1e3 * (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+        results[row].update(device_ms=dev, host_ms=host_ms)
+        phase("kernels", f"small_kv fp32 {(b, s, h, 72)}, Sk={sk}: CUDA events "
+              f"{results[row]['ms']:.4f} ms around the wrapper, "
+              + (f"{dev:.4f} ms" if dev is not None else "not traced")
+              + f" of its kernel's device time a call under torch.profiler, {host_ms:.4f} ms of "
+              f"host time a call back to back ({calls} calls); sdpa {results[row]['library_ms']:.4f}"
+              f" ms on CUDA events, " + (f"{lib_dev:.4f} ms" if lib_dev is not None
+                                         else "not traced") + " of device time a call")
+        del q, k, v
     results.update(shape_rows(fa, g, 72, [
         ("small_kv_audio", "small_kv", AUDIO_SERVE, None, None, True),
         ("small_kv_audio_ctx", "small_kv", AUDIO_SERVE, AUDIO_CONTEXT, None, True),
@@ -3154,6 +3208,20 @@ def audio_kernel_phase(fa):
         ("bwd_audio", "bwd", AUDIO_TRAIN, None, None, True),
         ("bwd_audio_ctx", "bwd", AUDIO_TRAIN, AUDIO_TRAIN_CONTEXT, None, True)]))
     return results
+
+
+def fp32_forward_phase(fa):
+    """The fp32 streaming forwards (K2-K5 on `csrc/flash_fwd_fp32_sm90.cu`)
+    at the 2B's (B, S, H, D), timed against their plain versions, their
+    bound at the fp32 rate (PEAK_FP32) and one library call in fp32 (sdpa for
+    K2/K3, aten's memory-efficient attention with its LSE for K4/K5), then
+    with 4:1 GQA, a masked tail and a fully masked batch row (`shape_rows`).
+    No main path runs them (the 2B runs bf16): their rows are printed, not
+    listed on the kernels line."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    return shape_rows(fa, g, D, [(f"{entry}_fp32_2b", entry, (B, S, H), None, None, True)
+                                 for entry in ("online", "static_max", "online_lse",
+                                               "static_max_lse")], dtype=torch.float32)
 
 
 def _wav_frames(data):
@@ -3597,6 +3665,7 @@ def main():
     results.update(wide_head_kernel_phase(fa))
     results.update(anagram_sd3_kernel_phase(fa))
     results.update(audio_kernel_phase(fa))
+    results.update(fp32_forward_phase(fa))
     exp_results, exp_launches = experiments_phase()
     results.update(exp_results)
     latent_1024 = slice_phase(fa, *forward_phase(fa))

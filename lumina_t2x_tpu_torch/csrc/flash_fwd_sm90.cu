@@ -12,7 +12,7 @@
 // lumina_flash_static_max_lse, lumina_flash_rope and lumina_flash_rope_q
 // stay in flash_fwd.cu (launch counters "small_kv", "online", "static_max",
 // "online_lse", "static_max_lse", "rope", "rope_q"), which calls
-// flash_fwd_sm90() for bf16 and keeps its own template for fp32. The
+// flash_fwd_sm90() for bf16 and flash_fwd_fp32_sm90() for fp32. The
 // small-KV kernel (Sk <= 1024, the caption cross-attention) is the online
 // kernel's function over all keys: the online softmax over 64-key tiles is
 // the single-pass exact softmax up to fp32 rounding, so it is the same

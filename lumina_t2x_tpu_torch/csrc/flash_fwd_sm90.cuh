@@ -2,7 +2,7 @@
 // C entry points lumina_flash_small_kv, lumina_flash_online,
 // lumina_flash_static_max, lumina_flash_online_lse,
 // lumina_flash_static_max_lse, lumina_flash_rope and lumina_flash_rope_q of
-// flash_fwd.cu (which keep their fp32 path on the forward template there).
+// flash_fwd.cu (whose fp32 inputs take flash_fwd_fp32_sm90.cu).
 //
 // meta (int64[19]) as those entry points take it: B, Sq, Sk, Hq, Hkv, D,
 // then element strides of q (b, s, h), k (b, s, h), v (b, s, h), out

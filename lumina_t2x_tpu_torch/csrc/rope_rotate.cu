@@ -2,8 +2,8 @@
 // sm_90a: lumina_rope_rotate, the key half of the fused-RoPE forwards
 //   _flash_rope_kernel (lumina_t2x_tpu/ops/flash_attention.py, via
 //   `_rotate_tile` on each k tile)
-// and, in fp32, the query half of both rope kernels (the fp32 template
-// rotates nothing). Its plain version is `ops/rope.apply_rope`.
+// and, in fp32, the query half of both rope kernels (the fp32 forward,
+// flash_fwd_fp32_sm90.cu, rotates nothing). Its plain version is `ops/rope.apply_rope`.
 //
 // What it computes: out = x*cos_full + swap_pairs(x)*sin_signed per
 // interleaved pair (2i, 2i+1), from the (S, D) fp32 tables of

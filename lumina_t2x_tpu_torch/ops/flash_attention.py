@@ -29,17 +29,20 @@ runs `flash_rope` or `flash_rope_q`; under autograd `_FlashAttentionRope`,
 whose backward rotates q (and k) in plain PyTorch, runs `flash_online_lse`
 and the backward kernels, and inverse-rotates dq (and dk).
 
-The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_{fwd,bwd}.cu` and
-the Hopper redesigns `csrc/flash_fwd_sm90.cu` (bf16 `flash_small_kv`,
-`flash_online`, `flash_static_max`, `flash_online_lse`,
-`flash_static_max_lse`, `flash_rope`, `flash_rope_q`; the LSE written from
-the consumers' registers, q rotated in shared memory) and
+The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_fwd.cu` (the
+forward entry points), `csrc/flash_bwd.cu` (the backward entry points and
+the fp32 backward kernels), the Hopper redesigns `csrc/flash_fwd_sm90.cu`
+(bf16 `flash_small_kv`, `flash_online`, `flash_static_max`,
+`flash_online_lse`, `flash_static_max_lse`, `flash_rope`, `flash_rope_q`;
+the LSE written from the consumers' registers, q rotated in shared memory),
+`csrc/flash_fwd_fp32_sm90.cu` (the same seven forwards in fp32: FFMA products
+tiled in registers, exact to fp32; operands not in whole 16-byte chunks read
+in place by 4-byte copies, any head_dim up to 128) and
 `csrc/flash_bwd_sm90.cu` (bf16 `flash_bwd_fused` / `flash_bwd_dkv`, and
 `flash_bwd_dq`'s own kernel: q rows as the block, a ring of K/V tiles), with
 `csrc/rope_rotate.cu` (`rope_rotate`); they are built into one library by
 `ops/cuda_lib.py` at first use, under `build/kernels/<source hash>/` at the
-repository root, and bound through ctypes. The templates of `flash_fwd.cu`
-and `flash_bwd.cu` run fp32 only. A wrapper takes its plain version only for CPU
+repository root, and bound through ctypes. A wrapper takes its plain version only for CPU
 tensors; for CUDA tensors it launches the kernel or raises. The bf16 Hopper
 kernels read q, k, v (and dout) through TMA tensor maps in 16-byte chunks:
 they take head_dim a multiple of 8 (else ValueError; so does every bf16
@@ -294,7 +297,7 @@ _ROPE_ARGS = [_ptr] * 7 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
 _ROTATE_ARGS = [_ptr] * 4 + [_meta, ctypes.c_int, _ptr]
 LIBRARY = "flash"  # the library of K1-K9 (`ops/cuda_lib.py`)
 cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
-                          "flash_bwd_sm90.cu", "rope_rotate.cu"], {
+                          "flash_fwd_fp32_sm90.cu", "flash_bwd_sm90.cu", "rope_rotate.cu"], {
     **{f"lumina_flash_{name}": _FWD_ARGS for name in _FWD_ENTRIES},
     **{f"lumina_flash_{name}": _BWD_ARGS for name in _BWD_ENTRIES},
     **{f"lumina_flash_{name}": _ROPE_ARGS for name in _ROPE_ENTRIES},
@@ -302,7 +305,9 @@ cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
     # static_max (fused), head_dim, out (int64[7]); launch nothing
     "lumina_flash_fwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta],
     # which (0 dK/dV, 1 fused, 2 dQ), head_dim, out (int64[7])
-    "lumina_flash_bwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta]})
+    "lumina_flash_bwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta],
+    # static_max, meta (the forward's, shapes read), out (int64[8]); launch nothing
+    "lumina_flash_fwd_fp32_attributes": [ctypes.c_int, _meta, _meta]})
 _SM90_ATTRIBUTES = ("registers", "producer_registers", "consumer_registers", "local_bytes",
                     "shared_bytes", "blocks_per_sm", "threads")
 
@@ -323,6 +328,27 @@ def sm90_attributes(static_max: bool, head_dim: int = 72) -> dict:
     per thread, shared memory per block, resident blocks per SM, threads per
     block."""
     return _attributes("lumina_flash_fwd_sm90_attributes", static_max, head_dim)
+
+
+_FP32_ATTRIBUTES = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads",
+                    "rows_per_block", "key_warps", "grid_blocks")
+
+
+def fp32_attributes(static_max: bool, b: int, sq: int, sk: int, hq: int, hkv: int,
+                    d: int) -> dict:
+    """The fp32 forward (`csrc/flash_fwd_fp32_sm90.cu`) at these shapes: its
+    plan -- query rows per block, key-split warps, blocks in the grid -- and
+    the resources of the instantiation it launches (registers per thread,
+    local-memory (spill) bytes per thread, shared memory per block with the
+    plan's, resident blocks per SM, threads per block), from the CUDA
+    runtime. Launches nothing."""
+    meta = (ctypes.c_longlong * 19)(b, sq, sk, hq, hkv, d)
+    out = (ctypes.c_longlong * len(_FP32_ATTRIBUTES))()
+    err = cuda_lib.build_library(LIBRARY).lumina_flash_fwd_fp32_attributes(int(static_max), meta,
+                                                                            out)
+    if err != 0:
+        raise RuntimeError(f"lumina_flash_fwd_fp32_attributes failed: cudaError {err}")
+    return dict(zip(_FP32_ATTRIBUTES, out))
 
 
 _BWD_SM90_KERNELS = ("dkv", "fused", "dq")  # the C entry's `which`, in order
@@ -346,14 +372,20 @@ def _check_inputs(q, k, v, kv_mask):
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernels take bf16 or fp32 q/k/v of one dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    b, _, hq, d = q.shape
-    _, sk, hkv, dk = k.shape
-    if k.shape[0] != b or dk != d or d > 128 or sk == 0:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} (head_dim <= 128)")
+    qs, ks = q.shape, k.shape
+    if len(qs) != 4 or len(ks) != 4 or v.shape != ks:
+        raise ValueError(f"bad shapes q {tuple(qs)} k {tuple(ks)} v {tuple(v.shape)}")
+    b, _, hq, d = qs
+    kb, sk, hkv, dk = ks
+    if kb != b or dk != d or d > 128 or sk == 0:
+        raise ValueError(f"bad shapes q {tuple(qs)} k {tuple(ks)} (head_dim <= 128)")
     _check_gqa_heads(hq, hkv)
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    if k.stride(-1) != 1:
+        k = k.contiguous()
+    if v.stride(-1) != 1:
+        v = v.contiguous()
     if kv_mask is not None:
         kv_mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
         if tuple(kv_mask.shape) != (b, sk):
@@ -383,16 +415,35 @@ def _chunk_aligned(t):
     return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
 
 
+_META = ctypes.c_longlong * 19
+
+
 def _fwd_meta(q, k, v, out, kv_mask):
     """meta (int64[19]) of the forward entry points: shapes, then element
-    strides of q, k, v, out (b, s, h) and the mask (b)."""
+    strides of q, k, v, out (b, s, h) and the mask (b). Filled by slice
+    assignment: ctypes' 19-argument constructor costs several microseconds
+    a call."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
-    return (ctypes.c_longlong * 19)(
-        b, sq, sk, hq, hkv, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        kv_mask.stride(0) if kv_mask is not None else 0,
-    )
+    meta = _META()
+    meta[:] = (b, sq, sk, hq, hkv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *out.stride()[:3], kv_mask.stride(0) if kv_mask is not None else 0)
+    return meta
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def _on_device(t):
+    """`torch.cuda.device(t.device)`, or nothing when that device is already
+    the current one (the usual case: the guard costs a few us a call)."""
+    index = t.get_device()
+    return _SAME_DEVICE if index == torch.cuda.current_device() else torch.cuda.device(index)
+
+
+def _stream(t):
+    """The raw handle of the current stream of t's device."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _launch(name, q, k, v, kv_mask, scale, bound=0.0, with_lse=False):
@@ -408,14 +459,15 @@ def _launch(name, q, k, v, kv_mask, scale, bound=0.0, with_lse=False):
         _sm90_head_dim(name, d)
         q, k, v = (_chunk_aligned(t) for t in (q, k, v))
     lib = cuda_lib.build_library(LIBRARY)
-    with torch.cuda.device(q.device):
-        out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    with _on_device(q):
+        out = (torch.empty_like(q) if q.is_contiguous()
+               else torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device))
         lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
         err = getattr(lib, f"lumina_flash_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kv_mask.data_ptr() if kv_mask is not None else None, out.data_ptr(),
             lse.data_ptr() if with_lse else None, _fwd_meta(q, k, v, out, kv_mask), scale, bound,
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+            int(q.dtype == torch.bfloat16), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash kernel {name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -458,7 +510,7 @@ def _rotate(x, cos_full, sin_signed):
     err = cuda_lib.build_library(LIBRARY).lumina_rope_rotate(
         x.data_ptr(), out.data_ptr(), cos_full.data_ptr(), sin_signed.data_ptr(),
         (ctypes.c_longlong * 7)(b, s, h, d, *x.stride()[:3]), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream().cuda_stream)
+        _stream(x))
     if err != 0:
         raise RuntimeError(f"rope_rotate launch failed: cudaError {err}")
     LAUNCHES["rope_rotate"] += 1
@@ -482,7 +534,7 @@ def _check_rope_args(name, q, k, angles):
 def _rope_rotated_first(name, dtype):
     """The operands `rope_rotate` turns before the forward of `name` runs:
     k for `rope` (bf16 q is rotated inside the Hopper forward), and q as
-    well in fp32 (the fp32 template rotates nothing)."""
+    well in fp32 (the fp32 forward rotates nothing)."""
     first = ("k",) if name == "rope" else ()
     return first if dtype == torch.bfloat16 else ("q", *first)
 
@@ -493,14 +545,14 @@ def _launch_rope(name, q, k, v, angles, kv_mask, scale):
     arithmetic; `_rotation_tables` reuses them across a forward's calls),
     rotate the operands `_rope_rotated_first` names with `rope_rotate`'s
     kernel and launch `lumina_flash_<name>`: in bf16 the Hopper forward,
-    handed the tables to rotate q in shared memory; in fp32 the online
-    template. Returns out."""
+    handed the tables to rotate q in shared memory; in fp32 the fp32
+    forward's online kernel. Returns out."""
     _check_rope_args(name, q, k, angles)
     q, k, v, kv_mask = _check_inputs(q, k, v, kv_mask)
     b, sq, hq, d = q.shape
     bf16 = q.dtype == torch.bfloat16
     lib = cuda_lib.build_library(LIBRARY)
-    with torch.cuda.device(q.device):
+    with _on_device(q):
         cos_full, sin_signed = _rotation_tables(angles.to(q.device), d)
         first = _rope_rotated_first(name, q.dtype)
         if "q" in first:
@@ -514,8 +566,7 @@ def _launch_rope(name, q, k, v, angles, kv_mask, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kv_mask.data_ptr() if kv_mask is not None else None, out.data_ptr(),
             cos_full.data_ptr() if bf16 else None, sin_signed.data_ptr() if bf16 else None,
-            _fwd_meta(q, k, v, out, kv_mask), scale, int(bf16),
-            torch.cuda.current_stream().cuda_stream)
+            _fwd_meta(q, k, v, out, kv_mask), scale, int(bf16), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash kernel {name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -538,7 +589,7 @@ def _launch_bwd(name, q, k, v, kv_mask, out, lse, dout, scale):
         raise ValueError(f"bad shapes dout {tuple(dout.shape)} lse {tuple(lse.shape)} "
                          f"for q {tuple(q.shape)}")
     lib = cuda_lib.build_library(LIBRARY)
-    with torch.cuda.device(q.device):
+    with _on_device(q):
         dout = dout.to(q.dtype)
         dout = dout if dout.stride(-1) == 1 else dout.contiguous()
         if name in _SM90_BWD_ENTRIES and q.dtype == torch.bfloat16:
@@ -564,7 +615,7 @@ def _launch_bwd(name, q, k, v, kv_mask, out, lse, dout, scale):
         err = getattr(lib, f"lumina_flash_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(kv_mask), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), ptr(dq), ptr(dk), ptr(dv), meta, scale,
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+            int(q.dtype == torch.bfloat16), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash kernel {name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -677,7 +728,7 @@ def rope_rotate(x, angles):
     if d % (8 if x.dtype == torch.bfloat16 else 2) or tuple(angles.shape) != (s, d // 2):
         raise ValueError(f"rope_rotate takes head_dim a multiple of 8 (bf16) or 2 (fp32) and "
                          f"(S, D/2) angles: x {tuple(x.shape)}, angles {tuple(angles.shape)}")
-    with torch.cuda.device(x.device):
+    with _on_device(x):
         return _rotate(x, *_rotation_tables(angles.to(x.device), d))
 
 

@@ -21,8 +21,8 @@ import torch
 GROUPS = (  # (pattern on the kernel name, group), first match wins
     (r"flash_bwd_sm90", "Hopper backward (bf16 K6-K8, flash_bwd_sm90.cu)"),
     (r"flash_bwd", "flash backward kernels (fp32 K6-K8)"),
+    (r"flash_fwd_fp32", "fp32 forward (K1-K5, K9, flash_fwd_fp32_sm90.cu)"),
     (r"flash_fwd_sm90", "Hopper forward (bf16 K1-K5, K9, flash_fwd_sm90.cu)"),
-    (r"flash_fwd", "flash forward template (fp32 K1-K5, K9)"),
     (r"nvjet|gemm|xmma|cutlass|sm90|cublas", "cuBLAS GEMMs"),
     (r"elementwise", "elementwise"),
     (r"reduce", "reductions"),

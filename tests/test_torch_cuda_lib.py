@@ -14,8 +14,8 @@ from lumina_t2x_tpu_torch.ops import flash_attention as fa
 
 
 @pytest.mark.parametrize("module,sources,symbol", [
-    (fa, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
-          "rope_rotate.cu"], "lumina_rope_rotate"),
+    (fa, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_fwd_fp32_sm90.cu",
+          "flash_bwd_sm90.cu", "rope_rotate.cu"], "lumina_rope_rotate"),
     (vpu, ["static_max_sm90.cu"], "lumina_static_max_v3"),
     (mxu, ["mma_probe.cu"], "lumina_mma_chain"),
 ])
@@ -30,9 +30,11 @@ def test_hash_inputs_follow_local_includes():
     assert cuda_lib._inputs(["mma_probe.cu"]) == ["mma_probe.cu", "mma_probe_wgmma.cuh",
                                                   "sm90_common.cuh", "warp_mma.cuh"]
     assert cuda_lib._inputs(["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
-                             "flash_bwd_sm90.cu", "rope_rotate.cu"]) == [
-        "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
-        "rope_rotate.cu", "flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh", "sm90_common.cuh"]
+                             "flash_fwd_fp32_sm90.cu", "flash_bwd_sm90.cu",
+                             "rope_rotate.cu"]) == [
+        "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_fwd_fp32_sm90.cu",
+        "flash_bwd_sm90.cu", "rope_rotate.cu", "flash_fwd_fp32_sm90.cuh", "flash_fwd_sm90.cuh",
+        "flash_bwd_sm90.cuh", "sm90_common.cuh"]
 
 
 def test_an_experiment_edit_leaves_the_flash_library(tmp_path, monkeypatch):

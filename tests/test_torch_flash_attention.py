@@ -334,7 +334,7 @@ def test_anagram_sd3_shapes_match_plain_on_card(cuda_device, entry, case):
 
 # FlagDiT-1D (the audio family, 16 heads of 72): the served request's CFG
 # batch over 128 latent frames (self) and its 16 caption tokens (cross), in
-# fp32 (the app's, the forward template) and bf16; the trainer's B=32 over
+# fp32 (the app's, the fp32 kernel) and bf16; the trainer's B=32 over
 # 256 frames and its 77 caption tokens; (b, sq, sk, h)
 AUDIO_SHAPES = {"serve_self": (2, 128, 128, 16), "serve_cross": (2, 128, 16, 16),
                 "train_self": (32, 256, 256, 16), "train_cross": (32, 256, 77, 16)}

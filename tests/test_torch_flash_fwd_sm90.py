@@ -317,8 +317,10 @@ def _entry_bodies():
 def test_bf16_forwards_route_to_the_hopper_kernel():
     """bf16 K1-K5 hand their inputs to `flash_fwd_sm90` (K4/K5 with their lse
     pointer, K1-K3 with none, none with rotation tables), and bf16 K9 with
-    the tables and no LSE (`rope_forward`); fp32 stays on the template,
-    which has no bf16 code left."""
+    the tables and no LSE (`rope_forward`); fp32 K1-K5 hand theirs to the
+    fp32 kernel, `flash_fwd_fp32_sm90`, with the same (static max, LSE)
+    flags and bound, and fp32 K9 to its online instantiation. The entry
+    points' file holds no kernel of its own."""
     src, bodies = _entry_bodies()
     for name, static_max, lse in (("small_kv", "false", "nullptr"), ("online", "false", "nullptr"),
                                   ("static_max", "true", "nullptr"),
@@ -326,17 +328,20 @@ def test_bf16_forwards_route_to_the_hopper_kernel():
                                   ("static_max_lse", "true", "lse")):
         assert re.search(rf"if \(is_bf16\)\s+return flash_fwd_sm90\({static_max}, q, k, v, mask, "
                          rf"out, {lse}, nullptr, nullptr, meta,", bodies[name]), name
-        fp32 = re.search(r"return launch<(true|false), (true|false)>", bodies[name])
-        assert fp32.groups() == (static_max, "true" if lse == "lse" else "false"), name
+        bound = "bound" if static_max == "true" else "0.f"
+        assert re.search(rf"\n  return flash_fwd_fp32_sm90\({static_max}, q, k, v, mask, out, "
+                         rf"{lse}, meta, scale, {bound}, stream\);", bodies[name]), name
     for name in ("rope", "rope_q"):
         assert "return rope_forward(q, k, v, mask, out, rope_cos, rope_sin, meta," in bodies[name]
     rope = src[src.index("int rope_forward("):src.index("}  // namespace")]
     assert re.search(r"if \(is_bf16\) \{.*return flash_fwd_sm90\(false, q, k, v, mask, out, nullptr, "
                      r"rope_cos, rope_sin, meta,", rope, re.S)
-    assert "return launch<false, false>(" in rope
+    assert "return flash_fwd_fp32_sm90(false, q, k, v, mask, out, nullptr, meta, scale, 0.f, " \
+        "stream);" in rope
     assert tfa._SM90_ENTRIES == ("small_kv", "online", "static_max", "online_lse",
                                  "static_max_lse")
     assert "__nv_bfloat16" not in src and "wmma" not in src and "kRope" not in src
+    assert "launch<" not in src and "__global__" not in src
 
 
 def test_breakdown_entry_matches_the_kernel_signature():
@@ -484,7 +489,8 @@ def test_misaligned_input_is_copied_and_odd_head_dim_raises(cuda_device, entry):
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_fp32_stays_on_the_first_template(cuda_device, entry):
-    """fp32 inputs take flash_fwd.cu's template (fp32 FMA, exact to fp32),
+    """fp32 inputs take the fp32 kernel of `csrc/flash_fwd_fp32_sm90.cu`
+    (fp32 FFMA, exact to fp32; it replaced flash_fwd.cu's first template),
     K1's too; the Hopper kernel reads bf16 only, so fp32-level agreement
     shows the route."""
     q, k, v, mask = (t.float() if t.is_floating_point() else t
@@ -496,9 +502,9 @@ def test_fp32_stays_on_the_first_template(cuda_device, entry):
 
 @pytest.mark.cuda
 def test_rope_kernel_equals_the_first_template_online_forward(cuda_device):
-    """fp32 K9 (`rope_rotate` on q and k, then flash_fwd.cu's online
-    template) equals that template's `flash_online_lse(...)[0]` on
-    `apply_rope`d inputs to one fp32 ulp."""
+    """fp32 K9 (`rope_rotate` on q and k, then the fp32 kernel's online
+    instantiation, `csrc/flash_fwd_fp32_sm90.cu`) equals that kernel's
+    `flash_online_lse(...)[0]` on `apply_rope`d inputs to one fp32 ulp."""
     from lumina_t2x_tpu_torch.ops.rope import apply_rope, rope_angles_2d
 
     q, k, v, mask = (t.float() if t.is_floating_point() else t

@@ -13,7 +13,7 @@ XLA may contract a product into an FMA), bf16 bit for bit. The
 against themselves on rotated inputs at zero angles, against
 `flash_small_kv` (K1's entry point) on `apply_rope`d inputs bit for bit
 (the in-kernel rotation is `apply_rope`'s, and K9 runs K1's kernel: the
-Hopper forward in bf16, the online template in fp32), and `rope_rotate`
+Hopper forward in bf16, the fp32 kernel in fp32), and `rope_rotate`
 against `apply_rope` bit for bit, on the card, and skip without one.
 """
 
@@ -430,7 +430,7 @@ def test_rope_kernels_match_plain_and_k2_on_card(cuda_device, dtype, entry, sk, 
     # at zero angles the rotation is x * 1 + swap(x) * 0 = x exactly
     same = kernel(q_rot, k_rot, v, torch.zeros_like(angles), mask, 0.2)
     # K1's entry point runs K9's kernel (bf16: csrc/flash_fwd_sm90.cu, fp32:
-    # flash_fwd.cu's online template) on operands rotated as apply_rope does
+    # the fp32 kernel's online instantiation) on operands rotated as apply_rope does
     k1 = tfa.flash_small_kv(q_rot, k_rot, v, mask, 0.2)
     torch.cuda.synchronize()
     assert tfa.LAUNCHES[entry] == before + 2
