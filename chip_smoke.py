@@ -198,6 +198,21 @@ last line:
    the three WAVs with Cnn14 and a BERT-base-wide caption tower (random, the
    hash tokenizer), then MPD and MRD forward and backward with the three
    GAN losses.
+`multigpu` (after `trainer`, inside its results directory): the trainer
+under `torchrun --standalone --nproc_per_node 1` (`python -m
+torch.distributed.run`), NCCL, the (data 1, model 1) mesh, tensor
+parallelism and FSDP2 (`--data_parallel fsdp`), trainer's argv: 3 fresh
+steps held against trainer's losses and grad norms of the same seed, then
+a torchrun resume of trainer's one-process checkpoint for a 5th step held
+against a one-process resume of the same checkpoint (across launch modes).
+The torchrun child is this script in its child mode, which calls
+`pipelines.train.main` with the checkpoint write turned off: the call's 45
+GiB of disk writes leave no room for another 7.4 GiB 2B checkpoint. Its
+kernel launches (from its `run_summary.json`) join the kernels line. Then
+the ring fold of context-parallel attention (`ops/context_parallel.ring_fold`)
+at the 2B's (2, 4096, 32, 72) bf16 over 4 key blocks through K4, against K2
+over all keys and against the plain ring, with no mask and with one block
+wholly masked.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -844,6 +859,19 @@ def backward_kernel_phase(fa):
                                               for n, b_ in bounds.items())
                      + f"; library backward {library['library_ms']:.3f} ms "
                        f"({library['library_kernel']})")
+        elif label == "fp32":
+            # fp32 K6-K8 (`csrc/flash_bwd.cu`, on no main path): their times,
+            # their least times at the fp32 peak, and the fp32 library backward
+            fp32_bounds = _bwd_bounds(q, k, v, out, dout, lse, dtype)
+            line += "; " + ", ".join(
+                f"{name} {time_ms(lambda: fn(*args), reps=3):.3f} ms (bound "
+                f"{fp32_bounds[name]['bound_ms']:.4f} ms, {fp32_bounds[name]['bound_by']})"
+                for name, fn in (("bwd_fused", fa.flash_bwd_fused), ("bwd_dq", fa.flash_bwd_dq),
+                                 ("bwd_dkv", fa.flash_bwd_dkv)))
+            fp32_library = library_backward(q, k, v, mask, dout, scale)
+            line += (f"; plain {time_ms(lambda: fa.flash_bwd_plain(*args), reps=3):.3f} ms; "
+                     f"fp32 library backward {fp32_library['library_ms']:.3f} ms "
+                     f"({fp32_library['library_kernel']})")
         elif label in ("bf16 cross-attention", "bf16 caption"):
             # the trainer's cross-attention: 24 of K6's (K7's) launches a step
             cross = _bwd_bounds(q, k, v, out, dout, lse, dtype)
@@ -2183,12 +2211,14 @@ def recipe_phase(fa):
     return {"ms": ms, "peak": peak}
 
 
-def trainer_phase(fa):
+def trainer_phase(fa, then=None):
     """The trainer CLI at full width and depth: 3 steps and a checkpoint, then
     --auto_resume for a 4th step on the two-kernel backward. The CLI legs use
     bf16 Adafactor (7.4 GiB per checkpoint): the H100 test machines allow
     45 GiB of disk writes per run, and two fp32 AdamW checkpoints are 59 GiB.
-    Returns the training launch counts."""
+    `then(argv, results, metrics)` runs last inside the results directory
+    (the step-4 checkpoint still there). Returns the training launch counts
+    and what `then` returned."""
     from lumina_t2x_tpu_torch.pipelines import train as train_cli
 
     with tempfile.TemporaryDirectory() as results:
@@ -2253,6 +2283,7 @@ def trainer_phase(fa):
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wall {wall2:.1f} s incl. "
               f"load and save; launches {resumed}; plain-version CUDA calls "
               f"{fa.PLAIN_CUDA_CALLS['count']}")
+        followed = then(argv, results, metrics) if then is not None else None
     require(len(metrics) == 4 and all(math.isfinite(m["train/loss"]) for m in metrics),
             "trainer losses not finite")
     require(bound is not None and math.isfinite(bound), "train calibration declined at 2B")
@@ -2262,7 +2293,178 @@ def trainer_phase(fa):
         require(resumed[name] > 0, f"kernel {name} was not launched by the resumed trainer")
     require(resumed["bwd_fused"] == 0, "the resumed step took the fused backward")
     require(plain_calls == 0, f"plain versions ran {plain_calls} times on CUDA")
-    return {name: launches[name] + resumed[name] for name in TRAIN_KERNELS}
+    return {name: launches[name] + resumed[name] for name in TRAIN_KERNELS}, followed
+
+
+# the multigpu phase: the torchrun trainer's losses and grad norms against the
+# one-process trainer's of the same seed (relative). Step 1 starts from the
+# same weights and draws, and so does the resumed step 5; after step 1, bf16
+# parameters stochastically rounded from fp32 sums taken in another order may
+# land an ulp apart
+MULTIGPU_STEP1_RTOL, MULTIGPU_RTOL = 1e-5, 1e-3
+# the ring fold against K2 over all keys and against the plain ring: bf16
+# block outputs folded in fp32, then rounded to bf16. Max error within 4 bf16
+# ulps of max|K2|, mean error within BF16_MEAN of max|K2|: a fold that weighed
+# the blocks wrongly (equal weights, say) errs by about 1e-2 on outputs of
+# about 0.03
+RING_MAX_ULPS = 4
+
+
+def _smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def _torchrun_trainer(argv, results, timeout=600):
+    """This script's child mode under `torchrun --standalone --nproc_per_node
+    1`: `pipelines.train.main(argv)` on rank 0 of a one-card NCCL world.
+    Returns (wall seconds, the child's run_summary.json)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", os.path.join(ROOT, "chip_smoke.py"), "--multigpu-child", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-6000:], sep="\n", file=sys.stderr)
+    require(proc.returncode == 0, f"the torchrun trainer exited {proc.returncode}")
+    with open(os.path.join(results, "NextDiT_2B_patch2", "run_summary.json")) as f:
+        return wall, json.load(f)
+
+
+def _multigpu_child(argv):
+    """Child mode: the trainer CLI's `main` under torchrun's environment,
+    with its checkpoint write turned off (the call's disk writes)."""
+    sys.path.insert(0, ROOT)
+    from lumina_t2x_tpu_torch.pipelines import train as train_cli
+
+    require(int(os.environ.get("WORLD_SIZE", "0")) >= 1, "child mode runs under torchrun")
+    train_cli.save_checkpoint = lambda *args, **kwargs: "(not written)"
+    state = train_cli.main(argv)
+    print(json.dumps({"step": state.step}))
+
+
+def _close(a, b, rtol):
+    return abs(a - b) <= rtol * abs(b)
+
+
+def multigpu_trainer_phase(fa, argv, results, trainer_metrics):
+    """The trainer under torchrun at world size 1 over NCCL with the 2B at
+    full width and depth (trainer_phase's argv, --data_parallel fsdp):
+    3 fresh steps against trainer's, then trainer's one-process step-4
+    checkpoint resumed for a 5th step by torchrun and by one process.
+    Returns the children's launch counts."""
+    fresh = os.path.join(results, "torchrun")
+    i = argv.index("--results_dir")
+    fresh_argv = argv[:i + 1] + [fresh] + argv[i + 2:] + ["--data_parallel", "fsdp",
+                                                          "--max_steps", "3"]
+    wall, summary = _torchrun_trainer(fresh_argv, fresh)
+    got = _train_metrics(fresh)
+    ref = trainer_metrics[:3]
+    require(summary["world_size"] == 1 and summary["data_parallel"] == "fsdp",
+            f"torchrun run summary {summary}")
+    require(summary["plain_cuda_calls"] == 0,
+            f"plain versions ran {summary['plain_cuda_calls']} times on CUDA")
+    require(len(got) == 3 and all(math.isfinite(m["train/loss"]) and
+                                  math.isfinite(m["train/grad_norm"]) for m in got),
+            f"torchrun trainer metrics {got}")
+    rel = [max(abs(a[key] - b[key]) / abs(b[key]) for key in ("train/loss", "train/grad_norm"))
+           for a, b in zip(got, ref)]
+    for k, (a, b) in enumerate(zip(got, ref)):
+        rtol = MULTIGPU_STEP1_RTOL if k == 0 else MULTIGPU_RTOL
+        for key in ("train/loss", "train/grad_norm"):
+            require(_close(a[key], b[key], rtol),
+                    f"torchrun step {k + 1} {key} {a[key]} vs one process {b[key]} (rtol {rtol})")
+    steady = [m["train/secs_per_step"] for m in got[1:]]
+    ref_steady = ", ".join(f"{1000 * m['train/secs_per_step']:.1f}" for m in ref[1:])
+    phase("multigpu", f"{_smi()}; torchrun --standalone --nproc_per_node 1 (NCCL, mesh (data 1, "
+          f"model 1), tensor parallel + FSDP2), NextDiT_2B_patch2 bf16 Adafactor, 1024^2 "
+          f"latents, B={B}: losses {[m['train/loss'] for m in got]} vs one process "
+          f"{[m['train/loss'] for m in ref]}, grad norms "
+          f"{[m['train/grad_norm'] for m in got]} vs "
+          f"{[m['train/grad_norm'] for m in ref]}, largest relative difference a step "
+          f"{['%.3g' % r for r in rel]} (rtol {MULTIGPU_STEP1_RTOL} step 1, "
+          f"{MULTIGPU_RTOL} after); step 1 {1000 * got[0]['train/secs_per_step']:.1f} ms "
+          f"(calibration included), steps 2-3 {', '.join(f'{1000 * x:.1f}' for x in steady)} "
+          f"ms/step against one process's {ref_steady}; peak memory "
+          f"{summary['peak_memory_gib']:.2f} GiB; wall {wall:.1f} s incl. the process start; "
+          f"launches {_launched(summary['launches'])}")
+    launches = dict(summary["launches"])
+
+    # across launch modes: trainer's one-process checkpoint (step 4), a 5th
+    # step by torchrun and by one process, neither written
+    resume_argv = argv + ["--max_steps", "5", "--auto_resume"]
+    wall2, summary2 = _torchrun_trainer(resume_argv + ["--data_parallel", "fsdp"], results)
+    by_torchrun = _train_metrics(results)[-1]
+    state, wall3, one, plain, peak = _run_trainer(fa, resume_argv, save=False)
+    require(state.step == 5 and plain == 0, f"one-process resume: step {state.step}, {plain} plain")
+    del state
+    torch.cuda.empty_cache()
+    by_one = _train_metrics(results)[-1]
+    require(by_torchrun["step"] == by_one["step"] == 5, "the resumed runs did not take step 5")
+    for key in ("train/loss", "train/grad_norm"):
+        require(_close(by_torchrun[key], by_one[key], MULTIGPU_STEP1_RTOL),
+                f"step 5 from the one-process checkpoint: torchrun {key} {by_torchrun[key]} vs "
+                f"one process {by_one[key]}")
+    phase("multigpu", f"trainer's one-process step-4 checkpoint resumed for step 5: torchrun loss "
+          f"{by_torchrun['train/loss']}, grad norm {by_torchrun['train/grad_norm']}, "
+          f"{1000 * by_torchrun['train/secs_per_step']:.1f} ms (calibration included), peak "
+          f"{summary2['peak_memory_gib']:.2f} GiB, wall {wall2:.1f} s; one process loss "
+          f"{by_one['train/loss']}, grad norm {by_one['train/grad_norm']}, "
+          f"{1000 * by_one['train/secs_per_step']:.1f} ms, wall {wall3:.1f} s (rtol "
+          f"{MULTIGPU_STEP1_RTOL}); no checkpoint written")
+    for name, n in summary2["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    for name in ("online_lse", "static_max_lse", "bwd_fused"):
+        require(launches.get(name, 0) > 0, f"kernel {name} was not launched under torchrun")
+    return {name: n for name, n in launches.items() if n}
+
+
+def ring_fold_phase(fa):
+    """Context-parallel attention's ring fold in one process at the 2B's
+    self-attention (2, 4096, 32, 72) bf16: 4 key blocks of 1024 through K4
+    (`flash_online_lse`) folded by `ops/context_parallel.ring_fold`, against
+    K2 over all keys and against the same fold over the plain K4; again with
+    the second block wholly masked. Returns the fold's K4 launches."""
+    from lumina_t2x_tpu_torch.ops.context_parallel import ring_fold
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (_rand(g, B, S, H, D, dtype=torch.bfloat16) for _ in range(3))
+    scale = D ** -0.5
+    n_blocks, blk = 4, S // 4
+    launched = 0
+    for label, masked in (("no mask", None), ("block 2 wholly masked", 1)):
+        mask = torch.ones((B, S), dtype=torch.int32, device="cuda")
+        if masked is not None:
+            mask[:, masked * blk:(masked + 1) * blk] = 0
+        blocks = [(k[:, i * blk:(i + 1) * blk], v[:, i * blk:(i + 1) * blk],
+                   mask[:, i * blk:(i + 1) * blk]) for i in range(n_blocks)]
+        fa.reset_launch_counts()
+        got = ring_fold(q, blocks, scale)
+        torch.cuda.synchronize()
+        launched += fa.LAUNCHES["online_lse"]
+        require(fa.LAUNCHES["online_lse"] == n_blocks and fa.PLAIN_CUDA_CALLS["count"] == 0,
+                f"ring fold launches {dict(fa.LAUNCHES)}")
+        k2 = fa.flash_online(q, k, v, mask, scale)
+        plain = ring_fold(q, blocks, scale, block_fn=fa.flash_online_lse_plain)
+        top = k2.float().abs().max().item()
+        max_bar = RING_MAX_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+        mean_bar = BF16_MEAN * top
+        err_k2, err_plain = ((got.float() - ref.float()).abs() for ref in (k2, plain))
+        (err_k2, mean_k2), (err_plain, mean_plain) = (
+            (e.max().item(), e.mean().item()) for e in (err_k2, err_plain))
+        require(torch.isfinite(got).all().item() and max(err_k2, err_plain) <= max_bar
+                and max(mean_k2, mean_plain) <= mean_bar,
+                f"ring fold ({label}): max / mean err {err_k2} / {mean_k2} vs K2, {err_plain} / "
+                f"{mean_plain} vs the plain ring (bars {max_bar} / {mean_bar})")
+        fold_ms = time_ms(lambda: ring_fold(q, blocks, scale))
+        k2_ms = time_ms(lambda: fa.flash_online(q, k, v, mask, scale))
+        phase("multigpu", f"ring fold ({label}), (2, 4096, 32, 72) bf16 in {n_blocks} key blocks "
+              f"through K4: max / mean abs err {err_k2:.3g} / {mean_k2:.3g} vs K2 over all keys, "
+              f"{err_plain:.3g} / {mean_plain:.3g} vs the plain ring (max|K2| {top:.4g}; bars "
+              f"{max_bar:.3g} = {RING_MAX_ULPS} bf16 ulps / {mean_bar:.3g}); fold {fold_ms:.3f} "
+              f"ms, K2 {k2_ms:.3f} ms; {n_blocks} K4 launches")
+        del got, k2, plain
+    return {"online_lse": launched}
 
 
 def textenc_phase(fa):
@@ -3696,7 +3898,13 @@ def main():
     launches.update(imagenet_launches)
     gradient_phase(fa)
     recipe_phase(fa)
-    launches.update(trainer_phase(fa))  # K4: the training path's count
+    # K4: the training path's count; the multigpu phase's torchrun children
+    # (their own processes) and ring fold add theirs
+    train_launches, multigpu = trainer_phase(fa, then=lambda *a: multigpu_trainer_phase(fa, *a))
+    launches.update(train_launches)
+    for counts in (multigpu, ring_fold_phase(fa)):
+        for name, n in counts.items():
+            launches[name] += n
     small = pixel_phase(fa)
     quality = quality_phase(fa)
     flag_train, flag_600m = flag_dit_train_phase(fa)
@@ -3730,4 +3938,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--multigpu-child":
+        _multigpu_child(sys.argv[2:])
+    else:
+        main()

@@ -590,22 +590,57 @@ def checkpoint_dir(results_dir: str, step: int) -> str:
     return os.path.join(results_dir, "checkpoints", f"{step:07d}")
 
 
+def full_tree(tree, keep: bool = True):
+    """A (nested dict of) tensors with every DTensor gathered whole, one at
+    a time, and moved to the CPU at once: the device holds one gathered
+    tensor at a time. A collective: every rank calls it in the same order;
+    where `keep` is false (the ranks that do not write) the gathered tensors
+    are dropped and None takes their place."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: full_tree(v, keep) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        full = tree.full_tensor()
+        return full.cpu() if keep else None
+    return tree if keep else None
+
+
+def _is_lead() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(results_dir: str, step: int, state, model_args: Optional[Dict] = None,
                     keep_last: int = 0) -> str:
     """Save model/EMA/optimizer + model_args + resume_step (written last).
     `keep_last` > 0 then prunes older complete checkpoints beyond the newest
-    `keep_last`."""
+    `keep_last`. A state sharded over several ranks (DTensors) is gathered
+    whole one tensor at a time onto rank 0's CPU (`full_tree`), one stream
+    at a time, and rank 0 writes it, in the one-process layout, so the
+    checkpoint restores at any world size; every rank calls this."""
+    import torch.distributed as dist
+
     path = os.path.abspath(checkpoint_dir(results_dir, step))
-    streams = {"model": state.model.state_dict(), "ema": state.ema, "optimizer": state.opt_state}
+    lead = _is_lead()
+    streams = {"model": lambda: state.model.state_dict(), "ema": lambda: state.ema,
+               "optimizer": lambda: state.opt_state}
     for stream, payload in streams.items():
-        os.makedirs(os.path.join(path, stream), exist_ok=True)
-        torch.save(payload, os.path.join(path, stream, _STREAM_FILE))
-    if model_args is not None:
-        with open(os.path.join(path, "model_args.json"), "w") as f:
-            json.dump(model_args, f, indent=2, default=str)
-    with open(os.path.join(path, "resume_step.txt"), "w") as f:
-        f.write(str(step))
-    prune_checkpoints(results_dir, keep_last)
+        full = full_tree(payload(), keep=lead)
+        if lead:
+            os.makedirs(os.path.join(path, stream), exist_ok=True)
+            torch.save(full, os.path.join(path, stream, _STREAM_FILE))
+        del full
+    if lead:
+        if model_args is not None:
+            with open(os.path.join(path, "model_args.json"), "w") as f:
+                json.dump(model_args, f, indent=2, default=str)
+        with open(os.path.join(path, "resume_step.txt"), "w") as f:
+            f.write(str(step))
+        prune_checkpoints(results_dir, keep_last)
+    if dist.is_initialized():
+        dist.barrier()
     return path
 
 
@@ -677,6 +712,35 @@ def load_checkpoint(path: str, state):
     with open(os.path.join(path, "resume_step.txt")) as f:
         state.step = int(f.read().strip())
     return state
+
+
+def broadcast_state(state) -> None:
+    """Rank 0's whole train state (model, EMA, optimizer, step) to every
+    rank, in place, before the state is sharded: the restore of a
+    checkpoint that rank 0 alone has read. No-op on one rank."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    device = next(state.model.parameters()).device
+
+    def tensors(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from tensors(tree[k], f"{prefix}/{k}")
+        elif isinstance(tree, torch.Tensor):
+            yield prefix, tree
+
+    trees = {"model": dict(state.model.state_dict()), "ema": state.ema,
+             "optimizer": state.opt_state}
+    with torch.no_grad():
+        for _, t in tensors(trees):
+            buf = t.detach().to(device)
+            dist.broadcast(buf, src=0)
+            t.copy_(buf)
+    step = torch.tensor([state.step], dtype=torch.int64, device=device)
+    dist.broadcast(step, src=0)
+    state.step = int(step.item())
 
 
 def load_model_args(path: str) -> Dict:

@@ -27,10 +27,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops.attention import attention as attention_op
 from ..ops.attention import default_attn_scale, pool_kv_2d, resolve_impl
+from ..ops.context_parallel import allgather_context_attention
 from ..ops.flash_attention import (flash_attention_rope, flash_attention_rope_plain,
                                    flash_lse_range, streams_kv)
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import apply_rope
+from ..parallel.comm import slice_to_group, tp_layer_norm
 
 
 class Linear(nn.Linear):
@@ -140,13 +142,20 @@ class LabelEmbedder(nn.Module):
                                             device=device, dtype=param_dtype)
         nn.init.normal_(self.embedding_table.weight, std=0.02)
 
+    def draw_drop(self, labels, generator: Optional[torch.Generator] = None):
+        """The (B,) training drop mask of `labels` from `generator` (None
+        without dropout); the train step draws it here too, in the same order."""
+        if self.dropout_prob <= 0:
+            return None
+        return torch.rand(labels.shape, generator=generator,
+                          device=labels.device) < self.dropout_prob
+
     def forward(self, labels, train: bool = False, force_drop_ids=None,
                 generator: Optional[torch.Generator] = None):
         if force_drop_ids is not None:
             drop = force_drop_ids == 1
-        elif train and self.dropout_prob > 0:
-            drop = torch.rand(labels.shape, generator=generator,
-                              device=labels.device) < self.dropout_prob
+        elif train:
+            drop = self.draw_drop(labels, generator)
         else:
             drop = None
         if drop is not None:
@@ -222,6 +231,20 @@ class Attention(nn.Module):
     declines and no static bound is used. It stays off by default: it is
     the JAX package's parity path, and on an H100 it is slower than
     `apply_rope` followed by the unfused kernels (PERF.md).
+
+    Multi-GPU (`parallel/sharding.tensor_parallel` sets `tp_group`, a
+    sequence-sharded model sets `seq_group`):
+    - under tensor parallelism wq/wk/wv (and wk_y/wv_y) are column-parallel
+      and wo row-parallel, so each rank runs its share of the heads, whole
+      kv groups included; the head counts come from the local widths. The
+      qk-norm LayerNorms span all heads: their mean and variance are fp32
+      sums over the model group (`parallel/comm.tp_layer_norm`), and the
+      norms' parameters and the per-head gate stay replicated, each rank
+      taking its heads' slice (whose backward gathers the whole gradient);
+    - under sequence sharding the self-attention sees every rank's keys
+      through `ops/context_parallel.allgather_context_attention`; the
+      fused-RoPE branch and the LSE recorder are off (and NextDiT refuses
+      `kv_merge` there).
     """
 
     def __init__(self, dim: int, n_heads: int, n_kv_heads: Optional[int] = None,
@@ -233,6 +256,8 @@ class Attention(nn.Module):
         self.head_dim = dim // n_heads
         self.attn_impl = attn_impl
         self.qk_norm = qk_norm
+        self.tp_group = None
+        self.seq_group = None
         kw = dict(bias=False, device=device, dtype=param_dtype)
         self.wq = _linear(dim, n_heads * self.head_dim, **kw)
         self.wk = _linear(dim, self.n_kv_heads * self.head_dim, **kw)
@@ -255,10 +280,12 @@ class Attention(nn.Module):
                 lse_recorder: Optional[List[torch.Tensor]] = None,
                 kv_merge: Optional[Tuple[int, int, int]] = None):
         b, s, _ = x.shape
-        hd, nh, nkv = self.head_dim, self.n_heads, self.n_kv_heads
+        hd = self.head_dim
         xq, xk, xv = self.wq(x), self.wk(x), self.wv(x)
+        # this rank's heads (all of them without tensor parallelism)
+        nh, nkv = xq.shape[-1] // hd, xk.shape[-1] // hd
         if self.qk_norm:
-            xq, xk = self.q_norm(xq), self.k_norm(xk)
+            xq, xk = self._norm(self.q_norm, xq), self._norm(self.k_norm, xk)
         xq = xq.reshape(b, s, nh, hd)
         xk = xk.reshape(b, s, nkv, hd)
         xv = xv.reshape(b, s, nkv, hd)
@@ -266,7 +293,8 @@ class Attention(nn.Module):
         scale = attn_scale if attn_scale is not None else default_attn_scale(hd)
         impl = resolve_impl(self.attn_impl)
         fuse_rope = (angles is not None and impl in ("flash", "plain") and angles.dim() == 2
-                     and kv_merge is None and os.environ.get("LUMINA_FUSE_ROPE", "0") == "1")
+                     and kv_merge is None and self.seq_group is None
+                     and os.environ.get("LUMINA_FUSE_ROPE", "0") == "1")
         if fuse_rope:
             rope_attention = flash_attention_rope if impl == "flash" else flash_attention_rope_plain
             out = rope_attention(xq, xk, xv, angles, kv_mask=x_mask, scale=scale)
@@ -281,14 +309,19 @@ class Attention(nn.Module):
                 if x_mask_s is not None:
                     x_mask_s = x_mask_s.reshape(b, gh // r, r, gw // r, r).amax(dim=(2, 4))
                     x_mask_s = x_mask_s.reshape(b, -1)
-            out = attention_op(xq, xk_s, xv_s, kv_mask=x_mask_s, scale=scale, impl=impl)
-            if lse_recorder is not None and impl == "flash" and streams_kv(xk_s.shape[1]):
+            if self.seq_group is not None:
+                out = allgather_context_attention(xq, xk_s, xv_s, self.seq_group,
+                                                  kv_mask=x_mask_s, scale=scale, impl=impl)
+            else:
+                out = attention_op(xq, xk_s, xv_s, kv_mask=x_mask_s, scale=scale, impl=impl)
+            if lse_recorder is not None and impl == "flash" and self.seq_group is None \
+                    and streams_kv(xk_s.shape[1]):
                 lse_recorder.append(flash_lse_range(xq, xk_s, xv_s, x_mask_s, scale))
 
         if self.y_dim > 0 and y is not None:
             yk = self.wk_y(y)
             if self.qk_norm:
-                yk = self.ky_norm(yk)
+                yk = self._norm(self.ky_norm, yk)
             yv = self.wv_y(y)
             ly = y.shape[1]
             yk = yk.reshape(b, ly, nkv, hd)
@@ -298,9 +331,15 @@ class Attention(nn.Module):
                 out_y = rope_attention(xq, yk, yv, angles, kv_mask=y_mask, rotate_k=False)
             else:
                 out_y = attention_op(xq, yk, yv, kv_mask=y_mask, impl=impl)
-            out = out + out_y * torch.tanh(self.gate).to(out.dtype)[None, None, :, None]
+            gate = slice_to_group(self.gate, self.tp_group)
+            out = out + out_y * torch.tanh(gate).to(out.dtype)[None, None, :, None]
 
         return self.wo(out.reshape(b, s, nh * hd))
+
+    def _norm(self, norm, x):
+        if self.tp_group is None:
+            return norm(x)
+        return tp_layer_norm(x, norm.weight, norm.bias, norm.eps, self.tp_group)
 
 
 class FinalLayer(nn.Module):

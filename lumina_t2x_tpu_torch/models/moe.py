@@ -27,8 +27,25 @@ Parameter names are the reference layout that the JAX package's
 `feed_forward.gate.weight`; `feed_forward_{time,space}` and
 `ffn_norm_{time,space}` for `both`); `core/checkpoint.moe_state_dict_from_jax_params`
 carries a JAX tree across. The gates are fp32 parameters at any
-`param_dtype`, as in JAX. `ep_axis` (expert parallelism across devices)
-raises `NotImplementedError`.
+`param_dtype`, as in JAX.
+
+Expert parallelism (`ep_axis` with `ep_mesh`, a `DeviceMesh`; without one
+the whole default process group): each `SpaceMoEFFN` keeps only its rank's
+E / n experts (`shard_experts`; their state-dict names are unchanged, so a
+rank loads its share of a full state dict). The routing (top-k, capacity,
+drop order) is computed on every rank from all T tokens, exactly as
+unsharded. With the tokens replicated over the group (JAX's `ep_axis`
+semantics: x is the global array) each rank runs its experts on the tokens
+routed to them and the combined outputs are summed over the group; the
+backward sums the ranks' shares of the gradients of x and of the routing
+weights, so x and the router gate get their whole gradients on every rank,
+as unsharded. With `ep_tokens="sharded"` each rank holds its own rows of
+the tokens: the routing's queue positions count the rows of lower ranks
+first (so capacity and drops are the global ones), the kept (token, slot)
+pairs go to their experts' ranks by `all_to_all`, and the outputs come back
+the same way; a rank's x gradient is then that of its rows, and its gate
+gradient its rows' share (a data-parallel reduce sums them), as any
+replicated parameter's under data parallelism.
 """
 
 from __future__ import annotations
@@ -36,13 +53,17 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import default_attn_scale
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_angles_2d
+from ..parallel.comm import copy_to_group, sum_replicated
+from ..parallel.mesh import axis_group
 from .layers import (
     Attention,
     FeedForward,
@@ -66,26 +87,37 @@ def top_k_lower_index(logits, k: int):
     return values[..., :k], indices[..., :k]
 
 
-def _expert_outputs(x, top_i, experts, keep=None):
+def _owned(experts):
+    """(global expert index, module) pairs of a ModuleList (all experts) or
+    of an expert-parallel rank's ModuleDict (keys: global indices)."""
+    if isinstance(experts, nn.ModuleDict):
+        return [(int(j), m) for j, m in experts.items()]
+    return list(enumerate(experts))
+
+
+def _expert_outputs(x, top_i, experts, keep=None, num_experts=None):
     """(N, k, ...) outputs: entry (n, s) is `experts[top_i[n, s]](x[n])`, or
-    0 where `keep` (N, k) is false. The pairs are sorted by expert (stable,
-    so each expert sees its rows in order), each expert runs once on its
-    rows, and the results go back to their (n, s) places."""
+    0 where `keep` (N, k) is false or the expert is not held here. The
+    pairs are sorted by expert (stable, so each expert sees its rows in
+    order), each expert runs once on its rows, and the results go back to
+    their (n, s) places."""
     n, k = top_i.shape
+    e = num_experts if num_experts is not None else len(experts)
     flat = top_i.reshape(-1)
     if keep is not None:  # dropped pairs sort into a bucket past the last expert
-        flat = torch.where(keep.reshape(-1), flat, len(experts))
+        flat = torch.where(keep.reshape(-1), flat, e)
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=len(experts) + 1).tolist()
+    counts = torch.bincount(flat, minlength=e + 1).tolist()
+    starts = np.cumsum([0] + counts).tolist()
     rows = order // k
-    outs, start = [], 0
-    for j, expert in enumerate(experts):
+    outs, places = [], []
+    for j, expert in _owned(experts):
         if counts[j]:
-            outs.append(expert(x.index_select(0, rows[start:start + counts[j]])))
-        start += counts[j]
+            outs.append(expert(x.index_select(0, rows[starts[j]:starts[j + 1]])))
+            places.append(order[starts[j]:starts[j + 1]])
     buf = x.new_zeros((n * k, *x.shape[1:]))
     if outs:
-        buf = buf.index_copy(0, order[:start], torch.cat(outs))
+        buf = buf.index_copy(0, torch.cat(places), torch.cat(outs))
     return buf.reshape(n, k, *x.shape[1:])
 
 
@@ -132,22 +164,95 @@ class SpaceMoEFFN(_MoEFFN):
     def __init__(self, *args, capacity_factor: float = 2.0, **kwargs):
         super().__init__(*args, **kwargs)
         self.capacity_factor = capacity_factor
+        self.num_experts = len(self.experts)
+        self.ep_group, self.ep_tokens = None, "replicated"
+
+    def shard_experts(self, group, tokens: str = "replicated"):
+        """Keep this rank's E / n experts of `group` (expert parallelism);
+        `tokens`: "replicated" (every rank holds all tokens) or "sharded"
+        (each rank its own rows)."""
+        if tokens not in ("replicated", "sharded"):
+            raise ValueError(f"ep tokens {tokens!r}: use 'replicated' or 'sharded'")
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        if self.num_experts % n:
+            raise ValueError(f"{self.num_experts} experts do not split over {n} ranks")
+        per = self.num_experts // n
+        self.experts = nn.ModuleDict({str(j): self.experts[j]
+                                      for j in range(r * per, (r + 1) * per)})
+        self.ep_group, self.ep_tokens = group, tokens
 
     def forward(self, x):
         b, s, d = x.shape
-        e, k = len(self.experts), self.num_experts_per_tok
+        e, k = self.num_experts, self.num_experts_per_tok
         t = b * s
-        capacity = int(math.ceil(t * k / e * self.capacity_factor))
+        sharded = self.ep_group is not None and self.ep_tokens == "sharded"
+        total = t * dist.get_world_size(self.ep_group) if sharded else t
+        capacity = int(math.ceil(total * k / e * self.capacity_factor))
         xt = x.reshape(t, d)
         weights, top_i = self.route(xt)  # (T, k)
         chosen = torch.zeros((t, e), dtype=torch.int32, device=x.device).scatter_(1, top_i, 1)
         position = torch.cumsum(chosen, dim=0) - 1  # queue position, token order
+        if sharded:  # the rows of lower ranks come first in the global order
+            counts = [torch.empty(e, dtype=torch.int32, device=x.device)
+                      for _ in range(dist.get_world_size(self.ep_group))]
+            dist.all_gather(counts, chosen.sum(dim=0, dtype=torch.int32), group=self.ep_group)
+            position = position + sum(counts[:dist.get_rank(self.ep_group)],
+                                      torch.zeros_like(counts[0]))
         keep = (position < capacity).gather(1, top_i)  # (T, k)
-        outs = _expert_outputs(xt, top_i, self.experts, keep)  # (T, k, d)
+        if sharded:
+            outs = _dispatch_all_to_all(xt, top_i, keep, self.experts, e, self.ep_group)
+        else:
+            if self.ep_group is not None:  # the backward sums the ranks' shares
+                xt = copy_to_group(xt, self.ep_group)
+                weights = copy_to_group(weights, self.ep_group)
+            outs = _expert_outputs(xt, top_i, self.experts, keep, e)  # (T, k, d)
         out = (weights * keep)[:, 0, None] * outs[:, 0].float()
         for slot in range(1, k):
             out = out + (weights * keep)[:, slot, None] * outs[:, slot].float()
+        if self.ep_group is not None and not sharded:  # each rank added its experts' share
+            out = sum_replicated(out, self.ep_group)
         return out.to(x.dtype).reshape(b, s, d)
+
+
+def _dispatch_all_to_all(xt, top_i, keep, experts, e, group):
+    """(T, k, d) expert outputs of this rank's rows when the experts are
+    split over `group`: the kept (row, slot) pairs go to their expert's rank
+    sorted by expert, each rank runs its experts on what it received, and
+    the outputs return to their senders' (row, slot) places."""
+    from torch.distributed.nn.functional import all_to_all_single
+
+    n = dist.get_world_size(group)
+    per = e // n
+    t, k = top_i.shape
+    flat = torch.where(keep.reshape(-1), top_i.reshape(-1), e)
+    order = torch.argsort(flat, stable=True)
+    sent = int((flat < e).sum())
+    order = order[:sent]
+    expert_of = flat[order]
+    send_counts = torch.bincount(expert_of // per, minlength=n)
+    recv_counts = torch.empty_like(send_counts)
+    dist.all_to_all_single(recv_counts, send_counts, group=group)
+    send_splits, recv_splits = send_counts.tolist(), recv_counts.tolist()
+    rows_in = all_to_all_single(torch.empty((sum(recv_splits), xt.shape[1]), dtype=xt.dtype,
+                                            device=xt.device),
+                                xt.index_select(0, order // k), recv_splits, send_splits,
+                                group=group)
+    ids_in = torch.empty(sum(recv_splits), dtype=expert_of.dtype, device=xt.device)
+    dist.all_to_all_single(ids_in, expert_of.contiguous(), recv_splits, send_splits,
+                           group=group)
+    outs_in = rows_in.new_zeros(rows_in.shape)
+    pieces, places = [], []
+    for j, expert in _owned(experts):
+        sel = (ids_in == j).nonzero().reshape(-1)
+        if sel.numel():
+            pieces.append(expert(rows_in.index_select(0, sel)))
+            places.append(sel)
+    if pieces:
+        outs_in = outs_in.index_copy(0, torch.cat(places), torch.cat(pieces))
+    back = all_to_all_single(torch.empty((sent, xt.shape[1]), dtype=xt.dtype, device=xt.device),
+                             outs_in, send_splits, recv_splits, group=group)
+    buf = xt.new_zeros((t * k, xt.shape[1])).index_copy(0, order, back)
+    return buf.reshape(t, k, xt.shape[1])
 
 
 class NextDiTMoEBlock(nn.Module):
@@ -224,11 +329,8 @@ class NextDiTMoE(nn.Module):
                  capacity_factor: float = 2.0, ep_axis: Optional[str] = None,
                  rope_theta: float = 10000.0, dtype=torch.float32, param_dtype=torch.float32,
                  attn_impl: str = "auto", remat: bool = False, remat_policy: str = "dots",
-                 device=None):
+                 ep_mesh=None, ep_tokens: str = "replicated", device=None):
         super().__init__()
-        if ep_axis is not None:
-            raise NotImplementedError("expert parallelism across devices belongs to the "
-                                      "multi-GPU slice (ROADMAP queue 1, item 9)")
         maybe_remat(None, False, remat_policy)  # rejects an unknown policy
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -262,6 +364,11 @@ class NextDiTMoE(nn.Module):
         self.final_layer = FinalLayer(dim, patch_size, self.out_channels, cond_dim,
                                       modulation="shift_scale", param_dtype=param_dtype,
                                       device=device)
+        if ep_axis is not None:
+            group = axis_group(ep_mesh, ep_axis if ep_mesh is not None else None)
+            for mod in self.modules():
+                if isinstance(mod, SpaceMoEFFN):
+                    mod.shard_experts(group, ep_tokens)
 
     @property
     def out_channels(self):

@@ -10,8 +10,18 @@ whenever autograd is on.
 
 `kv_merge_ratio > 1` average-pools the self-attention's rotated K and V over
 the token grid (`ops/attention.pool_kv_2d`, the visual-anagrams trick).
-Not ported yet (ROADMAP queue 1): the variable-aspect `img_sizes` list path
-and sequence sharding; each raises `NotImplementedError`.
+
+`seq_shard_axis` (with `seq_shard_mesh`, a `DeviceMesh`; without one the
+whole default process group) splits the image tokens over that axis's ranks:
+each rank embeds and runs its S / n tokens with the RoPE angles of their
+global positions, the self-attention sees every rank's keys through the
+all-gather of `ops/context_parallel`, and the output tokens are gathered
+before unpatchify, so every rank returns the whole output. Parameter
+gradients of such a forward are each rank's share; a trainer sums them over
+the axis.
+
+Not ported yet (ROADMAP queue 1, item 5): the variable-aspect `img_sizes`
+list path, which raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -19,10 +29,13 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops.attention import anagram_attn_scale, default_attn_scale, proportional_attn_scale
 from ..ops.rope import rope_angles_2d_timeaware
+from ..parallel.comm import gather_replicated
+from ..parallel.mesh import axis_group
 from .layers import (
     REMAT_POLICIES,
     Attention,
@@ -92,14 +105,11 @@ class NextDiT(nn.Module):
                  cap_feat_dim: int = 5120, rope_theta: float = 10000.0,
                  dtype=torch.float32, param_dtype=torch.float32, attn_impl: str = "auto",
                  remat: bool = False, remat_policy: str = "dots",
-                 seq_shard_axis: Optional[str] = None, device=None):
+                 seq_shard_axis: Optional[str] = None, seq_shard_mesh=None, device=None):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat policy: {remat_policy!r} "
                              f"(use one of {sorted(REMAT_POLICIES)})")
-        if seq_shard_axis is not None:
-            raise NotImplementedError("sequence sharding belongs to the multi-GPU slice "
-                                      "(ROADMAP queue 1, item 9)")
         self.patch_size = patch_size
         self.in_channels = in_channels
         self.dim = dim
@@ -132,6 +142,12 @@ class NextDiT(nn.Module):
         ])
         self.final_layer = FinalLayer(dim, patch_size, self.out_channels, cond_dim,
                                       param_dtype=param_dtype, device=device)
+        self.seq_group = None
+        if seq_shard_axis is not None:
+            self.seq_group = axis_group(seq_shard_mesh, seq_shard_axis if seq_shard_mesh
+                                        is not None else None)
+            for layer in self.layers:
+                layer.attention.seq_group = self.seq_group
 
     @property
     def out_channels(self):
@@ -172,7 +188,16 @@ class NextDiT(nn.Module):
             scale_watershed=scale_watershed, timestep=rope_timestep, device=x.device,
         ).reshape(seq_len, head_dim // 2)
 
-        tokens = self.x_embedder(patchify(x.to(self.dtype), p))
+        patches = patchify(x.to(self.dtype), p)
+        if self.seq_group is not None:  # this rank's tokens, at their global positions
+            if kv_merge is not None:
+                raise ValueError("kv_merge_ratio does not run on a sequence-sharded model")
+            n, r = dist.get_world_size(self.seq_group), dist.get_rank(self.seq_group)
+            if seq_len % n:
+                raise ValueError(f"{seq_len} tokens do not split over {n} sequence ranks")
+            rows = slice(r * (seq_len // n), (r + 1) * (seq_len // n))
+            patches, angles = patches[:, rows], angles[rows]
+        tokens = self.x_embedder(patches)
         x_mask = None  # uniform grid: every image token is valid
 
         adaln_input = self.t_embedder(t) + self.cap_embedder(
@@ -193,6 +218,7 @@ class NextDiT(nn.Module):
                 lse_recorder, kv_merge)
 
         tokens = self.final_layer(tokens, adaln_input)
+        tokens = gather_replicated(tokens, self.seq_group, dim=1)
         out = unpatchify(tokens, h, w, p, self.out_channels)
         if self.learn_sigma:
             out = out[:, : self.out_channels // 2]

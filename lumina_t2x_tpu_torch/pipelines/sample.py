@@ -31,6 +31,14 @@ dopri5|dopri8` integrates adaptively; the text-to-image branch passes it
 `--atol` / `--rtol`, while the class-conditional branch runs it at the
 default tolerances, as the JAX sampler does. Each run prints its model
 evaluations (NFE).
+
+`--model_parallel_size N` (> 1) shards the restored model's weights over N
+tensor-parallel ranks (`shard_for_sampling`), as the JAX sampler places its
+params on a (data, model) mesh: launch it with torchrun over a world that N
+divides. Every rank runs the same trajectory; rank 0 writes the outputs.
+
+    torchrun --standalone --nproc_per_node 2 -m lumina_t2x_tpu_torch.pipelines.sample \
+        --model NextDiT_2B_patch2 --qk_norm --model_parallel_size 2 --debug
 """
 
 from __future__ import annotations
@@ -102,6 +110,8 @@ def parse_args(argv=None):
     p.add_argument("--num_fid_samples", type=int, default=0,
                    help="class-conditional: sample N images over random classes into an "
                         "ADM-evaluator npz")
+    p.add_argument("--model_parallel_size", type=int, default=1,
+                   help="tensor-parallel ranks the model is sharded over (torchrun)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--debug", action="store_true", help="random weights, no checkpoint needed")
     return p.parse_args(argv)
@@ -162,10 +172,41 @@ def load_model(args, dtype, param_dtype, device, cap_feat_dim=None):
     return model
 
 
+def shard_for_sampling(model, model_parallel_size: int):
+    """Shard `model` over `model_parallel_size` tensor-parallel ranks of a
+    (data, model) mesh of the whole world (`parallel.sharding.tensor_parallel`);
+    a no-op at 1. The world must divide by the size."""
+    if model_parallel_size <= 1:
+        return model
+    from ..parallel.mesh import create_mesh
+    from ..parallel.sharding import tensor_parallel
+
+    return tensor_parallel(model, create_mesh(model_parallel_size))
+
+
 def main(argv=None):
+    import tempfile
+
+    from ..parallel import mesh as pmesh
+
     args = parse_args(argv)
-    os.makedirs(args.image_save_path, exist_ok=True)
     device = torch.device(args.device)
+    started_group = False
+    if args.model_parallel_size > 1:
+        started_group = not pmesh.is_distributed() and pmesh.distributed_init(device)
+        pmesh.create_mesh(args.model_parallel_size)  # the world must divide
+        device = pmesh.local_device(device)
+    with tempfile.TemporaryDirectory() as scratch:
+        if pmesh.rank() != 0:  # the same images as rank 0's: not kept
+            args.image_save_path = scratch
+        manifest = _main(args, device)
+    if started_group:
+        torch.distributed.destroy_process_group()
+    return manifest
+
+
+def _main(args, device):
+    os.makedirs(args.image_save_path, exist_ok=True)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     param_dtype = torch.bfloat16 if args.bf16_params else torch.float32
     encoder = None
@@ -178,7 +219,8 @@ def main(argv=None):
                                                      device=device)
         if args.cap_feat_dim is None and not args.ckpt:
             args.cap_feat_dim = encoder.hidden_size
-    model = load_model(args, dtype, param_dtype, device)
+    model = shard_for_sampling(load_model(args, dtype, param_dtype, device),
+                               args.model_parallel_size)
     if encoder is not None and encoder.hidden_size != args.cap_feat_dim:
         raise SystemExit(f"error: --text_encoder gives {encoder.hidden_size}-wide features, "
                          f"the model takes {args.cap_feat_dim}")

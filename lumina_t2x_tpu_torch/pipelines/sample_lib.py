@@ -21,6 +21,7 @@ from ..models.next_dit import forward_with_cfg as next_dit_cfg
 from ..models.next_dit_imagenet import forward_with_cfg as imagenet_cfg
 from ..ops.attention import resolve_impl
 from ..ops.flash_attention import flash_static_max_scope, streams_kv
+from ..parallel.comm import max_over_ranks
 from ..transport import Sampler, create_transport
 from ..transport.solvers import fixed_nfe, odeint_fixed, time_shift
 
@@ -240,6 +241,8 @@ def autocalibrate_flash_static_max(
             gmin = min(gmin, float(ranges[:, 1].min()))
             x = x + (float(ts[i + 1]) - float(ts[i])) * vel
 
+    gmax, neg_gmin = max_over_ranks([gmax, -gmin], device)
+    gmin = -neg_gmin
     if not math.isfinite(gmax) or not math.isfinite(gmin) or gmax - gmin > spread_limit:
         return None
     return gmax + margin

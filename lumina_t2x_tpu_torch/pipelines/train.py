@@ -1,7 +1,7 @@
 """Training CLI (counterpart of `lumina_t2x_tpu/pipelines/train.py`): the
 class-conditional trainer (NextDiT-ImageNet, Flag-DiT ImageNet,
 Next-DiT-MoE) and the text-to-image trainer (NextDiT, `DiT_Llama_5B_patch2`),
-on one process and one device.
+on one process or on several (torchrun).
 
     python -m lumina_t2x_tpu_torch.pipelines.train --model NextDiT_ImageNet_600M_patch2 \
         --data_path /path/to/imagenet/train --image_size 256 --global_batch_size 256 \
@@ -56,11 +56,30 @@ and each item its crop origin or flip from (seed, position in the stream),
 so a resumed run takes the steps an uninterrupted one would. (JAX flips
 with the unseeded global `np.random`, so its folder runs do not repeat.)
 
+Several processes: under torchrun (any `--nproc_per_node`, 1 included) or
+with `--model_parallel_size > 1` the trainer builds the (data, model) mesh
+(`parallel.create_mesh`; the world must divide by the model size), shards
+the model by the rules (`parallel.sharding.parallelize`: tensor parallelism
+over `model`, then under `--data_parallel fsdp` FSDP2 per block over `data`;
+under `sdp` the parameters stay replicated over `data` and the gradients are
+all-reduced, in bf16 when `--grad_precision bf16`), places the EMA and the
+optimizer state alike and gives the mesh to `train_lib.make_train_step`. NCCL on
+`--device cuda` (each rank its `LOCAL_RANK` card), gloo on `cpu`. Every rank
+reads the global batch of each step (the data streams, the VAE and the
+caption encode run whole on every rank) and keeps its data rows of it and of
+the step's draws, so a run at any world size takes the one-process run's
+steps up to the order of the reductions. Rank 0 alone logs, writes metrics
+and writes checkpoints, gathered whole in the one-process layout, so a
+checkpoint resumes at any world size; a restore is read by rank 0 and
+broadcast. At the end rank 0 writes `run_summary.json` (kernel launches,
+peak device memory, world size) beside the metrics.
+
+    torchrun --standalone --nproc_per_node 4 -m lumina_t2x_tpu_torch.pipelines.train \
+        --model NextDiT_2B_patch2 --model_parallel_size 2 --data_parallel fsdp ...
+
 Not ported (each raises `NotImplementedError` naming its ROADMAP item):
-`--model_parallel_size > 1` and several processes (queue 1 item 9),
-`--async_save` and `--profile_steps` (item 7); `--h2d_diet` is
-TPU-only ("Do not port"). `--data_parallel` is accepted and means nothing on
-one process.
+`--async_save` and `--profile_steps` (item 7); `--h2d_diet` is TPU-only
+("Do not port").
 """
 
 from __future__ import annotations
@@ -68,6 +87,7 @@ from __future__ import annotations
 import argparse
 import gc
 import itertools
+import json
 import os
 import random
 import signal
@@ -78,16 +98,19 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
-from ..core.checkpoint import (find_auto_resume, init_from as init_from_ckpt, load_checkpoint,
-                               save_checkpoint)
+from ..core.checkpoint import (broadcast_state, find_auto_resume, init_from as init_from_ckpt,
+                               load_checkpoint, save_checkpoint)
 from ..core.logging import MetricsWriter, Throughput, create_logger
 from ..models import default_cap_feat_dim, get_model
 from ..models import is_class_cond as class_cond_model
+from ..ops import flash_attention
 from ..ops.flash_attention import set_flash_static_max_train
+from ..parallel import mesh as pmesh
+from ..parallel.sharding import parallelize
 from ..transport import create_transport
 from ..utils import hashed_caption_features
 from .train_lib import (FusedAdafactorEMA, FusedAdamWEMA, autocalibrate_flash_static_max_train,
-                        create_optimizer, create_train_state, make_train_step)
+                        create_optimizer, create_train_state, make_train_step, place_state)
 
 
 def parse_args(argv=None):
@@ -102,8 +125,9 @@ def parse_args(argv=None):
                    help="0 = no accumulation; else global/micro micro-batches per step")
     p.add_argument("--model_parallel_size", type=int, default=1)
     p.add_argument("--data_parallel", type=str, choices=["sdp", "fsdp"], default="fsdp",
-                   help="accepted for the JAX trainer's command lines; one process has no "
-                        "data axis")
+                   help="several processes: fsdp shards parameters, gradients and optimizer "
+                        "state over the data ranks (FSDP2); sdp replicates the parameters and "
+                        "all-reduces the gradients")
     p.add_argument("--precision", choices=["fp32", "tf32", "fp16", "bf16"], default="bf16")
     p.add_argument("--grad_precision", choices=["fp32", "fp16", "bf16"], default="fp32")
     p.add_argument("--qk_norm", action="store_true")
@@ -174,9 +198,6 @@ def _check_ported(args):
     if args.pixel_space and not (folder or args.data_path.startswith("synthetic://")):
         raise SystemExit("--pixel_space supports class-cond folder or synthetic:// data, not "
                          "the meta-dataset text-to-image pipeline")
-    if args.model_parallel_size > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("model parallelism and several processes belong to the "
-                                  "multi-GPU slice (ROADMAP queue 1, item 9)")
     if args.async_save or args.profile_steps:
         raise NotImplementedError("--async_save and --profile_steps are not ported yet "
                                   "(ROADMAP queue 1, item 7)")
@@ -394,9 +415,19 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: --device cuda but torch.cuda.is_available() is false")
+    started_group = not pmesh.is_distributed() and pmesh.distributed_init(device)
+    mesh = None
+    if pmesh.is_distributed() or args.model_parallel_size > 1:
+        mesh = pmesh.create_mesh(args.model_parallel_size)
+        device = pmesh.local_device(device)
+    lead = pmesh.rank() == 0
     exp_dir = os.path.join(args.results_dir, args.model)
-    logger = create_logger(exp_dir)
-    metrics_writer = MetricsWriter(exp_dir)
+    logger = create_logger(exp_dir, is_lead=lead)
+    metrics_writer = MetricsWriter(exp_dir, is_lead=lead)
+    if mesh is not None:
+        logger.info(f"mesh (data, model) = {tuple(mesh.mesh.shape)} over "
+                    f"{pmesh.world_size()} ranks ({torch.distributed.get_backend()}), "
+                    f"--data_parallel {args.data_parallel}")
     logger.info(f"device={device} "
                 f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}) "
                 f"host={socket.gethostname()}")
@@ -471,13 +502,19 @@ def main(argv=None):
     logger.info(f"model={args.model} params={n_params / 1e6:.1f}M optimizer={opt_kind}")
 
     if resume_dir:
-        state = load_checkpoint(resume_dir, state)
+        if lead:  # the other ranks take rank 0's state (broadcast_state)
+            state = load_checkpoint(resume_dir, state)
         logger.info(f"resumed from {resume_dir} at step {state.step}")
     elif args.init_from:
-        init_from_ckpt(args.init_from, model)
+        if lead:
+            init_from_ckpt(args.init_from, model)
         # seed the EMA too: a random-init EMA would poison early checkpoints
         state.ema = {n: p.detach().clone() for n, p in model.named_parameters()}
         logger.info(f"initialized weights (and EMA) from {args.init_from}")
+    if mesh is not None:
+        broadcast_state(state)
+        parallelize(model, mesh, fsdp=args.data_parallel == "fsdp")
+        state = place_state(state)
 
     if encode_images:
         from ..codecs.vae import encode_to_latent, load_or_init_vae
@@ -521,7 +558,8 @@ def main(argv=None):
     grad_dtype = {"fp32": None, "fp16": torch.float16, "bf16": torch.bfloat16}[args.grad_precision]
     cond_fn = _class_cond if class_cond else _cond
     step_fn = make_train_step(model, transport, optimizer, cond_fn, grad_clip=args.grad_clip,
-                              micro_batches=micro, grad_dtype=grad_dtype)
+                              micro_batches=micro, grad_dtype=grad_dtype, mesh=mesh,
+                              fsdp=args.data_parallel == "fsdp")
 
     # GC tuning for the steady-state loop: what exists now is long-lived
     gc.collect()
@@ -543,15 +581,37 @@ def main(argv=None):
     else:
         set_flash_static_max_train(None)
 
+    def preempted_anywhere():
+        if mesh is None:
+            return preempted["flag"]
+        flag = torch.tensor([int(preempted["flag"])], device=device)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+        return bool(flag.item())
+
+    def finish():
+        if lead:
+            summary = {"world_size": pmesh.world_size(),
+                       "model_parallel_size": args.model_parallel_size,
+                       "data_parallel": args.data_parallel if mesh is not None else None,
+                       "launches": dict(flash_attention.LAUNCHES),
+                       "plain_cuda_calls": flash_attention.PLAIN_CUDA_CALLS["count"],
+                       "peak_memory_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                                           if device.type == "cuda" else None)}
+            with open(os.path.join(exp_dir, "run_summary.json"), "w") as f:
+                json.dump(summary, f, indent=2)
+        metrics_writer.close()
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
+        if started_group:
+            torch.distributed.destroy_process_group()
+
     start_step = state.step
     running, data_times = [], []
     for step in range(start_step, args.max_steps):
-        if preempted["flag"]:
+        if preempted_anywhere():
             path = _save(step, state)
             logger.warning(f"SIGTERM: checkpointed step {step} to {path}; exiting")
-            metrics_writer.close()
-            if prev_handler is not None:
-                signal.signal(signal.SIGTERM, prev_handler)
+            finish()
             return state
         batch, times = next_batch(step)
         data_times.append(times)
@@ -595,10 +655,8 @@ def main(argv=None):
             logger.info("saved checkpoint to " + _save(step + 1, state))
             meter.start()  # the save is not step time
 
-    metrics_writer.close()
-    if prev_handler is not None:
-        signal.signal(signal.SIGTERM, prev_handler)
     logger.info("done")
+    finish()
     return state
 
 

@@ -14,6 +14,13 @@ draws come from (seed, step) (`train_lib.step_generator`), so
     python -m lumina_t2x_tpu_torch.pipelines.train_audio --hidden_size 64 --depth 2 \\
         --num_heads 4 --context_dim 32 --context_len 8 --latent_length 32 \\
         --global_batch_size 2 --max_steps 2 --log_every 1 --precision fp32 --device cpu
+
+Several processes, as the image trainer (`pipelines/train.py`): under
+torchrun or with `--model_parallel_size > 1` the model is sharded over the
+(data, model) mesh (tensor parallelism, then FSDP2 over data, as the JAX
+trainer always places its state with `fsdp=True`), each rank keeps its rows
+of the global batch and of the step's draws, and rank 0 logs and writes the
+checkpoints (gathered whole).
 """
 
 from __future__ import annotations
@@ -25,11 +32,13 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.checkpoint import find_auto_resume, load_checkpoint, save_checkpoint
+from ..core.checkpoint import broadcast_state, find_auto_resume, load_checkpoint, save_checkpoint
 from ..core.logging import MetricsWriter, Throughput, create_logger
 from ..models.flag_dit_1d import FlagDiT1D
+from ..parallel import mesh as pmesh
+from ..parallel.sharding import parallelize
 from ..transport.cfm import CFM
-from .train_lib import TrainState, create_optimizer, create_train_state, step_generator
+from .train_lib import TrainState, create_optimizer, create_train_state, make_step, place_state
 
 
 def parse_args(argv=None):
@@ -107,46 +116,48 @@ def npy_audio_batches(args, start_step: int = 0) -> Iterator[Dict[str, np.ndarra
 
 
 def make_cfm_train_step(model: FlagDiT1D, cfm: CFM, optimizer, grad_clip: float,
-                        ema_decay: float):
+                        ema_decay: float, mesh=None):
     """`step(state, batch, seed, draws=None) -> (state, metrics)`: the CFM
     loss on batch {"x", "context"}, its gradient, the fp32 global norm, the
-    clip scale min(1, clip / (norm + 1e-6)), the optimizer and the EMA. The
-    step's t and noise come from (seed, step), or from `draws` = (t, noise)."""
-    params = dict(model.named_parameters())
-    names, leaves = list(params), list(params.values())
+    clip scale min(1, clip / (norm + 1e-6)), the optimizer and the EMA
+    (`train_lib.make_step`, no skip of a non-finite step, as in JAX). The
+    step's t and noise come from (seed, step) (`CFM.draw`), or from `draws`
+    = (t, noise). `mesh`: the model is sharded over it (FSDP2 over `data`)."""
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int,
-             draws: Optional[Sequence[torch.Tensor]] = None):
-        generator = step_generator(seed, state.step, batch["x"].device)
-        t, noise = draws if draws is not None else (None, None)
-        terms = cfm.p_losses(generator, lambda x, tt: model(x, tt, batch["context"]),
-                             batch["x"], t=t, noise=noise)
-        loss = terms["loss"]
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
-        grad_norm = torch.sqrt(torch.stack([g.float().pow(2).sum() for g in grads]).sum())
-        scale = torch.clamp(grad_clip / (grad_norm + 1e-6), max=1.0)
-        optimizer.step(dict(zip(names, grads)), params, state.opt_state, state.ema, ema_decay,
-                       scale)
-        state.step += 1
-        return state, {"loss": float(loss.detach()), "grad_norm": float(grad_norm)}
+    def draw(batch, generator, given=None):
+        return tuple(given) if given is not None else cfm.draw(batch["x"], generator)
 
-    return step
+    def loss(batch, draw):
+        t, noise = draw
+        return cfm.p_losses(None, lambda x, tt: model(x, tt, batch["context"]), batch["x"],
+                            t=t, noise=noise)["loss"]
+
+    step = make_step(model, optimizer, (draw, loss), grad_clip=grad_clip, ema_decay=ema_decay,
+                     mesh=mesh, skip_nonfinite=False)
+
+    def cfm_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int,
+                 draws: Optional[Sequence[torch.Tensor]] = None):
+        return step(state, batch, seed, [draws] if draws is not None else None)
+
+    return cfm_step
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.model_parallel_size > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("model parallelism and several processes belong to the "
-                                  "multi-GPU slice (ROADMAP queue 1, item 9)")
     if args.async_save:
         raise NotImplementedError("--async_save is not ported yet (ROADMAP queue 1, item 7)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: --device cuda but torch.cuda.is_available() is false")
+    started_group = not pmesh.is_distributed() and pmesh.distributed_init(device)
+    mesh = None
+    if pmesh.is_distributed() or args.model_parallel_size > 1:
+        mesh = pmesh.create_mesh(args.model_parallel_size)
+        device = pmesh.local_device(device)
+    lead = pmesh.rank() == 0
     exp_dir = os.path.join(args.results_dir, args.task)
-    logger = create_logger(exp_dir)
-    metrics = MetricsWriter(exp_dir)
+    logger = create_logger(exp_dir, is_lead=lead)
+    metrics = MetricsWriter(exp_dir, is_lead=lead)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
 
     resume = find_auto_resume(exp_dir) if args.auto_resume else None
@@ -167,10 +178,16 @@ def main(argv=None):
     n = sum(p.numel() for p in model.parameters())
     logger.info(f"FlagDiT1D params={n / 1e6:.1f}M task={args.task} device={device}")
     if resume:
-        state = load_checkpoint(resume, state)
+        if lead:  # the other ranks take rank 0's state
+            state = load_checkpoint(resume, state)
         logger.info(f"resumed from {resume}")
 
-    step_fn = make_cfm_train_step(model, CFM(), optimizer, args.grad_clip, args.ema_decay)
+    if mesh is not None:
+        broadcast_state(state)
+        parallelize(model, mesh, fsdp=True)
+        state = place_state(state)
+    step_fn = make_cfm_train_step(model, CFM(), optimizer, args.grad_clip, args.ema_decay,
+                                  mesh=mesh)
     meter = Throughput()
     meter.start()
     running: List[Dict[str, float]] = []
@@ -194,6 +211,8 @@ def main(argv=None):
             logger.info(f"saved checkpoint to {path}")
             meter.start()  # the save is not step time
     metrics.close()
+    if started_group:
+        torch.distributed.destroy_process_group()
     return state
 
 

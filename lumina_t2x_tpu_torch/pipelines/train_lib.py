@@ -30,6 +30,7 @@ from torch import nn
 
 from ..ops.attention import resolve_impl
 from ..ops.flash_attention import set_flash_static_max_train, streams_kv
+from ..parallel.comm import max_over_ranks
 from ..transport.transport import Transport
 
 _M32 = 0xFFFFFFFF
@@ -86,8 +87,8 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, grads, params, state, ema, ema_decay: float, scale, grad_dtype=None,
-             generator=None):
-        del generator
+             generator=None, layout=None):
+        del generator, layout  # elementwise: a rank's pieces update alone
         count = state["count"] + 1
         dev = count.device
         b1c = (1.0 - _f32(self.b1) ** count.cpu().float()).to(dev)
@@ -133,8 +134,8 @@ class FusedAdamWEMA:
 
     @torch.no_grad()
     def step(self, grads, params, state, ema, ema_decay: float, scale, grad_dtype=None,
-             generator=None):
-        del grad_dtype, generator
+             generator=None, layout=None):
+        del grad_dtype, generator, layout  # elementwise: a rank's pieces update alone
         count = state["count"] + 1
         countf, dev = count.cpu().float(), count.device
         lr = _f32(self.lr)
@@ -160,27 +161,32 @@ class FusedAdamWEMA:
 # -- stochastic rounding -----------------------------------------------------------
 
 
-def _sr_noise_bits(key: Sequence[int], shape, device=None) -> torch.Tensor:
+def _sr_noise_bits(key: Sequence[int], shape, device=None, index=None) -> torch.Tensor:
     """uint32 noise (held in int64) for stochastic rounding: the murmur3
     fmix32 hash of (element index ^ key[0]), xor key[-1] (the JAX package's
     `_sr_noise_bits` in `hash` mode, bit for bit, for the same two key
     words). Computed in int64 masked to 32 bits: torch's uint32 lacks the
-    arithmetic."""
+    arithmetic. `index`: the elements' row-major indices in the global
+    tensor when these are one rank's piece of it."""
     first, last = int(key[0]) & _M32, int(key[-1]) & _M32
     n = math.prod(int(s) for s in shape)
-    h = torch.arange(max(n, 1), dtype=torch.int64, device=device) ^ first
+    if index is None:
+        index = torch.arange(max(n, 1), dtype=torch.int64, device=device)
+    else:
+        index = index.reshape(-1)
+    h = index ^ first
     h = ((h ^ (h >> 16)) * 0x85EBCA6B) & _M32
     h = ((h ^ (h >> 13)) * 0xC2B2AE35) & _M32
     h = h ^ (h >> 16) ^ last
     return h[:n].reshape(tuple(shape))
 
 
-def _stochastic_round_bf16(x32: torch.Tensor, key: Sequence[int]) -> torch.Tensor:
+def _stochastic_round_bf16(x32: torch.Tensor, key: Sequence[int], index=None) -> torch.Tensor:
     """Unbiased fp32 -> bf16 rounding: add uniform noise in [0, 1 ulp) to the
     low 16 mantissa bits, then truncate. E[result] == x32, so sub-ulp updates
     survive in a bf16 accumulator in expectation."""
     bits = x32.float().contiguous().view(torch.int32).to(torch.int64) & _M32
-    noise = _sr_noise_bits(key, x32.shape, x32.device) & 0xFFFF
+    noise = _sr_noise_bits(key, x32.shape, x32.device, index) & 0xFFFF
     hi = ((bits + noise) & _M32) >> 16
     hi = torch.where(hi >= 0x8000, hi - 0x10000, hi)
     return hi.to(torch.int16).view(torch.bfloat16)
@@ -271,7 +277,8 @@ class FusedAdafactorEMA:
                 f32 = dict(dtype=torch.float32, device=device)
                 if fd is None:
                     state["v_row"][name], state["v_col"][name] = z1(), z1()
-                    state["v"][name] = torch.zeros(shape, **f32)
+                    # placed as the parameter is (a DTensor follows its shards)
+                    state["v"][name] = torch.zeros_like(params[name], dtype=torch.float32)
                 else:
                     d1, d0 = fd
                     state["v_row"][name] = torch.zeros(
@@ -283,10 +290,13 @@ class FusedAdafactorEMA:
 
     @torch.no_grad()
     def step(self, grads, params, state, ema, ema_decay: float, scale, grad_dtype=None,
-             generator=None):
+             generator=None, layout=None):
         """In-place update of params, stats and EMA. `generator` (CPU) draws
         the stochastic-rounding key words of bf16 stores; without one they
-        round to nearest."""
+        round to nearest. `layout` (`parallel.sharding.ShardLayout`): the
+        tensors are a rank's pieces of sharded parameters; the factored
+        statistics, the RMS sums and the rounding noise are then those of
+        the global tensors (the row/column statistics replicated)."""
         del grad_dtype
         count = state["count"] + 1
         countf, dev = count.cpu().float(), count.device
@@ -295,31 +305,48 @@ class FusedAdafactorEMA:
         if self.warmup_steps > 0:
             lr = self.lr * torch.clamp((countf - 1) / self.warmup_steps, max=1.0)
         lr = lr.to(dev)
+
+        def mean_over(name, x, dim):
+            if layout is None:
+                return x.mean(dim=dim)
+            return layout.full_sum(name, x, dim) / layout.shape(name)[dim]
+
+        def total(name_values):
+            if layout is None:
+                return sum(v for _, v in name_values)
+            return layout.all_reduce(sum(layout.once(n, v) for n, v in name_values))
+
         for group in _leaf_groups(list(params)):
             updates = {}
             for name in group:
                 g32 = grads[name].float() * scale
                 gsq = g32 * g32 + self.eps
-                fd = self.factored_dims(tuple(params[name].shape))
+                shape = layout.shape(name) if layout is not None else tuple(params[name].shape)
+                fd = self.factored_dims(shape)
                 if fd is not None:
                     d1, d0 = fd
                     vr, vc = state["v_row"][name], state["v_col"][name]
-                    vr.copy_(dec * vr + (1.0 - dec) * gsq.mean(dim=d0))
-                    vc.copy_(dec * vc + (1.0 - dec) * gsq.mean(dim=d1))
+                    vr.copy_(dec * vr + (1.0 - dec) * mean_over(name, gsq, d0))
+                    vc.copy_(dec * vc + (1.0 - dec) * mean_over(name, gsq, d1))
                     reduced_d1 = d1 - 1 if d1 > d0 else d1
                     row_factor = (vr / vr.mean(dim=reduced_d1, keepdim=True)) ** -0.5
                     col_factor = vc ** -0.5
+                    if layout is not None:
+                        row_factor = layout.piece(name, row_factor, d0)
+                        col_factor = layout.piece(name, col_factor, d1)
                     updates[name] = g32 * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
                 else:
                     v = state["v"][name]
                     v.copy_(dec * v + (1.0 - dec) * gsq)
                     updates[name] = g32 * v ** -0.5
-            n = sum(params[name].numel() for name in group)
+            n = sum(math.prod(layout.shape(name)) if layout is not None else params[name].numel()
+                    for name in group)
             if self.clipping_threshold is not None:
-                rms = torch.sqrt(sum((u * u).sum() for u in updates.values()) / n)
+                rms = torch.sqrt(total([(name, (u * u).sum()) for name, u in updates.items()]) / n)
                 clip_denom = torch.clamp(rms / self.clipping_threshold, min=1.0)
             if self.multiply_by_parameter_scale:
-                p_rms = torch.sqrt(sum((params[name].float() ** 2).sum() for name in group) / n)
+                p_rms = torch.sqrt(total([(name, (params[name].float() ** 2).sum())
+                                          for name in group]) / n)
                 p_scale = torch.clamp(p_rms, min=1e-3)
             for name in group:
                 p, e = params[name], ema[name]
@@ -334,14 +361,15 @@ class FusedAdafactorEMA:
                     u = u + self.weight_decay * p32
                 p2 = p32 - u
                 e2 = e.float() * ema_decay + (1.0 - ema_decay) * p2
-                p.copy_(self._store(p2, p, generator))
-                e.copy_(self._store(e2, e, generator))
+                index = layout.flat_index(name, p.device) if layout is not None else None
+                p.copy_(self._store(p2, p, generator, index))
+                e.copy_(self._store(e2, e, generator, index))
         state["count"] = count
 
-    def _store(self, x32, like, generator):
+    def _store(self, x32, like, generator, index=None):
         if like.dtype == torch.bfloat16 and self.stochastic_rounding and generator is not None:
             key = torch.randint(0, 1 << 32, (2,), generator=generator, dtype=torch.int64)
-            return _stochastic_round_bf16(x32, key.tolist())
+            return _stochastic_round_bf16(x32, key.tolist(), index)
         return x32.to(like.dtype)
 
 
@@ -396,6 +424,8 @@ def autocalibrate_flash_static_max_train(
         ranges = torch.stack(recorder)
         gmax = max(gmax, float(ranges[:, 0].max()))
         gmin = min(gmin, float(ranges[:, 1].min()))
+    gmax, neg_gmin = max_over_ranks([gmax, -gmin], x1.device)
+    gmin = -neg_gmin
     if not math.isfinite(gmax) or not math.isfinite(gmin) or gmax - gmin > spread_limit:
         return None
     bound = gmax + margin
@@ -420,6 +450,41 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((int(seed) << 32) + int(step))
 
 
+def transport_objective(model: nn.Module, transport: Transport,
+                        cond_kwargs_fn: Callable[[Dict], Dict],
+                        loss_mask_fn: Optional[Callable[[Dict], Any]] = None):
+    """(draw, loss) of the velocity-matching step.
+
+    `draw(batch, generator, given=None) -> (t, x0[, drop])`: the training
+    times and the noise (`Transport.draw`), then, for a class-conditional
+    model with label dropout, the dropped labels (`LabelEmbedder.draw_drop`),
+    in that order from `generator`; what `given` holds is taken as is.
+    `loss(batch, draw)`: the mean loss over the rows of `batch`."""
+    embedder = getattr(model, "y_embedder", None)
+
+    def draw(batch, generator, given=None):
+        given = tuple(given or ())
+        if len(given) > 2:
+            return given
+        t, x0 = transport.draw(batch["x"], generator, *given)
+        cond = cond_kwargs_fn(batch)
+        drop = (embedder.draw_drop(cond["y"], generator)
+                if "y" in cond and embedder is not None else None)
+        return (t, x0) if drop is None else (t, x0, drop)
+
+    def loss(batch, draw):
+        t, x0, drop = (tuple(draw) + (None,))[:3]
+        cond = cond_kwargs_fn(batch)
+        if drop is not None:
+            cond = dict(cond, force_drop_ids=drop)
+        mask = loss_mask_fn(batch) if loss_mask_fn else None
+        terms = transport.training_losses(lambda xt, tt: model(xt, tt, train=True, **cond),
+                                          batch["x"], loss_mask=mask, t=t, x0=x0)
+        return terms["loss"].mean()
+
+    return draw, loss
+
+
 def make_train_step(
     model: nn.Module,
     transport: Transport,
@@ -430,72 +495,185 @@ def make_train_step(
     micro_batches: int = 1,
     loss_mask_fn: Optional[Callable[[Dict], Any]] = None,
     grad_dtype: Optional[torch.dtype] = None,
+    mesh=None,
+    fsdp: bool = True,
 ):
     """Build `train_step(state, batch, seed, draws=None) -> (state, metrics)`.
 
     cond_kwargs_fn(batch) -> model keywords beyond (x, t), e.g.
     {"cap_feats": ..., "cap_mask": ...}, or {"y": ...} for a class-conditional
     model, whose label dropout is then drawn from the step's generator after
-    the times and the noise. Gradients are cast to `grad_dtype`
-    right after each backward, and micro-batch accumulation runs in it; the
-    grad norm, the clip and the optimizer run in fp32. A step whose loss or
+    the times and the noise (`transport_objective`). `draws`: optional list,
+    one (t, x0) or (t, x0, drop) per micro-batch, replacing the generator's
+    draws (`drop`: the (B,) label dropout mask, 1 where a label is dropped).
+    `mesh`: the model is sharded over it (see `make_step`)."""
+    return make_step(model, optimizer,
+                     transport_objective(model, transport, cond_kwargs_fn, loss_mask_fn),
+                     grad_clip=grad_clip, ema_decay=ema_decay, micro_batches=micro_batches,
+                     grad_dtype=grad_dtype, mesh=mesh, fsdp=fsdp)
+
+
+def make_step(model: nn.Module, optimizer, objective: Tuple[Callable, Callable],
+              grad_clip: float = 2.0, ema_decay: float = 0.9999, micro_batches: int = 1,
+              grad_dtype: Optional[torch.dtype] = None, mesh=None, fsdp: bool = True,
+              skip_nonfinite: bool = True):
+    """The train step of an `objective` = (draw, loss) (`transport_objective`
+    or the audio trainer's CFM one): for each micro-batch the draws from the
+    step's generator, the loss, its backward, and the gradients cast to
+    `grad_dtype` and accumulated in it; then the fp32 global grad norm, the
+    clip scale min(1, grad_clip / (norm + 1e-6)) (none when grad_clip <= 0),
+    the optimizer and the EMA. Under `skip_nonfinite` a step whose loss or
     grad norm is not finite leaves params, optimizer state (count included)
     and EMA untouched and reports `skipped` = 1; the step counter advances
-    either way. `draws`: optional list, one (t, x0) or (t, x0, drop) per
-    micro-batch, replacing the generator's draws (`drop`: the (B,) label
-    dropout mask, 1 where a label is dropped)."""
+    either way.
+
+    `mesh` (several ranks): the model is sharded over it by
+    `parallel.sharding.parallelize` and its state placed by `place_state`.
+    `batch` is then the global batch (every rank reads the same one), each
+    micro-batch's draws are made at the global size as one process makes
+    them, and every rank keeps its data rows of both
+    (`parallel.mesh.shard_rows`), so a step at any world size computes what
+    the one-process step computes, up to the order of the reductions. Under
+    `fsdp` FSDP2 reduce-scatters each backward's gradients over `data` (mean,
+    fp32) before the cast; otherwise (`sdp`: parameters replicated over
+    `data`) the accumulated gradients are all-reduced over `data` here, in
+    `grad_dtype` when that is bf16 or fp16 and the data axis has more than
+    one rank (the reduced-precision wire of JAX's `make_grad_reduce_wrapper`),
+    else in fp32; so are, in fp32, those of the parameters FSDP2 leaves
+    replicated (`needs_data_reduce`). The optimizer updates each rank's
+    pieces (`ShardLayout` for Adafactor's global statistics); the stochastic
+    rounding keys are drawn in one order on every rank."""
+    import torch.distributed as dist
+
+    from ..parallel.grad_norm import calculate_l2_grad_norm
+    from ..parallel.sharding import ShardLayout, needs_data_reduce, to_local
+
+    draw_fn, loss_fn = objective
     params = dict(model.named_parameters())
     names, leaves = list(params), list(params.values())
+    layout = rows = None
+    if mesh is not None:
+        from ..parallel.mesh import AXIS_DATA, axis_group, axis_rank, axis_size, shard_rows
 
-    def compute_grads(batch, generator, draw):
-        t, x0, drop = (tuple(draw) + (None,))[:3] if draw is not None else (None, None, None)
-        cond = cond_kwargs_fn(batch)
-        if "y" in cond:  # class-conditional: the label dropout of this step
-            cond = dict(cond, generator=generator) if drop is None else \
-                dict(cond, force_drop_ids=drop)
+        layout = ShardLayout(params)
+        d_rank, d_size = axis_rank(mesh, AXIS_DATA), axis_size(mesh, AXIS_DATA)
+        d_group = axis_group(mesh, AXIS_DATA)
+        rows = lambda x: shard_rows(x, d_rank, d_size) if isinstance(x, torch.Tensor) else x
 
-        def model_fn(xt, t):
-            return model(xt, t, train=True, **cond)
-
-        loss_mask = loss_mask_fn(batch) if loss_mask_fn else None
-        terms = transport.training_losses(model_fn, batch["x"], loss_mask=loss_mask,
-                                          generator=generator, t=t, x0=x0)
-        loss = terms["loss"].mean()
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+    def backward(batch, draw):
+        if rows is not None:
+            batch, draw = {k: rows(v) for k, v in batch.items()}, [rows(d) for d in draw]
+        loss = loss_fn(batch, draw)
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
         if grad_dtype is not None:
             grads = [g.to(grad_dtype) for g in grads]
         return loss.detach(), grads
 
     def local_grads(batch, generator, draws):
         if micro_batches == 1:
-            return compute_grads(batch, generator, draws[0] if draws else None)
+            return backward(batch, draw_fn(batch, generator, draws[0] if draws else None))
         acc, loss_sum = None, 0.0
         for i in range(micro_batches):
             mb = {k: v.reshape(micro_batches, -1, *v.shape[1:])[i] for k, v in batch.items()}
-            loss, grads = compute_grads(mb, generator, draws[i] if draws else None)
+            loss, grads = backward(mb, draw_fn(mb, generator, draws[i] if draws else None))
             acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
             loss_sum = loss_sum + loss
         return loss_sum / micro_batches, [a / micro_batches for a in acc]
+
+    def data_reduce(grads):
+        for g, p in zip(grads, leaves):
+            if needs_data_reduce(p, fsdp):
+                wire = (grad_dtype if not fsdp and grad_dtype in (torch.bfloat16, torch.float16)
+                        else torch.float32)
+                local = to_local(g)
+                reduced = local.to(wire)
+                dist.all_reduce(reduced, group=d_group)
+                local.copy_(reduced.float() / d_size)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int,
                    draws: Optional[List[Tuple[torch.Tensor, ...]]] = None):
         device = batch["x"].device
         generator = step_generator(seed, state.step, device)
         loss, grads = local_grads(batch, generator, draws)
+        if mesh is not None:
+            if d_size > 1:
+                data_reduce(grads)
+            dist.all_reduce(loss)
+            loss = loss / dist.get_world_size()  # the model ranks hold the same loss
         # fp32 norm and clip at any grad_dtype
-        grad_norm = torch.sqrt(torch.stack([g.float().pow(2).sum() for g in grads]).sum())
+        grad_norm = calculate_l2_grad_norm(grads)
         if grad_clip is not None and grad_clip > 0:
             scale = torch.clamp(grad_clip / (grad_norm + 1e-6), max=1.0)
         else:
             scale = torch.ones((), device=device)
-        skipped = not (bool(torch.isfinite(grad_norm)) and bool(torch.isfinite(loss)))
+        skipped = skip_nonfinite and not (bool(torch.isfinite(grad_norm))
+                                          and bool(torch.isfinite(loss)))
         if not skipped:
             sr_generator = step_generator(seed, state.step, "cpu")
-            optimizer.step(dict(zip(names, grads)), params, state.opt_state, state.ema,
-                           ema_decay, scale, grad_dtype=grad_dtype, generator=sr_generator)
+            with torch.no_grad():  # to_local() is then the piece itself
+                opt_view = _local_view(state.opt_state)
+                optimizer.step({n: to_local(g) for n, g in zip(names, grads)},
+                               {n: to_local(p) for n, p in params.items()}, opt_view,
+                               _local_view(state.ema), ema_decay, scale, grad_dtype=grad_dtype,
+                               generator=sr_generator, layout=layout)
+            _write_back(state.opt_state, opt_view)
         state.step += 1
         return state, {"loss": float(loss), "grad_norm": float(grad_norm),
                        "skipped": int(skipped)}
 
     return train_step
+
+
+# -- the state of several ranks ----------------------------------------------------------
+
+
+def place_state(state: TrainState) -> TrainState:
+    """After `parallel.sharding.parallelize` has sharded `state.model`, place
+    the EMA and the optimizer state as the parameters are: the EMA, Adam's
+    moments and Adafactor's unfactored `v` become DTensors holding this
+    rank's piece of the global tensor they hold now; Adafactor's factored
+    row/column statistics, its (1,) placeholders and the counts stay whole
+    (replicated) on every rank."""
+    from ..parallel.sharding import from_full
+
+    params = dict(state.model.named_parameters())
+
+    def place(tree):
+        if isinstance(tree, dict):
+            return {k: (from_full(v, params[k]) if k in params and isinstance(v, torch.Tensor)
+                        and tuple(v.shape) == tuple(params[k].shape) else place(v))
+                    for k, v in tree.items()}
+        return tree
+
+    state.ema = place(state.ema)
+    state.opt_state = place(state.opt_state)
+    return state
+
+
+def _local_view(tree):
+    """The state with each DTensor replaced by this rank's piece (a plain
+    tensor is its own piece)."""
+    from ..parallel.sharding import to_local
+
+    if isinstance(tree, dict):
+        return {k: _local_view(v) for k, v in tree.items()}
+    return to_local(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _write_back(tree, view):
+    """Entries the optimizer replaced (the counts) go back into the state;
+    a DTensor's piece and a plain tensor were updated in place."""
+    for k, v in view.items():
+        if isinstance(v, dict):
+            _write_back(tree[k], v)
+        elif v is not tree[k] and not _is_dtensor(tree[k]):
+            tree[k] = v
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)

@@ -32,17 +32,23 @@ class CFM:
         self.sigma_min = sigma_min
         self.num_timesteps = num_timesteps
 
+    def draw(self, x1, generator: Optional[torch.Generator] = None, t=None, noise=None):
+        """A training step's (t, noise) for the batch `x1`: the integer
+        steps, then the noise, each drawn from `generator` unless given."""
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (x1.shape[0],), generator=generator,
+                              device=x1.device)
+        if noise is None:
+            noise = torch.randn(x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)
+        return t, noise
+
     def p_losses(self, generator: Optional[torch.Generator], model_fn: Callable, x1, *,
                  t=None, noise=None):
         """OT-CFM MSE loss; model_fn(x_t, t_int) with t_int in [0, N). `t`
         (B,) and `noise` (x1's shape) replace the draws from `generator`,
         which draws t first, then the noise."""
         b = x1.shape[0]
-        if t is None:
-            t = torch.randint(0, self.num_timesteps, (b,), generator=generator,
-                              device=x1.device)
-        x0 = noise if noise is not None else torch.randn(
-            x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)
+        t, x0 = self.draw(x1, generator, t, noise)
         ut = x1 - (1.0 - self.sigma_min) * x0
         t_n = (t.float() / self.num_timesteps).reshape(b, *([1] * (x1.dim() - 1)))
         x_noisy = t_n * x1 + (1.0 - (1.0 - self.sigma_min) * t_n) * x0

@@ -115,6 +115,17 @@ class Transport:
         z = z.reshape(z.shape[0], -1)
         return -z.shape[1] / 2.0 * math.log(2 * math.pi) - (z**2).sum(dim=-1) / 2.0
 
+    def draw(self, x1, generator: Optional[torch.Generator] = None, t=None, x0=None):
+        """A training step's (t, x0) for the batch `x1`: the times, then the
+        noise, each drawn from `generator` unless given."""
+        if t is None:
+            t0, t1 = self.check_interval(self.train_eps, self.sample_eps)
+            t = sample_t(x1.shape[0], self.snr_type, t0, t1, generator=generator,
+                         device=x1.device)
+        if x0 is None:
+            x0 = torch.randn(x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)
+        return t, x0
+
     def training_losses(self, model_fn: Callable, x1, loss_mask=None, *,
                         generator: Optional[torch.Generator] = None, t=None, x0=None):
         """Velocity-matching MSE loss. `t` (B,) and the noise `x0` are drawn
@@ -125,11 +136,8 @@ class Transport:
             raise NotImplementedError("training is defined for velocity models only "
                                       "(as in the reference)")
         b = x1.shape[0]
-        if t is None:
-            t0, t1 = self.check_interval(self.train_eps, self.sample_eps)
-            t = sample_t(b, self.snr_type, t0, t1, generator=generator, device=x1.device)
-        if x0 is None:
-            x0 = torch.randn(x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)
+        if t is None or x0 is None:
+            t, x0 = self.draw(x1, generator, t, x0)
         xt, ut = self.path_sampler.interpolant(t, x0, x1)
         sq = (model_fn(xt, t).float() - ut.float()) ** 2
         if loss_mask is not None:

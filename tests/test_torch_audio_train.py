@@ -129,5 +129,8 @@ def test_cli_resume_equals_an_uninterrupted_run(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--async_save"], ["--model_parallel_size", "2"]])
 def test_other_slices_options_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError):
+    # --model_parallel_size 2 runs now (tests/test_torch_sharded_train.py);
+    # in one process it meets the mesh's divisibility check, as in JAX
+    error = AssertionError if "--model_parallel_size" in flag else NotImplementedError
+    with pytest.raises(error):
         tta.main(CLI + ["--results_dir", str(tmp_path), "--max_steps", "1", *flag])

@@ -226,8 +226,10 @@ def test_class_cond_trajectory_matches_jax():
 
 
 def test_ep_axis_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_moe.NextDiTMoE(ep_axis="expert", **TINY)
+    # expert parallelism runs over a process group (tests/test_torch_parallel.py
+    # runs it on a gloo world); one process without one has none to shard over
+    with pytest.raises(RuntimeError, match="process group"):
+        t_moe.NextDiTMoE(ep_axis="expert", moe_mode="space", **TINY)
     with pytest.raises(ValueError, match="moe_mode"):
         t_moe.NextDiTMoE(moe_mode="tokens", **TINY)
 

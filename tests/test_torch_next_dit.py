@@ -131,7 +131,9 @@ def test_unported_paths_raise():
     args = [torch.from_numpy(a) for a in _inputs(11)]
     with pytest.raises(NotImplementedError):
         tmodel(*args, img_sizes=[(8, 8), (8, 8)])
-    with pytest.raises(NotImplementedError):
+    # sequence sharding runs over a process group (tests/test_torch_parallel.py
+    # runs it on a gloo world); one process without one has none to shard over
+    with pytest.raises(RuntimeError, match="process group"):
         t_nd.NextDiT(seq_shard_axis="data", **TINY)
 
 
