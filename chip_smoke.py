@@ -18,8 +18,10 @@ last line:
    registers per thread (as compiled and after setmaxnreg), spill bytes (0
    required), shared memory per block, blocks per SM; the fp32 forward's
    (`csrc/flash_fwd_fp32_sm90.cu`, fp32 K1-K5 and K9) plan and resources
-   at the served audio shape and the 2B's; and what ptxas says of their
-   wgmma;
+   at the served audio shape and the 2B's; the fp32 backward's
+   (`csrc/flash_bwd_fp32_sm90.cu`, fp32 and fp16 K6-K8) plan and resources
+   at the music trainer's shapes and the 2B's (0 spill bytes required); and
+   what ptxas says of their wgmma;
 3. kernels: each CUDA entry point against its plain PyTorch version at the
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
    kernel; it, the LSE forward and the backward kernels also at the served
@@ -30,7 +32,9 @@ last line:
    one library call on the same inputs (`scaled_dot_product_attention` for
    K1-K3, aten's flash attention with its log-sum-exp for K4/K5, the sdpa
    autograd backward for K6-K8; K1 and K6-K8 also timed at Sk=32, where the
-   served worker and the training cross-attention launch them); then the
+   served worker and the training cross-attention launch them; fp32 K6-K8
+   at the 2B's shape with a masked tail, at the fp32 rate's bound over the
+   valid keys, the rows of the fp16 trainer leg); then the
    fused-RoPE kernels (K9: `rope` at Sq=Sk=4096, `rope_q` at Sk=32 and 256
    with the 2B's 1024^2 angles) against their plain versions, against
    themselves on `apply_rope`d inputs at zero angles, and bit for bit
@@ -165,6 +169,11 @@ last line:
    LUMINA_FLASH_FUSED_BWD=0: the second main path, whose training kernel
    launches are counted; then `lumina infer --ckpt` on that checkpoint
    (10 steps, settings written to a temporary YAML file);
+8b. fp16train: the trainer CLI at its docstring's 2B recipe with
+   `--precision fp16` (1024^2 latents, B=2, fp32 gradients, --checkpointing,
+   AdamW) for 3 steps, the 3rd under LUMINA_FLASH_FUSED_BWD=0, no checkpoint:
+   fp16 attention runs the fp32 kernels (cast once at the wrapper); finite
+   losses, 0 plain-version calls, K4 and K6-K8 launched (the fp32 2B rows);
 9. pixel: NextDiT_ImageNet_Small_patch2 in pixel space at 64^2 through the
    trainer CLI on a shapes ImageFolder, B=64, 5 steps; quality:
    `lumina_t2x_tpu_torch/exps/quality_flow.py` cut to QUALITY_STEPS steps
@@ -181,7 +190,8 @@ last line:
    device time under `torch.profiler` and the wrapper's host time beside the
    CUDA-event time) and bf16 at the served request's (2, 128, 16, 72) over
    its 128 frames and over the 16 caption tokens, K4 and K6-K8 at the trainer's (32, 256, 16, 72) over 256
-   and over 77 keys; `audio`: `build_audio_stack(debug=False)` (FlagDiT-1D
+   and over 77 keys, K6-K8 there also in fp32 (`csrc/flash_bwd_fp32_sm90.cu`);
+   `audio`: `build_audio_stack(debug=False)` (FlagDiT-1D
    1152 wide, 28 layers, 16 heads, ~0.74B, fp32, zero-init tensors
    randomised; the random 1-D VAE ch 128; BigVGAN 1536 wide), one CFG forward
    through the kernels, the plain versions and sdpa in fp32 and in bf16
@@ -194,7 +204,9 @@ last line:
    by the phase; `audiotrain`: `train_audio.main` at its defaults (B=32, 256
    frames, 77 caption tokens, bf16, AdamW) for 3 steps without a checkpoint,
    then cut to one layer for 3 steps, a checkpoint and an `--auto_resume`
-   step under LUMINA_FLASH_FUSED_BWD=0; `judge`: `clap_eval_directory` over
+   step under LUMINA_FLASH_FUSED_BWD=0, then at full depth with
+   `--precision fp32` for 3 steps (fp32 K6) and a 4th under
+   LUMINA_FLASH_FUSED_BWD=0 (fp32 K7 + K8), no checkpoint; `judge`: `clap_eval_directory` over
    the three WAVs with Cnn14 and a BERT-base-wide caption tower (random, the
    hash tokenizer), then MPD and MRD forward and backward with the three
    GAN losses.
@@ -242,6 +254,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SM90_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_sm90.cu"  # bf16 K1-K5, K9
 FP32_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_fp32_sm90.cu"  # fp32 K1-K5, K9
 SM90_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_sm90.cu"  # bf16 K6-K8
+FP32_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_fp32_sm90.cu"  # fp32 (and fp16) K6-K8
 ROTATE_SOURCE = "lumina_t2x_tpu_torch/csrc/rope_rotate.cu"  # K9's k
 VPU_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_sm90.cu"  # K10, K11
 MMA_SOURCE = "lumina_t2x_tpu_torch/csrc/mma_probe.cu"
@@ -316,6 +329,17 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "bwd_fused_audio": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),
     "bwd_dq_audio": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:552"),
     "bwd_dkv_audio": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),
+    # fp32 K6-K8 (`csrc/flash_bwd_fp32_sm90.cu`) at the music trainer's
+    # self-attention (its `--precision fp32` leg) and at the 2B's (2, 4096, 32,
+    # 72), where the image trainer's `--precision fp16` leg runs them and the
+    # fp32 K4 forward (fp16 cast to fp32 at the wrapper)
+    "bwd_fused_fp32_audio": (FP32_BWD_SOURCE, f"{TPU_KERNELS}:619"),
+    "bwd_dq_fp32_audio": (FP32_BWD_SOURCE, f"{TPU_KERNELS}:552"),
+    "bwd_dkv_fp32_audio": (FP32_BWD_SOURCE, f"{TPU_KERNELS}:584"),
+    "bwd_fused_fp32_2b": (FP32_BWD_SOURCE, f"{TPU_KERNELS}:619"),
+    "bwd_dq_fp32_2b": (FP32_BWD_SOURCE, f"{TPU_KERNELS}:552"),
+    "bwd_dkv_fp32_2b": (FP32_BWD_SOURCE, f"{TPU_KERNELS}:584"),
+    "online_lse_fp32_2b": (FP32_SOURCE, f"{TPU_KERNELS}:430"),
 }
 SAMPLER_KERNELS = ("small_kv", "online", "static_max", "online_lse")
 ROPE_KERNELS = ("rope", "rope_q", "rope_rotate")
@@ -610,6 +634,22 @@ def build_phase():
                   f"bytes per thread, {info['shared_bytes']} bytes of shared memory per block, "
                   f"{info['blocks_per_sm']} block(s) of {info['threads']} threads per SM")
             require(info["local_bytes"] == 0, f"{FP32_SOURCE} ({label}) spills")
+    # the fp32 backward (K6-K8 in fp32 and fp16): plan and resources at the
+    # music trainer's self- and cross-attention and at the 2B's
+    b, s, h = AUDIO_TRAIN
+    for label, shape in (("music trainer, 256 frames", (b, s, s, h, h, 72)),
+                         ("music trainer, 77 caption keys", (b, s, AUDIO_TRAIN_CONTEXT, h, h, 72)),
+                         ("2B", (B, S, S, H, H, D))):
+        for kernel in ("fused", "dkv", "dq"):
+            info = flash_attention.bwd_fp32_attributes(kernel, *shape)
+            phase("build", f"{FP32_BWD_SOURCE} (bwd_{kernel}, {label} {shape}): "
+                  f"{info['rows_per_block']} {'q rows' if kernel == 'dq' else 'keys'} a block, "
+                  f"{info['rows_per_tile']} {'keys' if kernel == 'dq' else 'q rows'} a streamed "
+                  f"tile, {info['grid_blocks']} blocks; {info['registers']} registers per thread, "
+                  f"{info['local_bytes']} local (spill) bytes per thread, {info['shared_bytes']} "
+                  f"bytes of shared memory per block, {info['blocks_per_sm']} block(s) of "
+                  f"{info['threads']} threads per SM")
+            require(info["local_bytes"] == 0, f"{FP32_BWD_SOURCE} (bwd_{kernel}, {label}) spills")
     # K12 (no setmaxnreg: two consumer warpgroups, no producer) at the width
     # of its timed shape and of K=1024
     for kd, n in ((D, mxu_k_quantum.N_DEFAULT), (1024, mxu_k_quantum.N_DEFAULT)):
@@ -790,22 +830,26 @@ BWD_CASES = [("bf16", torch.bfloat16, S, H, "none"), ("fp32", torch.float32, S, 
              ("bf16 gqa8 caption", torch.bfloat16, 136, 8, "caption")]
 
 
-def _bwd_bounds(q, k, v, out, dout, lse, dtype):
+def _bwd_bounds(q, k, v, out, dout, lse, dtype, mask=None):
     """Least times of K6, K7 and K8: read q, k, v, out, dO, LSE once; write
-    what the kernel writes; 5, 3 and 4 Sq x Sk x D products."""
+    what the kernel writes; 5, 3 and 4 Sq x Sk x D products over the keys
+    `mask` leaves valid (a masked key adds nothing to any gradient)."""
     reads = _nbytes(q, k, v, out, dout, lse)
-    return {"bwd_fused": least_time(reads + _nbytes(q, k, v), attention_ops(q, k, 5), dtype),
-            "bwd_dq": least_time(reads + _nbytes(q), attention_ops(q, k, 3), dtype),
-            "bwd_dkv": least_time(reads + _nbytes(k, v), attention_ops(q, k, 4), dtype)}
+    keys = 1.0 if mask is None else (mask != 0).float().mean().item()
+    return {"bwd_fused": least_time(reads + _nbytes(q, k, v), attention_ops(q, k, 5) * keys,
+                                    dtype),
+            "bwd_dq": least_time(reads + _nbytes(q), attention_ops(q, k, 3) * keys, dtype),
+            "bwd_dkv": least_time(reads + _nbytes(k, v), attention_ops(q, k, 4) * keys, dtype)}
 
 
 def backward_kernel_phase(fa):
     """K6 and K7 + K8 against `flash_bwd_plain` on the same inputs (q, k, v,
     dO, and out/LSE from the plain LSE forward); all three also timed at the
-    cross-attention's Sk=32."""
+    cross-attention's Sk=32, and in fp32 at the 2B's shape (the fp32 rows).
+    Bounds count the products over the keys each case's mask leaves valid."""
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = {name: 0.0 for name in ("bwd_fused", "bwd_dq", "bwd_dkv")}
-    times = {}
+    times, fp32_rows = {}, {}
     for label, dtype, sk, hkv, mask_kind in BWD_CASES:
         q = _rand(g, B, S, H, D, dtype=dtype)
         k = _rand(g, B, sk, hkv, D, dtype=dtype)
@@ -827,7 +871,7 @@ def backward_kernel_phase(fa):
                "bwd_dq": (fa.flash_bwd_dq(*args), None, None),
                "bwd_dkv": (None, *fa.flash_bwd_dkv(*args))}
         torch.cuda.synchronize()
-        parts = []
+        parts, case_worst = [], {}
         for name, outs in got.items():
             for grad, r, what in zip(outs, ref, ("dq", "dk", "dv")):
                 if grad is None:
@@ -845,6 +889,7 @@ def backward_kernel_phase(fa):
                     require(torch.count_nonzero(grad[1]).item() == 0,
                             f"{name} {what}: fully masked row not 0")
                 worst[name] = max(worst[name], err.max().item())
+                case_worst[name] = max(case_worst.get(name, 0.0), err.max().item())
                 parts.append(f"{name}.{what} {rel_max:.2g}")
         line = f"backward {label} (Sk={sk}): max err / max|ref| " + ", ".join(parts)
         if not times:
@@ -852,7 +897,7 @@ def backward_kernel_phase(fa):
                              ("bwd_dkv", fa.flash_bwd_dkv)):
                 times[name] = time_ms(lambda: fn(*args), reps=5)
             times["plain"] = time_ms(lambda: fa.flash_bwd_plain(*args), reps=5)
-            bounds = _bwd_bounds(q, k, v, out, dout, lse, dtype)
+            bounds = _bwd_bounds(q, k, v, out, dout, lse, dtype, mask)
             library = library_backward(q, k, v, mask, dout, scale)
             line += ("; " + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items())
                      + "; bounds " + ", ".join(f"{n} {b_['bound_ms']:.4f} ms ({b_['bound_by']})"
@@ -860,21 +905,27 @@ def backward_kernel_phase(fa):
                      + f"; library backward {library['library_ms']:.3f} ms "
                        f"({library['library_kernel']})")
         elif label == "fp32":
-            # fp32 K6-K8 (`csrc/flash_bwd.cu`, on no main path): their times,
-            # their least times at the fp32 peak, and the fp32 library backward
-            fp32_bounds = _bwd_bounds(q, k, v, out, dout, lse, dtype)
-            line += "; " + ", ".join(
-                f"{name} {time_ms(lambda: fn(*args), reps=3):.3f} ms (bound "
-                f"{fp32_bounds[name]['bound_ms']:.4f} ms, {fp32_bounds[name]['bound_by']})"
-                for name, fn in (("bwd_fused", fa.flash_bwd_fused), ("bwd_dq", fa.flash_bwd_dq),
-                                 ("bwd_dkv", fa.flash_bwd_dkv)))
+            # fp32 K6-K8 (`csrc/flash_bwd_fp32_sm90.cu`; the fp16 trainer leg
+            # runs them at this shape): their times, their least times at the
+            # fp32 peak over the valid keys, plain and the fp32 library backward
+            fp32_bounds = _bwd_bounds(q, k, v, out, dout, lse, dtype, mask)
+            fp32_plain = time_ms(lambda: fa.flash_bwd_plain(*args), reps=3)
             fp32_library = library_backward(q, k, v, mask, dout, scale)
-            line += (f"; plain {time_ms(lambda: fa.flash_bwd_plain(*args), reps=3):.3f} ms; "
-                     f"fp32 library backward {fp32_library['library_ms']:.3f} ms "
-                     f"({fp32_library['library_kernel']})")
+            timed = []
+            for name, fn in (("bwd_fused", fa.flash_bwd_fused), ("bwd_dq", fa.flash_bwd_dq),
+                             ("bwd_dkv", fa.flash_bwd_dkv)):
+                ms = time_ms(lambda: fn(*args), reps=5)
+                fp32_rows[f"{name}_fp32_2b"] = {
+                    "max_abs_err": case_worst[name], "ms": ms, "plain_ms": fp32_plain,
+                    "library_ms": fp32_library["library_ms"], **fp32_bounds[name]}
+                timed.append(f"{name} {ms:.3f} ms (bound "
+                             f"{fp32_bounds[name]['bound_ms']:.4f} ms, "
+                             f"{fp32_bounds[name]['bound_by']})")
+            line += (f"; {', '.join(timed)}; plain {fp32_plain:.3f} ms; fp32 library backward "
+                     f"{fp32_library['library_ms']:.3f} ms ({fp32_library['library_kernel']})")
         elif label in ("bf16 cross-attention", "bf16 caption"):
             # the trainer's cross-attention: 24 of K6's (K7's) launches a step
-            cross = _bwd_bounds(q, k, v, out, dout, lse, dtype)
+            cross = _bwd_bounds(q, k, v, out, dout, lse, dtype, mask)
             line += "; " + ", ".join(
                 f"{name} {time_ms(lambda: fn(*args), reps=5):.3f} ms (bound "
                 f"{cross[name]['bound_ms']:.4f} ms, {cross[name]['bound_by']})"
@@ -886,8 +937,8 @@ def backward_kernel_phase(fa):
         phase("kernels", line)
         del q, k, v, dout, out, lse, args, ref, got
         torch.cuda.empty_cache()
-    return {name: {"max_abs_err": worst[name], "ms": times[name], "plain_ms": times["plain"],
-                   **bounds[name], **library} for name in worst}
+    return {**{name: {"max_abs_err": worst[name], "ms": times[name], "plain_ms": times["plain"],
+                      **bounds[name], **library} for name in worst}, **fp32_rows}
 
 
 def rope_angles_2b():
@@ -1132,7 +1183,9 @@ def _check_forward(fa, entry, q, k, v, mask, label):
 
 def _check_backward(fa, q, k, v, mask, dout, label):
     """K6, K7 and K8 against `flash_bwd_plain` (out and LSE from the plain
-    LSE forward): ({entry: max abs err}, args, line)."""
+    LSE forward): ({entry: max abs err}, args, line). bf16 within
+    BWD_BF16_MAX (max) and BWD_BF16_MEAN (mean) of max|gradient|, fp32
+    within BWD_FP32_MAX."""
     scale = q.shape[-1] ** -0.5
     out, lse = fa.flash_online_lse_plain(q, k, v, mask, scale)
     args = (q, k, v, mask, out, lse, dout, scale)
@@ -1148,9 +1201,11 @@ def _check_backward(fa, q, k, v, mask, dout, label):
             top = max(r.float().abs().max().item(), 1e-30)
             err = (grad.float() - r.float()).abs()
             rel_max, rel_mean = err.max().item() / top, err.mean().item() / top
-            require(math.isfinite(rel_max) and rel_max <= BWD_BF16_MAX,
-                    f"{name} {what} {label}: max err {rel_max} of max|ref| > {BWD_BF16_MAX}")
-            require(rel_mean <= BWD_BF16_MEAN, f"{name} {what} {label}: mean err {rel_mean}")
+            bar = BWD_FP32_MAX if q.dtype == torch.float32 else BWD_BF16_MAX
+            require(grad.dtype == r.dtype and math.isfinite(rel_max) and rel_max <= bar,
+                    f"{name} {what} {label}: max err {rel_max} of max|ref| > {bar}")
+            if q.dtype == torch.bfloat16:
+                require(rel_mean <= BWD_BF16_MEAN, f"{name} {what} {label}: mean err {rel_mean}")
             if mask is not None and not bool(mask[-1].any()):
                 require(torch.count_nonzero(grad[-1]).item() == 0,
                         f"{name} {what} {label}: fully masked row not 0")
@@ -1160,8 +1215,8 @@ def _check_backward(fa, q, k, v, mask, dout, label):
 
 
 def shape_rows(fa, g, d, cases, dtype=torch.bfloat16):
-    """Kernel rows at one head_dim, in `dtype` (bf16, or fp32 for the
-    forwards: the fp32 bar, no mean bar): each case (row, entry, (b, s, h),
+    """Kernel rows at one head_dim, in `dtype` (bf16, or fp32: the fp32
+    bars, no mean bar, bounds at the fp32 rate): each case (row, entry, (b, s, h),
     sk, valid) runs twice against its plain version, first with all heads (and
     the first `valid` of `sk` keys, for a caption) timed with its bound and
     library call (sdpa for K1-K3, aten's flash attention with LSE for K4/K5,
@@ -1180,7 +1235,7 @@ def shape_rows(fa, g, d, cases, dtype=torch.bfloat16):
             keys = (valid or k.shape[1]) / k.shape[1]  # the products this run's mask needs
             scale = d ** -0.5
             if entry == "bwd":
-                dout = _rand(g, b, s, h, d, dtype=torch.bfloat16)
+                dout = _rand(g, b, s, h, d, dtype=dtype)
                 worst, args, line = _check_backward(fa, q, k, v, mask, dout, label)
                 for name, err in worst.items():
                     key = f"{name}{row[len('bwd'):]}"
@@ -1189,7 +1244,7 @@ def shape_rows(fa, g, d, cases, dtype=torch.bfloat16):
                 if not masked and timed:
                     plain_ms = time_ms(lambda: fa.flash_bwd_plain(*args), reps=3)
                     lib = library_backward(q, k, v, mask, dout, scale)
-                    bounds = _bwd_bounds(q, k, v, args[4], dout, args[5], torch.bfloat16)
+                    bounds = _bwd_bounds(q, k, v, args[4], dout, args[5], dtype, mask)
                     parts = []
                     for name in ("bwd_fused", "bwd_dq", "bwd_dkv"):
                         fn = getattr(fa, f"flash_{name}")
@@ -1871,15 +1926,23 @@ def _class_metrics(results_dir, model):
         return [json.loads(line) for line in f]
 
 
-def _run_trainer(fa, argv, save=True, unfused_from=None):
-    """`pipelines.train.main(argv)` with the launch counts reset: (state, wall
-    seconds, launches, plain-version CUDA calls, peak GiB). `save=False` turns
-    the trainer's checkpoint writes into no-ops (the call's 45 GiB of disk
-    writes); `unfused_from=n` sets LUMINA_FLASH_FUSED_BWD=0 from step n
-    (1-based) on, so that those steps run K7/K8."""
-    from lumina_t2x_tpu_torch.pipelines import train as train_cli
+# the trainer CLIs `_run_trainer` drives, by module: the name of each one's step builder
+TRAINER_STEPS = {"train": "make_train_step", "train_audio": "make_cfm_train_step"}
 
-    saved = (train_cli.save_checkpoint, train_cli.make_train_step)
+
+def _run_trainer(fa, argv, save=True, unfused_from=None, cli="train", before=None):
+    """`pipelines.<cli>.main(argv)` (the image trainer, or "train_audio") with
+    the launch counts reset: (state, wall seconds, launches, plain-version
+    CUDA calls, peak GiB). `save=False` turns the trainer's checkpoint writes
+    into no-ops (the call's 45 GiB of disk writes); `unfused_from=n` sets
+    LUMINA_FLASH_FUSED_BWD=0 from step n (1-based) on, so that those steps
+    run K7/K8, and copies the launches of the steps before it into the dict
+    `before` when one is given."""
+    import importlib
+
+    train_cli = importlib.import_module(f"lumina_t2x_tpu_torch.pipelines.{cli}")
+    builder = TRAINER_STEPS[cli]
+    saved = (train_cli.save_checkpoint, getattr(train_cli, builder))
     if not save:
         train_cli.save_checkpoint = lambda *args, **kwargs: "(not written)"
     if unfused_from:
@@ -1887,11 +1950,13 @@ def _run_trainer(fa, argv, save=True, unfused_from=None):
             step_fn = saved[1](*args, **kwargs)
 
             def step(state, *rest, **kw):
+                if state.step + 1 == unfused_from and before is not None:
+                    before.update(fa.LAUNCHES)
                 if state.step + 1 >= unfused_from:
                     os.environ["LUMINA_FLASH_FUSED_BWD"] = "0"
                 return step_fn(state, *rest, **kw)
             return step
-        train_cli.make_train_step = make_train_step
+        setattr(train_cli, builder, make_train_step)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     try:
@@ -1900,7 +1965,8 @@ def _run_trainer(fa, argv, save=True, unfused_from=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        train_cli.save_checkpoint, train_cli.make_train_step = saved
+        train_cli.save_checkpoint = saved[0]
+        setattr(train_cli, builder, saved[1])
         os.environ.pop("LUMINA_FLASH_FUSED_BWD", None)
     return (state, wall, dict(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"],
             torch.cuda.max_memory_allocated() / 2**30)
@@ -2294,6 +2360,43 @@ def trainer_phase(fa, then=None):
     require(resumed["bwd_fused"] == 0, "the resumed step took the fused backward")
     require(plain_calls == 0, f"plain versions ran {plain_calls} times on CUDA")
     return {name: launches[name] + resumed[name] for name in TRAIN_KERNELS}, followed
+
+
+def fp16_train_phase(fa):
+    """The trainer CLI at its docstring's 2B recipe with `--precision fp16`
+    (NextDiT_2B_patch2, synthetic 128 x 128 latents, B=2, fp32 gradients,
+    qk-norm, --checkpointing, AdamW): 3 steps, the 3rd under
+    LUMINA_FLASH_FUSED_BWD=0, no checkpoint written. fp16 attention takes the
+    fp32 kernels (cast at the wrapper): the fp32 K4 forward
+    (`csrc/flash_fwd_fp32_sm90.cu`) and K6, then K7 + K8
+    (`csrc/flash_bwd_fp32_sm90.cu`). Returns the fp32 2B rows' launches."""
+    with tempfile.TemporaryDirectory() as results:
+        argv = ["--model", "NextDiT_2B_patch2", "--data_path", "synthetic://128x128",
+                "--global_batch_size", str(B), "--precision", "fp16", "--grad_precision", "fp32",
+                "--qk_norm", "--checkpointing", "--results_dir", results, "--log_every", "1",
+                "--ckpt_every", "1000", "--max_steps", "3"]
+        state, wall, launches, plain, peak = _run_trainer(fa, argv, save=False, unfused_from=3)
+        dtype = next(state.model.parameters()).dtype
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        metrics = _train_metrics(results)
+    launched = _launched(launches)
+    phase("fp16train", f"trainer CLI, NextDiT_2B_patch2 --precision fp16 (parameters {dtype}), "
+          f"1024^2 latents, B={B}, --checkpointing, AdamW, 3 steps (the 3rd with "
+          f"LUMINA_FLASH_FUSED_BWD=0), no checkpoint: losses "
+          f"{[round(m['train/loss'], 5) for m in metrics]}, grad norms "
+          f"{[round(m['train/grad_norm'], 4) for m in metrics]}; s/step "
+          f"{[round(m['train/secs_per_step'], 4) for m in metrics]}; peak memory {peak:.2f} GiB; "
+          f"wall {wall:.1f} s; launches (fp16 q/k/v on the fp32 kernels) {launched}; "
+          f"plain-version CUDA calls {plain}")
+    require(len(metrics) == 3 and all(math.isfinite(m["train/loss"]) for m in metrics),
+            f"fp16 trainer losses: {metrics}")
+    require(plain == 0, f"fp16 trainer: plain versions ran {plain} times on CUDA")
+    for name in ("online_lse", "bwd_fused", "bwd_dq", "bwd_dkv"):
+        require(launched.get(name, 0) > 0, f"fp16 trainer: {name} was not launched")
+    return {f"{name}_fp32_2b": launched[name]
+            for name in ("online_lse", "bwd_fused", "bwd_dq", "bwd_dkv")}
 
 
 # the multigpu phase: the torchrun trainer's losses and grad norms against the
@@ -3368,7 +3471,9 @@ def audio_kernel_phase(fa):
     kernel, `csrc/flash_fwd_fp32_sm90.cu`: the served app is fp32) and in
     bf16 at the served request's self-attention AUDIO_SERVE over its 128 keys
     (the rows) and over the 16 caption keys; K4 and K6-K8 at the trainer's
-    AUDIO_TRAIN over its 256 keys (the rows) and over the 77 caption keys.
+    AUDIO_TRAIN over its 256 keys (the rows) and over the 77 caption keys, and
+    K6-K8 there in fp32 (`csrc/flash_bwd_fp32_sm90.cu`, the trainer's
+    `--precision fp32`).
     The caption cases are timed and printed, under row names the kernels line
     does not list. fp32 K1 is also split into its kernel's device time under
     `torch.profiler` and the wrapper's host time, beside sdpa's."""
@@ -3409,6 +3514,10 @@ def audio_kernel_phase(fa):
         ("online_lse_audio_ctx", "online_lse", AUDIO_TRAIN, AUDIO_TRAIN_CONTEXT, None, True),
         ("bwd_audio", "bwd", AUDIO_TRAIN, None, None, True),
         ("bwd_audio_ctx", "bwd", AUDIO_TRAIN, AUDIO_TRAIN_CONTEXT, None, True)]))
+    results.update(shape_rows(fa, g, 72, [
+        ("bwd_fp32_audio", "bwd", AUDIO_TRAIN, None, None, True),
+        ("bwd_fp32_audio_ctx", "bwd", AUDIO_TRAIN, AUDIO_TRAIN_CONTEXT, None, True)],
+        dtype=torch.float32))
     return results
 
 
@@ -3418,8 +3527,9 @@ def fp32_forward_phase(fa):
     bound at the fp32 rate (PEAK_FP32) and one library call in fp32 (sdpa for
     K2/K3, aten's memory-efficient attention with its LSE for K4/K5), then
     with 4:1 GQA, a masked tail and a fully masked batch row (`shape_rows`).
-    No main path runs them (the 2B runs bf16): their rows are printed, not
-    listed on the kernels line."""
+    K4's row is on the kernels line with the fp16 trainer leg's launches
+    (fp16 runs the fp32 kernels); the others are printed only: no main path
+    runs them (the 2B runs bf16)."""
     g = torch.Generator(device="cuda").manual_seed(17)
     return shape_rows(fa, g, D, [(f"{entry}_fp32_2b", entry, (B, S, H), None, None, True)
                                  for entry in ("online", "static_max", "online_lse",
@@ -3649,8 +3759,8 @@ def audio_train_phase(fa):
     parameters, EMA and both moments, is 11 GiB, twice that with the resume,
     past what the call's 45 GiB of disk writes leave); then the same CLI cut
     to one layer: 3 steps and a checkpoint, and a 4th step by --auto_resume
-    under LUMINA_FLASH_FUSED_BWD=0 (K7/K8). Returns the trainer rows'
-    launches."""
+    under LUMINA_FLASH_FUSED_BWD=0 (K7/K8); then the fp32 leg
+    (`audio_train_fp32`). Returns the trainer rows' launches."""
     from lumina_t2x_tpu_torch.pipelines import train_audio
 
     fa.set_flash_static_max_train(None)  # K4 and K6-K8, no train bound
@@ -3658,20 +3768,11 @@ def audio_train_phase(fa):
     base = ["--data_path", "synthetic://", "--global_batch_size", str(b), "--latent_length",
             str(s), "--context_len", str(AUDIO_TRAIN_CONTEXT), "--precision", "bf16",
             "--log_every", "1", "--ckpt_every", "1000", "--device", "cuda"]
-    saved = train_audio.save_checkpoint
     with tempfile.TemporaryDirectory() as results:
-        train_audio.save_checkpoint = lambda *args, **kwargs: "(not written)"
-        fa.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            t0 = time.perf_counter()
-            state = train_audio.main(base + ["--results_dir", results, "--max_steps", "3"])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            train_audio.save_checkpoint = saved
-        full, plain = _launched(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"]
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        state, wall, full, plain, peak = _run_trainer(
+            fa, base + ["--results_dir", results, "--max_steps", "3"], save=False,
+            cli="train_audio")
+        full = _launched(full)
         params = sum(p.numel() for p in state.model.parameters())
         m = _audio_metrics(results)
     del state
@@ -3719,7 +3820,45 @@ def audio_train_phase(fa):
           f"{cut}, resumed {resumed}")
     return {"online_lse_audio": full["online_lse"] + cut["online_lse"] + resumed["online_lse"],
             "bwd_fused_audio": full["bwd_fused"] + cut["bwd_fused"],
-            "bwd_dq_audio": resumed["bwd_dq"], "bwd_dkv_audio": resumed["bwd_dkv"]}
+            "bwd_dq_audio": resumed["bwd_dq"], "bwd_dkv_audio": resumed["bwd_dkv"],
+            **audio_train_fp32(fa, [a if a != "bf16" else "fp32" for a in base])}
+
+
+def audio_train_fp32(fa, argv):
+    """`train_audio.main` at full width and depth with `--precision fp32`
+    (argv: the bf16 leg's with fp32): 3 steps through the fp32 backward's
+    fused sweep (`csrc/flash_bwd_fp32_sm90.cu`, K6: 56 launches a step, 28
+    layers of self- and cross-attention), then a 4th step under
+    LUMINA_FLASH_FUSED_BWD=0 (K7 + K8), no checkpoint written (the call's 45
+    GiB of disk writes). Prints losses, s/step, items/s, peak memory and the
+    launches; returns the fp32 rows' launches."""
+    b = AUDIO_TRAIN[0]
+    fused_part = {}
+    with tempfile.TemporaryDirectory() as results:
+        state, wall, total, plain, peak = _run_trainer(
+            fa, argv + ["--results_dir", results, "--max_steps", "4"], save=False, unfused_from=4,
+            cli="train_audio", before=fused_part)
+        m = _audio_metrics(results)
+        params = next(state.model.parameters()).dtype
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    fused = _launched(fused_part)
+    last = _launched({k: total[k] - fused_part.get(k, 0) for k in total})
+    steady = [r["train/secs_per_step"] for r in m[1:3]]
+    phase("audiotrain", f"train_audio.main --precision fp32 (parameters {params}), B={b}, "
+          f"{AUDIO_TRAIN[1]} latent frames, {AUDIO_TRAIN_CONTEXT} caption tokens, AdamW, 3 steps "
+          f"then a 4th with LUMINA_FLASH_FUSED_BWD=0, no checkpoint: losses "
+          f"{[round(r['train/loss'], 5) for r in m]}; s/step "
+          f"{[round(r['train/secs_per_step'], 4) for r in m]} ({b / statistics.mean(steady):.1f} "
+          f"items/s at steps 2-3); peak memory {peak:.2f} GiB; wall {wall:.1f} s; launches "
+          f"steps 1-3 {fused}, step 4 {last}; plain-version CUDA calls {plain}")
+    require(len(m) == 4 and all(math.isfinite(r["train/loss"]) for r in m) and plain == 0
+            and fused.get("bwd_fused", 0) > 0 and last.get("bwd_dq", 0) > 0
+            and last.get("bwd_dkv", 0) > 0 and "bwd_fused" not in last,
+            f"fp32 audio trainer: metrics {m}, launches {fused} / {last}, plain {plain}")
+    return {"bwd_fused_fp32_audio": fused["bwd_fused"], "bwd_dq_fp32_audio": last["bwd_dq"],
+            "bwd_dkv_fp32_audio": last["bwd_dkv"]}
 
 
 def _random_clap_state_dict(g):
@@ -3902,6 +4041,7 @@ def main():
     # (their own processes) and ring fold add theirs
     train_launches, multigpu = trainer_phase(fa, then=lambda *a: multigpu_trainer_phase(fa, *a))
     launches.update(train_launches)
+    launches.update(fp16_train_phase(fa))
     for counts in (multigpu, ring_fold_phase(fa)):
         for name, n in counts.items():
             launches[name] += n

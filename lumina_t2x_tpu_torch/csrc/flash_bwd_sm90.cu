@@ -10,7 +10,7 @@
 // for bf16 inputs; the C entry points lumina_flash_bwd_fused,
 // lumina_flash_bwd_dkv and lumina_flash_bwd_dq stay in flash_bwd.cu (launch
 // counters "bwd_fused", "bwd_dkv", "bwd_dq"), which calls flash_bwd_sm90()
-// or flash_bwd_dq_sm90() for bf16 and keeps its own kernels for fp32. One
+// or flash_bwd_dq_sm90() for bf16 (fp32 runs flash_bwd_fp32_sm90.cu). One
 // kernel serves the first two: a template flag compiles the dQ step out for
 // dK/dV only. The dQ kernel is described after them ("The dQ kernel").
 //

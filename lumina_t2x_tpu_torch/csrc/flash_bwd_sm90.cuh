@@ -1,7 +1,7 @@
 // The bf16 flash-attention backward of flash_bwd_sm90.cu, called by the C
 // entry points lumina_flash_bwd_fused / lumina_flash_bwd_dkv
 // (flash_bwd_sm90) and lumina_flash_bwd_dq (flash_bwd_dq_sm90) of
-// flash_bwd.cu, which keep their fp32 path on the kernels there.
+// flash_bwd.cu for bf16 inputs (fp32 takes flash_bwd_fp32_sm90.cu).
 //
 // meta (int64[28]) as those entry points take it: B, Sq, Sk, Hq, Hkv, D,
 // then element strides of q, k, v, dout, dq, dk, dv (b, s, h each) and the

@@ -76,6 +76,7 @@
 #include <type_traits>
 
 #include "flash_fwd_fp32_sm90.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -86,9 +87,7 @@ constexpr int kSub = 32;             // keys per sub-tile: 4 lanes x 8 keys
 constexpr int kPPitch = kSub + 4;    // floats per key of a warp's P^T buffer
 constexpr int kStages = 2;           // K/V ring
 constexpr int kMaxHeadDim = 128;
-constexpr int kSmemMax = 232448;     // shared memory a block can use
 constexpr float kClamp = 55.f;       // exponent clamp of the static max (nats)
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
@@ -130,59 +129,6 @@ struct Smem {
   }
   __host__ __device__ int bytes() const { return 4 * total; }
 };
-
-// -- PTX -----------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 4 bytes, or 4 zero bytes when !full (src is not read)
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(full ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) by the TMA
-// unit, counted on the mbarrier `bar` as they land
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-// this thread's arrival, announcing the bytes its bulk copies will bring
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-template <int kPending>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-// 2^x in one MUFU.EX2 (results below 2^-126 flush to 0; ex2(-inf) = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // -- loads ---------------------------------------------------------------------------
 //
@@ -233,12 +179,12 @@ __device__ __forceinline__ void load_stage(const Params& p, const Smem& L, float
   const int q_rows = st == 0 ? kRows * p.wr : 0;
   const uint32_t bar = smem_addr(smem + L.bar) + 8 * slot;
   const bool vq = p.vec & 1, vk = p.vec & 2, vv = p.vec & 4;
-  mbar_arrive_tx(bar, (vq ? bulk_bytes(q0, p.Sq, q_rows, p.D) : 0u) +
+  mbar_expect_tx(bar, (vq ? bulk_bytes(q0, p.Sq, q_rows, p.D) : 0u) +
                           (vk ? bulk_bytes(j0, p.Sk, n, p.D) : 0u) +
                           (vv ? bulk_bytes(j0, p.Sk, n, p.D) : 0u));
   // the slot's last readers (generic proxy) are done: a block barrier came
   // between; order them before the bulk copies (async proxy)
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_async_smem();
   if (q_rows) load_rows(smem + L.q, p.pitch, qb, p.q_ss, q0, p.Sq, q_rows, p.D, vq, bar);
   load_rows(smem + L.k + slot * keys * p.pitch, p.pitch, kb, p.k_ss, j0, p.Sk, n, p.D, vk, bar);
   load_rows(smem + L.v + slot * keys * p.pitch, p.pitch, vb, p.v_ss, j0, p.Sk, n, p.D, vv, bar);
@@ -530,7 +476,7 @@ Plan make_plan(int B, int Sq, int Hq, int D) {
   const int pitch = ((D + 7) & ~7) + 4;
   for (int wr = 4; wr >= 1; wr /= 2) {
     const int bytes = Smem(wr, kWarps / wr, pitch).bytes();
-    if (bytes > kSmemMax) continue;
+    if (bytes > (int)kSmemMax) continue;
     best.wr = wr;
     best.wk = kWarps / wr;
     best.pitch = pitch;

@@ -1,6 +1,8 @@
 // PTX helpers shared by the Hopper (sm_90a) attention kernels,
-// flash_fwd_sm90.cu and flash_bwd_sm90.cu: TMA loads and reductions,
-// mbarriers, named barriers, wgmma descriptors and products, bf16 packing
+// flash_fwd_sm90.cu and flash_bwd_sm90.cu (and the fp32 kernels,
+// flash_fwd_fp32_sm90.cu and flash_bwd_fp32_sm90.cu, which take its copies,
+// mbarriers and exp2): TMA loads and reductions, row bulk copies and 4-byte
+// cp.async, mbarriers, named barriers, wgmma descriptors and products, bf16 packing
 // and the hi/lo pair products, exp2, the 4-D tensor maps, and the K/V ring
 // (its shared-memory layout and its producer loop) that the forward kernel
 // and the backward's dQ kernel both stream keys through. Everything here
@@ -69,6 +71,30 @@ __device__ __forceinline__ void bulk_wait_all() {
 // async proxy (wgmma operands, bulk copies)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) by the TMA
+// unit, counted on the mbarrier `bar` as they land
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// 4 bytes by cp.async, or 4 zero bytes when !full (src is not read), in
+// this thread's current cp.async group
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// until at most kPending of this thread's cp.async groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {

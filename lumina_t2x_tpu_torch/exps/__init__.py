@@ -11,9 +11,10 @@ clock. Beside them, `python -m lumina_t2x_tpu_torch.exps.fwd_sm90_breakdown`
 times the bf16 streaming attention forward (`csrc/flash_fwd_sm90.cu`) and
 `python -m lumina_t2x_tpu_torch.exps.bwd_sm90_breakdown` the bf16 backward
 (`csrc/flash_bwd_sm90.cu`) with parts taken out, and `python
-lumina_t2x_tpu_torch/exps/fwd_fp32_times.py [--root DIR]` the fp32 forward
-(`csrc/flash_fwd_fp32_sm90.cu`) beside fp32 sdpa, for this checkout or
-another one, on the card only.
+lumina_t2x_tpu_torch/exps/fp32_times.py [--root DIR] [--parts ...]` the fp32
+forward (`csrc/flash_fwd_fp32_sm90.cu`), the fp32 backward
+(`csrc/flash_bwd_fp32_sm90.cu`) and the fp32 music trainer's step beside
+fp32 sdpa, for this checkout or another one, on the card only.
 `python -m lumina_t2x_tpu_torch.exps.quality_flow` is the shapes quality
 check (the flow of `exps/quality_demo.py`) through the port's trainer and
 sampler.

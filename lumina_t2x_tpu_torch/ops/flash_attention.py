@@ -30,8 +30,8 @@ whose backward rotates q (and k) in plain PyTorch, runs `flash_online_lse`
 and the backward kernels, and inverse-rotates dq (and dk).
 
 The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_fwd.cu` (the
-forward entry points), `csrc/flash_bwd.cu` (the backward entry points and
-the fp32 backward kernels), the Hopper redesigns `csrc/flash_fwd_sm90.cu`
+forward entry points), `csrc/flash_bwd.cu` (the backward entry points), the
+Hopper redesigns `csrc/flash_fwd_sm90.cu`
 (bf16 `flash_small_kv`, `flash_online`, `flash_static_max`,
 `flash_online_lse`, `flash_static_max_lse`, `flash_rope`, `flash_rope_q`;
 the LSE written from the consumers' registers, q rotated in shared memory),
@@ -39,8 +39,11 @@ the LSE written from the consumers' registers, q rotated in shared memory),
 tiled in registers, exact to fp32; operands not in whole 16-byte chunks read
 in place by 4-byte copies, any head_dim up to 128) and
 `csrc/flash_bwd_sm90.cu` (bf16 `flash_bwd_fused` / `flash_bwd_dkv`, and
-`flash_bwd_dq`'s own kernel: q rows as the block, a ring of K/V tiles), with
-`csrc/rope_rotate.cu` (`rope_rotate`); they are built into one library by
+`flash_bwd_dq`'s own kernel: q rows as the block, a ring of K/V tiles),
+`csrc/flash_bwd_fp32_sm90.cu` (the three backwards in fp32: FFMA products
+tiled in registers, dK/dV or dQ held in registers, the fused sweep's dQ
+added by TMA bulk reduce-adds), with `csrc/rope_rotate.cu` (`rope_rotate`);
+they are built into one library by
 `ops/cuda_lib.py` at first use, under `build/kernels/<source hash>/` at the
 repository root, and bound through ctypes. A wrapper takes its plain version only for CPU
 tensors; for CUDA tensors it launches the kernel or raises. The bf16 Hopper
@@ -52,6 +55,12 @@ base or (b, s, h) strides are not whole chunks, or whose strides do not
 grow from h to s to b, is copied contiguous first (`_chunk_aligned`; a
 strided view such as q, k, v of a fused (B, S, 3, H, D) tensor is read in
 place).
+
+fp16 q/k/v take the fp32 kernels: each entry point casts them (and dout,
+out) to fp32 once at the wrapper, runs the fp32 kernel and returns its
+outputs in fp16 (gradients in their inputs' dtype; the LSE stays fp32).
+This is the route for fp16, not a fallback: no fp16 kernel exists, and any
+dtype other than bf16, fp16 and fp32 raises.
 
 Contract shared by kernel and plain version: q (B, Sq, Hq, D), k/v
 (B, Sk, Hkv, D), optional key mask (B, Sk) with nonzero on valid keys, GQA
@@ -297,7 +306,8 @@ _ROPE_ARGS = [_ptr] * 7 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
 _ROTATE_ARGS = [_ptr] * 4 + [_meta, ctypes.c_int, _ptr]
 LIBRARY = "flash"  # the library of K1-K9 (`ops/cuda_lib.py`)
 cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
-                          "flash_fwd_fp32_sm90.cu", "flash_bwd_sm90.cu", "rope_rotate.cu"], {
+                          "flash_fwd_fp32_sm90.cu", "flash_bwd_sm90.cu",
+                          "flash_bwd_fp32_sm90.cu", "rope_rotate.cu"], {
     **{f"lumina_flash_{name}": _FWD_ARGS for name in _FWD_ENTRIES},
     **{f"lumina_flash_{name}": _BWD_ARGS for name in _BWD_ENTRIES},
     **{f"lumina_flash_{name}": _ROPE_ARGS for name in _ROPE_ENTRIES},
@@ -307,7 +317,10 @@ cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
     # which (0 dK/dV, 1 fused, 2 dQ), head_dim, out (int64[7])
     "lumina_flash_bwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta],
     # static_max, meta (the forward's, shapes read), out (int64[8]); launch nothing
-    "lumina_flash_fwd_fp32_attributes": [ctypes.c_int, _meta, _meta]})
+    "lumina_flash_fwd_fp32_attributes": [ctypes.c_int, _meta, _meta],
+    # which (0 dK/dV, 1 fused, 2 dQ), meta (the backward's, shapes read), out
+    # (int64[8]); launch nothing
+    "lumina_flash_bwd_fp32_attributes": [ctypes.c_int, _meta, _meta]})
 _SM90_ATTRIBUTES = ("registers", "producer_registers", "consumer_registers", "local_bytes",
                     "shared_bytes", "blocks_per_sm", "threads")
 
@@ -364,13 +377,46 @@ def bwd_sm90_attributes(kernel: str, head_dim: int = 72) -> dict:
                        head_dim)
 
 
+_BWD_FP32_ATTRIBUTES = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads",
+                        "rows_per_block", "rows_per_tile", "grid_blocks")
+
+
+def bwd_fp32_attributes(kernel: str, b: int, sq: int, sk: int, hq: int, hkv: int,
+                        d: int) -> dict:
+    """The fp32 backward (`csrc/flash_bwd_fp32_sm90.cu`) at these shapes:
+    `kernel` "fused" (K6), "dkv" (K8) or "dq" (K7). Its plan -- rows per
+    block (keys for K6/K8, q rows for K7), rows per streamed tile (q rows,
+    keys), blocks in the grid -- and the resources of the instantiation it
+    launches (registers per thread, local-memory (spill) bytes per thread,
+    shared memory per block, resident blocks per SM, threads per block),
+    from the CUDA runtime. Launches nothing."""
+    if kernel not in _BWD_SM90_KERNELS:
+        raise ValueError(f"kernel must be one of {_BWD_SM90_KERNELS}, not {kernel!r}")
+    meta = (ctypes.c_longlong * 28)(b, sq, sk, hq, hkv, d)
+    out = (ctypes.c_longlong * len(_BWD_FP32_ATTRIBUTES))()
+    err = cuda_lib.build_library(LIBRARY).lumina_flash_bwd_fp32_attributes(
+        _BWD_SM90_KERNELS.index(kernel), meta, out)
+    if err != 0:
+        raise RuntimeError(f"lumina_flash_bwd_fp32_attributes failed: cudaError {err}")
+    return dict(zip(_BWD_FP32_ATTRIBUTES, out))
+
+
+_KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
+def _fp32_if_fp16(*tensors):
+    """The fp16 route: fp16 tensors cast to fp32 (the fp32 kernels run them;
+    there is no fp16 kernel), other tensors and None as they are."""
+    return tuple(t.float() if t is not None and t.dtype == torch.float16 else t for t in tensors)
+
+
 def _check_inputs(q, k, v, kv_mask):
     """Validate what every kernel takes; returns (q, k, v, int32 mask or
     None) with a contiguous last dim."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash kernels take CUDA tensors (CPU tensors take the plain version)")
-    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernels take bf16 or fp32 q/k/v of one dtype, got "
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash kernels take bf16, fp16 or fp32 q/k/v of one dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     qs, ks = q.shape, k.shape
     if len(qs) != 4 or len(ks) != 4 or v.shape != ks:
@@ -449,10 +495,13 @@ def _stream(t):
 def _launch(name, q, k, v, kv_mask, scale, bound=0.0, with_lse=False):
     """Check what the kernel takes, allocate the outputs and launch
     `lumina_flash_<name>` on the current stream; returns out or (out, lse).
+    fp16 inputs run the fp32 kernel (`_fp32_if_fp16`), out comes back fp16.
     Tensors made here (contiguous copies, the int32 mask) may be freed while
     the kernel runs: the caching allocator reuses their memory only for work
     queued after it on the same stream."""
     q, k, v, kv_mask = _check_inputs(q, k, v, kv_mask)
+    half = q.dtype == torch.float16
+    q, k, v = _fp32_if_fp16(q, k, v)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     if name in _SM90_ENTRIES and q.dtype == torch.bfloat16:
@@ -471,6 +520,8 @@ def _launch(name, q, k, v, kv_mask, scale, bound=0.0, with_lse=False):
     if err != 0:
         raise RuntimeError(f"flash kernel {name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
+    if half:
+        out = out.half()
     return (out, lse) if with_lse else out
 
 
@@ -546,9 +597,12 @@ def _launch_rope(name, q, k, v, angles, kv_mask, scale):
     rotate the operands `_rope_rotated_first` names with `rope_rotate`'s
     kernel and launch `lumina_flash_<name>`: in bf16 the Hopper forward,
     handed the tables to rotate q in shared memory; in fp32 the fp32
-    forward's online kernel. Returns out."""
+    forward's online kernel (fp16 q/k/v too, cast to fp32 first). Returns
+    out in q's dtype."""
     _check_rope_args(name, q, k, angles)
     q, k, v, kv_mask = _check_inputs(q, k, v, kv_mask)
+    half = q.dtype == torch.float16
+    q, k, v = _fp32_if_fp16(q, k, v)
     b, sq, hq, d = q.shape
     bf16 = q.dtype == torch.bfloat16
     lib = cuda_lib.build_library(LIBRARY)
@@ -570,7 +624,7 @@ def _launch_rope(name, q, k, v, angles, kv_mask, scale):
     if err != 0:
         raise RuntimeError(f"flash kernel {name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
-    return out
+    return out.half() if half else out
 
 
 def _bwd_delta(out, dout):
@@ -582,8 +636,12 @@ def _launch_bwd(name, q, k, v, kv_mask, out, lse, dout, scale):
     """Check what the backward kernels take, allocate the outputs (dq as a
     zeroed fp32 buffer for the fused sweep) and launch `lumina_flash_<name>`
     on the current stream; returns (dq, dk, dv), None where the kernel does
-    not write."""
+    not write. fp16 inputs run the fp32 kernels (`_fp32_if_fp16`); dk, dv
+    and `bwd_dq`'s dq come back fp16 (the fused sweep's fp32 dq is cast by
+    `flash_bwd_fused`)."""
     q, k, v, kv_mask = _check_inputs(q, k, v, kv_mask)
+    half = q.dtype == torch.float16
+    q, k, v, out, dout = _fp32_if_fp16(q, k, v, out, dout)
     b, sq, hq, d = q.shape
     if dout.shape != q.shape or not dout.is_cuda or tuple(lse.shape) != (b, hq, sq):
         raise ValueError(f"bad shapes dout {tuple(dout.shape)} lse {tuple(lse.shape)} "
@@ -619,7 +677,14 @@ def _launch_bwd(name, q, k, v, kv_mask, out, lse, dout, scale):
     if err != 0:
         raise RuntimeError(f"flash kernel {name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
+    if half:
+        dk, dv = _fp16(dk), _fp16(dv)
+        dq = dq if name == "bwd_fused" else _fp16(dq)
     return dq, dk, dv
+
+
+def _fp16(t):
+    return t.half() if t is not None else None
 
 
 def _scale(q, scale):
@@ -671,9 +736,9 @@ def flash_static_max_lse(q, k, v, kv_mask=None, scale: Optional[float] = None, *
 
 def flash_bwd_fused(q, k, v, kv_mask, out, lse, dout, scale: Optional[float] = None):
     """One-sweep backward: (dq, dk, dv), dk and dv per kv head (replaces
-    `_bwd_fused_kernel`; dQ is summed in fp32 in device memory -- bulk
-    reduce-adds of whole tiles for bf16, atomics for fp32 -- not as
-    per-KV-block partials)."""
+    `_bwd_fused_kernel`; dQ is summed in fp32 in device memory by bulk
+    reduce-adds of whole tiles, in an order that varies from run to run, not
+    as per-KV-block partials)."""
     if not q.is_cuda:
         return flash_bwd_plain(q, k, v, kv_mask, out, lse, dout, _scale(q, scale))
     dq, dk, dv = _launch_bwd("bwd_fused", q, k, v, kv_mask, out, lse, dout, _scale(q, scale))

@@ -21,6 +21,7 @@ series) is held to atol 1e-3 / rtol 1e-2.
 import functools
 import io
 import wave
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -209,7 +210,9 @@ def test_lambda_linear_schedule_matches_jax_across_two_cycles():
 def test_music_config_is_the_jax_config_with_the_port_targets():
     import yaml
 
-    with open("configs/lumina-text2music.yaml") as f:
+    # by the repository's path, not the working directory (another test file
+    # on the same worker may have changed it)
+    with open(Path(__file__).resolve().parents[1] / "configs" / "lumina-text2music.yaml") as f:
         ref = yaml.safe_load(f)
     ours = ta.load_music_config()
     assert set(ours) == set(ref)

@@ -15,7 +15,7 @@ from lumina_t2x_tpu_torch.ops import flash_attention as fa
 
 @pytest.mark.parametrize("module,sources,symbol", [
     (fa, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_fwd_fp32_sm90.cu",
-          "flash_bwd_sm90.cu", "rope_rotate.cu"], "lumina_rope_rotate"),
+          "flash_bwd_sm90.cu", "flash_bwd_fp32_sm90.cu", "rope_rotate.cu"], "lumina_rope_rotate"),
     (vpu, ["static_max_sm90.cu"], "lumina_static_max_v3"),
     (mxu, ["mma_probe.cu"], "lumina_mma_chain"),
 ])
@@ -31,9 +31,10 @@ def test_hash_inputs_follow_local_includes():
                                                   "sm90_common.cuh", "warp_mma.cuh"]
     assert cuda_lib._inputs(["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
                              "flash_fwd_fp32_sm90.cu", "flash_bwd_sm90.cu",
-                             "rope_rotate.cu"]) == [
+                             "flash_bwd_fp32_sm90.cu", "rope_rotate.cu"]) == [
         "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_fwd_fp32_sm90.cu",
-        "flash_bwd_sm90.cu", "rope_rotate.cu", "flash_fwd_fp32_sm90.cuh", "flash_fwd_sm90.cuh",
+        "flash_bwd_sm90.cu", "flash_bwd_fp32_sm90.cu", "rope_rotate.cu",
+        "flash_fwd_fp32_sm90.cuh", "flash_fwd_sm90.cuh", "flash_bwd_fp32_sm90.cuh",
         "flash_bwd_sm90.cuh", "sm90_common.cuh"]
 
 

@@ -296,9 +296,9 @@ def test_hi_lo_pair_keeps_p_and_ds_to_fp32_precision():
 def test_bf16_fused_and_dkv_route_to_the_new_source():
     """bf16 `bwd_fused` and `bwd_dkv` run `csrc/flash_bwd_sm90.cu` (their C
     entry points hand bf16 to `flash_bwd_sm90`), and so does bf16 `bwd_dq`
-    (to `flash_bwd_dq_sm90`, the dQ kernel); fp32 stays on `flash_bwd.cu`'s
-    kernels, which have no bf16 path left. The new source is built into the
-    flash library and holds no library kernel."""
+    (to `flash_bwd_dq_sm90`, the dQ kernel); fp32 goes to `flash_bwd_fp32_sm90`
+    (`csrc/flash_bwd_fp32_sm90.cu`) through `LUMINA_FLASH_BWD_CALL`. The new
+    source is built into the flash library and holds no library kernel."""
     src = (cuda_lib._CSRC / "flash_bwd.cu").read_text()
     entries = src.split('extern "C" {')[1].split("int lumina_flash_")[1:]
     bodies = {e.split("(", 1)[0]: e.split("{", 1)[1] for e in entries}
@@ -559,9 +559,9 @@ def test_misaligned_input_is_copied_and_odd_head_dim_raises(cuda_device, entry):
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
 def test_fp32_stays_on_the_first_kernels(cuda_device, entry):
-    """fp32 inputs take flash_bwd.cu's kernels (fp32 FMA, exact to fp32): the
-    Hopper kernel reads bf16 only, so fp32-level agreement shows the route;
-    so does a head_dim the Hopper kernel refuses (36)."""
+    """fp32 inputs take the fp32 kernels (`csrc/flash_bwd_fp32_sm90.cu`, fp32
+    FFMA, exact to fp32), not this bf16 kernel: it reads bf16 only, so
+    fp32-level agreement shows the route; so does a head_dim it refuses (36)."""
     for d in (72, 36):
         got, ref = _run(entry, *_cuda_inputs(2, 100, 150, 4, 2, d=d, dtype=torch.float32))
         _assert_near(got, ref, 1e-4)

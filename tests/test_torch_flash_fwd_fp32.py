@@ -294,14 +294,16 @@ def _source(name):
 def test_fp32_kernel_is_its_own_source_and_the_template_is_gone():
     """The fp32 forward lives in `flash_fwd_fp32_sm90.cu`, declared in the
     `flash` library; it multiplies with fp32 FFMA only (no tensor-core
-    product, TF32 included) and copies with TMA bulk copies; `flash_fwd.cu` keeps the
+    product, TF32 included) and copies with TMA bulk copies (`bulk_copy` of
+    `sm90_common.cuh`, which it shares with the fp32 backward); `flash_fwd.cu` keeps the
     entry points and none of the first fp32 template (`Layout`, `load_tile`,
     `qk_tile`, `pv_tile`, `flash_fwd_kernel`, `launch`)."""
     assert "flash_fwd_fp32_sm90.cu" in cuda_lib._DECLARED[tfa.LIBRARY][0]
     assert "lumina_flash_fwd_fp32_attributes" in cuda_lib._DECLARED[tfa.LIBRARY][1]
     kernel = _source("flash_fwd_fp32_sm90.cu")
     code = "\n".join(line.split("//")[0] for line in kernel.splitlines())  # comments out
-    assert "fmaf(" in code and "cp.async.bulk.shared" in code
+    assert "fmaf(" in code and "bulk_copy(" in code and '#include "sm90_common.cuh"' in code
+    assert "cp.async.bulk.shared" in _source("sm90_common.cuh")
     assert not re.search(r"\bw?mma\b|mma\.sync|\btf32\b|__nv_bfloat16", code, re.I)
     assert "cudaFuncSetAttribute" in kernel and "static const cudaError_t" in kernel
     entries = _source("flash_fwd.cu")
@@ -311,13 +313,13 @@ def test_fp32_kernel_is_its_own_source_and_the_template_is_gone():
 
 
 def test_times_script_needs_the_card(monkeypatch):
-    """`exps/fwd_fp32_times.py` times the card: without a CUDA device it stops
+    """`exps/fp32_times.py` times the card: without a CUDA device it stops
     before importing or building anything, with no CPU fallback."""
-    from lumina_t2x_tpu_torch.exps import fwd_fp32_times
+    from lumina_t2x_tpu_torch.exps import fp32_times
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA device"):
-        fwd_fp32_times.main([])
+        fp32_times.main(["--parts", "forward"])
 
 
 # -- on the card: the kernel against its plain version and the emulation -------------

@@ -440,8 +440,10 @@ def test_param_dtypes_match_jax_at_bf16():
 def test_profile_train_step_groups_and_needs_cuda(monkeypatch):
     from lumina_t2x_tpu_torch.pipelines import profile_train_step as prof
 
-    assert prof._group("void flash_bwd_kv_kernel<true>") == \
-        "flash backward kernels (fp32 K6-K8)"
+    assert prof._group("void (anonymous namespace)::flash_bwd_kv_kernel<true, 5>(Params, "
+                       "CUtensorMap)") == "fp32 backward (K6-K8, flash_bwd_fp32_sm90.cu)"
+    assert prof._group("void (anonymous namespace)::flash_bwd_dq_kernel<5>(Params)") == \
+        "fp32 backward (K6-K8, flash_bwd_fp32_sm90.cu)"
     assert prof._group("void (anonymous namespace)::flash_bwd_sm90_kernel<80, 72, true>(Params)") \
         == "Hopper backward (bf16 K6-K8, flash_bwd_sm90.cu)"
     assert prof._group("void (anonymous namespace)::flash_bwd_sm90_dq_kernel<80, 72>(Params)") \
