@@ -225,6 +225,24 @@ the ring fold of context-parallel attention (`ops/context_parallel.ring_fold`)
 at the 2B's (2, 4096, 32, 72) bf16 over 4 key blocks through K4, against K2
 over all keys and against the plain ring, with no mask and with one block
 wholly masked.
+12. The last slice (after the audio phases): `imgsizes` (the 2B's
+`img_sizes` list path, bf16: a 1024 x 1280 bucket holding a 1024^2 and a
+768 x 1280 item, K2 and K4 in a calibration-probe forward, K3 under its
+bound; each item against itself alone on the uniform grid and the batch
+against `attn_impl="plain"` within 2e-2 relative L2; its K2-K4 rows at the
+bucket's (2, 5120, 32, 72) with each row's pad keys masked are timed in
+phase 3); `longcontext` (`exps/longcontext_forward.py`'s 2B forward at
+131072 image tokens under LUMINA_FUSE_ROPE=1: ms, tokens/s, peak memory;
+layer 0's K9 calls against the plain version on 256 sampled rows and, in
+chunks, on every row; K9 and `rope_rotate` rows at that shape);
+`likelihood` (`Sampler.sample_ode_likelihood` on the 600M ImageNet model,
+`attn_impl="xla"`: the zero field gives the prior's density, euler and
+dopri5 finite, the flash path refused); `asyncsave` (the music trainer cut to
+one layer with `--async_save`: its checkpoints equal `save_checkpoint`'s of
+the same state, the seconds `save` blocks against the synchronous save's,
+the same resumed step-5 loss); `profile` (the 600M trainer's
+`--profile_steps 2`: the trace holds the Hopper forward and backward kernels
+on its CUDA timeline).
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -340,6 +358,18 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "bwd_dq_fp32_2b": (FP32_BWD_SOURCE, f"{TPU_KERNELS}:552"),
     "bwd_dkv_fp32_2b": (FP32_BWD_SOURCE, f"{TPU_KERNELS}:584"),
     "online_lse_fp32_2b": (FP32_SOURCE, f"{TPU_KERNELS}:430"),
+    # the 2B's img_sizes list path (a bucket holding two aspect ratios, each
+    # item's pad keys masked): K2 and K3 in the self-attention, K4 in the
+    # calibration probe
+    "online_imgsizes_2b": (SM90_SOURCE, f"{TPU_KERNELS}:228"),
+    "static_max_imgsizes_2b": (SM90_SOURCE, f"{TPU_KERNELS}:66"),
+    "online_lse_imgsizes_2b": (SM90_SOURCE, f"{TPU_KERNELS}:430"),
+    # the 2B's forward at 131072 image tokens under LUMINA_FUSE_ROPE=1: K9's
+    # self-attention over 131072 keys, its cross-attention over the caption,
+    # and the rotation of k
+    "rope_128k": (SM90_SOURCE, f"{TPU_KERNELS}:956"),
+    "rope_q_128k": (SM90_SOURCE, f"{TPU_KERNELS}:963"),
+    "rope_rotate_128k": (ROTATE_SOURCE, f"{TPU_KERNELS}:949"),
 }
 SAMPLER_KERNELS = ("small_kv", "online", "static_max", "online_lse")
 ROPE_KERNELS = ("rope", "rope_q", "rope_rotate")
@@ -421,6 +451,18 @@ CNN14_CHANNELS, CLAP_CLASSES, CLAP_PROJ = (64, 128, 256, 512, 1024, 2048), 527, 
 # only sum in another order; TF32 rounds each convolution's operands to 10
 # mantissa bits (2^-11 relative), about 30 convolutions in series
 VAE_REL_FP32, VAE_REL_TF32 = 1e-3, 1e-2
+
+
+# the imgsizes phase: the 2B on a 1024 x 1280 bucket (latent 128 x 160: 64 x 80
+# = 5120 tokens) holding a 1024^2 item (latent 128 x 128: 4096 tokens) and a
+# 768 x 1280 one (96 x 160: 48 x 80 = 3840 tokens)
+IMGSIZES_BUCKET, IMGSIZES_ITEMS = (128, 160), ((128, 128), (96, 160))
+IMGSIZES_SHAPE, IMGSIZES_VALID = (2, 5120, 32), (4096, 3840)
+# the longcontext phase: 512 x 256 tokens (latent 1024 x 512) beside 256 caption
+# tokens; K9's output checked on LONG_SAMPLE_ROWS query rows, the plain version
+# timed over every row in chunks of LONG_PLAIN_CHUNK rows (a chunk's fp32
+# logits over 131072 keys and 32 heads: 4.3 GB)
+LONG_TOKENS, LONG_SAMPLE_ROWS, LONG_PLAIN_CHUNK = 131072, 256, 256
 
 
 # Gemma captions: Sk a multiple of 8 up to 256, the CFG's empty caption one
@@ -1125,17 +1167,25 @@ def imagenet_kernel_phase(fa):
     return {"small_kv_imagenet_600m": {**timed, "max_abs_err": max_err}}
 
 
+def _valid_keys(valid, b, sk):
+    """Each batch row's count of valid keys: `valid` is one count for every
+    row, a tuple of one per row, or None (all keys)."""
+    return list(valid) if isinstance(valid, tuple) else [valid or sk] * b
+
+
 def _shape_inputs(g, b, s, h, hkv, d, masked, sk=None, valid=None, dtype=torch.bfloat16):
     """q (b, s, h, d) and k, v (b, sk, hkv, d) in `dtype`, sk = s by default,
-    with no mask, the first `valid` keys of each row valid, or (`masked`) a
-    masked tail and a fully masked last batch row."""
+    with no mask, the first `valid` keys of each row valid (one count, or a
+    tuple of one per row), or (`masked`) a masked tail and a fully masked
+    last batch row."""
     sk = sk or s
     q = _rand(g, b, s, h, d, dtype=dtype)
     k, v = (_rand(g, b, sk, hkv, d, dtype=dtype) for _ in range(2))
     mask = None
     if masked or valid:
         mask = torch.ones(b, sk, dtype=torch.int32, device="cuda")
-        mask[:, valid or sk:] = 0
+        for row, n in enumerate(_valid_keys(valid, b, sk)):
+            mask[row, n:] = 0
         if masked:
             mask[0, sk - sk // 5:] = 0
             mask[-1] = 0
@@ -1232,7 +1282,8 @@ def shape_rows(fa, g, d, cases, dtype=torch.bfloat16):
                      + (f", Sk={sk}" if sk else "")
                      + (f" ({valid} valid)" if valid else "") + (", masked" if masked else ""))
             q, k, v, mask = _shape_inputs(g, b, s, h, hkv, d, masked, sk, valid, dtype)
-            keys = (valid or k.shape[1]) / k.shape[1]  # the products this run's mask needs
+            # the products this run's mask needs
+            keys = sum(_valid_keys(valid, b, k.shape[1])) / (b * k.shape[1])
             scale = d ** -0.5
             if entry == "bwd":
                 dout = _rand(g, b, s, h, d, dtype=dtype)
@@ -3988,6 +4039,423 @@ def audio_judge_phase(fa, wav_dir):
           f"GiB; plain-version CUDA calls {fa.PLAIN_CUDA_CALLS['count']}")
     torch.cuda.empty_cache()
 
+def imgsizes_kernel_phase(fa):
+    """K2, K3 and K4 at the img_sizes bucket's self-attention (2, 5120, 32,
+    72) with each row's pad keys masked (4096 and 3840 valid), timed with
+    bounds over the valid keys and sdpa on the same mask (`shape_rows`)."""
+    g = torch.Generator(device="cuda").manual_seed(20)
+    return shape_rows(fa, g, D, [(f"{entry}_imgsizes_2b", entry, IMGSIZES_SHAPE, None,
+                                  IMGSIZES_VALID, True)
+                                 for entry in ("online", "static_max", "online_lse")])
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def imgsizes_phase(fa):
+    """The 2B (full width, qk-norm, bf16, zero-init tensors randomised) on the
+    `img_sizes` list path: a 1024 x 1280 bucket holding a 1024^2 item and a
+    768 x 1280 one, 256 caption tokens. One forward with the LSE recorder
+    (K2, and K4 in the probe), a bound from it (max LSE + the sampler's 6),
+    one forward under it (K3); each item's region against the item alone on
+    the uniform grid and the batch against `attn_impl="plain"` within 2e-2
+    relative L2, zeros outside each item. Returns the rows' launches."""
+    from lumina_t2x_tpu_torch.models import get_model
+
+    os.environ.pop("LUMINA_FUSE_ROPE", None)
+    torch.manual_seed(0)
+    model = get_model("NextDiT_2B_patch2", qk_norm=True, cap_feat_dim=2048,
+                      dtype=torch.bfloat16, device="cuda").eval()
+    _randomise_zero_init(model, 1)
+    g = torch.Generator(device="cuda").manual_seed(20)
+    sizes = list(IMGSIZES_ITEMS)
+    x = torch.randn(2, 4, *IMGSIZES_BUCKET, generator=g, device="cuda")
+    for i, (hi, wi) in enumerate(sizes):
+        x[i, :, hi:] = 0
+        x[i, :, :, wi:] = 0
+    t = torch.tensor([0.3, 0.7], device="cuda")
+    cap = torch.randn(2, CAP, 2048, generator=g, device="cuda")
+    cap_mask = torch.ones(2, CAP, dtype=torch.int32, device="cuda")
+    fa.reset_launch_counts()
+    plain_before = fa.PLAIN_CUDA_CALLS["count"]
+    with torch.no_grad():
+        recorder = []
+        t0 = time.perf_counter()
+        probe = model(x, t, cap, cap_mask, img_sizes=sizes, lse_recorder=recorder)
+        torch.cuda.synchronize()
+        probe_s = time.perf_counter() - t0
+        bound = max(float(r[0]) for r in recorder) + 6.0
+        with fa.flash_static_max_scope(bound):
+            t0 = time.perf_counter()
+            static = model(x, t, cap, cap_mask, img_sizes=sizes)
+            torch.cuda.synchronize()
+            static_s = time.perf_counter() - t0
+        launches = _launched(fa.LAUNCHES)
+        plain_calls = fa.PLAIN_CUDA_CALLS["count"] - plain_before
+        model.set_attn_impl("plain")
+        ref = model(x, t, cap, cap_mask, img_sizes=sizes)
+        model.set_attn_impl("auto")
+        alone = [model(x[i:i + 1, :, :hi, :wi], t[i:i + 1], cap[i:i + 1], cap_mask[i:i + 1])
+                 for i, (hi, wi) in enumerate(sizes)]
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(probe).all()) and bool(torch.isfinite(static).all()),
+            "img_sizes: non-finite output")
+    rel_probe, rel_static = _rel(probe, ref), _rel(static, ref)
+    items = []
+    for i, (hi, wi) in enumerate(sizes):
+        outside = torch.ones(IMGSIZES_BUCKET, dtype=torch.bool, device="cuda")
+        outside[:hi, :wi] = False
+        require(torch.count_nonzero(probe[i][:, outside]).item() == 0
+                and torch.count_nonzero(static[i][:, outside]).item() == 0,
+                f"img_sizes item {i}: output outside its {hi}x{wi} region is not 0")
+        items.append(_rel(probe[i:i + 1, :, :hi, :wi], alone[i]))
+    require(rel_probe <= 2e-2 and rel_static <= 2e-2 and max(items) <= 2e-2,
+            f"img_sizes: rel L2 vs plain {rel_probe} (static {rel_static}), items vs alone "
+            f"{items}: bar 2e-2")
+    require(plain_calls == 0 and launches.get("online", 0) > 0
+            and launches.get("static_max", 0) > 0 and launches.get("online_lse", 0) > 0,
+            f"img_sizes: launches {launches}, plain-version CUDA calls {plain_calls}")
+    phase("imgsizes", f"NextDiT_2B_patch2 bf16, img_sizes {sizes} in a {IMGSIZES_BUCKET} latent "
+          f"bucket ({IMGSIZES_VALID} of {IMGSIZES_SHAPE[1]} tokens valid), {CAP} caption tokens: "
+          f"probe forward {probe_s:.3f} s (K2 + K4), calibrated bound {bound:.3f}, forward "
+          f"under it {static_s:.3f} s (K3); rel L2 vs attn_impl plain {rel_probe:.4g} / "
+          f"{rel_static:.4g}, items vs alone on the uniform grid "
+          f"{[round(r, 5) for r in items]}, zeros outside each item; launches {launches}, "
+          f"plain-version CUDA calls {plain_calls}")
+    del model, probe, static, ref, alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"online_imgsizes_2b": launches["online"],
+            "static_max_imgsizes_2b": launches["static_max"],
+            "online_lse_imgsizes_2b": launches["online_lse"]}
+
+
+def likelihood_phase(fa):
+    """`Sampler.sample_ode_likelihood` on NextDiT_ImageNet_600M_patch2 at
+    256^2 (32 x 32 latents), 4 labels, fp32, `attn_impl="xla"` (forward-mode
+    derivatives through the plain sdpa): the freshly initialised model's
+    zero velocity (zero-init final layer) gives `prior_logp(x)` within 1e-4
+    relative; with the zero-init tensors randomised, euler over 8 points and
+    dopri5 give finite logp (NFE and seconds printed); on the flash path the
+    sampler raises the error that names attn_impl="xla"."""
+    from lumina_t2x_tpu_torch.models import get_model
+    from lumina_t2x_tpu_torch.transport import Sampler, create_transport
+
+    torch.manual_seed(0)
+    model = get_model("NextDiT_ImageNet_600M_patch2", qk_norm=True, attn_impl="xla",
+                      device="cuda").eval()
+    transport = create_transport()
+    sampler = Sampler(transport)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(4, 4, 32, 32, generator=g, device="cuda")
+    y = torch.tensor([int(label) for label in LABELS.split(",")], device="cuda")
+
+    def model_fn(xx, tt):
+        return model(xx, tt, y)
+
+    euler = sampler.sample_ode_likelihood(sampling_method="euler", num_steps=8)
+    logp0, _ = euler(x, model_fn, generator=torch.Generator(device="cuda").manual_seed(22))
+    prior = transport.prior_logp(x)
+    rel0 = ((logp0 - prior).abs() / prior.abs()).max().item()
+    require(rel0 <= 1e-4, f"likelihood: zero field logp {logp0.tolist()} vs prior "
+            f"{prior.tolist()}: rel {rel0} > 1e-4")
+    n = _randomise_zero_init(model, 1)
+    dims = x[0].numel()
+    parts = []
+    for method in ("euler", "dopri5"):
+        fn = sampler.sample_ode_likelihood(sampling_method=method,
+                                           num_steps=8 if method == "euler" else 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logp, z = fn(x, model_fn, generator=torch.Generator(device="cuda").manual_seed(22))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        require(logp.shape == (4,) and bool(torch.isfinite(logp).all())
+                and bool(torch.isfinite(z).all()), f"likelihood {method}: logp {logp.tolist()}")
+        parts.append(f"{method}: logp {[round(v, 2) for v in logp.tolist()]} "
+                     f"({-logp.mean().item() / dims / math.log(2):.4f} bits/dim), NFE {fn.nfe}, "
+                     f"{secs:.2f} s")
+    for layer in model.layers:
+        layer.attention.attn_impl = "flash"
+    try:
+        euler(x, model_fn, eps=torch.ones_like(x))
+    except RuntimeError as e:
+        require('attn_impl="xla"' in str(e), f"likelihood on the flash path: {e}")
+        refused = str(e)
+    else:
+        raise SystemExit("FAILED: the likelihood ran on the flash path")
+    phase("likelihood", f"NextDiT_ImageNet_600M_patch2 fp32 256^2, labels {LABELS}, "
+          f"attn_impl xla: zero field logp within {rel0:.2g} of prior_logp; {n} zero-init "
+          f"tensors randomised: " + "; ".join(parts) + f"; flash path refused: {refused[:80]}...")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def asyncsave_phase(fa):
+    """`train_audio.main` cut to one layer (B=32, 256 frames, 77 caption
+    tokens, bf16, AdamW), 4 steps with `--async_save` and a save at steps 2
+    and 4. At each save the same state is first written by the synchronous
+    `save_checkpoint` into a second directory (timed), then handed to the
+    saver (its blocking seconds timed): the two checkpoints must be equal
+    tensor for tensor. Then each resumes for step 5 (`--auto_resume`, its
+    save turned off: the call's 45 GiB of disk writes): the same step-5
+    loss. The checkpoints written: 4 x 0.47 GiB. Returns the audio rows'
+    launches of the async run."""
+    from lumina_t2x_tpu_torch.core import checkpoint as ckpt
+    from lumina_t2x_tpu_torch.pipelines import train_audio
+
+    fa.set_flash_static_max_train(None)
+    b, s, _ = AUDIO_TRAIN
+    base = ["--data_path", "synthetic://", "--global_batch_size", str(b), "--latent_length",
+            str(s), "--context_len", str(AUDIO_TRAIN_CONTEXT), "--precision", "bf16",
+            "--depth", "1", "--log_every", "1", "--ckpt_every", "2", "--device", "cuda"]
+    blocked = {"async": [], "sync": []}
+    real = train_audio.AsyncCheckpointSaver
+    with tempfile.TemporaryDirectory() as root:
+        async_dir, sync_dir = os.path.join(root, "async"), os.path.join(root, "sync")
+
+        class TimedSaver(real):
+            def save(self, results_dir, step, state, model_args=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ckpt.save_checkpoint(os.path.join(sync_dir, "music"), step, state,
+                                     model_args=model_args)
+                blocked["sync"].append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                path = super().save(results_dir, step, state, model_args)
+                blocked["async"].append(time.perf_counter() - t0)
+                return path
+
+        train_audio.AsyncCheckpointSaver = TimedSaver
+        fa.reset_launch_counts()
+        try:
+            state = train_audio.main(base + ["--results_dir", async_dir, "--max_steps", "4",
+                                             "--async_save"])
+        finally:
+            train_audio.AsyncCheckpointSaver = real
+        launches = _launched(fa.LAUNCHES)
+        del state
+        compared = 0
+        for step in (2, 4):
+            a = ckpt.checkpoint_dir(os.path.join(async_dir, "music"), step)
+            c = ckpt.checkpoint_dir(os.path.join(sync_dir, "music"), step)
+            require(os.path.exists(os.path.join(a, "resume_step.txt")),
+                    f"asyncsave: step {step} has no completion marker")
+            for stream in ("model", "ema", "optimizer"):
+                got, ref = _flat_tree(ckpt.load_stream(a, stream)), _flat_tree(
+                    ckpt.load_stream(c, stream))
+                require(sorted(got) == sorted(ref), f"asyncsave step {step} {stream}: keys")
+                for key, value in ref.items():
+                    same = (torch.equal(got[key], value) and got[key].dtype == value.dtype
+                            if isinstance(value, torch.Tensor) else got[key] == value)
+                    require(same, f"asyncsave step {step} {stream}/{key}: not equal")
+                    compared += 1
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, files in
+                     os.walk(ckpt.checkpoint_dir(os.path.join(sync_dir, "music"), 4))
+                     for f in files)
+        losses = {}
+        for name in ("async", "sync"):
+            state, *_ = _run_trainer(fa, base + ["--results_dir", os.path.join(root, name),
+                                                 "--max_steps", "5", "--auto_resume"],
+                                     save=False, cli="train_audio")
+            require(state.step == 5, f"asyncsave: {name} resumed to step {state.step}")
+            del state
+            losses[name] = _audio_metrics(os.path.join(root, name))[-1]["train/loss"]
+    torch.cuda.empty_cache()
+    require(abs(losses["async"] - losses["sync"]) <= 1e-6 * abs(losses["sync"]),
+            f"asyncsave: step-5 loss {losses['async']} (async) vs {losses['sync']} (sync)")
+    phase("asyncsave", f"train_audio.main --depth 1 --async_save, B={b}: checkpoints at steps "
+          f"2 and 4 ({nbytes / 2**30:.3f} GiB each) equal to save_checkpoint's of the same "
+          f"state, {compared} entries; save() blocked {[round(v, 4) for v in blocked['async']]} "
+          f"s against the synchronous save's {[round(v, 4) for v in blocked['sync']]} s; "
+          f"resumed step-5 loss {losses['async']!r} (async) vs {losses['sync']!r} (sync"
+          f"{', bit for bit' if losses['async'] == losses['sync'] else ''}); launches {launches}")
+    return {"online_lse_audio": launches.get("online_lse", 0),
+            "bwd_fused_audio": launches.get("bwd_fused", 0)}
+
+
+def _flat_tree(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_tree(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def profile_phase(fa):
+    """The trainer's `--profile_steps 2` on NextDiT_ImageNet_600M_patch2
+    (synthetic 32 x 32 latents, B=64, qk-norm, bf16, 4 steps, no
+    checkpoint): one trace under <results>/<model>/trace, of steps 2 and 3,
+    whose CUDA timeline holds the hand-written kernels (the Hopper forward's
+    `flash_fwd_sm90_kernel` and backward's `flash_bwd_sm90_kernel`); their
+    share of the traced device time printed."""
+    model = "NextDiT_ImageNet_600M_patch2"
+    with tempfile.TemporaryDirectory() as results:
+        argv = ["--model", model, "--data_path", "synthetic://32x32", "--global_batch_size",
+                "64", "--max_steps", "4", "--log_every", "1", "--ckpt_every", "1000",
+                "--qk_norm", "--precision", "bf16", "--profile_steps", "2", "--results_dir",
+                results, "--device", "cuda"]
+        state, wall, launches, plain, peak = _run_trainer(fa, argv, save=False)
+        del state
+        trace_dir = os.path.join(results, model, "trace")
+        files = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+        require(len(files) == 1 and files[0].endswith("_rank0.pt.trace.json"),
+                f"profile: trace files {files}")
+        size = os.path.getsize(os.path.join(trace_dir, files[0]))
+        with open(os.path.join(trace_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    total = sum(e.get("dur", 0) for e in kernels)
+    by_ours = {}
+    for e in kernels:
+        for symbol in ("flash_fwd_sm90_kernel", "flash_bwd_sm90_kernel"):
+            if symbol in e.get("name", ""):
+                n, dur = by_ours.get(symbol, (0, 0.0))
+                by_ours[symbol] = (n + 1, dur + e.get("dur", 0))
+    torch.cuda.empty_cache()
+    require(set(by_ours) == {"flash_fwd_sm90_kernel", "flash_bwd_sm90_kernel"} and plain == 0,
+            f"profile: hand-written kernels on the CUDA timeline {by_ours}, plain {plain}")
+    phase("profile", f"train.main {model} --profile_steps 2, B=64, 4 steps in {wall:.1f} s: "
+          f"{files[0]} ({size / 2**20:.1f} MiB, {len(events)} events, {len(kernels)} CUDA "
+          f"kernels, {total / 1e3:.1f} ms of kernel time); on its CUDA timeline "
+          + ", ".join(f"{k}: {n} launches, {d / 1e3:.2f} ms ({100 * d / max(total, 1):.1f}%)"
+                      for k, (n, d) in sorted(by_ours.items()))
+          + f"; launches {_launched(launches)}; peak {peak:.2f} GiB")
+
+
+def longcontext_phase(fa):
+    """`exps/longcontext_forward.py`'s forward: the 2B (bf16, zero-init
+    tensors randomised) at 131072 image tokens (grid 512 x 256, latent 1024 x
+    512) and 256 caption tokens, B=1, under LUMINA_FUSE_ROPE=1, one warm
+    forward and one timed (`forward_stats`: ms, tokens/s, peak memory). Layer
+    0's self-attention call (K9 `flash_rope` over 131072 keys) and
+    cross-attention call (`flash_rope_q` over the caption) are kept: K9's
+    output on LONG_SAMPLE_ROWS query rows (the first, the last and random
+    ones) within 1e-2 of max(1, max|ref|) of the plain version on those rows
+    over every key; then each timed beside its plain version (over all rows,
+    in chunks), `flash_online` and sdpa on pre-rotated inputs, with its bound,
+    and `rope_rotate` on layer 0's k against `apply_rope` bit for bit.
+    Returns (rows, launches)."""
+    from lumina_t2x_tpu_torch.exps import longcontext_forward as lc
+    from lumina_t2x_tpu_torch.models import layers
+    from lumina_t2x_tpu_torch.ops.rope import apply_rope
+
+    model = lc.build_model("NextDiT_2B_patch2", device="cuda", seed=0)
+    n = _randomise_zero_init(model, 1)
+    kept = {}
+    real = layers.flash_attention_rope
+
+    def keep_first(q, k, v, angles, kv_mask=None, scale=None, rotate_k=True):
+        out = real(q, k, v, angles, kv_mask=kv_mask, scale=scale, rotate_k=rotate_k)
+        kept.setdefault("rope" if rotate_k else "rope_q", (q, k, v, angles, kv_mask, scale, out))
+        return out
+
+    layers.flash_attention_rope = keep_first
+    os.environ["LUMINA_FUSE_ROPE"] = "1"
+    fa.reset_launch_counts()
+    plain_before = fa.PLAIN_CUDA_CALLS["count"]
+    try:
+        stats = lc.forward_stats(model, tokens=LONG_TOKENS, cap_len=CAP, steps=1)
+    finally:
+        layers.flash_attention_rope = real
+        os.environ.pop("LUMINA_FUSE_ROPE")
+    launches = _launched(fa.LAUNCHES)
+    plain_calls = fa.PLAIN_CUDA_CALLS["count"] - plain_before
+    forwards, depth = 2, model.n_layers
+    require(stats["finite"] and plain_calls == 0
+            and all(launches.get(k, 0) == forwards * depth for k in ROPE_KERNELS)
+            and set(launches) == set(ROPE_KERNELS),
+            f"longcontext: finite {stats['finite']}, launches {launches}, plain {plain_calls}")
+    phase("longcontext", f"NextDiT_2B_patch2 ({stats['params_m'] / 1e3:.3f}B params, {n} zero-init "
+          f"tensors randomised) bf16 forward at {LONG_TOKENS} image tokens (grid "
+          f"{stats['grid']}, latent {stats['latent']}) + {CAP} caption tokens, "
+          f"LUMINA_FUSE_ROPE=1: {stats['ms_per_forward']:.1f} ms a forward, "
+          f"{stats['tokens_per_sec']:.0f} tokens/s, peak {stats['peak_gib']:.2f} GiB, finite; "
+          f"launches {launches}; {json.dumps(stats)}")
+    del model
+    gc.collect()
+    results = {}
+    g = torch.Generator(device="cuda").manual_seed(22)
+    for entry in ("rope", "rope_q"):
+        q, k, v, angles, mask, scale, got = kept.pop(entry)
+        scale = scale if scale is not None else D ** -0.5
+        sq = q.shape[1]
+        k_rot = apply_rope(k, angles) if entry == "rope" else k
+        rows = torch.cat([torch.tensor([0, sq - 1], device="cuda"),
+                          1 + torch.randperm(sq - 2, generator=g, device="cuda")
+                          [:LONG_SAMPLE_ROWS - 2]]).sort().values
+        ref = fa.flash_online_plain(apply_rope(q[:, rows], angles[rows]).float(),
+                                    k_rot.float(), v.float(), mask, scale)
+        err = (got[:, rows].float() - ref).abs().max().item()
+        top = max(1.0, ref.abs().max().item())
+        require(math.isfinite(err) and err <= BF16_MAX * top,
+                f"longcontext {entry}: sampled rows' max abs err {err} > {BF16_MAX * top}")
+        del ref
+        kernel = getattr(fa, f"flash_{entry}")
+        ms = time_ms(lambda: kernel(q, k, v, angles, mask, scale), reps=3)
+
+        def plain_all():
+            out = torch.empty_like(q)
+            for r0 in range(0, sq, LONG_PLAIN_CHUNK):
+                rr = slice(r0, r0 + LONG_PLAIN_CHUNK)
+                out[:, rr] = fa.flash_online_plain(apply_rope(q[:, rr], angles[rr]), k_rot, v,
+                                                   mask, scale)
+            return out
+
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        plain_out = plain_all()
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        full_err = (got.float() - plain_out.float()).abs().max().item()
+        require(math.isfinite(full_err) and full_err <= BF16_MAX * max(
+            1.0, plain_out.float().abs().max().item()),
+                f"longcontext {entry}: max abs err over every row {full_err}")
+        del plain_out
+        torch.cuda.empty_cache()
+        q_rot = apply_rope(q, angles)
+        unfused = "online" if entry == "rope" else "small_kv"
+        unfused_ms = time_ms(lambda: getattr(fa, f"flash_{unfused}")(q_rot, k_rot, v, mask,
+                                                                     scale), reps=3)
+        sdpa_ms = time_ms(lambda: _sdpa(q_rot, k_rot, v, mask, scale), reps=3)
+        del q_rot
+        rotated = q.numel() + (k.numel() if entry == "rope" else 0)
+        bound = least_time(_nbytes(q, k, v, mask, got) + 2 * sq * D * 4,
+                           attention_ops(q, k, 2), torch.bfloat16, fp32_ops=3 * rotated)
+        results[f"{entry}_128k"] = {"max_abs_err": max(err, full_err), "ms": ms,
+                                    "plain_ms": plain_ms, "unfused_ms": unfused_ms,
+                                    "sdpa_ms": sdpa_ms, **bound, "library_ms": None,
+                                    "library_kernel": "none"}
+        phase("longcontext", f"{entry} bf16 (1, {sq}, {H}, {D}) over {k.shape[1]} keys (layer "
+              f"0's call): max abs err {err:.3g} on {LONG_SAMPLE_ROWS} sampled rows, "
+              f"{full_err:.3g} over every row (bar {BF16_MAX * top:.3g}); kernel {ms:.3f} ms, "
+              f"plain (chunks of {LONG_PLAIN_CHUNK} rows) {plain_ms:.1f} ms, flash_{unfused} "
+              f"on rotated inputs {unfused_ms:.3f} ms, sdpa on rotated inputs {sdpa_ms:.3f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), library none")
+        if entry == "rope":  # rope_rotate on layer 0's k
+            rotated_k = fa.rope_rotate(k, angles)
+            require(torch.equal(rotated_k, k_rot), "longcontext rope_rotate: not apply_rope "
+                    "bit for bit")
+            rot_ms = time_ms(lambda: fa.rope_rotate(k, angles), reps=5)
+            rot_plain = time_ms(lambda: apply_rope(k, angles), reps=3)
+            rot_bound = least_time(2 * _nbytes(k) + 2 * sq * D * 4, 0, torch.bfloat16,
+                                   fp32_ops=3 * k.numel())
+            results["rope_rotate_128k"] = {"max_abs_err": 0.0, "ms": rot_ms,
+                                           "plain_ms": rot_plain, **rot_bound,
+                                           "library_ms": None, "library_kernel": "none"}
+            phase("longcontext", f"rope_rotate bf16 (1, {sq}, {H}, {D}): equal to apply_rope; "
+                  f"kernel {rot_ms:.3f} ms, plain {rot_plain:.3f} ms, bound "
+                  f"{rot_bound['bound_ms']:.4f} ms ({rot_bound['bound_by']}), library none")
+            del rotated_k
+        del q, k, v, angles, mask, got, k_rot
+        torch.cuda.empty_cache()
+    return results, {f"{name}_128k": launches[name] for name in ROPE_KERNELS}
+
 
 def main():
     device_phase()
@@ -4006,6 +4474,7 @@ def main():
     results.update(wide_head_kernel_phase(fa))
     results.update(anagram_sd3_kernel_phase(fa))
     results.update(audio_kernel_phase(fa))
+    results.update(imgsizes_kernel_phase(fa))
     results.update(fp32_forward_phase(fa))
     exp_results, exp_launches = experiments_phase()
     results.update(exp_results)
@@ -4067,6 +4536,16 @@ def main():
     launches.update(exp_launches)
     launches.update({"small_kv_kv1024": kv1024, "online_d64_sd3": sd3_k2, **dreambooth_rows})
     launches.update(audio)
+    # the last slice: the img_sizes list path, the 128K-token forward, the
+    # likelihood sampler, the async checkpoint writer and the trace capture
+    launches.update(imgsizes_phase(fa))
+    long_rows, long_launches = longcontext_phase(fa)
+    results.update(long_rows)
+    launches.update(long_launches)
+    likelihood_phase(fa)
+    for name, count in asyncsave_phase(fa).items():
+        launches[name] += count
+    profile_phase(fa)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

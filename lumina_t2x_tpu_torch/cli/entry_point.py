@@ -12,7 +12,9 @@
 port's reader of the YAML subset that file uses (`utils/yaml_subset.py`), so
 no YAML package is needed. `convert` moves weights between reference `.pth` / `.safetensors`
 state dicts and the port's checkpoint directory (`<dest>/ema` and
-`model_args.json`, which `--ckpt <dest>` loads).
+`model_args.json`, which `--ckpt <dest>` loads). Installed, `main` is the
+`lumina_torch` script and `main_next` its `lumina_next_torch` alias
+(`pyproject.toml`), beside the JAX package's `lumina` / `lumina_next`.
 """
 
 from __future__ import annotations
@@ -159,6 +161,11 @@ def main(argv=None):
         argv = ["infer", *argv]
     args = build_parser().parse_args(argv)
     return args.fn(args)
+
+
+def main_next(argv=None):
+    """The `lumina_next` alias of `main` (JAX's `main_next`)."""
+    return main(argv)
 
 
 if __name__ == "__main__":

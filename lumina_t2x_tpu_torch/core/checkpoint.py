@@ -37,6 +37,9 @@ needs the `safetensors` package. The port's parameter names are the
 reference keys, so no key mapping is needed. `save_weights` writes such a
 state dict as a checkpoint directory whose `ema` stream `init_from` (and the
 sampler's `--ckpt`) restores.
+
+`AsyncCheckpointSaver` writes the trainer checkpoints of `--async_save` on a
+background thread from a host copy of the state.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import os
 import re
 import shutil
 import struct
+import threading
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -590,26 +594,54 @@ def checkpoint_dir(results_dir: str, step: int) -> str:
     return os.path.join(results_dir, "checkpoints", f"{step:07d}")
 
 
-def full_tree(tree, keep: bool = True):
+def full_tree(tree, keep: bool = True, copy: bool = False):
     """A (nested dict of) tensors with every DTensor gathered whole, one at
     a time, and moved to the CPU at once: the device holds one gathered
     tensor at a time. A collective: every rank calls it in the same order;
     where `keep` is false (the ranks that do not write) the gathered tensors
-    are dropped and None takes their place."""
+    are dropped and None takes their place. `copy`: every tensor comes back
+    as a CPU copy of its own, a snapshot that later in-place updates of the
+    live state (the optimizer step) do not reach."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(tree, dict):
-        return {k: full_tree(v, keep) for k, v in tree.items()}
+        return {k: full_tree(v, keep, copy) for k, v in tree.items()}
+    if not keep:
+        if isinstance(tree, DTensor):
+            tree.full_tensor()
+        return None
     if isinstance(tree, DTensor):
-        full = tree.full_tensor()
-        return full.cpu() if keep else None
-    return tree if keep else None
+        tree = tree.full_tensor()
+        return tree.to("cpu", copy=True) if copy else tree.cpu()
+    if copy and isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
 
 
 def _is_lead() -> bool:
     import torch.distributed as dist
 
     return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _streams(state):
+    """The three streams of a train state, each read when called."""
+    return {"model": lambda: state.model.state_dict(), "ema": lambda: state.ema,
+            "optimizer": lambda: state.opt_state}
+
+
+def _write_stream(path: str, stream: str, tree) -> None:
+    os.makedirs(os.path.join(path, stream), exist_ok=True)
+    torch.save(tree, os.path.join(path, stream, _STREAM_FILE))
+
+
+def _write_markers(path: str, step: int, model_args: Optional[Dict]) -> None:
+    """`model_args.json`, then `resume_step.txt`: the completion marker."""
+    if model_args is not None:
+        with open(os.path.join(path, "model_args.json"), "w") as f:
+            json.dump(model_args, f, indent=2, default=str)
+    with open(os.path.join(path, "resume_step.txt"), "w") as f:
+        f.write(str(step))
 
 
 def save_checkpoint(results_dir: str, step: int, state, model_args: Optional[Dict] = None,
@@ -624,24 +656,95 @@ def save_checkpoint(results_dir: str, step: int, state, model_args: Optional[Dic
 
     path = os.path.abspath(checkpoint_dir(results_dir, step))
     lead = _is_lead()
-    streams = {"model": lambda: state.model.state_dict(), "ema": lambda: state.ema,
-               "optimizer": lambda: state.opt_state}
-    for stream, payload in streams.items():
+    for stream, payload in _streams(state).items():
         full = full_tree(payload(), keep=lead)
         if lead:
-            os.makedirs(os.path.join(path, stream), exist_ok=True)
-            torch.save(full, os.path.join(path, stream, _STREAM_FILE))
+            _write_stream(path, stream, full)
         del full
     if lead:
-        if model_args is not None:
-            with open(os.path.join(path, "model_args.json"), "w") as f:
-                json.dump(model_args, f, indent=2, default=str)
-        with open(os.path.join(path, "resume_step.txt"), "w") as f:
-            f.write(str(step))
+        _write_markers(path, step, model_args)
         prune_checkpoints(results_dir, keep_last)
     if dist.is_initialized():
         dist.barrier()
     return path
+
+
+class AsyncCheckpointSaver:
+    """`save_checkpoint` whose file writes overlap the next train steps
+    (counterpart of JAX's `AsyncCheckpointSaver`; the trainers' `--async_save`).
+
+    `save` first finalizes any pending save (`wait`), then takes a host copy
+    of the model, EMA and optimizer streams before it returns: the optimizer
+    updates the parameters in place, so a writer that read the live tensors
+    later would mix two steps. Under a mesh the DTensors are gathered by
+    `full_tree` in the calling thread, on every rank in the same order (its
+    collectives stay out of the thread). Rank 0 then serializes the copy on
+    a background thread, to the same files `save_checkpoint` writes.
+
+    `model_args.json` and `resume_step.txt`, the completion marker
+    `find_auto_resume` keys on, are written only by `wait()`, once the
+    writer has finished, so a save in flight is never resumed from; then
+    `keep_last` prunes complete checkpoints only. An exception in the writer
+    is raised again by `wait()` / `close()` (and so by the next `save`).
+
+        saver = AsyncCheckpointSaver(keep_last=2)
+        saver.save(results_dir, step, state, model_args)   # returns after the copy
+        ... more train steps ...
+        saver.save(results_dir, step2, state, model_args)  # finishes the first save
+        saver.close()                                      # finishes the last one
+    """
+
+    def __init__(self, keep_last: int = 0):
+        self.keep_last = keep_last
+        self._pending: Optional[tuple] = None
+
+    def save(self, results_dir: str, step: int, state,
+             model_args: Optional[Dict] = None) -> str:
+        """Finalize the pending save, copy the state to the host and start
+        writing it; returns the checkpoint path."""
+        self.wait()
+        path = os.path.abspath(checkpoint_dir(results_dir, step))
+        lead = _is_lead()
+        snapshot = {stream: full_tree(payload(), keep=lead, copy=True)
+                    for stream, payload in _streams(state).items()}
+        if lead:
+            errors: list = []
+
+            def write():
+                try:
+                    for stream, tree in snapshot.items():
+                        _write_stream(path, stream, tree)
+                except Exception as e:  # raised again by wait()
+                    errors.append(e)
+
+            writer = threading.Thread(target=write, name=f"checkpoint-{step}")
+            writer.start()
+            self._pending = (writer, errors, path, step, model_args)
+        return path
+
+    def wait(self) -> Optional[str]:
+        """Block until the pending save's files are written, then write its
+        markers and prune. Returns its path; None when no save is pending."""
+        if self._pending is None:
+            return None
+        writer, errors, path, step, model_args = self._pending
+        self._pending = None
+        writer.join()
+        if errors:
+            raise errors[0]
+        _write_markers(path, step, model_args)
+        prune_checkpoints(os.path.dirname(os.path.dirname(path)), self.keep_last)
+        return path
+
+    def close(self) -> Optional[str]:
+        """`wait()`, then a barrier when several ranks run: every rank
+        returns once rank 0's last checkpoint is complete."""
+        import torch.distributed as dist
+
+        path = self.wait()
+        if dist.is_initialized():
+            dist.barrier()
+        return path
 
 
 def _complete_steps(results_dir: str):

@@ -1,12 +1,14 @@
 """Logging and metrics (counterpart of `lumina_t2x_tpu/core/logging.py`):
 a stdout + `log.txt` logger, a `metrics.jsonl` scalar stream (TensorBoard too
-when importable) and a throughput meter that waits for the device."""
+when importable), a throughput meter that waits for the device, and
+`ProfilerSession`, the trace capture of the trainer's `--profile_steps`."""
 
 from __future__ import annotations
 
 import json
 import logging
 import os
+import socket
 import time
 from typing import Dict, Optional
 
@@ -85,3 +87,55 @@ class Throughput:
         out = {"secs_per_step": dt, "items_per_sec": n_items / dt if dt > 0 else 0.0}
         self._t0 = time.perf_counter()
         return out
+
+
+class ProfilerSession:
+    """Trace capture over `torch.profiler` (counterpart of JAX's
+    `ProfilerSession` over `jax.profiler`): CPU activity, and CUDA activity
+    (the kernels on the device timeline) when CUDA is available. `stop()`
+    waits for the device, then writes one Chrome trace per process,
+    `<logdir>/<host>_rank<r>.pt.trace.json`, which Perfetto
+    (ui.perfetto.dev), chrome://tracing and TensorBoard's profiler plugin
+    open. A context manager, or `start()` / `stop()`; a no-op when not
+    `enabled`."""
+
+    def __init__(self, logdir: str, enabled: bool = False):
+        self.logdir = logdir
+        self.enabled = enabled
+        self._prof = None
+
+    def start(self) -> None:
+        if not self.enabled:
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.start()
+
+    def stop(self) -> Optional[str]:
+        """End the capture and write the trace; returns its path (None when
+        nothing was traced)."""
+        if self._prof is None:
+            return None
+        import torch.distributed as dist
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof, self._prof = self._prof, None
+        prof.stop()
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        os.makedirs(self.logdir, exist_ok=True)
+        path = os.path.join(self.logdir, f"{socket.gethostname()}_rank{rank}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        return path
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False

@@ -8,13 +8,16 @@ libjpeg's and libpng's headers) and exposes:
 - `decode_to_tensor(bytes, (w, h), crop_xy)` -> (3, h, w) float32 in
   [-1, 1]: JPEG/PNG decode, bilinear scale-to-cover, crop and normalize in
   one native pass;
-- `probe_size(bytes)` -> (w, h) from the header.
+- `probe_size(bytes)` -> (w, h) from the header;
+- `NativeImageProcessor`: JAX's bucketed transform (top-k bucket pick,
+  probe, decode + crop + normalize in one native call), its random draws
+  from a `random.Random` the caller seeds.
 
 A build that fails, or a library that does not load, raises (with g++'s or
 the loader's message): a caller that chose this decoder does not fall back
-to another one. ctypes releases the GIL during a call, so a thread pool
-decodes in parallel. The trainer does not use it yet: it decodes with
-Pillow (ROADMAP queue 1, item 7).
+to another one. `native_status()` says whether it builds, and why not: the
+trainer takes it whenever it does, as JAX's does, and logs its choice.
+ctypes releases the GIL during a call, so a thread pool decodes in parallel.
 """
 
 from __future__ import annotations
@@ -23,9 +26,10 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import random
 import threading
 from pathlib import Path
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -81,6 +85,16 @@ def get_lib() -> ctypes.CDLL:
     return _LIB
 
 
+def native_status() -> Tuple[bool, str]:
+    """(True, the library's path) when the decoder builds and loads, else
+    (False, the build's or the loader's message)."""
+    try:
+        get_lib()
+    except RuntimeError as e:
+        return False, str(e)
+    return True, str(library_path())
+
+
 def probe_size(data: bytes) -> Tuple[int, int]:
     """(width, height) of a JPEG or PNG; ValueError if it cannot be read."""
     w, h = ctypes.c_int(), ctypes.c_int()
@@ -101,3 +115,40 @@ def decode_to_tensor(data: bytes, crop_size: Tuple[int, int],
     if rc != 0:
         raise ValueError("cannot decode image")
     return out
+
+
+class NativeImageProcessor:
+    """Bucketed native decode (counterpart of JAX's `NativeImageProcessor`):
+    probe the size, pick one of the `random_top_k` best-fitting buckets of
+    `crop_size_list` (`imgproc.var_center_crop`'s ranking), then decode,
+    scale to cover, crop and normalize in one native call, at a random crop
+    origin (`random_crop`, `imgproc.crop_origin`) or at the center.
+
+    JAX draws the bucket and the origin from the unseeded global `random`;
+    here they come from `rng` (a `random.Random` the caller seeds, for
+    example by seed and stream position), in JAX's order: the bucket, then
+    the origin's x and y. There is no Pillow fallback: the library must
+    build (`native_status`); `imgproc.var_center_crop` is the Pillow path."""
+
+    def __init__(self, crop_size_list: List[Tuple[int, int]], random_top_k: int = 4,
+                 random_crop: bool = True):
+        self.crop_size_list = crop_size_list
+        self.random_top_k = random_top_k
+        self.random_crop = random_crop
+
+    def pick_bucket(self, w: int, h: int, rng: random.Random) -> Tuple[int, int]:
+        from .imgproc import _ranked
+
+        return rng.choice(_ranked(w, h, self.crop_size_list)[: self.random_top_k])
+
+    def __call__(self, path: str, rng: random.Random) -> Tuple[np.ndarray, Tuple[int, int]]:
+        """(3, h, w) float32 in [-1, 1] and the (w, h) bucket of the image
+        file at `path`."""
+        from .imgproc import crop_origin
+
+        with open(path, "rb") as f:
+            data = f.read()
+        w, h = probe_size(data)
+        bucket = self.pick_bucket(w, h, rng)
+        origin = crop_origin(w, h, bucket, rng) if self.random_crop else (-1, -1)
+        return decode_to_tensor(data, bucket, origin), bucket

@@ -1,5 +1,6 @@
 """NextDiT text-to-image denoiser (counterpart of
-`lumina_t2x_tpu/models/next_dit.py`), uniform-grid path.
+`lumina_t2x_tpu/models/next_dit.py`): the uniform-grid path and the
+variable-aspect `img_sizes` list path.
 
 Sandwich RMSNorm around attention and FFN, 4-chunk adaLN (scale + tanh
 gate), gated zero-init cross-attention to caption features, 2-D RoPE with
@@ -20,14 +21,24 @@ before unpatchify, so every rank returns the whole output. Parameter
 gradients of such a forward are each rank's share; a trainer sums them over
 the axis.
 
-Not ported yet (ROADMAP queue 1, item 5): the variable-aspect `img_sizes`
-list path, which raises `NotImplementedError`.
+`img_sizes` (the reference's list path): the batch is padded to one bucket
+(H, W) and item i holds an (H_i, W_i) latent in its top-left corner. Each
+item's H_i/p x W_i/p tokens are gathered to the front of its row (row-major
+over its own grid), the rest of the row is `pad_token`, `x_mask` (the
+self-attention's key mask) marks the item's tokens, and the RoPE angles are
+the item's grid positions', (B, L, head_dim/2), the last row repeated over
+the padding. The output is scattered back to the bucket's grid with the
+positions outside the item zeroed. (JAX's scatter reads its validity mask
+at the wrong index and leaves token 0's output there; ROADMAP's reference
+caveats.) `kv_merge_ratio > 1` and sequence sharding take the uniform grid
+only.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -165,18 +176,19 @@ class NextDiT(nn.Module):
                 attn_scale_variant: str = "proportional", kv_merge_ratio: int = 1,
                 lse_recorder: Optional[List[torch.Tensor]] = None, train: bool = False):
         """Denoise step: x (B, C, H, W) latents, t (B,) times in [0, 1],
-        cap_feats (B, Ly, cap_feat_dim), cap_mask (B, Ly). Returns the
-        (B, C, H, W) fp32 velocity. `train` is accepted and unused, as in the
-        JAX t2i model (it has no dropout)."""
-        if img_sizes is not None:
-            raise NotImplementedError("the img_sizes list path is not ported yet "
-                                      "(ROADMAP queue 1, item 5)")
+        cap_feats (B, Ly, cap_feat_dim), cap_mask (B, Ly). `img_sizes`: the
+        per-item (H_i, W_i) latent sizes of a padded bucket batch (module
+        docstring). Returns the (B, C, H, W) fp32 velocity. `train` is
+        accepted and unused, as in the JAX t2i model (it has no dropout)."""
         b, c, h, w = x.shape
         p = self.patch_size
         head_dim = self.dim // self.n_heads
         gh, gw = h // p, w // p
         seq_len = gh * gw
         kv_merge = None
+        if img_sizes is not None and (kv_merge_ratio > 1 or self.seq_group is not None):
+            raise ValueError("kv_merge_ratio and sequence sharding take the uniform grid: "
+                             "pass img_sizes=None")
         if kv_merge_ratio > 1:
             if gh % kv_merge_ratio or gw % kv_merge_ratio:
                 raise ValueError(f"kv_merge_ratio {kv_merge_ratio} does not divide the "
@@ -199,6 +211,12 @@ class NextDiT(nn.Module):
             patches, angles = patches[:, rows], angles[rows]
         tokens = self.x_embedder(patches)
         x_mask = None  # uniform grid: every image token is valid
+        if img_sizes is not None:
+            gather, x_mask, angles, scatter, grid_valid = _list_layout(
+                img_sizes, b, gh, gw, p, angles, x.device)
+            tokens = torch.gather(tokens, 1, gather[:, :, None].expand(-1, -1, tokens.shape[-1]))
+            tokens = torch.where(x_mask[:, :, None].bool(), tokens,
+                                 self.pad_token.to(tokens.dtype))
 
         adaln_input = self.t_embedder(t) + self.cap_embedder(
             pooled_caption(cap_feats.to(self.dtype), cap_mask))
@@ -219,10 +237,42 @@ class NextDiT(nn.Module):
 
         tokens = self.final_layer(tokens, adaln_input)
         tokens = gather_replicated(tokens, self.seq_group, dim=1)
+        if img_sizes is not None:  # back to the bucket's grid, zero outside each item
+            tokens = torch.gather(tokens, 1, scatter[:, :, None].expand(-1, -1, tokens.shape[-1]))
+            tokens = tokens * grid_valid[:, :, None].to(tokens.dtype)
         out = unpatchify(tokens, h, w, p, self.out_channels)
         if self.learn_sigma:
             out = out[:, : self.out_channels // 2]
         return out.float()
+
+
+def _list_layout(img_sizes, b: int, gh: int, gw: int, p: int, angles, device):
+    """The list path's index tensors on `device`: `gather` (B, L) takes each
+    item's tokens (row-major over its own grid) to the front of its row and
+    repeats its last token after them; `x_mask` (B, L) int32 marks those
+    tokens; `angles` (B, L, d/2) are their grid positions' angles, the last
+    row repeated; `scatter` (B, L) sends each grid position back to its
+    token (0 outside the item) and `grid_valid` (B, L) marks the item's grid
+    positions."""
+    if len(img_sizes) != b:
+        raise ValueError(f"img_sizes has {len(img_sizes)} items for a batch of {b}")
+    seq_len = gh * gw
+    gather, mask, scatter, valid = (np.zeros((b, seq_len), np.int64) for _ in range(4))
+    for i, (hi, wi) in enumerate(img_sizes):
+        ghi, gwi = hi // p, wi // p
+        if not (0 < ghi <= gh and 0 < gwi <= gw):
+            raise ValueError(f"item {i}: latent {hi}x{wi} is not inside the {gh * p}x{gw * p} "
+                             f"bucket")
+        idx = (np.arange(ghi)[:, None] * gw + np.arange(gwi)[None, :]).reshape(-1)
+        n = idx.shape[0]
+        gather[i, :n], gather[i, n:] = idx, idx[-1]
+        mask[i, :n] = 1
+        scatter[i, idx] = np.arange(n)
+        valid[i, idx] = 1
+    gather_t = torch.from_numpy(gather).to(device)
+    item_angles = angles[gather_t]  # a padded token repeats the last token's angles
+    return (gather_t, torch.from_numpy(mask).to(device, torch.int32), item_angles,
+            torch.from_numpy(scatter).to(device), torch.from_numpy(valid).to(device))
 
 
 def forward_with_cfg(model: NextDiT, x, t, cap_feats, cap_mask, cfg_scale, *,

@@ -80,6 +80,7 @@ import threading
 from typing import Optional
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from . import cuda_lib
 from .attention import default_attn_scale
@@ -908,9 +909,24 @@ def _route(q, k):
     return ("online", {}) if bound is None else ("static_max", {"bound": bound})
 
 
+def _refuse_forward_ad(q, k, v):
+    """Raise on a forward-mode dual input: the kernels read the primal
+    values and would drop the tangent (neither they nor JAX's custom_vjp
+    have a forward-mode rule)."""
+    # _current_level is -1 outside every dual level: a check that costs
+    # nothing on the paths that use no forward mode
+    if fwAD._current_level >= 0 and any(fwAD.unpack_dual(t).tangent is not None
+                                        for t in (q, k, v)):
+        raise RuntimeError("flash attention has no forward-mode derivative (nor has the JAX "
+                           "package's custom_vjp): run forward-mode AD, such as "
+                           "Sampler.sample_ode_likelihood, on a model built with "
+                           "attn_impl=\"xla\"")
+
+
 def flash_attention(q, k, v, kv_mask=None, scale: Optional[float] = None):
     """Flash attention: `_FlashAttention` under autograd, else the entry
-    point `_route` picks."""
+    point `_route` picks. A forward-mode dual input raises."""
+    _refuse_forward_ad(q, k, v)
     if _differentiable(q, k, v):
         _check_gqa_heads(q.shape[2], k.shape[2])
         return _FlashAttention.apply(q, k, v, kv_mask, _scale(q, scale), False)
@@ -935,6 +951,8 @@ def _rope_entry(rotate_k, plain):
 
 
 def _rope_call(q, k, v, angles, kv_mask, scale, rotate_k, plain):
+    if not plain:
+        _refuse_forward_ad(q, k, v)
     _check_gqa_heads(q.shape[2], k.shape[2])
     if rotate_k and k.shape[1] != q.shape[1]:
         raise ValueError(f"rotate_k rotates k by the query positions: Sk {k.shape[1]} != "

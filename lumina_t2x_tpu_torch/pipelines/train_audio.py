@@ -2,7 +2,8 @@
 `lumina_t2x_tpu/pipelines/train_audio.py`): the OT-CFM loss
 (`transport/cfm.py`) on mel latents with AdamW, a global-norm clip and an
 EMA, checkpoints in the trainer layout (`core/checkpoint.py`: `--keep_last`,
-`--auto_resume`).
+`--auto_resume`; `--async_save` writes them on a background thread from a
+host copy of the state, `AsyncCheckpointSaver`).
 
 Data: `synthetic://` (random latents and caption features from
 `--global_seed`, the JAX trainer's stream), or a directory of precomputed
@@ -32,7 +33,8 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.checkpoint import broadcast_state, find_auto_resume, load_checkpoint, save_checkpoint
+from ..core.checkpoint import (AsyncCheckpointSaver, broadcast_state, find_auto_resume,
+                               load_checkpoint, save_checkpoint)
 from ..core.logging import MetricsWriter, Throughput, create_logger
 from ..models.flag_dit_1d import FlagDiT1D
 from ..parallel import mesh as pmesh
@@ -144,8 +146,6 @@ def make_cfm_train_step(model: FlagDiT1D, cfm: CFM, optimizer, grad_clip: float,
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.async_save:
-        raise NotImplementedError("--async_save is not ported yet (ROADMAP queue 1, item 7)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: --device cuda but torch.cuda.is_available() is false")
@@ -190,6 +190,7 @@ def main(argv=None):
                                   mesh=mesh)
     meter = Throughput()
     meter.start()
+    saver = AsyncCheckpointSaver(keep_last=args.keep_last) if args.async_save else None
     running: List[Dict[str, float]] = []
     for step in range(state.step, args.max_steps):
         batch = {k: torch.from_numpy(v).to(device) for k, v in next(batches).items()}
@@ -206,10 +207,16 @@ def main(argv=None):
                                      "train/secs_per_step": secs_per_step})
             running = []
         if (step + 1) % args.ckpt_every == 0 or (step + 1) == args.max_steps:
-            path = save_checkpoint(exp_dir, step + 1, state, model_args=vars(args),
-                                   keep_last=args.keep_last)
-            logger.info(f"saved checkpoint to {path}")
+            if saver is not None:
+                path = saver.save(exp_dir, step + 1, state, model_args=vars(args))
+                logger.info(f"initiated async save to {path}")
+            else:
+                path = save_checkpoint(exp_dir, step + 1, state, model_args=vars(args),
+                                       keep_last=args.keep_last)
+                logger.info(f"saved checkpoint to {path}")
             meter.start()  # the save is not step time
+    if saver is not None:
+        saver.close()
     metrics.close()
     if started_group:
         torch.distributed.destroy_process_group()

@@ -3,13 +3,11 @@
 interval, the training times (`sample_t`) and the velocity-matching loss
 (`Transport.training_losses`), the prior, the probability-flow drift and the
 score under each parameterization, and the samplers: `sample_ode` (fixed-step
-or adaptive dopri5/dopri8) and `sample_sde` with its last-step options.
-Model callables have the signature `model_fn(x, t) -> out` with t of shape
-(B,). Random draws come from an explicit `torch.Generator`, or are handed in
-as tensors.
-
-Not ported yet (ROADMAP queue 1, item 5): the likelihood sampler, which
-needs forward-mode derivatives through the flash-attention kernels.
+or adaptive dopri5/dopri8), `sample_sde` with its last-step options, and
+`sample_ode_likelihood`, the Hutchinson estimate of log p(x) through
+forward-mode derivatives (`torch.autograd.forward_ad`). Model callables have
+the signature `model_fn(x, t) -> out` with t of shape (B,). Random draws come
+from an explicit `torch.Generator`, or are handed in as tensors.
 """
 
 from __future__ import annotations
@@ -19,6 +17,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from . import path as path_mod
 from .solvers import (fixed_nfe, make_time_grid, odeint_adaptive, odeint_dopri8, odeint_fixed,
@@ -287,4 +286,54 @@ class Sampler:
             t_last = torch.full((b,), float(t1), dtype=torch.float32, device=x.device)
             return last_fn(x_last, t_last, model_fn)
 
+        return sample_fn
+
+    def sample_ode_likelihood(self, *, sampling_method="dopri5", num_steps=50, atol=1e-6,
+                              rtol=1e-3):
+        """Return `sample_fn(x, model_fn, generator=None, eps=None) ->
+        (logp, z)`: the Hutchinson estimate of the data log-likelihood
+        (JAX's `sample_ode_likelihood`, the reference's `transport.py:393-450`).
+        The state (x, delta_logp) runs from the data at t = 1 - t0 to the
+        prior over the sampling grid, with drift (-v, sum(jvp(v)(eps) * eps))
+        where v = drift(x, 1 - t); then logp = prior_logp(z) - delta_logp.
+        Fixed-step methods or dopri5 / dopri8 over the pair (the error norm
+        of an adaptive step spans both leaves, as JAX's `_error_ratio`).
+
+        The Rademacher probe `eps` (+-1 in x's shape and dtype) is drawn from
+        `generator`, or handed in. The Jacobian-vector product is forward
+        mode, under `torch.no_grad`, so remat stays off. The flash-attention
+        kernels have no forward-mode derivative (nor do JAX's: its custom_vjp
+        has none), so their entry points refuse a dual input: run the model
+        with `attn_impl="xla"`, as JAX's likelihood runs."""
+        drift = self.drift
+        ts = self.time_grid(num_steps)
+        method = sampling_method.lower()
+
+        def sample_fn(x, model_fn, generator: Optional[torch.Generator] = None, eps=None):
+            b = x.shape[0]
+            if eps is None:
+                eps = torch.randint(0, 2, x.shape, generator=generator, device=x.device)
+                eps = (2 * eps - 1).to(x.dtype)
+            eps = eps.to(device=x.device, dtype=x.dtype)
+
+            def f(state, t_scalar):
+                xx, _ = state
+                t = torch.full((b,), float(1.0 - t_scalar), dtype=torch.float32, device=x.device)
+                with fwAD.dual_level():
+                    d, jvp = fwAD.unpack_dual(drift(fwAD.make_dual(xx, eps), t, model_fn))
+                if jvp is None:  # a drift that does not depend on x
+                    jvp = torch.zeros_like(d)
+                return -d, (jvp * eps).reshape(b, -1).sum(dim=-1)
+
+            init = (x, torch.zeros((b,), dtype=x.dtype, device=x.device))
+            with torch.no_grad():
+                if method in _ADAPTIVE:
+                    solver = odeint_dopri8 if method == "dopri8" else odeint_adaptive
+                    (z, delta_logp), sample_fn.nfe = solver(f, init, ts, atol=atol, rtol=rtol)
+                else:
+                    z, delta_logp = odeint_fixed(f, init, ts, method=method)
+                    sample_fn.nfe = fixed_nfe(method, ts.shape[0])
+                return self.transport.prior_logp(z) - delta_logp, z
+
+        sample_fn.nfe = 0
         return sample_fn

@@ -129,8 +129,14 @@ def test_cli_resume_equals_an_uninterrupted_run(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--async_save"], ["--model_parallel_size", "2"]])
 def test_other_slices_options_raise(tmp_path, flag):
-    # --model_parallel_size 2 runs now (tests/test_torch_sharded_train.py);
+    # --async_save is ported: the run completes its checkpoint
+    # (tests/test_torch_async_checkpoint.py holds it against a synchronous
+    # run). --model_parallel_size 2 runs now (tests/test_torch_sharded_train.py);
     # in one process it meets the mesh's divisibility check, as in JAX
-    error = AssertionError if "--model_parallel_size" in flag else NotImplementedError
-    with pytest.raises(error):
-        tta.main(CLI + ["--results_dir", str(tmp_path), "--max_steps", "1", *flag])
+    argv = CLI + ["--results_dir", str(tmp_path), "--max_steps", "1", *flag]
+    if "--async_save" in flag:
+        assert tta.main(argv).step == 1
+        assert find_auto_resume(os.path.join(tmp_path, "music")).endswith("0000001")
+        return
+    with pytest.raises(AssertionError):
+        tta.main(argv)

@@ -248,3 +248,22 @@ def test_lumina_infer_with_a_checkpoint(tmp_path):
     assert item["name"] == "a prompt" and item["steps"] == 2 and item["resolution"] == "64x128"
     lat = np.load(item["path"])
     assert lat.shape == (4, 16, 8) and np.isfinite(lat).all()
+
+
+def test_main_next_is_the_lumina_alias_and_both_are_scripts(tmp_path, monkeypatch):
+    """`main_next` is `main` (JAX's `lumina_next` alias), and pyproject.toml
+    installs the port's pair under names beside JAX's `lumina` /
+    `lumina_next`."""
+    import tomllib
+
+    with pytest.raises(SystemExit, match="source not found"):
+        t_ep.main_next(["convert", str(tmp_path / "missing.pth"), str(tmp_path / "out")])
+    seen = []
+    monkeypatch.setattr(t_ep, "main", lambda argv=None: seen.append(argv) or "done")
+    assert t_ep.main_next(["a prompt", "out"]) == "done" and seen == [["a prompt", "out"]]
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    assert scripts["lumina_torch"] == "lumina_t2x_tpu_torch.cli.entry_point:main"
+    assert scripts["lumina_next_torch"] == "lumina_t2x_tpu_torch.cli.entry_point:main_next"
+    assert scripts["lumina"] == "lumina_t2x_tpu.cli.entry_point:main"
+    assert scripts["lumina_next"] == "lumina_t2x_tpu.cli.entry_point:main_next"

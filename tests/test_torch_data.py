@@ -3,8 +3,9 @@ package's (`lumina_t2x_tpu/data/`): the bucket arithmetic and the crops, the
 meta dataset (JSON and block-YAML configs, neighbour retries, the h5 cache),
 the resumable sampler, cross-rank bucket batching, and the native decoder
 (the port's own copy of `native/image_loader.cpp`, built into `build/native`)
-against JAX's on PNG and JPEG. Where JAX draws from the global `random`, it
-is seeded as the port's `random.Random` is, and the results are equal.
+and its `NativeImageProcessor` against JAX's on PNG and JPEG. Where JAX
+draws from the global `random`, it is seeded as the port's `random.Random`
+is, and the results are equal.
 """
 
 import io
@@ -126,6 +127,26 @@ def test_native_decode_equals_jax(fmt):
         tnl.decode_to_tensor(b"not an image", (16, 16))
     with pytest.raises(ValueError):
         tnl.probe_size(b"GIF89a")
+
+
+@pytest.mark.parametrize("fmt", ["PNG", "JPEG"])
+@pytest.mark.parametrize("random_crop", [True, False])
+def test_native_image_processor_equals_jax(tmp_path, fmt, random_crop):
+    """`NativeImageProcessor` against JAX's on the same file: the port's
+    `random.Random` seeded as JAX's global `random` gives the same bucket
+    and crop origin, so equal buckets and equal arrays."""
+    crops = jip.generate_crop_size_list(64, 16)
+    jproc = jnl.NativeImageProcessor(crops, random_top_k=4, random_crop=random_crop)
+    tproc = tnl.NativeImageProcessor(crops, random_top_k=4, random_crop=random_crop)
+    for i, (w, h) in enumerate(SIZES[:4]):
+        path = tmp_path / f"{i}.{fmt.lower()}"
+        path.write_bytes(_encoded(_image(w, h, i), fmt, **({"quality": 90} if fmt == "JPEG"
+                                                            else {})))
+        random.seed(100 + i)
+        ref, ref_bucket = jproc(str(path))
+        got, bucket = tproc(str(path), random.Random(100 + i))
+        assert bucket == tuple(ref_bucket) and got.shape == (3, bucket[1], bucket[0])
+        np.testing.assert_array_equal(got, ref)
 
 
 def test_crop_origin_spans_the_native_range():

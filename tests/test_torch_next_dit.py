@@ -127,14 +127,74 @@ def test_bf16_forward_is_close_to_fp32():
 
 
 def test_unported_paths_raise():
-    _, _, tmodel = _pair()
-    args = [torch.from_numpy(a) for a in _inputs(11)]
-    with pytest.raises(NotImplementedError):
-        tmodel(*args, img_sizes=[(8, 8), (8, 8)])
-    # sequence sharding runs over a process group (tests/test_torch_parallel.py
-    # runs it on a gloo world); one process without one has none to shard over
+    # the img_sizes list path is ported (the tests below hold it against
+    # JAX); sequence sharding runs over a process group
+    # (tests/test_torch_parallel.py runs it on a gloo world): one process
+    # without one has none to shard over
     with pytest.raises(RuntimeError, match="process group"):
         t_nd.NextDiT(seq_shard_axis="data", **TINY)
+
+
+def _bucket_batch(x, sizes):
+    """x with each item zeroed outside its (H_i, W_i) corner: a padded bucket."""
+    x = x.copy()
+    for i, (hi, wi) in enumerate(sizes):
+        x[i, :, hi:, :] = 0
+        x[i, :, :, wi:] = 0
+    return x
+
+
+@pytest.mark.parametrize("sizes", [[(8, 16), (16, 16)], [(16, 8), (12, 10)]])
+def test_img_sizes_list_path_matches_jax(sizes):
+    """JAX's sizes (`tests/test_models.py`: an 8x16 item beside a full one
+    in a 16x16 bucket) and two narrower items: each item's region equals
+    JAX's list path, and outside its region the port's output is 0. (JAX's
+    scatter leaves token 0's output there: its validity gather reads x_mask
+    at index 0; the JAX test cannot see it, its zero-init final layer makes
+    every output 0.)"""
+    jmodel, params, tmodel = _pair()
+    x, t, cap, mask = _inputs(3, h=16, w=16)
+    xb = _bucket_batch(x, sizes)
+    ref = np.asarray(jax.jit(functools.partial(jmodel.apply, img_sizes=sizes))(
+        {"params": params}, *map(jnp.asarray, (xb, t, cap, mask))))
+    with torch.no_grad():
+        got = tmodel(*map(torch.from_numpy, (xb, t, cap, mask)), img_sizes=sizes).numpy()
+    for i, (hi, wi) in enumerate(sizes):
+        np.testing.assert_allclose(got[i, :, :hi, :wi], ref[i, :, :hi, :wi], atol=ATOL,
+                                   rtol=RTOL)
+        outside = np.ones(got.shape[2:], bool)
+        outside[:hi, :wi] = False
+        assert np.abs(got[i][:, outside]).max(initial=0.0) == 0.0
+
+
+def test_img_sizes_item_equals_the_item_alone():
+    """Each item of a bucket batch equals the same item run alone at its own
+    size on the uniform grid (pad tokens are masked keys; its RoPE angles
+    are its own grid's)."""
+    _, _, tmodel = _pair()
+    sizes = [(8, 16), (12, 10)]
+    x, t, cap, mask = _inputs(13, h=16, w=16)
+    with torch.no_grad():
+        got = tmodel(*map(torch.from_numpy, (_bucket_batch(x, sizes), t, cap, mask)),
+                     img_sizes=sizes)
+        for i, (hi, wi) in enumerate(sizes):
+            alone = tmodel(*(torch.from_numpy(a[i:i + 1]) for a in (x[:, :, :hi, :wi], t,
+                                                                    cap, mask)))
+            np.testing.assert_allclose(got[i, :, :hi, :wi].numpy(), alone[0].numpy(),
+                                       atol=1e-5, rtol=1e-5)
+
+
+def test_img_sizes_refuses_kv_merge_and_bad_sizes():
+    """kv_merge pools the uniform grid's keys (JAX asserts img_sizes is None);
+    sizes must fit the bucket, one per item."""
+    _, _, tmodel = _pair()
+    args = [torch.from_numpy(a) for a in _inputs(11, h=16, w=16)]
+    with pytest.raises(ValueError, match="kv_merge_ratio"):
+        tmodel(*args, img_sizes=[(8, 16), (16, 16)], kv_merge_ratio=2)
+    with pytest.raises(ValueError, match="bucket"):
+        tmodel(*args, img_sizes=[(8, 18), (16, 16)])
+    with pytest.raises(ValueError, match="batch of 2"):
+        tmodel(*args, img_sizes=[(8, 16)])
 
 
 @pytest.mark.parametrize("name", sorted(

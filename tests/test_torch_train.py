@@ -409,16 +409,26 @@ def test_cli_resume_equals_uninterrupted_run(tmp_path, opt):
     assert len(losses) == 3 and np.isfinite(losses).all()
 
 
-@pytest.mark.parametrize("flag", [["--model", "NextDiT_MoE_600M_patch2_Both", "--async_save"],
+@pytest.mark.parametrize("flag", [["--async_save", "--profile_steps", "2"],
                                   ["--async_save"],
                                   ["--model_parallel_size", "2"], ["--h2d_diet"],
                                   ["--profile_steps", "2"]])
 def test_cli_unported_paths_raise(tmp_path, flag):
-    # --model_parallel_size 2 runs now (tests/test_torch_sharded_train.py);
-    # in one process it meets the mesh's divisibility check, as in JAX
-    error = AssertionError if "--model_parallel_size" in flag else NotImplementedError
-    with pytest.raises(error):
-        _cli(tmp_path, 1, *flag)
+    # --async_save and --profile_steps are ported: a run with them completes
+    # its checkpoint and writes its trace (their own tests:
+    # tests/test_torch_async_checkpoint.py, tests/test_torch_profiler.py).
+    # --model_parallel_size 2 runs now (tests/test_torch_sharded_train.py); in
+    # one process it meets the mesh's divisibility check, as in JAX.
+    # --h2d_diet is TPU-only and raises.
+    if "--model_parallel_size" in flag or "--h2d_diet" in flag:
+        error = AssertionError if "--model_parallel_size" in flag else NotImplementedError
+        with pytest.raises(error):
+            _cli(tmp_path, 1, *flag)
+        return
+    assert _cli(tmp_path, 2, *flag).step == 2
+    exp = tmp_path / "NextDiT_Tiny_patch2"
+    assert (exp / "checkpoints" / "0000002" / "resume_step.txt").exists()
+    assert (exp / "trace").is_dir() == ("--profile_steps" in flag)
 
 
 def test_param_dtypes_match_jax_at_bf16():

@@ -7,7 +7,8 @@ The tiny pieces of the other port tests carry over: Gemma (vocab 256, hidden
 32, 3 layers; `test_torch_text_encoders`), the factor-8 SD-VAE (ch 32,
 (1, 1, 2, 2), one resnet; `test_torch_vae`) and NextDiT (dim 64, 2 layers,
 caption dim 32, qk-norm; `test_torch_train`). Images are PNGs written here;
-the port decodes them with Pillow, JAX natively when g++ builds its loader.
+`t2i_batches` decodes them with Pillow or, as the trainer does whenever g++
+builds the loader (as JAX does), natively.
 The JAX VAE's posterior noise and the JAX step's draws are handed to the
 port as tensors. fp32 on the CPU; bar atol 2e-4 / rtol 2e-3.
 """
@@ -180,6 +181,37 @@ def test_crop_origin_decoders_agree_on_a_draw(tmp_path):
             assert np.abs(native - batch["x"][i]).mean() < 0.1
 
 
+def test_native_batches_are_the_native_decode_at_the_drawn_origin(tmp_path):
+    """Under the native decoder (JAX's path when its library builds) each
+    item is `decode_to_tensor` at `crop_origin`'s draw from (seed, position)
+    bit for bit; an item that is neither JPEG nor PNG (a BMP here) is
+    decoded by Pillow, as in JAX, and counted."""
+    from PIL import Image
+
+    cfg = write_dataset(tmp_path, [(96, 80), (80, 96), (128, 64), (64, 64)])
+    Image.fromarray(_image(64, 64, 3)).save(tmp_path / "3.png", format="BMP")
+    args = _args(cfg, pin_bucket="64x64")
+    pillow = []
+    gen = t_train.t2i_batches(args, native=True, pillow_items=pillow)
+    batches = [next(gen) for _ in range(2)]
+    gen.close()
+    dataset = t_ds.MetaDataset(cfg, t_ds.T2IItemProcessor(None))
+    order = list(itertools.islice(
+        t_ds.resumable_sampler_indices(len(dataset), 2, rank=0, world_size=1, seed=0), 4))
+    for b, batch in enumerate(batches):
+        for i in range(2):
+            pos = 2 * b + i
+            data, caption = dataset.raw_image_item(order[pos])
+            assert batch["captions"][i] == caption
+            if order[pos] == 3:
+                continue
+            origin = t_ip.crop_origin(*t_nl.probe_size(data), (64, 64),
+                                      random.Random(f"crop:0:{pos}"))
+            np.testing.assert_array_equal(batch["x"][i],
+                                          t_nl.decode_to_tensor(data, (64, 64), origin))
+    assert pillow == [3]
+
+
 # -- the CLI ---------------------------------------------------------------------------
 
 
@@ -246,6 +278,30 @@ def test_captions_are_encoded_in_the_collate_thread(assets, tmp_path, monkeypatc
     monkeypatch.setattr(t_train, "caption_features", spy)
     _cli(assets, tmp_path, 2)
     assert len(threads) >= 2 and all(n.startswith("lumina-collate") for n in threads), threads
+
+
+@pytest.mark.parametrize("builds", [True, False])
+def test_cli_records_its_decoder(assets, tmp_path, monkeypatch, builds):
+    """The trainer takes the native decoder whenever it builds (JAX's
+    choice; libjpeg's and libpng's headers are here), else Pillow: it logs
+    which and why, and writes `decoder` into run_summary.json."""
+    if builds:
+        ok, why = t_nl.native_status()
+        assert ok, why
+    else:
+        monkeypatch.setattr(t_nl, "native_status",
+                            lambda: (False, "fatal error: jpeglib.h: No such file or directory"))
+    _cli(assets, tmp_path, 1, "--text_encoder", "", "--cap_feat_dim", "32")
+    exp = tmp_path / "NextDiT_Tiny_patch2"
+    with open(exp / "run_summary.json") as f:
+        summary = json.load(f)
+    assert summary["decoder"] == ("native" if builds else "pil")
+    assert summary["decoder_pillow_items"] == 0
+    with open(exp / "log.txt") as f:
+        log = f.read()
+    assert (("image decoder native: native library " in log) if builds else
+            ("image decoder pil: the native decoder is unavailable: fatal error: jpeglib.h"
+             in log))
 
 
 def test_cli_rejects_what_the_meta_path_cannot_take(assets, tmp_path):
