@@ -12,16 +12,19 @@ last line:
    process per source, all started together) and prints the build seconds,
    then the resources of the Hopper kernels of bf16 K1-K5 and K9
    (`csrc/flash_fwd_sm90.cu`), bf16 K6-K8 (`csrc/flash_bwd_sm90.cu`: the
-   backward sweep of K6/K8 and the dQ kernel of K7), K10 v0-v3 and K11
+   backward sweep of K6/K8 and the dQ kernel of K7), the fp16
+   instantiations of both sources (fp16 K1-K9 run their own, wgmma on .f16
+   operands, at widths 64, 72 and 128), K10 v0-v3 and K11
    (`csrc/static_max_sm90.cu`, one instantiation each) and K12
    (`csrc/mma_probe.cu`, at the widths of its timed shape and of K=1024):
    registers per thread (as compiled and after setmaxnreg), spill bytes (0
    required), shared memory per block, blocks per SM; the fp32 forward's
    (`csrc/flash_fwd_fp32_sm90.cu`, fp32 K1-K5 and K9) plan and resources
    at the served audio shape and the 2B's; the fp32 backward's
-   (`csrc/flash_bwd_fp32_sm90.cu`, fp32 and fp16 K6-K8) plan and resources
-   at the music trainer's shapes and the 2B's (0 spill bytes required); and
-   what ptxas says of their wgmma;
+   (`csrc/flash_bwd_fp32_sm90.cu`, fp32 K6-K8) plan and resources at the
+   music trainer's shapes and the 2B's (0 spill bytes required); and what
+   ptxas says of their wgmma (an fp16 instantiation may serialize nothing
+   that its bf16 twin does not);
 3. kernels: each CUDA entry point against its plain PyTorch version at the
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
    kernel; it, the LSE forward and the backward kernels also at the served
@@ -34,7 +37,7 @@ last line:
    autograd backward for K6-K8; K1 and K6-K8 also timed at Sk=32, where the
    served worker and the training cross-attention launch them; fp32 K6-K8
    at the 2B's shape with a masked tail, at the fp32 rate's bound over the
-   valid keys, the rows of the fp16 trainer leg); then the
+   valid keys); then the
    fused-RoPE kernels (K9: `rope` at Sq=Sk=4096, `rope_q` at Sk=32 and 256
    with the 2B's 1024^2 angles) against their plain versions, against
    themselves on `apply_rope`d inputs at zero angles, and bit for bit
@@ -63,7 +66,15 @@ last line:
    (`anagram_sd3_kernel_phase`); fp32 K2-K5 at the 2B's (2, 4096, 32, 72)
    against the fp32 rate's bound and fp32 sdpa / aten's memory-efficient
    attention with its LSE (`fp32_forward_phase`; printed, not on the
-   kernels line: no main path runs them);
+   kernels line: no main path runs them); then fp16 on its own Hopper
+   instantiations at the 2B's shape (`fp16_kernel_phase`): K1 at Sk=32 and
+   256, K2-K5, K6-K8, K9 and `rope_rotate`, each against its plain version
+   within FP16_REL (1e-3) of max|ref|, timed with bound and the fp16 library
+   call (sdpa, aten flash + LSE, the sdpa backward), then GQA, a masked tail
+   and a fully masked row; the range rows: K3/K5 with the bound 20 nats
+   under the row maxima (fp16's row scale), K6-K8 with dO x 2^-20 (dS at
+   2^-e of max|dO|: the fp16 outputs, under fp16's smallest normal, within
+   one rounding step of plain, K6's fp32 dQ within 1e-3) and x 2^8;
 3b. experiments: the static-max variants (K10: `static_max_v0..v3`; K11:
    `static_max_v4`, which must equal v1 bit for bit) against their plain
    versions at the experiment's shape (B=2, S=4096, H=32, D=72, bound
@@ -171,9 +182,13 @@ last line:
    (10 steps, settings written to a temporary YAML file);
 8b. fp16train: the trainer CLI at its docstring's 2B recipe with
    `--precision fp16` (1024^2 latents, B=2, fp32 gradients, --checkpointing,
-   AdamW) for 3 steps, the 3rd under LUMINA_FLASH_FUSED_BWD=0, no checkpoint:
-   fp16 attention runs the fp32 kernels (cast once at the wrapper); finite
-   losses, 0 plain-version calls, K4 and K6-K8 launched (the fp32 2B rows);
+   AdamW, `--flash_static_max auto`) for 4 steps, the 3rd and 4th under
+   LUMINA_FLASH_FUSED_BWD=0, the 4th under LUMINA_FUSE_ROPE=1, no checkpoint:
+   fp16 attention runs the Hopper kernels' fp16 instantiations (no cast);
+   finite losses, 0 plain-version calls, K1, K2, K4 (the calibration probe),
+   K5, K6-K8, K9 and rope_rotate launched on fp16 operands and nothing on
+   another dtype (the fp16 rows' launches); s/step beside the bf16 recipe
+   step's;
 9. pixel: NextDiT_ImageNet_Small_patch2 in pixel space at 64^2 through the
    trainer CLI on a shapes ImageFolder, B=64, 5 steps; quality:
    `lumina_t2x_tpu_torch/exps/quality_flow.py` cut to QUALITY_STEPS steps
@@ -272,7 +287,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SM90_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_sm90.cu"  # bf16 K1-K5, K9
 FP32_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_fp32_sm90.cu"  # fp32 K1-K5, K9
 SM90_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_sm90.cu"  # bf16 K6-K8
-FP32_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_fp32_sm90.cu"  # fp32 (and fp16) K6-K8
+FP32_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_fp32_sm90.cu"  # fp32 K6-K8
 ROTATE_SOURCE = "lumina_t2x_tpu_torch/csrc/rope_rotate.cu"  # K9's k
 VPU_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_sm90.cu"  # K10, K11
 MMA_SOURCE = "lumina_t2x_tpu_torch/csrc/mma_probe.cu"
@@ -349,8 +364,8 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "bwd_dkv_audio": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:584"),
     # fp32 K6-K8 (`csrc/flash_bwd_fp32_sm90.cu`) at the music trainer's
     # self-attention (its `--precision fp32` leg) and at the 2B's (2, 4096, 32,
-    # 72), where the image trainer's `--precision fp16` leg runs them and the
-    # fp32 K4 forward (fp16 cast to fp32 at the wrapper)
+    # 72) with the fp32 K4 forward: kernel rows (the image trainer's
+    # `--precision fp32` runs them; fp16 runs its own kernels)
     "bwd_fused_fp32_audio": (FP32_BWD_SOURCE, f"{TPU_KERNELS}:619"),
     "bwd_dq_fp32_audio": (FP32_BWD_SOURCE, f"{TPU_KERNELS}:552"),
     "bwd_dkv_fp32_audio": (FP32_BWD_SOURCE, f"{TPU_KERNELS}:584"),
@@ -370,7 +385,22 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "rope_128k": (SM90_SOURCE, f"{TPU_KERNELS}:956"),
     "rope_q_128k": (SM90_SOURCE, f"{TPU_KERNELS}:963"),
     "rope_rotate_128k": (ROTATE_SOURCE, f"{TPU_KERNELS}:949"),
+    # fp16 on the Hopper kernels' fp16 instantiations at the 2B's (2, 4096, 32,
+    # 72): the fp16 trainer leg runs K1, K2 and K4 (its calibration probe's
+    # forwards), K4 and K5 (its train bound), K6, K7 + K8 and, under
+    # LUMINA_FUSE_ROPE=1, K9 and rope_rotate; no main path runs fp16 K3 (the
+    # samplers take fp32 or bf16, as the JAX package's)
+    **{f"{entry}_fp16": (SM90_BWD_SOURCE if entry.startswith("bwd") else
+                         ROTATE_SOURCE if entry == "rope_rotate" else SM90_SOURCE,
+                         f"{TPU_KERNELS}:{line}")
+       for entry, line in (("small_kv", 240), ("online", 228), ("static_max", 66),
+                           ("online_lse", 430), ("static_max_lse", 446), ("bwd_fused", 619),
+                           ("bwd_dq", 552), ("bwd_dkv", 584), ("rope", 956), ("rope_q", 963),
+                           ("rope_rotate", 949))},
 }
+# the fp16 rows' entries that the fp16 trainer leg launches
+FP16_TRAIN_KERNELS = ("small_kv", "online", "online_lse", "static_max_lse", "bwd_fused",
+                      "bwd_dq", "bwd_dkv", "rope", "rope_q", "rope_rotate")
 SAMPLER_KERNELS = ("small_kv", "online", "static_max", "online_lse")
 ROPE_KERNELS = ("rope", "rope_q", "rope_rotate")
 TRAIN_KERNELS = ("online_lse", "static_max_lse", "bwd_fused", "bwd_dq", "bwd_dkv")
@@ -379,9 +409,15 @@ BF16_MAX, BF16_MEAN, FP32_MAX, LSE_MAX = 1e-2, 1e-3, 2e-3, 1e-3
 # backward outputs, relative to the largest |reference| element: one bf16
 # rounding of the output (8 mantissa bits); fp32 sums in another order
 BWD_BF16_MAX, BWD_BF16_MEAN, BWD_FP32_MAX = 1e-2, 1e-3, 1e-4
+# fp16 outputs (forward and backward), relative to the largest |reference|
+# element: one fp16 rounding is 2^-11 = 4.9e-4 of it
+FP16_REL = 1e-3
+# the fp16 range rows: K3/K5 with the bound FP16_RANGE_NATS under the smallest
+# row maximum (p up to e^20 and more, past fp16's 65504); K6-K8 with dO scaled
+FP16_RANGE_NATS, FP16_DO_FACTORS = 20.0, (2.0 ** -20, 2.0 ** 8)
 GRAD_FLOOR_FACTOR = 1.5
-# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): bf16 tensor cores,
-# fp32 outside them, device memory
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): bf16 (and fp16)
+# tensor cores, fp32 outside them, device memory
 PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 # exp results per second on the special-function units: 16 per clock per SM x
 # 132 SMs x ~1.83 GHz (the FlashAttention-3 paper's figure)
@@ -509,7 +545,8 @@ def _nbytes(*tensors):
 def least_time(nbytes, tensor_ops, dtype, fp32_ops=0):
     """The least time of the work: bytes moved once over the memory rate, or
     operations over the peak rate of their type, whichever is longer."""
-    t_ops = tensor_ops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32) + fp32_ops / PEAK_FP32
+    tensor_peak = PEAK_BF16 if dtype in (torch.bfloat16, torch.float16) else PEAK_FP32
+    t_ops = tensor_ops / tensor_peak + fp32_ops / PEAK_FP32
     t_bytes = nbytes / HBM_BYTES_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -653,7 +690,16 @@ def build_phase():
                flash_attention.bwd_sm90_attributes(kernel, d))
               for d in (96, 128) for kernel in ("fused", "dkv", "dq")),
             *((VPU_SOURCE, f"static_max_{variant}", D, vpu_op_reduction.sm90_attributes(variant, D))
-              for variant in vpu_op_reduction.VARIANTS)):
+              for variant in vpu_op_reduction.VARIANTS),
+            # the fp16 instantiations of the same two sources, at each width
+            *((SM90_SOURCE, f"fp16 {entries}", d,
+               flash_attention.sm90_attributes(static, d, torch.float16))
+              for d in (64, D, 128) for static, entries in (
+                  (False, "small_kv, online, online_lse, rope, rope_q"),
+                  (True, "static_max, static_max_lse"))),
+            *((SM90_BWD_SOURCE, f"fp16 bwd_{kernel}", d,
+               flash_attention.bwd_sm90_attributes(kernel, d, torch.float16))
+              for d in (64, D, 128) for kernel in ("fused", "dkv", "dq"))):
         phase("build", f"{source} ({entry}, head_dim {head_dim}): {info['registers']} registers "
               f"per thread as compiled, {info['producer_registers']} (producer) / "
               f"{info['consumer_registers']} (consumers) after setmaxnreg, "
@@ -676,7 +722,7 @@ def build_phase():
                   f"bytes per thread, {info['shared_bytes']} bytes of shared memory per block, "
                   f"{info['blocks_per_sm']} block(s) of {info['threads']} threads per SM")
             require(info["local_bytes"] == 0, f"{FP32_SOURCE} ({label}) spills")
-    # the fp32 backward (K6-K8 in fp32 and fp16): plan and resources at the
+    # the fp32 backward (K6-K8 in fp32): plan and resources at the
     # music trainer's self- and cross-attention and at the 2B's
     b, s, h = AUDIO_TRAIN
     for label, shape in (("music trainer, 256 frames", (b, s, s, h, h, 72)),
@@ -702,11 +748,19 @@ def build_phase():
               f"{info['shared_bytes']} bytes of shared memory per block, "
               f"{info['blocks_per_sm']} block(s) of {info['threads']} threads per SM")
         require(info["local_bytes"] == 0, f"{MMA_SOURCE} (K={kd}) spills")
-    # ptxas reports a wgmma pipeline it had to serialize; print what it says
+    # ptxas reports a wgmma pipeline it had to serialize; print what it says.
+    # An fp16 instantiation (`__half` in its mangled name) may serialize
+    # nothing that its bf16 twin does not (the 128/128 dK/dV kernel's C7512,
+    # "insufficient register resources", is both's)
     for name in ("flash", "static_max_variants", "mma_probe"):
         notes = sorted({line.strip() for line in cuda_lib.BUILD_INFO[name]["ptxas"].splitlines()
                         if "wgmma" in line.lower()})
         phase("build", f"ptxas on {name}'s wgmma: " + ("; ".join(notes) if notes else "nothing"))
+        twin = {note.replace("13__nv_bfloat16", "6__half") for note in notes
+                if "__nv_bfloat16" in note}
+        fp16_only = [note for note in notes if "__half" in note and note not in twin]
+        require(not fp16_only, f"ptxas serializes fp16 instantiations' wgmma beyond bf16's: "
+                f"{fp16_only}")
 
 
 def _rand(g, *shape, dtype):
@@ -947,9 +1001,9 @@ def backward_kernel_phase(fa):
                      + f"; library backward {library['library_ms']:.3f} ms "
                        f"({library['library_kernel']})")
         elif label == "fp32":
-            # fp32 K6-K8 (`csrc/flash_bwd_fp32_sm90.cu`; the fp16 trainer leg
-            # runs them at this shape): their times, their least times at the
-            # fp32 peak over the valid keys, plain and the fp32 library backward
+            # fp32 K6-K8 (`csrc/flash_bwd_fp32_sm90.cu`) at this shape: their
+            # times, their least times at the fp32 peak over the valid keys,
+            # plain and the fp32 library backward
             fp32_bounds = _bwd_bounds(q, k, v, out, dout, lse, dtype, mask)
             fp32_plain = time_ms(lambda: fa.flash_bwd_plain(*args), reps=3)
             fp32_library = library_backward(q, k, v, mask, dout, scale)
@@ -1221,21 +1275,22 @@ def _check_forward(fa, entry, q, k, v, mask, label):
         line = f", LSE {lse_err:.3g}"
     err = (got.float() - ref).abs()
     max_err, mean_err = err.max().item(), err.mean().item()
-    bar = FP32_MAX if q.dtype == torch.float32 else BF16_MAX
-    require(math.isfinite(max_err) and max_err <= bar,
+    bar = {torch.float32: FP32_MAX, torch.bfloat16: BF16_MAX,
+           torch.float16: FP16_REL * ref.abs().max().item()}[q.dtype]
+    require(got.dtype == q.dtype and math.isfinite(max_err) and max_err <= bar,
             f"{entry} {label}: max abs err {max_err} > {bar}")
     if q.dtype == torch.bfloat16:
         require(mean_err <= BF16_MEAN, f"{entry} {label}: mean abs err {mean_err} > {BF16_MEAN}")
     if mask is not None and not bool(mask[-1].any()):
         require(torch.count_nonzero(got[-1]).item() == 0, f"{entry} {label}: masked row not 0")
-    return got, max_err, f"max abs err {max_err:.3g} mean {mean_err:.3g}{line}"
+    return got, max_err, f"max abs err {max_err:.3g} (bar {bar:.3g}) mean {mean_err:.3g}{line}"
 
 
 def _check_backward(fa, q, k, v, mask, dout, label):
     """K6, K7 and K8 against `flash_bwd_plain` (out and LSE from the plain
     LSE forward): ({entry: max abs err}, args, line). bf16 within
     BWD_BF16_MAX (max) and BWD_BF16_MEAN (mean) of max|gradient|, fp32
-    within BWD_FP32_MAX."""
+    within BWD_FP32_MAX, fp16 within FP16_REL."""
     scale = q.shape[-1] ** -0.5
     out, lse = fa.flash_online_lse_plain(q, k, v, mask, scale)
     args = (q, k, v, mask, out, lse, dout, scale)
@@ -1251,7 +1306,8 @@ def _check_backward(fa, q, k, v, mask, dout, label):
             top = max(r.float().abs().max().item(), 1e-30)
             err = (grad.float() - r.float()).abs()
             rel_max, rel_mean = err.max().item() / top, err.mean().item() / top
-            bar = BWD_FP32_MAX if q.dtype == torch.float32 else BWD_BF16_MAX
+            bar = {torch.float32: BWD_FP32_MAX, torch.bfloat16: BWD_BF16_MAX,
+                   torch.float16: FP16_REL}[q.dtype]
             require(grad.dtype == r.dtype and math.isfinite(rel_max) and rel_max <= bar,
                     f"{name} {what} {label}: max err {rel_max} of max|ref| > {bar}")
             if q.dtype == torch.bfloat16:
@@ -1265,8 +1321,9 @@ def _check_backward(fa, q, k, v, mask, dout, label):
 
 
 def shape_rows(fa, g, d, cases, dtype=torch.bfloat16):
-    """Kernel rows at one head_dim, in `dtype` (bf16, or fp32: the fp32
-    bars, no mean bar, bounds at the fp32 rate): each case (row, entry, (b, s, h),
+    """Kernel rows at one head_dim, in `dtype` (bf16; fp32: the fp32 bars, no
+    mean bar, bounds at the fp32 rate; fp16: FP16_REL of max|ref|, no mean
+    bar, fp16 library calls): each case (row, entry, (b, s, h),
     sk, valid) runs twice against its plain version, first with all heads (and
     the first `valid` of `sk` keys, for a caption) timed with its bound and
     library call (sdpa for K1-K3, aten's flash attention with LSE for K4/K5,
@@ -1278,7 +1335,7 @@ def shape_rows(fa, g, d, cases, dtype=torch.bfloat16):
     for row, entry, (b, s, h), sk, valid, timed in cases:
         for masked in (False, True):
             hkv = h // 4 if masked else h
-            label = (f"{'fp32' if dtype == torch.float32 else 'bf16'} ({b}, {s}, {h}/{hkv}, {d})"
+            label = (f"{fa._DTYPE_TAGS[dtype]} ({b}, {s}, {h}/{hkv}, {d})"
                      + (f", Sk={sk}" if sk else "")
                      + (f" ({valid} valid)" if valid else "") + (", masked" if masked else ""))
             q, k, v, mask = _shape_inputs(g, b, s, h, hkv, d, masked, sk, valid, dtype)
@@ -1334,6 +1391,186 @@ def shape_rows(fa, g, d, cases, dtype=torch.bfloat16):
                 del got
             del q, k, v, mask
             torch.cuda.empty_cache()
+    return results
+
+
+def fp16_kernel_phase(fa):
+    """fp16 on the Hopper kernels' fp16 instantiations at the 2B's (B, S, H,
+    D): K1 at Sk=32 and 256, K2-K5 and K6-K8 through `shape_rows` (timed
+    with every key valid against plain, the bound at 989 TFLOP/s or 3.35
+    TB/s and the fp16 library call; then 4:1 GQA, a masked tail and a fully
+    masked batch row), each within FP16_REL of max|ref|; then the range rows
+    (`fp16_range_rows`) and K9 with `rope_rotate` (`fp16_rope_rows`)."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    results = shape_rows(fa, g, D, [
+        ("small_kv_fp16", "small_kv", (B, S, H), TRAIN_CAP, None, True),
+        ("small_kv_fp16", "small_kv", (B, S, H), CAP, None, True),  # the row keeps Sk=256
+        *((f"{entry}_fp16", entry, (B, S, H), None, None, True)
+          for entry in ("online", "static_max", "online_lse", "static_max_lse")),
+        ("bwd_fp16", "bwd", (B, S, H), None, None, True)], dtype=torch.float16)
+    fp16_range_rows(fa, g)
+    results.update(fp16_rope_rows(fa, g))
+    return results
+
+
+def _fp16_step(x):
+    """One fp16 rounding step at |x| (fp32 tensor): 2^-24 under fp16's
+    smallest normal 2^-14, else 2^(floor(log2|x|) - 10)."""
+    e = torch.frexp(x.abs().clamp_min(2.0 ** -14))[1] - 1  # floor(log2 max(|x|, 2^-14))
+    return (((e - 10).clamp_min(-24) + 127).to(torch.int32) << 23).view(torch.float32)
+
+
+def fp16_range_rows(fa, g):
+    """The fp16 hazards at the 2B's shape, every key valid. K3/K5 with the
+    bound FP16_RANGE_NATS under the smallest row max of the scaled logits (p
+    past fp16's 65504: the kernel's row scale) within FP16_REL of max|ref|
+    and finite, K5's LSE within LSE_MAX. K6-K8 with dO scaled by each of
+    FP16_DO_FACTORS (dS far under fp16's smallest normal at 2^-20: the dS
+    scale): finite; where max|gradient| is a normal fp16 within FP16_REL of
+    it; where the gradients lie under fp16's smallest normal (dO x 2^-20)
+    the fp16 outputs have a few subnormal steps of resolution, so they are
+    held within one fp16 rounding step of plain's element by element, and
+    K6's fp32 dQ before its cast within FP16_REL of plain's fp32 dQ."""
+    q, k, v = (_rand(g, B, S, H, D, dtype=torch.float16) for _ in range(3))
+    scale = D ** -0.5
+    row_max = fa._logits(q, k, None, scale)[0].amax(-1)
+    bound = float(row_max.min()) - FP16_RANGE_NATS
+    over = float(row_max.max()) - bound
+    del row_max
+    for entry in ("static_max", "static_max_lse"):
+        got = getattr(fa, f"flash_{entry}")(q, k, v, None, scale, bound=bound)
+        ref = getattr(fa, f"flash_{entry}_plain")(q.float(), k.float(), v.float(), None, scale,
+                                                  bound)
+        torch.cuda.synchronize()
+        line = ""
+        if entry.endswith("_lse"):
+            (got, lse), (ref, ref_lse) = got, ref
+            lse_err = (lse - ref_lse).abs().max().item()
+            require(math.isfinite(lse_err) and lse_err <= LSE_MAX,
+                    f"{entry} fp16 range: LSE err {lse_err}")
+            line = f", LSE {lse_err:.3g}"
+        top = ref.abs().max().item()
+        rel = (got.float() - ref).abs().max().item() / top
+        require(bool(torch.isfinite(got).all()) and rel <= FP16_REL,
+                f"{entry} fp16 range: max err {rel} of max|ref|")
+        phase("kernels", f"{entry} fp16 range (2B shape, bound {bound:.3f}: {FP16_RANGE_NATS:g} "
+              f"nats under the smallest row max, {over:.1f} under the largest): finite, max err / "
+              f"max|ref| {rel:.3g} (bar {FP16_REL:g}){line}")
+        del got, ref
+    out, lse = fa.flash_online_lse_plain(q, k, v, None, scale)
+    for factor in FP16_DO_FACTORS:
+        dout = (_rand(g, B, S, H, D, dtype=torch.float32) * factor).half()
+        args = (q, k, v, None, out, lse, dout, scale)
+        ref = fa.flash_bwd_plain(*args)
+        got = {"bwd_fused": fa.flash_bwd_fused(*args),
+               "bwd_dq": (fa.flash_bwd_dq(*args), None, None),
+               "bwd_dkv": (None, *fa.flash_bwd_dkv(*args))}
+        torch.cuda.synchronize()
+        parts = []
+        for name, outs in got.items():
+            for grad, r, what in zip(outs, ref, ("dq", "dk", "dv")):
+                if grad is None:
+                    continue
+                r = r.float()
+                err = (grad.float() - r).abs()
+                top = r.abs().max().item()
+                rel = err.max().item() / top
+                require(bool(torch.isfinite(grad).all()), f"{name} {what} fp16 dO x {factor:g}: "
+                        f"not finite")
+                if top >= 2.0 ** -14:
+                    require(rel <= FP16_REL, f"{name} {what} fp16 dO x {factor:g}: max err {rel} "
+                            f"of max|ref|")
+                    parts.append(f"{name}.{what} {rel:.2g}")
+                else:
+                    steps = err / _fp16_step(r)
+                    require(steps.max().item() <= 1.0, f"{name} {what} fp16 dO x {factor:g}: "
+                            f"{steps.max().item():.3g} fp16 steps from plain")
+                    parts.append(f"{name}.{what} {rel:.2g} (max|ref| {top:.3g}: at most one fp16 "
+                                 f"step, {int((err > 0).sum())} of {err.numel()} elements off)")
+        line = ", ".join(parts)
+        if factor < 1:
+            dq32 = fa._launch_bwd("bwd_fused", *args)[0]
+            ref32 = fa.flash_bwd_plain(q.float(), k.float(), v.float(), None, out.float(), lse,
+                                       dout.float(), scale)[0]
+            rel32 = (dq32 - ref32).abs().max().item() / ref32.abs().max().item()
+            require(rel32 <= FP16_REL, f"bwd_fused fp32 dQ, fp16 dO x {factor:g}: {rel32}")
+            line += f"; K6's fp32 dQ before its cast {rel32:.3g} of max|ref| (bar {FP16_REL:g})"
+        phase("kernels", f"backward fp16 range (2B shape, dO x {factor:g}): finite; max err / "
+              f"max|ref| {line}")
+        del dout, args, ref, got
+        torch.cuda.empty_cache()
+
+
+def fp16_rope_rows(fa, g):
+    """K9 (`flash_rope` at Sq=Sk=4096, `flash_rope_q` at Sk=32) in fp16 with
+    the 2B's 1024^2 angles against its plain version within FP16_REL of
+    max|ref|, and bit for bit against the unfused entry point on
+    `apply_rope`d inputs (`flash_online`, `flash_small_kv`: the same fp16
+    kernel, q rotated in it), every key valid (timed beside that entry point,
+    bound, plain; library none) and with 4:1 GQA, a masked tail and a fully
+    masked batch row; then `rope_rotate` on the 2B's fp16 k bit for bit
+    against `apply_rope`, timed."""
+    from lumina_t2x_tpu_torch.ops.rope import apply_rope
+
+    angles = rope_angles_2b()
+    scale = D ** -0.5
+    results = {}
+    for entry, sk in (("rope", S), ("rope_q", TRAIN_CAP)):
+        kernel = getattr(fa, f"flash_{entry}")
+        unfused = "online" if entry == "rope" else "small_kv"
+        row = results.setdefault(f"{entry}_fp16", {"max_abs_err": 0.0})
+        for masked in (False, True):
+            q, k, v, mask = _shape_inputs(g, B, S, H, H // 4 if masked else H, D, masked, sk,
+                                          dtype=torch.float16)
+            got = kernel(q, k, v, angles, mask, scale)
+            q_rot = apply_rope(q, angles)
+            k_rot = apply_rope(k, angles) if entry == "rope" else k
+            ref = fa.flash_online_plain(q_rot.float(), k_rot.float(), v.float(), mask, scale)
+            same = getattr(fa, f"flash_{unfused}")(q_rot, k_rot, v, mask, scale)
+            torch.cuda.synchronize()
+            err = (got.float() - ref).abs().max().item()
+            bar = FP16_REL * ref.abs().max().item()
+            require(got.dtype == torch.float16 and math.isfinite(err) and err <= bar,
+                    f"{entry} fp16 (Sk={sk}): max abs err {err} > {bar}")
+            require(torch.equal(got, same), f"{entry} fp16 (Sk={sk}): not flash_{unfused} on "
+                    f"apply_rope'd inputs bit for bit")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            line = (f"{entry} fp16 (Sk={sk}, Hkv={k.shape[2]}{', masked' if masked else ''}): max "
+                    f"abs err {err:.3g} (bar {bar:.3g}); equal bit for bit to flash_{unfused} on "
+                    f"apply_rope'd inputs")
+            if not masked:
+                rotated = q.numel() + (k.numel() if entry == "rope" else 0)
+                row.update(ms=time_ms(lambda: kernel(q, k, v, angles, mask, scale)),
+                           plain_ms=time_ms(lambda: getattr(fa, f"flash_{entry}_plain")(
+                               q, k, v, angles, mask, scale), reps=3),
+                           library_ms=None,
+                           **least_time(_nbytes(q, k, v, got) + 2 * S * D * 4,
+                                        attention_ops(q, k, 2), torch.float16,
+                                        fp32_ops=3 * rotated))
+                unfused_ms = time_ms(lambda: getattr(fa, f"flash_{unfused}")(q_rot, k_rot, v, mask,
+                                                                             scale))
+                line += (f"; kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+                         f"flash_{unfused} on rotated inputs {unfused_ms:.3f} ms, bound "
+                         f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library none")
+            phase("kernels", line)
+            del q, k, v, got, ref, same, q_rot, k_rot
+        torch.cuda.empty_cache()
+    k = _rand(g, B, S, H, D, dtype=torch.float16)
+    got = fa.rope_rotate(k, angles)
+    ref = apply_rope(k, angles)
+    torch.cuda.synchronize()
+    require(got.dtype == torch.float16 and torch.equal(got, ref),
+            "rope_rotate fp16: not apply_rope bit for bit")
+    burst = 8
+    results["rope_rotate_fp16"] = {
+        "max_abs_err": 0.0, "ms": time_ms(lambda: [fa.rope_rotate(k, angles)
+                                                   for _ in range(burst)]) / burst,
+        "plain_ms": time_ms(lambda: apply_rope(k, angles)), "library_ms": None,
+        **least_time(2 * _nbytes(k) + 2 * S * D * 4, 0, torch.float16, fp32_ops=3 * k.numel())}
+    row = results["rope_rotate_fp16"]
+    phase("kernels", f"rope_rotate fp16 (B={B}, S={S}, H={H}, D={D}): equal to apply_rope; "
+          f"kernel {row['ms']:.4f} ms (bursts of {burst}), plain {row['plain_ms']:.3f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library none")
     return results
 
 
@@ -1981,14 +2218,16 @@ def _class_metrics(results_dir, model):
 TRAINER_STEPS = {"train": "make_train_step", "train_audio": "make_cfm_train_step"}
 
 
-def _run_trainer(fa, argv, save=True, unfused_from=None, cli="train", before=None):
+def _run_trainer(fa, argv, save=True, unfused_from=None, cli="train", before=None,
+                 fused_rope_from=None):
     """`pipelines.<cli>.main(argv)` (the image trainer, or "train_audio") with
     the launch counts reset: (state, wall seconds, launches, plain-version
     CUDA calls, peak GiB). `save=False` turns the trainer's checkpoint writes
     into no-ops (the call's 45 GiB of disk writes); `unfused_from=n` sets
     LUMINA_FLASH_FUSED_BWD=0 from step n (1-based) on, so that those steps
     run K7/K8, and copies the launches of the steps before it into the dict
-    `before` when one is given."""
+    `before` when one is given; `fused_rope_from=n` sets LUMINA_FUSE_ROPE=1
+    from step n on (K9 and rope_rotate in the forward)."""
     import importlib
 
     train_cli = importlib.import_module(f"lumina_t2x_tpu_torch.pipelines.{cli}")
@@ -1996,15 +2235,17 @@ def _run_trainer(fa, argv, save=True, unfused_from=None, cli="train", before=Non
     saved = (train_cli.save_checkpoint, getattr(train_cli, builder))
     if not save:
         train_cli.save_checkpoint = lambda *args, **kwargs: "(not written)"
-    if unfused_from:
+    if unfused_from or fused_rope_from:
         def make_train_step(*args, **kwargs):
             step_fn = saved[1](*args, **kwargs)
 
             def step(state, *rest, **kw):
                 if state.step + 1 == unfused_from and before is not None:
                     before.update(fa.LAUNCHES)
-                if state.step + 1 >= unfused_from:
+                if unfused_from and state.step + 1 >= unfused_from:
                     os.environ["LUMINA_FLASH_FUSED_BWD"] = "0"
+                if fused_rope_from and state.step + 1 >= fused_rope_from:
+                    os.environ["LUMINA_FUSE_ROPE"] = "1"
                 return step_fn(state, *rest, **kw)
             return step
         setattr(train_cli, builder, make_train_step)
@@ -2019,6 +2260,7 @@ def _run_trainer(fa, argv, save=True, unfused_from=None, cli="train", before=Non
         train_cli.save_checkpoint = saved[0]
         setattr(train_cli, builder, saved[1])
         os.environ.pop("LUMINA_FLASH_FUSED_BWD", None)
+        os.environ.pop("LUMINA_FUSE_ROPE", None)
     return (state, wall, dict(fa.LAUNCHES), fa.PLAIN_CUDA_CALLS["count"],
             torch.cuda.max_memory_allocated() / 2**30)
 
@@ -2413,41 +2655,55 @@ def trainer_phase(fa, then=None):
     return {name: launches[name] + resumed[name] for name in TRAIN_KERNELS}, followed
 
 
-def fp16_train_phase(fa):
+def fp16_train_phase(fa, recipe):
     """The trainer CLI at its docstring's 2B recipe with `--precision fp16`
     (NextDiT_2B_patch2, synthetic 128 x 128 latents, B=2, fp32 gradients,
-    qk-norm, --checkpointing, AdamW): 3 steps, the 3rd under
-    LUMINA_FLASH_FUSED_BWD=0, no checkpoint written. fp16 attention takes the
-    fp32 kernels (cast at the wrapper): the fp32 K4 forward
-    (`csrc/flash_fwd_fp32_sm90.cu`) and K6, then K7 + K8
-    (`csrc/flash_bwd_fp32_sm90.cu`). Returns the fp32 2B rows' launches."""
+    qk-norm, --checkpointing, AdamW) and the calibrated train bound
+    (`--flash_static_max auto`): 4 steps, the 3rd and 4th under
+    LUMINA_FLASH_FUSED_BWD=0, the 4th also under LUMINA_FUSE_ROPE=1, no
+    checkpoint written. fp16 attention runs the Hopper kernels' fp16
+    instantiations: K1, K2 and K4 (the calibration probe's no-grad forwards
+    and its LSE), K4 (the cross-attention and K9's backward), K5 (the
+    self-attention under the bound), K6, then K7 + K8, and K9 with
+    `rope_rotate` on the 4th step; every launch of the leg must be on
+    fp16 operands (`DTYPE_LAUNCHES`) and no plain version may run. Prints
+    s/step beside the bf16 recipe step's (`recipe`, from `recipe_phase`).
+    Returns the fp16 rows' launches."""
     with tempfile.TemporaryDirectory() as results:
         argv = ["--model", "NextDiT_2B_patch2", "--data_path", "synthetic://128x128",
                 "--global_batch_size", str(B), "--precision", "fp16", "--grad_precision", "fp32",
-                "--qk_norm", "--checkpointing", "--results_dir", results, "--log_every", "1",
-                "--ckpt_every", "1000", "--max_steps", "3"]
-        state, wall, launches, plain, peak = _run_trainer(fa, argv, save=False, unfused_from=3)
+                "--qk_norm", "--checkpointing", "--flash_static_max", "auto", "--results_dir",
+                results, "--log_every", "1", "--ckpt_every", "1000", "--max_steps", "4"]
+        state, wall, launches, plain, peak = _run_trainer(fa, argv, save=False, unfused_from=3,
+                                                          fused_rope_from=4)
+        by_dtype = {name: n for name, n in fa.DTYPE_LAUNCHES.items() if n}
         dtype = next(state.model.parameters()).dtype
+        bound = fa.get_flash_static_max(train=True)
         del state
         gc.collect()
         torch.cuda.empty_cache()
         metrics = _train_metrics(results)
-    launched = _launched(launches)
+    fa.set_flash_static_max_train(None)
+    secs = [m["train/secs_per_step"] for m in metrics]
     phase("fp16train", f"trainer CLI, NextDiT_2B_patch2 --precision fp16 (parameters {dtype}), "
-          f"1024^2 latents, B={B}, --checkpointing, AdamW, 3 steps (the 3rd with "
-          f"LUMINA_FLASH_FUSED_BWD=0), no checkpoint: losses "
-          f"{[round(m['train/loss'], 5) for m in metrics]}, grad norms "
+          f"1024^2 latents, B={B}, --checkpointing, AdamW, train bound {bound}, 4 steps (the 3rd "
+          f"and 4th with LUMINA_FLASH_FUSED_BWD=0, the 4th with LUMINA_FUSE_ROPE=1), no "
+          f"checkpoint: losses {[round(m['train/loss'], 5) for m in metrics]}, grad norms "
           f"{[round(m['train/grad_norm'], 4) for m in metrics]}; s/step "
-          f"{[round(m['train/secs_per_step'], 4) for m in metrics]}; peak memory {peak:.2f} GiB; "
-          f"wall {wall:.1f} s; launches (fp16 q/k/v on the fp32 kernels) {launched}; "
-          f"plain-version CUDA calls {plain}")
-    require(len(metrics) == 3 and all(math.isfinite(m["train/loss"]) for m in metrics),
+          f"{[round(x, 4) for x in secs]} (steps 2-3 {statistics.mean(secs[1:3]):.4f}) against "
+          f"the bf16 recipe step's {[round(x / 1000, 4) for x in recipe['ms']]} (steps 2-3 "
+          f"{statistics.mean(recipe['ms'][1:]) / 1000:.4f}; AdamW, calibrated bound); peak "
+          f"memory {peak:.2f} GiB (bf16 recipe {recipe['peak']:.2f}); wall {wall:.1f} s; "
+          f"launches by operand dtype {by_dtype}; plain-version CUDA calls {plain}")
+    require(len(metrics) == 4 and all(math.isfinite(m["train/loss"]) for m in metrics),
             f"fp16 trainer losses: {metrics}")
+    require(bound is not None and math.isfinite(bound), "fp16 train calibration declined")
     require(plain == 0, f"fp16 trainer: plain versions ran {plain} times on CUDA")
-    for name in ("online_lse", "bwd_fused", "bwd_dq", "bwd_dkv"):
-        require(launched.get(name, 0) > 0, f"fp16 trainer: {name} was not launched")
-    return {f"{name}_fp32_2b": launched[name]
-            for name in ("online_lse", "bwd_fused", "bwd_dq", "bwd_dkv")}
+    other = {name: n for name, n in by_dtype.items() if not name.endswith("_fp16")}
+    require(not other, f"fp16 trainer: kernels launched on other operand dtypes: {other}")
+    for name in FP16_TRAIN_KERNELS:
+        require(by_dtype.get(f"{name}_fp16", 0) > 0, f"fp16 trainer: fp16 {name} not launched")
+    return {f"{name}_fp16": by_dtype[f"{name}_fp16"] for name in FP16_TRAIN_KERNELS}
 
 
 # the multigpu phase: the torchrun trainer's losses and grad norms against the
@@ -3578,9 +3834,9 @@ def fp32_forward_phase(fa):
     bound at the fp32 rate (PEAK_FP32) and one library call in fp32 (sdpa for
     K2/K3, aten's memory-efficient attention with its LSE for K4/K5), then
     with 4:1 GQA, a masked tail and a fully masked batch row (`shape_rows`).
-    K4's row is on the kernels line with the fp16 trainer leg's launches
-    (fp16 runs the fp32 kernels); the others are printed only: no main path
-    runs them (the 2B runs bf16)."""
+    K4's row is on the kernels line (with no main-path launches since fp16
+    runs its own kernels); the others are printed only: no main path runs
+    them (the 2B runs bf16 or fp16)."""
     g = torch.Generator(device="cuda").manual_seed(17)
     return shape_rows(fa, g, D, [(f"{entry}_fp32_2b", entry, (B, S, H), None, None, True)
                                  for entry in ("online", "static_max", "online_lse",
@@ -4476,6 +4732,7 @@ def main():
     results.update(audio_kernel_phase(fa))
     results.update(imgsizes_kernel_phase(fa))
     results.update(fp32_forward_phase(fa))
+    results.update(fp16_kernel_phase(fa))
     exp_results, exp_launches = experiments_phase()
     results.update(exp_results)
     latent_1024 = slice_phase(fa, *forward_phase(fa))
@@ -4505,12 +4762,17 @@ def main():
         launches[name] += composed[name] + edited[name] + anagram[name]
     launches.update(imagenet_launches)
     gradient_phase(fa)
-    recipe_phase(fa)
+    recipe = recipe_phase(fa)
     # K4: the training path's count; the multigpu phase's torchrun children
     # (their own processes) and ring fold add theirs
     train_launches, multigpu = trainer_phase(fa, then=lambda *a: multigpu_trainer_phase(fa, *a))
     launches.update(train_launches)
-    launches.update(fp16_train_phase(fa))
+    launches.update(fp16_train_phase(fa, recipe))
+    # no main path runs fp16 K3 (the samplers take fp32 or bf16) or, since the
+    # fp16 trainer leg runs the fp16 kernels, fp32 at the 2B's shape
+    launches["static_max_fp16"] = 0
+    launches.update({f"{name}_fp32_2b": 0
+                     for name in ("online_lse", "bwd_fused", "bwd_dq", "bwd_dkv")})
     for counts in (multigpu, ring_fold_phase(fa)):
         for name, n in counts.items():
             launches[name] += n

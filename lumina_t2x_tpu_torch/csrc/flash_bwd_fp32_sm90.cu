@@ -7,9 +7,8 @@
 //   _bwd_dq_kernel    :552 (pallas_call :699)  flash_bwd_dq_kernel        (lumina_flash_bwd_dq)
 // The C entry points stay in flash_bwd.cu (launch counters "bwd_fused",
 // "bwd_dkv", "bwd_dq"), which hands fp32 inputs to flash_bwd_fp32_sm90()
-// and bf16 to flash_bwd_sm90.cu. Both trainers' --precision fp32 (and the
-// image trainer's fp16, cast to fp32 by the wrapper) take every attention
-// backward through these kernels.
+// and bf16 and fp16 to flash_bwd_sm90.cu. Both trainers' --precision fp32
+// take every attention backward through these kernels.
 //
 // What they compute, from the forward's per-row log-sum-exp and
 // delta = rowsum(dO * O), over the valid keys (kv_mask != 0, j < Sk), in

@@ -1,4 +1,4 @@
-// bf16 flash-attention backward for Hopper (sm_90a), hand-written CUDA C++:
+// bf16 and fp16 flash-attention backward for Hopper (sm_90a), hand-written CUDA C++:
 // wgmma warpgroups with the transposed scores, dK and dV in registers, fed
 // by a producer warp through an asynchronous ring of Q/dO tiles; and a dQ
 // kernel with the scores and dQ in registers, fed through a ring of K/V
@@ -7,10 +7,11 @@
 //   fused (dK, dV and dQ) <- _bwd_fused_kernel (_flash_bwd_fused_impl)
 //   dK and dV only        <- _bwd_dkv_kernel   (_flash_bwd_impl, second pallas_call)
 //   dQ only               <- _bwd_dq_kernel    (_flash_bwd_impl, first pallas_call)
-// for bf16 inputs; the C entry points lumina_flash_bwd_fused,
-// lumina_flash_bwd_dkv and lumina_flash_bwd_dq stay in flash_bwd.cu (launch
-// counters "bwd_fused", "bwd_dkv", "bwd_dq"), which calls flash_bwd_sm90()
-// or flash_bwd_dq_sm90() for bf16 (fp32 runs flash_bwd_fp32_sm90.cu). One
+// for bf16 and fp16 inputs (the operand type T, one instantiation each); the
+// C entry points lumina_flash_bwd_fused, lumina_flash_bwd_dkv and
+// lumina_flash_bwd_dq stay in flash_bwd.cu (launch counters "bwd_fused",
+// "bwd_dkv", "bwd_dq"), which calls flash_bwd_sm90() or flash_bwd_dq_sm90()
+// for bf16 and fp16 (fp32 runs flash_bwd_fp32_sm90.cu). One
 // kernel serves the first two: a template flag compiles the dQ step out for
 // dK/dV only. The dQ kernel is described after them ("The dQ kernel").
 //
@@ -61,10 +62,27 @@
 // 64 x D fp32 add per (q tile, 128 keys), coalesced in L2. Two staging tiles
 // alternate, so a reduce still reading one does not hold the next tile.
 //
-// P and dS as bf16 pairs. dV, dK and dQ take P and dS as hi = bf16(x) and
-// lo = bf16(x - hi): two wgmma over the same B per 16-row slice (~16
-// mantissa bits; the Pallas kernels round them once), so the kernel computes
-// the fp32-P backward of its plain version (flash_bwd_plain).
+// P and dS as pairs. dV, dK and dQ take P and dS as hi = T(x) and lo =
+// T(x - hi): two wgmma over the same B per 16-row slice (~16 mantissa bits
+// in bf16, ~22 in fp16; the Pallas kernels round them once), so the kernel
+// computes the fp32-P backward of its plain version (flash_bwd_plain).
+//
+// fp16. The same kernels on wgmma's .f16 operands (m64nNk16.f32.f16.f16,
+// the same shapes, swizzles and fp32 accumulators). p <= 1 packs as it is,
+// but ds = p (dO . v - delta) scale carries dO's magnitude times p's
+// (~1e-4 at 4096 keys): in an fp16 trainer dS falls under fp16's smallest
+// normal, 2^-14, where the pair keeps a few bits or none (at dO ~ 2^-20
+// every dS flushes to 0). Every output is linear in dO, so dS is packed at
+// 2^-e, e = floor(log2 max|dO|), read on the card from `do_amax` (one
+// reduction over dO in the wrapper, no host sync): the scale folds into the
+// chain's `scale`, costs nothing per element, and dK and dQ are multiplied
+// by 2^e in fp32 before they are stored (dQ before its staging), so the
+// powers of two are exact. dV = P^T dO needs none. bf16 has fp32's exponent
+// range and takes do_amax = null (scale 1). At width 128 ptxas serializes the
+// dK/dV kernel's wgmma in both types (C7512, insufficient registers: dK and
+// dV take 128 fp32 a thread); reusing P's registers for dS, issuing S and
+// dP in turn, splitting the products into two n64 halves or unrolling the
+// loop once did not lift it.
 //
 // What bounds it on the card: at B=2, S=4096, H=32, D=72 the five products
 // are 10*B*H*S*S*D = 773 GFLOP (0.78 ms at 989 TFLOP/s); with depth 80 and
@@ -129,9 +147,10 @@ struct Params {
   const int* mask;     // (B, Sk) int32 or null
   const float* lse;    // (B, Hq, Sq)
   const float* delta;  // (B, Hq, Sq)
-  bf16* dk;            // the dK/dV kernel (dQ fused: through its tensor map)
-  bf16* dv;
-  bf16* dq;            // the dQ kernel
+  const fp16* do_amax;  // fp16: max|dO| on the card (the dS scale), or null
+  void* dk;            // T; the dK/dV kernel (dQ fused: through its tensor map)
+  void* dv;
+  void* dq;            // T; the dQ kernel
   int B, Sq, Sk, Hq, Hkv, D;
   long long dk_sb, dk_ss, dk_sh;
   long long dv_sb, dv_ss, dv_sh;
@@ -187,6 +206,19 @@ struct Smem {
 
 // -- consumer -----------------------------------------------------------------------
 
+// The dS scale's pair (up, down) = (2^-e, 2^e), e = floor(log2 max|dO|), or
+// (1, 1) without do_amax or for a max|dO| of 0 or not finite
+__device__ __forceinline__ float2 ds_scales(const fp16* do_amax) {
+  if (do_amax != nullptr) {
+    const float a = __half2float(*do_amax);
+    if (a > 0.f && a <= 3.4028235e38f) {
+      const int e = min(max(ilog2(a), -100), 100);
+      return make_float2(pow2(-e), pow2(e));
+    }
+  }
+  return make_float2(1.f, 1.f);
+}
+
 // dS^T (hi or lo fragments) into its staging atom: key row r of 128 bytes,
 // q column pair (8n + 2t, +1) in 16-byte chunk n ^ (r % 8) (the 128-byte
 // swizzle), so that wgmma reads it back as an MN-major A operand
@@ -234,9 +266,9 @@ __device__ __forceinline__ void dscores(float (&dp)[32], const float (&p)[32], c
 // consumer 0 adds its own there, and one thread adds the tile into the fp32
 // dQ buffer with one bulk reduce-add. Staging tile it % 2 is free once the
 // reduce of iteration it - 2 has read it (consumer 0 arrives on kBarFree
-// after that, consumer 1 waits there).
+// after that, consumer 1 waits there). `down` unscales dS's scale.
 template <int kDN>
-__device__ __forceinline__ void add_dq(const float (&dq)[kDN / 2], float* stage,
+__device__ __forceinline__ void add_dq(const float (&dq)[kDN / 2], float down, float* stage,
                                        uint32_t stage_addr, const CUtensorMap* tdq, int c,
                                        int tid, int row0, int t, int D, bool last, int h, int q0,
                                        int b) {
@@ -249,7 +281,7 @@ __device__ __forceinline__ void add_dq(const float (&dq)[kDN / 2], float* stage,
         const int col = 8 * n + 2 * t;
         if (col < D)
           *reinterpret_cast<float2*>(stage + (row0 + 8 * r) * D + col) =
-              make_float2(dq[4 * n + 2 * r], dq[4 * n + 2 * r + 1]);
+              make_float2(dq[4 * n + 2 * r] * down, dq[4 * n + 2 * r + 1] * down);
       }
     bar_arrive(kBarStaged);
   } else {
@@ -262,7 +294,7 @@ __device__ __forceinline__ void add_dq(const float (&dq)[kDN / 2], float* stage,
         if (col < D) {
           float2* at = reinterpret_cast<float2*>(stage + (row0 + 8 * r) * D + col);
           const float2 x = *at;
-          *at = make_float2(x.x + dq[4 * n + 2 * r], x.y + dq[4 * n + 2 * r + 1]);
+          *at = make_float2(x.x + dq[4 * n + 2 * r] * down, x.y + dq[4 * n + 2 * r + 1] * down);
         }
       }
     fence_async_smem();
@@ -276,7 +308,7 @@ __device__ __forceinline__ void add_dq(const float (&dq)[kDN / 2], float* stage,
   }
 }
 
-template <int kDK, int kDN, bool kFusedDq>
+template <class T, int kDK, int kDN, bool kFusedDq>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_sm90_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
@@ -365,6 +397,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int key = j0 + c * kKeys + row0 + 8 * r;
       key_ok[r] = key < p.Sk && (p.mask == nullptr || p.mask[b * p.m_sb + key] != 0);
     }
+    const float2 ds2 = ds_scales(p.do_amax);
+    const float ds_scale = p.scale * ds2.x;  // dS at 2^-e (fp16; 1 for bf16)
 
     float dk[kDN / 2], dv[kDN / 2];
 #pragma unroll
@@ -378,9 +412,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int st = it % kStages;
       mbar_wait(base + L::full(st), (it / kStages) & 1);
       wgmma_fence();
-      qk<kDK, L::kKAtom, L::kQAtom>(s, k_addr, base + L::q(st));
+      qk<kDK, L::kKAtom, L::kQAtom, T>(s, k_addr, base + L::q(st));
       wgmma_commit();
-      qk<kDK, L::kKAtom, L::kQAtom>(dp, v_addr, base + L::dout(st));
+      qk<kDK, L::kKAtom, L::kQAtom, T>(dp, v_addr, base + L::dout(st));
       wgmma_commit();
 
       const float* stats = reinterpret_cast<const float*>(gbase + L::stats(st));
@@ -389,22 +423,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       probs(s, stats, key_ok, t, p.scale2);
       wgmma_wait<0>();
       pin(dp);
-      dscores(dp, s, stats + kBM, t, p.scale);
+      dscores(dp, s, stats + kBM, t, ds_scale);
 
       // dV += P^T dO, then dK += dS^T Q, packing dS beside the first
-      pack_pair(s, phi, plo);
+      pack_pair<T>(s, phi, plo);
       pin(dv);
       pin(phi);
       pin(plo);
       wgmma_fence();
-      mma_pair<kDN, L::kQAtom>(dv, phi, plo, base + L::dout(st));
+      mma_pair<kDN, L::kQAtom, T>(dv, phi, plo, base + L::dout(st));
       wgmma_commit();
-      pack_pair(dp, dhi, dlo);
+      pack_pair<T>(dp, dhi, dlo);
       pin(dk);
       pin(dhi);
       pin(dlo);
       wgmma_fence();
-      mma_pair<kDN, L::kQAtom>(dk, dhi, dlo, base + L::q(st));
+      mma_pair<kDN, L::kQAtom, T>(dk, dhi, dlo, base + L::q(st));
       wgmma_commit();
       if constexpr (kFusedDq) {
         store_ds(base + L::ds(c, 0), dhi, row0, t);
@@ -426,7 +460,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const uint64_t kd = swz_desc(k_addr + kk * 16 * kSwizzle, L::kKAtom, 8 * kSwizzle);
 #pragma unroll
           for (int lo = 0; lo < 2; ++lo)
-            wgmma_ss_tt(dq, swz_desc(base + L::ds(c, lo) + kk * 16 * kSwizzle, L::kDSTile,
+            wgmma_ss_tt<T>(dq, swz_desc(base + L::ds(c, lo) + kk * 16 * kSwizzle, L::kDSTile,
                                      8 * kSwizzle), kd, kk > 0 || lo > 0);
         }
         wgmma_commit();
@@ -434,49 +468,50 @@ __global__ void __launch_bounds__(kThreads, 1)
         pin(dq);
 
         const int h = hk * rep + it / nq, q0 = (it % nq) * kBM;
-        add_dq<kDN>(dq, reinterpret_cast<float*>(gbase + L::staging(it & 1)),
+        add_dq<kDN>(dq, ds2.y, reinterpret_cast<float*>(gbase + L::staging(it & 1)),
                     base + L::staging(it & 1), &tdq, c, tid, row0, t, p.D, it + 1 == n_it, h, q0,
                     b);
       }
     }
     if (kFusedDq && tid == 0 && c == 0) bulk_wait_all();
 
-    // dK and dV of this consumer's keys, per kv head (0 for a masked key)
+    // dK (unscaled from dS's scale) and dV of this consumer's keys, per kv
+    // head (0 for a masked key)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = j0 + c * kKeys + row0 + 8 * r;
       if (key >= p.Sk) continue;
-      bf16* dk_row = p.dk + b * p.dk_sb + (long long)key * p.dk_ss + hk * p.dk_sh;
-      bf16* dv_row = p.dv + b * p.dv_sb + (long long)key * p.dv_ss + hk * p.dv_sh;
+      T* dk_row = static_cast<T*>(p.dk) + b * p.dk_sb + (long long)key * p.dk_ss + hk * p.dk_sh;
+      T* dv_row = static_cast<T*>(p.dv) + b * p.dv_sb + (long long)key * p.dv_ss + hk * p.dv_sh;
 #pragma unroll
       for (int n = 0; n < kDN / 8; ++n) {
         const int col = 8 * n + 2 * t;
         if (col >= p.D) break;
-        *reinterpret_cast<__nv_bfloat162*>(dk_row + col) =
-            __floats2bfloat162_rn(dk[4 * n + 2 * r], dk[4 * n + 2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv_row + col) =
-            __floats2bfloat162_rn(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dk_row + col) =
+            Elem<T>::pack(dk[4 * n + 2 * r] * ds2.y, dk[4 * n + 2 * r + 1] * ds2.y);
+        *reinterpret_cast<uint32_t*>(dv_row + col) =
+            Elem<T>::pack(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
       }
     }
   }
 }
 
-template <int kDK, int kDN, bool kFusedDq>
+template <class T, int kDK, int kDN, bool kFusedDq>
 int launch_dims(const Params& p, const void* const* ptrs, const long long* meta,
                 cudaStream_t stream) {
   // ptrs: q, k, v, dout, dq; meta strides from index 6 (q, k, v, dout, dq)
   CUtensorMap tq, tdo, tk, tv, tdq = {};
-  if (!make_map(&tq, ptrs[0], p.B, p.Sq, p.Hq, p.D, meta[6], meta[7], meta[8], kBM) ||
-      !make_map(&tk, ptrs[1], p.B, p.Sk, p.Hkv, p.D, meta[9], meta[10], meta[11], kBN) ||
-      !make_map(&tv, ptrs[2], p.B, p.Sk, p.Hkv, p.D, meta[12], meta[13], meta[14], kBN) ||
-      !make_map(&tdo, ptrs[3], p.B, p.Sq, p.Hq, p.D, meta[15], meta[16], meta[17], kBM))
+  if (!make_map<T>(&tq, ptrs[0], p.B, p.Sq, p.Hq, p.D, meta[6], meta[7], meta[8], kBM) ||
+      !make_map<T>(&tk, ptrs[1], p.B, p.Sk, p.Hkv, p.D, meta[9], meta[10], meta[11], kBN) ||
+      !make_map<T>(&tv, ptrs[2], p.B, p.Sk, p.Hkv, p.D, meta[12], meta[13], meta[14], kBN) ||
+      !make_map<T>(&tdo, ptrs[3], p.B, p.Sq, p.Hq, p.D, meta[15], meta[16], meta[17], kBM))
     return (int)cudaErrorInvalidValue;
   // dQ, fp32: box D columns x 64 rows, unswizzled (the staging tile's layout)
   if (kFusedDq && !make_map_4d(&tdq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptrs[4], p.B, p.Sq, p.Hq,
                                p.D, meta[18], meta[19], meta[20], p.D, kBM,
                                CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_bwd_sm90_kernel<kDK, kDN, kFusedDq>;
+  auto kernel = flash_bwd_sm90_kernel<T, kDK, kDN, kFusedDq>;
   const int bytes = (int)Smem<kDK, kDN, kFusedDq>::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -487,11 +522,11 @@ int launch_dims(const Params& p, const void* const* ptrs, const long long* meta,
 }
 
 // the products' depth and width by head_dim: 64/64, 80/72 (the 2B), 128/128
-template <bool kFusedDq>
+template <class T, bool kFusedDq>
 int launch(const Params& p, const void* const* ptrs, const long long* meta, cudaStream_t stream) {
-  if (p.D <= 64) return launch_dims<64, 64, kFusedDq>(p, ptrs, meta, stream);
-  if (p.D <= 72) return launch_dims<80, 72, kFusedDq>(p, ptrs, meta, stream);
-  return launch_dims<128, 128, kFusedDq>(p, ptrs, meta, stream);
+  if (p.D <= 64) return launch_dims<T, 64, 64, kFusedDq>(p, ptrs, meta, stream);
+  if (p.D <= 72) return launch_dims<T, 80, 72, kFusedDq>(p, ptrs, meta, stream);
+  return launch_dims<T, 128, 128, kFusedDq>(p, ptrs, meta, stream);
 }
 
 // -- the dQ kernel -------------------------------------------------------------------
@@ -530,7 +565,7 @@ __device__ __forceinline__ void dscores_rows(float (&dp)[32], const float (&p)[3
   for (int i = 0; i < 32; ++i) dp[i] = p[i] * (dp[i] - delta[(i >> 1) & 1]) * scale;
 }
 
-template <int kDK, int kDN>
+template <class T, int kDK, int kDN>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_sm90_dq_kernel(const __grid_constant__ Params p,
                              const __grid_constant__ CUtensorMap tq,
@@ -595,6 +630,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       lse2[r] = lse == -INFINITY ? INFINITY : lse * kLog2e;
       delta[r] = row < p.Sq ? p.delta[at] : 0.f;
     }
+    const float2 ds2 = ds_scales(p.do_amax);
+    const float ds_scale = p.scale * ds2.x;  // dS at 2^-e (fp16; 1 for bf16)
 
     float dq[kDN / 2];
 #pragma unroll
@@ -605,17 +642,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(base + L::q_full(), 0);
     mbar_wait(base + L::full(0), 0);
     wgmma_fence();
-    qk<kDK, L::kQAtom, L::kAtom>(s, q_addr, base + L::k(0));
+    qk<kDK, L::kQAtom, L::kAtom, T>(s, q_addr, base + L::k(0));
     wgmma_commit();
-    qk<kDK, L::kQAtom, L::kAtom>(dp, do_addr, base + L::v(0));
+    qk<kDK, L::kQAtom, L::kAtom, T>(dp, do_addr, base + L::v(0));
     wgmma_commit();
     wgmma_wait<1>();
     pin(s);
     probs_rows(s, bits[0], t, lse2, p.scale2);
     wgmma_wait<0>();
     pin(dp);
-    dscores_rows(dp, s, delta, p.scale);
-    pack_pair(dp, dhi, dlo);
+    dscores_rows(dp, s, delta, ds_scale);
+    pack_pair<T>(dp, dhi, dlo);
 
     // Per tile j: S(j) = Q K^T, dP(j) = dO V^T and dQ += dS(j-1) K(j-1) in
     // three wgmma groups; the chain of tile j runs as soon as its products
@@ -628,60 +665,60 @@ __global__ void __launch_bounds__(kThreads, 1)
       pin(dhi);
       pin(dlo);
       wgmma_fence();
-      qk<kDK, L::kQAtom, L::kAtom>(s, q_addr, base + L::k(st));
+      qk<kDK, L::kQAtom, L::kAtom, T>(s, q_addr, base + L::k(st));
       wgmma_commit();
-      qk<kDK, L::kQAtom, L::kAtom>(dp, do_addr, base + L::v(st));
+      qk<kDK, L::kQAtom, L::kAtom, T>(dp, do_addr, base + L::v(st));
       wgmma_commit();
-      mma_pair<kDN, L::kAtom>(dq, dhi, dlo, base + L::k(prev));
+      mma_pair<kDN, L::kAtom, T>(dq, dhi, dlo, base + L::k(prev));
       wgmma_commit();
       wgmma_wait<2>();
       pin(s);
       probs_rows(s, bits[st], t, lse2, p.scale2);
       wgmma_wait<1>();
       pin(dp);
-      dscores_rows(dp, s, delta, p.scale);
+      dscores_rows(dp, s, delta, ds_scale);
       wgmma_wait<0>();
       pin(dq);
       mbar_arrive(base + L::empty(prev));
-      pack_pair(dp, dhi, dlo);
+      pack_pair<T>(dp, dhi, dlo);
     }
     pin(dq);
     pin(dhi);
     pin(dlo);
     wgmma_fence();
-    mma_pair<kDN, L::kAtom>(dq, dhi, dlo, base + L::k((nk - 1) % kStages));
+    mma_pair<kDN, L::kAtom, T>(dq, dhi, dlo, base + L::k((nk - 1) % kStages));
     wgmma_commit();
     wgmma_wait<0>();
     pin(dq);
 
-    // dQ, rounded once to bf16, for rows < Sq
+    // dQ, unscaled from dS's scale and rounded once to T, for rows < Sq
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (row >= p.Sq) continue;
-      bf16* out = p.dq + b * p.dq_sb + (long long)row * p.dq_ss + h * p.dq_sh;
+      T* out = static_cast<T*>(p.dq) + b * p.dq_sb + (long long)row * p.dq_ss + h * p.dq_sh;
 #pragma unroll
       for (int n = 0; n < kDN / 8; ++n) {
         const int col = 8 * n + 2 * t;
         if (col >= p.D) break;
-        *reinterpret_cast<__nv_bfloat162*>(out + col) =
-            __floats2bfloat162_rn(dq[4 * n + 2 * r], dq[4 * n + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(out + col) =
+            Elem<T>::pack(dq[4 * n + 2 * r] * ds2.y, dq[4 * n + 2 * r + 1] * ds2.y);
       }
     }
   }
 }
 
-template <int kDK, int kDN>
+template <class T, int kDK, int kDN>
 int launch_dq_dims(const Params& p, const void* const* ptrs, const long long* meta,
                    cudaStream_t stream) {
   // ptrs: q, k, v, dout; meta strides from index 6 (q, k, v, dout)
   CUtensorMap tq, tdo, tk, tv;
-  if (!make_map(&tq, ptrs[0], p.B, p.Sq, p.Hq, p.D, meta[6], meta[7], meta[8], kDqBQ) ||
-      !make_map(&tk, ptrs[1], p.B, p.Sk, p.Hkv, p.D, meta[9], meta[10], meta[11], 64) ||
-      !make_map(&tv, ptrs[2], p.B, p.Sk, p.Hkv, p.D, meta[12], meta[13], meta[14], 64) ||
-      !make_map(&tdo, ptrs[3], p.B, p.Sq, p.Hq, p.D, meta[15], meta[16], meta[17], kDqBQ))
+  if (!make_map<T>(&tq, ptrs[0], p.B, p.Sq, p.Hq, p.D, meta[6], meta[7], meta[8], kDqBQ) ||
+      !make_map<T>(&tk, ptrs[1], p.B, p.Sk, p.Hkv, p.D, meta[9], meta[10], meta[11], 64) ||
+      !make_map<T>(&tv, ptrs[2], p.B, p.Sk, p.Hkv, p.D, meta[12], meta[13], meta[14], 64) ||
+      !make_map<T>(&tdo, ptrs[3], p.B, p.Sq, p.Hq, p.D, meta[15], meta[16], meta[17], kDqBQ))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_bwd_sm90_dq_kernel<kDK, kDN>;
+  auto kernel = flash_bwd_sm90_dq_kernel<T, kDK, kDN>;
   const int bytes = (int)DqSmem<kDK, kDN>::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -715,16 +752,23 @@ int kernel_attributes(Kernel kernel, int bytes, long long* out) {
 }
 
 // 0: dK/dV only, 1: fused, 2: dQ
-template <int kDK, int kDN>
+template <class T, int kDK, int kDN>
 int attributes_dims(int which, long long* out) {
   if (which == 2)
-    return kernel_attributes(flash_bwd_sm90_dq_kernel<kDK, kDN>, (int)DqSmem<kDK, kDN>::kBytes,
-                             out);
+    return kernel_attributes(flash_bwd_sm90_dq_kernel<T, kDK, kDN>,
+                             (int)DqSmem<kDK, kDN>::kBytes, out);
   if (which == 1)
-    return kernel_attributes(flash_bwd_sm90_kernel<kDK, kDN, true>,
+    return kernel_attributes(flash_bwd_sm90_kernel<T, kDK, kDN, true>,
                              (int)Smem<kDK, kDN, true>::kBytes, out);
-  return kernel_attributes(flash_bwd_sm90_kernel<kDK, kDN, false>,
+  return kernel_attributes(flash_bwd_sm90_kernel<T, kDK, kDN, false>,
                            (int)Smem<kDK, kDN, false>::kBytes, out);
+}
+
+template <class T>
+int attributes(int which, int head_dim, long long* out) {
+  if (head_dim <= 64) return attributes_dims<T, 64, 64>(which, out);
+  if (head_dim <= 72) return attributes_dims<T, 80, 72>(which, out);
+  return attributes_dims<T, 128, 128>(which, out);
 }
 
 // Params from the entry points' arguments (dk, dv and dq left unset), or
@@ -732,11 +776,12 @@ int attributes_dims(int which, long long* out) {
 // 128, q/k/v/dout strides or bases not in whole 16-byte chunks (TMA moves
 // 16-byte chunks)
 bool make_params(Params& p, const void* q, const void* k, const void* v, const int* mask,
-                 const void* dout, const float* lse, const float* delta, const long long* meta,
-                 float scale) {
+                 const void* dout, const float* lse, const float* delta, const void* do_amax,
+                 const long long* meta, float scale) {
   p.mask = mask;
   p.lse = lse;
   p.delta = delta;
+  p.do_amax = static_cast<const fp16*>(do_amax);
   p.dk = p.dv = p.dq = nullptr;
   p.B = (int)meta[0];
   p.Sq = (int)meta[1];
@@ -764,15 +809,16 @@ bool make_params(Params& p, const void* q, const void* k, const void* v, const i
 
 }  // namespace
 
-int flash_bwd_sm90(bool fused, const void* q, const void* k, const void* v, const int* mask,
-                   const void* dout, const float* lse, const float* delta, void* dq, void* dk,
-                   void* dv, const long long* meta, float scale, void* stream) {
+int flash_bwd_sm90(bool f16, bool fused, const void* q, const void* k, const void* v,
+                   const int* mask, const void* dout, const float* lse, const float* delta,
+                   const void* do_amax, void* dq, void* dk, void* dv, const long long* meta,
+                   float scale, void* stream) {
   Params p;
-  if (!make_params(p, q, k, v, mask, dout, lse, delta, meta, scale))
+  if (!make_params(p, q, k, v, mask, dout, lse, delta, do_amax, meta, scale))
     return (int)cudaErrorInvalidValue;
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  // the fused dq (fp32) in whole 16-byte chunks; dk and dv take bf16 pairs
+  p.dk = dk;
+  p.dv = dv;
+  // the fused dq (fp32) in whole 16-byte chunks; dk and dv take pairs of T
   for (int i = 18; i <= 20; ++i)
     if (fused && meta[i] % 4 != 0) return (int)cudaErrorInvalidValue;
   for (int i = 21; i <= 26; ++i)
@@ -783,37 +829,49 @@ int flash_bwd_sm90(bool fused, const void* q, const void* k, const void* v, cons
   if (p.Sq == 0 || p.B == 0) return 0;
   const void* ptrs[5] = {q, k, v, dout, dq};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fused ? launch<true>(p, ptrs, meta, s) : launch<false>(p, ptrs, meta, s);
+  if (f16)
+    return fused ? launch<fp16, true>(p, ptrs, meta, s) : launch<fp16, false>(p, ptrs, meta, s);
+  return fused ? launch<bf16, true>(p, ptrs, meta, s) : launch<bf16, false>(p, ptrs, meta, s);
 }
 
-int flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const int* mask,
-                      const void* dout, const float* lse, const float* delta, void* dq,
-                      const long long* meta, float scale, void* stream) {
+namespace {
+
+template <class T>
+int launch_dq(const Params& p, const void* const* ptrs, const long long* meta, cudaStream_t s) {
+  // QK^T depth and dQ width by head_dim: 64/64, 80/72 (the 2B), 128/128
+  if (p.D <= 64) return launch_dq_dims<T, 64, 64>(p, ptrs, meta, s);
+  if (p.D <= 72) return launch_dq_dims<T, 80, 72>(p, ptrs, meta, s);
+  return launch_dq_dims<T, 128, 128>(p, ptrs, meta, s);
+}
+
+}  // namespace
+
+int flash_bwd_dq_sm90(bool f16, const void* q, const void* k, const void* v, const int* mask,
+                      const void* dout, const float* lse, const float* delta,
+                      const void* do_amax, void* dq, const long long* meta, float scale,
+                      void* stream) {
   Params p;
-  if (!make_params(p, q, k, v, mask, dout, lse, delta, meta, scale))
+  if (!make_params(p, q, k, v, mask, dout, lse, delta, do_amax, meta, scale))
     return (int)cudaErrorInvalidValue;
-  p.dq = static_cast<bf16*>(dq);
-  // dq (bf16) takes bf16 pairs
+  p.dq = dq;
+  // dq (T) takes pairs of T
   for (int i = 18; i <= 20; ++i)
     if (meta[i] % 2 != 0) return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(dq) % 4 != 0) return (int)cudaErrorInvalidValue;
   if (p.Sq == 0 || p.B == 0) return 0;
   const void* ptrs[4] = {q, k, v, dout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // QK^T depth and dQ width by head_dim: 64/64, 80/72 (the 2B), 128/128
-  if (p.D <= 64) return launch_dq_dims<64, 64>(p, ptrs, meta, s);
-  if (p.D <= 72) return launch_dq_dims<80, 72>(p, ptrs, meta, s);
-  return launch_dq_dims<128, 128>(p, ptrs, meta, s);
+  return f16 ? launch_dq<fp16>(p, ptrs, meta, s) : launch_dq<bf16>(p, ptrs, meta, s);
 }
 
-// The compiled kernel's resources at a head_dim (7 values into out):
-// registers per thread as compiled (the launch bound), the producer's and
-// the consumers' registers after setmaxnreg, local-memory (spill) bytes per
-// thread, shared memory per block, resident blocks per SM, threads per block.
+// The compiled kernel's resources at a head_dim, for bf16 (f16 = 0) or fp16
+// operands (7 values into out): registers per thread as compiled (the
+// launch bound), the producer's and the consumers' registers after
+// setmaxnreg, local-memory (spill) bytes per thread, shared memory per
+// block, resident blocks per SM, threads per block.
 // which: 0 the dK/dV kernel (K8), 1 the fused sweep (K6), 2 the dQ kernel (K7).
-extern "C" int lumina_flash_bwd_sm90_attributes(int which, int head_dim, long long* out) {
+extern "C" int lumina_flash_bwd_sm90_attributes(int which, int head_dim, int f16,
+                                                long long* out) {
   if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
-  if (head_dim <= 64) return attributes_dims<64, 64>(which, out);
-  if (head_dim <= 72) return attributes_dims<80, 72>(which, out);
-  return attributes_dims<128, 128>(which, out);
+  return f16 ? attributes<fp16>(which, head_dim, out) : attributes<bf16>(which, head_dim, out);
 }

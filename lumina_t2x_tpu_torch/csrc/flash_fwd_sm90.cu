@@ -1,5 +1,6 @@
-// bf16 streaming attention forward for Hopper (sm_90a), hand-written CUDA C++:
-// wgmma warpgroups fed by a producer warp through an asynchronous K/V ring.
+// bf16 and fp16 streaming attention forward for Hopper (sm_90a), hand-written
+// CUDA C++: wgmma warpgroups fed by a producer warp through an asynchronous
+// K/V ring.
 // Replaces the Pallas TPU kernels of lumina_t2x_tpu/ops/flash_attention.py
 //   small KV       <- _flash_small_kv_kernel,                       static_max=None
 //   online         <- _flash_kernel_fused_sum (+ _fused_sum_step), static_max=None
@@ -7,12 +8,13 @@
 //   online + LSE   <- _flash_kernel_res,                            static_max=None
 //   static + LSE   <- _flash_kernel_res_static_max,                 static_max=bound
 //   fused RoPE     <- _flash_rope_kernel, _flash_rope_q_kernel       (online, q rotated)
-// for bf16 inputs; the C entry points lumina_flash_small_kv,
+// for bf16 and fp16 inputs (the operand type T, one instantiation each); the
+// C entry points lumina_flash_small_kv,
 // lumina_flash_online, lumina_flash_static_max, lumina_flash_online_lse,
 // lumina_flash_static_max_lse, lumina_flash_rope and lumina_flash_rope_q
 // stay in flash_fwd.cu (launch counters "small_kv", "online", "static_max",
 // "online_lse", "static_max_lse", "rope", "rope_q"), which calls
-// flash_fwd_sm90() for bf16 and flash_fwd_fp32_sm90() for fp32. The
+// flash_fwd_sm90() for bf16 and fp16 and flash_fwd_fp32_sm90() for fp32. The
 // small-KV kernel (Sk <= 1024, the caption cross-attention) is the online
 // kernel's function over all keys: the online softmax over 64-key tiles is
 // the single-pass exact softmax up to fp32 rounding, so it is the same
@@ -34,7 +36,7 @@
 // `ops/rope.rot_tables`, q arrives unrotated and each consumer warpgroup
 // rotates its own 64 rows of the Q tile in shared memory once, before its
 // first product: x*cos_full + swap_pairs(x)*sin_signed, each product and the
-// sum rounded separately (no FMA contraction), then once to bf16, so the
+// sum rounded separately (no FMA contraction), then once to T, so the
 // rotated tile equals `apply_rope` bit for bit. Each q row is rotated once
 // in the whole grid. k is rotated before the launch, once per kv head, by
 // rope_rotate.cu: rotating it here would repeat the work and the table
@@ -73,13 +75,32 @@
 // query row by a third. S, P and O never leave registers: S's accumulator
 // layout is PV's A-fragment layout.
 //
-// P as a bf16 pair. P enters PV as hi = bf16(p) and lo = bf16(p - hi): two
-// wgmma over the same V per 16-key slice (~16 mantissa bits of p), and the
-// denominator sums the fp32 p. Rounded once, P put the 2B forward 2.31e-2
-// from plain (over its 2e-2 bar); the pair keeps it at 1.84e-2. The cost:
-// PV's tensor work doubles, from 64*64*72 to 2*64*64*72 multiply-adds per
-// warpgroup and tile, so a tile's products are 64*64*(80 + 144) instead of
-// 64*64*(80 + 72) (1.47x), plus a second pack and a subtraction per logit.
+// P as a pair. P enters PV as hi = T(p) and lo = T(p - hi): two wgmma over
+// the same V per 16-key slice (~16 mantissa bits of p in bf16, ~22 in
+// fp16), and the denominator sums the fp32 p. Rounded once, bf16 P put the
+// 2B forward 2.31e-2 from plain (over its 2e-2 bar); the pair keeps it at
+// 1.84e-2. The cost: PV's tensor work doubles, from 64*64*72 to 2*64*64*72
+// multiply-adds per warpgroup and tile, so a tile's products are
+// 64*64*(80 + 144) instead of 64*64*(80 + 72) (1.47x), plus a second pack
+// and a subtraction per logit.
+//
+// fp16. The same kernel on wgmma's .f16 operands (m64nNk16.f32.f16.f16, the
+// same shapes, swizzles and fp32 accumulators), with what fp16's 5 exponent
+// bits need: its largest value is 65504 (about e^11.1) and its smallest
+// normal 2^-14. The online kernel packs p <= 1, which fits. The static max
+// does not: p = exp(min(s - bound, 55)) passes 65504 when a row's logits
+// pass its bound by 11 nats (a stale or low bound), and sits below 2^-14,
+// where the pair loses its bits, when they stay 10 nats under it (the
+// calibrated bound's margin puts most rows there). So each row packs p * sc,
+// sc a power of two kept in the registers of the online kernel's running
+// max (unused by the static max): it starts at 2^127, and when a tile's
+// largest p * sc reaches 2^15 (a warp vote on one compare per element row),
+// the quad's row max sets sc = 2^(14 - floor(log2 max p)) and O's
+// accumulator is scaled by the ratio, as the online kernel applies alpha.
+// So the row's largest p packs into [2^14, 2^15) whatever the bound, and
+// the scaling is exact: the denominator sums the unscaled fp32 p (the LSE
+// reads it as before) and the epilogue divides O by l * sc. bf16 packs p
+// as it is (its exponent range is fp32's).
 //
 // Shared memory. Q, K and V are stored in 128-byte-swizzled atoms of 64
 // columns x rows (TMA's SWIZZLE_128B pattern, wgmma layout type 1), one TMA
@@ -124,14 +145,15 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 160;
 constexpr int kBarFirst = 1;                       // named barrier kBarFirst + c: consumer c's turn
 constexpr int kBarRope = kBarFirst + kConsumers;   // kBarRope + c: consumer c's rotated rows
 constexpr float kClamp = 55.f;  // exponent clamp of the static-max kernel (nats)
+constexpr float kPackTop = 32768.f;  // fp16 static max: a row's packed p stays below 2^15
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
+  const void* q;    // (B, Sq, Hq, D) of the operand type T, as k and v
+  const void* k;
+  const void* v;
   const int* mask;  // (B, Sk) int32 or null
-  bf16* out;
+  void* out;        // T
   float* lse;       // (B, Hq, Sq) fp32 contiguous, or null (no LSE)
   const float* rope_cos;  // (Sq, D) fp32 cos_full, or null (q arrives rotated)
   const float* rope_sin;  // (Sq, D) fp32 sin_signed
@@ -161,7 +183,9 @@ using Smem = KvRing<kBQ, 1, kDK, kDN>;
 // running max m and scales l by alpha, which it returns for o (whose
 // product of the previous tile may still be running). A tile whose keys
 // are all valid (every tile but a ragged or masked one) skips the selects.
-template <bool kStaticMax>
+// fp16 static max: m holds the rows' scales sc, alpha their change, and s
+// leaves as p * sc (see the header).
+template <class T, bool kStaticMax>
 __device__ __forceinline__ void exp_tile(float (&s)[kBK / 2], unsigned long long bits, int t,
                                          float (&l)[2], float (&m)[2], float (&alpha)[2],
                                          const Params& p) {
@@ -177,6 +201,25 @@ __device__ __forceinline__ void exp_tile(float (&s)[kBK / 2], unsigned long long
       for (int i = 0; i < kBK / 2; ++i) {
         const float e = ex2(fminf(fmaf(s[i], p.scale2, -p.bound2), p.clamp2));
         s[i] = key_valid(bits, i) ? e : 0.f;
+      }
+    }
+    if constexpr (kIsF16<T>) {
+      float mx[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      alpha[0] = alpha[1] = 1.f;
+      if (__any_sync(0xffffffffu, mx[0] * m[0] >= kPackTop || mx[1] * m[1] >= kPackTop)) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          // max p >= 2^15 / 2^127: 14 - floor(log2 max p) lies in [-66, 126]
+          if (mx[r] * m[r] >= kPackTop) {
+            const float sc = pow2(14 - ilog2(mx[r]));
+            alpha[r] = sc / m[r];  // a power of two; 0 when it underflows (o was ~0)
+            m[r] = sc;
+          }
+        }
       }
     }
   } else {
@@ -214,30 +257,36 @@ __device__ __forceinline__ void exp_tile(float (&s)[kBK / 2], unsigned long long
     l[0] += s[4 * n] + s[4 * n + 1];
     l[1] += s[4 * n + 2] + s[4 * n + 3];
   }
+  if constexpr (kStaticMax && kIsF16<T>) {
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) s[i] *= m[(i >> 1) & 1];
+  }
 }
 
 // Second half, once the previous tile's PV has finished with o and the P
-// registers: online, o *= alpha; then P as the hi/lo A fragments of PV.
-template <bool kStaticMax, int kDN>
+// registers: online, o *= alpha (fp16 static max: when a row's scale moved
+// in the warp); then P as the hi/lo A fragments of PV.
+template <class T, bool kStaticMax, int kDN>
 __device__ __forceinline__ void pack_tile(const float (&s)[kBK / 2], const float (&alpha)[2],
                                           float (&o)[kDN / 2], uint32_t (&phi)[4][4],
                                           uint32_t (&plo)[4][4]) {
-  if constexpr (!kStaticMax) {
+  if (!kStaticMax ||
+      (kIsF16<T> && __any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))) {
 #pragma unroll
     for (int i = 0; i < kDN / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
   }
-  pack_pair(s, phi, plo);
+  pack_pair<T>(s, phi, plo);
 }
 
 // Rotates a consumer's 64 rows of the Q tile in place (`q_rows`: their first
 // row in the swizzled atoms; `row0`: its query position): each thread takes
-// whole 16-byte chunks, 4 bf16 pairs (2i, 2i+1), which never straddle a
+// whole 16-byte chunks, 4 pairs (2i, 2i+1) of T, which never straddle a
 // chunk. A chunk's column c sits at chunk c % 8 ^ (row % 8) of the row in
 // atom c / 8 (the 128-byte swizzle). Rows at or past Sq (zero-filled) and
 // the columns past D are left as they are. The writes go through the
 // generic proxy: each thread fences them for the async proxy (wgmma), and
 // the warpgroup waits for all of them on its own named barrier.
-template <uint32_t kQAtom>
+template <class T, uint32_t kQAtom>
 __device__ __forceinline__ void rotate_q(unsigned char* q_rows, int row0, int c, int tid,
                                          const Params& p) {
   const int chunks = p.D / 8;
@@ -256,9 +305,9 @@ __device__ __forceinline__ void rotate_q(unsigned char* q_rows, int row0, int c,
     uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float x0 = bf16_lo(w[j]), x1 = bf16_hi(w[j]);
-      w[j] = pack_bf16(__fadd_rn(__fmul_rn(x0, cf[2 * j]), __fmul_rn(x1, sf[2 * j])),
-                       __fadd_rn(__fmul_rn(x1, cf[2 * j + 1]), __fmul_rn(x0, sf[2 * j + 1])));
+      const float x0 = Elem<T>::lo(w[j]), x1 = Elem<T>::hi(w[j]);
+      w[j] = Elem<T>::pack(__fadd_rn(__fmul_rn(x0, cf[2 * j]), __fmul_rn(x1, sf[2 * j])),
+                           __fadd_rn(__fmul_rn(x1, cf[2 * j + 1]), __fmul_rn(x0, sf[2 * j + 1])));
     }
     *at = make_uint4(w[0], w[1], w[2], w[3]);
   }
@@ -266,7 +315,7 @@ __device__ __forceinline__ void rotate_q(unsigned char* q_rows, int row0, int c,
   bar_sync<128>(kBarRope + c);
 }
 
-template <bool kStaticMax, int kDK, int kDN>
+template <class T, bool kStaticMax, int kDK, int kDN>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -319,7 +368,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     float o[kDN / 2];
 #pragma unroll
     for (int i = 0; i < kDN / 2; ++i) o[i] = 0.f;
-    float l[2] = {0.f, 0.f}, m[2] = {-INFINITY, -INFINITY};
+    // m: the running max (online), or the rows' scales (fp16 static max)
+    const float m0 = kStaticMax && kIsF16<T> ? pow2(127) : -INFINITY;
+    float l[2] = {0.f, 0.f}, m[2] = {m0, m0};
     float s[kBK / 2];
     uint32_t phi[4][4], plo[4][4];
 
@@ -328,18 +379,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (c == kConsumers - 1) bar_arrive(kBarFirst);  // consumer 0 issues first
     mbar_wait(base + L::q_full(), 0);
     if (p.rope_cos != nullptr)
-      rotate_q<L::kQAtom>(smem + (base - smem_addr(smem)) + L::kQ + c * kRows * kSwizzle,
+      rotate_q<T, L::kQAtom>(smem + (base - smem_addr(smem)) + L::kQ + c * kRows * kSwizzle,
                           q0 + c * kRows, c, tid, p);
     mbar_wait(base + L::full(0), 0);
     bar_sync(mine);
     wgmma_fence();
-    qk<kDK, L::kQAtom, L::kAtom>(s, q_addr, base + L::k(0));
+    qk<kDK, L::kQAtom, L::kAtom, T>(s, q_addr, base + L::k(0));
     wgmma_commit();
     bar_arrive(other);
     wgmma_wait<0>();
     pin(s);
-    exp_tile<kStaticMax>(s, bits[0], tid % 4, l, m, alpha, p);
-    pack_tile<kStaticMax, kDN>(s, alpha, o, phi, plo);
+    exp_tile<T, kStaticMax>(s, bits[0], tid % 4, l, m, alpha, p);
+    pack_tile<T, kStaticMax, kDN>(s, alpha, o, phi, plo);
 
     // Per tile j: S(j) = QK^T and O += P(j-1) V(j-1) in two wgmma groups;
     // the chain of S(j) runs as soon as the first group is done, beside the
@@ -353,18 +404,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       pin(phi);
       pin(plo);
       wgmma_fence();
-      qk<kDK, L::kQAtom, L::kAtom>(s, q_addr, base + L::k(st));
+      qk<kDK, L::kQAtom, L::kAtom, T>(s, q_addr, base + L::k(st));
       wgmma_commit();
-      mma_pair<kDN, L::kAtom>(o, phi, plo, base + L::v(prev));
+      mma_pair<kDN, L::kAtom, T>(o, phi, plo, base + L::v(prev));
       wgmma_commit();
       bar_arrive(other);
       wgmma_wait<1>();
       pin(s);
-      exp_tile<kStaticMax>(s, bits[st], tid % 4, l, m, alpha, p);
+      exp_tile<T, kStaticMax>(s, bits[st], tid % 4, l, m, alpha, p);
       wgmma_wait<0>();
       pin(o);
       mbar_arrive(base + L::empty(prev));
-      pack_tile<kStaticMax, kDN>(s, alpha, o, phi, plo);
+      pack_tile<T, kStaticMax, kDN>(s, alpha, o, phi, plo);
     }
 
     bar_sync(mine);
@@ -372,7 +423,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     pin(phi);
     pin(plo);
     wgmma_fence();
-    mma_pair<kDN, L::kAtom>(o, phi, plo, base + L::v((nk - 1) % kStages));
+    mma_pair<kDN, L::kAtom, T>(o, phi, plo, base + L::v((nk - 1) % kStages));
     wgmma_commit();
     if (c != kConsumers - 1) bar_arrive(other);  // consumer 0 has no later turn to take
     wgmma_wait<0>();
@@ -393,27 +444,29 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (p.lse != nullptr && lane % 4 == 0)
         p.lse[((long long)b * p.Hq + h) * p.Sq + row] =
             l[r] > 0.f ? kLn2 * ((kStaticMax ? p.bound2 : m[r]) + log2f(l[r])) : -INFINITY;
-      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-      bf16* out = p.out + b * p.o_sb + (long long)row * p.o_ss + h * p.o_sh;
+      // fp16 static max: o holds p * sc (l * sc lies in [2^14, 2^32])
+      const float den = kStaticMax && kIsF16<T> ? l[r] * m[r] : l[r];
+      const float inv = l[r] > 0.f ? 1.f / den : 0.f;
+      T* out = static_cast<T*>(p.out) + b * p.o_sb + (long long)row * p.o_ss + h * p.o_sh;
 #pragma unroll
       for (int n = 0; n < kDN / 8; ++n) {
         const int col = 8 * n + 2 * (lane % 4);
         if (col >= p.D) break;
-        *reinterpret_cast<__nv_bfloat162*>(out + col) =
-            __floats2bfloat162_rn(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+        *reinterpret_cast<uint32_t*>(out + col) =
+            Elem<T>::pack(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
       }
     }
   }
 }
 
-template <bool kStaticMax, int kDK, int kDN>
+template <class T, bool kStaticMax, int kDK, int kDN>
 int launch_dims(const Params& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, kBQ) ||
-      !make_map(&tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, kBK) ||
-      !make_map(&tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, kBK))
+  if (!make_map<T>(&tq, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, kBQ) ||
+      !make_map<T>(&tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, kBK) ||
+      !make_map<T>(&tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, kBK))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_fwd_sm90_kernel<kStaticMax, kDK, kDN>;
+  auto kernel = flash_fwd_sm90_kernel<T, kStaticMax, kDK, kDN>;
   const int bytes = (int)Smem<kDK, kDN>::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -424,16 +477,16 @@ int launch_dims(const Params& p, cudaStream_t stream) {
 }
 
 // QK^T depth and PV width by head_dim: 64/64, 80/72 (the 2B), 128/128
-template <bool kStaticMax>
+template <class T, bool kStaticMax>
 int launch(const Params& p, cudaStream_t stream) {
-  if (p.D <= 64) return launch_dims<kStaticMax, 64, 64>(p, stream);
-  if (p.D <= 72) return launch_dims<kStaticMax, 80, 72>(p, stream);
-  return launch_dims<kStaticMax, 128, 128>(p, stream);
+  if (p.D <= 64) return launch_dims<T, kStaticMax, 64, 64>(p, stream);
+  if (p.D <= 72) return launch_dims<T, kStaticMax, 80, 72>(p, stream);
+  return launch_dims<T, kStaticMax, 128, 128>(p, stream);
 }
 
-template <bool kStaticMax, int kDK, int kDN>
+template <class T, bool kStaticMax, int kDK, int kDN>
 int attributes_dims(long long* out) {
-  auto kernel = flash_fwd_sm90_kernel<kStaticMax, kDK, kDN>;
+  auto kernel = flash_fwd_sm90_kernel<T, kStaticMax, kDK, kDN>;
   const int bytes = (int)Smem<kDK, kDN>::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -455,15 +508,16 @@ int attributes_dims(long long* out) {
 
 }  // namespace
 
-int flash_fwd_sm90(bool static_max, const void* q, const void* k, const void* v, const int* mask,
-                   void* out, float* lse, const float* rope_cos, const float* rope_sin,
-                   const long long* meta, float scale, float bound, void* stream) {
+int flash_fwd_sm90(bool f16, bool static_max, const void* q, const void* k, const void* v,
+                   const int* mask, void* out, float* lse, const float* rope_cos,
+                   const float* rope_sin, const long long* meta, float scale, float bound,
+                   void* stream) {
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
+  p.q = q;
+  p.k = k;
+  p.v = v;
   p.mask = mask;
-  p.out = static_cast<bf16*>(out);
+  p.out = out;
   p.lse = lse;
   p.rope_cos = rope_cos;
   p.rope_sin = rope_sin;
@@ -503,17 +557,33 @@ int flash_fwd_sm90(bool static_max, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (p.Sq == 0 || p.B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_max ? launch<true>(p, s) : launch<false>(p, s);
+  if (f16) return static_max ? launch<fp16, true>(p, s) : launch<fp16, false>(p, s);
+  return static_max ? launch<bf16, true>(p, s) : launch<bf16, false>(p, s);
 }
 
-// The compiled kernel's resources at a head_dim (7 values into out):
-// registers per thread as compiled (the launch bound), the producer's and
-// the consumers' registers after setmaxnreg, local-memory (spill) bytes per
-// thread, shared memory per block, resident blocks per SM, threads per block.
-extern "C" int lumina_flash_fwd_sm90_attributes(int static_max, int head_dim, long long* out) {
+namespace {
+
+template <class T>
+int attributes(int static_max, int head_dim, long long* out) {
   if (head_dim <= 64)
-    return static_max ? attributes_dims<true, 64, 64>(out) : attributes_dims<false, 64, 64>(out);
+    return static_max ? attributes_dims<T, true, 64, 64>(out)
+                      : attributes_dims<T, false, 64, 64>(out);
   if (head_dim <= 72)
-    return static_max ? attributes_dims<true, 80, 72>(out) : attributes_dims<false, 80, 72>(out);
-  return static_max ? attributes_dims<true, 128, 128>(out) : attributes_dims<false, 128, 128>(out);
+    return static_max ? attributes_dims<T, true, 80, 72>(out)
+                      : attributes_dims<T, false, 80, 72>(out);
+  return static_max ? attributes_dims<T, true, 128, 128>(out)
+                    : attributes_dims<T, false, 128, 128>(out);
+}
+
+}  // namespace
+
+// The compiled kernel's resources at a head_dim, for bf16 (f16 = 0) or fp16
+// operands (7 values into out): registers per thread as compiled (the launch
+// bound), the producer's and the consumers' registers after setmaxnreg,
+// local-memory (spill) bytes per thread, shared memory per block, resident
+// blocks per SM, threads per block.
+extern "C" int lumina_flash_fwd_sm90_attributes(int static_max, int head_dim, int f16,
+                                                long long* out) {
+  return f16 ? attributes<fp16>(static_max, head_dim, out)
+             : attributes<bf16>(static_max, head_dim, out);
 }

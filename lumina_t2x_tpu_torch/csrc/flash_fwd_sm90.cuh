@@ -1,9 +1,10 @@
-// The bf16 streaming attention forward of flash_fwd_sm90.cu, called by the
+// The bf16 and fp16 streaming attention forward of flash_fwd_sm90.cu, called by the
 // C entry points lumina_flash_small_kv, lumina_flash_online,
 // lumina_flash_static_max, lumina_flash_online_lse,
 // lumina_flash_static_max_lse, lumina_flash_rope and lumina_flash_rope_q of
 // flash_fwd.cu (whose fp32 inputs take flash_fwd_fp32_sm90.cu).
 //
+// f16: the operands (q, k, v, out) are fp16, else bf16.
 // meta (int64[19]) as those entry points take it: B, Sq, Sk, Hq, Hkv, D,
 // then element strides of q (b, s, h), k (b, s, h), v (b, s, h), out
 // (b, s, h) and the mask (b). lse: a contiguous (B, Hq, Sq) fp32 tensor that
@@ -16,6 +17,7 @@
 
 #pragma once
 
-int flash_fwd_sm90(bool static_max, const void* q, const void* k, const void* v, const int* mask,
-                   void* out, float* lse, const float* rope_cos, const float* rope_sin,
-                   const long long* meta, float scale, float bound, void* stream);
+int flash_fwd_sm90(bool f16, bool static_max, const void* q, const void* k, const void* v,
+                   const int* mask, void* out, float* lse, const float* rope_cos,
+                   const float* rope_sin, const long long* meta, float scale, float bound,
+                   void* stream);

@@ -13,10 +13,12 @@
 // in fp32, each product and the sum rounded separately (no FMA
 // contraction), then once to x's dtype: `apply_rope` bit for bit.
 //
-// Layout: x (B, S, H, D) bf16 or fp32 read in place from element strides
-// (last dim contiguous); out a contiguous (B, S, H, D) tensor of x's dtype.
-// One thread per vector of 8 bf16 (16 bytes) or 2 fp32 elements: D, the
-// strides and the base in whole vectors.
+// Layout: x (B, S, H, D) bf16, fp16 or fp32 read in place from element
+// strides (last dim contiguous); out a contiguous (B, S, H, D) tensor of x's
+// dtype. One thread per vector of 8 bf16 or fp16 (16 bytes) or 2 fp32
+// elements: D, the strides and the base in whole vectors. fp16 rotates like
+// bf16 (the fp16 `flash_rope` rotates its k here and its q in the Hopper
+// forward, with no cast to another type).
 //
 // Why a kernel of its own: rotating k inside the Hopper forward would
 // repeat it for each of the 22 q blocks of a head and read the fp32 tables
@@ -28,6 +30,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <stdint.h>
 
@@ -51,6 +54,7 @@ struct alignas(sizeof(T) * kVec) Vec {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -58,6 +62,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 template <typename T, int kVec>
@@ -105,13 +113,14 @@ int launch(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // x (B, S, H, D) read from element strides, out contiguous (B, S, H, D) of
-// x's dtype (bf16 if is_bf16, else fp32), tables (S, D) fp32 contiguous.
-// meta (int64[7]): B, S, H, D, then x's element strides (b, s, h). Returns
-// the cudaError_t of the launch (0 on success); cudaErrorInvalidValue when
-// D, a stride or a base is not in whole vectors (8 bf16, 2 fp32), or a
+// x's dtype (the code dtype: 0 fp32, 1 bf16, 2 fp16, as the flash entry
+// points take it), tables (S, D) fp32 contiguous. meta (int64[7]): B, S, H,
+// D, then x's element strides (b, s, h). Returns the cudaError_t of the
+// launch (0 on success); cudaErrorInvalidValue for another code, or when D,
+// a stride or a base is not in whole vectors (8 bf16 or fp16, 2 fp32), or a
 // table's base not in whole vectors of as many floats.
 int lumina_rope_rotate(const void* x, void* out, const float* cos_full, const float* sin_signed,
-                       const long long* meta, int is_bf16, void* stream) {
+                       const long long* meta, int dtype, void* stream) {
   Params p;
   p.x = x;
   p.out = out;
@@ -127,7 +136,12 @@ int lumina_rope_rotate(const void* x, void* out, const float* cos_full, const fl
   if (p.D <= 0 || p.D % 2 != 0 || cos_full == nullptr || sin_signed == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16, 8>(p, s) : launch<float, 2>(p, s);
+  switch (dtype) {
+    case 0: return launch<float, 2>(p, s);
+    case 1: return launch<__nv_bfloat16, 8>(p, s);
+    case 2: return launch<__half, 8>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

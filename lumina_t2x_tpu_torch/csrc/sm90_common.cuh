@@ -2,8 +2,9 @@
 // flash_fwd_sm90.cu and flash_bwd_sm90.cu (and the fp32 kernels,
 // flash_fwd_fp32_sm90.cu and flash_bwd_fp32_sm90.cu, which take its copies,
 // mbarriers and exp2): TMA loads and reductions, row bulk copies and 4-byte
-// cp.async, mbarriers, named barriers, wgmma descriptors and products, bf16 packing
-// and the hi/lo pair products, exp2, the 4-D tensor maps, and the K/V ring
+// cp.async, mbarriers, named barriers, wgmma descriptors and products, the
+// operand types (bf16 and fp16: packing, wgmma and tensor-map types) and the
+// hi/lo pair products, exp2, powers of two, the 4-D tensor maps, and the K/V ring
 // (its shared-memory layout and its producer loop) that the forward kernel
 // and the backward's dQ kernel both stream keys through. Everything here
 // lives in an anonymous namespace, so each source that includes it gets its
@@ -14,16 +15,20 @@
 #include <cuda.h>  // CUtensorMap; its encoder is looked up in libcuda at run time
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using fp16 = __half;
 
 constexpr uint32_t kSmemMax = 232448;  // shared memory a block can use
 constexpr int kSwizzle = 128;          // bytes per operand row in an atom
-constexpr int kAtomCols = kSwizzle / 2;  // bf16 columns per atom
+constexpr int kAtomCols = kSwizzle / 2;  // 2-byte (bf16, fp16) columns per atom
 constexpr float kLog2e = 1.4426950408889634f;
 
 // -- PTX ---------------------------------------------------------------------------
@@ -179,12 +184,51 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// -- wgmma products (fp32 accumulators, bf16 operands) -------------------------------
+// 2^e exactly, for an integer e in [-126, 127]
+__device__ __forceinline__ float pow2(int e) { return __int_as_float((127 + e) << 23); }
+// floor(log2 x) of a normal positive float
+__device__ __forceinline__ int ilog2(float x) { return ((__float_as_int(x) >> 23) & 0xff) - 127; }
+
+// -- operand types -------------------------------------------------------------------
+//
+// The Hopper attention kernels take bf16 or fp16 operands (a template
+// parameter T); both are 2 bytes wide, so tiles, swizzles, descriptors and
+// fragment layouts are the same and only the conversions and the wgmma type
+// differ. Elem<T>: two values packed in a 32-bit register (lo in the low
+// half), the low and high value back as fp32, and the tensor-map type.
+template <class T>
+struct Elem;
+template <>
+struct Elem<bf16> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ static uint32_t pack(float lo, float hi) { return pack_bf16(lo, hi); }
+  __device__ static float lo(uint32_t v) { return bf16_lo(v); }
+  __device__ static float hi(uint32_t v) { return bf16_hi(v); }
+};
+template <>
+struct Elem<fp16> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  __device__ static uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  __device__ static float lo(uint32_t v) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(v & 0xffffu)));
+  }
+  __device__ static float hi(uint32_t v) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(v >> 16)));
+  }
+};
+template <class T>
+constexpr bool kIsF16 = std::is_same<T, fp16>::value;
+
+// -- wgmma products (fp32 accumulators, bf16 or fp16 operands) ---------------------
 //
 // ss: A (64 x 16) and B (16 x N) from shared memory through descriptors;
 // kTA / kTB = 1 reads A / B MN-major (transposed), 0 K-major; `accumulate`
 // = 0 overwrites d. rs: A from registers (the accumulator-to-fragment
-// layout), B from shared memory MN-major, d += A B.
+// layout), B from shared memory MN-major, d += A B. Each takes the operand
+// type T (bf16 by default): the same instruction as .bf16.bf16 or .f16.f16.
 
 #define LUMINA_WG_D32                                                                          \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
@@ -207,109 +251,119 @@ __device__ __forceinline__ float ex2(float x) {
   LUMINA_WG_R36 ", %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, " \
                 "%51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
 
+// the asm of one product, its operand type a string literal: TY "bf16" or "f16"
+#define LUMINA_WG_SS(TY, N, R, D, NA, NB, NACC, TRANS)                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #NACC ", 0;\n"                           \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" R              \
+               "}, %" #NA ", %" #NB ", p, 1, 1, " TRANS ";\n}\n"                              \
+               : D                                                                              \
+               : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+#define LUMINA_WG_RS(TY, N, R, D, A0, A1, A2, A3, NB, NACC)                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #NACC ", 0;\n"                           \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" R              \
+               "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #NB ", p, 1, 1, 1;\n}\n"        \
+               : D                                                                              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
 // d (64 x 64) = [d +] A B, both from shared memory, K-major
+template <class T = bf16>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" LUMINA_WG_R32
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : LUMINA_WG_D32
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (kIsF16<T>)
+    LUMINA_WG_SS("f16", 64, LUMINA_WG_R32, LUMINA_WG_D32, 32, 33, 34, "0, 0");
+  else
+    LUMINA_WG_SS("bf16", 64, LUMINA_WG_R32, LUMINA_WG_D32, 32, 33, 34, "0, 0");
 }
 
 // d (64 x N) = [d +] A B, both from shared memory and MN-major
+template <class T = bf16>
 __device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" LUMINA_WG_R32
-      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
-      : LUMINA_WG_D32
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (kIsF16<T>)
+    LUMINA_WG_SS("f16", 64, LUMINA_WG_R32, LUMINA_WG_D32, 32, 33, 34, "1, 1");
+  else
+    LUMINA_WG_SS("bf16", 64, LUMINA_WG_R32, LUMINA_WG_D32, 32, 33, 34, "1, 1");
 }
+template <class T = bf16>
 __device__ __forceinline__ void wgmma_ss_tt(float (&d)[36], uint64_t desc_a, uint64_t desc_b,
                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {" LUMINA_WG_R36
-      "}, %36, %37, p, 1, 1, 1, 1;\n}\n"
-      : LUMINA_WG_D36
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (kIsF16<T>)
+    LUMINA_WG_SS("f16", 72, LUMINA_WG_R36, LUMINA_WG_D36, 36, 37, 38, "1, 1");
+  else
+    LUMINA_WG_SS("bf16", 72, LUMINA_WG_R36, LUMINA_WG_D36, 36, 37, 38, "1, 1");
 }
+template <class T = bf16>
 __device__ __forceinline__ void wgmma_ss_tt(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" LUMINA_WG_R64
-      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
-      : LUMINA_WG_D64
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (kIsF16<T>)
+    LUMINA_WG_SS("f16", 128, LUMINA_WG_R64, LUMINA_WG_D64, 64, 65, 66, "1, 1");
+  else
+    LUMINA_WG_SS("bf16", 128, LUMINA_WG_R64, LUMINA_WG_D64, 64, 65, 66, "1, 1");
 }
 
 // d (64 x N) += A (registers) B (shared memory, MN-major); N = 64, 72, 128 by d's size
+template <class T = bf16>
 __device__ __forceinline__ void wgmma_rs_n(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" LUMINA_WG_R32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : LUMINA_WG_D32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (kIsF16<T>)
+    LUMINA_WG_RS("f16", 64, LUMINA_WG_R32, LUMINA_WG_D32, 32, 33, 34, 35, 36, 37);
+  else
+    LUMINA_WG_RS("bf16", 64, LUMINA_WG_R32, LUMINA_WG_D32, 32, 33, 34, 35, 36, 37);
 }
+template <class T = bf16>
 __device__ __forceinline__ void wgmma_rs_n(float (&d)[36], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {" LUMINA_WG_R36
-      "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
-      : LUMINA_WG_D36
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (kIsF16<T>)
+    LUMINA_WG_RS("f16", 72, LUMINA_WG_R36, LUMINA_WG_D36, 36, 37, 38, 39, 40, 41);
+  else
+    LUMINA_WG_RS("bf16", 72, LUMINA_WG_R36, LUMINA_WG_D36, 36, 37, 38, 39, 40, 41);
 }
+template <class T = bf16>
 __device__ __forceinline__ void wgmma_rs_n(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" LUMINA_WG_R64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : LUMINA_WG_D64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (kIsF16<T>)
+    LUMINA_WG_RS("f16", 128, LUMINA_WG_R64, LUMINA_WG_D64, 64, 65, 66, 67, 68, 69);
+  else
+    LUMINA_WG_RS("bf16", 128, LUMINA_WG_R64, LUMINA_WG_D64, 64, 65, 66, 67, 68, 69);
 }
 
-template <int kDN>
+template <int kDN, class T = bf16>
 __device__ __forceinline__ void wgmma_rs(float (&o)[kDN / 2], const uint32_t (&a)[4],
                                          uint64_t v_desc) {
-  wgmma_rs_n(o, a, v_desc);
+  wgmma_rs_n<T>(o, a, v_desc);
 }
 
 // S = A B^T over depth kDK in k-steps of 16 columns (32 bytes): step kk
 // reads atom kk / 4 of A and B at byte kk % 4 * 32 of each 128-byte row;
 // both K-major, SBO = 8 rows (LBO is not used within an atom). kAtomA and
 // kAtomB are the byte strides of the two operands' 64-column atoms.
-template <int kDK, uint32_t kAtomA, uint32_t kAtomB>
+template <int kDK, uint32_t kAtomA, uint32_t kAtomB, class T = bf16>
 __device__ __forceinline__ void qk(float (&s)[32], uint32_t a_addr, uint32_t b_addr) {
 #pragma unroll
   for (int kk = 0; kk < kDK / 16; ++kk) {
     constexpr int kSteps = kAtomCols / 16;  // k-steps per atom
     const uint32_t at = kk % kSteps * 32;
-    wgmma_ss_n64(s, swz_desc(a_addr + kk / kSteps * kAtomA + at, 16, 8 * kSwizzle),
+    wgmma_ss_n64<T>(s, swz_desc(a_addr + kk / kSteps * kAtomA + at, 16, 8 * kSwizzle),
                  swz_desc(b_addr + kk / kSteps * kAtomB + at, 16, 8 * kSwizzle), kk > 0);
   }
 }
 
-// -- bf16 pairs --------------------------------------------------------------------
+// -- hi/lo pairs --------------------------------------------------------------------
 //
 // x (a 64 x 64 accumulator: x[4n + e] at row g + 8 * (e >> 1), column
 // 8n + 2t + (e & 1)) as the A fragments of four 16-column k-steps, split
-// into the bf16 pair hi = bf16(x) and lo = bf16(x - hi) (~16 mantissa bits)
+// into the pair hi = T(x) and lo = T(x - hi): ~16 mantissa bits in bf16,
+// ~22 in fp16 while x - hi stays above fp16's smallest normal, 2^-14 (the
+// kernels keep what they pack at most 2^15; see each one's header)
+template <class T = bf16>
 __device__ __forceinline__ void pack_pair(const float (&x)[32], uint32_t (&hi)[4][4],
                                           uint32_t (&lo)[4][4]) {
+  using E = Elem<T>;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
-    const uint32_t top = pack_bf16(x[4 * n], x[4 * n + 1]);      // row g,     columns 8n + 2t, +1
-    const uint32_t bot = pack_bf16(x[4 * n + 2], x[4 * n + 3]);  // row g + 8
+    const uint32_t top = E::pack(x[4 * n], x[4 * n + 1]);      // row g,     columns 8n + 2t, +1
+    const uint32_t bot = E::pack(x[4 * n + 2], x[4 * n + 3]);  // row g + 8
     hi[n / 2][2 * (n % 2)] = top;
     hi[n / 2][2 * (n % 2) + 1] = bot;
-    lo[n / 2][2 * (n % 2)] = pack_bf16(x[4 * n] - bf16_lo(top), x[4 * n + 1] - bf16_hi(top));
-    lo[n / 2][2 * (n % 2) + 1] =
-        pack_bf16(x[4 * n + 2] - bf16_lo(bot), x[4 * n + 3] - bf16_hi(bot));
+    lo[n / 2][2 * (n % 2)] = E::pack(x[4 * n] - E::lo(top), x[4 * n + 1] - E::hi(top));
+    lo[n / 2][2 * (n % 2) + 1] = E::pack(x[4 * n + 2] - E::lo(bot), x[4 * n + 3] - E::hi(bot));
   }
 }
 
@@ -317,14 +371,14 @@ __device__ __forceinline__ void pack_pair(const float (&x)[32], uint32_t (&hi)[4
 // (rows of 128 bytes per atom, atom stride kAtom) MN-major: LBO = the atom
 // stride, SBO = 8 rows; slice kk starts 16 rows further. The forward's
 // O += P V, the backward's dV += P^T dO, dK += dS^T Q and dQ += dS K.
-template <int kDN, uint32_t kAtom>
+template <int kDN, uint32_t kAtom, class T = bf16>
 __device__ __forceinline__ void mma_pair(float (&acc)[kDN / 2], const uint32_t (&hi)[4][4],
                                          const uint32_t (&lo)[4][4], uint32_t b_addr) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t desc = swz_desc(b_addr + kk * 16 * kSwizzle, kAtom, 8 * kSwizzle);
-    wgmma_rs<kDN>(acc, hi[kk], desc);
-    wgmma_rs<kDN>(acc, lo[kk], desc);
+    wgmma_rs<kDN, T>(acc, hi[kk], desc);
+    wgmma_rs<kDN, T>(acc, lo[kk], desc);
   }
 }
 
@@ -375,12 +429,14 @@ bool make_map_4d(CUtensorMap* map, CUtensorMapDataType type, int esize, const vo
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// a bf16 (B, S, H, D) tensor as one 128-byte-swizzled atom of a tile: box
-// 64 columns x `rows` rows; columns past D and rows past S arrive as zeros
+// a bf16 or fp16 (T) (B, S, H, D) tensor as one 128-byte-swizzled atom of
+// a tile: box 64 columns x `rows` rows; columns past D and rows past S
+// arrive as zeros
+template <class T = bf16>
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, long long sb,
               long long ss, long long sh, int rows) {
-  return make_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, B, S, H, D, sb, ss, sh,
-                     kAtomCols, rows, CU_TENSOR_MAP_SWIZZLE_128B);
+  return make_map_4d(map, Elem<T>::kMap, 2, ptr, B, S, H, D, sb, ss, sh, kAtomCols, rows,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }

@@ -14,7 +14,9 @@ times the bf16 streaming attention forward (`csrc/flash_fwd_sm90.cu`) and
 lumina_t2x_tpu_torch/exps/fp32_times.py [--root DIR] [--parts ...]` the fp32
 forward (`csrc/flash_fwd_fp32_sm90.cu`), the fp32 backward
 (`csrc/flash_bwd_fp32_sm90.cu`) and the fp32 music trainer's step beside
-fp32 sdpa, for this checkout or another one, on the card only.
+fp32 sdpa, for this checkout or another one, on the card only; `python -m
+lumina_t2x_tpu_torch.exps.fp16_times` times the Hopper kernels' fp16
+instantiations against their bf16 ones in turn at the 2B's shape.
 `python -m lumina_t2x_tpu_torch.exps.quality_flow` is the shapes quality
 check (the flow of `exps/quality_demo.py`) through the port's trainer and
 sampler.

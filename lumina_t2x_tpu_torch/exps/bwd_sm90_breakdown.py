@@ -48,7 +48,7 @@ _BUILD = cuda_lib._BUILD_ROOT.parent / "bwd_sm90_breakdown"
 
 # the parts of the source a variant takes out: (old, new) replaces text that
 # occurs once; (start, end, new) replaces the span from start through end
-_TILE_MATH = ("      wgmma_fence();\n      qk<kDK, L::kKAtom, L::kQAtom>(s, k_addr",
+_TILE_MATH = ("      wgmma_fence();\n      qk<kDK, L::kKAtom, L::kQAtom, T>(s, k_addr",
               "      pin(dk);\n      mbar_arrive(base + L::empty(st));\n",
               "      mbar_arrive(base + L::empty(st));\n")
 _DQ_TILE = ("      if constexpr (kFusedDq) {\n        // dQ_c", "      if constexpr (false) {\n"
@@ -58,13 +58,13 @@ _QDO_LOADS = ("      if (lane == 0) {\n        mbar_expect_tx(base + L::full(st)
               "        mbar_arrive(base + L::full(st));\n      }\n",
               "      mbar_arrive(base + L::full(st));\n")
 _CHAIN = [("      probs(s, stats, key_ok, t, p.scale2);\n", ""),
-          ("      dscores(dp, s, stats + kBM, t, p.scale);\n", "")]
+          ("      dscores(dp, s, stats + kBM, t, ds_scale);\n", "")]
 _ADD_DQ = ("        add_dq<kDN>(", "                    b);\n", "")
-_ONCE = [("    wgmma_rs<kDN>(acc, lo[kk], desc);\n", ""),
-         ("    lo[n / 2][2 * (n % 2)] = pack_bf16(x[4 * n] - bf16_lo(top), x[4 * n + 1] - "
-          "bf16_hi(top));\n", ""),
-         ("    lo[n / 2][2 * (n % 2) + 1] =\n        pack_bf16(x[4 * n + 2] - bf16_lo(bot), "
-          "x[4 * n + 3] - bf16_hi(bot));\n", ""),
+_ONCE = [("    wgmma_rs<kDN, T>(acc, lo[kk], desc);\n", ""),
+         ("    lo[n / 2][2 * (n % 2)] = E::pack(x[4 * n] - E::lo(top), x[4 * n + 1] - "
+          "E::hi(top));\n", ""),
+         ("    lo[n / 2][2 * (n % 2) + 1] = E::pack(x[4 * n + 2] - E::lo(bot), "
+          "x[4 * n + 3] - E::hi(bot));\n", ""),
          ("        store_ds(base + L::ds(c, 1), dlo, row0, t);\n", ""),
          ("for (int lo = 0; lo < 2; ++lo)", "for (int lo = 0; lo < 1; ++lo)")]
 _EDITS = {
@@ -74,14 +74,14 @@ _EDITS = {
     "no dQ reduce": [_ADD_DQ, _FIRST_FREE],
     "P/dS once": _ONCE,
 }
-# each variant exports the launcher under a C name
+# each variant exports the launcher under a C name (bf16, no dS scale)
 _ENTRY = """
 extern "C" int breakdown_bwd(int fused, const void* q, const void* k, const void* v,
                              const int* mask, const void* dout, const float* lse,
                              const float* delta, void* dq, void* dk, void* dv,
                              const long long* meta, float scale, void* stream) {
-  return flash_bwd_sm90(fused != 0, q, k, v, mask, dout, lse, delta, dq, dk, dv, meta, scale,
-                        stream);
+  return flash_bwd_sm90(false, fused != 0, q, k, v, mask, dout, lse, delta, nullptr, dq, dk, dv,
+                        meta, scale, stream);
 }
 """
 

@@ -49,12 +49,12 @@ SOURCE = cuda_lib._CSRC / "flash_fwd_sm90.cu"
 _BUILD = cuda_lib._BUILD_ROOT.parent / "fwd_sm90_breakdown"
 
 # the parts of the source a variant takes out (each must occur once)
-_LOOP_PRODUCTS = """      qk<kDK, L::kQAtom, L::kAtom>(s, q_addr, base + L::k(st));
+_LOOP_PRODUCTS = """      qk<kDK, L::kQAtom, L::kAtom, T>(s, q_addr, base + L::k(st));
       wgmma_commit();
-      mma_pair<kDN, L::kAtom>(o, phi, plo, base + L::v(prev));
+      mma_pair<kDN, L::kAtom, T>(o, phi, plo, base + L::v(prev));
 """
-_LOOP_EXP = "      exp_tile<kStaticMax>(s, bits[st], tid % 4, l, m, alpha, p);\n"
-_LOOP_PACK = "      pack_tile<kStaticMax, kDN>(s, alpha, o, phi, plo);\n"
+_LOOP_EXP = "      exp_tile<T, kStaticMax>(s, bits[st], tid % 4, l, m, alpha, p);\n"
+_LOOP_PACK = "      pack_tile<T, kStaticMax, kDN>(s, alpha, o, phi, plo);\n"
 _KV_LOADS = """      mbar_expect_tx(base + L::full(st), L::kStageBytes);
       for (int a = 0; a < L::kAtomsK; ++a)
         tma_load(base + L::k(st) + a * L::kAtom, tk, base + L::full(st), a * kAtomCols, hk, j0, b);
@@ -62,10 +62,9 @@ _KV_LOADS = """      mbar_expect_tx(base + L::full(st), L::kStageBytes);
         tma_load(base + L::v(st) + a * L::kAtom, tv, base + L::full(st), a * kAtomCols, hk, j0, b);
 """
 _NO_KV = "      mbar_arrive(base + L::full(st));\n"
-_LO_PRODUCT = "    wgmma_rs<kDN>(acc, lo[kk], desc);\n"
-_LO_PACK = """    lo[n / 2][2 * (n % 2)] = pack_bf16(x[4 * n] - bf16_lo(top), x[4 * n + 1] - bf16_hi(top));
-    lo[n / 2][2 * (n % 2) + 1] =
-        pack_bf16(x[4 * n + 2] - bf16_lo(bot), x[4 * n + 3] - bf16_hi(bot));
+_LO_PRODUCT = "    wgmma_rs<kDN, T>(acc, lo[kk], desc);\n"
+_LO_PACK = """    lo[n / 2][2 * (n % 2)] = E::pack(x[4 * n] - E::lo(top), x[4 * n + 1] - E::hi(top));
+    lo[n / 2][2 * (n % 2) + 1] = E::pack(x[4 * n + 2] - E::lo(bot), x[4 * n + 3] - E::hi(bot));
 """
 _EDITS = {
     "kernel": [],
@@ -74,13 +73,13 @@ _EDITS = {
     "products only": [(_KV_LOADS, _NO_KV), (_LOOP_EXP, ""), (_LOOP_PACK, "")],
     "P once": [(_LO_PRODUCT, ""), (_LO_PACK, "")],
 }
-# each variant exports the launcher under a C name (K2/K3: no LSE, no rotation)
+# each variant exports the launcher under a C name (bf16 K2/K3: no LSE, no rotation)
 _ENTRY = """
 extern "C" int breakdown_fwd(int static_max, const void* q, const void* k, const void* v,
                              const int* mask, void* out, const long long* meta, float scale,
                              float bound, void* stream) {
-  return flash_fwd_sm90(static_max != 0, q, k, v, mask, out, nullptr, nullptr, nullptr, meta,
-                        scale, bound, stream);
+  return flash_fwd_sm90(false, static_max != 0, q, k, v, mask, out, nullptr, nullptr, nullptr,
+                        meta, scale, bound, stream);
 }
 """
 

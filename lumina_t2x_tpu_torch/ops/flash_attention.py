@@ -1,7 +1,8 @@
 """Flash attention: hand-written Hopper kernels and their plain PyTorch
 versions (counterpart of `lumina_t2x_tpu/ops/flash_attention.py`).
 
-Ten entry points, each with its own launch counter (`LAUNCHES`), each
+Ten entry points, each with its own launch counter (`LAUNCHES`; split by
+operand dtype in `DTYPE_LAUNCHES`), each
 standing in for one Pallas TPU kernel, and `rope_rotate`, the rotation the
 fused-RoPE route runs before its forward:
 
@@ -32,35 +33,39 @@ and the backward kernels, and inverse-rotates dq (and dk).
 The CUDA C++ sources are `lumina_t2x_tpu_torch/csrc/flash_fwd.cu` (the
 forward entry points), `csrc/flash_bwd.cu` (the backward entry points), the
 Hopper redesigns `csrc/flash_fwd_sm90.cu`
-(bf16 `flash_small_kv`, `flash_online`, `flash_static_max`,
+(bf16 and fp16 `flash_small_kv`, `flash_online`, `flash_static_max`,
 `flash_online_lse`, `flash_static_max_lse`, `flash_rope`, `flash_rope_q`;
 the LSE written from the consumers' registers, q rotated in shared memory),
 `csrc/flash_fwd_fp32_sm90.cu` (the same seven forwards in fp32: FFMA products
 tiled in registers, exact to fp32; operands not in whole 16-byte chunks read
 in place by 4-byte copies, any head_dim up to 128) and
-`csrc/flash_bwd_sm90.cu` (bf16 `flash_bwd_fused` / `flash_bwd_dkv`, and
-`flash_bwd_dq`'s own kernel: q rows as the block, a ring of K/V tiles),
+`csrc/flash_bwd_sm90.cu` (bf16 and fp16 `flash_bwd_fused` / `flash_bwd_dkv`,
+and `flash_bwd_dq`'s own kernel: q rows as the block, a ring of K/V tiles),
 `csrc/flash_bwd_fp32_sm90.cu` (the three backwards in fp32: FFMA products
 tiled in registers, dK/dV or dQ held in registers, the fused sweep's dQ
 added by TMA bulk reduce-adds), with `csrc/rope_rotate.cu` (`rope_rotate`);
 they are built into one library by
 `ops/cuda_lib.py` at first use, under `build/kernels/<source hash>/` at the
 repository root, and bound through ctypes. A wrapper takes its plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises. The bf16 Hopper
-kernels read q, k, v (and dout) through TMA tensor maps in 16-byte chunks:
-they take head_dim a multiple of 8 (else ValueError; so does every bf16
-call, `flash_small_kv`, `flash_bwd_dq` and the fused-RoPE ones included),
-and an operand whose
+tensors; for CUDA tensors it launches the kernel or raises. The bf16 and
+fp16 Hopper kernels read q, k, v (and dout) through TMA tensor maps in
+16-byte chunks: they take head_dim a multiple of 8 (else ValueError; so
+does every bf16 and fp16 call, `flash_small_kv`, `flash_bwd_dq` and the
+fused-RoPE ones included), and an operand whose
 base or (b, s, h) strides are not whole chunks, or whose strides do not
 grow from h to s to b, is copied contiguous first (`_chunk_aligned`; a
 strided view such as q, k, v of a fused (B, S, 3, H, D) tensor is read in
 place).
 
-fp16 q/k/v take the fp32 kernels: each entry point casts them (and dout,
-out) to fp32 once at the wrapper, runs the fp32 kernel and returns its
-outputs in fp16 (gradients in their inputs' dtype; the LSE stays fp32).
-This is the route for fp16, not a fallback: no fp16 kernel exists, and any
-dtype other than bf16, fp16 and fp32 raises.
+fp16 q/k/v take the Hopper kernels' fp16 instantiations (wgmma on .f16
+operands), under the same checks as bf16; no entry point casts them to
+another type. Two things differ from bf16, where fp16's 5 exponent bits
+need them (each kernel's header says how): the static-max forward packs
+each row's p at a power-of-two scale that follows the row's largest p, and
+the backward packs dS at 2^-e, e = floor(log2 max|dO|) (`_do_amax`: one
+reduction over dO on the card, read by the kernels). fp32 runs the fp32
+kernels; any other dtype raises. The C entry points take the dtype as a
+code (`_DTYPE_CODES`).
 
 Contract shared by kernel and plain version: q (B, Sq, Hq, D), k/v
 (B, Sk, Hkv, D), optional key mask (B, Sk) with nonzero on valid keys, GQA
@@ -98,14 +103,24 @@ _FWD_ENTRIES = ("small_kv", "online", "static_max", "online_lse", "static_max_ls
 _BWD_ENTRIES = ("bwd_fused", "bwd_dq", "bwd_dkv")
 _ROPE_ENTRIES = ("rope", "rope_q")
 LAUNCHES = {name: 0 for name in _FWD_ENTRIES + _BWD_ENTRIES + _ROPE_ENTRIES + ("rope_rotate",)}
+# the same launches split by operand dtype: "<entry>_fp32", "_bf16", "_fp16"
+_DTYPE_TAGS = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.float16: "fp16"}
+DTYPE_LAUNCHES = {f"{name}_{tag}": 0 for name in LAUNCHES for tag in _DTYPE_TAGS.values()}
 # calls of the plain versions on CUDA tensors (the main path should make none)
 PLAIN_CUDA_CALLS = {"count": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, DTYPE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
     PLAIN_CUDA_CALLS["count"] = 0
+
+
+def _count_launch(name, dtype) -> None:
+    """One launch of `lumina_flash_<name>` (or rope_rotate) on `dtype` operands."""
+    LAUNCHES[name] += 1
+    DTYPE_LAUNCHES[f"{name}_{_DTYPE_TAGS[dtype]}"] += 1
 
 
 # -- static-max bounds: the inference slot and the train slot -------------------
@@ -297,14 +312,17 @@ def flash_rope_q_plain(q, k, v, angles, kv_mask, scale):
 # -- the CUDA library ----------------------------------------------------------
 
 _ptr, _meta = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)
-# forward: q, k, v, mask, out, lse, meta, scale, bound, is_bf16, stream
+# forward: q, k, v, mask, out, lse, meta, scale, bound, dtype code, stream
 _FWD_ARGS = [_ptr] * 6 + [_meta, ctypes.c_float, ctypes.c_float, ctypes.c_int, _ptr]
-# backward: q, k, v, mask, dout, lse, delta, dq, dk, dv, meta, scale, is_bf16, stream
-_BWD_ARGS = [_ptr] * 10 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
-# rope: q, k, v, mask, out, cos_full, sin_signed, meta, scale, is_bf16, stream
+# backward: q, k, v, mask, dout, lse, delta, do_amax, dq, dk, dv, meta, scale, dtype code,
+# stream
+_BWD_ARGS = [_ptr] * 11 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
+# rope: q, k, v, mask, out, cos_full, sin_signed, meta, scale, dtype code, stream
 _ROPE_ARGS = [_ptr] * 7 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
-# rope_rotate: x, out, cos_full, sin_signed, meta (int64[7]), is_bf16, stream
+# rope_rotate: x, out, cos_full, sin_signed, meta (int64[7]), dtype code, stream
 _ROTATE_ARGS = [_ptr] * 4 + [_meta, ctypes.c_int, _ptr]
+# the dtype codes of the C entry points (the kernels' operand types)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 LIBRARY = "flash"  # the library of K1-K9 (`ops/cuda_lib.py`)
 cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
                           "flash_fwd_fp32_sm90.cu", "flash_bwd_sm90.cu",
@@ -313,10 +331,10 @@ cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
     **{f"lumina_flash_{name}": _BWD_ARGS for name in _BWD_ENTRIES},
     **{f"lumina_flash_{name}": _ROPE_ARGS for name in _ROPE_ENTRIES},
     "lumina_rope_rotate": _ROTATE_ARGS,
-    # static_max (fused), head_dim, out (int64[7]); launch nothing
-    "lumina_flash_fwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta],
-    # which (0 dK/dV, 1 fused, 2 dQ), head_dim, out (int64[7])
-    "lumina_flash_bwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, _meta],
+    # static_max (fused), head_dim, fp16, out (int64[7]); launch nothing
+    "lumina_flash_fwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _meta],
+    # which (0 dK/dV, 1 fused, 2 dQ), head_dim, fp16, out (int64[7])
+    "lumina_flash_bwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _meta],
     # static_max, meta (the forward's, shapes read), out (int64[8]); launch nothing
     "lumina_flash_fwd_fp32_attributes": [ctypes.c_int, _meta, _meta],
     # which (0 dK/dV, 1 fused, 2 dQ), meta (the backward's, shapes read), out
@@ -326,22 +344,25 @@ _SM90_ATTRIBUTES = ("registers", "producer_registers", "consumer_registers", "lo
                     "shared_bytes", "blocks_per_sm", "threads")
 
 
-def _attributes(symbol, flag, head_dim):
+def _attributes(symbol, flag, head_dim, dtype):
+    if dtype not in _SM90_DTYPES:
+        raise TypeError(f"the Hopper kernels are instantiated for bf16 and fp16, not {dtype}")
     out = (ctypes.c_longlong * len(_SM90_ATTRIBUTES))()
-    err = getattr(cuda_lib.build_library(LIBRARY), symbol)(int(flag), int(head_dim), out)
+    err = getattr(cuda_lib.build_library(LIBRARY), symbol)(int(flag), int(head_dim),
+                                                           int(dtype == torch.float16), out)
     if err != 0:
         raise RuntimeError(f"{symbol} failed: cudaError {err}")
     return dict(zip(_SM90_ATTRIBUTES, out))
 
 
-def sm90_attributes(static_max: bool, head_dim: int = 72) -> dict:
-    """Resources of the compiled bf16 streaming kernel (`csrc/flash_fwd_sm90.cu`;
-    with or without the LSE, one instantiation) at `head_dim`, from the CUDA
-    runtime: registers per thread as compiled (the launch bound) and per
-    producer / consumer thread after `setmaxnreg`, local-memory (spill) bytes
-    per thread, shared memory per block, resident blocks per SM, threads per
-    block."""
-    return _attributes("lumina_flash_fwd_sm90_attributes", static_max, head_dim)
+def sm90_attributes(static_max: bool, head_dim: int = 72, dtype=torch.bfloat16) -> dict:
+    """Resources of the compiled streaming kernel (`csrc/flash_fwd_sm90.cu`;
+    with or without the LSE, one instantiation) for `dtype` (bf16 or fp16)
+    at `head_dim`, from the CUDA runtime: registers per thread as compiled
+    (the launch bound) and per producer / consumer thread after
+    `setmaxnreg`, local-memory (spill) bytes per thread, shared memory per
+    block, resident blocks per SM, threads per block."""
+    return _attributes("lumina_flash_fwd_sm90_attributes", static_max, head_dim, dtype)
 
 
 _FP32_ATTRIBUTES = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads",
@@ -368,14 +389,14 @@ def fp32_attributes(static_max: bool, b: int, sq: int, sk: int, hq: int, hkv: in
 _BWD_SM90_KERNELS = ("dkv", "fused", "dq")  # the C entry's `which`, in order
 
 
-def bwd_sm90_attributes(kernel: str, head_dim: int = 72) -> dict:
-    """`sm90_attributes` of a bf16 backward kernel (`csrc/flash_bwd_sm90.cu`):
-    `kernel` is "fused" (the fused sweep, K6), "dkv" (dK/dV only, K8) or "dq"
-    (the dQ kernel, K7)."""
+def bwd_sm90_attributes(kernel: str, head_dim: int = 72, dtype=torch.bfloat16) -> dict:
+    """`sm90_attributes` of a bf16 or fp16 backward kernel
+    (`csrc/flash_bwd_sm90.cu`): `kernel` is "fused" (the fused sweep, K6),
+    "dkv" (dK/dV only, K8) or "dq" (the dQ kernel, K7)."""
     if kernel not in _BWD_SM90_KERNELS:
         raise ValueError(f"kernel must be one of {_BWD_SM90_KERNELS}, not {kernel!r}")
     return _attributes("lumina_flash_bwd_sm90_attributes", _BWD_SM90_KERNELS.index(kernel),
-                       head_dim)
+                       head_dim, dtype)
 
 
 _BWD_FP32_ATTRIBUTES = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads",
@@ -403,12 +424,8 @@ def bwd_fp32_attributes(kernel: str, b: int, sq: int, sk: int, hq: int, hkv: int
 
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
-
-
-def _fp32_if_fp16(*tensors):
-    """The fp16 route: fp16 tensors cast to fp32 (the fp32 kernels run them;
-    there is no fp16 kernel), other tensors and None as they are."""
-    return tuple(t.float() if t is not None and t.dtype == torch.float16 else t for t in tensors)
+# the dtypes of the Hopper kernels' instantiations (fp32 runs the fp32 kernels)
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def _check_inputs(q, k, v, kv_mask):
@@ -440,7 +457,7 @@ def _check_inputs(q, k, v, kv_mask):
     return q, k, v, kv_mask
 
 
-# the entry points whose bf16 inputs take the Hopper kernels of
+# the entry points whose bf16 and fp16 inputs take the Hopper kernels of
 # `csrc/flash_fwd_sm90.cu` (K1-K5) and `csrc/flash_bwd_sm90.cu` (K6-K8)
 _SM90_ENTRIES = ("small_kv", "online", "static_max", "online_lse", "static_max_lse")
 _SM90_BWD_ENTRIES = ("bwd_fused", "bwd_dq", "bwd_dkv")
@@ -448,12 +465,12 @@ _SM90_BWD_ENTRIES = ("bwd_fused", "bwd_dq", "bwd_dkv")
 
 def _sm90_head_dim(name, d):
     if d % 8:
-        raise ValueError(f"bf16 flash_{name} takes head_dim a multiple of 8 (16-byte "
+        raise ValueError(f"bf16 and fp16 flash_{name} take head_dim a multiple of 8 (16-byte "
                          f"chunks), got {d}")
 
 
 def _chunk_aligned(t):
-    """t as a bf16 Hopper kernel's TMA tensor map reads it -- base and
+    """t as a Hopper kernel's TMA tensor map reads it -- base and
     (b, s, h) element strides in whole 16-byte chunks, 0 < h stride <= s
     stride <= b stride -- t itself when it is so, else a contiguous copy."""
     sb, ss, sh = t.stride()[:3]
@@ -496,16 +513,14 @@ def _stream(t):
 def _launch(name, q, k, v, kv_mask, scale, bound=0.0, with_lse=False):
     """Check what the kernel takes, allocate the outputs and launch
     `lumina_flash_<name>` on the current stream; returns out or (out, lse).
-    fp16 inputs run the fp32 kernel (`_fp32_if_fp16`), out comes back fp16.
-    Tensors made here (contiguous copies, the int32 mask) may be freed while
+    bf16 and fp16 take the Hopper kernel's instantiation of their type,
+    fp32 the fp32 kernel. Tensors made here (contiguous copies, the int32 mask) may be freed while
     the kernel runs: the caching allocator reuses their memory only for work
     queued after it on the same stream."""
     q, k, v, kv_mask = _check_inputs(q, k, v, kv_mask)
-    half = q.dtype == torch.float16
-    q, k, v = _fp32_if_fp16(q, k, v)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
-    if name in _SM90_ENTRIES and q.dtype == torch.bfloat16:
+    if name in _SM90_ENTRIES and q.dtype in _SM90_DTYPES:
         _sm90_head_dim(name, d)
         q, k, v = (_chunk_aligned(t) for t in (q, k, v))
     lib = cuda_lib.build_library(LIBRARY)
@@ -517,12 +532,10 @@ def _launch(name, q, k, v, kv_mask, scale, bound=0.0, with_lse=False):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kv_mask.data_ptr() if kv_mask is not None else None, out.data_ptr(),
             lse.data_ptr() if with_lse else None, _fwd_meta(q, k, v, out, kv_mask), scale, bound,
-            int(q.dtype == torch.bfloat16), _stream(q))
+            _DTYPE_CODES[q.dtype], _stream(q))
     if err != 0:
         raise RuntimeError(f"flash kernel {name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
-    if half:
-        out = out.half()
+    _count_launch(name, q.dtype)
     return (out, lse) if with_lse else out
 
 
@@ -545,9 +558,9 @@ def _rotation_tables(angles, d):
 
 def _rotatable(t):
     """t as `lumina_rope_rotate` reads it -- base and (b, s, h) element
-    strides in whole vectors of 8 bf16 or 2 fp32 elements -- t itself when
-    it is so, else a contiguous copy."""
-    n = 8 if t.dtype == torch.bfloat16 else 2
+    strides in whole vectors of 8 bf16 or fp16 or 2 fp32 elements -- t
+    itself when it is so, else a contiguous copy."""
+    n = 8 if t.dtype in _SM90_DTYPES else 2
     if t.data_ptr() % (n * t.element_size()) == 0 and all(st % n == 0 for st in t.stride()[:3]):
         return t
     return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
@@ -561,34 +574,33 @@ def _rotate(x, cos_full, sin_signed):
     out = torch.empty((b, s, h, d), dtype=x.dtype, device=x.device)
     err = cuda_lib.build_library(LIBRARY).lumina_rope_rotate(
         x.data_ptr(), out.data_ptr(), cos_full.data_ptr(), sin_signed.data_ptr(),
-        (ctypes.c_longlong * 7)(b, s, h, d, *x.stride()[:3]), int(x.dtype == torch.bfloat16),
-        _stream(x))
+        (ctypes.c_longlong * 7)(b, s, h, d, *x.stride()[:3]), _DTYPE_CODES[x.dtype], _stream(x))
     if err != 0:
         raise RuntimeError(f"rope_rotate launch failed: cudaError {err}")
-    LAUNCHES["rope_rotate"] += 1
+    _count_launch("rope_rotate", x.dtype)
     return out
 
 
 def _check_rope_args(name, q, k, angles):
     """What the fused-RoPE route takes beyond `_check_inputs`: (S, D/2)
     angles for an even head_dim, Sk == Sq for `rope`, and head_dim a
-    multiple of 8 in bf16 (the Hopper forward's and `rope_rotate`'s 16-byte
-    chunks). Raises ValueError before anything is launched."""
+    multiple of 8 in bf16 and fp16 (the Hopper forward's and `rope_rotate`'s
+    16-byte chunks). Raises ValueError before anything is launched."""
     sq, d = q.shape[1], q.shape[-1]
     if d % 2 or tuple(angles.shape) != (sq, d // 2):
         raise ValueError(f"angles {tuple(angles.shape)} must be (Sq, D/2) = {(sq, d // 2)}")
     if name == "rope" and k.shape[1] != sq:
         raise ValueError(f"flash_rope rotates k by the query positions: Sk {k.shape[1]} != Sq {sq}")
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _SM90_DTYPES:
         _sm90_head_dim(name, d)
 
 
 def _rope_rotated_first(name, dtype):
     """The operands `rope_rotate` turns before the forward of `name` runs:
-    k for `rope` (bf16 q is rotated inside the Hopper forward), and q as
-    well in fp32 (the fp32 forward rotates nothing)."""
+    k for `rope` (bf16 and fp16 q are rotated inside the Hopper forward),
+    and q as well in fp32 (the fp32 forward rotates nothing)."""
     first = ("k",) if name == "rope" else ()
-    return first if dtype == torch.bfloat16 else ("q", *first)
+    return first if dtype in _SM90_DTYPES else ("q", *first)
 
 
 def _launch_rope(name, q, k, v, angles, kv_mask, scale):
@@ -596,16 +608,13 @@ def _launch_rope(name, q, k, v, angles, kv_mask, scale):
     rotation tables on the card with `rot_tables` (the plain version's
     arithmetic; `_rotation_tables` reuses them across a forward's calls),
     rotate the operands `_rope_rotated_first` names with `rope_rotate`'s
-    kernel and launch `lumina_flash_<name>`: in bf16 the Hopper forward,
-    handed the tables to rotate q in shared memory; in fp32 the fp32
-    forward's online kernel (fp16 q/k/v too, cast to fp32 first). Returns
-    out in q's dtype."""
+    kernel and launch `lumina_flash_<name>`: in bf16 and fp16 the Hopper
+    forward of that type, handed the tables to rotate q in shared memory;
+    in fp32 the fp32 forward's online kernel. Returns out in q's dtype."""
     _check_rope_args(name, q, k, angles)
     q, k, v, kv_mask = _check_inputs(q, k, v, kv_mask)
-    half = q.dtype == torch.float16
-    q, k, v = _fp32_if_fp16(q, k, v)
     b, sq, hq, d = q.shape
-    bf16 = q.dtype == torch.bfloat16
+    hopper = q.dtype in _SM90_DTYPES
     lib = cuda_lib.build_library(LIBRARY)
     with _on_device(q):
         cos_full, sin_signed = _rotation_tables(angles.to(q.device), d)
@@ -614,18 +623,18 @@ def _launch_rope(name, q, k, v, angles, kv_mask, scale):
             q = _rotate(q, cos_full, sin_signed)
         if "k" in first:
             k = _rotate(k, cos_full, sin_signed)
-        if bf16:
+        if hopper:
             q, k, v = (_chunk_aligned(t) for t in (q, k, v))
         out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
         err = getattr(lib, f"lumina_flash_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kv_mask.data_ptr() if kv_mask is not None else None, out.data_ptr(),
-            cos_full.data_ptr() if bf16 else None, sin_signed.data_ptr() if bf16 else None,
-            _fwd_meta(q, k, v, out, kv_mask), scale, int(bf16), _stream(q))
+            cos_full.data_ptr() if hopper else None, sin_signed.data_ptr() if hopper else None,
+            _fwd_meta(q, k, v, out, kv_mask), scale, _DTYPE_CODES[q.dtype], _stream(q))
     if err != 0:
         raise RuntimeError(f"flash kernel {name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
-    return out.half() if half else out
+    _count_launch(name, q.dtype)
+    return out
 
 
 def _bwd_delta(out, dout):
@@ -633,16 +642,22 @@ def _bwd_delta(out, dout):
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def _do_amax(dout):
+    """max|dO| of an fp16 dO as one fp16 on its device (one reduction, no
+    host sync; exact: it is one of dO's values): the fp16 backward kernels
+    scale dS by it (see `csrc/flash_bwd_sm90.cu`)."""
+    return torch.linalg.vector_norm(dout, float("inf")).reshape(1)
+
+
 def _launch_bwd(name, q, k, v, kv_mask, out, lse, dout, scale):
     """Check what the backward kernels take, allocate the outputs (dq as a
     zeroed fp32 buffer for the fused sweep) and launch `lumina_flash_<name>`
     on the current stream; returns (dq, dk, dv), None where the kernel does
-    not write. fp16 inputs run the fp32 kernels (`_fp32_if_fp16`); dk, dv
-    and `bwd_dq`'s dq come back fp16 (the fused sweep's fp32 dq is cast by
-    `flash_bwd_fused`)."""
+    not write. bf16 and fp16 take the Hopper kernels' instantiation of their
+    type (fp16 with max|dO|, `_do_amax`), fp32 the fp32 kernels; dk, dv and
+    `bwd_dq`'s dq come back in q's dtype (the fused sweep's fp32 dq is cast
+    by `flash_bwd_fused`)."""
     q, k, v, kv_mask = _check_inputs(q, k, v, kv_mask)
-    half = q.dtype == torch.float16
-    q, k, v, out, dout = _fp32_if_fp16(q, k, v, out, dout)
     b, sq, hq, d = q.shape
     if dout.shape != q.shape or not dout.is_cuda or tuple(lse.shape) != (b, hq, sq):
         raise ValueError(f"bad shapes dout {tuple(dout.shape)} lse {tuple(lse.shape)} "
@@ -651,10 +666,11 @@ def _launch_bwd(name, q, k, v, kv_mask, out, lse, dout, scale):
     with _on_device(q):
         dout = dout.to(q.dtype)
         dout = dout if dout.stride(-1) == 1 else dout.contiguous()
-        if name in _SM90_BWD_ENTRIES and q.dtype == torch.bfloat16:
+        if name in _SM90_BWD_ENTRIES and q.dtype in _SM90_DTYPES:
             _sm90_head_dim(name, d)
             q, k, v, dout = (_chunk_aligned(t) for t in (q, k, v, dout))
         delta = _bwd_delta(out, dout)
+        amax = _do_amax(dout) if q.dtype == torch.float16 and dout.numel() else None
         lse = lse.float().contiguous()
         new = lambda shape, dtype: torch.empty(shape, dtype=dtype, device=q.device)
         dq = dk = dv = None
@@ -673,19 +689,12 @@ def _launch_bwd(name, q, k, v, kv_mask, out, lse, dout, scale):
         ptr = lambda t: t.data_ptr() if t is not None else None
         err = getattr(lib, f"lumina_flash_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(kv_mask), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), ptr(dq), ptr(dk), ptr(dv), meta, scale,
-            int(q.dtype == torch.bfloat16), _stream(q))
+            lse.data_ptr(), delta.data_ptr(), ptr(amax), ptr(dq), ptr(dk), ptr(dv), meta, scale,
+            _DTYPE_CODES[q.dtype], _stream(q))
     if err != 0:
         raise RuntimeError(f"flash kernel {name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
-    if half:
-        dk, dv = _fp16(dk), _fp16(dv)
-        dq = dq if name == "bwd_fused" else _fp16(dq)
+    _count_launch(name, q.dtype)
     return dq, dk, dv
-
-
-def _fp16(t):
-    return t.half() if t is not None else None
 
 
 def _scale(q, scale):
@@ -764,36 +773,36 @@ def flash_bwd_dkv(q, k, v, kv_mask, out, lse, dout, scale: Optional[float] = Non
 def flash_rope(q, k, v, angles, kv_mask=None, scale: Optional[float] = None):
     """Online-softmax attention of unrotated q and k (Sq == Sk), both rotated
     by the (Sq, D/2) fp32 `angles` (replaces `_flash_rope_kernel`): k once by
-    `rope_rotate`'s kernel, bf16 q inside the Hopper forward (fp32 q by
-    `rope_rotate` too)."""
+    `rope_rotate`'s kernel, bf16 and fp16 q inside the Hopper forward (fp32
+    q by `rope_rotate` too)."""
     if not q.is_cuda:
         return flash_rope_plain(q, k, v, angles, kv_mask, _scale(q, scale))
     return _launch_rope("rope", q, k, v, angles, kv_mask, _scale(q, scale))
 
 
 def flash_rope_q(q, k, v, angles, kv_mask=None, scale: Optional[float] = None):
-    """Online-softmax attention of unrotated q, rotated in-kernel (bf16; fp32
-    by `rope_rotate`), to keys that carry no rotation, any Sk (replaces
-    `_flash_rope_q_kernel`)."""
+    """Online-softmax attention of unrotated q, rotated in-kernel (bf16 and
+    fp16; fp32 by `rope_rotate`), to keys that carry no rotation, any Sk
+    (replaces `_flash_rope_q_kernel`)."""
     if not q.is_cuda:
         return flash_rope_q_plain(q, k, v, angles, kv_mask, _scale(q, scale))
     return _launch_rope("rope_q", q, k, v, angles, kv_mask, _scale(q, scale))
 
 
 def rope_rotate(x, angles):
-    """`apply_rope(x, angles)` of a (B, S, H, D) bf16 or fp32 tensor by
+    """`apply_rope(x, angles)` of a (B, S, H, D) bf16, fp16 or fp32 tensor by
     (S, D/2) angles, as one kernel (`csrc/rope_rotate.cu`; the key half of
     `flash_rope`) on the card, bit for bit; the plain version (`apply_rope`)
     on the CPU. The result is contiguous."""
     if not x.is_cuda:
         return apply_rope(x, angles)
-    if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 4:
-        raise TypeError(f"rope_rotate takes a bf16 or fp32 (B, S, H, D) tensor, got {x.dtype} "
-                        f"{tuple(x.shape)}")
+    if x.dtype not in _KERNEL_DTYPES or x.dim() != 4:
+        raise TypeError(f"rope_rotate takes a bf16, fp16 or fp32 (B, S, H, D) tensor, got "
+                        f"{x.dtype} {tuple(x.shape)}")
     s, d = x.shape[1], x.shape[3]
-    if d % (8 if x.dtype == torch.bfloat16 else 2) or tuple(angles.shape) != (s, d // 2):
-        raise ValueError(f"rope_rotate takes head_dim a multiple of 8 (bf16) or 2 (fp32) and "
-                         f"(S, D/2) angles: x {tuple(x.shape)}, angles {tuple(angles.shape)}")
+    if d % (8 if x.dtype in _SM90_DTYPES else 2) or tuple(angles.shape) != (s, d // 2):
+        raise ValueError(f"rope_rotate takes head_dim a multiple of 8 (bf16, fp16) or 2 (fp32) "
+                         f"and (S, D/2) angles: x {tuple(x.shape)}, angles {tuple(angles.shape)}")
     with _on_device(x):
         return _rotate(x, *_rotation_tables(angles.to(x.device), d))
 

@@ -277,7 +277,7 @@ def imagenet_batches(args, start_step: int = 0) -> Iterator[Dict[str, np.ndarray
 
 
 def t2i_batches(args, text_encoder=None, device="cpu", start_step: int = 0,
-                native: bool = False, pillow_items=None) -> Iterator[Dict]:
+                native: bool = False) -> Iterator[Dict]:
     """Meta-dataset pipeline (JAX `t2i_batches`, the reference's
     `train.py:478-520`): bucketed (image, caption) batches, each of one
     (H, W) from `generate_crop_size_list((image_size // 16) ** 2, 16)`.
@@ -291,13 +291,16 @@ def t2i_batches(args, text_encoder=None, device="cpu", start_step: int = 0,
     pass, the origin drawn over the scaled-to-cover size by `crop_origin`,
     or by Pillow. Under `native` an item the native decoder cannot read
     (neither JPEG nor PNG, or corrupt) goes to Pillow, as in JAX, and its
-    index is appended to the list `pillow_items`. The
-    collate thread encodes each batch's captions (`caption_features`, the
+    dataset index travels with it into its batch's `pillow_items` (the
+    decode threads run up to `prefetch_batches` batches ahead of the
+    consumer, so a count kept at decode time would include items no one
+    trained on). The collate thread encodes each batch's captions (`caption_features`, the
     dropout drawn from (seed, step)), as JAX's collate does, on a CUDA stream
     of its own when `device` is a card, and times the encode there.
     `start_step` batches are skipped without decoding (resume).
     Yields {"x": (B, 3, H, W) float32 in [-1, 1] numpy, "captions": [str],
-    "cap_feats", "cap_mask" on `device`, "text_encode_ms"}."""
+    "cap_feats", "cap_mask" on `device`, "text_encode_ms", "pillow_items":
+    [dataset index]}."""
     from ..data import native_loader
     from ..data.dataset import MetaDataset, T2IItemProcessor, resumable_sampler_indices
     from ..data.imgproc import (center_crop, choose_bucket, crop_origin, generate_crop_size_list,
@@ -326,34 +329,36 @@ def t2i_batches(args, text_encoder=None, device="cpu", start_step: int = 0,
         return choose_bucket(w, h, crop_size_list, seed=args.global_seed, index=idx)
 
     def fetch(item, key):
+        """(image, caption, the dataset index if Pillow decoded it under `native`
+        else None)."""
         pos, idx = item
         rng = random.Random(f"crop:{args.global_seed}:{pos}")
         if native:
             data, caption = dataset.raw_image_item(idx)
             try:
                 origin = crop_origin(*native_loader.probe_size(data), key, rng)
-                return native_loader.decode_to_tensor(data, key, origin), caption
+                return native_loader.decode_to_tensor(data, key, origin), caption, None
             except ValueError:  # not JPEG or PNG, or corrupt: Pillow, as in JAX
-                if pillow_items is not None:
-                    pillow_items.append(idx)
                 rng = random.Random(f"crop:{args.global_seed}:{pos}")
         img, caption = dataset[idx]
-        return to_latent_input(center_crop(img, key, rng)), caption
+        return to_latent_input(center_crop(img, key, rng)), caption, idx if native else None
 
     # one collate thread takes the batches in order, so this counts the steps
     steps = itertools.count(start_step)
     side = torch.cuda.Stream(device) if torch.device(device).type == "cuda" else None
 
-    def collate(items):
-        captions = [c for _, c in items]
+    def collate(fetched):
+        captions = [c for _, c, _ in fetched]
         rng = random.Random(f"caption:{args.global_seed}:{next(steps)}")
         t0 = time.perf_counter()
         with torch.cuda.stream(side):
             cap_feats, cap_mask = caption_features(captions, args, text_encoder, device, rng)
         if side is not None:
             side.synchronize()  # waits in this thread only
-        return {"x": np.stack([a for a, _ in items]), "captions": captions, "cap_feats": cap_feats,
-                "cap_mask": cap_mask, "text_encode_ms": 1e3 * (time.perf_counter() - t0)}
+        return {"x": np.stack([a for a, _, _ in fetched]), "captions": captions,
+                "cap_feats": cap_feats, "cap_mask": cap_mask,
+                "text_encode_ms": 1e3 * (time.perf_counter() - t0),
+                "pillow_items": [i for _, _, i in fetched if i is not None]}
 
     gen = bucket_batched_global(positions, bucket_of, args.global_batch_size, fetch=fetch,
                                 collate=collate, num_workers=args.num_workers,
@@ -471,7 +476,7 @@ def main(argv=None):
     # only the folder and meta streams carry images for the VAE
     encode_images = not synthetic and not (folder and args.pixel_space)
     text_encoder = vae = decoder = None
-    pillow_items: list = []  # meta items the native decoder could not read
+    pillow_items: list = []  # meta items of the batches taken that Pillow decoded
     if synthetic:
         hw = args.data_path[len("synthetic://"):]
         latent_hw = int(hw.split("x")[0]) if hw else (
@@ -497,8 +502,7 @@ def main(argv=None):
 
         native, why = native_loader.native_status()
         decoder = "native" if native else "pil"
-        batches = t2i_batches(args, text_encoder, device, start_step=resume_step, native=native,
-                              pillow_items=pillow_items)
+        batches = t2i_batches(args, text_encoder, device, start_step=resume_step, native=native)
         logger.info(f"data: {args.data_path}, buckets of {args.image_size}^2 "
                     f"(pinned {args.pin_bucket}), image decoder {decoder}, "
                     f"{args.num_workers} decode threads")
@@ -568,6 +572,7 @@ def main(argv=None):
             cond = {"y": torch.from_numpy(raw["y"]).long().to(device)}
         else:
             cond = {"cap_feats": raw["cap_feats"], "cap_mask": raw["cap_mask"]}
+            pillow_items.extend(raw["pillow_items"])
             if device.type == "cuda":  # made on the collate thread's stream
                 for t in cond.values():
                     t.record_stream(torch.cuda.current_stream(device))

@@ -1,6 +1,7 @@
 """The fp32 attention backward of `lumina_t2x_tpu_torch/csrc/flash_bwd_fp32_sm90.cu`
 (K6 `flash_bwd_fused`, K8 `flash_bwd_dkv` and K7 `flash_bwd_dq` on fp32
-inputs, and on fp16 inputs, which the wrapper casts to fp32).
+inputs), and the route of each dtype to its kernels (fp16 and bf16 to the
+Hopper kernels' instantiations, `csrc/flash_*_sm90.cu`).
 
 On the CPU: `plan` repeats the host's plan (shared memory, rows per block
 and per streamed tile, blocks in the grid) and `emulate_kv` / `emulate_dq`
@@ -25,7 +26,8 @@ fp32 sums moves results by ~1e-7 here, far inside 1e-5, and the card's bar is
 
 The `cuda`-marked tests run each kernel on the card against its plain
 version and the emulation at the music trainer's and the 2B's shapes, the
-fp16 route against the plain version, and the plan and resources against
+fp16 route (the Hopper kernels' fp16 instantiations) against the plain
+version, and the plan and resources against
 `plan` (`python -m pytest --noconftest -m cuda
 tests/test_torch_flash_bwd_fp32.py`); they skip without one.
 """
@@ -290,31 +292,65 @@ def test_fp32_backward_is_its_own_source_and_the_template_is_gone():
     assert entries.count("flash_bwd_fp32_sm90(") == 1  # the LUMINA_FLASH_BWD_CALL macro
 
 
+class _OnCuda(torch.Tensor):
+    is_cuda = True
+
+
 def _dtype_check(dtype):
-    """`_check_inputs` on (1, 4, 2, 8) tensors of `dtype` that report
+    """`_check_inputs` on (1, 4, 2, 16) tensors of `dtype` that report
     themselves on CUDA (its dtype rule runs before anything is built)."""
-
-    class _OnCuda(torch.Tensor):
-        is_cuda = True
-
-    t = torch.ones(1, 4, 2, 8, dtype=dtype).as_subclass(_OnCuda)
+    t = torch.ones(1, 4, 2, 16, dtype=dtype).as_subclass(_OnCuda)
     return tfa._check_inputs(t, t, t, None)
 
 
+class _RecordingLibrary:
+    """Stands in for the built `flash` library: each C entry point records
+    its arguments and returns 0 (success) without launching anything."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("lumina_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-def test_fp16_takes_the_fp32_kernels(dtype):
-    """The fp16 route: bf16, fp16 and fp32 pass the dtype check, fp16 tensors
-    are cast to fp32 by `_fp32_if_fp16` (others and None untouched); any
-    other dtype raises before anything is built or launched."""
+def test_each_dtype_reaches_its_kernels(monkeypatch, dtype):
+    """The dtype route, through a forward (K2), the backward (K7) and
+    `rope_rotate` with a stand-in library: bf16 and fp16 reach the Hopper
+    entries with their own dtype code (1, 2) and fp32 the fp32 kernels' (0),
+    with q read in place (no cast, no copy); fp16's backward hands the
+    kernels max|dO| (`_do_amax`), the others null; the launch counts split by
+    dtype. Any other dtype raises before anything is built or launched."""
     assert tfa._KERNEL_DTYPES == (torch.bfloat16, torch.float16, torch.float32)
-    q, _, _, _ = _dtype_check(dtype)
-    x, none = tfa._fp32_if_fp16(q, None)
-    assert none is None
-    assert x.dtype == (torch.float32 if dtype == torch.float16 else dtype)
-    assert (x is q) == (dtype != torch.float16)
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(cuda_lib, "build_library", lambda name: lib)
+    monkeypatch.setattr(tfa, "_on_device", lambda t: tfa._SAME_DEVICE)
+    monkeypatch.setattr(tfa, "_stream", lambda t: 0)
+    tfa.reset_launch_counts()
+    q, k, v, dout = _dtype_check(dtype)[:3] + (_dtype_check(dtype)[0] * -3,)
+    out = tfa.flash_online(q, k, v, None, 0.25)
+    lse = torch.zeros(1, 2, 4)
+    tfa.flash_bwd_dq(q, k, v, None, out, lse, dout, 0.25)
+    tfa.rope_rotate(torch.ones(1, 4, 2, 16, dtype=dtype).as_subclass(type(q)), torch.zeros(4, 8))
+    code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[dtype]
+    (fwd, fwd_args), (bwd, bwd_args), (rot, rot_args) = lib.calls
+    assert (fwd, bwd, rot) == ("lumina_flash_online", "lumina_flash_bwd_dq", "lumina_rope_rotate")
+    assert fwd_args[0] == q.data_ptr() and bwd_args[0] == q.data_ptr()
+    assert (fwd_args[9], bwd_args[13], rot_args[5]) == (code, code, code)
+    assert (bwd_args[7] is not None) == (dtype == torch.float16)  # do_amax
+    assert out.dtype == dtype
+    tag = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.float16: "fp16"}[dtype]
+    assert {n: c for n, c in tfa.DTYPE_LAUNCHES.items() if c} == {
+        f"online_{tag}": 1, f"bwd_dq_{tag}": 1, f"rope_rotate_{tag}": 1}
+    amax = tfa._do_amax(dout)
+    assert amax.dtype == dout.dtype and amax.shape == (1,) and amax.item() == 3.0
     for bad in (torch.float64, torch.int32):
         with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
             _dtype_check(bad)
+    assert len(lib.calls) == 3
 
 
 def test_fp16_cpu_training_attention_matches_fp32():
@@ -473,11 +509,11 @@ def test_unaligned_and_odd_head_dims_on_card(cuda_device, entry):
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["1", "0"])
 def test_fp16_route_matches_plain_on_card(cuda_device, monkeypatch, route):
-    """fp16 q/k/v through `flash_attention` under autograd: the fp32 LSE
-    forward and backward kernels launch (cast once at the wrapper), the
-    output and the gradients come back fp16, within 1e-3 of max|x| of the
-    plain versions run on the same fp16 inputs (one fp16 rounding of each
-    output), and no plain version runs on CUDA."""
+    """fp16 q/k/v through `flash_attention` under autograd: the fp16
+    instantiations of the Hopper LSE forward and backward kernels launch
+    (no cast to fp32), the output and the gradients come back fp16, within
+    1e-3 of max|x| of the plain versions run on the same fp16 inputs (one
+    fp16 rounding of each output), and no plain version runs on CUDA."""
     monkeypatch.setenv("LUMINA_FLASH_FUSED_BWD", route)
     q, k, v, mask, _, _, dout, scale = _card_args("music_cross", torch.float16)
     results = []
@@ -492,6 +528,8 @@ def test_fp16_route_matches_plain_on_card(cuda_device, monkeypatch, route):
             assert tfa.PLAIN_CUDA_CALLS["count"] == 0 and tfa.LAUNCHES["online_lse"] == 1
             launched = ("bwd_fused",) if route == "1" else ("bwd_dq", "bwd_dkv")
             assert all(tfa.LAUNCHES[name] == 1 for name in launched)
+            assert all(tfa.DTYPE_LAUNCHES[f"{name}_fp16"] == 1
+                       for name in ("online_lse", *launched))
     for a, r in zip(*results):
         assert a.dtype == torch.float16 and torch.isfinite(a).all()
         _assert_within(a, r, 1e-3)
@@ -500,7 +538,8 @@ def test_fp16_route_matches_plain_on_card(cuda_device, monkeypatch, route):
 @pytest.mark.cuda
 def test_fp16_forwards_match_plain_on_card(cuda_device):
     """fp16 through the forward entry points (K1, K2, K4 and the fused-RoPE
-    K9): fp16 out, within 1e-3 of max|out| of plain."""
+    K9, on the Hopper kernels' fp16 instantiations): fp16 out, within 1e-3
+    of max|out| of plain."""
     q, k, v, mask, _, _, _, scale = _card_args("music_cross", torch.float16)
     for name in ("small_kv", "online", "online_lse"):
         got = getattr(tfa, f"flash_{name}")(q, k, v, mask, scale)

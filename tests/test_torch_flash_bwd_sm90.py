@@ -74,20 +74,38 @@ def _f32(x):
     return torch.tensor(x, dtype=torch.float32)
 
 
-def _pair(x, pair):
-    hi = x.to(torch.bfloat16).float()
-    return hi, ((x - hi).to(torch.bfloat16).float() if pair else torch.zeros_like(x))
+def _pair(x, pair, dtype=torch.bfloat16):
+    hi = x.to(dtype).float()
+    return hi, ((x - hi).to(dtype).float() if pair else torch.zeros_like(x))
 
 
-def emulate_bwd(q, k, v, kv_mask, out, lse, dout, scale, pair=True, round_out=True):
+def _ds_scales(dout, dtype, ds_scale):
+    """fp16's dS scale pair (up, down) = (2^-e, 2^e), e = floor(log2
+    max|dO|) (the kernels read max|dO| from the card); (1, 1) for bf16, for
+    `ds_scale=False` and for dO = 0."""
+    amax = dout.abs().max()
+    if dtype != torch.float16 or not ds_scale or amax == 0:
+        return _f32(1.0), _f32(1.0)
+    e = int(torch.frexp(amax)[1]) - 1
+    return _f32(2.0 ** -e), _f32(2.0 ** e)
+
+
+def emulate_bwd(q, k, v, kv_mask, out, lse, dout, scale, pair=True, round_out=True,
+                dtype=torch.bfloat16, ds_scale=True):
     """The kernel's arithmetic in fp32 torch on (B, S, H, D) fp32 tensors and
-    the forward's (B, Hq, Sq) LSE: (dq, dk, dv), dk and dv per kv head, each
-    rounded once to bf16 (as fp32). `pair=False` rounds P and dS once to
-    bf16; `round_out=False` skips the output rounding."""
+    the forward's (B, Hq, Sq) LSE, for the operand type `dtype` (bf16 or
+    fp16: the pairs' and the outputs' type): (dq, dk, dv), dk and dv per kv
+    head, each rounded once to `dtype` (as fp32). fp16 packs dS at 2^-e
+    (`_ds_scales`: folded into the chain's scale) and multiplies dK and each
+    dQ share by 2^e before they are stored. `pair=False` rounds P and dS
+    once; `round_out=False` skips the output rounding; `ds_scale=False`
+    drops fp16's dS scale."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     rep = hq // hkv
     scale2 = _f32(scale) * _f32(LOG2E)  # folded on the host
+    up, down = _ds_scales(dout, dtype, ds_scale)
+    ds_scale_f = _f32(scale) * up
     # the producer's per-row lse*log2(e): +inf for a row without a valid key
     lse2 = torch.where(lse == -math.inf, torch.tensor(math.inf), lse * _f32(LOG2E))
     lse2 = lse2.reshape(b, hkv, rep, sq)[..., None, :]  # (B, Hkv, rep, 1, Sq): keys x q rows
@@ -108,31 +126,36 @@ def emulate_bwd(q, k, v, kv_mask, out, lse, dout, scale, pair=True, round_out=Tr
             dpt = torch.einsum("bkhd,bqhrd->bhrkq", vc, dog)  # dP^T
             p = torch.exp2(torch.clamp(st * scale2 - lse2, max=0.0))
             p = torch.where(ok, p, torch.zeros_like(p))
-            ds = p * (dpt - delta) * scale
-            p_hi, p_lo = _pair(p, pair)
-            ds_hi, ds_lo = _pair(ds, pair)
+            ds = p * (dpt - delta) * ds_scale_f
+            p_hi, p_lo = _pair(p, pair, dtype)
+            ds_hi, ds_lo = _pair(ds, pair, dtype)
             dv[:, c0:c0 + HALF] += (torch.einsum("bhrkq,bqhrd->bkhd", p_hi, dog)
                                     + torch.einsum("bhrkq,bqhrd->bkhd", p_lo, dog))
             dk[:, c0:c0 + HALF] += (torch.einsum("bhrkq,bqhrd->bkhd", ds_hi, qg)
                                     + torch.einsum("bhrkq,bqhrd->bkhd", ds_lo, qg))
             shares.append(torch.einsum("bhrkq,bkhd->bqhrd", ds_hi, kc)
                           + torch.einsum("bhrkq,bkhd->bqhrd", ds_lo, kc))
-        dq += shares[1] + shares[0]  # consumer 1's share, plus consumer 0's
+        dq += shares[1] * down + shares[0] * down  # consumer 1's share, plus consumer 0's
     dq = dq.reshape(b, sq, hq, d)
-    rnd = (lambda t: t.to(torch.bfloat16).float()) if round_out else (lambda t: t)
-    return rnd(dq), rnd(dk), rnd(dv)
+    rnd = (lambda t: t.to(dtype).float()) if round_out else (lambda t: t)
+    return rnd(dq), rnd(dk * down), rnd(dv)
 
 
-def emulate_dq(q, k, v, kv_mask, out, lse, dout, scale, pair=True, round_out=True):
+def emulate_dq(q, k, v, kv_mask, out, lse, dout, scale, pair=True, round_out=True,
+               dtype=torch.bfloat16, ds_scale=True):
     """The dQ kernel's arithmetic in fp32 torch, per q row over 64-key tiles
     in order: p = exp2(min(s*scale2 - lse2, 0)) (lse2 = +inf for lse =
     -inf), 0 on an invalid key; ds = p (dp - delta) scale; dQ += (ds_hi +
-    ds_lo) K in fp32; rounded once to bf16 (as fp32). `pair=False` rounds
-    dS once; `round_out=False` skips the output rounding."""
+    ds_lo) K in fp32; rounded once to `dtype` (as fp32; fp16 with dS at 2^-e
+    and dQ times 2^e before the rounding, as `emulate_bwd`). `pair=False`
+    rounds dS once; `round_out=False` skips the output rounding;
+    `ds_scale=False` drops fp16's dS scale."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     rep = hq // hkv
     scale2 = _f32(scale) * _f32(LOG2E)
+    up, down = _ds_scales(dout, dtype, ds_scale)
+    ds_scale_f = _f32(scale) * up
     lse2 = torch.where(lse == -math.inf, torch.tensor(math.inf), lse * _f32(LOG2E))
     lse2 = lse2.reshape(b, hkv, rep, sq)[..., None]  # (B, Hkv, rep, Sq, 1): q rows x keys
     delta = (dout * out).sum(-1).permute(0, 2, 1).reshape(b, hkv, rep, sq)[..., None]
@@ -146,20 +169,20 @@ def emulate_dq(q, k, v, kv_mask, out, lse, dout, scale, pair=True, round_out=Tru
         dp = torch.einsum("bqhrd,bkhd->bhrqk", dog, vt)
         p = torch.exp2(torch.clamp(s * scale2 - lse2, max=0.0))
         p = torch.where(ok, p, torch.zeros_like(p))
-        ds_hi, ds_lo = _pair(p * (dp - delta) * scale, pair)
+        ds_hi, ds_lo = _pair(p * (dp - delta) * ds_scale_f, pair, dtype)
         dq = dq + (torch.einsum("bhrqk,bkhd->bhrqd", ds_hi, kt)
                    + torch.einsum("bhrqk,bkhd->bhrqd", ds_lo, kt))
-    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
-    return dq.to(torch.bfloat16).float() if round_out else dq
+    dq = (dq * down).permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    return dq.to(dtype).float() if round_out else dq
 
 
-def _inputs(seed, b, sq, sk, hq, hkv, d=16, tail=0, dead_row=False):
-    """bf16-representable fp32 numpy q, k, v, dout and an int32 mask: the
-    last `tail` keys of batch row 0 masked, and with `dead_row` every key of
-    the last batch row."""
+def _inputs(seed, b, sq, sk, hq, hkv, d=16, tail=0, dead_row=False, dtype=torch.bfloat16):
+    """`dtype`-representable (bf16 or fp16) fp32 numpy q, k, v, dout and an
+    int32 mask: the last `tail` keys of batch row 0 masked, and with
+    `dead_row` every key of the last batch row."""
     rng = np.random.default_rng(seed)
     bf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
-        torch.bfloat16).float().numpy()
+        dtype).float().numpy()
     q, k, v, dout = bf(b, sq, hq, d), bf(b, sk, hkv, d), bf(b, sk, hkv, d), bf(b, sq, hq, d)
     mask = np.ones((b, sk), np.int32)
     if tail:
@@ -293,23 +316,144 @@ def test_hi_lo_pair_keeps_p_and_ds_to_fp32_precision():
         assert (o - r).abs().max() > 8 * (a - r).abs().max()
 
 
+# -- fp16: the kernels' fp16 instantiations ------------------------------------------
+
+F16 = torch.float16
+REL16 = 2.0 ** -11  # one fp16 rounding of max|ref| (11 significant bits)
+
+
+def _close16(got, ref):
+    """The fp16 bar against the port's plain version: one fp16 rounding of
+    max|ref| plus 2e-5 for fp32 sums in another order."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    np.testing.assert_array_less(np.abs(got - ref), REL16 * np.abs(ref).max() + ATOL)
+
+
+def _pallas16_bars(q, k, v, mask, out, lse, dout, scale, refs):
+    """Elementwise bars (dq, dk, dv) between the emulation and the JAX
+    package's fp16 backward, which rounds p and dS once to fp16 (dS from the
+    rounded p, so twice p's relative error): a gradient moves by up to
+    sum (2^-11 p + 2^-25 [p < 2^-14]) |dO| (dV), sum (2^-10 |dS| + 2^-25
+    [|dS| < 2^-14]) |q| (dK) or |k| (dQ) -- a normal fp16 rounding's relative
+    error, half the subnormal step under fp16's smallest normal -- plus two
+    output roundings (2^-10 of |ref|) and 2e-5 for fp32 sums."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    rep = hq // hkv
+    s, valid = tfa._logits(q, k, mask, scale)
+    lse5 = lse.reshape(b, hkv, rep, sq, 1)
+    live = torch.isfinite(lse5)
+    p = torch.exp(torch.clamp(s - torch.where(live, lse5, torch.zeros_like(lse5)), max=0.0))
+    p = torch.where(valid & live, p, torch.zeros_like(p))
+    do = dout.reshape(b, sq, hkv, rep, d)
+    delta = (do * out.reshape(b, sq, hkv, rep, d)).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (torch.einsum("bqhrd,bkhd->bhrqk", do, v) - delta[..., None]) * scale
+    sub = lambda x: 2.0 ** -25 * ((x < 2.0 ** -14) & (p > 0)).float()  # noqa: E731
+    wp, wds = 2.0 ** -11 * p + sub(p), 2.0 ** -10 * ds.abs() + sub(ds.abs())
+    moved = (torch.einsum("bhrqk,bkhd->bqhrd", wds, k.abs()).reshape(b, sq, hq, d),
+             torch.einsum("bhrqk,bqhrd->bkhd", wds, q.reshape(b, sq, hkv, rep, d).abs()),
+             torch.einsum("bhrqk,bqhrd->bkhd", wp, do.abs()))
+    return [m.numpy() + 2.0 ** -10 * np.abs(r) + ATOL for m, r in zip(moved, refs)]
+
+
+def _jax16_grads(q, k, v, dout, mask, scale):
+    """(dq, dk, dv) of the JAX `flash_attention` on fp16 arrays (`jax.vjp`,
+    Pallas in interpret mode), as fp32 numpy."""
+    _, vjp = jax.vjp(lambda q_, k_, v_: jfa.flash_attention(q_, k_, v_, jnp.asarray(mask), scale),
+                     *(jnp.asarray(a.astype(np.float16)) for a in (q, k, v)))
+    return [np.asarray(g, np.float32) for g in vjp(jnp.asarray(dout.astype(np.float16)))]
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+@pytest.mark.parametrize("case", CASES[1:3])
+def test_fp16_emulation_matches_jax(monkeypatch, fused, case):
+    """The fp16 instantiations' arithmetic (the fp16 pairs, dS at 2^-e of
+    max|dO|, one fp16 output rounding) against the JAX package's backward on
+    fp16 inputs (`jax.vjp`, Pallas in interpret mode, both routes), within
+    what its own rounding of p and dS to fp16 moves (`_pallas16_bars`)."""
+    b, sq, sk, hq, hkv, tail, scale = case
+    q, k, v, dout, mask = _inputs(5 * sk + hq, b, sq, sk, hq, hkv, tail=tail, dtype=F16)
+    scale = 16 ** -0.5 if scale is None else scale
+    monkeypatch.setenv("LUMINA_FLASH_FUSED_BWD", fused)
+    ref = _jax16_grads(q, k, v, dout, mask, scale)
+    tq, tk, tv, tdo, tm = map(torch.from_numpy, (q, k, v, dout, mask))
+    out, lse = tfa.flash_online_lse_plain(tq, tk, tv, tm, scale)
+    got = emulate_bwd(tq, tk, tv, tm, out, lse, tdo, scale, dtype=F16)
+    if fused == "0":
+        got = (emulate_dq(tq, tk, tv, tm, out, lse, tdo, scale, dtype=F16), *got[1:])
+    bars = _pallas16_bars(tq, tk, tv, tm, out, lse, tdo, scale, ref)
+    for a, r, bar in zip(got, ref, bars):
+        np.testing.assert_array_less(np.abs(a.numpy() - r), bar)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_fp16_emulation_matches_plain(case):
+    """K6/K8's and K7's fp16 arithmetic against `flash_bwd_plain` on the same
+    fp16-representable inputs: one fp16 rounding of max|gradient|."""
+    b, sq, sk, hq, hkv, tail, scale = case
+    q, k, v, dout, mask = _inputs(6 * sk + hq, b, sq, sk, hq, hkv, tail=tail, dtype=F16)
+    scale = 16 ** -0.5 if scale is None else scale
+    tq, tk, tv, tdo, tm = map(torch.from_numpy, (q, k, v, dout, mask))
+    out, lse = tfa.flash_online_lse_plain(tq, tk, tv, tm, scale)
+    args = (tq, tk, tv, tm, out, lse, tdo, scale)
+    ref = tfa.flash_bwd_plain(*args)
+    for a, r in zip(emulate_bwd(*args, dtype=F16), ref):
+        _close16(a, r)
+    _close16(emulate_dq(*args, dtype=F16), ref[0])
+
+
+@pytest.mark.parametrize("factor", [2.0 ** -20, 2.0 ** 8])
+def test_fp16_pairs_and_ds_scale_keep_gradients_to_fp32_precision(factor):
+    """Before the output rounding, fp16 gradients against the fp32 backward
+    with dO scaled by 2^-20 (every dS far under fp16's smallest normal) and
+    by 2^8: the pairs and dS at 2^-e of max|dO| keep them within 2^-14 of
+    max|gradient| (K6/K8's and K7's); P and dS rounded once move them 8x
+    further; without the dS scale, dO x 2^-20 leaves dS a few subnormal
+    steps or 0 (dK and dQ off by tenths of their size)."""
+    q, k, v, dout, mask = _inputs(7, 1, 64, 256, 4, 4, d=32, tail=9, dtype=F16)
+    dout = (torch.from_numpy(dout) * factor).to(F16).float()
+    tq, tk, tv, tm = map(torch.from_numpy, (q, k, v, mask))
+    out, lse = tfa.flash_online_lse_plain(tq, tk, tv, tm, 0.2)
+    args = (tq, tk, tv, tm, out, lse, dout, 0.2)
+    ref = tfa.flash_bwd_plain(*args)
+    pair = emulate_bwd(*args, round_out=False, dtype=F16)
+    once = emulate_bwd(*args, pair=False, round_out=False, dtype=F16)
+    bare = emulate_bwd(*args, round_out=False, dtype=F16, ds_scale=False)
+    split = emulate_dq(*args, round_out=False, dtype=F16)
+    for a, o, r in zip(pair, once, ref):
+        top = r.abs().max()
+        assert (a - r).abs().max() <= 2.0 ** -14 * top
+        assert (o - r).abs().max() > 8 * (a - r).abs().max()
+    assert (split - ref[0]).abs().max() <= 2.0 ** -14 * ref[0].abs().max()
+    if factor < 1:
+        for a, r in zip(bare[:2], ref[:2]):  # dq, dk
+            assert (a - r).abs().max() > 0.1 * r.abs().max()
+
+
 def test_bf16_fused_and_dkv_route_to_the_new_source():
-    """bf16 `bwd_fused` and `bwd_dkv` run `csrc/flash_bwd_sm90.cu` (their C
-    entry points hand bf16 to `flash_bwd_sm90`), and so does bf16 `bwd_dq`
-    (to `flash_bwd_dq_sm90`, the dQ kernel); fp32 goes to `flash_bwd_fp32_sm90`
-    (`csrc/flash_bwd_fp32_sm90.cu`) through `LUMINA_FLASH_BWD_CALL`. The new
-    source is built into the flash library and holds no library kernel."""
+    """bf16 and fp16 `bwd_fused` and `bwd_dkv` run `csrc/flash_bwd_sm90.cu`
+    (their C entry points hand the Hopper dtype codes to `flash_bwd_sm90`
+    with the fp16 flag and do_amax), and so does `bwd_dq` (to
+    `flash_bwd_dq_sm90`, the dQ kernel); fp32 goes to `flash_bwd_fp32_sm90`
+    (`csrc/flash_bwd_fp32_sm90.cu`) through `LUMINA_FLASH_BWD_CALL`, another
+    code is refused. The new source is built into the flash library and
+    holds no library kernel."""
     src = (cuda_lib._CSRC / "flash_bwd.cu").read_text()
     entries = src.split('extern "C" {')[1].split("int lumina_flash_")[1:]
     bodies = {e.split("(", 1)[0]: e.split("{", 1)[1] for e in entries}
     assert set(bodies) == {"bwd_fused", "bwd_dq", "bwd_dkv"}
+    assert "bool hopper(int dtype) { return dtype == kBf16 || dtype == kFp16; }" in src
     for name, fused in (("bwd_fused", "true"), ("bwd_dkv", "false")):
-        assert re.search(r"if \(is_bf16\)\s+return flash_bwd_sm90\(" + fused + ",", bodies[name])
+        assert re.search(r"if \(hopper\(dtype\)\)\s+return flash_bwd_sm90\(dtype == kFp16, "
+                         + fused + r", q, k, v, mask, dout, lse, delta, do_amax, dq, dk,", bodies[name])
         assert "LUMINA_FLASH_BWD_CALL" in bodies[name]  # fp32
-    assert re.search(r"if \(is_bf16\)\s+return flash_bwd_dq_sm90\(q, k, v, mask, dout, lse, "
-                     r"delta, dq, meta, scale, stream\);", bodies["bwd_dq"])
+    assert re.search(r"if \(hopper\(dtype\)\)\s+return flash_bwd_dq_sm90\(dtype == kFp16, q, k, v, "
+                     r"mask, dout, lse, delta, do_amax, dq, meta,\s+scale, stream\);",
+                     bodies["bwd_dq"])
     assert "LUMINA_FLASH_BWD_CALL(Which::kDq)" in bodies["bwd_dq"]  # fp32
-    assert "__nv_bfloat16" not in src and "wmma" not in src
+    for body in bodies.values():
+        assert "if (dtype != kFp32) return (int)cudaErrorInvalidValue;" in body
+    assert "__nv_bfloat16" not in src and "__half" not in src and "wmma" not in src
     assert tfa._SM90_BWD_ENTRIES == ("bwd_fused", "bwd_dq", "bwd_dkv")
     sources, symbols = cuda_lib._DECLARED[tfa.LIBRARY]
     assert "flash_bwd_sm90.cu" in sources and "lumina_flash_bwd_sm90_attributes" in symbols
@@ -340,13 +484,17 @@ def test_breakdown_variants_edit_the_kernel():
 
 def test_bwd_attributes_name_the_kernel(monkeypatch):
     """`bwd_sm90_attributes` maps the kernel's name onto the C entry's
-    `which` (0 dK/dV, 1 fused, 2 dQ) and refuses another name before it
-    builds anything."""
+    `which` (0 dK/dV, 1 fused, 2 dQ), passes the operand dtype (bf16 by
+    default, or fp16) and refuses another name before it builds anything."""
     calls = []
     monkeypatch.setattr(tfa, "_attributes", lambda *a: calls.append(a) or {})
     for kernel in ("dkv", "fused", "dq"):
         tfa.bwd_sm90_attributes(kernel, 64)
-    assert calls == [("lumina_flash_bwd_sm90_attributes", which, 64) for which in (0, 1, 2)]
+    assert calls == [("lumina_flash_bwd_sm90_attributes", which, 64, torch.bfloat16)
+                     for which in (0, 1, 2)]
+    calls.clear()
+    tfa.bwd_sm90_attributes("dq", 72, torch.float16)
+    assert calls == [("lumina_flash_bwd_sm90_attributes", 2, 72, torch.float16)]
     with pytest.raises(ValueError, match="kernel must be one of"):
         tfa.bwd_sm90_attributes(True)
 
@@ -427,6 +575,25 @@ def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
     _assert_near(got, ref, 1e-2)
     if shape[0] > 1:
         assert not any(t[-1].any() for t in got if t is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1.0, 2.0 ** 8, 2.0 ** -8])
+@pytest.mark.parametrize("shape", [(2, 77, 33, 8, 1, 72), (1, 300, 1000, 8, 8, 72),
+                                   (2, 130, 257, 4, 4, 64), (1, 193, 129, 4, 1, 128)])
+@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
+def test_fp16_kernel_matches_plain_on_card(cuda_device, entry, shape, factor):
+    """The fp16 instantiations with dO scaled by 1, 2^8 and 2^-8 (dS at
+    2^-e of max|dO|), GQA, a masked tail and a fully masked batch row, at
+    the 80/72, 64/64 and 128/128 widths: one launch on fp16 operands, fp16
+    gradients within 1e-3 of max|ref| (one fp16 rounding is 2^-11), mean
+    1e-4."""
+    q, k, v, mask, dout = _cuda_inputs(*shape, dtype=torch.float16)
+    dout = (dout.float() * factor).half()
+    before = tfa.DTYPE_LAUNCHES[f"{entry}_fp16"]
+    got, ref = _run(entry, q, k, v, mask, dout)
+    assert tfa.DTYPE_LAUNCHES[f"{entry}_fp16"] == before + 1
+    _assert_near(got, ref, 1e-3)
 
 
 # the class-conditional models' head_dim 48 (the 64/64 instantiations, the

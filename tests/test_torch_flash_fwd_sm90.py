@@ -70,12 +70,23 @@ def _f32(x):
     return torch.tensor(x, dtype=torch.float32)
 
 
-def emulate(q, k, v, kv_mask, scale, bound=None, p_pair=True, round_out=True):
+def _pow2(e):
+    """2^e exactly as fp32, for an integer tensor e (clamped to [-126, 127])."""
+    return ((e.to(torch.int32) + 127).clamp(1, 254) << 23).view(torch.float32)
+
+
+def emulate(q, k, v, kv_mask, scale, bound=None, p_pair=True, round_out=True,
+            dtype=torch.bfloat16, row_scale=True):
     """The kernel's arithmetic in fp32 torch on (B, S, H, D) fp32 tensors:
-    K3/K5 with `bound`, K2/K4 without. Returns (out, lse): the output, rounded
-    once to bf16, as fp32, and the (B, Hq, Sq) row LSE the epilogue writes
-    for K4/K5. `p_pair=False` drops P's lo half and `round_out=False` the
-    output rounding (for the test of the pair alone)."""
+    K3/K5 with `bound`, K2/K4 without, for the operand type `dtype` (bf16 or
+    fp16: the pair's and the output's type). Returns (out, lse): the output,
+    rounded once to `dtype`, as fp32, and the (B, Hq, Sq) row LSE the
+    epilogue writes for K4/K5. fp16's static max packs each row's p at its
+    power-of-two scale sc (2^127 at first; when a tile's max p * sc reaches
+    2^15, sc = 2^(14 - floor(log2 max p)) and o is scaled by the change) and
+    divides by l * sc at the end. `p_pair=False` drops P's lo half,
+    `round_out=False` the output rounding and `row_scale=False` the fp16 row
+    scale (for the tests of the pair and the scale alone)."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     rep = hq // hkv
@@ -88,6 +99,8 @@ def emulate(q, k, v, kv_mask, scale, bound=None, p_pair=True, round_out=True):
     o = torch.zeros(b, hkv, rep, sq, d)
     l = torch.zeros(b, hkv, rep, sq)
     m = torch.full((b, hkv, rep, sq), -math.inf)
+    scaled = dtype == torch.float16 and bound is not None and row_scale
+    sc = torch.full((b, hkv, rep, sq), 2.0 ** 127)
     for j0 in range(0, sk, BK):  # the last tile is ragged: keys past Sk add nothing
         kt, vt = k[:, j0:j0 + BK], v[:, j0:j0 + BK]
         ok = valid[:, None, None, None, j0:j0 + BK]
@@ -103,26 +116,34 @@ def emulate(q, k, v, kv_mask, scale, bound=None, p_pair=True, round_out=True):
         else:
             e = torch.exp2(torch.clamp(s * scale2 - bound2, max=clamp2))
             p = torch.where(ok, e, torch.zeros_like(e))
-        hi = p.to(torch.bfloat16).float()
-        lo = (p - hi).to(torch.bfloat16).float() if p_pair else torch.zeros_like(p)
+            if scaled:
+                mx = p.amax(-1)
+                # 2^(14 - floor(log2 mx)); floor(log2 mx) is frexp's exponent - 1
+                top = _pow2(15 - torch.frexp(mx)[1])
+                new = torch.where(mx * sc >= 2.0 ** 15, top, sc)
+                o, sc = o * (new / sc)[..., None], new
+        packed = p * sc[..., None] if scaled else p
+        hi = packed.to(dtype).float()
+        lo = (packed - hi).to(dtype).float() if p_pair else torch.zeros_like(p)
         o = o + torch.einsum("bhrqk,bkhd->bhrqd", hi, vt) + torch.einsum("bhrqk,bkhd->bhrqd", lo, vt)
         l = l + p.sum(-1)
-    inv = torch.where(l > 0, 1.0 / l.clamp_min(1e-30), torch.zeros_like(l))
+    den = l * sc if scaled else l
+    inv = torch.where(l > 0, 1.0 / den.clamp_min(1e-30), torch.zeros_like(l))
     out = (o * inv[..., None]).permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
     # the epilogue: ln2 * (base + log2 l), the base the log2-domain max or bound2
     base = m if bound is None else bound2
     lse = _f32(math.log(2)) * (base + torch.log2(l))
     lse = torch.where(l > 0, lse, torch.full_like(l, -math.inf)).reshape(b, hq, sq)
-    return (out.to(torch.bfloat16).float() if round_out else out), lse
+    return (out.to(dtype).float() if round_out else out), lse
 
 
-def _inputs(seed, b, sq, sk, hq, hkv, d=16, tail=0, dead_row=False):
-    """bf16-representable fp32 numpy inputs and an int32 mask: the last
-    `tail` keys of batch row 0 masked, and with `dead_row` every key of the
-    last batch row."""
+def _inputs(seed, b, sq, sk, hq, hkv, d=16, tail=0, dead_row=False, dtype=torch.bfloat16):
+    """`dtype`-representable (bf16 or fp16) fp32 numpy inputs and an int32
+    mask: the last `tail` keys of batch row 0 masked, and with `dead_row`
+    every key of the last batch row."""
     rng = np.random.default_rng(seed)
     bf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
-        torch.bfloat16).float().numpy()
+        dtype).float().numpy()
     q, k, v = bf(b, sq, hq, d), bf(b, sk, hkv, d), bf(b, sk, hkv, d)
     mask = np.ones((b, sk), np.int32)
     if tail:
@@ -306,6 +327,134 @@ def test_hi_lo_pair_keeps_p_to_fp32_precision():
     assert once > 8 * pair
 
 
+# -- fp16: the kernel's fp16 instantiation -------------------------------------------
+
+F16 = torch.float16
+RTOL16 = 2.0 ** -11  # one fp16 rounding of the output (11 significant bits)
+
+
+def _close16(got, ref):
+    """The fp16 bar against the port's plain version: one fp16 rounding of
+    the output (2^-11 of |ref|) plus 2e-5 for fp32 sums in another order."""
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=RTOL16, atol=ATOL)
+
+
+def _pallas16_bars(q, k, v, mask, scale, bound, ref):
+    """Elementwise bars (output, LSE) between the emulation and the JAX
+    package's fp16 Pallas kernels, which round p once to fp16
+    (`p.astype(v.dtype)`, and the denominator from those p): their output
+    moves by up to 2^-11 of sum_j p_j |v_j| / l (the relative error of a
+    normal fp16 rounding), plus 2^-25 |v_j| / l for each p_j under fp16's
+    smallest normal 2^-14 (half its subnormal step; p from the row's final
+    max, which is no larger than its running max in the kernel), plus two
+    output roundings (2^-10 of |ref|) and 2e-5 for fp32 sums; their LSE by
+    the same weights' sum (|dl| / l), plus 1e-4."""
+    tq, tk, tv, tm = map(torch.from_numpy, (q, k, v, mask))
+    s, valid = tfa._logits(tq, tk, tm, scale)
+    if bound is None:
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+    else:
+        p = torch.exp(torch.clamp(s - bound, max=55.0))
+    p = torch.where(valid, p, torch.zeros_like(p))
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    weights = (2.0 ** -11 * p + 2.0 ** -25 * (p < 2.0 ** -14).float() * valid) / l
+    b, sq, hq, d = tq.shape
+    moved = torch.einsum("bhrqk,bkhd->bqhrd", weights, tv.abs()).reshape(b, sq, hq, d)
+    lse_moved = weights.sum(-1).reshape(b, hq, sq)
+    return (moved.numpy() + 2.0 ** -10 * np.abs(np.asarray(ref)) + ATOL,
+            lse_moved.numpy() + LSE_ATOL)
+
+
+def _pallas16(entry, q, k, v, mask, scale, bound):
+    """`_pallas_forward` (or the LSE forward's output) on fp16 arrays, as fp32."""
+    q, k, v = (a.astype(np.float16) for a in (q, k, v))
+    if entry.endswith("_lse"):
+        out, lse = jfa._flash_fwd_res_impl(*map(jnp.asarray, (q, k, v, mask)), scale, 128, 128,
+                                           static_max=bound)
+        return np.asarray(out, np.float32), np.asarray(lse)
+    return np.asarray(_pallas_forward(entry, q, k, v, mask, scale, bound), np.float32), None
+
+
+@pytest.mark.parametrize("case", CASES[1:3])
+@pytest.mark.parametrize("entry", ["small_kv", "online", "static_max", "online_lse",
+                                   "static_max_lse"])
+def test_fp16_emulation_matches_pallas(entry, case):
+    """The fp16 instantiation's arithmetic (the fp16 pair, fp16's row scale
+    under a static max, one fp16 output rounding) against the JAX package's
+    Pallas K1-K5 on fp16 inputs in interpret mode, within what their own
+    rounding of p to fp16 moves (`_pallas16_bars`, for the output and the
+    LSE)."""
+    b, sq, sk, hq, hkv, tail = case
+    q, k, v, mask = _inputs(21, b, sq, sk, hq, hkv, tail=tail, dtype=F16)
+    scale = 0.3
+    bound = (_bound(q, k, v, mask, scale, 8.0 if entry.endswith("_lse") else 6.0)
+             if entry.startswith("static_max") else None)
+    ref, ref_lse = _pallas16(entry, q, k, v, mask, scale, bound)
+    out, lse = emulate(*map(torch.from_numpy, (q, k, v, mask)), scale, bound, dtype=F16)
+    out_bar, lse_bar = _pallas16_bars(q, k, v, mask, scale, bound, ref)
+    np.testing.assert_array_less(np.abs(out.numpy() - ref), out_bar)
+    if ref_lse is not None:
+        np.testing.assert_array_less(np.abs(lse.numpy() - ref_lse[:, :, :sq, 0]), lse_bar)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("entry", ["small_kv", "online", "static_max", "online_lse",
+                                   "static_max_lse"])
+def test_fp16_emulation_matches_plain(entry, case):
+    """The fp16 arithmetic against the port's plain versions on the same
+    fp16-representable inputs: one fp16 output rounding, the LSE to 1e-4."""
+    b, sq, sk, hq, hkv, tail = case
+    q, k, v, mask = map(torch.from_numpy, _inputs(22, b, sq, sk, hq, hkv, tail=tail, dtype=F16))
+    scale = 0.25
+    kw = {}
+    if entry.startswith("static_max"):
+        kw = {"bound": _bound(*(t.numpy() for t in (q, k, v, mask)), scale,
+                              8.0 if entry.endswith("_lse") else 6.0)}
+    ref = getattr(tfa, f"flash_{entry}_plain")(q, k, v, mask, scale, *kw.values())
+    out, lse = emulate(q, k, v, mask, scale, kw.get("bound"), dtype=F16)
+    if entry.endswith("_lse"):
+        ref, ref_lse = ref
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=LSE_ATOL)
+    _close16(out, ref)
+
+
+def test_fp16_pair_and_row_scale_keep_p_to_fp32_precision():
+    """Before the output rounding, fp16 P against the fp32 softmax: p near 1
+    and tiny p (online, logits spread over ~60 nats), a bound 30 nats over
+    the row maxima (every p under 2^-43, below fp16's subnormals) and one 15
+    nats or more under them where the 55-nat clamp fires on some keys (p up
+    to e^55, past fp16's 65504). The pair and fp16's row scale keep the
+    output within 2^-14 of max|ref|; P rounded once moves it 8x further, and
+    without the row scale the bound over the maxima flushes every p (0, not
+    the softmax) and the clamp rows overflow (inf or NaN)."""
+    q, k, v, mask = _inputs(23, 1, 64, 256, 4, 4, d=32, tail=19, dtype=F16)
+    spread = torch.from_numpy(q) * 3  # logits over tens of nats
+    q = spread.to(F16).float().numpy()
+    scale = 0.3
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    row_max = np.where(mask[:, None, None, :] != 0, s, -np.inf).max(-1)
+    tq, tk, tv, tm = map(torch.from_numpy, (q, k, v, mask))
+    clamped = min(float(row_max.min()) - 15.0, float(row_max.max()) - 60.0)
+    for bound in (None, float(row_max.max()) + 30.0, clamped):
+        if bound is None:
+            ref = tfa.flash_online_plain(tq, tk, tv, tm, scale)
+        else:
+            ref = tfa.flash_static_max_plain(tq, tk, tv, tm, scale, bound)
+        top = ref.abs().max()
+        pair = emulate(tq, tk, tv, tm, scale, bound, round_out=False, dtype=F16)[0]
+        once = emulate(tq, tk, tv, tm, scale, bound, p_pair=False, round_out=False, dtype=F16)[0]
+        assert (pair - ref).abs().max() <= 2.0 ** -14 * top, bound
+        assert (once - ref).abs().max() > 8 * (pair - ref).abs().max(), bound
+        if bound is not None:
+            bare = emulate(tq, tk, tv, tm, scale, bound, round_out=False, dtype=F16,
+                           row_scale=False)[0]
+            if bound > row_max.max():
+                assert not bare.any()  # every p flushed: the output is 0
+            else:
+                assert (s - bound > 55).any()  # the clamp fires
+                assert not torch.isfinite(bare).all()
+
+
 def _entry_bodies():
     """{entry name: C source from its signature on} of flash_fwd.cu's
     extern "C" entry points."""
@@ -315,39 +464,50 @@ def _entry_bodies():
 
 
 def test_bf16_forwards_route_to_the_hopper_kernel():
-    """bf16 K1-K5 hand their inputs to `flash_fwd_sm90` (K4/K5 with their lse
-    pointer, K1-K3 with none, none with rotation tables), and bf16 K9 with
-    the tables and no LSE (`rope_forward`); fp32 K1-K5 hand theirs to the
-    fp32 kernel, `flash_fwd_fp32_sm90`, with the same (static max, LSE)
-    flags and bound, and fp32 K9 to its online instantiation. The entry
-    points' file holds no kernel of its own."""
+    """bf16 and fp16 K1-K5 hand their inputs to `flash_fwd_sm90` with the
+    fp16 flag from their dtype code (K4/K5 with their lse pointer, K1-K3
+    with none, none with rotation tables), and so does K9 with the tables
+    and no LSE (`rope_forward`); fp32 K1-K5 hand theirs to the fp32 kernel,
+    `flash_fwd_fp32_sm90`, with the same (static max, LSE) flags and bound,
+    and fp32 K9 to its online instantiation; another dtype code is refused.
+    The entry points' file holds no kernel of its own and casts nothing."""
     src, bodies = _entry_bodies()
     for name, static_max, lse in (("small_kv", "false", "nullptr"), ("online", "false", "nullptr"),
                                   ("static_max", "true", "nullptr"),
                                   ("online_lse", "false", "lse"),
                                   ("static_max_lse", "true", "lse")):
-        assert re.search(rf"if \(is_bf16\)\s+return flash_fwd_sm90\({static_max}, q, k, v, mask, "
-                         rf"out, {lse}, nullptr, nullptr, meta,", bodies[name]), name
         bound = "bound" if static_max == "true" else "0.f"
-        assert re.search(rf"\n  return flash_fwd_fp32_sm90\({static_max}, q, k, v, mask, out, "
-                         rf"{lse}, meta, scale, {bound}, stream\);", bodies[name]), name
+        assert re.search(rf"return forward\({static_max}, q, k, v, mask, out, {lse}, meta, scale, "
+                         rf"{bound}, dtype, stream\);", bodies[name]), name
+    forward = src[src.index("int forward("):src.index("int rope_forward(")]
+    assert re.search(r"if \(dtype == kBf16 \|\| dtype == kFp16\)\s+return flash_fwd_sm90\(dtype == "
+                     r"kFp16, static_max, q, k, v, mask, out, lse, nullptr, nullptr,\s+meta, scale, "
+                     r"bound, stream\);", forward)
+    assert "if (dtype != kFp32) return (int)cudaErrorInvalidValue;" in forward
+    assert "return flash_fwd_fp32_sm90(static_max, q, k, v, mask, out, lse, meta, scale, bound, " \
+        "stream);" in forward
+    assert "constexpr int kFp32 = 0, kBf16 = 1, kFp16 = 2;" in src
+    assert tfa._DTYPE_CODES == {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
     for name in ("rope", "rope_q"):
-        assert "return rope_forward(q, k, v, mask, out, rope_cos, rope_sin, meta," in bodies[name]
+        assert "return rope_forward(q, k, v, mask, out, rope_cos, rope_sin, meta, scale, dtype," \
+            in bodies[name]
     rope = src[src.index("int rope_forward("):src.index("}  // namespace")]
-    assert re.search(r"if \(is_bf16\) \{.*return flash_fwd_sm90\(false, q, k, v, mask, out, nullptr, "
-                     r"rope_cos, rope_sin, meta,", rope, re.S)
+    assert re.search(r"if \(dtype == kBf16 \|\| dtype == kFp16\) \{.*return flash_fwd_sm90\(dtype == "
+                     r"kFp16, false, q, k, v, mask, out, nullptr, rope_cos, rope_sin,\s+meta, scale, "
+                     r"0.f, stream\);", rope, re.S)
     assert "return flash_fwd_fp32_sm90(false, q, k, v, mask, out, nullptr, meta, scale, 0.f, " \
         "stream);" in rope
     assert tfa._SM90_ENTRIES == ("small_kv", "online", "static_max", "online_lse",
                                  "static_max_lse")
-    assert "__nv_bfloat16" not in src and "wmma" not in src and "kRope" not in src
-    assert "launch<" not in src and "__global__" not in src
+    assert "__nv_bfloat16" not in src and "__half" not in src and "wmma" not in src
+    assert "kRope" not in src and "launch<" not in src and "__global__" not in src
 
 
 def test_breakdown_entry_matches_the_kernel_signature():
     """`exps/fwd_sm90_breakdown.py` compiles its own C entry around
-    `flash_fwd_sm90`: it passes the header's parameters in their order, with
-    no LSE (it times K2/K3); the definition has the header's parameters."""
+    `flash_fwd_sm90`: it passes the header's parameters in their order, bf16
+    with no LSE (it times K2/K3); the definition has the header's
+    parameters."""
     from lumina_t2x_tpu_torch.exps import fwd_sm90_breakdown as bd
 
     def names(text, pattern):
@@ -356,13 +516,13 @@ def test_breakdown_entry_matches_the_kernel_signature():
 
     header = names((cuda_lib._CSRC / "flash_fwd_sm90.cuh").read_text(),
                    r"int flash_fwd_sm90\((.*?)\);")
-    assert header == ["static_max", "q", "k", "v", "mask", "out", "lse", "rope_cos", "rope_sin",
-                      "meta", "scale", "bound", "stream"]
+    assert header == ["f16", "static_max", "q", "k", "v", "mask", "out", "lse", "rope_cos",
+                      "rope_sin", "meta", "scale", "bound", "stream"]
     assert names((cuda_lib._CSRC / "flash_fwd_sm90.cu").read_text(),
                  r"\nint flash_fwd_sm90\((.*?)\) \{") == header
     args = re.search(r"return flash_fwd_sm90\((.*?)\);", bd._ENTRY, re.S).group(1)
     assert [a.strip() for a in args.split(",")] == [
-        "static_max != 0", *header[1:6], "nullptr", "nullptr", "nullptr", *header[9:]]
+        "false", "static_max != 0", *header[2:7], "nullptr", "nullptr", "nullptr", *header[10:]]
 
 
 def test_breakdown_variants_edit_the_kernel():
@@ -379,10 +539,12 @@ def test_breakdown_variants_edit_the_kernel():
 
 
 @pytest.mark.parametrize("module", ["lumina_t2x_tpu_torch.exps.fwd_sm90_breakdown",
-                                    "lumina_t2x_tpu_torch.pipelines.profile_forward"])
+                                    "lumina_t2x_tpu_torch.pipelines.profile_forward",
+                                    "lumina_t2x_tpu_torch.exps.fp16_times"])
 def test_measurement_scripts_need_the_card(monkeypatch, module):
-    """The breakdown and the forward profile time the card: without a CUDA
-    device they stop before building anything, with no CPU fallback."""
+    """The breakdown, the forward profile and the fp16-against-bf16 times
+    time the card: without a CUDA device they stop before building
+    anything, with no CPU fallback."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA device"):
         importlib.import_module(module).main()
@@ -451,6 +613,33 @@ def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
     assert torch.count_nonzero(got[-1]).item() == 0
     err = (got.float() - ref).abs()
     assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 77, 33, 8, 1, 72), (1, 300, 1000, 8, 8, 72),
+                                   (2, 200, 300, 4, 1, 48), (1, 193, 129, 4, 1, 128)])
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_fp16_kernel_matches_plain_on_card(cuda_device, entry, shape):
+    """The fp16 instantiation at the 80/72, 64/64 and 128/128 widths, GQA, a
+    masked tail and a fully masked batch row; the static max with bounds 30
+    nats over and 20 under the row maxima as well (fp16's row scale): one
+    launch on fp16 operands, fp16 out within 1e-3 of max|ref| (one fp16
+    rounding is 2^-11)."""
+    q, k, v, mask = (t.half() if t.is_floating_point() else t for t in _cuda_inputs(*shape))
+    bounds = [9.0]
+    if entry.startswith("static_max"):
+        row_max = tfa._logits(q, k, mask, 0.2)[0].amax(-1)
+        live = row_max[row_max > -1e38]  # the rows with a valid key (none: one dead batch row)
+        if live.numel():
+            bounds += [float(live.max()) + 30.0, float(live.min()) - 20.0]
+    for bound in bounds:
+        before = tfa.DTYPE_LAUNCHES[f"{entry}_fp16"]
+        got, ref = _call(entry, q, k, v, mask, bound=bound)
+        assert tfa.DTYPE_LAUNCHES[f"{entry}_fp16"] == before + 1
+        assert got.dtype == torch.float16 and torch.isfinite(got).all()
+        assert torch.count_nonzero(got[-1]).item() == 0
+        top = ref.abs().max().item()
+        assert (got.float() - ref).abs().max().item() <= 1e-3 * top, bound
 
 
 @pytest.mark.cuda

@@ -185,14 +185,15 @@ def test_native_batches_are_the_native_decode_at_the_drawn_origin(tmp_path):
     """Under the native decoder (JAX's path when its library builds) each
     item is `decode_to_tensor` at `crop_origin`'s draw from (seed, position)
     bit for bit; an item that is neither JPEG nor PNG (a BMP here) is
-    decoded by Pillow, as in JAX, and counted."""
+    decoded by Pillow, as in JAX, and counted in the batch that holds it
+    (the decode threads run ahead of the consumer: only the batches taken
+    count)."""
     from PIL import Image
 
     cfg = write_dataset(tmp_path, [(96, 80), (80, 96), (128, 64), (64, 64)])
     Image.fromarray(_image(64, 64, 3)).save(tmp_path / "3.png", format="BMP")
     args = _args(cfg, pin_bucket="64x64")
-    pillow = []
-    gen = t_train.t2i_batches(args, native=True, pillow_items=pillow)
+    gen = t_train.t2i_batches(args, native=True)
     batches = [next(gen) for _ in range(2)]
     gen.close()
     dataset = t_ds.MetaDataset(cfg, t_ds.T2IItemProcessor(None))
@@ -209,7 +210,7 @@ def test_native_batches_are_the_native_decode_at_the_drawn_origin(tmp_path):
                                       random.Random(f"crop:0:{pos}"))
             np.testing.assert_array_equal(batch["x"][i],
                                           t_nl.decode_to_tensor(data, (64, 64), origin))
-    assert pillow == [3]
+    assert [i for batch in batches for i in batch["pillow_items"]] == [3]
 
 
 # -- the CLI ---------------------------------------------------------------------------
