@@ -14,7 +14,9 @@ last line:
    (`csrc/flash_fwd_sm90.cu`), bf16 K6-K8 (`csrc/flash_bwd_sm90.cu`: the
    backward sweep of K6/K8 and the dQ kernel of K7), the fp16
    instantiations of both sources (fp16 K1-K9 run their own, wgmma on .f16
-   operands, at widths 64, 72 and 128), K10 v0-v3 and K11
+   operands, at widths 64, 72 and 128), the backward's 48/48 and 96/96
+   sweeps (K6/K8 at head_dim 48 and 96, bf16 and fp16; each backward line
+   names its instantiation as compiled), K10 v0-v3 and K11
    (`csrc/static_max_sm90.cu`, one instantiation each) and K12
    (`csrc/mma_probe.cu`, at the widths of its timed shape and of K=1024):
    registers per thread (as compiled and after setmaxnreg), spill bytes (0
@@ -24,7 +26,7 @@ last line:
    (`csrc/flash_bwd_fp32_sm90.cu`, fp32 K6-K8) plan and resources at the
    music trainer's shapes and the 2B's (0 spill bytes required); and what
    ptxas says of their wgmma (an fp16 instantiation may serialize nothing
-   that its bf16 twin does not);
+   that its bf16 twin does not, and the 48/48 and 96/96 sweeps nothing);
 3. kernels: each CUDA entry point against its plain PyTorch version at the
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
    kernel; it, the LSE forward and the backward kernels also at the served
@@ -51,13 +53,16 @@ last line:
    kernel and sdpa timed in bursts of 8; K1 and K4 (forward) and K6-K8
    (backward) also at Gemma caption lengths Sk = 8, 40 and 136 with masks
    ending inside a key tile (`CAPTION_LENGTHS`), bf16, fp32 and GQA, within
-   the same bars; K4 and K6-K8 at head_dim 48 (the 64/64 instantiations) at
+   the same bars; the backward's delta (`bwd_delta`, `csrc/bwd_delta.cu`)
+   against its plain version at the 2B's, 600M's, Small's and 5B's training
+   shapes, timed with its bound (`delta_kernel_phase`); K4 and K6-K8 at
+   head_dim 48 (K6/K8 on the 48/48 sweep, K4/K7 on 64/64) at
    the class-conditional trainers' shapes (`D48_SHAPES`: the 600M recipe's
    (256, 256, 32, 48), the Small's (64, 1024, 8, 48)) and K1 at the Small's
    sampler shape, timed with bounds and library calls, then with 4:1 GQA, a
-   masked tail and a fully masked row; K2-K8 at head_dim 96 (the 128/128
-   instantiations) at the Flag-DiT 5B's (2, 4160, 32, 96), K1 there against
-   128 caption keys (100 valid), K4 and K6-K8 against 32, and K1 at head_dim
+   masked tail and a fully masked row; K2-K8 at head_dim 96 (K6/K8 on the
+   96/96 sweep, the others 128/128) at the Flag-DiT 5B's (2, 4160, 32, 96),
+   K1 there against 128 caption keys (100 valid), K4 and K6-K8 against 32, and K1 at head_dim
    128 at the ImageNet 7B's (8, 256, 32, 128), the same way
    (`wide_head_kernel_phase`); K1 behind 4096 queries over kv_merge's 1024
    pooled keys and K4/K6-K8 at the 2B's DreamBooth self-attention (2, 256,
@@ -289,6 +294,7 @@ FP32_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_fwd_fp32_sm90.cu"  # fp32 K1-K5, 
 SM90_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_sm90.cu"  # bf16 K6-K8
 FP32_BWD_SOURCE = "lumina_t2x_tpu_torch/csrc/flash_bwd_fp32_sm90.cu"  # fp32 K6-K8
 ROTATE_SOURCE = "lumina_t2x_tpu_torch/csrc/rope_rotate.cu"  # K9's k
+DELTA_SOURCE = "lumina_t2x_tpu_torch/csrc/bwd_delta.cu"  # the backward's delta
 VPU_SOURCE = "lumina_t2x_tpu_torch/csrc/static_max_sm90.cu"  # K10, K11
 MMA_SOURCE = "lumina_t2x_tpu_torch/csrc/mma_probe.cu"
 TPU_KERNELS = "lumina_t2x_tpu/ops/flash_attention.py"
@@ -311,6 +317,13 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "static_max_v3": (VPU_SOURCE, f"{VPU_EXP}:106"),       # _kernel_v3
     "static_max_v4": (VPU_SOURCE, f"{VPU_EXP}:127"),       # _kernel_v4
     "mma_chain": (MMA_SOURCE, "exps/mxu_k_quantum.py:37"),  # _kernel
+    # the backward's delta = rowsum(dO * O), which the JAX package computes
+    # outside its Pallas kernels (`_bwd_prepare`'s einsum), before every K6-K8
+    # launch: the 2B trainer's, the 600M's, the Small's and the 5B's
+    "bwd_delta": (DELTA_SOURCE, f"{TPU_KERNELS}:680"),
+    "bwd_delta_d48_600m": (DELTA_SOURCE, f"{TPU_KERNELS}:680"),
+    "bwd_delta_d48_small": (DELTA_SOURCE, f"{TPU_KERNELS}:680"),
+    "bwd_delta_d96_5b": (DELTA_SOURCE, f"{TPU_KERNELS}:680"),
     # K1 at the class-conditional 600M's self-attention (the classcond path)
     "small_kv_imagenet_600m": (SM90_SOURCE, f"{TPU_KERNELS}:240"),
     # head_dim 48, the class-conditional trainers: the 600M recipe at 256^2
@@ -323,7 +336,7 @@ KERNELS = {  # entry point -> (source, file:line of the Pallas kernel it replace
     "online_lse_d48_small": (SM90_SOURCE, f"{TPU_KERNELS}:430"),
     "bwd_fused_d48_small": (SM90_BWD_SOURCE, f"{TPU_KERNELS}:619"),
     "small_kv_d48_small": (SM90_SOURCE, f"{TPU_KERNELS}:240"),
-    # head_dim 96, the Flag-DiT 5B (the 128/128 instantiations): its sampler
+    # head_dim 96, the Flag-DiT 5B (K6/K8 96/96, the others 128/128): its sampler
     # (K1 on the captions, K2 and K4 in the calibration probe, K3 on the
     # trajectory) and its trainer (K4, K5 under the train bound, K6; K7/K8 on
     # its last step)
@@ -686,9 +699,13 @@ def build_phase():
                flash_attention.sm90_attributes(static, d))
               for d in (96, 128) for static, entries in (
                   (False, "small_kv, online, online_lse"), (True, "static_max, static_max_lse"))),
-            *((SM90_BWD_SOURCE, f"bwd_{kernel}, the 128/128 instantiation", d,
-               flash_attention.bwd_sm90_attributes(kernel, d))
-              for d in (96, 128) for kernel in ("fused", "dkv", "dq")),
+            *((SM90_BWD_SOURCE, f"{tag}bwd_{kernel}", d,
+               flash_attention.bwd_sm90_attributes(kernel, d, dtype))
+              for tag, dtype in (("", torch.bfloat16), ("fp16 ", torch.float16))
+              for d in (48, 96) for kernel in ("fused", "dkv", "dq")),
+            *((SM90_BWD_SOURCE, f"bwd_{kernel}", 128,
+               flash_attention.bwd_sm90_attributes(kernel, 128))
+              for kernel in ("fused", "dkv", "dq")),
             *((VPU_SOURCE, f"static_max_{variant}", D, vpu_op_reduction.sm90_attributes(variant, D))
               for variant in vpu_op_reduction.VARIANTS),
             # the fp16 instantiations of the same two sources, at each width
@@ -700,6 +717,12 @@ def build_phase():
             *((SM90_BWD_SOURCE, f"fp16 bwd_{kernel}", d,
                flash_attention.bwd_sm90_attributes(kernel, d, torch.float16))
               for d in (64, D, 128) for kernel in ("fused", "dkv", "dq"))):
+        if "instantiation" in info:
+            entry += (f", the {info['instantiation']} instantiation (compiled "
+                      f"{info['depth']}/{info['width']}), {info['consumers']} consumer "
+                      f"warpgroup(s)")
+            require(f"{info['depth']}/{info['width']}" == info["instantiation"],
+                    f"{source} ({entry}): compiled another instantiation than the port names")
         phase("build", f"{source} ({entry}, head_dim {head_dim}): {info['registers']} registers "
               f"per thread as compiled, {info['producer_registers']} (producer) / "
               f"{info['consumer_registers']} (consumers) after setmaxnreg, "
@@ -761,6 +784,11 @@ def build_phase():
         fp16_only = [note for note in notes if "__half" in note and note not in twin]
         require(not fp16_only, f"ptxas serializes fp16 instantiations' wgmma beyond bf16's: "
                 f"{fp16_only}")
+        # the backward's 48/48 and 96/96 sweeps (K6, K8) serialize nothing
+        # (their mangled names carry the depth and width: Li48ELi48E, Li96ELi96E)
+        new_widths = [note for note in notes if "Li48ELi48E" in note or "Li96ELi96E" in note]
+        require(not new_widths, f"ptxas serializes the 48/48 or 96/96 backward's wgmma: "
+                f"{new_widths}")
 
 
 def _rand(g, *shape, dtype):
@@ -1186,6 +1214,47 @@ def rope_kernel_phase(fa):
     return results
 
 
+# the delta rows: (row, (B, S, H, D)) of the backward paths that launch it
+DELTA_SHAPES = (("bwd_delta", (B, S, H, D)), ("bwd_delta_d48_600m", (256, 256, 32, 48)),
+                ("bwd_delta_d48_small", (64, 1024, 8, 48)), ("bwd_delta_d96_5b", (2, 4160, 32, 96)))
+# each row of delta within this fraction of its sum |dO * O|: fp32 sums in another order
+DELTA_REL = 2.0 ** -20
+
+
+def delta_kernel_phase(fa):
+    """`bwd_delta` (`csrc/bwd_delta.cu`, delta = rowsum(dO * O) in fp32) against
+    `bwd_delta_plain` at the 2B's, the 600M's, the Small's and the 5B's
+    training shapes (bf16 out and dO): each row within DELTA_REL of its sum
+    |dO * O|; kernel and plain timed; bound: out and dO read once, delta
+    written once. No single library call computes it (aten's flash backward
+    fuses its own)."""
+    g = torch.Generator(device="cuda").manual_seed(22)
+    results = {}
+    for row, (b, s, h, d) in DELTA_SHAPES:
+        out, dout = (_rand(g, b, s, h, d, dtype=torch.bfloat16) for _ in range(2))
+        got = fa.bwd_delta(out, dout)
+        ref = fa.bwd_delta_plain(out, dout)
+        torch.cuda.synchronize()
+        scale = (dout.float() * out.float()).abs().sum(-1).transpose(1, 2)
+        err = (got - ref).abs()
+        worst = (err / scale.clamp_min(1e-30)).max().item()
+        require(got.shape == (b, h, s) and got.dtype == torch.float32 and worst <= DELTA_REL,
+                f"{row}: {worst} of a row's sum |dO * O| (bar {DELTA_REL:g})")
+        stats = {"max_abs_err": err.max().item(),
+                 "ms": time_ms(lambda: fa.bwd_delta(out, dout), reps=15),
+                 "plain_ms": time_ms(lambda: fa.bwd_delta_plain(out, dout)),
+                 **least_time(_nbytes(out, dout, got), 0, torch.bfloat16),
+                 "library_ms": None, "library_kernel": "none"}
+        results[row] = stats
+        phase("kernels", f"bwd_delta bf16 {(b, s, h, d)}: max abs err {stats['max_abs_err']:.3g} "
+              f"({worst:.3g} of a row's sum |dO * O|, bar {DELTA_REL:g}); kernel "
+              f"{stats['ms']:.4f} ms, plain {stats['plain_ms']:.3f} ms, bound "
+              f"{stats['bound_ms']:.4f} ms ({stats['bound_by']}), library none")
+        del out, dout, got, ref, scale, err
+        torch.cuda.empty_cache()
+    return results
+
+
 # (label, batch, seq, heads, masked keys at the end of batch row 1); the first
 # is the experiment's timed shape
 def imagenet_kernel_phase(fa):
@@ -1575,7 +1644,7 @@ def fp16_rope_rows(fa, g):
 
 
 def d48_kernel_phase(fa):
-    """K4 and K6-K8 at head_dim 48 (the 64/64 instantiations) at the
+    """K4 and K6-K8 at head_dim 48 (K6/K8 48/48, K4/K7 64/64) at the
     class-conditional trainers' shapes (`D48_SHAPES`), and K1 at the Small's
     sampler shape (`shape_rows`)."""
     cases = [(f"{entry}_d48_{tag}", entry, shape, None, None, True)
@@ -1587,7 +1656,8 @@ def d48_kernel_phase(fa):
 def wide_head_kernel_phase(fa):
     """K1-K8 at head_dim 96 (Flag-DiT 5B: dim 3072 over 32 heads; 64 x 65
     tokens at 1024^2 with the [eol] column) and K1 at head_dim 128 (Flag-DiT
-    ImageNet 7B: 4096 over 32): the 128/128 instantiations (`shape_rows`).
+    ImageNet 7B: 4096 over 32): K6/K8 on the 96/96 sweep, the others on
+    128/128 (`shape_rows`).
     K2-K8 at D96_SHAPE; K1 at Sq 4160 against the sampler's 128 caption keys
     (100 valid); K4 and K6-K8 also against the trainer's 32 caption keys;
     K1 at D128_K1."""
@@ -2347,7 +2417,8 @@ def classtrain_phase(fa, vae_path):
     torch.cuda.empty_cache()
     return {"online_lse_d48_600m": launches["online_lse"] + resumed["online_lse"],
             "bwd_fused_d48_600m": launches["bwd_fused"], "bwd_dq_d48_600m": resumed["bwd_dq"],
-            "bwd_dkv_d48_600m": resumed["bwd_dkv"]}
+            "bwd_dkv_d48_600m": resumed["bwd_dkv"],
+            "bwd_delta_d48_600m": launches["bwd_delta"] + resumed["bwd_delta"]}
 
 
 def pixel_phase(fa):
@@ -2652,7 +2723,12 @@ def trainer_phase(fa, then=None):
         require(resumed[name] > 0, f"kernel {name} was not launched by the resumed trainer")
     require(resumed["bwd_fused"] == 0, "the resumed step took the fused backward")
     require(plain_calls == 0, f"plain versions ran {plain_calls} times on CUDA")
-    return {name: launches[name] + resumed[name] for name in TRAIN_KERNELS}, followed
+    # one delta a backward entry call (the split route calls two entries)
+    require(launches["bwd_delta"] == launches["bwd_fused"] and
+            resumed["bwd_delta"] == resumed["bwd_dq"] + resumed["bwd_dkv"],
+            f"the backward's delta kernel: {launches}, {resumed}")
+    return {name: launches[name] + resumed[name]
+            for name in TRAIN_KERNELS + ("bwd_delta",)}, followed
 
 
 def fp16_train_phase(fa, recipe):
@@ -3234,7 +3310,7 @@ def flag_dit_train_phase(fa):
           f"checkpoint: losses {[round(r['train/loss'], 5) for r in m]}; s/step "
           f"{[round(r['train/secs_per_step'], 3) for r in m]}; peak memory {peak:.2f} GiB; wall "
           f"{wall:.1f} s; launches {_launched(launches)}")
-    rows = {f"{name}_d96_5b": launches[name] for name in TRAIN_KERNELS}
+    rows = {f"{name}_d96_5b": launches[name] for name in TRAIN_KERNELS + ("bwd_delta",)}
     fa.set_flash_static_max_train(None)
 
     model = "FlagDiT_ImageNet_600M_patch2"
@@ -4724,6 +4800,7 @@ def main():
     results = kernel_phase(fa)
     caption_kernel_phase(fa, results)
     results.update(backward_kernel_phase(fa))
+    results.update(delta_kernel_phase(fa))
     results.update(rope_kernel_phase(fa))
     results.update(imagenet_kernel_phase(fa))
     results.update(d48_kernel_phase(fa))
@@ -4789,11 +4866,12 @@ def main():
     flag_launches["online_lse_d96_5b"] += flag_train.pop("online_lse_d96_5b")
     launches.update(flag_launches)
     launches.update(flag_train)
-    for name in ("online_lse", "bwd_fused"):
+    for name in ("online_lse", "bwd_fused", "bwd_delta"):
         launches[f"{name}_d48_600m"] += flag_600m[name] + moe[name]
     launches["small_kv_imagenet_600m"] += moe["small_kv"]
     launches.update({"online_lse_d48_small": small["online_lse"] + quality["online_lse"],
                      "bwd_fused_d48_small": small["bwd_fused"] + quality["bwd_fused"],
+                     "bwd_delta_d48_small": small["bwd_delta"] + quality["bwd_delta"],
                      "small_kv_d48_small": quality["small_kv"]})
     launches.update(exp_launches)
     launches.update({"small_kv_kv1024": kv1024, "online_d64_sd3": sd3_k2, **dreambooth_rows})

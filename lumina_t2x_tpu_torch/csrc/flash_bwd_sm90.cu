@@ -33,14 +33,15 @@
 // carried over: the per-KV-block dQ partials (no atomics there) and the
 // lane-replicated LSE and delta.
 //
-// Design. One block of three warpgroups per (128-key tile, kv head, batch).
-// Warpgroup 0 is the producer: one thread loads the block's K and V tiles
-// once, then, for each (q head of the group, 64-row q tile), the Q and dO
-// tiles with TMA (cp.async.bulk.tensor) into a ring of 2-4 stages; its warp
-// writes the tile's lse*log2(e) and delta beside them and every lane
-// arrives on the stage's "full" mbarrier. Warpgroups 1 and 2 are consumers
-// of 64 keys each; setmaxnreg moves registers from the producer (24 a
-// thread) to them (240). Per q tile a consumer
+// Design. One block of three warpgroups per (128-key tile, kv head, batch)
+// (two at head_dim <= 48: "Widths", below). Warpgroup 0 is the producer: one
+// thread loads the block's K and V tiles once, then, for each (q head of the
+// group, 64-row q tile), the Q and dO tiles with TMA (cp.async.bulk.tensor)
+// into a ring of 2-4 stages; its warp writes the tile's lse*log2(e) and
+// delta beside them and every lane arrives on the stage's "full" mbarrier.
+// Warpgroups 1 and 2 are consumers of 64 keys each; setmaxnreg moves
+// registers from the producer (24 a thread) to them (240). Per q tile a
+// consumer
 //   S^T  = K_c Q^T   wgmma.m64n64k16, A = K_c, B = Q from shared memory
 //   dP^T = V_c dO^T  (K-major), depth 72 run as 80 (columns 72-79 zero)
 // as two groups, turns S^T into P^T as soon as the first is done and dP^T
@@ -55,12 +56,22 @@
 // dQ (fused only). Each consumer stages its dS^T (hi, lo) in shared memory,
 // key rows of 64 q columns in one 128-byte-swizzled atom, and computes its
 // keys' share dQ_c = dS_c K_c (wgmma.m64n72k16, A = dS MN-major, B = K_c
-// MN-major, both from shared memory). Consumer 1 writes its fp32 share into
-// a staging tile, consumer 0 adds its own there, and one thread adds the
-// tile into the fp32 dQ buffer with one TMA bulk reduce-add
-// (cp.reduce.async.bulk.tensor ... add; rows past Sq are clipped): one
-// 64 x D fp32 add per (q tile, 128 keys), coalesced in L2. Two staging tiles
-// alternate, so a reduce still reading one does not hold the next tile.
+// MN-major, both from shared memory), writes it in fp32 into its own
+// staging tile, and one of its threads adds the tile into the fp32 dQ
+// buffer with one TMA bulk reduce-add (cp.reduce.async.bulk.tensor ... add;
+// rows past Sq are clipped): one 64 x D fp32 add per (q tile, 64 keys),
+// coalesced in L2. That thread waits for the reduce to have read the tile
+// before the consumer's next dQ product. A staging row takes D floats
+// rounded to 8 or 24 modulo 32 (`staged_cols`; the tensor map's box is as
+// wide, its columns past D outside the tensor): a warp's float2 stores then
+// cover the banks once a phase, where rows D = 96 floats apart put eight on
+// one bank. On an H100 (`exps/bwd_sm90_breakdown.py` at the Flag-DiT 5B's
+// (2, 4160, 32, 96)) the dQ step of the 96-wide sweep took 1.77 ms of 4.0
+// with unpadded rows and consumer 1 handing its share to consumer 0, 1.10
+// with padded rows, 0.99 with a tile and a reduce per consumer (twice the
+// reduce-adds, which cost L2 little: 0.19 ms for all of them there); a
+// 128-byte-swizzled tile of 32-column boxes, one reduce a box, slowed the
+// 2B's sweep by a quarter instead.
 //
 // P and dS as pairs. dV, dK and dQ take P and dS as hi = T(x) and lo =
 // T(x - hi): two wgmma over the same B per 16-row slice (~16 mantissa bits
@@ -78,18 +89,41 @@
 // chain's `scale`, costs nothing per element, and dK and dQ are multiplied
 // by 2^e in fp32 before they are stored (dQ before its staging), so the
 // powers of two are exact. dV = P^T dO needs none. bf16 has fp32's exponent
-// range and takes do_amax = null (scale 1). At width 128 ptxas serializes the
-// dK/dV kernel's wgmma in both types (C7512, insufficient registers: dK and
-// dV take 128 fp32 a thread); reusing P's registers for dS, issuing S and
-// dP in turn, splitting the products into two n64 halves or unrolling the
-// loop once did not lift it.
+// range and takes do_amax = null (scale 1).
+//
+// Widths. The products' depth (S^T, dP^T: head_dim rounded up to 16) and
+// width (dV, dK, dQ: a multiple of 8) come from head_dim: 48/48 up to 48,
+// 64/64, 80/72 (the 2B), 96/96 (the Flag-DiT 5B) and 128/128; K and Q stay
+// in 64-column atoms (one at 48, two at 72 and 96), columns past D arriving
+// as zeros. 96/96 (two consumers, 168 registers a thread at launch, 240 a
+// consumer thread): dK and dV take 48 + 48 fp32 a thread, S^T and dP^T 32 +
+// 32, the P and dS pairs 32 + 32 once S^T and dP^T are spent, so the pairs
+// in flight beside the accumulators need ~160 of the 240, and ptxas
+// serializes nothing, with 0 spill bytes. At 128/128 dK and dV take 128 fp32
+// a thread and ptxas serializes the dK/dV kernel's wgmma in both types
+// (C7512, insufficient registers; reusing P's registers for dS, issuing S
+// and dP in turn, splitting the products into two n64 halves or unrolling
+// the loop once did not lift it); no main path runs head_dim above 96.
+// 48/48 (head_dim <= 48, the ImageNet 600M's and the Small's): a block sees
+// few q tiles (4 at Sq = 256, 16 at 1024), so its fixed cost -- the K/V
+// load, setmaxnreg, barrier set-up, the dK/dV store -- weighs more than its
+// products. The block is then one consumer of 64 keys and the producer (256
+// threads, Sweep<1>), two blocks an SM, so that one block's prologue and
+// epilogue run beside the other's sweep: 128 registers a thread at launch,
+// 24 to the producer and 232 to the consumer after setmaxnreg (dK, dV 24 +
+// 24, S^T, dP^T 32 + 32), shared memory within half the SM's (K/V 16 KB, a
+// 3-stage ring of 16.5 KB, dS 16 KB, a 14 KB dQ staging tile). The
+// two-consumer block does not fit twice: at 104 registers a consumer thread
+// (half the SM's 65536 over 384 threads, less the producer's) S^T, dP^T, dK
+// and dV alone take 112.
 //
 // What bounds it on the card: at B=2, S=4096, H=32, D=72 the five products
 // are 10*B*H*S*S*D = 773 GFLOP (0.78 ms at 989 TFLOP/s); with depth 80 and
 // the pairs the tensor cores do 1.64x that (1.29 ms), and the 1.07e9 exp
 // take 0.275 ms on the special-function units. Q and dO are re-read by each
-// of the 32 key tiles of a kv head (2.4 GB from L2), and the dQ reduce adds
-// 2.4 GB of fp32 into L2. `exps/bwd_sm90_breakdown.py` times the parts.
+// of the 32 key tiles of a kv head (2.4 GB from L2), and the dQ reduces add
+// 4.8 GB of fp32 into L2 (a tile per 64 keys). `exps/bwd_sm90_breakdown.py`
+// times the parts.
 //
 // The dQ kernel (the split backward's first half: the route the JAX package
 // takes when the fused sweep's fp32 dQ partials would pass 1 GiB). Per q
@@ -132,16 +166,32 @@
 
 namespace {
 
-constexpr int kBN = 128;                           // keys per block
 constexpr int kKeys = 64;                          // keys per consumer warpgroup
-constexpr int kConsumers = kBN / kKeys;            // consumer warpgroups
+constexpr int kConsumers = 2;                      // consumer warpgroups (the dQ kernel's)
 constexpr int kBM = 64;                            // q rows per tile
 constexpr int kThreads = 128 * (1 + kConsumers);   // producer warpgroup + consumers
 // setmaxnreg: 128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-// named barriers (0 is __syncthreads): a dQ staging tile is free / holds
-// consumer 1's share (both consumers), consumer c's own (kBarOwn + c)
-constexpr int kBarFree = 1, kBarStaged = 2, kBarOwn = 3;
+constexpr uint32_t kSmemSm = 233472;  // shared memory of an SM (1024 of it reserved a block)
+
+// The dK/dV sweep's block by its consumer warpgroups: two of 64 keys, one
+// block an SM (the 64/64, 80/72, 96/96 and 128/128 instantiations), or one,
+// two blocks an SM (48/48): the registers of one block (128 a thread at
+// launch) go 24 to the producer and 232 to the consumer after setmaxnreg,
+// and its shared memory stays within half the SM's.
+template <int kCons>
+struct Sweep {
+  static constexpr int kBN = kKeys * kCons;            // keys per block
+  static constexpr int kThreads = 128 * (1 + kCons);
+  static constexpr int kMinBlocks = kCons == 1 ? 2 : 1;  // resident blocks an SM
+  static constexpr int kConsumerRegs = kCons == 1 ? 232 : 240;
+  static_assert(128 * kProducerRegs + 128 * kCons * kConsumerRegs <= 65536 / kMinBlocks,
+                "setmaxnreg hands out more registers than the block has");
+  // shared memory a block may take
+  static constexpr uint32_t kSmem = kMinBlocks == 1 ? kSmemMax : kSmemSm / kMinBlocks - 1024;
+};
+// named barrier of consumer c's warpgroup: kBarOwn + c (0 is __syncthreads)
+constexpr int kBarOwn = 1;
 
 struct Params {
   const int* mask;     // (B, Sk) int32 or null
@@ -162,8 +212,19 @@ struct Params {
 
 // -- shared memory ------------------------------------------------------------------
 
-template <int kDK, int kDN, bool kFusedDq>
+// Floats a row of the fp32 dQ staging tile takes at head_dim D in the kDN
+// instantiation: D rounded to 8 or 24 modulo 32, so that the eight rows of a
+// warp's float2 stores fall on four bank offsets (rows D = 96 floats apart
+// put all eight on one). The dQ tensor map's box is this wide; its columns
+// past D lie outside the tensor and the reduce-add skips them. 128/128 keeps
+// D (its shared memory has no room).
+__host__ __device__ constexpr int staged_cols(int D, int kDN) {
+  return (kDN > 96 || D % 16 == 8) ? D : D + 8;
+}
+
+template <int kDK, int kDN, bool kFusedDq, int kCons>
 struct Smem {
+  static constexpr int kBN = Sweep<kCons>::kBN;
   // K, V (kBN rows) and Q, dO (kBM rows) in atoms of 64 columns x rows
   // (128-byte swizzled rows), one TMA box per atom; columns past D arrive
   // as zeros. kDN <= kDK, so kAtoms covers the products' width too.
@@ -173,16 +234,16 @@ struct Smem {
   static constexpr uint32_t kStageBytes = 2 * kAtoms * kQAtom;  // Q, then dO
   // per consumer: dS^T hi and lo, 64 key rows x 64 q columns (one atom each)
   static constexpr uint32_t kDSTile = kKeys * kSwizzle;
-  static constexpr uint32_t kDSBytes = kFusedDq ? 2 * kConsumers * kDSTile : 0;
-  // two fp32 dQ staging tiles, kBM rows of D <= kDN floats
-  static constexpr uint32_t kStagingTile = kBM * kDN * 4;
-  static constexpr uint32_t kStagingBytes = kFusedDq ? 2 * kStagingTile : 0;
+  static constexpr uint32_t kDSBytes = kFusedDq ? 2 * kCons * kDSTile : 0;
+  // an fp32 dQ staging tile per consumer, kBM rows of staged_cols(D) floats
+  static constexpr uint32_t kStagingTile = kBM * (kDN > 96 ? kDN : kDN + 8) * 4;
+  static constexpr uint32_t kStagingBytes = kFusedDq ? kCons * kStagingTile : 0;
   static constexpr uint32_t kStats = 2 * kBM * 4;  // lse*log2(e), delta per stage
   static constexpr uint32_t kAlign = 1024;         // the dynamic base is rounded up to this
   static constexpr uint32_t kFixed = kKV + kDSBytes + kStagingBytes + 8;
-  // ring stages: as many as fit, at most 4
+  // ring stages: as many as fit in the block's share, at most 4
   static constexpr int kFit =
-      (int)((kSmemMax - kAlign - kFixed) / (kStageBytes + kStats + 16));
+      (int)((Sweep<kCons>::kSmem - kAlign - kFixed) / (kStageBytes + kStats + 16));
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static_assert(kStages >= 2, "the ring needs at least 2 stages");
   static constexpr uint32_t kRing = kKV;
@@ -191,13 +252,13 @@ struct Smem {
   static constexpr uint32_t kStatsAt = kStaging + kStagingBytes;
   static constexpr uint32_t kBars = kStatsAt + kStages * kStats;  // kv_full, full[], empty[]
   static constexpr uint32_t kBytes = kAlign + kBars + 8 * (1 + 2 * kStages);
-  static_assert(kBytes <= kSmemMax, "shared memory");
+  static_assert(kBytes <= Sweep<kCons>::kSmem, "shared memory");
   __device__ static uint32_t k() { return 0; }
   __device__ static uint32_t v() { return kAtoms * kKAtom; }
   __device__ static uint32_t q(int st) { return kRing + st * kStageBytes; }
   __device__ static uint32_t dout(int st) { return kRing + st * kStageBytes + kAtoms * kQAtom; }
   __device__ static uint32_t ds(int c, int lo) { return kDS + (2 * c + lo) * kDSTile; }
-  __device__ static uint32_t staging(int buf) { return kStaging + buf * kStagingTile; }
+  __device__ static uint32_t staging(int c) { return kStaging + c * kStagingTile; }
   __device__ static uint32_t stats(int st) { return kStatsAt + st * kStats; }
   __device__ static uint32_t kv_full() { return kBars; }
   __device__ static uint32_t full(int st) { return kBars + 8 * (1 + st); }
@@ -261,66 +322,48 @@ __device__ __forceinline__ void dscores(float (&dp)[32], const float (&p)[32], c
   }
 }
 
-// The block's dQ tile of iteration `it` into device memory: consumer 1
-// writes its share into staging tile it % 2 (q row r at r * D floats),
-// consumer 0 adds its own there, and one thread adds the tile into the fp32
-// dQ buffer with one bulk reduce-add. Staging tile it % 2 is free once the
-// reduce of iteration it - 2 has read it (consumer 0 arrives on kBarFree
-// after that, consumer 1 waits there). `down` unscales dS's scale.
+// This consumer's dQ share of a tile into device memory: its threads write
+// the share (times `down`, which unscales dS's scale) into the consumer's
+// staging tile (q row r at r * staged_cols(D) floats), and one thread adds
+// the tile into the fp32 dQ buffer with one bulk reduce-add. The tile is
+// written again a q tile later, after the consumer's barrier ahead of its
+// next dQ product, before which that thread waits for the reduce to have
+// read it (the loop in the kernel). Each consumer adds its own share: the
+// reduce-adds are cheap in L2, and the consumers never wait on each other.
 template <int kDN>
 __device__ __forceinline__ void add_dq(const float (&dq)[kDN / 2], float down, float* stage,
-                                       uint32_t stage_addr, const CUtensorMap* tdq, int c,
-                                       int tid, int row0, int t, int D, bool last, int h, int q0,
-                                       int b) {
-  if (c == 1) {
-    bar_sync(kBarFree);
+                                       uint32_t stage_addr, const CUtensorMap* tdq, int barrier,
+                                       int tid, int row0, int t, int D, int h, int q0, int b) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int n = 0; n < kDN / 8; ++n) {
-        const int col = 8 * n + 2 * t;
-        if (col < D)
-          *reinterpret_cast<float2*>(stage + (row0 + 8 * r) * D + col) =
-              make_float2(dq[4 * n + 2 * r] * down, dq[4 * n + 2 * r + 1] * down);
-      }
-    bar_arrive(kBarStaged);
-  } else {
-    bar_sync(kBarStaged);
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int n = 0; n < kDN / 8; ++n) {
-        const int col = 8 * n + 2 * t;
-        if (col < D) {
-          float2* at = reinterpret_cast<float2*>(stage + (row0 + 8 * r) * D + col);
-          const float2 x = *at;
-          *at = make_float2(x.x + dq[4 * n + 2 * r] * down, x.y + dq[4 * n + 2 * r + 1] * down);
-        }
-      }
-    fence_async_smem();
-    bar_sync<128>(kBarOwn);
-    if (tid == 0) {
-      tma_reduce_add(tdq, stage_addr, 0, h, q0, b);
-      bulk_commit();
-      bulk_wait_read<1>();  // the other staging tile's reduce has read it
+    for (int n = 0; n < kDN / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (col < D)
+        *reinterpret_cast<float2*>(stage + (row0 + 8 * r) * staged_cols(D, kDN) + col) =
+            make_float2(dq[4 * n + 2 * r] * down, dq[4 * n + 2 * r + 1] * down);
     }
-    if (!last) bar_arrive(kBarFree);
+  fence_async_smem();
+  bar_sync<128>(barrier);
+  if (tid == 0) {
+    tma_reduce_add(tdq, stage_addr, 0, h, q0, b);
+    bulk_commit();
   }
 }
 
-template <class T, int kDK, int kDN, bool kFusedDq>
-__global__ void __launch_bounds__(kThreads, 1)
+template <class T, int kDK, int kDN, bool kFusedDq, int kCons>
+__global__ void __launch_bounds__(Sweep<kCons>::kThreads, Sweep<kCons>::kMinBlocks)
     flash_bwd_sm90_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdq) {
-  using L = Smem<kDK, kDN, kFusedDq>;
+  using L = Smem<kDK, kDN, kFusedDq, kCons>;
   constexpr int kStages = L::kStages;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_addr(smem) + L::kAlign - 1) & ~(L::kAlign - 1);
   unsigned char* gbase = smem + (base - smem_addr(smem));  // the same bytes, generic address
-  const int j0 = blockIdx.x * kBN, hk = blockIdx.y, b = blockIdx.z;
+  const int j0 = blockIdx.x * L::kBN, hk = blockIdx.y, b = blockIdx.z;
   const int rep = p.Hq / p.Hkv;
   const int nq = (p.Sq + kBM - 1) / kBM;
   const int n_it = rep * nq;  // (q head of the group, q tile), q tiles innermost
@@ -330,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_init(base + L::kv_full(), 1);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(base + L::full(st), 32);                 // every producer lane
-      mbar_init(base + L::empty(st), 128 * kConsumers);  // every consumer thread
+      mbar_init(base + L::empty(st), 128 * kCons);  // every consumer thread
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -384,7 +427,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ---- consumers: 64 keys each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Sweep<kCons>::kConsumerRegs));
     const int c = wg - 1;
     const int tid = threadIdx.x - 128 * wg;
     const int warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
@@ -406,7 +449,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     float s[32], dp[32];
     uint32_t phi[4][4], plo[4][4], dhi[4][4], dlo[4][4];
 
-    if (kFusedDq && c == 0) bar_arrive(kBarFree);  // staging tile 0 is free
     mbar_wait(base + L::kv_full(), 0);
     for (int it = 0; it < n_it; ++it) {
       const int st = it % kStages;
@@ -452,6 +494,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if constexpr (kFusedDq) {
         // dQ_c = dS_c K_c (64 q rows x kDN), this consumer's 64 keys
         fence_async_smem();
+        if (tid == 0) bulk_wait_read<0>();  // the last reduce has read the staging tile
         bar_sync<128>(kBarOwn + c);
         float dq[kDN / 2];
         wgmma_fence();
@@ -468,12 +511,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         pin(dq);
 
         const int h = hk * rep + it / nq, q0 = (it % nq) * kBM;
-        add_dq<kDN>(dq, ds2.y, reinterpret_cast<float*>(gbase + L::staging(it & 1)),
-                    base + L::staging(it & 1), &tdq, c, tid, row0, t, p.D, it + 1 == n_it, h, q0,
-                    b);
+        add_dq<kDN>(dq, ds2.y, reinterpret_cast<float*>(gbase + L::staging(c)),
+                    base + L::staging(c), &tdq, kBarOwn + c, tid, row0, t, p.D, h, q0, b);
       }
     }
-    if (kFusedDq && tid == 0 && c == 0) bulk_wait_all();
+    if (kFusedDq && tid == 0) bulk_wait_all();
 
     // dK (unscaled from dS's scale) and dV of this consumer's keys, per kv
     // head (0 for a masked key)
@@ -496,37 +538,67 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <class T, int kDK, int kDN, bool kFusedDq>
+// The compiled kernel's registers a thread at launch (numRegs), or 0
+template <class Kernel>
+int launch_registers(Kernel kernel) {
+  cudaFuncAttributes a;
+  return cudaFuncGetAttributes(&a, kernel) == cudaSuccess ? a.numRegs : 0;
+}
+
+template <class T, int kDK, int kDN, bool kFusedDq, int kCons>
 int launch_dims(const Params& p, const void* const* ptrs, const long long* meta,
                 cudaStream_t stream) {
+  using S = Sweep<kCons>;
   // ptrs: q, k, v, dout, dq; meta strides from index 6 (q, k, v, dout, dq)
   CUtensorMap tq, tdo, tk, tv, tdq = {};
   if (!make_map<T>(&tq, ptrs[0], p.B, p.Sq, p.Hq, p.D, meta[6], meta[7], meta[8], kBM) ||
-      !make_map<T>(&tk, ptrs[1], p.B, p.Sk, p.Hkv, p.D, meta[9], meta[10], meta[11], kBN) ||
-      !make_map<T>(&tv, ptrs[2], p.B, p.Sk, p.Hkv, p.D, meta[12], meta[13], meta[14], kBN) ||
+      !make_map<T>(&tk, ptrs[1], p.B, p.Sk, p.Hkv, p.D, meta[9], meta[10], meta[11], S::kBN) ||
+      !make_map<T>(&tv, ptrs[2], p.B, p.Sk, p.Hkv, p.D, meta[12], meta[13], meta[14], S::kBN) ||
       !make_map<T>(&tdo, ptrs[3], p.B, p.Sq, p.Hq, p.D, meta[15], meta[16], meta[17], kBM))
     return (int)cudaErrorInvalidValue;
-  // dQ, fp32: box D columns x 64 rows, unswizzled (the staging tile's layout)
+  // dQ, fp32: box staged_cols(D) columns x 64 rows, unswizzled (the
+  // staging tile's layout; columns past D are outside the tensor)
   if (kFusedDq && !make_map_4d(&tdq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptrs[4], p.B, p.Sq, p.Hq,
-                               p.D, meta[18], meta[19], meta[20], p.D, kBM,
+                               p.D, meta[18], meta[19], meta[20], staged_cols(p.D, kDN), kBM,
                                CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_bwd_sm90_kernel<T, kDK, kDN, kFusedDq>;
-  const int bytes = (int)Smem<kDK, kDN, kFusedDq>::kBytes;
+  auto kernel = flash_bwd_sm90_kernel<T, kDK, kDN, kFusedDq, kCons>;
+  // the block's registers at launch must cover what setmaxnreg hands out,
+  // or setmaxnreg.inc would wait for registers the block never gets
+  static const int regs = launch_registers(kernel);
+  if (regs * S::kThreads < 128 * (kProducerRegs + kCons * S::kConsumerRegs))
+    return (int)cudaErrorLaunchOutOfResources;
+  const int bytes = (int)Smem<kDK, kDN, kFusedDq, kCons>::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.Sk + kBN - 1) / kBN, p.Hkv, p.B);
-  kernel<<<grid, kThreads, bytes, stream>>>(p, tq, tdo, tk, tv, tdq);
+  dim3 grid((p.Sk + S::kBN - 1) / S::kBN, p.Hkv, p.B);
+  kernel<<<grid, S::kThreads, bytes, stream>>>(p, tq, tdo, tk, tv, tdq);
   return (int)cudaGetLastError();
 }
 
-// the products' depth and width by head_dim: 64/64, 80/72 (the 2B), 128/128
+// The products' depth and width by head_dim: 48/48 (one consumer, two
+// blocks an SM), 64/64, 80/72 (the 2B), 96/96, 128/128 (two consumers).
+// `fn` is called with a value of that instantiation's Dims.
+template <int kDK, int kDN, int kCons>
+struct Dims {
+  static constexpr int kDepth = kDK, kWidth = kDN, kConsumers = kCons;
+};
+template <class Fn>
+int by_head_dim(int d, Fn fn) {
+  if (d <= 48) return fn(Dims<48, 48, 1>{});
+  if (d <= 64) return fn(Dims<64, 64, 2>{});
+  if (d <= 72) return fn(Dims<80, 72, 2>{});
+  if (d <= 96) return fn(Dims<96, 96, 2>{});
+  return fn(Dims<128, 128, 2>{});
+}
+
 template <class T, bool kFusedDq>
 int launch(const Params& p, const void* const* ptrs, const long long* meta, cudaStream_t stream) {
-  if (p.D <= 64) return launch_dims<T, 64, 64, kFusedDq>(p, ptrs, meta, stream);
-  if (p.D <= 72) return launch_dims<T, 80, 72, kFusedDq>(p, ptrs, meta, stream);
-  return launch_dims<T, 128, 128, kFusedDq>(p, ptrs, meta, stream);
+  return by_head_dim(p.D, [&](auto dims) {
+    using X = decltype(dims);
+    return launch_dims<T, X::kDepth, X::kWidth, kFusedDq, X::kConsumers>(p, ptrs, meta, stream);
+  });
 }
 
 // -- the dQ kernel -------------------------------------------------------------------
@@ -732,43 +804,57 @@ int launch_dq_dims(const Params& p, const void* const* ptrs, const long long* me
 
 // the compiled kernel's resources (see lumina_flash_bwd_sm90_attributes)
 template <class Kernel>
-int kernel_attributes(Kernel kernel, int bytes, long long* out) {
+int kernel_attributes(Kernel kernel, int bytes, int threads, int consumer_regs,
+                      long long* out) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   cudaFuncAttributes a;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, bytes);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = kProducerRegs;
-  out[2] = kConsumerRegs;
+  out[2] = consumer_regs;
   out[3] = (long long)a.localSizeBytes;
   out[4] = (long long)a.sharedSizeBytes + bytes;
   out[5] = blocks;
-  out[6] = kThreads;
+  out[6] = threads;
   return 0;
 }
 
-// 0: dK/dV only, 1: fused, 2: dQ
-template <class T, int kDK, int kDN>
-int attributes_dims(int which, long long* out) {
-  if (which == 2)
-    return kernel_attributes(flash_bwd_sm90_dq_kernel<T, kDK, kDN>,
-                             (int)DqSmem<kDK, kDN>::kBytes, out);
-  if (which == 1)
-    return kernel_attributes(flash_bwd_sm90_kernel<T, kDK, kDN, true>,
-                             (int)Smem<kDK, kDN, true>::kBytes, out);
-  return kernel_attributes(flash_bwd_sm90_kernel<T, kDK, kDN, false>,
-                           (int)Smem<kDK, kDN, false>::kBytes, out);
-}
-
+// 0: dK/dV only, 1: fused (both by by_head_dim), 2: dQ (64/64, 80/72,
+// 128/128); out[7], out[8]: the instantiation's product depth and width
 template <class T>
 int attributes(int which, int head_dim, long long* out) {
-  if (head_dim <= 64) return attributes_dims<T, 64, 64>(which, out);
-  if (head_dim <= 72) return attributes_dims<T, 80, 72>(which, out);
-  return attributes_dims<T, 128, 128>(which, out);
+  if (which == 2) {
+    auto dq = [&](auto kernel, int bytes, int depth, int width) {
+      out[7] = depth;
+      out[8] = width;
+      return kernel_attributes(kernel, bytes, kThreads, kConsumerRegs, out);
+    };
+    if (head_dim <= 64)
+      return dq(flash_bwd_sm90_dq_kernel<T, 64, 64>, DqSmem<64, 64>::kBytes, 64, 64);
+    if (head_dim <= 72)
+      return dq(flash_bwd_sm90_dq_kernel<T, 80, 72>, DqSmem<80, 72>::kBytes, 80, 72);
+    return dq(flash_bwd_sm90_dq_kernel<T, 128, 128>, DqSmem<128, 128>::kBytes, 128, 128);
+  }
+  return by_head_dim(head_dim, [&](auto dims) {
+    using X = decltype(dims);
+    using S = Sweep<X::kConsumers>;
+    out[7] = X::kDepth;
+    out[8] = X::kWidth;
+    if (which == 1)
+      return kernel_attributes(
+          flash_bwd_sm90_kernel<T, X::kDepth, X::kWidth, true, X::kConsumers>,
+          (int)Smem<X::kDepth, X::kWidth, true, X::kConsumers>::kBytes, S::kThreads,
+          S::kConsumerRegs, out);
+    return kernel_attributes(
+        flash_bwd_sm90_kernel<T, X::kDepth, X::kWidth, false, X::kConsumers>,
+        (int)Smem<X::kDepth, X::kWidth, false, X::kConsumers>::kBytes, S::kThreads,
+        S::kConsumerRegs, out);
+  });
 }
 
 // Params from the entry points' arguments (dk, dv and dq left unset), or
@@ -865,10 +951,11 @@ int flash_bwd_dq_sm90(bool f16, const void* q, const void* k, const void* v, con
 }
 
 // The compiled kernel's resources at a head_dim, for bf16 (f16 = 0) or fp16
-// operands (7 values into out): registers per thread as compiled (the
+// operands (9 values into out): registers per thread as compiled (the
 // launch bound), the producer's and the consumers' registers after
 // setmaxnreg, local-memory (spill) bytes per thread, shared memory per
-// block, resident blocks per SM, threads per block.
+// block, resident blocks per SM, threads per block, and the instantiation's
+// product depth and width.
 // which: 0 the dK/dV kernel (K8), 1 the fused sweep (K6), 2 the dQ kernel (K7).
 extern "C" int lumina_flash_bwd_sm90_attributes(int which, int head_dim, int f16,
                                                 long long* out) {

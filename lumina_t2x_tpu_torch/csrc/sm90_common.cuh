@@ -230,26 +230,26 @@ constexpr bool kIsF16 = std::is_same<T, fp16>::value;
 // layout), B from shared memory MN-major, d += A B. Each takes the operand
 // type T (bf16 by default): the same instruction as .bf16.bf16 or .f16.f16.
 
-#define LUMINA_WG_D32                                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define LUMINA_WG_D24 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),      \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+#define LUMINA_WG_D32 LUMINA_WG_D24, "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),          \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
 #define LUMINA_WG_D36 LUMINA_WG_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
-#define LUMINA_WG_D64                                                                          \
-  LUMINA_WG_D36, "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
-      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),            \
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),            \
-      "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),            \
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-#define LUMINA_WG_R32                                                                          \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define LUMINA_WG_D48 LUMINA_WG_D36, "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),          \
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),  \
+      "+f"(d[47])
+#define LUMINA_WG_D64 LUMINA_WG_D48, "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),          \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]),  \
+      "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define LUMINA_WG_R24 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
+  "%16, %17, %18, %19, %20, %21, %22, %23"
+#define LUMINA_WG_R32 LUMINA_WG_R24 ", %24, %25, %26, %27, %28, %29, %30, %31"
 #define LUMINA_WG_R36 LUMINA_WG_R32 ", %32, %33, %34, %35"
-#define LUMINA_WG_R64                                                                          \
-  LUMINA_WG_R36 ", %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, " \
-                "%51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define LUMINA_WG_R48 LUMINA_WG_R36 ", %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+#define LUMINA_WG_R64 LUMINA_WG_R48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, "   \
+  "%59, %60, %61, %62, %63"
 
 // the asm of one product, its operand type a string literal: TY "bf16" or "f16"
 #define LUMINA_WG_SS(TY, N, R, D, NA, NB, NACC, TRANS)                                        \
@@ -275,7 +275,16 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
     LUMINA_WG_SS("bf16", 64, LUMINA_WG_R32, LUMINA_WG_D32, 32, 33, 34, "0, 0");
 }
 
-// d (64 x N) = [d +] A B, both from shared memory and MN-major
+// d (64 x N) = [d +] A B, both from shared memory and MN-major; N = 48, 64,
+// 72, 96, 128 by d's size
+template <class T = bf16>
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[24], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  if constexpr (kIsF16<T>)
+    LUMINA_WG_SS("f16", 48, LUMINA_WG_R24, LUMINA_WG_D24, 24, 25, 26, "1, 1");
+  else
+    LUMINA_WG_SS("bf16", 48, LUMINA_WG_R24, LUMINA_WG_D24, 24, 25, 26, "1, 1");
+}
 template <class T = bf16>
 __device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                             int accumulate) {
@@ -293,6 +302,14 @@ __device__ __forceinline__ void wgmma_ss_tt(float (&d)[36], uint64_t desc_a, uin
     LUMINA_WG_SS("bf16", 72, LUMINA_WG_R36, LUMINA_WG_D36, 36, 37, 38, "1, 1");
 }
 template <class T = bf16>
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[48], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  if constexpr (kIsF16<T>)
+    LUMINA_WG_SS("f16", 96, LUMINA_WG_R48, LUMINA_WG_D48, 48, 49, 50, "1, 1");
+  else
+    LUMINA_WG_SS("bf16", 96, LUMINA_WG_R48, LUMINA_WG_D48, 48, 49, 50, "1, 1");
+}
+template <class T = bf16>
 __device__ __forceinline__ void wgmma_ss_tt(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                             int accumulate) {
   if constexpr (kIsF16<T>)
@@ -301,7 +318,15 @@ __device__ __forceinline__ void wgmma_ss_tt(float (&d)[64], uint64_t desc_a, uin
     LUMINA_WG_SS("bf16", 128, LUMINA_WG_R64, LUMINA_WG_D64, 64, 65, 66, "1, 1");
 }
 
-// d (64 x N) += A (registers) B (shared memory, MN-major); N = 64, 72, 128 by d's size
+// d (64 x N) += A (registers) B (shared memory, MN-major); N = 48, 64, 72, 96,
+// 128 by d's size
+template <class T = bf16>
+__device__ __forceinline__ void wgmma_rs_n(float (&d)[24], const uint32_t (&a)[4], uint64_t desc_b) {
+  if constexpr (kIsF16<T>)
+    LUMINA_WG_RS("f16", 48, LUMINA_WG_R24, LUMINA_WG_D24, 24, 25, 26, 27, 28, 29);
+  else
+    LUMINA_WG_RS("bf16", 48, LUMINA_WG_R24, LUMINA_WG_D24, 24, 25, 26, 27, 28, 29);
+}
 template <class T = bf16>
 __device__ __forceinline__ void wgmma_rs_n(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
   if constexpr (kIsF16<T>)
@@ -315,6 +340,13 @@ __device__ __forceinline__ void wgmma_rs_n(float (&d)[36], const uint32_t (&a)[4
     LUMINA_WG_RS("f16", 72, LUMINA_WG_R36, LUMINA_WG_D36, 36, 37, 38, 39, 40, 41);
   else
     LUMINA_WG_RS("bf16", 72, LUMINA_WG_R36, LUMINA_WG_D36, 36, 37, 38, 39, 40, 41);
+}
+template <class T = bf16>
+__device__ __forceinline__ void wgmma_rs_n(float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b) {
+  if constexpr (kIsF16<T>)
+    LUMINA_WG_RS("f16", 96, LUMINA_WG_R48, LUMINA_WG_D48, 48, 49, 50, 51, 52, 53);
+  else
+    LUMINA_WG_RS("bf16", 96, LUMINA_WG_R48, LUMINA_WG_D48, 48, 49, 50, 51, 52, 53);
 }
 template <class T = bf16>
 __device__ __forceinline__ void wgmma_rs_n(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {

@@ -53,13 +53,12 @@ _TILE_MATH = ("      wgmma_fence();\n      qk<kDK, L::kKAtom, L::kQAtom, T>(s, k
               "      mbar_arrive(base + L::empty(st));\n")
 _DQ_TILE = ("      if constexpr (kFusedDq) {\n        // dQ_c", "      if constexpr (false) {\n"
             "        // dQ_c")
-_FIRST_FREE = ("    if (kFusedDq && c == 0) bar_arrive(kBarFree);  // staging tile 0 is free\n", "")
 _QDO_LOADS = ("      if (lane == 0) {\n        mbar_expect_tx(base + L::full(st), L::kStageBytes);",
               "        mbar_arrive(base + L::full(st));\n      }\n",
               "      mbar_arrive(base + L::full(st));\n")
 _CHAIN = [("      probs(s, stats, key_ok, t, p.scale2);\n", ""),
           ("      dscores(dp, s, stats + kBM, t, ds_scale);\n", "")]
-_ADD_DQ = ("        add_dq<kDN>(", "                    b);\n", "")
+_ADD_DQ = ("        add_dq<kDN>(", "h, q0, b);\n", "")
 _ONCE = [("    wgmma_rs<kDN, T>(acc, lo[kk], desc);\n", ""),
          ("    lo[n / 2][2 * (n % 2)] = E::pack(x[4 * n] - E::lo(top), x[4 * n + 1] - "
           "E::hi(top));\n", ""),
@@ -69,9 +68,9 @@ _ONCE = [("    wgmma_rs<kDN, T>(acc, lo[kk], desc);\n", ""),
          ("for (int lo = 0; lo < 2; ++lo)", "for (int lo = 0; lo < 1; ++lo)")]
 _EDITS = {
     "kernel": [],
-    "loads only": [_TILE_MATH, _DQ_TILE, _FIRST_FREE],
+    "loads only": [_TILE_MATH, _DQ_TILE],
     "products only": [_QDO_LOADS, *_CHAIN],
-    "no dQ reduce": [_ADD_DQ, _FIRST_FREE],
+    "no dQ reduce": [_ADD_DQ],
     "P/dS once": _ONCE,
 }
 # each variant exports the launcher under a C name (bf16, no dS scale)
@@ -153,7 +152,7 @@ def main():
                      for _ in range(4))
     scale = D ** -0.5
     out, lse = fa.flash_online_lse(q, k, v, None, scale)
-    delta = fa._bwd_delta(out, dout)
+    delta = fa.bwd_delta(out, dout)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     meta = (ctypes.c_longlong * 28)(B, S, S, H, H, D, *q.stride()[:3], *k.stride()[:3],

@@ -6,7 +6,7 @@ At the 2B's (2, 4096, 32, 72), every key valid, K3/K5 under the bound max
 LSE + 8 (the trainer's margin): K2 (`flash_online`), K3 (`flash_static_max`),
 K4 (`flash_online_lse`), K5 (`flash_static_max_lse`), K6 (`flash_bwd_fused`),
 K7 (`flash_bwd_dq`) and K8 (`flash_bwd_dkv`), and the backward wrapper's two
-reductions, delta = rowsum(dO * O) (`_bwd_delta`) and fp16's max|dO|
+reductions, delta = rowsum(dO * O) (`bwd_delta`, a kernel) and fp16's max|dO|
 (`_do_amax`, timed on either dtype's dO). Each is the median of `--reps`
 calls (CUDA events around the wrapper), bf16 and fp16 taking turns, the
 first dtype alternating from round to round, so that both see the same
@@ -40,7 +40,7 @@ def _calls(fa, q, k, v, out, lse, dout, bound):
             "K6": lambda: fa.flash_bwd_fused(*args),
             "K7": lambda: fa.flash_bwd_dq(*args),
             "K8": lambda: fa.flash_bwd_dkv(*args),
-            "delta": lambda: fa._bwd_delta(out, dout),
+            "delta": lambda: fa.bwd_delta(out, dout),
             "max|dO|": lambda: fa._do_amax(dout)}
 
 

@@ -3,8 +3,9 @@ versions (counterpart of `lumina_t2x_tpu/ops/flash_attention.py`).
 
 Ten entry points, each with its own launch counter (`LAUNCHES`; split by
 operand dtype in `DTYPE_LAUNCHES`), each
-standing in for one Pallas TPU kernel, and `rope_rotate`, the rotation the
-fused-RoPE route runs before its forward:
+standing in for one Pallas TPU kernel, `rope_rotate`, the rotation the
+fused-RoPE route runs before its forward, and `bwd_delta`, the backward's
+rowsum(dO * O), which the JAX package computes outside its kernels:
 
 | entry point            | Pallas kernel (lumina_t2x_tpu/ops/flash_attention.py)   |
 | ---------------------- | -------------------------------------------------------- |
@@ -19,6 +20,7 @@ fused-RoPE route runs before its forward:
 | `flash_rope`           | `_flash_rope_kernel` (online, q and k rotated in-kernel)  |
 | `flash_rope_q`         | `_flash_rope_q_kernel` (online, q rotated in-kernel)      |
 | `rope_rotate`          | `_rotate_tile` of `_flash_rope_kernel`'s k (once a call)  |
+| `bwd_delta`            | none: `_bwd_prepare`'s delta einsum, before the backward   |
 
 The first three serve inference (no autograd); under autograd
 `flash_attention` runs `_FlashAttention`, whose forward is `flash_online_lse`
@@ -43,8 +45,8 @@ in place by 4-byte copies, any head_dim up to 128) and
 and `flash_bwd_dq`'s own kernel: q rows as the block, a ring of K/V tiles),
 `csrc/flash_bwd_fp32_sm90.cu` (the three backwards in fp32: FFMA products
 tiled in registers, dK/dV or dQ held in registers, the fused sweep's dQ
-added by TMA bulk reduce-adds), with `csrc/rope_rotate.cu` (`rope_rotate`);
-they are built into one library by
+added by TMA bulk reduce-adds), with `csrc/rope_rotate.cu` (`rope_rotate`)
+and `csrc/bwd_delta.cu` (`bwd_delta`); they are built into one library by
 `ops/cuda_lib.py` at first use, under `build/kernels/<source hash>/` at the
 repository root, and bound through ctypes. A wrapper takes its plain version only for CPU
 tensors; for CUDA tensors it launches the kernel or raises. The bf16 and
@@ -102,7 +104,8 @@ _STATIC_MAX_CLAMP = 55.0
 _FWD_ENTRIES = ("small_kv", "online", "static_max", "online_lse", "static_max_lse")
 _BWD_ENTRIES = ("bwd_fused", "bwd_dq", "bwd_dkv")
 _ROPE_ENTRIES = ("rope", "rope_q")
-LAUNCHES = {name: 0 for name in _FWD_ENTRIES + _BWD_ENTRIES + _ROPE_ENTRIES + ("rope_rotate",)}
+LAUNCHES = {name: 0 for name in _FWD_ENTRIES + _BWD_ENTRIES + _ROPE_ENTRIES
+            + ("rope_rotate", "bwd_delta")}
 # the same launches split by operand dtype: "<entry>_fp32", "_bf16", "_fp16"
 _DTYPE_TAGS = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.float16: "fp16"}
 DTYPE_LAUNCHES = {f"{name}_{tag}": 0 for name in LAUNCHES for tag in _DTYPE_TAGS.values()}
@@ -118,7 +121,8 @@ def reset_launch_counts() -> None:
 
 
 def _count_launch(name, dtype) -> None:
-    """One launch of `lumina_flash_<name>` (or rope_rotate) on `dtype` operands."""
+    """One launch of `lumina_flash_<name>` (or rope_rotate, bwd_delta) on
+    `dtype` operands."""
     LAUNCHES[name] += 1
     DTYPE_LAUNCHES[f"{name}_{_DTYPE_TAGS[dtype]}"] += 1
 
@@ -321,19 +325,22 @@ _BWD_ARGS = [_ptr] * 11 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
 _ROPE_ARGS = [_ptr] * 7 + [_meta, ctypes.c_float, ctypes.c_int, _ptr]
 # rope_rotate: x, out, cos_full, sin_signed, meta (int64[7]), dtype code, stream
 _ROTATE_ARGS = [_ptr] * 4 + [_meta, ctypes.c_int, _ptr]
+# bwd_delta: out, dout, delta, meta (int64[10]), dtype code, stream
+_DELTA_ARGS = [_ptr] * 3 + [_meta, ctypes.c_int, _ptr]
 # the dtype codes of the C entry points (the kernels' operand types)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 LIBRARY = "flash"  # the library of K1-K9 (`ops/cuda_lib.py`)
 cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
                           "flash_fwd_fp32_sm90.cu", "flash_bwd_sm90.cu",
-                          "flash_bwd_fp32_sm90.cu", "rope_rotate.cu"], {
+                          "flash_bwd_fp32_sm90.cu", "rope_rotate.cu", "bwd_delta.cu"], {
     **{f"lumina_flash_{name}": _FWD_ARGS for name in _FWD_ENTRIES},
     **{f"lumina_flash_{name}": _BWD_ARGS for name in _BWD_ENTRIES},
     **{f"lumina_flash_{name}": _ROPE_ARGS for name in _ROPE_ENTRIES},
     "lumina_rope_rotate": _ROTATE_ARGS,
+    "lumina_bwd_delta": _DELTA_ARGS,
     # static_max (fused), head_dim, fp16, out (int64[7]); launch nothing
     "lumina_flash_fwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _meta],
-    # which (0 dK/dV, 1 fused, 2 dQ), head_dim, fp16, out (int64[7])
+    # which (0 dK/dV, 1 fused, 2 dQ), head_dim, fp16, out (int64[9])
     "lumina_flash_bwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _meta],
     # static_max, meta (the forward's, shapes read), out (int64[8]); launch nothing
     "lumina_flash_fwd_fp32_attributes": [ctypes.c_int, _meta, _meta],
@@ -344,15 +351,15 @@ _SM90_ATTRIBUTES = ("registers", "producer_registers", "consumer_registers", "lo
                     "shared_bytes", "blocks_per_sm", "threads")
 
 
-def _attributes(symbol, flag, head_dim, dtype):
+def _attributes(symbol, flag, head_dim, dtype, names=_SM90_ATTRIBUTES):
     if dtype not in _SM90_DTYPES:
         raise TypeError(f"the Hopper kernels are instantiated for bf16 and fp16, not {dtype}")
-    out = (ctypes.c_longlong * len(_SM90_ATTRIBUTES))()
+    out = (ctypes.c_longlong * len(names))()
     err = getattr(cuda_lib.build_library(LIBRARY), symbol)(int(flag), int(head_dim),
                                                            int(dtype == torch.float16), out)
     if err != 0:
         raise RuntimeError(f"{symbol} failed: cudaError {err}")
-    return dict(zip(_SM90_ATTRIBUTES, out))
+    return dict(zip(names, out))
 
 
 def sm90_attributes(static_max: bool, head_dim: int = 72, dtype=torch.bfloat16) -> dict:
@@ -387,16 +394,41 @@ def fp32_attributes(static_max: bool, b: int, sq: int, sk: int, hq: int, hkv: in
 
 
 _BWD_SM90_KERNELS = ("dkv", "fused", "dq")  # the C entry's `which`, in order
+# the backward's resources, then the products' depth and width of the instantiation
+_BWD_SM90_ATTRIBUTES = _SM90_ATTRIBUTES + ("depth", "width")
+# (largest head_dim, depth, width, consumer warpgroups) of the bf16 and fp16
+# backward's instantiations, as `csrc/flash_bwd_sm90.cu` picks them: the
+# dK/dV sweep (K6, K8; `by_head_dim`) and the dQ kernel (K7)
+_BWD_SWEEP_DIMS = ((48, 48, 48, 1), (64, 64, 64, 2), (72, 80, 72, 2), (96, 96, 96, 2),
+                   (128, 128, 128, 2))
+_BWD_DQ_DIMS = ((64, 64, 64, 2), (72, 80, 72, 2), (128, 128, 128, 2))
+
+
+def bwd_sm90_instantiation(kernel: str, head_dim: int) -> tuple:
+    """(depth, width, consumer warpgroups) of the bf16 and fp16 backward
+    instantiation that `kernel` ("fused", "dkv" or "dq") runs at `head_dim`:
+    the sweep 48/48 with one consumer (two blocks an SM) up to 48, then
+    64/64, 80/72, 96/96, 128/128 with two; the dQ kernel 64/64, 80/72,
+    128/128."""
+    if kernel not in _BWD_SM90_KERNELS:
+        raise ValueError(f"kernel must be one of {_BWD_SM90_KERNELS}, not {kernel!r}")
+    if not 0 < head_dim <= 128:
+        raise ValueError(f"the backward kernels take head_dim up to 128, got {head_dim}")
+    dims = _BWD_DQ_DIMS if kernel == "dq" else _BWD_SWEEP_DIMS
+    return next(row[1:] for row in dims if head_dim <= row[0])
 
 
 def bwd_sm90_attributes(kernel: str, head_dim: int = 72, dtype=torch.bfloat16) -> dict:
     """`sm90_attributes` of a bf16 or fp16 backward kernel
     (`csrc/flash_bwd_sm90.cu`): `kernel` is "fused" (the fused sweep, K6),
-    "dkv" (dK/dV only, K8) or "dq" (the dQ kernel, K7)."""
-    if kernel not in _BWD_SM90_KERNELS:
-        raise ValueError(f"kernel must be one of {_BWD_SM90_KERNELS}, not {kernel!r}")
-    return _attributes("lumina_flash_bwd_sm90_attributes", _BWD_SM90_KERNELS.index(kernel),
-                       head_dim, dtype)
+    "dkv" (dK/dV only, K8) or "dq" (the dQ kernel, K7); with the compiled
+    instantiation's product depth and width, and the instantiation
+    `bwd_sm90_instantiation` names ("instantiation": "depth/width",
+    "consumers": consumer warpgroups)."""
+    depth, width, consumers = bwd_sm90_instantiation(kernel, head_dim)
+    info = _attributes("lumina_flash_bwd_sm90_attributes", _BWD_SM90_KERNELS.index(kernel),
+                       head_dim, dtype, _BWD_SM90_ATTRIBUTES)
+    return {**info, "instantiation": f"{depth}/{width}", "consumers": consumers}
 
 
 _BWD_FP32_ATTRIBUTES = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads",
@@ -637,9 +669,39 @@ def _launch_rope(name, q, k, v, angles, kv_mask, scale):
     return out
 
 
-def _bwd_delta(out, dout):
-    """delta = rowsum(dO * O) as a contiguous (B, Hq, Sq) fp32 tensor."""
+def bwd_delta_plain(out, dout):
+    """Plain version of `bwd_delta`: fp32 copies of dO and O, their product,
+    a sum and a transposed copy."""
+    _count_plain(dout)
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def bwd_delta(out, dout):
+    """delta = rowsum(dO * O) of the (B, Sq, Hq, D) forward output and its
+    gradient (one dtype: bf16, fp16 or fp32), as the contiguous (B, Hq, Sq)
+    fp32 tensor the backward kernels read: one kernel on the card
+    (`csrc/bwd_delta.cu`: each input read once, in place, products and sum
+    in fp32), the plain version for CPU tensors."""
+    if not dout.is_cuda:
+        return bwd_delta_plain(out, dout)
+    if (out.shape != dout.shape or out.dim() != 4 or out.dtype != dout.dtype
+            or dout.dtype not in _KERNEL_DTYPES):
+        raise ValueError(f"bwd_delta takes out and dout of one (B, S, H, D) shape and one dtype "
+                         f"(bf16, fp16, fp32), got {tuple(out.shape)} {out.dtype} and "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    out = out if out.stride(-1) == 1 else out.contiguous()
+    dout = dout if dout.stride(-1) == 1 else dout.contiguous()
+    b, s, h, d = dout.shape
+    lib = cuda_lib.build_library(LIBRARY)
+    with _on_device(dout):
+        delta = torch.empty((b, h, s), dtype=torch.float32, device=dout.device)
+        meta = (ctypes.c_longlong * 10)(b, s, h, d, *out.stride()[:3], *dout.stride()[:3])
+        err = lib.lumina_bwd_delta(out.data_ptr(), dout.data_ptr(), delta.data_ptr(), meta,
+                                   _DTYPE_CODES[dout.dtype], _stream(dout))
+    if err != 0:
+        raise RuntimeError(f"bwd_delta kernel launch failed: cudaError {err}")
+    _count_launch("bwd_delta", dout.dtype)
+    return delta
 
 
 def _do_amax(dout):
@@ -669,7 +731,7 @@ def _launch_bwd(name, q, k, v, kv_mask, out, lse, dout, scale):
         if name in _SM90_BWD_ENTRIES and q.dtype in _SM90_DTYPES:
             _sm90_head_dim(name, d)
             q, k, v, dout = (_chunk_aligned(t) for t in (q, k, v, dout))
-        delta = _bwd_delta(out, dout)
+        delta = bwd_delta(out.to(q.dtype), dout)
         amax = _do_amax(dout) if q.dtype == torch.float16 and dout.numel() else None
         lse = lse.float().contiguous()
         new = lambda shape, dtype: torch.empty(shape, dtype=dtype, device=q.device)

@@ -15,7 +15,8 @@ from lumina_t2x_tpu_torch.ops import flash_attention as fa
 
 @pytest.mark.parametrize("module,sources,symbol", [
     (fa, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu", "flash_fwd_fp32_sm90.cu",
-          "flash_bwd_sm90.cu", "flash_bwd_fp32_sm90.cu", "rope_rotate.cu"], "lumina_rope_rotate"),
+          "flash_bwd_sm90.cu", "flash_bwd_fp32_sm90.cu", "rope_rotate.cu", "bwd_delta.cu"],
+     "lumina_rope_rotate"),
     (vpu, ["static_max_sm90.cu"], "lumina_static_max_v3"),
     (mxu, ["mma_probe.cu"], "lumina_mma_chain"),
 ])

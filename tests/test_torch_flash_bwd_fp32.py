@@ -318,12 +318,13 @@ class _RecordingLibrary:
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_each_dtype_reaches_its_kernels(monkeypatch, dtype):
-    """The dtype route, through a forward (K2), the backward (K7) and
-    `rope_rotate` with a stand-in library: bf16 and fp16 reach the Hopper
-    entries with their own dtype code (1, 2) and fp32 the fp32 kernels' (0),
-    with q read in place (no cast, no copy); fp16's backward hands the
-    kernels max|dO| (`_do_amax`), the others null; the launch counts split by
-    dtype. Any other dtype raises before anything is built or launched."""
+    """The dtype route, through a forward (K2), the backward (its delta
+    kernel, then K7) and `rope_rotate` with a stand-in library: bf16 and fp16
+    reach the Hopper entries with their own dtype code (1, 2) and fp32 the
+    fp32 kernels' (0), with q read in place (no cast, no copy); fp16's
+    backward hands the kernels max|dO| (`_do_amax`), the others null; the
+    launch counts split by dtype. Any other dtype raises before anything is
+    built or launched."""
     assert tfa._KERNEL_DTYPES == (torch.bfloat16, torch.float16, torch.float32)
     lib = _RecordingLibrary()
     monkeypatch.setattr(cuda_lib, "build_library", lambda name: lib)
@@ -336,21 +337,23 @@ def test_each_dtype_reaches_its_kernels(monkeypatch, dtype):
     tfa.flash_bwd_dq(q, k, v, None, out, lse, dout, 0.25)
     tfa.rope_rotate(torch.ones(1, 4, 2, 16, dtype=dtype).as_subclass(type(q)), torch.zeros(4, 8))
     code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[dtype]
-    (fwd, fwd_args), (bwd, bwd_args), (rot, rot_args) = lib.calls
-    assert (fwd, bwd, rot) == ("lumina_flash_online", "lumina_flash_bwd_dq", "lumina_rope_rotate")
+    (fwd, fwd_args), (dlt, dlt_args), (bwd, bwd_args), (rot, rot_args) = lib.calls
+    assert (fwd, dlt, bwd, rot) == ("lumina_flash_online", "lumina_bwd_delta",
+                                    "lumina_flash_bwd_dq", "lumina_rope_rotate")
     assert fwd_args[0] == q.data_ptr() and bwd_args[0] == q.data_ptr()
-    assert (fwd_args[9], bwd_args[13], rot_args[5]) == (code, code, code)
+    assert (fwd_args[9], dlt_args[4], bwd_args[13], rot_args[5]) == (code, code, code, code)
+    assert bwd_args[6] == dlt_args[2]  # the backward reads the delta kernel's output
     assert (bwd_args[7] is not None) == (dtype == torch.float16)  # do_amax
     assert out.dtype == dtype
     tag = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.float16: "fp16"}[dtype]
     assert {n: c for n, c in tfa.DTYPE_LAUNCHES.items() if c} == {
-        f"online_{tag}": 1, f"bwd_dq_{tag}": 1, f"rope_rotate_{tag}": 1}
+        f"online_{tag}": 1, f"bwd_delta_{tag}": 1, f"bwd_dq_{tag}": 1, f"rope_rotate_{tag}": 1}
     amax = tfa._do_amax(dout)
     assert amax.dtype == dout.dtype and amax.shape == (1,) and amax.item() == 3.0
     for bad in (torch.float64, torch.int32):
         with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
             _dtype_check(bad)
-    assert len(lib.calls) == 3
+    assert len(lib.calls) == 4
 
 
 def test_fp16_cpu_training_attention_matches_fp32():

@@ -3,11 +3,11 @@ flash_bwd_sm90.cu` (K6 `flash_bwd_fused`, K8 `flash_bwd_dkv` and K7
 `flash_bwd_dq` on bf16 inputs).
 
 On the CPU: `emulate_bwd` repeats the kernel's arithmetic in fp32 torch --
-128-key blocks of two 64-key halves; the exp2 domain with scale*log2(e) and
+the 64-key tiles of its consumer warpgroups; the exp2 domain with scale*log2(e) and
 lse*log2(e) folded, the min(., 0) clamp and the lse = -inf guard (+inf in
 the exp2 domain); P and dS split into bf16 hi + lo pairs for dV, dK and dQ;
-dQ summed block by block in fp32 (the second half's share, then the
-first's); dK and dV summed over the GQA group, one bf16 rounding of each
+dQ summed in fp32 a 64-key tile's share at a time (each consumer adds its
+own); dK and dV summed over the GQA group, one bf16 rounding of each
 output -- and is held against the JAX package's backward (`jax.vjp` of its
 `flash_attention`, Pallas kernels in interpret mode, both routes by
 LUMINA_FLASH_FUSED_BWD) and against the port's `flash_bwd_plain`.
@@ -39,7 +39,7 @@ from lumina_t2x_tpu_torch.ops import flash_attention as tfa
 
 _JFA = "lumina_t2x_tpu.ops.flash_attention"
 LOG2E = 1.4426950408889634
-BN, HALF = 128, 64  # keys per block, per consumer warpgroup
+HALF = 64  # keys per consumer warpgroup
 BK = 64  # keys per tile of the dQ kernel's ring
 REL, ATOL = 2.0 ** -8, 2e-5
 
@@ -114,28 +114,23 @@ def emulate_bwd(q, k, v, kv_mask, out, lse, dout, scale, pair=True, round_out=Tr
     valid = torch.ones(b, sk, dtype=torch.bool) if kv_mask is None else kv_mask != 0
     dq = torch.zeros(b, sq, hkv, rep, d)
     dk, dv = torch.zeros(b, sk, hkv, d), torch.zeros(b, sk, hkv, d)
-    for j0 in range(0, sk, BN):  # the last block is ragged: keys past Sk add nothing
-        shares = []
-        for c0 in (j0, j0 + HALF):
-            kc, vc = k[:, c0:c0 + HALF], v[:, c0:c0 + HALF]
-            if kc.shape[1] == 0:
-                shares.append(torch.zeros_like(dq))
-                continue
-            ok = valid[:, None, None, c0:c0 + HALF, None]  # (B, 1, 1, keys, 1)
-            st = torch.einsum("bkhd,bqhrd->bhrkq", kc, qg)  # S^T
-            dpt = torch.einsum("bkhd,bqhrd->bhrkq", vc, dog)  # dP^T
-            p = torch.exp2(torch.clamp(st * scale2 - lse2, max=0.0))
-            p = torch.where(ok, p, torch.zeros_like(p))
-            ds = p * (dpt - delta) * ds_scale_f
-            p_hi, p_lo = _pair(p, pair, dtype)
-            ds_hi, ds_lo = _pair(ds, pair, dtype)
-            dv[:, c0:c0 + HALF] += (torch.einsum("bhrkq,bqhrd->bkhd", p_hi, dog)
-                                    + torch.einsum("bhrkq,bqhrd->bkhd", p_lo, dog))
-            dk[:, c0:c0 + HALF] += (torch.einsum("bhrkq,bqhrd->bkhd", ds_hi, qg)
-                                    + torch.einsum("bhrkq,bqhrd->bkhd", ds_lo, qg))
-            shares.append(torch.einsum("bhrkq,bkhd->bqhrd", ds_hi, kc)
-                          + torch.einsum("bhrkq,bkhd->bqhrd", ds_lo, kc))
-        dq += shares[1] * down + shares[0] * down  # consumer 1's share, plus consumer 0's
+    for c0 in range(0, sk, HALF):  # the last tile is ragged: keys past Sk add nothing
+        kc, vc = k[:, c0:c0 + HALF], v[:, c0:c0 + HALF]
+        ok = valid[:, None, None, c0:c0 + HALF, None]  # (B, 1, 1, keys, 1)
+        st = torch.einsum("bkhd,bqhrd->bhrkq", kc, qg)  # S^T
+        dpt = torch.einsum("bkhd,bqhrd->bhrkq", vc, dog)  # dP^T
+        p = torch.exp2(torch.clamp(st * scale2 - lse2, max=0.0))
+        p = torch.where(ok, p, torch.zeros_like(p))
+        ds = p * (dpt - delta) * ds_scale_f
+        p_hi, p_lo = _pair(p, pair, dtype)
+        ds_hi, ds_lo = _pair(ds, pair, dtype)
+        dv[:, c0:c0 + HALF] += (torch.einsum("bhrkq,bqhrd->bkhd", p_hi, dog)
+                                + torch.einsum("bhrkq,bqhrd->bkhd", p_lo, dog))
+        dk[:, c0:c0 + HALF] += (torch.einsum("bhrkq,bqhrd->bkhd", ds_hi, qg)
+                                + torch.einsum("bhrkq,bqhrd->bkhd", ds_lo, qg))
+        # the consumer's dQ share, added on its own
+        dq += (torch.einsum("bhrkq,bkhd->bqhrd", ds_hi, kc)
+               + torch.einsum("bhrkq,bkhd->bqhrd", ds_lo, kc)) * down
     dq = dq.reshape(b, sq, hq, d)
     rnd = (lambda t: t.to(dtype).float()) if round_out else (lambda t: t)
     return rnd(dq), rnd(dk * down), rnd(dv)
@@ -211,14 +206,20 @@ def _close(got, ref):
 # masked tails, non-default scales
 CASES = [(2, 40, 32, 8, 1, 5, None), (1, 70, 200, 8, 2, 0, 0.3), (2, 33, 130, 8, 2, 17, 0.25),
          (1, 65, 260, 4, 1, 64, None)]
+# CASES at head_dim 16 (the 48/48 instantiation), then at the 48/48 and 96/96
+# instantiations' own widths: GQA 4:1, a masked tail, ragged Sq and Sk
+# (b, sq, sk, hq, hkv, masked tail, scale, head_dim)
+WIDTH_CASES = [(*case, 16) for case in CASES] + [
+    (1, 70, 200, 8, 2, 13, 0.3, 48), (2, 33, 97, 4, 1, 9, None, 48),
+    (1, 70, 200, 8, 2, 13, 0.3, 96), (2, 33, 130, 4, 1, 17, None, 96)]
 
 
 @pytest.mark.parametrize("fused", ["1", "0"])
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", WIDTH_CASES)
 def test_emulation_matches_jax(monkeypatch, fused, case):
-    b, sq, sk, hq, hkv, tail, scale = case
-    q, k, v, dout, mask = _inputs(sk + hq, b, sq, sk, hq, hkv, tail=tail)
-    scale = 16 ** -0.5 if scale is None else scale
+    b, sq, sk, hq, hkv, tail, scale, d = case
+    q, k, v, dout, mask = _inputs(sk + hq, b, sq, sk, hq, hkv, d=d, tail=tail)
+    scale = d ** -0.5 if scale is None else scale
     monkeypatch.setenv("LUMINA_FLASH_FUSED_BWD", fused)
     _, vjp = jax.vjp(lambda q_, k_, v_: jfa.flash_attention(q_, k_, v_, jnp.asarray(mask), scale),
                      *map(jnp.asarray, (q, k, v)))
@@ -228,11 +229,11 @@ def test_emulation_matches_jax(monkeypatch, fused, case):
         _close(a, r)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", WIDTH_CASES)
 def test_emulation_matches_plain(case):
-    b, sq, sk, hq, hkv, tail, scale = case
-    q, k, v, dout, mask = _inputs(2 * sk + hq, b, sq, sk, hq, hkv, tail=tail)
-    scale = 16 ** -0.5 if scale is None else scale
+    b, sq, sk, hq, hkv, tail, scale, d = case
+    q, k, v, dout, mask = _inputs(2 * sk + hq, b, sq, sk, hq, hkv, d=d, tail=tail)
+    scale = d ** -0.5 if scale is None else scale
     got, args = _emulate_np(q, k, v, dout, mask, scale)
     tq, tk, tv, tm, out, lse, tdo = args
     ref = tfa.flash_bwd_plain(tq, tk, tv, tm, out, lse, tdo, scale)
@@ -248,14 +249,14 @@ def _emulate_dq_np(q, k, v, dout, mask, scale, **kw):
     return emulate_dq(tq, tk, tv, tm, out, lse, tdo, scale, **kw), (tq, tk, tv, tm, out, lse, tdo)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", WIDTH_CASES)
 def test_dq_emulation_matches_jax_split_route(monkeypatch, case):
     """K7's arithmetic against the dq of the JAX package's two-kernel
     backward (`_bwd_dq_kernel`, LUMINA_FLASH_FUSED_BWD=0, Pallas in
     interpret mode)."""
-    b, sq, sk, hq, hkv, tail, scale = case
-    q, k, v, dout, mask = _inputs(3 * sk + hq, b, sq, sk, hq, hkv, tail=tail)
-    scale = 16 ** -0.5 if scale is None else scale
+    b, sq, sk, hq, hkv, tail, scale, d = case
+    q, k, v, dout, mask = _inputs(3 * sk + hq, b, sq, sk, hq, hkv, d=d, tail=tail)
+    scale = d ** -0.5 if scale is None else scale
     monkeypatch.setenv("LUMINA_FLASH_FUSED_BWD", "0")
     _, vjp = jax.vjp(lambda q_, k_, v_: jfa.flash_attention(q_, k_, v_, jnp.asarray(mask), scale),
                      *map(jnp.asarray, (q, k, v)))
@@ -264,11 +265,11 @@ def test_dq_emulation_matches_jax_split_route(monkeypatch, case):
     _close(got, ref)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", WIDTH_CASES)
 def test_dq_emulation_matches_plain(case):
-    b, sq, sk, hq, hkv, tail, scale = case
-    q, k, v, dout, mask = _inputs(4 * sk + hq, b, sq, sk, hq, hkv, tail=tail)
-    scale = 16 ** -0.5 if scale is None else scale
+    b, sq, sk, hq, hkv, tail, scale, d = case
+    q, k, v, dout, mask = _inputs(4 * sk + hq, b, sq, sk, hq, hkv, d=d, tail=tail)
+    scale = d ** -0.5 if scale is None else scale
     got, args = _emulate_dq_np(q, k, v, dout, mask, scale)
     _close(got, tfa.flash_bwd_plain(*args[:6], args[6], scale)[0])
 
@@ -488,15 +489,44 @@ def test_bwd_attributes_name_the_kernel(monkeypatch):
     default, or fp16) and refuses another name before it builds anything."""
     calls = []
     monkeypatch.setattr(tfa, "_attributes", lambda *a: calls.append(a) or {})
+    names = tfa._BWD_SM90_ATTRIBUTES
     for kernel in ("dkv", "fused", "dq"):
         tfa.bwd_sm90_attributes(kernel, 64)
-    assert calls == [("lumina_flash_bwd_sm90_attributes", which, 64, torch.bfloat16)
+    assert calls == [("lumina_flash_bwd_sm90_attributes", which, 64, torch.bfloat16, names)
                      for which in (0, 1, 2)]
     calls.clear()
     tfa.bwd_sm90_attributes("dq", 72, torch.float16)
-    assert calls == [("lumina_flash_bwd_sm90_attributes", 2, 72, torch.float16)]
+    assert calls == [("lumina_flash_bwd_sm90_attributes", 2, 72, torch.float16, names)]
     with pytest.raises(ValueError, match="kernel must be one of"):
         tfa.bwd_sm90_attributes(True)
+    assert names[-2:] == ("depth", "width")  # the compiled instantiation's, from the C entry
+
+
+# (kernel, head_dim) -> (instantiation, consumer warpgroups): the dK/dV sweep
+# (K6 fused, K8 dkv) 48/48 up to 48 with one consumer (two blocks an SM),
+# 64/64, 80/72, 96/96, 128/128 with two; the dQ kernel (K7) 64/64, 80/72,
+# 128/128
+INSTANTIATIONS = {("fused", 48): ("48/48", 1), ("dkv", 48): ("48/48", 1),
+                  ("fused", 16): ("48/48", 1), ("dkv", 40): ("48/48", 1),
+                  ("fused", 96): ("96/96", 2), ("dkv", 96): ("96/96", 2),
+                  ("fused", 88): ("96/96", 2), ("dkv", 56): ("64/64", 2),
+                  ("fused", 72): ("80/72", 2), ("dkv", 128): ("128/128", 2),
+                  ("dq", 48): ("64/64", 2), ("dq", 96): ("128/128", 2), ("dq", 72): ("80/72", 2)}
+
+
+@pytest.mark.parametrize("kernel,head_dim", sorted(INSTANTIATIONS))
+def test_bwd_attributes_name_the_instantiation(monkeypatch, kernel, head_dim):
+    """`bwd_sm90_attributes` names the instantiation a head_dim runs: the
+    48/48 and 96/96 sweeps at head_dim 48 and 96 (K6 and K8), K7 on its own
+    (64/64, 80/72, 128/128); nothing is built (the C entry stood in for)."""
+    monkeypatch.setattr(tfa, "_attributes", lambda *a: {"threads": 0})
+    for dtype in (torch.bfloat16, torch.float16):
+        info = tfa.bwd_sm90_attributes(kernel, head_dim, dtype)
+        assert (info["instantiation"], info["consumers"]) == INSTANTIATIONS[kernel, head_dim]
+    depth, width, consumers = tfa.bwd_sm90_instantiation(kernel, head_dim)
+    assert depth >= head_dim and width >= head_dim and f"{depth}/{width}" == info["instantiation"]
+    with pytest.raises(ValueError, match="up to 128"):
+        tfa.bwd_sm90_instantiation(kernel, 136)
 
 
 def test_breakdown_needs_the_card(monkeypatch):
@@ -563,13 +593,14 @@ def _assert_near(got, ref, rel):
 @pytest.mark.parametrize("shape", [
     (2, 77, 33, 8, 1, 72), (2, 200, 300, 4, 2, 72), (1, 300, 1000, 8, 8, 72), (3, 1, 1, 2, 1, 72),
     (2, 130, 257, 4, 4, 64), (1, 129, 200, 8, 2, 64), (2, 70, 200, 8, 1, 16),
-    (1, 193, 129, 4, 1, 128), (2, 65, 130, 4, 2, 96)])
+    (1, 193, 129, 4, 1, 128), (2, 65, 130, 4, 2, 96), (2, 130, 257, 8, 2, 48),
+    (1, 193, 129, 8, 2, 96), (3, 1, 1, 4, 1, 48), (2, 33, 700, 8, 2, 40)])
 @pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
 def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
     """Odd Sq and Sk, GQA, a masked tail and a fully masked batch row, at
-    head_dim 72 (the 2B) and in the kernel's other instantiations: 64 (16,
-    64) and 128 (96, 128). Bar: one bf16 rounding of max|ref| (1e-2), mean
-    1e-3."""
+    head_dim 72 (the 2B) and in the kernel's other instantiations: 48/48
+    (16, 40, 48), 64/64, 96/96 (96) and 128/128 (K7 at 96 too). Bar: one
+    bf16 rounding of max|ref| (1e-2), mean 1e-3."""
     q, k, v, mask, dout = _cuda_inputs(*shape)
     got, ref = _run(entry, q, k, v, mask, dout)
     _assert_near(got, ref, 1e-2)
@@ -580,14 +611,15 @@ def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("factor", [1.0, 2.0 ** 8, 2.0 ** -8])
 @pytest.mark.parametrize("shape", [(2, 77, 33, 8, 1, 72), (1, 300, 1000, 8, 8, 72),
-                                   (2, 130, 257, 4, 4, 64), (1, 193, 129, 4, 1, 128)])
+                                   (2, 130, 257, 4, 4, 64), (1, 193, 129, 4, 1, 128),
+                                   (2, 130, 257, 8, 2, 48), (1, 193, 129, 8, 2, 96)])
 @pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
 def test_fp16_kernel_matches_plain_on_card(cuda_device, entry, shape, factor):
     """The fp16 instantiations with dO scaled by 1, 2^8 and 2^-8 (dS at
     2^-e of max|dO|), GQA, a masked tail and a fully masked batch row, at
-    the 80/72, 64/64 and 128/128 widths: one launch on fp16 operands, fp16
-    gradients within 1e-3 of max|ref| (one fp16 rounding is 2^-11), mean
-    1e-4."""
+    the 80/72, 64/64, 128/128, 48/48 and 96/96 widths: one launch on fp16
+    operands, fp16 gradients within 1e-3 of max|ref| (one fp16 rounding is
+    2^-11), mean 1e-4."""
     q, k, v, mask, dout = _cuda_inputs(*shape, dtype=torch.float16)
     dout = (dout.float() * factor).half()
     before = tfa.DTYPE_LAUNCHES[f"{entry}_fp16"]
@@ -596,8 +628,46 @@ def test_fp16_kernel_matches_plain_on_card(cuda_device, entry, shape, factor):
     _assert_near(got, ref, 1e-3)
 
 
-# the class-conditional models' head_dim 48 (the 64/64 instantiations, the
-# product depth padded past column 48): the 600M's (B, 256, 32, 48) at 256^2
+def _fp16_step(x):
+    """One fp16 rounding step at |x| (fp32 tensor): 2^-24 under fp16's
+    smallest normal 2^-14, else 2^(floor(log2|x|) - 10)."""
+    e = torch.frexp(x.abs().clamp_min(2.0 ** -14))[1] - 1
+    return torch.ldexp(torch.ones_like(x), (e - 10).clamp_min(-24))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [2.0 ** 8, 2.0 ** -20])
+@pytest.mark.parametrize("d", [48, 96])
+@pytest.mark.parametrize("entry", ["bwd_fused", "bwd_dkv", "bwd_dq"])
+def test_fp16_range_at_the_48_and_96_widths_on_card(cuda_device, entry, d, factor):
+    """fp16 K6-K8 at the 48/48 and 96/96 widths (K7 on its 64/64 and
+    128/128) with dO x 2^8 (within 1e-3 of max|ref|) and x 2^-20, where dS
+    lies far under fp16's smallest normal without the 2^-e scale and the
+    gradients themselves under it: finite and within one fp16 rounding step
+    of plain, element by element (and K6's fp32 dQ before its cast within
+    1e-3 of plain's fp32 dQ)."""
+    q, k, v, mask, dout = _cuda_inputs(2, 130, 257, 8, 2, d=d, dtype=torch.float16)
+    dout = (dout.float() * factor).half()
+    got, ref = _run(entry, q, k, v, mask, dout)
+    for a, r in zip(got, ref):
+        if a is None:
+            continue
+        assert torch.isfinite(a).all()
+        r = r.float()
+        if r.abs().max() >= 2.0 ** -14:
+            _assert_near((a,), (r.half(),), 1e-3)
+        else:
+            assert ((a.float() - r).abs() <= _fp16_step(r)).all()
+    if entry == "bwd_fused" and factor < 1:
+        out, lse = tfa.flash_online_lse_plain(q, k, v, mask, 0.2)
+        dq32 = tfa._launch_bwd("bwd_fused", q, k, v, mask, out, lse, dout, 0.2)[0]
+        ref32 = tfa.flash_bwd_plain(q.float(), k.float(), v.float(), mask, out.float(), lse,
+                                    dout.float(), 0.2)[0]
+        assert (dq32 - ref32).abs().max() <= 1e-3 * ref32.abs().max()
+
+
+# the class-conditional models' head_dim 48 (the 48/48 instantiations of K6
+# and K8, K7's 64/64): the 600M's (B, 256, 32, 48) at 256^2
 # and the Small's (B, 1024, 8, 48) at 64^2 in pixel space; (b, sq, sk, hq, hkv)
 CLASS_COND_SHAPES = {"600m": (8, 256, 256, 32, 32), "small": (4, 1024, 1024, 8, 8),
                      "600m_gqa_masked": (2, 256, 256, 32, 8), "small_gqa_masked": (2, 1024, 1024, 8, 2)}
@@ -618,8 +688,9 @@ def test_head_dim_48_matches_plain_on_card(cuda_device, entry, case):
     _assert_near(got, ref, 1e-2)
 
 
-# the Flag-DiT 5B's training attention at head_dim 96 (the 128/128
-# instantiations): 1024^2 latents, B=2, 64 x 65 tokens with the [eol] column,
+# the Flag-DiT 5B's training attention at head_dim 96 (the 96/96
+# instantiations of K6 and K8, K7's 128/128): 1024^2 latents, B=2, 64 x 65
+# tokens with the [eol] column,
 # and its cross-attention to 32 caption keys; (b, sq, sk, hq, hkv)
 FLAG_DIT_5B_SHAPES = {"self": (2, 4160, 4160, 32, 32), "self_gqa_masked": (2, 4160, 4160, 32, 8),
                       "cross": (2, 4160, 32, 32, 32)}
@@ -736,13 +807,21 @@ def test_fp32_stays_on_the_first_kernels(cuda_device, entry):
 
 @pytest.mark.cuda
 def test_kernel_resources(cuda_device):
-    """A block of whole warpgroups (the producer's and two consumers')
-    resident on an SM, the registers setmaxnreg hands out within the SM's
-    65536, no local-memory spills, at each instantiation's head_dim: the
-    fused sweep (K6), dK/dV only (K8) and the dQ kernel (K7)."""
-    for kernel, head_dim in itertools.product(("fused", "dkv", "dq"), (64, 72, 128)):
-        info = tfa.bwd_sm90_attributes(kernel, head_dim)
-        consumers = info["threads"] - 128
-        assert info["threads"] == 384 and info["blocks_per_sm"] >= 1
-        assert 128 * info["producer_registers"] + consumers * info["consumer_registers"] <= 65536
+    """A block of whole warpgroups (the producer's and one or two
+    consumers') resident on an SM, two at once for the 48/48 sweep, the
+    registers setmaxnreg hands out within the block's share of the SM's
+    65536, no local-memory spills, and the compiled instantiation the one
+    `bwd_sm90_instantiation` names, at each instantiation's head_dim, in
+    bf16 and fp16: the fused sweep (K6), dK/dV only (K8) and the dQ kernel
+    (K7)."""
+    for kernel, head_dim, dtype in itertools.product(
+            ("fused", "dkv", "dq"), (48, 64, 72, 96, 128), (torch.bfloat16, torch.float16)):
+        info = tfa.bwd_sm90_attributes(kernel, head_dim, dtype)
+        depth, width, consumers = tfa.bwd_sm90_instantiation(kernel, head_dim)
+        assert (info["depth"], info["width"]) == (depth, width)
+        assert info["threads"] == 128 * (1 + consumers)
+        blocks = 2 if consumers == 1 else 1
+        assert info["blocks_per_sm"] >= blocks
+        assert (128 * info["producer_registers"] + 128 * consumers * info["consumer_registers"]
+                <= min(65536 // blocks, info["registers"] * info["threads"]))
         assert info["local_bytes"] == 0
