@@ -10,13 +10,16 @@ last line:
 2. build: compiles every kernel from lumina_t2x_tpu_torch/csrc with nvcc
    (`ops/cuda_lib.py`: one library per module that owns kernels, one
    process per source, all started together) and prints the build seconds,
-   then the resources of the Hopper kernels of bf16 K1-K5 and K9
-   (`csrc/flash_fwd_sm90.cu`), bf16 K6-K8 (`csrc/flash_bwd_sm90.cu`: the
-   backward sweep of K6/K8 and the dQ kernel of K7), the fp16
-   instantiations of both sources (fp16 K1-K9 run their own, wgmma on .f16
-   operands, at widths 64, 72 and 128), the backward's 48/48 and 96/96
-   sweeps (K6/K8 at head_dim 48 and 96, bf16 and fp16; each backward line
-   names its instantiation as compiled), K10 v0-v3 and K11
+   then the resources of the Hopper kernels of bf16 and fp16 K1-K5 and K9
+   (`csrc/flash_fwd_sm90.cu`: each instantiation, 48/48, 64/64, 80/72,
+   96/96, 128/128, and each block, 64 rows three an SM or 192 rows one an
+   SM, named by the head_dim and key length that run it; each line names what was compiled
+   and requires the resident blocks it is built for), bf16 K6-K8
+   (`csrc/flash_bwd_sm90.cu`: the backward sweep of K6/K8 and the dQ kernel
+   of K7), the fp16 instantiations of the backward (fp16 K6-K8 run their
+   own, wgmma on .f16 operands, at widths 64, 72 and 128), the backward's
+   48/48 and 96/96 sweeps (K6/K8 at head_dim 48 and 96, bf16 and fp16;
+   each backward line names its instantiation as compiled), K10 v0-v3 and K11
    (`csrc/static_max_sm90.cu`, one instantiation each) and K12
    (`csrc/mma_probe.cu`, at the widths of its timed shape and of K=1024):
    registers per thread (as compiled and after setmaxnreg), spill bytes (0
@@ -26,7 +29,8 @@ last line:
    (`csrc/flash_bwd_fp32_sm90.cu`, fp32 K6-K8) plan and resources at the
    music trainer's shapes and the 2B's (0 spill bytes required); and what
    ptxas says of their wgmma (an fp16 instantiation may serialize nothing
-   that its bf16 twin does not, and the 48/48 and 96/96 sweeps nothing);
+   that its bf16 twin does not, and the forward's and the backward's 48/48
+   and 96/96 instantiations nothing);
 3. kernels: each CUDA entry point against its plain PyTorch version at the
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
    kernel; it, the LSE forward and the backward kernels also at the served
@@ -50,18 +54,21 @@ last line:
    kernels against the plain Function); `rope_rotate` against `apply_rope`
    bit for bit, timed at the 2B's k; then K1 at the class-conditional 600M's
    self-attention (bf16 (8, 256, 32, 48): 4 labels under CFG at 256^2),
-   kernel and sdpa timed in bursts of 8; K1 and K4 (forward) and K6-K8
+   kernel and sdpa timed in bursts of 8 (every forward row at head_dim 48
+   and 96 names the instantiation and block it ran and equals, bit for bit,
+   the 64/64 or 128/128 call on the operands padded with zero columns,
+   `_padded_equal`); K1 and K4 (forward) and K6-K8
    (backward) also at Gemma caption lengths Sk = 8, 40 and 136 with masks
    ending inside a key tile (`CAPTION_LENGTHS`), bf16, fp32 and GQA, within
    the same bars; the backward's delta (`bwd_delta`, `csrc/bwd_delta.cu`)
    against its plain version at the 2B's, 600M's, Small's and 5B's training
    shapes, timed with its bound (`delta_kernel_phase`); K4 and K6-K8 at
-   head_dim 48 (K6/K8 on the 48/48 sweep, K4/K7 on 64/64) at
+   head_dim 48 (K1, K4 on the forward's 48/48, K6/K8 on the 48/48 sweep, K7 on 64/64) at
    the class-conditional trainers' shapes (`D48_SHAPES`: the 600M recipe's
    (256, 256, 32, 48), the Small's (64, 1024, 8, 48)) and K1 at the Small's
    sampler shape, timed with bounds and library calls, then with 4:1 GQA, a
-   masked tail and a fully masked row; K2-K8 at head_dim 96 (K6/K8 on the
-   96/96 sweep, the others 128/128) at the Flag-DiT 5B's (2, 4160, 32, 96),
+   masked tail and a fully masked row; K2-K8 at head_dim 96 (K1-K5 on the
+   forward's 96/96, K6/K8 on the 96/96 sweep, K7 on 128/128) at the Flag-DiT 5B's (2, 4160, 32, 96),
    K1 there against 128 caption keys (100 valid), K4 and K6-K8 against 32, and K1 at head_dim
    128 at the ImageNet 7B's (8, 256, 32, 128), the same way
    (`wide_head_kernel_phase`); K1 behind 4096 queries over kv_merge's 1024
@@ -269,6 +276,7 @@ The line before the last is a JSON object of the kernels; the last line is
 
 import base64
 import gc
+import itertools
 import json
 import math
 import os
@@ -453,6 +461,15 @@ D48_K1_SMALL = (128, 1024, 8)
 # keys (the kernel check: 100 of them valid); the Flag-DiT ImageNet 7B's
 # self-attention at 256^2, 4 labels under CFG
 D96_SHAPE, D96_CAPTION, D128_K1 = (2, 4160, 32, 96), (128, 100), (8, 256, 32, 128)
+# the head_dims whose instantiations (48/48, 96/96) are held bit for bit
+# against the wider ones (64/64, 128/128) on zero-padded operands
+PADDED_WIDTHS = {48: 64, 96: 128}
+# (head_dim, Sk) that run each instantiation and block of the Hopper
+# forward: the 2B's; 48/48 over the 600M's 256 keys (64-row blocks) and
+# over more than 1024 (192 rows); 64/64 the same; 96/96 over the 5B's 4160
+# keys; 128/128 over the 7B's 256
+FWD_BUILD_SHAPES = ((72, 4096), (48, 256), (48, 4096), (64, 256), (64, 4096), (96, 4160),
+                    (128, 256))
 # meta-llama/Llama-2-7b-hf's config.json (the 5B's caption LM), depth cut to
 # LLAMA_LAYERS decoder layers: the features are hidden_states[-2]
 LLAMA_2_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
@@ -682,23 +699,35 @@ def build_phase():
     phase("build", f"{time.perf_counter() - t0:.2f} s: " + "; ".join(
         f"{name} {'compiled with nvcc' if info['compiled'] else 'already built, loaded'} "
         f"({info['path']})" for name, info in cuda_lib.BUILD_INFO.items()))
-    # the Hopper kernels of bf16 K1-K9, K10 and K11: their resources from
-    # the CUDA runtime (K1, K4/K5 and K9 are K2/K3's instantiations, K4/K5
-    # with an LSE pointer, K9 with rotation tables)
+    # the Hopper forward (bf16 and fp16 K1-K5, K9): each instantiation and
+    # block, named by a shape that runs it (K1, K4/K5 and K9 are K2/K3's
+    # instantiations, K4/K5 with an LSE pointer, K9 with rotation tables)
+    for dtype, static, (head_dim, sk) in itertools.product(
+            (torch.bfloat16, torch.float16), (False, True), FWD_BUILD_SHAPES):
+        info = flash_attention.sm90_attributes(static, head_dim, dtype, sk)
+        entries = ("static_max, static_max_lse" if static
+                   else "small_kv, online, online_lse, rope, rope_q")
+        if dtype == torch.float16:
+            entries = "fp16 " + entries
+        phase("build", f"{SM90_SOURCE} ({entries}, head_dim {head_dim}, Sk {sk}: the "
+              f"{info['instantiation']} instantiation, {info['rows_per_block']} query rows a block, "
+              f"{info['stages']} ring stages, built for {info['min_blocks']} block(s) an SM): "
+              f"{info['registers']} registers per thread as compiled, "
+              f"{info['producer_registers']} (producer) / {info['consumer_registers']} "
+              f"(consumers) after setmaxnreg, {info['local_bytes']} local (spill) bytes per "
+              f"thread, {info['shared_bytes']} bytes of shared memory per block, "
+              f"{info['blocks_per_sm']} block(s) of {info['threads']} threads per SM")
+        require(info["blocks_per_sm"] >= info["min_blocks"],
+                f"{SM90_SOURCE} (head_dim {head_dim}, Sk {sk}): "
+                f"{info['blocks_per_sm']} resident blocks an SM, built for {info['min_blocks']}")
+        require(info["local_bytes"] == 0, f"{SM90_SOURCE} (head_dim {head_dim}, Sk {sk}) "
+                f"spills")
+    # the backward's and the experiments' Hopper kernels: their resources
+    # from the CUDA runtime
     for source, entry, head_dim, info in (
-            (SM90_SOURCE, "small_kv, online, online_lse, rope, rope_q", D,
-             flash_attention.sm90_attributes(False, D)),
-            (SM90_SOURCE, "static_max, static_max_lse", D,
-             flash_attention.sm90_attributes(True, D)),
-            (SM90_SOURCE, "small_kv, the ImageNet 600M's 64/64 instantiation", IMAGENET_SHAPE[3],
-             flash_attention.sm90_attributes(False, IMAGENET_SHAPE[3])),
             (SM90_BWD_SOURCE, "bwd_fused", D, flash_attention.bwd_sm90_attributes("fused", D)),
             (SM90_BWD_SOURCE, "bwd_dkv", D, flash_attention.bwd_sm90_attributes("dkv", D)),
             (SM90_BWD_SOURCE, "bwd_dq", D, flash_attention.bwd_sm90_attributes("dq", D)),
-            *((SM90_SOURCE, f"{entries}, the 128/128 instantiation", d,
-               flash_attention.sm90_attributes(static, d))
-              for d in (96, 128) for static, entries in (
-                  (False, "small_kv, online, online_lse"), (True, "static_max, static_max_lse"))),
             *((SM90_BWD_SOURCE, f"{tag}bwd_{kernel}", d,
                flash_attention.bwd_sm90_attributes(kernel, d, dtype))
               for tag, dtype in (("", torch.bfloat16), ("fp16 ", torch.float16))
@@ -708,12 +737,7 @@ def build_phase():
               for kernel in ("fused", "dkv", "dq")),
             *((VPU_SOURCE, f"static_max_{variant}", D, vpu_op_reduction.sm90_attributes(variant, D))
               for variant in vpu_op_reduction.VARIANTS),
-            # the fp16 instantiations of the same two sources, at each width
-            *((SM90_SOURCE, f"fp16 {entries}", d,
-               flash_attention.sm90_attributes(static, d, torch.float16))
-              for d in (64, D, 128) for static, entries in (
-                  (False, "small_kv, online, online_lse, rope, rope_q"),
-                  (True, "static_max, static_max_lse"))),
+            # the backward's fp16 instantiations at each width
             *((SM90_BWD_SOURCE, f"fp16 bwd_{kernel}", d,
                flash_attention.bwd_sm90_attributes(kernel, d, torch.float16))
               for d in (64, D, 128) for kernel in ("fused", "dkv", "dq"))):
@@ -784,10 +808,11 @@ def build_phase():
         fp16_only = [note for note in notes if "__half" in note and note not in twin]
         require(not fp16_only, f"ptxas serializes fp16 instantiations' wgmma beyond bf16's: "
                 f"{fp16_only}")
-        # the backward's 48/48 and 96/96 sweeps (K6, K8) serialize nothing
-        # (their mangled names carry the depth and width: Li48ELi48E, Li96ELi96E)
+        # the forward's and the backward's 48/48 and 96/96 instantiations
+        # serialize nothing (their mangled names carry the depth and width:
+        # Li48ELi48E, Li96ELi96E)
         new_widths = [note for note in notes if "Li48ELi48E" in note or "Li96ELi96E" in note]
-        require(not new_widths, f"ptxas serializes the 48/48 or 96/96 backward's wgmma: "
+        require(not new_widths, f"ptxas serializes a 48/48 or 96/96 instantiation's wgmma: "
                 f"{new_widths}")
 
 
@@ -1267,6 +1292,7 @@ def imagenet_kernel_phase(fa):
     scale = d ** -0.5
     got = fa.flash_small_kv(q, k, v, None, scale)
     ref = fa.flash_small_kv_plain(q.float(), k.float(), v.float(), None, scale)
+    padded = _padded_equal(fa, "small_kv", q, k, v, None, scale, {}, got, str(IMAGENET_SHAPE))
     err = (got.float() - ref).abs()
     max_err, mean_err = err.max().item(), err.mean().item()
     require(math.isfinite(max_err) and max_err <= BF16_MAX,
@@ -1282,7 +1308,8 @@ def imagenet_kernel_phase(fa):
     one = time_ms(lambda: fa.flash_small_kv(q, k, v, None, scale))
     one_lib = time_ms(lambda: _sdpa(q, k, v, None, scale))
     phase("kernels", f"small_kv bf16 {IMAGENET_SHAPE} (NextDiT_ImageNet_600M self-attention, "
-          f"256^2 under CFG): max abs err {max_err:.3g} mean {mean_err:.3g}; kernel "
+          f"256^2 under CFG){_instantiation(fa, q, k)}: max abs err {max_err:.3g} mean "
+          f"{mean_err:.3g}{padded}; kernel "
           f"{timed['ms']:.4f} ms (bursts of {burst}; one call {one:.4f}), plain "
           f"{timed['plain_ms']:.3f} ms, bound {timed['bound_ms']:.4f} ms ({timed['bound_by']}), "
           f"library {timed['library_ms']:.4f} ms (sdpa, bursts of {burst}; one call "
@@ -1325,23 +1352,57 @@ def _static_bound(fa, q, k, v, mask, entry):
                                                                else 6.0)}
 
 
+def _instantiation(fa, q, k):
+    """The Hopper forward's instantiation and block that a bf16 or fp16 call
+    on q, k runs, as compiled (`sm90_attributes`), as a label ("" for fp32)."""
+    if q.dtype == torch.float32:
+        return ""
+    info = fa.sm90_attributes(False, q.shape[-1], q.dtype, k.shape[1])
+    return (f" [{info['instantiation']}, {info['rows_per_block']}-row blocks, "
+            f"{info['min_blocks']} an SM]")
+
+
+def _padded_equal(fa, entry, q, k, v, mask, scale, kw, got, label):
+    """At head_dim 48 and 96 (bf16, fp16), requires the output (and LSE) of
+    the 48/48 or 96/96 instantiation to equal, bit for bit, the 64/64 or
+    128/128 one's on the same operands padded with zero columns (a zero
+    column adds exact zeros to each sum; the block does not change a row's
+    arithmetic). Returns a line, "" at other widths."""
+    d = q.shape[-1]
+    if q.dtype == torch.float32 or d not in PADDED_WIDTHS:
+        return ""
+    pad = lambda t: torch.nn.functional.pad(t, (0, PADDED_WIDTHS[d] - d))  # noqa: E731
+    ref = getattr(fa, f"flash_{entry}")(pad(q), pad(k), pad(v), mask, scale, **kw)
+    torch.cuda.synchronize()
+    if entry.endswith("_lse"):
+        (got, lse), (ref, ref_lse) = got, ref
+        require(torch.equal(lse, ref_lse), f"{entry} {label}: LSE not equal to the zero-padded "
+                f"{PADDED_WIDTHS[d]}-wide call's")
+    require(torch.equal(got, ref[..., :d]), f"{entry} {label}: output not equal to the "
+            f"zero-padded {PADDED_WIDTHS[d]}-wide call's")
+    wide = PADDED_WIDTHS[d]
+    return f"; equal bit for bit to {wide}/{wide} on zero-padded operands"
+
+
 def _check_forward(fa, entry, q, k, v, mask, label):
     """One forward entry against its plain version: (output, max abs err,
-    line). The LSE of K4/K5 is held to LSE_MAX on the rows that keep a key."""
+    line). The LSE of K4/K5 is held to LSE_MAX on the rows that keep a key;
+    at head_dim 48 and 96 the output against the zero-padded call's
+    (`_padded_equal`). The line names the instantiation and block."""
     scale = q.shape[-1] ** -0.5
     kw = _static_bound(fa, q, k, v, mask, entry)
     got = getattr(fa, f"flash_{entry}")(q, k, v, mask, scale, **kw)
     ref = getattr(fa, f"flash_{entry}_plain")(q.float(), k.float(), v.float(), mask, scale,
                                               *kw.values())
     torch.cuda.synchronize()
-    line = ""
+    line = _padded_equal(fa, entry, q, k, v, mask, scale, kw, got, label)
     if entry.endswith("_lse"):
         (got, lse), (ref, ref_lse) = got, ref
         fin = torch.isfinite(ref_lse)
         require(torch.equal(fin, torch.isfinite(lse)), f"{entry} {label}: LSE -inf rows")
         lse_err = (lse[fin] - ref_lse[fin]).abs().max().item()
         require(lse_err <= LSE_MAX, f"{entry} {label}: LSE err {lse_err} > {LSE_MAX}")
-        line = f", LSE {lse_err:.3g}"
+        line += f", LSE {lse_err:.3g}"
     err = (got.float() - ref).abs()
     max_err, mean_err = err.max().item(), err.mean().item()
     bar = {torch.float32: FP32_MAX, torch.bfloat16: BF16_MAX,
@@ -1352,7 +1413,8 @@ def _check_forward(fa, entry, q, k, v, mask, label):
         require(mean_err <= BF16_MEAN, f"{entry} {label}: mean abs err {mean_err} > {BF16_MEAN}")
     if mask is not None and not bool(mask[-1].any()):
         require(torch.count_nonzero(got[-1]).item() == 0, f"{entry} {label}: masked row not 0")
-    return got, max_err, f"max abs err {max_err:.3g} (bar {bar:.3g}) mean {mean_err:.3g}{line}"
+    return got, max_err, (f"max abs err {max_err:.3g} (bar {bar:.3g}) mean {mean_err:.3g}{line}"
+                          f"{_instantiation(fa, q, k)}")
 
 
 def _check_backward(fa, q, k, v, mask, dout, label):
@@ -1644,9 +1706,11 @@ def fp16_rope_rows(fa, g):
 
 
 def d48_kernel_phase(fa):
-    """K4 and K6-K8 at head_dim 48 (K6/K8 48/48, K4/K7 64/64) at the
+    """K4 and K6-K8 at head_dim 48 (K1, K4 on the forward's 48/48, 64-row
+    blocks three an SM; K6/K8 on the 48/48 sweep; K7 on 64/64) at the
     class-conditional trainers' shapes (`D48_SHAPES`), and K1 at the Small's
-    sampler shape (`shape_rows`)."""
+    sampler shape (`shape_rows`; each forward row held bit for bit against
+    the zero-padded 64/64 call)."""
     cases = [(f"{entry}_d48_{tag}", entry, shape, None, None, True)
              for tag, shape in D48_SHAPES.items() for entry in ("online_lse", "bwd")]
     cases.append(("small_kv_d48_small", "small_kv", D48_K1_SMALL, None, None, True))
@@ -1656,8 +1720,10 @@ def d48_kernel_phase(fa):
 def wide_head_kernel_phase(fa):
     """K1-K8 at head_dim 96 (Flag-DiT 5B: dim 3072 over 32 heads; 64 x 65
     tokens at 1024^2 with the [eol] column) and K1 at head_dim 128 (Flag-DiT
-    ImageNet 7B: 4096 over 32): K6/K8 on the 96/96 sweep, the others on
-    128/128 (`shape_rows`).
+    ImageNet 7B: 4096 over 32): K1-K5 on the forward's 96/96 (each row
+    held bit for bit against the zero-padded 128/128 call), K6/K8 on the
+    96/96 sweep, K7 on 128/128; K1 at the 7B on 128/128's 192-row block
+    (`shape_rows`).
     K2-K8 at D96_SHAPE; K1 at Sq 4160 against the sampler's 128 caption keys
     (100 valid); K4 and K6-K8 also against the trainer's 32 caption keys;
     K1 at D128_K1."""

@@ -49,19 +49,23 @@
 // fp32 p in registers), the nk+1-step grid, and the LSE's 1e-30 clamp and
 // lane-replicated (..., 128) layout.
 //
-// Design. One block of four warpgroups per (192 query rows, q head,
-// batch). Warpgroup 0 is the producer: one thread loads the block's Q tile,
-// then each 64-key K/V tile, with TMA (cp.async.bulk.tensor) into a ring of
-// up to 8 stages in shared memory (5 at head_dim 72); a stage's "full"
-// mbarrier completes when its bytes have landed. The producer warp's two
+// Design. One block per (64 or 192 query rows, q head, batch): a producer
+// warpgroup and one or three consumer warpgroups (`Block`, chosen at launch
+// from head_dim and Sk: `by_shape`). Warpgroup 0 is the
+// producer: one thread loads the block's Q tile, then each 64-key K/V tile,
+// with TMA (cp.async.bulk.tensor) into a ring of up to 8 stages in the
+// block's share of shared memory (5 at head_dim 72 in the 192-row block); a
+// stage's "full" mbarrier completes when its bytes have landed. The producer warp's two
 // ballots write the tile's 64 key-valid bits beside it (j < Sk and the mask,
 // read one tile ahead).
 // It refills a stage once its "empty" mbarrier, on which every consumer
 // thread arrives, has completed. The ring's layout (KvRing), its producer
 // loop (produce_kv) and the pair product (mma_pair) live in
-// sm90_common.cuh, shared with the backward's dQ kernel. Warpgroups 1-3 are consumers, 64 query
-// rows each; setmaxnreg moves registers from the producer (24 a thread) to
-// them (160). For key tile j a consumer issues two wgmma groups,
+// sm90_common.cuh, shared with the backward's dQ kernel. The other
+// warpgroups are consumers, 64 query rows each; setmaxnreg moves registers
+// from the producer (24 a thread) to them (160 with three consumers, 136
+// with one and three blocks an SM). For key tile j a consumer
+// issues two wgmma groups,
 //   S  = Q K^T   wgmma.m64n64k16, A = Q and B = K from shared memory
 //                (K-major), depth 72 run as 80 (5 steps of 16, columns 72-79 zero)
 //   O += P V     of tile j - 1, wgmma.m64n72k16, A = P from registers, B = V
@@ -69,11 +73,34 @@
 // and runs the exp part of S(j)'s chain as soon as the first group is done,
 // beside the second (FlashAttention-3's intra-warpgroup overlap); it packs
 // P(j) once PV(j - 1) is done with the P registers. Named barriers make the
-// consumers issue their groups in turn (FlashAttention-3's ping-pong, over
-// three warpgroups), so the chains run while another warpgroup's products
-// do; a third consumer (over two) also cuts each K/V tile's reads from L2 per
-// query row by a third. S, P and O never leave registers: S's accumulator
-// layout is PV's A-fragment layout.
+// consumers of a block issue their groups in turn (FlashAttention-3's
+// ping-pong, over two or three warpgroups), so the chains run while another
+// warpgroup's products do; a third consumer (over two) also cuts each K/V
+// tile's reads from L2 per query row by a third. S, P and O never leave
+// registers: S's accumulator layout is PV's A-fragment layout.
+//
+// Blocks. 192 rows, one block an SM, over more than 1024 keys (the 2B's
+// and the Flag-DiT 5B's self-attention) and above 64/64. Over at most 1024
+// a block sees at most 16 key tiles, and its fixed cost -- barrier set-up, setmaxnreg, the
+// Q load, filling the ring, the epilogue's stores -- weighs: at Sq = 256
+// the 192-row block's loads and barriers alone took 0.59 of the ImageNet
+// 600M trainer's 0.91-0.95 ms on an H100 (`exps/fwd_sm90_breakdown.py`),
+// and it computes 384 row slots for 256 rows. There, up to 64/64, the
+// block is one consumer of 64 rows, three resident an SM (80 registers a
+// thread at launch, 136 a consumer thread after setmaxnreg; shared memory
+// within a third of the SM's: a 4-stage ring at 48/48), so that one
+// block's prologue and epilogue run beside the others' loops: 0.57 ms at
+// that shape (`exps/fwd_sm90_breakdown.py --blocks` times each block).
+// Above 64/64 two such blocks do not fit (Q and three
+// stages of 128-column atoms take 115,792 bytes with the alignment pad,
+// past half the SM's 115,712; two consumers' blocks, two an SM, leave 104
+// registers a consumer thread, where o, S and the P pair alone take 112
+// at 96/96). A 128-row block, one an SM, took the ImageNet 7B's single K1
+// call from 0.084-0.087 to 0.101-0.104 ms on an H100, though its device
+// time fell (`exps/fwd_head_dim_times.py`), so
+// above 64/64 the block stays at 192 rows whatever Sq is.
+// A block does not change a row's arithmetic: every block and width gives
+// the same bits (a zero column adds exact zeros to each fp32 sum).
 //
 // P as a pair. P enters PV as hi = T(p) and lo = T(p - hi): two wgmma over
 // the same V per 16-key slice (~16 mantissa bits of p in bf16, ~22 in
@@ -115,6 +142,12 @@
 //   V (MN-major):   LBO = the atom stride (64 columns), SBO = 8 keys = 1024
 //                   bytes; the 16-key slice kk starts 2048 bytes further
 //
+// Widths. QK^T's depth and PV's width by head_dim: 48/48 up to 48 (three
+// k16 steps in one atom; n48), 64/64, 80/72, 96/96 (six steps over two
+// atoms; n96) and 128/128, so that no more than a 16-column step of depth
+// and an 8-column slice of width are padding (the 64/64 and 128/128 that
+// head_dim 48 and 96 ran before did a third more tensor work).
+//
 // What bounds it on the card: at B=2, S=4096, H=32, D=72 the two products
 // are 4*B*H*S*S*D = 309 GFLOP (0.313 ms at 989 TFLOP/s); with the depth
 // padded to 80 and the hi/lo pair the tensor cores do 1.56x that (0.49 ms),
@@ -137,13 +170,9 @@ namespace {
 
 constexpr int kBK = 64;                            // keys per tile
 constexpr int kRows = 64;                          // query rows per consumer warpgroup
-constexpr int kConsumers = 3;                      // consumer warpgroups
-constexpr int kBQ = kRows * kConsumers;            // query rows per block
-constexpr int kThreads = 128 * (1 + kConsumers);   // producer warpgroup + consumers
-// setmaxnreg: 128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536
-constexpr int kProducerRegs = 24, kConsumerRegs = 160;
+constexpr int kProducerRegs = 24;                  // a producer thread's after setmaxnreg
+constexpr uint32_t kSmemSm = 233472;  // shared memory of an SM (1024 of it reserved a block)
 constexpr int kBarFirst = 1;                       // named barrier kBarFirst + c: consumer c's turn
-constexpr int kBarRope = kBarFirst + kConsumers;   // kBarRope + c: consumer c's rotated rows
 constexpr float kClamp = 55.f;  // exponent clamp of the static-max kernel (nats)
 constexpr float kPackTop = 32768.f;  // fp16 static max: a row's packed p stays below 2^15
 constexpr float kLn2 = 0.6931471805599453f;
@@ -168,11 +197,34 @@ struct Params {
   float clamp2;  // 55 * log2(e)
 };
 
+// -- the block ----------------------------------------------------------------------
+
+// A block by its consumer warpgroups (kCons, 64 query rows each) and the
+// blocks to be resident on an SM (kBlocks): the launch bound, the registers
+// setmaxnreg hands the consumers, and the block's share of the SM's shared
+// memory. The SM's 65536 registers go to the resident threads (in 8s, at
+// most 255 a thread); of a block's, 24 a thread to the producer warpgroup
+// and the rest to the consumers, at most 240 a thread.
+template <int kCons, int kBlocks>
+struct Block {
+  static constexpr int kBQ = kRows * kCons;           // query rows per block
+  static constexpr int kThreads = 128 * (1 + kCons);  // producer warpgroup + consumers
+  static constexpr int kLaunchRegs =
+      65536 / (kThreads * kBlocks) / 8 * 8 < 248 ? 65536 / (kThreads * kBlocks) / 8 * 8 : 248;
+  static constexpr int kFree = (kLaunchRegs * kThreads - 128 * kProducerRegs) / (128 * kCons);
+  static constexpr int kConsumerRegs = kFree / 8 * 8 < 240 ? kFree / 8 * 8 : 240;
+  static_assert(128 * kProducerRegs + 128 * kCons * kConsumerRegs <= kLaunchRegs * kThreads,
+                "setmaxnreg hands out more registers than the block has");
+  static constexpr uint32_t kSmem = kBlocks == 1 ? kSmemMax : kSmemSm / kBlocks - 1024;
+  static constexpr int kBarRope = kBarFirst + kCons;  // kBarRope + c: consumer c's rotated rows
+};
+
 // -- shared memory ------------------------------------------------------------------
 
-// Q, then the K/V ring (sm90_common.cuh): 5 stages at head_dim 72 and 128, 8 at 64
-template <int kDK, int kDN>
-using Smem = KvRing<kBQ, 1, kDK, kDN>;
+// Q, then the K/V ring (sm90_common.cuh) in the block's share of the SM: with
+// the 192-row block 5 stages at head_dim 72, 96 and 128, 8 at 48 and 64
+template <int kDK, int kDN, class B>
+using Smem = KvRing<B::kBQ, 1, kDK, kDN, B::kSmem>;
 
 // -- consumer -----------------------------------------------------------------------
 
@@ -286,7 +338,7 @@ __device__ __forceinline__ void pack_tile(const float (&s)[kBK / 2], const float
 // the columns past D are left as they are. The writes go through the
 // generic proxy: each thread fences them for the async proxy (wgmma), and
 // the warpgroup waits for all of them on its own named barrier.
-template <class T, uint32_t kQAtom>
+template <class T, uint32_t kQAtom, int kBarRope>
 __device__ __forceinline__ void rotate_q(unsigned char* q_rows, int row0, int c, int tid,
                                          const Params& p) {
   const int chunks = p.D / 8;
@@ -315,14 +367,15 @@ __device__ __forceinline__ void rotate_q(unsigned char* q_rows, int row0, int c,
   bar_sync<128>(kBarRope + c);
 }
 
-template <class T, bool kStaticMax, int kDK, int kDN>
-__global__ void __launch_bounds__(kThreads, 1)
+template <class T, bool kStaticMax, int kDK, int kDN, int kCons, int kBlocks>
+__global__ void __launch_bounds__(Block<kCons, kBlocks>::kThreads, kBlocks)
     flash_fwd_sm90_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv) {
-  using L = Smem<kDK, kDN>;
+  using Bk = Block<kCons, kBlocks>;
+  using L = Smem<kDK, kDN, Bk>;
   static_assert(L::kBK == kBK, "the chain's tile is the ring's");
-  constexpr int kStages = L::kStages;
+  constexpr int kStages = L::kStages, kConsumers = kCons, kBQ = Bk::kBQ;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_addr(smem) + L::kAlign - 1) & ~(L::kAlign - 1);
   unsigned long long* bits =
@@ -358,10 +411,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                   lane);
   } else {
     // ---- consumers: 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Bk::kConsumerRegs));
     const int c = wg - 1;
     const int tid = threadIdx.x - 128 * wg;
-    // the consumers issue their products in turn: 0, 1, ..., kConsumers - 1, 0, ...
+    // two or more consumers issue their products in turn: 0, 1, ..., kConsumers - 1,
+    // 0, ...; a lone one (whose turns are the block's) waits for no barrier
+    constexpr bool kTurns = kConsumers > 1;
     const int mine = kBarFirst + c, other = kBarFirst + (c + 1) % kConsumers;
     const uint32_t q_addr = base + L::kQ + c * kRows * kSwizzle;  // this warpgroup's rows
 
@@ -376,17 +431,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     float alpha[2];
 
-    if (c == kConsumers - 1) bar_arrive(kBarFirst);  // consumer 0 issues first
+    if (kTurns && c == kConsumers - 1) bar_arrive(kBarFirst);  // consumer 0 issues first
     mbar_wait(base + L::q_full(), 0);
     if (p.rope_cos != nullptr)
-      rotate_q<T, L::kQAtom>(smem + (base - smem_addr(smem)) + L::kQ + c * kRows * kSwizzle,
-                          q0 + c * kRows, c, tid, p);
+      rotate_q<T, L::kQAtom, Bk::kBarRope>(
+          smem + (base - smem_addr(smem)) + L::kQ + c * kRows * kSwizzle, q0 + c * kRows, c,
+          tid, p);
     mbar_wait(base + L::full(0), 0);
-    bar_sync(mine);
+    if (kTurns) bar_sync(mine);
     wgmma_fence();
     qk<kDK, L::kQAtom, L::kAtom, T>(s, q_addr, base + L::k(0));
     wgmma_commit();
-    bar_arrive(other);
+    if (kTurns) bar_arrive(other);
     wgmma_wait<0>();
     pin(s);
     exp_tile<T, kStaticMax>(s, bits[0], tid % 4, l, m, alpha, p);
@@ -399,7 +455,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = 1; j < nk; ++j) {
       const int st = j % kStages, prev = (j - 1) % kStages;
       mbar_wait(base + L::full(st), (j / kStages) & 1);
-      bar_sync(mine);
+      if (kTurns) bar_sync(mine);
       pin(o);
       pin(phi);
       pin(plo);
@@ -408,7 +464,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_commit();
       mma_pair<kDN, L::kAtom, T>(o, phi, plo, base + L::v(prev));
       wgmma_commit();
-      bar_arrive(other);
+      if (kTurns) bar_arrive(other);
       wgmma_wait<1>();
       pin(s);
       exp_tile<T, kStaticMax>(s, bits[st], tid % 4, l, m, alpha, p);
@@ -418,14 +474,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       pack_tile<T, kStaticMax, kDN>(s, alpha, o, phi, plo);
     }
 
-    bar_sync(mine);
+    if (kTurns) bar_sync(mine);
     pin(o);
     pin(phi);
     pin(plo);
     wgmma_fence();
     mma_pair<kDN, L::kAtom, T>(o, phi, plo, base + L::v((nk - 1) % kStages));
     wgmma_commit();
-    if (c != kConsumers - 1) bar_arrive(other);  // consumer 0 has no later turn to take
+    if (kTurns && c != kConsumers - 1) bar_arrive(other);  // consumer 0 has no later turn
     wgmma_wait<0>();
     pin(o);
 
@@ -459,50 +515,90 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <class T, bool kStaticMax, int kDK, int kDN>
+// The compiled kernel's registers a thread at launch (numRegs), or 0
+template <class Kernel>
+int launch_registers(Kernel kernel) {
+  cudaFuncAttributes a;
+  return cudaFuncGetAttributes(&a, kernel) == cudaSuccess ? a.numRegs : 0;
+}
+
+// The products' depth and width, and the block, of an instantiation
+template <int kDK, int kDN, int kCons, int kBlocks>
+struct Dims {
+  static constexpr int kDepth = kDK, kWidth = kDN, kConsumers = kCons, kMinBlocks = kBlocks;
+};
+
+// Calls `fn` with the Dims of the instantiation that runs head_dim d over
+// Sk keys: the depth and width of the header's Widths, the block of its
+// Blocks (64 rows three an SM up to 64/64 over at most 1024 keys, else 192
+// rows one an SM).
+template <class Fn>
+int by_shape(int d, int sk, Fn fn) {
+  const bool few_keys = sk <= 1024;
+  if (d <= 48) return few_keys ? fn(Dims<48, 48, 1, 3>{}) : fn(Dims<48, 48, 3, 1>{});
+  if (d <= 64) return few_keys ? fn(Dims<64, 64, 1, 3>{}) : fn(Dims<64, 64, 3, 1>{});
+  if (d <= 72) return fn(Dims<80, 72, 3, 1>{});
+  if (d <= 96) return fn(Dims<96, 96, 3, 1>{});
+  return fn(Dims<128, 128, 3, 1>{});
+}
+
+template <class T, bool kStaticMax, int kDK, int kDN, int kCons, int kBlocks>
 int launch_dims(const Params& p, cudaStream_t stream) {
+  using Bk = Block<kCons, kBlocks>;
   CUtensorMap tq, tk, tv;
-  if (!make_map<T>(&tq, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, kBQ) ||
+  if (!make_map<T>(&tq, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, Bk::kBQ) ||
       !make_map<T>(&tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, kBK) ||
       !make_map<T>(&tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, kBK))
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_fwd_sm90_kernel<T, kStaticMax, kDK, kDN>;
-  const int bytes = (int)Smem<kDK, kDN>::kBytes;
+  auto kernel = flash_fwd_sm90_kernel<T, kStaticMax, kDK, kDN, kCons, kBlocks>;
+  // the block's registers at launch must cover what setmaxnreg hands out,
+  // or setmaxnreg.inc would wait for registers the block never gets
+  static const int regs = launch_registers(kernel);
+  if (regs * Bk::kThreads < 128 * (kProducerRegs + kCons * Bk::kConsumerRegs))
+    return (int)cudaErrorLaunchOutOfResources;
+  const int bytes = (int)Smem<kDK, kDN, Bk>::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.Sq + kBQ - 1) / kBQ, p.Hq, p.B);
-  kernel<<<grid, kThreads, bytes, stream>>>(p, tq, tk, tv);
+  dim3 grid((p.Sq + Bk::kBQ - 1) / Bk::kBQ, p.Hq, p.B);
+  kernel<<<grid, Bk::kThreads, bytes, stream>>>(p, tq, tk, tv);
   return (int)cudaGetLastError();
 }
 
-// QK^T depth and PV width by head_dim: 64/64, 80/72 (the 2B), 128/128
 template <class T, bool kStaticMax>
 int launch(const Params& p, cudaStream_t stream) {
-  if (p.D <= 64) return launch_dims<T, kStaticMax, 64, 64>(p, stream);
-  if (p.D <= 72) return launch_dims<T, kStaticMax, 80, 72>(p, stream);
-  return launch_dims<T, kStaticMax, 128, 128>(p, stream);
+  return by_shape(p.D, p.Sk, [&](auto dims) {
+    using X = decltype(dims);
+    return launch_dims<T, kStaticMax, X::kDepth, X::kWidth, X::kConsumers, X::kMinBlocks>(p,
+                                                                                        stream);
+  });
 }
 
-template <class T, bool kStaticMax, int kDK, int kDN>
+template <class T, bool kStaticMax, int kDK, int kDN, int kCons, int kBlocks>
 int attributes_dims(long long* out) {
-  auto kernel = flash_fwd_sm90_kernel<T, kStaticMax, kDK, kDN>;
-  const int bytes = (int)Smem<kDK, kDN>::kBytes;
+  using Bk = Block<kCons, kBlocks>;
+  auto kernel = flash_fwd_sm90_kernel<T, kStaticMax, kDK, kDN, kCons, kBlocks>;
+  const int bytes = (int)Smem<kDK, kDN, Bk>::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   cudaFuncAttributes a;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, Bk::kThreads, bytes);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = kProducerRegs;
-  out[2] = kConsumerRegs;
+  out[2] = Bk::kConsumerRegs;
   out[3] = (long long)a.localSizeBytes;
   out[4] = (long long)a.sharedSizeBytes + bytes;
   out[5] = blocks;
-  out[6] = kThreads;
+  out[6] = Bk::kThreads;
+  out[7] = kDK;
+  out[8] = kDN;
+  out[9] = Bk::kBQ;
+  out[10] = Smem<kDK, kDN, Bk>::kStages;
+  out[11] = kBlocks;
   return 0;
 }
 
@@ -564,26 +660,27 @@ int flash_fwd_sm90(bool f16, bool static_max, const void* q, const void* k, cons
 namespace {
 
 template <class T>
-int attributes(int static_max, int head_dim, long long* out) {
-  if (head_dim <= 64)
-    return static_max ? attributes_dims<T, true, 64, 64>(out)
-                      : attributes_dims<T, false, 64, 64>(out);
-  if (head_dim <= 72)
-    return static_max ? attributes_dims<T, true, 80, 72>(out)
-                      : attributes_dims<T, false, 80, 72>(out);
-  return static_max ? attributes_dims<T, true, 128, 128>(out)
-                    : attributes_dims<T, false, 128, 128>(out);
+int attributes(int static_max, int head_dim, int sk, long long* out) {
+  return by_shape(head_dim, sk, [&](auto dims) {
+    using X = decltype(dims);
+    return static_max ? attributes_dims<T, true, X::kDepth, X::kWidth, X::kConsumers,
+                                        X::kMinBlocks>(out)
+                      : attributes_dims<T, false, X::kDepth, X::kWidth, X::kConsumers,
+                                        X::kMinBlocks>(out);
+  });
 }
 
 }  // namespace
 
-// The compiled kernel's resources at a head_dim, for bf16 (f16 = 0) or fp16
-// operands (7 values into out): registers per thread as compiled (the launch
-// bound), the producer's and the consumers' registers after setmaxnreg,
-// local-memory (spill) bytes per thread, shared memory per block, resident
-// blocks per SM, threads per block.
-extern "C" int lumina_flash_fwd_sm90_attributes(int static_max, int head_dim, int f16,
+// The resources of the kernel that runs head_dim over Sk keys, for bf16
+// (f16 = 0) or fp16 operands (12 values into out): registers per thread as
+// compiled (the launch bound), the producer's and the consumers' registers
+// after setmaxnreg, local-memory (spill) bytes per thread, shared memory per
+// block, resident blocks per SM, threads per block, the products' depth and
+// width, query rows per block, ring stages, the blocks an SM it is built
+// for. Launches nothing.
+extern "C" int lumina_flash_fwd_sm90_attributes(int static_max, int head_dim, int sk, int f16,
                                                 long long* out) {
-  return f16 ? attributes<fp16>(static_max, head_dim, out)
-             : attributes<bf16>(static_max, head_dim, out);
+  return f16 ? attributes<fp16>(static_max, head_dim, sk, out)
+             : attributes<bf16>(static_max, head_dim, sk, out);
 }

@@ -481,8 +481,10 @@ bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 =
 // columns x rows (128-byte swizzled rows), one TMA box per atom: columns
 // 0-63, 64-127; columns past D arrive as zeros. After the ring, per stage,
 // the tile's 64 key-valid bits (u64); then the mbarriers q_full, full[],
-// empty[]. The ring has as many stages as fit, at most 8.
-template <int kBQ, int kQTiles, int kDK, int kDN>
+// empty[]. The ring has as many stages as fit in kBudget bytes (a block's
+// share of the SM: all it may take, or half of the SM's when two blocks are
+// to be resident), at most 8.
+template <int kBQ, int kQTiles, int kDK, int kDN, uint32_t kBudget = kSmemMax>
 struct KvRing {
   static constexpr int kBK = 64;  // keys per tile
   static constexpr int kAtomsK = (kDK + kAtomCols - 1) / kAtomCols;
@@ -495,12 +497,13 @@ struct KvRing {
   static constexpr uint32_t kVBytes = kAtomsV * kAtom;
   static constexpr uint32_t kStageBytes = kKBytes + kVBytes;
   static constexpr uint32_t kAlign = 1024;  // the dynamic base is rounded up to this
-  static constexpr int kFit = (kSmemMax - kAlign - kQBytes - 512) / kStageBytes;
+  static constexpr int kFit = (kBudget - kAlign - kQBytes - 512) / kStageBytes;
   static constexpr int kStages = kFit < 8 ? kFit : 8;
   static_assert(kStages >= 3, "the ring needs at least 3 stages");
   static constexpr uint32_t kBits = kQBytes + kStages * kStageBytes;  // u64 per stage
   static constexpr uint32_t kBars = kBits + 8 * kStages;  // q_full, full[kStages], empty[kStages]
   static constexpr uint32_t kBytes = kAlign + kBars + 8 * (1 + 2 * kStages);
+  static_assert(kBytes <= kBudget, "shared memory");
   __device__ static uint32_t q(int i) { return kQ + i * kQTile; }
   __device__ static uint32_t k(int st) { return kQBytes + st * kStageBytes; }
   __device__ static uint32_t v(int st) { return kQBytes + st * kStageBytes + kKBytes; }

@@ -1,18 +1,33 @@
 """Where the time of the bf16 attention forward goes on the card
 (`csrc/flash_fwd_sm90.cu`: K2 `flash_online` and K3 `flash_static_max` at
-4096 keys, K1 `flash_small_kv` at the caption's 256 and 32).
+4096 keys, K1 `flash_small_kv` at the caption's 256 and 32, and the
+class-conditional and Flag-DiT shapes at head_dim 48, 96 and 128).
 
-    python -m lumina_t2x_tpu_torch.exps.fwd_sm90_breakdown
+    python -m lumina_t2x_tpu_torch.exps.fwd_sm90_breakdown [--shapes NAME ...]
 
 Builds variants of the kernel's source, each with one part taken out, and
-times each at the 2B's query shape (B=2, Sq=4096, H=32, D=72, bf16, static
-bound 16.14 and online) for each key length of the main path (`SKS`: the
-self-attention's 4096, the sampler's 256 caption tokens, the served
-worker's and the trainer's 32), beside one `scaled_dot_product_attention`
-call on the same inputs. At the caption's key lengths it also times K1
-itself: `flash_small_kv` by CUDA events around the wrapper, and its
-kernel's device time under `torch.profiler` (the difference is the
-wrapper's host time). The variants:
+times each (static bound 16.14 and online, bf16, every key valid) at the
+shapes named (`SHAPES`, default `2b`), beside one
+`scaled_dot_product_attention` call on the same inputs:
+
+  2b          the 2B's query shape (B=2, Sq=4096, H=32, D=72) for each key
+              length of its main path (the self-attention's 4096, the
+              sampler's 256 caption tokens, the served worker's and the
+              trainer's 32)
+  small       (128, 1024, 8, 48), Sk = 1024: the Small's sampler (K1)
+  600m        (8, 256, 32, 48), Sk = 256: the ImageNet 600M's sampler (K1)
+  600m_train  (256, 256, 32, 48), Sk = 256: the 600M's trainer (K4's kernel)
+  7b          (8, 256, 32, 128), Sk = 256: the ImageNet 7B's sampler (K1)
+  5b          (2, 4160, 32, 96), Sk = 4160: the Flag-DiT 5B (K2-K5)
+  mmdit_db    (2, 589, 24, 64), Sk = 589: MMDiT's joint sequence in
+              DreamBooth at 256^2 (K4's kernel)
+  music_train (32, 256, 16, 72), Sk = 256 and 77: the music trainer (K4's)
+  2b_db       (2, 256, 32, 72), Sk = 256: the 2B's DreamBooth at 256^2 (K4's)
+  audio       (2, 128, 16, 72), Sk = 128 and 16: FlagDiT-1D's bf16 forward (K1)
+
+At key lengths up to 1024 it also times K1 itself: `flash_small_kv` by CUDA
+events around the wrapper, and its kernel's device time under
+`torch.profiler` (the difference is the wrapper's host time). The variants:
 
   kernel         the source as it is
   loads only     the consumers skip the products and the chain: what the
@@ -23,6 +38,13 @@ wrapper's host time). The variants:
   products only  compute only, without the chain: the tensor-core work
   P once         P rounded once to bf16: no lo product, no second pack
 
+With `--blocks` it times instead, at each shape, every block of `BLOCKS`
+(depth/width, consumer warpgroups of 64 rows, blocks built to be resident
+an SM) at the width the kernel picks and at the width head_dim took before
+48/48 and 96/96 (64/64, 128/128), the one `launch()` picks marked: the
+source with `launch()` forced to one block at a time, each computing the
+function.
+
 Only "kernel" computes the function; the others are timings. Each variant
 is compiled with nvcc into `build/fwd_sm90_breakdown/` from the source with
 `sm90_common.cuh` pasted in (the K/V ring's producer and the pair product
@@ -32,6 +54,7 @@ of timing something else. Needs a CUDA device and nvcc.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import hashlib
 import subprocess
@@ -42,8 +65,20 @@ from ..ops import cuda_lib
 from ..ops import flash_attention as fa
 from . import device_label, device_ms, source_with_common, time_ms
 
-B, S, H, D = 2, 4096, 32, 72
-SKS = (4096, 256, 32)  # key lengths: self-attention, sampler captions, served / trainer captions
+# name: ((B, Sq, H, D), key lengths)
+SHAPES = {
+    # self-attention, sampler captions, served / trainer captions
+    "2b": ((2, 4096, 32, 72), (4096, 256, 32)),
+    "small": ((128, 1024, 8, 48), (1024,)),
+    "600m": ((8, 256, 32, 48), (256,)),
+    "600m_train": ((256, 256, 32, 48), (256,)),
+    "7b": ((8, 256, 32, 128), (256,)),
+    "5b": ((2, 4160, 32, 96), (4160,)),
+    "mmdit_db": ((2, 589, 24, 64), (589,)),
+    "music_train": ((32, 256, 16, 72), (256, 77)),
+    "2b_db": ((2, 256, 32, 72), (256,)),
+    "audio": ((2, 128, 16, 72), (128, 16)),
+}
 BOUND = 16.14
 SOURCE = cuda_lib._CSRC / "flash_fwd_sm90.cu"
 _BUILD = cuda_lib._BUILD_ROOT.parent / "fwd_sm90_breakdown"
@@ -84,6 +119,15 @@ extern "C" int breakdown_fwd(int static_max, const void* q, const void* k, const
 """
 
 
+# the blocks `--blocks` times: (depth, width, consumer warpgroups, blocks an
+# SM), each one the kernel's `Block` and `KvRing` take
+BLOCKS = ((48, 48, 3, 1), (48, 48, 2, 1), (48, 48, 1, 2), (48, 48, 1, 3), (48, 48, 2, 2),
+          (64, 64, 3, 1), (64, 64, 1, 3), (80, 72, 3, 1), (80, 72, 2, 1), (96, 96, 3, 1),
+          (96, 96, 2, 1), (128, 128, 3, 1), (128, 128, 2, 1))
+_LAUNCH = ("template <class T, bool kStaticMax>\nint launch(const Params& p, cudaStream_t stream) "
+           "{\n  return by_shape(")
+
+
 def kernel_source() -> str:
     """The kernel's source with the shared header pasted in: what the variants edit."""
     return source_with_common(SOURCE)
@@ -99,12 +143,29 @@ def variant_source(name: str, source: str) -> str:
     return source + _ENTRY
 
 
-def build(names) -> dict:
-    """{variant: ctypes library}, compiled in parallel (once per source)."""
-    source = kernel_source()
+def blocks_source(source: str) -> str:
+    """The kernel's source (`kernel_source()`) with `launch()` running the
+    block of `BLOCKS` that the entry `breakdown_block(i)` names (-1:
+    `by_shape`'s, as the kernel picks)."""
+    if source.count(_LAUNCH) != 1:
+        raise RuntimeError("blocks: the kernel source changed; update _LAUNCH")
+    cases = "\n".join(f"    case {i}: return fn(Dims<{a}, {b}, {c}, {d}>{{}});"
+                      for i, (a, b, c, d) in enumerate(BLOCKS))
+    pick = ("int g_block = -1;\ntemplate <class Fn>\nint by_block(int d, int sk, Fn fn) {\n"
+            f"  switch (g_block) {{\n{cases}\n  }}\n  return by_shape(d, sk, fn);\n}}\n\n")
+    source = source.replace(_LAUNCH, pick + _LAUNCH.replace("by_shape(", "by_block("))
+    attrs = "\n".join(f"    case {i}: return attributes_dims<bf16, false, {a}, {b}, {c}, {d}>(out);"
+                      for i, (a, b, c, d) in enumerate(BLOCKS))
+    return (source + _ENTRY + 'extern "C" void breakdown_block(int i) { g_block = i; }\n'
+            'extern "C" int breakdown_block_attributes(int i, long long* out) {\n'
+            f"  switch (i) {{\n{attrs}\n  }}\n  return 1;\n}}\n")
+
+
+def build(texts: dict) -> dict:
+    """{name: ctypes library} of {name: source}, compiled in parallel (once
+    per source)."""
     jobs = {}
-    for name in names:
-        text = variant_source(name, source)
+    for name, text in texts.items():
         out = _BUILD / hashlib.sha256(text.encode()).hexdigest()[:16] / "libvariant.so"
         if not out.exists():
             out.parent.mkdir(parents=True, exist_ok=True)
@@ -130,24 +191,64 @@ def build(names) -> dict:
     return libs
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("fwd_sm90_breakdown times CUDA kernel variants: it needs a CUDA device")
-    device = torch.device("cuda")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
-    libs = build(list(_EDITS))
+def _call(lib, static_max, q, k, v, out, meta, scale, device, name):
+    err = lib.breakdown_fwd(int(static_max), q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                            out.data_ptr(), meta, scale, BOUND,
+                            torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: cudaError {err}")
+
+
+def time_blocks(lib, device, shape, sks):
+    """Prints each block of `BLOCKS` at the width the kernel picks for this
+    head_dim and at the width it took before, static max and online."""
+    b, s, h, d = shape
     g = torch.Generator(device=device).manual_seed(0)
-    q = torch.randn(B, S, H, D, generator=g, device=device).to(torch.bfloat16)
+    q = torch.randn(b, s, h, d, generator=g, device=device).to(torch.bfloat16)
     out = torch.empty_like(q)
-    scale = D ** -0.5
-    for sk in SKS:
-        k, v = (torch.randn(B, sk, H, D, generator=g, device=device).to(torch.bfloat16)
+    scale = d ** -0.5
+    before = 64 if d <= 64 else 72 if d <= 72 else 128
+    for sk in sks:
+        k, v = (torch.randn(b, sk, h, d, generator=g, device=device).to(torch.bfloat16)
+                for _ in range(2))
+        meta = fa._fwd_meta(q, k, v, out, None)
+        picked = fa.fwd_sm90_instantiation(d, s, sk)
+        for i, (depth, width, cons, blocks) in enumerate(BLOCKS):
+            if width not in (picked[1], before):
+                continue
+            info = (ctypes.c_longlong * 11)()
+            if lib.breakdown_block_attributes(i, info):
+                raise RuntimeError(f"block {i}: no attributes")
+            lib.breakdown_block(i)
+            ms = {static_max: time_ms(lambda: _call(lib, static_max, q, k, v, out, meta, scale,
+                                                    device, f"block {i}"), device)
+                  for static_max in (True, False)}
+            mark = " (picked)" if (depth, width, 64 * cons, blocks) == picked else ""
+            print(f"block {depth}/{width}, {64 * cons} rows, {blocks} an SM{mark} D={d} Sq={s} "
+                  f"Sk={sk}: static max {ms[True]:.3f} ms, online {ms[False]:.3f} ms ({info[2]} "
+                  f"registers a consumer thread, {info[3]} spill bytes, {info[5]} resident an "
+                  f"SM, {info[10]} stages)", flush=True)
+        lib.breakdown_block(-1)
+        del k, v
+    del q, out
+    torch.cuda.empty_cache()
+
+
+def time_shape(libs, device, shape, sks):
+    """Prints sdpa, K1 (at key lengths up to 1024) and every variant at one
+    query shape over each key length."""
+    b, s, h, d = shape
+    g = torch.Generator(device=device).manual_seed(0)
+    q = torch.randn(b, s, h, d, generator=g, device=device).to(torch.bfloat16)
+    out = torch.empty_like(q)
+    scale = d ** -0.5
+    for sk in sks:
+        k, v = (torch.randn(b, sk, h, d, generator=g, device=device).to(torch.bfloat16)
                 for _ in range(2))
         meta = fa._fwd_meta(q, k, v, out, None)
         sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale), device)
-        print(f"{device_label(device)}; B={B} Sq={S} Sk={sk} H={H} D={D} bf16; "
+        print(f"{device_label(device)}; B={b} Sq={s} Sk={sk} H={h} D={d} bf16; "
               f"scaled_dot_product_attention {sdpa:.3f} ms", flush=True)
         if not fa.streams_kv(sk):  # K1's key lengths: the wrapper and its kernel
             k1 = lambda: fa.flash_small_kv(q, k, v, None, scale)
@@ -156,17 +257,39 @@ def main():
                   f"wrapper, " + (f"{dev:.3f} ms" if dev is not None else "not traced")
                   + " of its kernel's device time a call under torch.profiler", flush=True)
         for name, lib in libs.items():
-            ms = {}
-            for static_max in (True, False):
-                def call():
-                    err = lib.breakdown_fwd(int(static_max), q.data_ptr(), k.data_ptr(),
-                                            v.data_ptr(), None, out.data_ptr(), meta, scale, BOUND,
-                                            torch.cuda.current_stream(device).cuda_stream)
-                    if err:
-                        raise RuntimeError(f"variant {name!r}: cudaError {err}")
-                ms[static_max] = time_ms(call, device)
-            print(f"{name:14s} Sk={sk:4d} static max {ms[True]:.3f} ms, online {ms[False]:.3f} ms",
-                  flush=True)
+            ms = {static_max: time_ms(lambda: _call(lib, static_max, q, k, v, out, meta, scale,
+                                                    device, f"variant {name!r}"), device)
+                  for static_max in (True, False)}
+            print(f"{name:14s} D={d} Sq={s} Sk={sk:4d} static max {ms[True]:.3f} ms, online "
+                  f"{ms[False]:.3f} ms", flush=True)
+        del k, v
+    del q, out
+    torch.cuda.empty_cache()
+
+
+def main(argv=None):
+    if not torch.cuda.is_available():
+        raise SystemExit("fwd_sm90_breakdown times CUDA kernel variants: it needs a CUDA device")
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--shapes", nargs="+", choices=list(SHAPES), default=["2b"])
+    p.add_argument("--blocks", action="store_true",
+                   help="time the blocks of BLOCKS instead of the variants")
+    args = p.parse_args(argv)
+    device = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    source = kernel_source()
+    if args.blocks:
+        lib = build({"blocks": blocks_source(source)})["blocks"]
+        lib.breakdown_block.argtypes = [ctypes.c_int]
+        lib.breakdown_block.restype = None
+        lib.breakdown_block_attributes.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        for name in args.shapes:
+            time_blocks(lib, device, *SHAPES[name])
+        return
+    libs = build({name: variant_source(name, source) for name in _EDITS})
+    for name in args.shapes:
+        time_shape(libs, device, *SHAPES[name])
 
 
 if __name__ == "__main__":

@@ -57,7 +57,11 @@ fused-RoPE ones included), and an operand whose
 base or (b, s, h) strides are not whole chunks, or whose strides do not
 grow from h to s to b, is copied contiguous first (`_chunk_aligned`; a
 strided view such as q, k, v of a fused (B, S, 3, H, D) tensor is read in
-place).
+place). The bf16 and fp16 forward picks its instantiation at launch from
+head_dim and Sk (`fwd_sm90_instantiation` names it): the products' depth
+and width 48/48, 64/64, 80/72, 96/96 or 128/128, and a block of 64 or 192
+query rows, three or one resident an SM; every one gives a row the same
+bits.
 
 fp16 q/k/v take the Hopper kernels' fp16 instantiations (wgmma on .f16
 operands), under the same checks as bf16; no entry point casts them to
@@ -338,8 +342,8 @@ cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
     **{f"lumina_flash_{name}": _ROPE_ARGS for name in _ROPE_ENTRIES},
     "lumina_rope_rotate": _ROTATE_ARGS,
     "lumina_bwd_delta": _DELTA_ARGS,
-    # static_max (fused), head_dim, fp16, out (int64[7]); launch nothing
-    "lumina_flash_fwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _meta],
+    # static_max (fused), head_dim, Sk, fp16, out (int64[12]); launch nothing
+    "lumina_flash_fwd_sm90_attributes": [ctypes.c_int] * 4 + [_meta],
     # which (0 dK/dV, 1 fused, 2 dQ), head_dim, fp16, out (int64[9])
     "lumina_flash_bwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _meta],
     # static_max, meta (the forward's, shapes read), out (int64[8]); launch nothing
@@ -351,25 +355,51 @@ _SM90_ATTRIBUTES = ("registers", "producer_registers", "consumer_registers", "lo
                     "shared_bytes", "blocks_per_sm", "threads")
 
 
-def _attributes(symbol, flag, head_dim, dtype, names=_SM90_ATTRIBUTES):
+def _attributes(symbol, flag, head_dim, dtype, names=_SM90_ATTRIBUTES, shape=()):
     if dtype not in _SM90_DTYPES:
         raise TypeError(f"the Hopper kernels are instantiated for bf16 and fp16, not {dtype}")
     out = (ctypes.c_longlong * len(names))()
-    err = getattr(cuda_lib.build_library(LIBRARY), symbol)(int(flag), int(head_dim),
-                                                           int(dtype == torch.float16), out)
+    err = getattr(cuda_lib.build_library(LIBRARY), symbol)(
+        int(flag), int(head_dim), *map(int, shape), int(dtype == torch.float16), out)
     if err != 0:
         raise RuntimeError(f"{symbol} failed: cudaError {err}")
     return dict(zip(names, out))
 
 
-def sm90_attributes(static_max: bool, head_dim: int = 72, dtype=torch.bfloat16) -> dict:
+# (largest head_dim, depth, width) of the bf16 and fp16 forward's products,
+# as `csrc/flash_fwd_sm90.cu` picks them (`by_shape`)
+_FWD_DIMS = ((48, 48, 48), (64, 64, 64), (72, 80, 72), (96, 96, 96), (128, 128, 128))
+def fwd_sm90_instantiation(head_dim: int, sq: int, sk: int) -> tuple:
+    """(depth, width, query rows per block, blocks an SM) of the bf16 and
+    fp16 forward instantiation that runs `head_dim` at Sq, Sk: the products'
+    depth and width 48/48 up to 48, 64/64, 80/72, 96/96, 128/128; the block
+    64 rows, three an SM, up to 64/64 over at most 1024 keys, else 192 rows,
+    one an SM. Sq does not change it."""
+    if not 0 < head_dim <= 128:
+        raise ValueError(f"the forward kernels take head_dim up to 128, got {head_dim}")
+    depth, width = next(row[1:] for row in _FWD_DIMS if head_dim <= row[0])
+    if width <= 64 and sk <= _SMALL_KV_MAX:
+        return depth, width, 64, 3
+    return depth, width, 192, 1
+
+
+_FWD_SM90_ATTRIBUTES = _SM90_ATTRIBUTES + ("depth", "width", "rows_per_block", "stages",
+                                           "min_blocks")
+
+
+def sm90_attributes(static_max: bool, head_dim: int = 72, dtype=torch.bfloat16,
+                    sk: int = 4096) -> dict:
     """Resources of the compiled streaming kernel (`csrc/flash_fwd_sm90.cu`;
-    with or without the LSE, one instantiation) for `dtype` (bf16 or fp16)
-    at `head_dim`, from the CUDA runtime: registers per thread as compiled
-    (the launch bound) and per producer / consumer thread after
-    `setmaxnreg`, local-memory (spill) bytes per thread, shared memory per
-    block, resident blocks per SM, threads per block."""
-    return _attributes("lumina_flash_fwd_sm90_attributes", static_max, head_dim, dtype)
+    with or without the LSE, one instantiation) that runs `dtype` (bf16 or
+    fp16) at `head_dim` over `sk` keys, from the CUDA runtime: registers per
+    thread as compiled (the launch bound) and per producer / consumer thread
+    after `setmaxnreg`, local-memory (spill) bytes per thread, shared memory
+    per block, resident blocks per SM, threads per block, the products'
+    depth and width, query rows per block, ring stages and the blocks an SM
+    it is built for, as compiled ("instantiation": "depth/width")."""
+    info = _attributes("lumina_flash_fwd_sm90_attributes", static_max, head_dim, dtype,
+                       _FWD_SM90_ATTRIBUTES, (sk,))
+    return {**info, "instantiation": f"{info['depth']}/{info['width']}"}
 
 
 _FP32_ATTRIBUTES = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "threads",
@@ -506,7 +536,8 @@ def _chunk_aligned(t):
     (b, s, h) element strides in whole 16-byte chunks, 0 < h stride <= s
     stride <= b stride -- t itself when it is so, else a contiguous copy."""
     sb, ss, sh = t.stride()[:3]
-    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in (sb, ss, sh)) and 0 < sh <= ss <= sb:
+    aligned = t.data_ptr() % 16 == 0 and sb % 8 == 0 and ss % 8 == 0 and sh % 8 == 0
+    if aligned and 0 < sh <= ss <= sb:
         return t
     return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
 

@@ -24,6 +24,7 @@ and skip without one.
 """
 
 import importlib
+import inspect
 import itertools
 import math
 import re
@@ -157,6 +158,15 @@ def _inputs(seed, b, sq, sk, hq, hkv, d=16, tail=0, dead_row=False, dtype=torch.
 # last tiles, masked tails
 CASES = [(2, 40, 32, 8, 1, 5), (1, 70, 100, 4, 1, 0), (2, 33, 130, 8, 2, 17),
          (1, 65, 200, 8, 1, 64)]
+# (..., head_dim): the 48/48 and 96/96 instantiations at the short sequences
+# their blocks fit (Sq 256 and 200 not a multiple of 64, Sk 256 and 1024)
+WIDE_CASES = [(1, 256, 256, 4, 1, 0, 48), (2, 200, 1024, 2, 1, 37, 48),
+              (1, 256, 1024, 2, 2, 0, 96), (2, 200, 256, 4, 2, 19, 96)]
+
+
+def _case(case):
+    """(b, sq, sk, hq, hkv, tail, head_dim) of a CASES (head_dim 16) or WIDE_CASES entry."""
+    return (*case, 16) if len(case) == 6 else case
 
 
 def _close(got, ref):
@@ -179,13 +189,15 @@ def _pallas_forward(entry, q, k, v, mask, scale, bound):
     return jfa._flash_attention_fwd_impl(*args, scale, 128, 128, static_max=bound)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + WIDE_CASES)
 @pytest.mark.parametrize("entry", ["small_kv", "online", "static_max"])
 def test_emulation_matches_pallas(entry, case):
     """K1 is the online kernel over all keys: the same emulation holds the
-    single-pass exact softmax of `_flash_small_kv_kernel`."""
-    b, sq, sk, hq, hkv, tail = case
-    q, k, v, mask = _inputs(1, b, sq, sk, hq, hkv, tail=tail)
+    single-pass exact softmax of `_flash_small_kv_kernel`; at head_dim 48 and
+    96 (WIDE_CASES) the arithmetic of the 48/48 and 96/96 instantiations,
+    whose zero columns add exact zeros to each sum."""
+    b, sq, sk, hq, hkv, tail, d = _case(case)
+    q, k, v, mask = _inputs(1, b, sq, sk, hq, hkv, d=d, tail=tail)
     scale = 0.3
     bound = _bound(q, k, v, mask, scale, 6.0) if entry == "static_max" else None
     ref = _pallas_forward(entry, q, k, v, mask, scale, bound)
@@ -204,14 +216,14 @@ def test_small_kv_emulation_at_the_jax_limit():
     _close(emulate(*map(torch.from_numpy, (q, k, v, mask)), 0.4)[0], ref)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + WIDE_CASES)
 @pytest.mark.parametrize("entry", ["online_lse", "static_max_lse"])
 def test_lse_emulation_matches_pallas(entry, case):
     """K4/K5: the output and the epilogue's row LSE against the Pallas
     `_flash_fwd_res_impl` (whose LSE is lane-replicated to 128 and padded to
-    its q block: sliced to (B, Hq, Sq))."""
-    b, sq, sk, hq, hkv, tail = case
-    q, k, v, mask = _inputs(7, b, sq, sk, hq, hkv, tail=tail)
+    its q block: sliced to (B, Hq, Sq)); at head_dim 48 and 96 as well."""
+    b, sq, sk, hq, hkv, tail, d = _case(case)
+    q, k, v, mask = _inputs(7, b, sq, sk, hq, hkv, d=d, tail=tail)
     scale = 0.3
     bound = _bound(q, k, v, mask, scale, 8.0) if entry == "static_max_lse" else None
     ref_out, ref_lse = jfa._flash_fwd_res_impl(*map(jnp.asarray, (q, k, v, mask)), scale, 128, 128,
@@ -325,6 +337,60 @@ def test_hi_lo_pair_keeps_p_to_fp32_precision():
     once = (emulate(q, k, v, mask, 0.2, p_pair=False, round_out=False)[0] - ref).abs().max()
     assert pair <= 2.0 ** -14 * top
     assert once > 8 * pair
+
+
+# -- the instantiations: products' depth and width, block -----------------------------
+
+
+# (largest head_dim, depth, width) of the forward's products
+WIDTHS = ((48, 48, 48), (64, 64, 64), (72, 80, 72), (96, 96, 96), (128, 128, 128))
+
+
+# the main paths' shapes (head_dim, Sq, Sk): the Small's and the 600M's
+# samplers, the 600M's trainer, the ImageNet 7B, the Flag-DiT 5B's self-
+# and caption attention, the 2B's self- and caption attention (the control)
+MAIN_SHAPES = {"small": (48, 1024, 1024), "600m": (48, 256, 256), "600m_train": (48, 256, 256),
+               "7b": (128, 256, 256), "5b": (96, 4160, 4160), "5b_captions": (96, 4160, 128),
+               "2b": (72, 4096, 4096), "2b_captions": (72, 4096, 256)}
+
+
+@pytest.mark.parametrize("shape", [(d, sq, sk) for d in range(8, 129, 8)
+                                   for sq, sk in ((256, 256), (4096, 256), (4096, 4096))]
+                         + list(MAIN_SHAPES.values()))
+def test_fwd_instantiation_by_head_dim_and_keys(shape):
+    """`fwd_sm90_instantiation` names what `launch()` runs (the card's
+    `test_kernel_resources` holds it against the compiled kernel): the
+    products' depth and width by head_dim (48/48, 64/64, 80/72, 96/96,
+    128/128); 64-row blocks, three an SM, up to 64/64 over at most 1024
+    keys, else 192 rows, one an SM, whatever Sq is."""
+    d, sq, sk = shape
+    depth, width = next(row[1:] for row in WIDTHS if d <= row[0])
+    few = width <= 64 and sk <= tfa._SMALL_KV_MAX
+    assert tfa.fwd_sm90_instantiation(d, sq, sk) == (depth, width, 64 if few else 192,
+                                                      3 if few else 1)
+    assert depth >= d and depth % 16 == 0 and width >= d and width % 8 == 0
+
+
+@pytest.mark.parametrize("name,expected", [
+    ("small", (48, 48, 64, 3)), ("600m", (48, 48, 64, 3)), ("600m_train", (48, 48, 64, 3)),
+    ("7b", (128, 128, 192, 1)), ("5b", (96, 96, 192, 1)), ("5b_captions", (96, 96, 192, 1)),
+    ("2b", (80, 72, 192, 1)), ("2b_captions", (80, 72, 192, 1))])
+def test_fwd_instantiation_at_the_main_paths(name, expected):
+    """The main paths' instantiations: 48/48 and 96/96 where the widths are
+    48 and 96; at head_dim 48 over few keys a block that fits 256 and 1024
+    query rows (no 64-row tile of a head left empty), three resident an SM;
+    the 2B's 192-row block at 80/72."""
+    d, sq, sk = MAIN_SHAPES[name]
+    got = tfa.fwd_sm90_instantiation(d, sq, sk)
+    assert got == expected
+    if d == 48 and sk <= tfa._SMALL_KV_MAX:
+        assert -(-sq // got[2]) * got[2] == -(-sq // 64) * 64
+
+
+def test_fwd_instantiation_rejects_what_no_kernel_takes():
+    for d in (0, 136):
+        with pytest.raises(ValueError, match="head_dim up to 128"):
+            tfa.fwd_sm90_instantiation(d, 256, 256)
 
 
 # -- fp16: the kernel's fp16 instantiation -------------------------------------------
@@ -536,18 +602,40 @@ def test_breakdown_variants_edit_the_kernel():
     texts = {name: bd.variant_source(name, source) for name in bd._EDITS}
     assert texts["kernel"].startswith(source) and "breakdown_fwd" in texts["kernel"]
     assert len(set(texts.values())) == len(texts)
+    # --blocks: launch() forced to each block of BLOCKS, every one a block
+    # the port picks somewhere or one the choice was made against
+    blocks = bd.blocks_source(source)
+    assert "return by_block(p.D, p.Sk," in blocks and "breakdown_block" in blocks
+    picked = {tfa.fwd_sm90_instantiation(d, sq, sk) for d in (48, 64, 72, 96, 128)
+              for sq, sk in ((256, 256), (4096, 256), (4096, 4096))}
+    assert picked <= {(a, b, 64 * c, n) for a, b, c, n in bd.BLOCKS}
 
 
 @pytest.mark.parametrize("module", ["lumina_t2x_tpu_torch.exps.fwd_sm90_breakdown",
                                     "lumina_t2x_tpu_torch.pipelines.profile_forward",
-                                    "lumina_t2x_tpu_torch.exps.fp16_times"])
+                                    "lumina_t2x_tpu_torch.exps.fp16_times",
+                                    "lumina_t2x_tpu_torch.exps.fwd_head_dim_times"])
 def test_measurement_scripts_need_the_card(monkeypatch, module):
-    """The breakdown, the forward profile and the fp16-against-bf16 times
-    time the card: without a CUDA device they stop before building
-    anything, with no CPU fallback."""
+    """The breakdown, the forward profile, the fp16-against-bf16 times and
+    the head_dim times time the card: without a CUDA device they stop before
+    building anything, with no CPU fallback."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = importlib.import_module(module).main
     with pytest.raises(SystemExit, match="CUDA device"):
-        importlib.import_module(module).main()
+        main([]) if "argv" in inspect.signature(main).parameters else main()
+
+
+def test_breakdown_and_times_cover_the_main_shapes():
+    """The breakdown and the head_dim times take the same named shapes, the
+    main paths' (`MAIN_SHAPES`), each at its (B, Sq, H, D)."""
+    from lumina_t2x_tpu_torch.exps import fwd_head_dim_times as times
+    from lumina_t2x_tpu_torch.exps import fwd_sm90_breakdown as bd
+
+    assert set(bd.SHAPES) == set(times.SHAPES)
+    for name, (shape, sks) in bd.SHAPES.items():
+        assert times.SHAPES[name][0] == shape
+        d, sq = shape[3], shape[1]
+        assert MAIN_SHAPES.get(name, (d, sq, sks[0]))[:2] == (d, sq)
 
 
 # -- on the card: the kernel against its plain version ------------------------------
@@ -593,18 +681,24 @@ def _call(entry, q, k, v, mask, scale=0.2, bound=9.0):
     return got, ref
 
 
+# head_dim 48 and 96 at Sq 200 and 1000 (not multiples of 64), 4:1 GQA, over
+# few keys (48/48's 64-row blocks) and over more than 1024 (192 rows)
+WIDE_SHAPES = [(2, 200, 1000, 8, 2, 48), (1, 1000, 1000, 8, 2, 48), (1, 1000, 1200, 8, 2, 48),
+               (2, 200, 1000, 8, 2, 96), (2, 1000, 300, 8, 2, 96), (1, 200, 1500, 8, 2, 96)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [
     (2, 77, 33, 8, 1, 72), (2, 130, 257, 4, 2, 72), (1, 300, 1000, 8, 8, 72), (3, 1, 1, 2, 1, 72),
     (2, 200, 300, 4, 1, 48), (1, 70, 90, 4, 2, 16), (1, 129, 200, 8, 2, 64),
-    (2, 65, 130, 4, 4, 96), (1, 193, 129, 4, 1, 128)])
+    (2, 65, 130, 4, 4, 96), (1, 193, 129, 4, 1, 128), *WIDE_SHAPES])
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
     """Odd Sq and Sk, GQA, a masked tail and a fully masked batch row, at
     head_dim 72 (the 2B) and in each of the kernel's other instantiations:
-    depth and width 64 (head_dim 48 of the 600M, 16 of the Tiny model, 64)
-    and 128 (96, 128); K1 at Sk <= 1024 like every other entry, one partial
-    tile to 16 tiles."""
+    48/48 (head_dim 48 of the 600M, 16 of the Tiny model), 64/64, 96/96 and
+    128/128, each over few keys and over many (its two blocks); K1 at Sk <=
+    1024 like every other entry, one partial tile to 16 tiles."""
     q, k, v, mask = _cuda_inputs(*shape)
     before = tfa.LAUNCHES[entry]
     got, ref = _call(entry, q, k, v, mask)
@@ -617,10 +711,11 @@ def test_kernel_matches_plain_on_card(cuda_device, entry, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 77, 33, 8, 1, 72), (1, 300, 1000, 8, 8, 72),
-                                   (2, 200, 300, 4, 1, 48), (1, 193, 129, 4, 1, 128)])
+                                   (2, 200, 300, 4, 1, 48), (1, 193, 129, 4, 1, 128),
+                                   *WIDE_SHAPES])
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_fp16_kernel_matches_plain_on_card(cuda_device, entry, shape):
-    """The fp16 instantiation at the 80/72, 64/64 and 128/128 widths, GQA, a
+    """The fp16 instantiation at the 80/72, 48/48, 96/96 and 128/128 widths, GQA, a
     masked tail and a fully masked batch row; the static max with bounds 30
     nats over and 20 under the row maxima as well (fp16's row scale): one
     launch on fp16 operands, fp16 out within 1e-3 of max|ref| (one fp16
@@ -708,14 +803,52 @@ def test_rope_kernel_equals_the_first_template_online_forward(cuda_device):
 
 
 @pytest.mark.cuda
-def test_kernel_resources(cuda_device):
-    """A block of whole warpgroups (the producer's and the consumers')
-    resident on an SM, the registers setmaxnreg hands out within the SM's
-    65536, no local-memory spills, at each instantiation's head_dim."""
-    for static_max, head_dim in itertools.product((False, True), (64, 72, 128)):
-        info = tfa.sm90_attributes(static_max, head_dim)
-        consumers = info["threads"] - 128
-        assert info["threads"] % 128 == 0 and consumers >= 256 and info["blocks_per_sm"] >= 1
-        assert 128 * info["producer_registers"] + consumers * info["consumer_registers"] <= 65536
-        assert info["local_bytes"] == 0
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [48, 96])
+@pytest.mark.parametrize("sq,sk", [(1000, 1000), (256, 256), (200, 2100)])
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_new_widths_equal_zero_padded_on_card(cuda_device, entry, sq, sk, d, dtype):
+    """48/48 and 96/96 (each block: 48/48 over few keys in 64 rows; over
+    more than 1024, and 96/96, in 192) equal, bit for bit, the 64/64 and 128/128 instantiations
+    on the same q, k, v padded with zero columns, at the same scale: a zero
+    column adds exact zeros to each fp32 sum, and the block does not change
+    a row's arithmetic. The LSE too; 4:1 GQA, a masked tail, a fully masked
+    batch row."""
+    q, k, v, mask = (t.to(dtype) if t.is_floating_point() else t
+                     for t in _cuda_inputs(2, sq, sk, 8, 2, d=d))
+    padded = 64 if d == 48 else 128
+    pad = lambda t: torch.nn.functional.pad(t, (0, padded - d))  # noqa: E731
+    assert tfa.fwd_sm90_instantiation(d, sq, sk)[1] == d
+    assert tfa.fwd_sm90_instantiation(padded, sq, sk)[1] == padded
+    kw = {"bound": 9.0} if entry.startswith("static_max") else {}
+    fn = getattr(tfa, f"flash_{entry}")
+    got, ref = fn(q, k, v, mask, 0.2, **kw), fn(pad(q), pad(k), pad(v), mask, 0.2, **kw)
+    torch.cuda.synchronize()
+    if entry.endswith("_lse"):
+        (got, lse), (ref, ref_lse) = got, ref
+        assert torch.equal(lse, ref_lse)
+    assert torch.equal(got, ref[..., :d])
 
+
+@pytest.mark.cuda
+def test_kernel_resources(cuda_device):
+    """Each instantiation and block (`fwd_sm90_instantiation`) as compiled:
+    whole warpgroups (the producer's and one to three consumers'), as many
+    blocks resident on an SM as the block is built for, the registers
+    setmaxnreg hands out within the block's share of the SM's 65536, no
+    local-memory spills, the products' depth and width and the block's rows
+    as the port names them, in bf16 and fp16."""
+    shapes = ((4096, 4096), (256, 256), (4096, 256))
+    for static_max, head_dim, (sq, sk), dtype in itertools.product(
+            (False, True), (48, 64, 72, 96, 128), shapes, (torch.bfloat16, torch.float16)):
+        info = tfa.sm90_attributes(static_max, head_dim, dtype, sk)
+        depth, width, rows, blocks = tfa.fwd_sm90_instantiation(head_dim, sq, sk)
+        consumers = info["threads"] - 128
+        assert info["threads"] % 128 == 0 and consumers == 2 * rows
+        assert (info["depth"], info["width"], info["rows_per_block"], info["min_blocks"]) == \
+            (depth, width, rows, blocks)
+        assert info["blocks_per_sm"] >= blocks and info["stages"] >= 3
+        assert 128 * info["producer_registers"] + consumers * info["consumer_registers"] <= \
+            65536 // blocks
+        assert info["registers"] * info["threads"] * blocks <= 65536
+        assert info["local_bytes"] == 0

@@ -408,6 +408,37 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [48, 96])
+@pytest.mark.parametrize("entry,sq,sk", [("rope", 200, 200), ("rope", 1000, 1000),
+                                         ("rope_q", 1000, 40), ("rope_q", 200, 1000)])
+def test_rope_kernels_at_head_dim_48_and_96_on_card(cuda_device, dtype, d, entry, sq, sk):
+    """K9 on the 48/48 and 96/96 instantiations (the Hopper forward's online
+    kernel with q rotated in it), Sq 200 and 1000, 4:1 GQA, a masked tail
+    and a fully masked batch row: against its plain version, and bit for bit
+    against K1's entry point on `apply_rope`d inputs (the same kernel)."""
+    g = torch.Generator().manual_seed(1)
+    mk = lambda *s: torch.randn(*s, generator=g).to("cuda", dtype)  # noqa: E731
+    q, k, v = mk(2, sq, 8, d), mk(2, sk, 2, d), mk(2, sk, 2, d)
+    mask = torch.ones(2, sk, dtype=torch.int32)
+    mask[0, sk - sk // 5:] = 0
+    mask[1] = 0
+    mask = mask.cuda()
+    angles = torch.from_numpy(_angles(max(sq, sk), d)).cuda()
+    kernel = getattr(tfa, f"flash_{entry}")
+    got = kernel(q, k, v, angles[:sq] if entry == "rope_q" else angles, mask, 0.2)
+    q_rot = apply_rope(q, angles[:sq])
+    k_rot = apply_rope(k, angles) if entry == "rope" else k
+    ref = tfa.flash_online_plain(q_rot.float(), k_rot.float(), v.float(), mask, 0.2)
+    k1 = tfa.flash_small_kv(q_rot, k_rot, v, mask, 0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k1)
+    top = max(1.0, ref.abs().max().item())
+    assert (got.float() - ref).abs().max().item() <= 8e-3 * top
+    assert not got[1].any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("entry,sk,hkv", [("rope", 300, 2), ("rope_q", 37, 1), ("rope_q", 300, 4),
                                           ("rope_q", 32, 2), ("rope_q", 256, 1)])
