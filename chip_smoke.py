@@ -12,9 +12,11 @@ last line:
    process per source, all started together) and prints the build seconds,
    then the resources of the Hopper kernels of bf16 and fp16 K1-K5 and K9
    (`csrc/flash_fwd_sm90.cu`: each instantiation, 48/48, 64/64, 80/72,
-   96/96, 128/128, and each block, 64 rows three an SM or 192 rows one an
-   SM, named by the head_dim and key length that run it; each line names what was compiled
-   and requires the resident blocks it is built for), bf16 K6-K8
+   96/96, 128/128, and each block, 64 rows three an SM (up to 80/72 over
+   at most 1024 keys; at 80/72 with Q's, K's and V's columns 64-79 in
+   narrow atoms) or 192 rows one an SM, named by the head_dim and key
+   length that run it; each line names what was compiled and requires the
+   resident blocks it is built for), bf16 K6-K8
    (`csrc/flash_bwd_sm90.cu`: the backward sweep of K6/K8 and the dQ kernel
    of K7), the fp16 instantiations of the backward (fp16 K6-K8 run their
    own, wgmma on .f16 operands, at widths 64, 72 and 128), the backward's
@@ -29,8 +31,8 @@ last line:
    (`csrc/flash_bwd_fp32_sm90.cu`, fp32 K6-K8) plan and resources at the
    music trainer's shapes and the 2B's (0 spill bytes required); and what
    ptxas says of their wgmma (an fp16 instantiation may serialize nothing
-   that its bf16 twin does not, and the forward's and the backward's 48/48
-   and 96/96 instantiations nothing);
+   that its bf16 twin does not, the backward's 48/48 and 96/96
+   instantiations nothing, and no forward instantiation anything);
 3. kernels: each CUDA entry point against its plain PyTorch version at the
    main-path shapes (B=2, S=4096, H=32, D=72; Sk=256 for the small-KV
    kernel; it, the LSE forward and the backward kernels also at the served
@@ -57,7 +59,9 @@ last line:
    kernel and sdpa timed in bursts of 8 (every forward row at head_dim 48
    and 96 names the instantiation and block it ran and equals, bit for bit,
    the 64/64 or 128/128 call on the operands padded with zero columns,
-   `_padded_equal`); K1 and K4 (forward) and K6-K8
+   `_padded_equal`; every bf16 or fp16 row at head_dim 72 over at most
+   1024 keys equals, bit for bit, the 192-row block's call on its keys
+   padded past 1024 and masked, `_block_equal`); K1 and K4 (forward) and K6-K8
    (backward) also at Gemma caption lengths Sk = 8, 40 and 136 with masks
    ending inside a key tile (`CAPTION_LENGTHS`), bf16, fp32 and GQA, within
    the same bars; the backward's delta (`bwd_delta`, `csrc/bwd_delta.cu`)
@@ -465,11 +469,16 @@ D96_SHAPE, D96_CAPTION, D128_K1 = (2, 4160, 32, 96), (128, 100), (8, 256, 32, 12
 # against the wider ones (64/64, 128/128) on zero-padded operands
 PADDED_WIDTHS = {48: 64, 96: 128}
 # (head_dim, Sk) that run each instantiation and block of the Hopper
-# forward: the 2B's; 48/48 over the 600M's 256 keys (64-row blocks) and
-# over more than 1024 (192 rows); 64/64 the same; 96/96 over the 5B's 4160
-# keys; 128/128 over the 7B's 256
-FWD_BUILD_SHAPES = ((72, 4096), (48, 256), (48, 4096), (64, 256), (64, 4096), (96, 4160),
-                    (128, 256))
+# forward: 80/72 over the 2B's 4096 keys (192 rows) and its 256 caption
+# keys (64-row blocks, three an SM, V's columns 64-79 in a narrow atom);
+# 48/48 over the 600M's 256 keys (64-row blocks, three an SM) and over more
+# than 1024 (192 rows); 64/64 the same; 96/96 over the 5B's 4160 keys;
+# 128/128 over the 7B's 256
+FWD_BUILD_SHAPES = ((72, 4096), (72, 256), (48, 256), (48, 4096), (64, 256), (64, 4096),
+                    (96, 4160), (128, 256))
+# keys a call of 80/72's short-key block is padded to, the padding masked,
+# to run the 192-row block on the same rows
+PAST_1024 = 1088
 # meta-llama/Llama-2-7b-hf's config.json (the 5B's caption LM), depth cut to
 # LLAMA_LAYERS decoder layers: the features are hidden_states[-2]
 LLAMA_2_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
@@ -814,6 +823,9 @@ def build_phase():
         new_widths = [note for note in notes if "Li48ELi48E" in note or "Li96ELi96E" in note]
         require(not new_widths, f"ptxas serializes a 48/48 or 96/96 instantiation's wgmma: "
                 f"{new_widths}")
+        # nor does any instantiation of the forward (80/72's narrow atoms included)
+        forward = [note for note in notes if "flash_fwd_sm90_kernel" in note]
+        require(not forward, f"ptxas serializes a forward instantiation's wgmma: {forward}")
 
 
 def _rand(g, *shape, dtype):
@@ -863,6 +875,7 @@ def kernel_phase(fa):
             got = kernel(q, k, v, mask, scale, **kw)
             ref = plain(q.float(), k.float(), v.float(), mask, scale, *kw.values())
             torch.cuda.synchronize()
+            block = _block_equal(fa, entry, q, k, v, mask, scale, kw, got, label)
             if entry.endswith("_lse"):
                 (got, lse), (ref, ref_lse) = got, ref
                 fin = torch.isfinite(ref_lse)
@@ -882,6 +895,7 @@ def kernel_phase(fa):
             line = f"{entry} {label} (Sk={sk}): max abs err {max_err:.3g} mean {mean_err:.3g}"
             if entry.endswith("_lse"):
                 line += f", LSE {lse_err:.3g}"
+            line += block
             if timed is None:
                 timed = {"ms": time_ms(lambda: kernel(q, k, v, mask, scale, **kw)),
                          "plain_ms": time_ms(lambda: plain(q, k, v, mask, scale, *kw.values()))}
@@ -1384,6 +1398,32 @@ def _padded_equal(fa, entry, q, k, v, mask, scale, kw, got, label):
     return f"; equal bit for bit to {wide}/{wide} on zero-padded operands"
 
 
+def _block_equal(fa, entry, q, k, v, mask, scale, kw, got, label):
+    """Where a bf16 or fp16 call ran 80/72's short-key block (head_dim 72
+    over at most 1024 keys: 64 rows three an SM, PV as n64 and n16),
+    requires its output (and LSE) to equal, bit for bit, the 192-row
+    block's on the same call with zero keys appended past 1024 and masked
+    (a masked key adds exact zeros; the block does not change a row's
+    arithmetic). Returns a line, "" elsewhere."""
+    b, sk, hkv, d = k.shape
+    _, width, rows, _ = fa.fwd_sm90_instantiation(d, q.shape[1], sk)
+    if q.dtype == torch.float32 or width != 72 or rows == 192:
+        return ""
+    zeros = k.new_zeros(b, PAST_1024 - sk, hkv, d)
+    base = torch.ones(b, sk, dtype=torch.int32, device="cuda") if mask is None else mask
+    past = torch.cat([base, base.new_zeros(b, PAST_1024 - sk)], 1)
+    wide = fa.flash_online if entry == "small_kv" else getattr(fa, f"flash_{entry}")
+    ref = wide(q, torch.cat([k, zeros], 1), torch.cat([v, zeros], 1), past, scale, **kw)
+    torch.cuda.synchronize()
+    if entry.endswith("_lse"):
+        (got, lse), (ref, ref_lse) = got, ref
+        require(torch.equal(lse, ref_lse), f"{entry} {label}: LSE not equal to the 192-row "
+                f"block's (keys masked past 1024)")
+    require(torch.equal(got, ref), f"{entry} {label}: output not equal to the 192-row block's "
+            f"(keys masked past 1024)")
+    return "; equal bit for bit to the 192-row block (keys masked past 1024)"
+
+
 def _check_forward(fa, entry, q, k, v, mask, label):
     """One forward entry against its plain version: (output, max abs err,
     line). The LSE of K4/K5 is held to LSE_MAX on the rows that keep a key;
@@ -1396,6 +1436,7 @@ def _check_forward(fa, entry, q, k, v, mask, label):
                                               *kw.values())
     torch.cuda.synchronize()
     line = _padded_equal(fa, entry, q, k, v, mask, scale, kw, got, label)
+    line += _block_equal(fa, entry, q, k, v, mask, scale, kw, got, label)
     if entry.endswith("_lse"):
         (got, lse), (ref, ref_lse) = got, ref
         fin = torch.isfinite(ref_lse)

@@ -51,13 +51,13 @@
 //
 // Design. One block per (64 or 192 query rows, q head, batch): a producer
 // warpgroup and one or three consumer warpgroups (`Block`, chosen at launch
-// from head_dim and Sk: `by_shape`). Warpgroup 0 is the
-// producer: one thread loads the block's Q tile, then each 64-key K/V tile,
-// with TMA (cp.async.bulk.tensor) into a ring of up to 8 stages in the
-// block's share of shared memory (5 at head_dim 72 in the 192-row block); a
-// stage's "full" mbarrier completes when its bytes have landed. The producer warp's two
-// ballots write the tile's 64 key-valid bits beside it (j < Sk and the mask,
-// read one tile ahead).
+// from head_dim and Sk: `by_shape`). Warpgroup 0 is the producer: one
+// thread loads the block's Q tile, then each 64-key K/V tile, with TMA
+// (cp.async.bulk.tensor) into a ring of up to 8 stages in the block's share
+// of shared memory (5 at 80/72 in the 192-row block, 3 in its 64-row
+// block); a stage's "full" mbarrier completes when its bytes have landed.
+// The producer warp's two ballots write the tile's 64 key-valid bits beside
+// it (j < Sk and the mask, read one tile ahead).
 // It refills a stage once its "empty" mbarrier, on which every consumer
 // thread arrives, has completed. The ring's layout (KvRing), its producer
 // loop (produce_kv) and the pair product (mma_pair) live in
@@ -79,26 +79,46 @@
 // tile's reads from L2 per query row by a third. S, P and O never leave
 // registers: S's accumulator layout is PV's A-fragment layout.
 //
-// Blocks. 192 rows, one block an SM, over more than 1024 keys (the 2B's
-// and the Flag-DiT 5B's self-attention) and above 64/64. Over at most 1024
-// a block sees at most 16 key tiles, and its fixed cost -- barrier set-up, setmaxnreg, the
-// Q load, filling the ring, the epilogue's stores -- weighs: at Sq = 256
-// the 192-row block's loads and barriers alone took 0.59 of the ImageNet
-// 600M trainer's 0.91-0.95 ms on an H100 (`exps/fwd_sm90_breakdown.py`),
-// and it computes 384 row slots for 256 rows. There, up to 64/64, the
-// block is one consumer of 64 rows, three resident an SM (80 registers a
-// thread at launch, 136 a consumer thread after setmaxnreg; shared memory
-// within a third of the SM's: a 4-stage ring at 48/48), so that one
-// block's prologue and epilogue run beside the others' loops: 0.57 ms at
-// that shape (`exps/fwd_sm90_breakdown.py --blocks` times each block).
-// Above 64/64 two such blocks do not fit (Q and three
-// stages of 128-column atoms take 115,792 bytes with the alignment pad,
-// past half the SM's 115,712; two consumers' blocks, two an SM, leave 104
-// registers a consumer thread, where o, S and the P pair alone take 112
-// at 96/96). A 128-row block, one an SM, took the ImageNet 7B's single K1
-// call from 0.084-0.087 to 0.101-0.104 ms on an H100, though its device
-// time fell (`exps/fwd_head_dim_times.py`), so
-// above 64/64 the block stays at 192 rows whatever Sq is.
+// Blocks. 192 rows, one block an SM, over more than 1024 keys (the 2B's,
+// SD3's and the Flag-DiT 5B's self-attention) and above 80/72. Over at
+// most 1024 a block sees at most 16 key tiles, and its fixed cost --
+// barrier set-up, setmaxnreg, the Q load, filling the ring, the epilogue's
+// stores -- weighs: at Sq = 256 the 192-row block's loads and barriers
+// alone took 0.59 of the ImageNet 600M trainer's 0.91-0.95 ms on an H100
+// (`exps/fwd_sm90_breakdown.py`), and it computes 384 row slots for 256
+// rows. There, up to 80/72, the block is one consumer of 64 rows, three
+// resident an SM (80 registers a thread at launch, 136 a consumer thread
+// after setmaxnreg; shared memory within a third of the SM's: a 4-stage
+// ring at 48/48 and 64/64, 3 at 80/72), so that one block's prologue and
+// epilogue run beside the others' loops: 0.57 ms at the 600M trainer's
+// shape. At 80/72 it fits only with Q's, K's and V's columns 64-79 in
+// narrow atoms (Shared memory, below; 72,784 bytes), PV then an n64 and an
+// n16 product a slice. `exps/fwd_sm90_breakdown.py --blocks` times each
+// block; at 80/72 on an H100 (device ms, static max / online), against
+// 64 rows two an SM, 128 rows one an SM and 192 rows, each with Q's and
+// K's columns 64-79 in narrow atoms and V in whole ones (3, 7 and 7
+// stages):
+//   the music trainer (32, 256, 16, 72) over 256 keys: three an SM
+//   0.062 / 0.063, two 0.069 / 0.068, 128 rows 0.058 / 0.064, 192 rows
+//   0.070 / 0.073; over its 77 caption keys 0.040 / 0.041, 0.043 / 0.045,
+//   0.047 / 0.049, 0.052 / 0.053; the 2B (2, 4096, 32, 72) over its 256
+//   caption keys 0.115 / 0.116, 0.131 / 0.131, 0.119 / 0.124, 0.110 /
+//   0.115, over 32 0.061 / 0.063, 0.068 / 0.068, 0.074 / 0.075, 0.069 /
+//   0.071.
+// Two an SM and 128 rows are slower than three an SM almost everywhere; a
+// 64-row block reads each K/V tile from L2 once per 64 rows, which sets the
+// pace where Sq is long and Sk is not short (the 2B's 256 caption keys),
+// so there 192 rows stay as fast, but no block is picked by Sq. The 192-row
+// block keeps whole atoms: with 7 stages on narrow Q and K the 2B's K2 / K3
+// over 4096 keys were no faster (`exps/fwd_head_dim_times.py`). Above 80/72
+// two blocks do not fit (Q and three stages of whole 128-column atoms take
+// 115,792 bytes with the alignment pad, past half the SM's 115,712; two
+// consumers' blocks, two an SM, leave 104 registers a consumer thread,
+// where o, S and the P pair alone take 112 at 96/96). A 128-row block, one
+// an SM, took the ImageNet 7B's single K1 call from 0.084-0.087 to
+// 0.101-0.104 ms on an H100, though its device time fell
+// (`exps/fwd_head_dim_times.py`), so above 80/72 the block stays at 192
+// rows whatever Sq is.
 // A block does not change a row's arithmetic: every block and width gives
 // the same bits (a zero column adds exact zeros to each fp32 sum).
 //
@@ -131,16 +151,24 @@
 //
 // Shared memory. Q, K and V are stored in 128-byte-swizzled atoms of 64
 // columns x rows (TMA's SWIZZLE_128B pattern, wgmma layout type 1), one TMA
-// box per atom. An atom is 64 bf16 wide and cannot cover D=72 in one piece:
-// columns 64-127 take a second atom, whose box (at column 64 of a tensor
-// map whose innermost extent is D) reads columns 64-71 and zero-fills the
-// rest, so QK^T's depth padding to 80 reads zeros. The unused columns cost
-// shared memory (5 ring stages of 32 KB fit), not copies; 128-byte boxes
-// keep TMA's reads in whole 32-byte sectors. Descriptors:
+// box per atom. An atom is 64 bf16 wide and cannot cover D=72 in one piece.
+// In 80/72's 64-row block Q's and K's columns 64-79 -- QK^T's fifth
+// k-step, its own wgmma -- take a narrow atom: 16 columns x rows of 32
+// bytes, 32-byte swizzled (SWIZZLE_32B, layout type 3), whose box (at
+// column 64 of a tensor map whose innermost extent is D) reads columns
+// 64-71 and zero-fills 72-79, so the depth's padding to 80 reads zeros. So
+// do V's (a key's 16 columns a 32-byte row, MN-major), and PV runs an n64
+// and an n16 product a slice. Each row then takes 160 bytes instead of 256,
+// a 64-key stage 20,480 bytes instead of 32,768, and Q and three stages fit
+// in a third of the SM. The 192-row block keeps whole second atoms
+// (columns 72-127 zero-filled, which costs shared memory, not reads; 5
+// stages) and PV n72. Descriptors:
 //   Q, K (K-major): SBO = 8 rows = 1024 bytes; k-step kk moves the start
-//                   address 32 bytes along the swizzled row (LBO unused)
+//                   address 32 bytes along the swizzled row (LBO unused);
+//                   the narrow atom: SBO = 8 rows = 256 bytes
 //   V (MN-major):   LBO = the atom stride (64 columns), SBO = 8 keys = 1024
 //                   bytes; the 16-key slice kk starts 2048 bytes further
+//                   (the narrow atom: SBO 256, the slice 512 bytes further)
 //
 // Widths. QK^T's depth and PV's width by head_dim: 48/48 up to 48 (three
 // k16 steps in one atom; n48), 64/64, 80/72, 96/96 (six steps over two
@@ -154,9 +182,22 @@
 // and the 1.07e9 exp take 0.275 ms on the special-function units. K and V
 // are re-read by each of the 22 q tiles of a head: 1.6 GB per call from L2.
 // The consumers' instruction issue (the chain, the pair's packing) sets the
-// pace (`exps/fwd_sm90_breakdown.py` times the parts). The LSE adds one
-// log2f and one 4-byte store per row (1 MB at that shape), after the
-// last product. The rotation reads 8 table bytes per q element from L2
+// pace (`exps/fwd_sm90_breakdown.py` times the parts). At 64/64 over SD3's
+// joint sequence (2, 4429, 24, 64) the products alone (with the pair) take
+// 0.355 ms on an H100, the pair's tensor peak, and the kernel 0.74 / 0.78
+// (static max / online): the chain runs beside them for little of its
+// time. Tried there and dropped (`--chain`; none lowered the time): the
+// row max in four chains of four (0.77 against 0.77 online), o scaled only
+// when a row's max moved in the warp (0.81), both (0.84), the scale in the
+// exp's FMA (0.85); the consumers issuing without turns (0.79-0.80);
+// S(j + 1) issued as soon as PV(j - 1) is done, into a second set of S
+// registers (0.94 / 1.10); two consumers in 128 rows and 64 rows three an
+// SM (device 0.73 / 0.79 and 0.69 / 0.75 against 0.69 / 0.72). 128-key
+// tiles are not built: they move the running max and the row sums 128 keys
+// at a time, which changes a row's bits, so every width and block would
+// have to move with them.
+// The LSE adds one log2f and one 4-byte store per row (1 MB at that
+// shape), after the last product. The rotation reads 8 table bytes per q element from L2
 // (151 MB at that shape, from a 2.4 MB table) and does 3 fp32 operations
 // per element before the first product.
 
@@ -216,15 +257,23 @@ struct Block {
   static_assert(128 * kProducerRegs + 128 * kCons * kConsumerRegs <= kLaunchRegs * kThreads,
                 "setmaxnreg hands out more registers than the block has");
   static constexpr uint32_t kSmem = kBlocks == 1 ? kSmemMax : kSmemSm / kBlocks - 1024;
+  static constexpr int kResident = kBlocks;
   static constexpr int kBarRope = kBarFirst + kCons;  // kBarRope + c: consumer c's rotated rows
 };
 
 // -- shared memory ------------------------------------------------------------------
 
-// Q, then the K/V ring (sm90_common.cuh) in the block's share of the SM: with
-// the 192-row block 5 stages at head_dim 72, 96 and 128, 8 at 48 and 64
+// Q, then the K/V ring (sm90_common.cuh) in the block's share of the SM:
+// with the 192-row block 5 stages at head_dim 72, 96 and 128, 8 at 48 and
+// 64. 80/72's 64-row block, three an SM, keeps Q's, K's and V's columns
+// 64-79 in narrow atoms (3 stages).
 template <int kDK, int kDN, class B>
-using Smem = KvRing<B::kBQ, 1, kDK, kDN, B::kSmem>;
+using Smem = KvRing<B::kBQ, 1, kDK, kDN, B::kSmem, kDK % kAtomCols == 16 && B::kResident == 3>;
+
+// PV's width: kDN, or 80 where V's columns 64-79 are a narrow atom (n64 +
+// n16 products; columns 72-79 of V arrive as zeros)
+template <class L, int kDN>
+constexpr int kPvWidth = L::kNarrow ? kAtomCols + 16 : kDN;
 
 // -- consumer -----------------------------------------------------------------------
 
@@ -318,36 +367,40 @@ __device__ __forceinline__ void exp_tile(float (&s)[kBK / 2], unsigned long long
 // Second half, once the previous tile's PV has finished with o and the P
 // registers: online, o *= alpha (fp16 static max: when a row's scale moved
 // in the warp); then P as the hi/lo A fragments of PV.
-template <class T, bool kStaticMax, int kDN>
+template <class T, bool kStaticMax, int kN>
 __device__ __forceinline__ void pack_tile(const float (&s)[kBK / 2], const float (&alpha)[2],
-                                          float (&o)[kDN / 2], uint32_t (&phi)[4][4],
+                                          float (&o)[kN], uint32_t (&phi)[4][4],
                                           uint32_t (&plo)[4][4]) {
   if (!kStaticMax ||
       (kIsF16<T> && __any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))) {
 #pragma unroll
-    for (int i = 0; i < kDN / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < kN; ++i) o[i] *= alpha[(i >> 1) & 1];
   }
   pack_pair<T>(s, phi, plo);
 }
 
 // Rotates a consumer's 64 rows of the Q tile in place (`q_rows`: their first
-// row in the swizzled atoms; `row0`: its query position): each thread takes
-// whole 16-byte chunks, 4 pairs (2i, 2i+1) of T, which never straddle a
-// chunk. A chunk's column c sits at chunk c % 8 ^ (row % 8) of the row in
-// atom c / 8 (the 128-byte swizzle). Rows at or past Sq (zero-filled) and
-// the columns past D are left as they are. The writes go through the
-// generic proxy: each thread fences them for the async proxy (wgmma), and
-// the warpgroup waits for all of them on its own named barrier.
-template <class T, uint32_t kQAtom, int kBarRope>
-__device__ __forceinline__ void rotate_q(unsigned char* q_rows, int row0, int c, int tid,
-                                         const Params& p) {
+// row in the swizzled atoms; `q_tail`: in the narrow atom, if L has one;
+// `row0`: its query position): each thread takes whole 16-byte chunks, 4
+// pairs (2i, 2i+1) of T, which never straddle a chunk. A chunk cc sits at
+// chunk cc % 8 ^ (row % 8) of the row in atom cc / 8 (the 128-byte swizzle),
+// or, past the whole atoms of a narrow Q, at chunk cc % 2 ^ (row / 4 % 2) of
+// the narrow atom's 32-byte row (the 32-byte swizzle). Rows at or past Sq
+// (zero-filled) and the columns past D are left as they are. The writes go
+// through the generic proxy: each thread fences them for the async proxy
+// (wgmma), and the warpgroup waits for all of them on its own named barrier.
+template <class T, class L, int kBarRope>
+__device__ __forceinline__ void rotate_q(unsigned char* q_rows, unsigned char* q_tail, int row0,
+                                         int c, int tid, const Params& p) {
   const int chunks = p.D / 8;
   for (int i = tid; i < kRows * chunks; i += 128) {
     const int r = i / chunks, cc = i - r * chunks;
     const int row = row0 + r;
     if (row >= p.Sq) continue;
-    uint4* at = reinterpret_cast<uint4*>(q_rows + (cc / 8) * kQAtom + r * kSwizzle +
-                                         ((cc % 8 ^ r % 8) << 4));
+    const bool narrow = L::kNarrow && cc / 8 == L::kWideK;
+    uint4* at = reinterpret_cast<uint4*>(
+        narrow ? q_tail + r * kNarrowRow + ((cc % 2 ^ r / 4 % 2) << 4)
+               : q_rows + (cc / 8) * L::kQAtom + r * kSwizzle + ((cc % 8 ^ r % 8) << 4));
     const float4* cs = reinterpret_cast<const float4*>(p.rope_cos + (long long)row * p.D + 8 * cc);
     const float4* sn = reinterpret_cast<const float4*>(p.rope_sin + (long long)row * p.D + 8 * cc);
     const float4 c0 = __ldg(cs), c1 = __ldg(cs + 1), s0 = __ldg(sn), s1 = __ldg(sn + 1);
@@ -367,11 +420,37 @@ __device__ __forceinline__ void rotate_q(unsigned char* q_rows, int row0, int c,
   bar_sync<128>(kBarRope + c);
 }
 
+// S(j) = Q K(j)^T of this consumer's rows (q_addr; q_tail: its rows in Q's
+// narrow atom) over the K tile of stage st
+template <class L, int kDK, class T>
+__device__ __forceinline__ void qk_tile(float (&s)[kBK / 2], uint32_t q_addr, uint32_t q_tail,
+                                        uint32_t base, int st) {
+  if constexpr (L::kNarrow)
+    qk_narrow<kDK, L::kQAtom, L::kAtom, T>(s, q_addr, base + L::k(st), q_tail,
+                                           base + L::k_tail(st));
+  else
+    qk<kDK, L::kQAtom, L::kAtom, T>(s, q_addr, base + L::k(st));
+}
+
+// O += P(j) V(j) over the V tile of stage st (o: kPvWidth / 2 a thread)
+template <class L, int kDN, class T, int kN>
+__device__ __forceinline__ void pv_tile(float (&o)[kN], const uint32_t (&phi)[4][4],
+                                        const uint32_t (&plo)[4][4], uint32_t base, int st) {
+  if constexpr (L::kNarrow)
+    mma_pair_narrow<L::kAtom, T>(o, phi, plo, base + L::v(st), base + L::v_tail(st));
+  else
+    mma_pair<kDN, L::kAtom, T>(o, phi, plo, base + L::v(st));
+}
+
+// tq2, tk2 and tv2: Q's, K's and V's narrow atoms (unused without them)
 template <class T, bool kStaticMax, int kDK, int kDN, int kCons, int kBlocks>
 __global__ void __launch_bounds__(Block<kCons, kBlocks>::kThreads, kBlocks)
     flash_fwd_sm90_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv) {
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tq2,
+                          const __grid_constant__ CUtensorMap tk2,
+                          const __grid_constant__ CUtensorMap tv2) {
   using Bk = Block<kCons, kBlocks>;
   using L = Smem<kDK, kDN, Bk>;
   static_assert(L::kBK == kBK, "the chain's tile is the ring's");
@@ -404,11 +483,14 @@ __global__ void __launch_bounds__(Block<kCons, kBlocks>::kThreads, kBlocks)
     // atom; columns past D (the pad to kDK) and rows past S arrive as zeros
     if (lane == 0) {
       mbar_expect_tx(base + L::q_full(), L::kQBytes);
-      for (int a = 0; a < L::kAtomsK; ++a)
+      for (int a = 0; a < L::kWideK; ++a)
         tma_load(base + L::kQ + a * L::kQAtom, &tq, base + L::q_full(), kAtomCols * a, h, q0, b);
+      if (L::kNarrow)
+        tma_load(base + L::kQ + L::kQTailAt, &tq2, base + L::q_full(), kAtomCols * L::kWideK, h,
+                 q0, b);
     }
     produce_kv<L>(base, bits, &tk, &tv, p.mask ? p.mask + b * p.m_sb : nullptr, p.Sk, hk, b,
-                  lane);
+                  lane, &tk2, &tv2);
   } else {
     // ---- consumers: 64 query rows each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Bk::kConsumerRegs));
@@ -419,10 +501,12 @@ __global__ void __launch_bounds__(Block<kCons, kBlocks>::kThreads, kBlocks)
     constexpr bool kTurns = kConsumers > 1;
     const int mine = kBarFirst + c, other = kBarFirst + (c + 1) % kConsumers;
     const uint32_t q_addr = base + L::kQ + c * kRows * kSwizzle;  // this warpgroup's rows
+    const uint32_t q_tail = base + L::kQ + L::kQTailAt + c * kRows * kNarrowRow;
 
-    float o[kDN / 2];
+    constexpr int kN = kPvWidth<L, kDN> / 2;
+    float o[kN];
 #pragma unroll
-    for (int i = 0; i < kDN / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kN; ++i) o[i] = 0.f;
     // m: the running max (online), or the rows' scales (fp16 static max)
     const float m0 = kStaticMax && kIsF16<T> ? pow2(127) : -INFINITY;
     float l[2] = {0.f, 0.f}, m[2] = {m0, m0};
@@ -434,19 +518,18 @@ __global__ void __launch_bounds__(Block<kCons, kBlocks>::kThreads, kBlocks)
     if (kTurns && c == kConsumers - 1) bar_arrive(kBarFirst);  // consumer 0 issues first
     mbar_wait(base + L::q_full(), 0);
     if (p.rope_cos != nullptr)
-      rotate_q<T, L::kQAtom, Bk::kBarRope>(
-          smem + (base - smem_addr(smem)) + L::kQ + c * kRows * kSwizzle, q0 + c * kRows, c,
-          tid, p);
+      rotate_q<T, L, Bk::kBarRope>(smem + (q_addr - smem_addr(smem)),
+                                   smem + (q_tail - smem_addr(smem)), q0 + c * kRows, c, tid, p);
     mbar_wait(base + L::full(0), 0);
     if (kTurns) bar_sync(mine);
     wgmma_fence();
-    qk<kDK, L::kQAtom, L::kAtom, T>(s, q_addr, base + L::k(0));
+    qk_tile<L, kDK, T>(s, q_addr, q_tail, base, 0);
     wgmma_commit();
     if (kTurns) bar_arrive(other);
     wgmma_wait<0>();
     pin(s);
     exp_tile<T, kStaticMax>(s, bits[0], tid % 4, l, m, alpha, p);
-    pack_tile<T, kStaticMax, kDN>(s, alpha, o, phi, plo);
+    pack_tile<T, kStaticMax, kN>(s, alpha, o, phi, plo);
 
     // Per tile j: S(j) = QK^T and O += P(j-1) V(j-1) in two wgmma groups;
     // the chain of S(j) runs as soon as the first group is done, beside the
@@ -460,9 +543,9 @@ __global__ void __launch_bounds__(Block<kCons, kBlocks>::kThreads, kBlocks)
       pin(phi);
       pin(plo);
       wgmma_fence();
-      qk<kDK, L::kQAtom, L::kAtom, T>(s, q_addr, base + L::k(st));
+      qk_tile<L, kDK, T>(s, q_addr, q_tail, base, st);
       wgmma_commit();
-      mma_pair<kDN, L::kAtom, T>(o, phi, plo, base + L::v(prev));
+      pv_tile<L, kDN, T>(o, phi, plo, base, prev);
       wgmma_commit();
       if (kTurns) bar_arrive(other);
       wgmma_wait<1>();
@@ -471,7 +554,7 @@ __global__ void __launch_bounds__(Block<kCons, kBlocks>::kThreads, kBlocks)
       wgmma_wait<0>();
       pin(o);
       mbar_arrive(base + L::empty(prev));
-      pack_tile<T, kStaticMax, kDN>(s, alpha, o, phi, plo);
+      pack_tile<T, kStaticMax, kN>(s, alpha, o, phi, plo);
     }
 
     if (kTurns) bar_sync(mine);
@@ -479,7 +562,7 @@ __global__ void __launch_bounds__(Block<kCons, kBlocks>::kThreads, kBlocks)
     pin(phi);
     pin(plo);
     wgmma_fence();
-    mma_pair<kDN, L::kAtom, T>(o, phi, plo, base + L::v((nk - 1) % kStages));
+    pv_tile<L, kDN, T>(o, phi, plo, base, (nk - 1) % kStages);
     wgmma_commit();
     if (kTurns && c != kConsumers - 1) bar_arrive(other);  // consumer 0 has no later turn
     wgmma_wait<0>();
@@ -530,14 +613,14 @@ struct Dims {
 
 // Calls `fn` with the Dims of the instantiation that runs head_dim d over
 // Sk keys: the depth and width of the header's Widths, the block of its
-// Blocks (64 rows three an SM up to 64/64 over at most 1024 keys, else 192
+// Blocks (64 rows three an SM up to 80/72 over at most 1024 keys, else 192
 // rows one an SM).
 template <class Fn>
 int by_shape(int d, int sk, Fn fn) {
   const bool few_keys = sk <= 1024;
   if (d <= 48) return few_keys ? fn(Dims<48, 48, 1, 3>{}) : fn(Dims<48, 48, 3, 1>{});
   if (d <= 64) return few_keys ? fn(Dims<64, 64, 1, 3>{}) : fn(Dims<64, 64, 3, 1>{});
-  if (d <= 72) return fn(Dims<80, 72, 3, 1>{});
+  if (d <= 72) return few_keys ? fn(Dims<80, 72, 1, 3>{}) : fn(Dims<80, 72, 3, 1>{});
   if (d <= 96) return fn(Dims<96, 96, 3, 1>{});
   return fn(Dims<128, 128, 3, 1>{});
 }
@@ -545,11 +628,21 @@ int by_shape(int d, int sk, Fn fn) {
 template <class T, bool kStaticMax, int kDK, int kDN, int kCons, int kBlocks>
 int launch_dims(const Params& p, cudaStream_t stream) {
   using Bk = Block<kCons, kBlocks>;
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, tq2, tk2, tv2;
   if (!make_map<T>(&tq, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, Bk::kBQ) ||
       !make_map<T>(&tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, kBK) ||
       !make_map<T>(&tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, kBK))
     return (int)cudaErrorInvalidValue;
+  if (Smem<kDK, kDN, Bk>::kNarrow) {
+    if (!make_narrow_map<T>(&tq2, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, Bk::kBQ) ||
+        !make_narrow_map<T>(&tk2, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, kBK) ||
+        !make_narrow_map<T>(&tv2, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, kBK))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    tq2 = tq;
+    tk2 = tk;
+    tv2 = tv;
+  }
   auto kernel = flash_fwd_sm90_kernel<T, kStaticMax, kDK, kDN, kCons, kBlocks>;
   // the block's registers at launch must cover what setmaxnreg hands out,
   // or setmaxnreg.inc would wait for registers the block never gets
@@ -561,7 +654,7 @@ int launch_dims(const Params& p, cudaStream_t stream) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.Sq + Bk::kBQ - 1) / Bk::kBQ, p.Hq, p.B);
-  kernel<<<grid, Bk::kThreads, bytes, stream>>>(p, tq, tk, tv);
+  kernel<<<grid, Bk::kThreads, bytes, stream>>>(p, tq, tk, tv, tq2, tk2, tv2);
   return (int)cudaGetLastError();
 }
 

@@ -29,6 +29,7 @@ using fp16 = __half;
 constexpr uint32_t kSmemMax = 232448;  // shared memory a block can use
 constexpr int kSwizzle = 128;          // bytes per operand row in an atom
 constexpr int kAtomCols = kSwizzle / 2;  // 2-byte (bf16, fp16) columns per atom
+constexpr int kNarrowRow = 32;         // bytes per row of a narrow (16-column) atom
 constexpr float kLog2e = 1.4426950408889634f;
 
 // -- PTX ---------------------------------------------------------------------------
@@ -163,11 +164,13 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
 }
 
 // wgmma matrix descriptor of an operand in 128-byte-swizzled atoms (layout
-// type 1): start address, leading and stride byte offsets (16-byte units, 14
-// bits each), base offset 0 (atoms start on 1024-byte boundaries)
-__device__ __forceinline__ uint64_t swz_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// type 1; 3: a narrow atom's 32-byte swizzle): start address, leading and
+// stride byte offsets (16-byte units, 14 bits each), base offset 0 (atoms
+// start on 1024-byte boundaries)
+__device__ __forceinline__ uint64_t swz_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                             uint64_t layout = 1) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -230,6 +233,8 @@ constexpr bool kIsF16 = std::is_same<T, fp16>::value;
 // layout), B from shared memory MN-major, d += A B. Each takes the operand
 // type T (bf16 by default): the same instruction as .bf16.bf16 or .f16.f16.
 
+#define LUMINA_WG_D8 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),      \
+      "+f"(d[6]), "+f"(d[7])
 #define LUMINA_WG_D24 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
       "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),      \
       "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
@@ -243,6 +248,7 @@ constexpr bool kIsF16 = std::is_same<T, fp16>::value;
 #define LUMINA_WG_D64 LUMINA_WG_D48, "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),          \
       "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]),  \
       "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define LUMINA_WG_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define LUMINA_WG_R24 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
   "%16, %17, %18, %19, %20, %21, %22, %23"
 #define LUMINA_WG_R32 LUMINA_WG_R24 ", %24, %25, %26, %27, %28, %29, %30, %31"
@@ -318,8 +324,15 @@ __device__ __forceinline__ void wgmma_ss_tt(float (&d)[64], uint64_t desc_a, uin
     LUMINA_WG_SS("bf16", 128, LUMINA_WG_R64, LUMINA_WG_D64, 64, 65, 66, "1, 1");
 }
 
-// d (64 x N) += A (registers) B (shared memory, MN-major); N = 48, 64, 72, 96,
-// 128 by d's size
+// d (64 x N) += A (registers) B (shared memory, MN-major); N = 16, 48, 64,
+// 72, 96, 128 by d's size
+template <class T = bf16>
+__device__ __forceinline__ void wgmma_rs_n(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
+  if constexpr (kIsF16<T>)
+    LUMINA_WG_RS("f16", 16, LUMINA_WG_R8, LUMINA_WG_D8, 8, 9, 10, 11, 12, 13);
+  else
+    LUMINA_WG_RS("bf16", 16, LUMINA_WG_R8, LUMINA_WG_D8, 8, 9, 10, 11, 12, 13);
+}
 template <class T = bf16>
 __device__ __forceinline__ void wgmma_rs_n(float (&d)[24], const uint32_t (&a)[4], uint64_t desc_b) {
   if constexpr (kIsF16<T>)
@@ -377,6 +390,19 @@ __device__ __forceinline__ void qk(float (&s)[32], uint32_t a_addr, uint32_t b_a
   }
 }
 
+// qk() over a depth whose last 16 columns (kDK % 64 == 16) lie in narrow
+// atoms, A's at a_tail and B's at b_tail: rows of 32 bytes, 32-byte swizzled
+// (TMA's SWIZZLE_32B, layout type 3), SBO = 8 rows = 256 bytes. The same
+// products in the same order as qk() over 64-column atoms.
+template <int kDK, uint32_t kAtomA, uint32_t kAtomB, class T = bf16>
+__device__ __forceinline__ void qk_narrow(float (&s)[32], uint32_t a_addr, uint32_t b_addr,
+                                          uint32_t a_tail, uint32_t b_tail) {
+  static_assert(kDK % kAtomCols == 16, "one narrow k-step after whole atoms");
+  qk<kDK - 16, kAtomA, kAtomB, T>(s, a_addr, b_addr);
+  wgmma_ss_n64<T>(s, swz_desc(a_tail, 16, 8 * kNarrowRow, 3),
+                  swz_desc(b_tail, 16, 8 * kNarrowRow, 3), 1);
+}
+
 // -- hi/lo pairs --------------------------------------------------------------------
 //
 // x (a 64 x 64 accumulator: x[4n + e] at row g + 8 * (e >> 1), column
@@ -411,6 +437,28 @@ __device__ __forceinline__ void mma_pair(float (&acc)[kDN / 2], const uint32_t (
     const uint64_t desc = swz_desc(b_addr + kk * 16 * kSwizzle, kAtom, 8 * kSwizzle);
     wgmma_rs<kDN, T>(acc, hi[kk], desc);
     wgmma_rs<kDN, T>(acc, lo[kk], desc);
+  }
+}
+
+// mma_pair() at width 80 over a B whose columns 64-79 lie in a narrow atom
+// at b_tail (rows of 32 bytes, 32-byte swizzled, MN-major: SBO = 8 rows =
+// 256 bytes): each slice as an n64 product over the 64-column atom into
+// acc[0..31] and an n16 over the narrow one into acc[32..39] -- the columns
+// and their sums of mma_pair<80>, in the same order
+template <uint32_t kAtom, class T = bf16>
+__device__ __forceinline__ void mma_pair_narrow(float (&acc)[40], const uint32_t (&hi)[4][4],
+                                                const uint32_t (&lo)[4][4], uint32_t b_addr,
+                                                uint32_t b_tail) {
+  float(&wide)[32] = *reinterpret_cast<float(*)[32]>(&acc[0]);
+  float(&tail)[8] = *reinterpret_cast<float(*)[8]>(&acc[32]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = swz_desc(b_addr + kk * 16 * kSwizzle, kAtom, 8 * kSwizzle);
+    const uint64_t narrow = swz_desc(b_tail + kk * 16 * kNarrowRow, 0, 8 * kNarrowRow, 3);
+    wgmma_rs_n<T>(wide, hi[kk], desc);
+    wgmma_rs_n<T>(tail, hi[kk], narrow);
+    wgmma_rs_n<T>(wide, lo[kk], desc);
+    wgmma_rs_n<T>(tail, lo[kk], narrow);
   }
 }
 
@@ -471,6 +519,15 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, lon
                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// the same tensor as one narrow atom: box 16 columns x `rows` rows, 32-byte
+// swizzled
+template <class T = bf16>
+bool make_narrow_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, long long sb,
+                     long long ss, long long sh, int rows) {
+  return make_map_4d(map, Elem<T>::kMap, 2, ptr, B, S, H, D, sb, ss, sh, kNarrowRow / 2, rows,
+                     CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 // -- the K/V ring -------------------------------------------------------------------
@@ -479,24 +536,40 @@ bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 =
 // (the forward: Q; the dQ kernel: Q, then dO) and streams 64-key K and V
 // tiles through a ring of stages. Each tile is stored in atoms of 64
 // columns x rows (128-byte swizzled rows), one TMA box per atom: columns
-// 0-63, 64-127; columns past D arrive as zeros. After the ring, per stage,
-// the tile's 64 key-valid bits (u64); then the mbarriers q_full, full[],
-// empty[]. The ring has as many stages as fit in kBudget bytes (a block's
-// share of the SM: all it may take, or half of the SM's when two blocks are
-// to be resident), at most 8.
-template <int kBQ, int kQTiles, int kDK, int kDN, uint32_t kBudget = kSmemMax>
+// 0-63, 64-127; columns past D arrive as zeros. With kNarrow (a depth kDK
+// of 64n + 16 and a width kDN of 64n + 8 or 16: the forward's 80/72) the
+// last atom of Q, K and V is narrow, 16 columns x rows of 32 bytes, 32-byte
+// swizzled (columns 64-79; 72-79 arrive as zeros; V MN-major, a key's 16
+// columns a row): a row of each takes 160 bytes instead of 256, and a 64-key
+// stage 20,480 bytes instead of 32,768. After the ring, per stage, the tile's 64
+// key-valid bits (u64); then the mbarriers q_full, full[], empty[]. The ring
+// has as many stages as fit in kBudget bytes (a block's share of the SM: all
+// it may take, or half or a third of the SM's when two or three blocks are
+// to be resident), at most 8. Every atom starts on a 1024-byte boundary.
+template <int kBQ, int kQTiles, int kDK, int kDN, uint32_t kBudget = kSmemMax,
+          bool kNarrow_ = false>
 struct KvRing {
   static constexpr int kBK = 64;  // keys per tile
+  static constexpr bool kNarrow = kNarrow_;
+  static_assert(!kNarrow || (kDK % kAtomCols == 16 && kDN % kAtomCols > 0 &&
+                             kDN % kAtomCols <= 16),
+                "a narrow atom holds the last 16 columns");
   static constexpr int kAtomsK = (kDK + kAtomCols - 1) / kAtomCols;
   static constexpr int kAtomsV = (kDN + kAtomCols - 1) / kAtomCols;
+  static constexpr int kWideK = kNarrow ? kAtomsK - 1 : kAtomsK;  // Q's and K's whole atoms
   static constexpr uint32_t kQAtom = kBQ * kSwizzle, kAtom = kBK * kSwizzle;
   static constexpr uint32_t kQ = 0;
-  static constexpr uint32_t kQTile = kAtomsK * kQAtom;
+  static constexpr uint32_t kQTailAt = kWideK * kQAtom;  // Q's narrow atom
+  static constexpr uint32_t kQTile = kQTailAt + (kNarrow ? kBQ * kNarrowRow : 0);
   static constexpr uint32_t kQBytes = kQTiles * kQTile;
-  static constexpr uint32_t kKBytes = kAtomsK * kAtom;
-  static constexpr uint32_t kVBytes = kAtomsV * kAtom;
+  static constexpr uint32_t kKTailAt = kWideK * kAtom;  // K's narrow atom in a stage
+  static constexpr uint32_t kKBytes = kKTailAt + (kNarrow ? kBK * kNarrowRow : 0);
+  static constexpr int kWideV = kNarrow ? kAtomsV - 1 : kAtomsV;  // V's whole atoms
+  static constexpr uint32_t kVTailAt = kWideV * kAtom;  // V's narrow atom in a stage
+  static constexpr uint32_t kVBytes = kVTailAt + (kNarrow ? kBK * kNarrowRow : 0);
   static constexpr uint32_t kStageBytes = kKBytes + kVBytes;
   static constexpr uint32_t kAlign = 1024;  // the dynamic base is rounded up to this
+  static_assert(kQTile % kAlign == 0 && kKBytes % kAlign == 0, "atoms on 1024-byte boundaries");
   static constexpr int kFit = (kBudget - kAlign - kQBytes - 512) / kStageBytes;
   static constexpr int kStages = kFit < 8 ? kFit : 8;
   static_assert(kStages >= 3, "the ring needs at least 3 stages");
@@ -506,7 +579,9 @@ struct KvRing {
   static_assert(kBytes <= kBudget, "shared memory");
   __device__ static uint32_t q(int i) { return kQ + i * kQTile; }
   __device__ static uint32_t k(int st) { return kQBytes + st * kStageBytes; }
+  __device__ static uint32_t k_tail(int st) { return kQBytes + st * kStageBytes + kKTailAt; }
   __device__ static uint32_t v(int st) { return kQBytes + st * kStageBytes + kKBytes; }
+  __device__ static uint32_t v_tail(int st) { return v(st) + kVTailAt; }
   __device__ static uint32_t q_full() { return kBars; }
   __device__ static uint32_t full(int st) { return kBars + 8 * (1 + st); }
   __device__ static uint32_t empty(int st) { return kBars + 8 * (1 + kStages + st); }
@@ -518,11 +593,14 @@ struct KvRing {
 // "empty" mbarrier, on which every consumer thread arrives), writes the
 // bits beside it and loads K and V with TMA, one box per atom, counted by
 // the stage's "full" mbarrier. The maps are (D, H, S, B) with a box of 64
-// columns x 64 keys; keys past Sk arrive as zeros.
+// columns x 64 keys (tk_narrow, tv_narrow: K's and V's narrow atoms, 16
+// columns, where the ring has them); keys past Sk arrive as zeros.
 template <class L>
 __device__ __forceinline__ void produce_kv(uint32_t base, unsigned long long* bits,
                                            const CUtensorMap* tk, const CUtensorMap* tv,
-                                           const int* mask_row, int Sk, int hk, int b, int lane) {
+                                           const int* mask_row, int Sk, int hk, int b, int lane,
+                                           const CUtensorMap* tk_narrow = nullptr,
+                                           const CUtensorMap* tv_narrow = nullptr) {
   constexpr int kBK = L::kBK, kStages = L::kStages;
   const int nk = (Sk + kBK - 1) / kBK;
   // mask values of keys j0 + lane and j0 + 32 + lane
@@ -540,10 +618,16 @@ __device__ __forceinline__ void produce_kv(uint32_t base, unsigned long long* bi
       mbar_wait(base + L::empty(st), ((j / kStages) & 1) ^ 1);  // round 0 passes at once
       bits[st] = (unsigned long long)w1 << 32 | w0;
       mbar_expect_tx(base + L::full(st), L::kStageBytes);
-      for (int a = 0; a < L::kAtomsK; ++a)
+      for (int a = 0; a < L::kWideK; ++a)
         tma_load(base + L::k(st) + a * L::kAtom, tk, base + L::full(st), a * kAtomCols, hk, j0, b);
-      for (int a = 0; a < L::kAtomsV; ++a)
+      if (L::kNarrow)
+        tma_load(base + L::k_tail(st), tk_narrow, base + L::full(st), L::kWideK * kAtomCols, hk,
+                 j0, b);
+      for (int a = 0; a < L::kWideV; ++a)
         tma_load(base + L::v(st) + a * L::kAtom, tv, base + L::full(st), a * kAtomCols, hk, j0, b);
+      if (L::kNarrow)
+        tma_load(base + L::v_tail(st), tv_narrow, base + L::full(st), L::kWideV * kAtomCols, hk,
+                 j0, b);
     }
   }
 }

@@ -1,9 +1,10 @@
 """Times of the bf16 attention forward (K1-K5) at head_dim 48, 64, 72, 96 and 128 on the card.
 
     python lumina_t2x_tpu_torch/exps/fwd_head_dim_times.py [--root DIR] [--label NAME]
-        [--reps N] [--shapes NAME ...]
+        [--reps N] [--shapes NAME ...] [--dtype bf16|fp16]
 
-Shapes (B, Sq, H, D), bf16, every key valid, Sk = Sq unless noted:
+Shapes (B, Sq, H, D), bf16 (or fp16, the kernels' fp16 instantiations),
+every key valid, Sk = Sq unless noted:
   small      (128, 1024, 8, 48)  NextDiT-ImageNet Small's sampler (FID batches under CFG): K1
   600m       (8, 256, 32, 48)    NextDiT-ImageNet 600M's sampler (4 labels under CFG): K1
   600m_train (256, 256, 32, 48)  the 600M's training self-attention at 256^2: K4
@@ -18,6 +19,8 @@ Shapes (B, Sq, H, D), bf16, every key valid, Sk = Sq unless noted:
   2b_db      (2, 256, 32, 72)    the 2B's DreamBooth at 256^2: K4
   audio      (2, 128, 16, 72)    FlagDiT-1D's bf16 forward: K1 over 128 frames and 16 caption
                                  keys
+  sd3        (2, 4429, 24, 64)   MMDiT-SD3-Medium's joint sequence at 1024^2 (64/64 over more
+                                 than 1024 keys): K2, K3, K4
 For each row: the wrapper's ms by CUDA events (median of `--reps` single
 calls, and of `--reps` bursts of 8 calls a call), the kernel's device time a
 call under `torch.profiler` (`flash_fwd` kernels; the rest of one call is the
@@ -26,8 +29,10 @@ calls, without waiting for the card) of the wrapper and of its C entry point
 alone, called with the wrapper's arguments made once (the difference is the
 wrapper's Python: checks, allocation, meta, counts), and in the same call
 one library call on the same inputs: `scaled_dot_product_attention` for
-K1-K3, aten's flash attention with its LSE for K4/K5. K3/K5 run under a
-bound 6 over the largest row LSE. Beside them, each row's bound (the
+K1-K3, aten's flash attention with its LSE for K4/K5, by CUDA events and by
+its kernels' device time under `torch.profiler` (every kernel of the call),
+so that each factor reads device to device as well as on one call. K3/K5
+run under a bound 6 over the largest row LSE. Beside them, each row's bound (the
 larger of its two products' operations over 989 TFLOP/s and its bytes,
 each input read and each output written once, over 3.35 TB/s) and its exp
 floor (B*H*Sq*Sk exponentials over the special-function units' 3.9e12 a
@@ -67,6 +72,8 @@ SHAPES = {
                                         ("K4 Sk=77", "online_lse", 77)]),
     "2b_db": ((2, 256, 32, 72), [("K4", "online_lse", None)]),
     "audio": ((2, 128, 16, 72), [("K1", "small_kv", None), ("K1 Sk=16", "small_kv", 16)]),
+    "sd3": ((2, 4429, 24, 64), [("K2", "online", None), ("K3", "static_max", None),
+                                ("K4", "online_lse", None)]),
 }
 BURST = 8
 # H100 SXM: dense bf16 tensor rate, memory rate, exponentials a second
@@ -149,16 +156,16 @@ def _fmt(x):
     return "not traced" if x is None else f"{x:.4f}"
 
 
-def shape_rows(torch, fa, name, reps, label):
+def shape_rows(torch, fa, name, reps, label, dtype):
     (b, s, h, d), entries = SHAPES[name]
     g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(b, s, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
     scale = d ** -0.5
     instantiation = getattr(fa, "fwd_sm90_instantiation", None)
     rows = {}
     for row, entry, sk in entries:
         sk = sk or s
-        k, v = (torch.randn(b, sk, h, d, generator=g, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(b, sk, h, d, generator=g, device="cuda").to(dtype)
                 for _ in range(2))
         kw = {}
         if entry.startswith("static_max"):
@@ -169,13 +176,15 @@ def shape_rows(torch, fa, name, reps, label):
         one = _events_ms(torch, call, reps)
         device = _device_ms(torch, call, 10, "flash_fwd")
         c_entry, keep = _entry_call(torch, fa, entry, q, k, v, scale, kw.get("bound", 0.0))
-        out = {"entry": entry, "shape": [b, s, h, d], "sk": sk, "ms": one,
+        out = {"entry": entry, "dtype": str(dtype), "shape": [b, s, h, d], "sk": sk, "ms": one,
                "burst_ms": _events_ms(torch, call, reps, BURST), "device_ms": device,
                "host_ms": None if device is None else one - device,
                "issue_us": _host_us(torch, call), "entry_issue_us": _host_us(torch, c_entry),
                "library_ms": _events_ms(torch, _library(torch, entry, q, k, v, scale), reps),
                "library_burst_ms": _events_ms(torch, _library(torch, entry, q, k, v, scale),
-                                              reps, BURST)}
+                                              reps, BURST),
+               "library_device_ms": _device_ms(torch, _library(torch, entry, q, k, v, scale), 10,
+                                               "")}
         nbytes = 2 * (2 * b * s * h * d + 2 * b * sk * h * d) + (
             4 * b * h * s if entry.endswith("_lse") else 0)
         out["bound_ms"] = 1e3 * max(4 * b * h * s * sk * d / PEAK_BF16, nbytes / HBM_BYTES_S)
@@ -183,12 +192,14 @@ def shape_rows(torch, fa, name, reps, label):
         if instantiation is not None:
             out["instantiation"] = list(instantiation(d, s, sk))
         rows[row] = out
-        print(f"[{label}] {name} {row} {entry} ({b}, {s}, {h}, {d}) Sk={sk} bf16"
+        print(f"[{label}] {name} {row} {entry} ({b}, {s}, {h}, {d}) Sk={sk} "
+              f"{'fp16' if dtype == torch.float16 else 'bf16'}"
               + (f" {out['instantiation']}" if "instantiation" in out else "")
               + f": {one:.4f} ms one call, {out['burst_ms']:.4f} in bursts of {BURST}; device "
               f"{_fmt(device)}, host {_fmt(out['host_ms'])}; issue {out['issue_us']:.1f} us "
               f"(C entry {out['entry_issue_us']:.1f}); library {out['library_ms']:.4f} "
-              f"(bursts {out['library_burst_ms']:.4f}); bound {out['bound_ms']:.4f}, exp floor "
+              f"(bursts {out['library_burst_ms']:.4f}, device {_fmt(out['library_device_ms'])}); "
+              f"bound {out['bound_ms']:.4f}, exp floor "
               f"{out['exp_floor_ms']:.4f}", flush=True)
         del k, v, keep
     del q
@@ -203,6 +214,8 @@ def main(argv=None):
     p.add_argument("--label", default="", help="a name for this tree in the output")
     p.add_argument("--reps", type=int, default=15, help="timed calls a median is taken over")
     p.add_argument("--shapes", nargs="+", choices=list(SHAPES), default=list(SHAPES))
+    p.add_argument("--dtype", choices=["bf16", "fp16"], default="bf16",
+                   help="the operands' type: the bf16 or the fp16 instantiations")
     args = p.parse_args(argv)
     import torch
 
@@ -218,8 +231,9 @@ def main(argv=None):
     print(f"[{label}] {fa.__file__}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}[args.dtype]
     result = {"label": label, "device": torch.cuda.get_device_name(0), "power": smi,
-              "rows": {name: shape_rows(torch, fa, name, args.reps, label)
+              "rows": {name: shape_rows(torch, fa, name, args.reps, label, dtype)
                        for name in args.shapes}}
     print(json.dumps(result), flush=True)
 

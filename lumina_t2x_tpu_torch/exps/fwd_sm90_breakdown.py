@@ -4,6 +4,7 @@
 class-conditional and Flag-DiT shapes at head_dim 48, 96 and 128).
 
     python -m lumina_t2x_tpu_torch.exps.fwd_sm90_breakdown [--shapes NAME ...]
+        [--blocks | --chain]
 
 Builds variants of the kernel's source, each with one part taken out, and
 times each (static bound 16.14 and online, bf16, every key valid) at the
@@ -24,6 +25,8 @@ shapes named (`SHAPES`, default `2b`), beside one
   music_train (32, 256, 16, 72), Sk = 256 and 77: the music trainer (K4's)
   2b_db       (2, 256, 32, 72), Sk = 256: the 2B's DreamBooth at 256^2 (K4's)
   audio       (2, 128, 16, 72), Sk = 128 and 16: FlagDiT-1D's bf16 forward (K1)
+  sd3         (2, 4429, 24, 64), Sk = 4429: MMDiT-SD3-Medium's joint sequence at
+              1024^2 (K2-K4 on 64/64 over more than 1024 keys)
 
 At key lengths up to 1024 it also times K1 itself: `flash_small_kv` by CUDA
 events around the wrapper, and its kernel's device time under
@@ -43,9 +46,15 @@ With `--blocks` it times instead, at each shape, every block of `BLOCKS`
 an SM) at the width the kernel picks and at the width head_dim took before
 48/48 and 96/96 (64/64, 128/128), the one `launch()` picks marked: the
 source with `launch()` forced to one block at a time, each computing the
-function.
+function, by CUDA events and by its device time under `torch.profiler`.
+With `--chain` it times the variants of `_CHAIN` instead: the online
+chain's row max in four chains, o scaled only when a row's max moved, both,
+the scale folded into the exp's FMA, the consumers issuing without turns,
+and S(j + 1) issued as soon as PV(j - 1) is done into a second set of S
+registers, each beside the kernel as it is.
 
-Only "kernel" computes the function; the others are timings. Each variant
+Only "kernel" (and `--blocks`, and `--chain`'s variants) computes the
+function; the others are timings. Each variant
 is compiled with nvcc into `build/fwd_sm90_breakdown/` from the source with
 `sm90_common.cuh` pasted in (the K/V ring's producer and the pair product
 live there); the edits are checked, so a changed kernel fails here instead
@@ -78,26 +87,35 @@ SHAPES = {
     "music_train": ((32, 256, 16, 72), (256, 77)),
     "2b_db": ((2, 256, 32, 72), (256,)),
     "audio": ((2, 128, 16, 72), (128, 16)),
+    "sd3": ((2, 4429, 24, 64), (4429,)),
 }
 BOUND = 16.14
 SOURCE = cuda_lib._CSRC / "flash_fwd_sm90.cu"
 _BUILD = cuda_lib._BUILD_ROOT.parent / "fwd_sm90_breakdown"
 
 # the parts of the source a variant takes out (each must occur once)
-_LOOP_PRODUCTS = """      qk<kDK, L::kQAtom, L::kAtom, T>(s, q_addr, base + L::k(st));
+_LOOP_PRODUCTS = """      qk_tile<L, kDK, T>(s, q_addr, q_tail, base, st);
       wgmma_commit();
-      mma_pair<kDN, L::kAtom, T>(o, phi, plo, base + L::v(prev));
+      pv_tile<L, kDN, T>(o, phi, plo, base, prev);
 """
 _LOOP_EXP = "      exp_tile<T, kStaticMax>(s, bits[st], tid % 4, l, m, alpha, p);\n"
-_LOOP_PACK = "      pack_tile<T, kStaticMax, kDN>(s, alpha, o, phi, plo);\n"
+_LOOP_PACK = "      pack_tile<T, kStaticMax, kN>(s, alpha, o, phi, plo);\n"
 _KV_LOADS = """      mbar_expect_tx(base + L::full(st), L::kStageBytes);
-      for (int a = 0; a < L::kAtomsK; ++a)
+      for (int a = 0; a < L::kWideK; ++a)
         tma_load(base + L::k(st) + a * L::kAtom, tk, base + L::full(st), a * kAtomCols, hk, j0, b);
-      for (int a = 0; a < L::kAtomsV; ++a)
+      if (L::kNarrow)
+        tma_load(base + L::k_tail(st), tk_narrow, base + L::full(st), L::kWideK * kAtomCols, hk,
+                 j0, b);
+      for (int a = 0; a < L::kWideV; ++a)
         tma_load(base + L::v(st) + a * L::kAtom, tv, base + L::full(st), a * kAtomCols, hk, j0, b);
+      if (L::kNarrow)
+        tma_load(base + L::v_tail(st), tv_narrow, base + L::full(st), L::kWideV * kAtomCols, hk,
+                 j0, b);
 """
 _NO_KV = "      mbar_arrive(base + L::full(st));\n"
 _LO_PRODUCT = "    wgmma_rs<kDN, T>(acc, lo[kk], desc);\n"
+_LO_NARROW = ("    wgmma_rs_n<T>(wide, lo[kk], desc);\n"
+              "    wgmma_rs_n<T>(tail, lo[kk], narrow);\n")
 _LO_PACK = """    lo[n / 2][2 * (n % 2)] = E::pack(x[4 * n] - E::lo(top), x[4 * n + 1] - E::hi(top));
     lo[n / 2][2 * (n % 2) + 1] = E::pack(x[4 * n + 2] - E::lo(bot), x[4 * n + 3] - E::hi(bot));
 """
@@ -106,7 +124,147 @@ _EDITS = {
     "loads only": [(_LOOP_PRODUCTS, ""), (_LOOP_EXP, ""), (_LOOP_PACK, "")],
     "compute only": [(_KV_LOADS, _NO_KV)],
     "products only": [(_KV_LOADS, _NO_KV), (_LOOP_EXP, ""), (_LOOP_PACK, "")],
-    "P once": [(_LO_PRODUCT, ""), (_LO_PACK, "")],
+    "P once": [(_LO_PRODUCT, ""), (_LO_NARROW, ""), (_LO_PACK, "")],
+}
+# `--chain`: changes to the online chain (every width's) and to the
+# consumers' turns, each timed against the kernel as it is. The max of a
+# row's logits in four chains of four instead of two of sixteen (max is
+# exact in any order); o scaled only when a row's max moved in the warp (a
+# multiply by 1 changes no bit); the scale folded into the exp's FMA (the
+# max over the raw logits, times |scale|: one FMUL a logit less, other bits)
+_SERIAL_MAX = "    float mx[2] = {-INFINITY, -INFINITY};\n"
+_TREE_MAX = """    float mq[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mq[r][0] = mq[r][1] = mq[r][2] = mq[r][3] = -INFINITY;
+"""
+_SERIAL_ACC = "        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);\n"
+_TREE_ACC = ("        mq[(i >> 1) & 1][(i >> 2) & 3] = "
+             "fmaxf(mq[(i >> 1) & 1][(i >> 2) & 3], s[i]);\n")
+_SERIAL_END = """    float shift[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+"""
+_TREE_END = """    float mx[2], shift[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(fmaxf(mq[r][0], mq[r][1]), fmaxf(mq[r][2], mq[r][3]));
+"""
+_SCALED = "        s[i] *= p.scale2;\n"
+_MASKED = "        s[i] = key_valid(bits, i) ? s[i] * p.scale2 : -INFINITY;\n"
+_TREE = [(_SERIAL_MAX, _TREE_MAX), (_SCALED + _SERIAL_ACC, _SCALED + _TREE_ACC),
+         (_MASKED + _SERIAL_ACC, _MASKED + _TREE_ACC), (_SERIAL_END, _TREE_END)]
+_ALWAYS_RESCALE = """  if (!kStaticMax ||
+      (kIsF16<T> && __any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))) {
+"""
+_MOVED_RESCALE = """  if ((!kStaticMax || kIsF16<T>) &&
+      __any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+"""
+_ONLINE_MAX = """    if (all_valid) {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        s[i] *= p.scale2;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        s[i] = key_valid(bits, i) ? s[i] * p.scale2 : -INFINITY;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+    }
+"""
+_FOLDED_MAX = """    const bool neg = p.scale2 < 0.f;  // the max of -s then
+    if (all_valid && !neg) {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1],
+                                 key_valid(bits, i) ? (neg ? -s[i] : s[i]) : -INFINITY);
+    }
+"""
+_ONLINE_EXP = ("#pragma unroll\n    for (int i = 0; i < kBK / 2; ++i) s[i] = ex2(s[i] - "
+               "shift[(i >> 1) & 1]);  // masked: 0\n")
+_FOLDED_EXP = """    if (all_valid) {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) s[i] = ex2(fmaf(s[i], p.scale2, -shift[(i >> 1) & 1]));
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const float e = ex2(fmaf(s[i], p.scale2, -shift[(i >> 1) & 1]));
+        s[i] = key_valid(bits, i) ? e : 0.f;
+      }
+    }
+"""
+_FOLD = [(_ONLINE_MAX, _FOLDED_MAX),
+         ("      const float m_new = fmaxf(m[r], mx[r]);\n",
+          "      const float m_new = fmaxf(m[r], mx[r] * fabsf(p.scale2));\n"),
+         (_ONLINE_EXP, _FOLDED_EXP)]
+_LOOP_HEAD = ("    for (int j = 1; j < nk; ++j) {\n"
+              "      const int st = j % kStages, prev = (j - 1) % kStages;\n")
+_LOOP_TAIL = ("      pack_tile<T, kStaticMax, kN>(s, alpha, o, phi, plo);\n    }\n\n"
+              "    if (kTurns) bar_sync(mine);\n")
+_EARLY_QK = """    constexpr bool kEarlyQk = kConsumers == 3 && kN <= 36;
+    if constexpr (kEarlyQk) {
+      // The same products and chain in the same order, S(j + 1) issued as
+      // soon as PV(j - 1) is done, outside the turns, into a second set of
+      // S registers: it is ready when the consumer's turn next comes, so the
+      // chain of S(j + 1) waits for no product the other consumers issued.
+      float s2[kBK / 2];
+      const auto step = [&](float(&sc)[kBK / 2], float(&sn)[kBK / 2], int j) {
+        const int prev = (j - 1) % kStages;
+        if (kTurns) bar_sync(mine);
+        pin(o);
+        pin(phi);
+        pin(plo);
+        wgmma_fence();
+        pv_tile<L, kDN, T>(o, phi, plo, base, prev);
+        wgmma_commit();
+        if (kTurns) bar_arrive(other);
+        wgmma_wait<1>();
+        pin(sc);
+        exp_tile<T, kStaticMax>(sc, bits[j % kStages], tid % 4, l, m, alpha, p);
+        wgmma_wait<0>();
+        pin(o);
+        mbar_arrive(base + L::empty(prev));
+        if (j + 1 < nk) {
+          const int nx = (j + 1) % kStages;
+          mbar_wait(base + L::full(nx), ((j + 1) / kStages) & 1);
+          wgmma_fence();
+          qk_tile<L, kDK, T>(sn, q_addr, q_tail, base, nx);
+          wgmma_commit();
+          pin(sn);
+        }
+        pack_tile<T, kStaticMax, kN>(sc, alpha, o, phi, plo);
+      };
+      int j = 1;
+      if (nk > 1) {
+        mbar_wait(base + L::full(1), 0);
+        wgmma_fence();
+        qk_tile<L, kDK, T>(s2, q_addr, q_tail, base, 1);
+        wgmma_commit();
+        pin(s2);
+      }
+      for (; j + 1 < nk; j += 2) {
+        step(s2, s, j);
+        step(s, s2, j + 1);
+      }
+      if (j < nk) step(s2, s, j);
+"""
+_CHAIN = {
+    "kernel": [],
+    "tree max": _TREE,
+    "moved rescale": [(_ALWAYS_RESCALE, _MOVED_RESCALE)],
+    "tree + moved": [*_TREE, (_ALWAYS_RESCALE, _MOVED_RESCALE)],
+    "scale in FMA": _FOLD,
+    # the consumers issue their products when ready, not in turn
+    "no turns": [("    constexpr bool kTurns = kConsumers > 1;\n",
+                  "    constexpr bool kTurns = false;\n")],
+    # S(j + 1) issued once PV(j - 1) is done, into a second set of S
+    # registers (192 rows, up to 80/72: the registers it needs fit)
+    "early QK": [(_LOOP_HEAD, _EARLY_QK + "    } else {\n" + _LOOP_HEAD),
+                 (_LOOP_TAIL, _LOOP_TAIL.replace("    }\n", "    }\n    }\n", 1))],
 }
 # each variant exports the launcher under a C name (bf16 K2/K3: no LSE, no rotation)
 _ENTRY = """
@@ -122,8 +280,8 @@ extern "C" int breakdown_fwd(int static_max, const void* q, const void* k, const
 # the blocks `--blocks` times: (depth, width, consumer warpgroups, blocks an
 # SM), each one the kernel's `Block` and `KvRing` take
 BLOCKS = ((48, 48, 3, 1), (48, 48, 2, 1), (48, 48, 1, 2), (48, 48, 1, 3), (48, 48, 2, 2),
-          (64, 64, 3, 1), (64, 64, 1, 3), (80, 72, 3, 1), (80, 72, 2, 1), (96, 96, 3, 1),
-          (96, 96, 2, 1), (128, 128, 3, 1), (128, 128, 2, 1))
+          (64, 64, 3, 1), (64, 64, 2, 1), (64, 64, 1, 3), (80, 72, 3, 1), (80, 72, 2, 1),
+          (80, 72, 1, 3), (96, 96, 3, 1), (96, 96, 2, 1), (128, 128, 3, 1), (128, 128, 2, 1))
 _LAUNCH = ("template <class T, bool kStaticMax>\nint launch(const Params& p, cudaStream_t stream) "
            "{\n  return by_shape(")
 
@@ -133,10 +291,10 @@ def kernel_source() -> str:
     return source_with_common(SOURCE)
 
 
-def variant_source(name: str, source: str) -> str:
+def variant_source(name: str, source: str, edits=None) -> str:
     """The kernel's source (`kernel_source()`) with variant `name`'s parts
-    taken out."""
-    for old, new in _EDITS[name]:
+    taken out (or, from `_CHAIN`, its chain changed)."""
+    for old, new in (edits or _EDITS)[name]:
         if source.count(old) != 1:
             raise RuntimeError(f"variant {name!r}: the kernel source changed; update its edits")
         source = source.replace(old, new)
@@ -199,6 +357,10 @@ def _call(lib, static_max, q, k, v, out, meta, scale, device, name):
         raise RuntimeError(f"{name}: cudaError {err}")
 
 
+def _dev(ms):
+    return "not traced" if ms is None else f"{ms:.4f} ms"
+
+
 def time_blocks(lib, device, shape, sks):
     """Prints each block of `BLOCKS` at the width the kernel picks for this
     head_dim and at the width it took before, static max and online."""
@@ -220,12 +382,15 @@ def time_blocks(lib, device, shape, sks):
             if lib.breakdown_block_attributes(i, info):
                 raise RuntimeError(f"block {i}: no attributes")
             lib.breakdown_block(i)
-            ms = {static_max: time_ms(lambda: _call(lib, static_max, q, k, v, out, meta, scale,
-                                                    device, f"block {i}"), device)
-                  for static_max in (True, False)}
+            ms, dev = {}, {}
+            for static_max in (True, False):
+                fn = lambda: _call(lib, static_max, q, k, v, out, meta, scale,  # noqa: E731
+                                   device, f"block {i}")
+                ms[static_max], dev[static_max] = time_ms(fn, device), device_ms(fn, "flash_fwd")
             mark = " (picked)" if (depth, width, 64 * cons, blocks) == picked else ""
             print(f"block {depth}/{width}, {64 * cons} rows, {blocks} an SM{mark} D={d} Sq={s} "
-                  f"Sk={sk}: static max {ms[True]:.3f} ms, online {ms[False]:.3f} ms ({info[2]} "
+                  f"Sk={sk}: static max {ms[True]:.3f} ms, online {ms[False]:.3f} ms; device "
+                  f"{_dev(dev[True])} / {_dev(dev[False])} ({info[2]} "
                   f"registers a consumer thread, {info[3]} spill bytes, {info[5]} resident an "
                   f"SM, {info[10]} stages)", flush=True)
         lib.breakdown_block(-1)
@@ -274,6 +439,8 @@ def main(argv=None):
     p.add_argument("--shapes", nargs="+", choices=list(SHAPES), default=["2b"])
     p.add_argument("--blocks", action="store_true",
                    help="time the blocks of BLOCKS instead of the variants")
+    p.add_argument("--chain", action="store_true",
+                   help="time the chain's and the turns' variants (_CHAIN) instead of the parts")
     args = p.parse_args(argv)
     device = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -287,7 +454,8 @@ def main(argv=None):
         for name in args.shapes:
             time_blocks(lib, device, *SHAPES[name])
         return
-    libs = build({name: variant_source(name, source) for name in _EDITS})
+    edits = _CHAIN if args.chain else _EDITS
+    libs = build({name: variant_source(name, source, edits) for name in edits})
     for name in args.shapes:
         time_shape(libs, device, *SHAPES[name])
 

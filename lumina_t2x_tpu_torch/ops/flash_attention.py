@@ -369,16 +369,19 @@ def _attributes(symbol, flag, head_dim, dtype, names=_SM90_ATTRIBUTES, shape=())
 # (largest head_dim, depth, width) of the bf16 and fp16 forward's products,
 # as `csrc/flash_fwd_sm90.cu` picks them (`by_shape`)
 _FWD_DIMS = ((48, 48, 48), (64, 64, 64), (72, 80, 72), (96, 96, 96), (128, 128, 128))
+
+
 def fwd_sm90_instantiation(head_dim: int, sq: int, sk: int) -> tuple:
     """(depth, width, query rows per block, blocks an SM) of the bf16 and
     fp16 forward instantiation that runs `head_dim` at Sq, Sk: the products'
     depth and width 48/48 up to 48, 64/64, 80/72, 96/96, 128/128; the block
-    64 rows, three an SM, up to 64/64 over at most 1024 keys, else 192 rows,
-    one an SM. Sq does not change it."""
+    64 rows, three an SM, up to 80/72 over at most 1024 keys (at 80/72 with
+    Q's, K's and V's columns 64-79 in narrow atoms), else 192 rows, one an
+    SM. Sq does not change it."""
     if not 0 < head_dim <= 128:
         raise ValueError(f"the forward kernels take head_dim up to 128, got {head_dim}")
     depth, width = next(row[1:] for row in _FWD_DIMS if head_dim <= row[0])
-    if width <= 64 and sk <= _SMALL_KV_MAX:
+    if width <= 72 and sk <= _SMALL_KV_MAX:
         return depth, width, 64, 3
     return depth, width, 192, 1
 

@@ -348,24 +348,32 @@ WIDTHS = ((48, 48, 48), (64, 64, 64), (72, 80, 72), (96, 96, 96), (128, 128, 128
 
 # the main paths' shapes (head_dim, Sq, Sk): the Small's and the 600M's
 # samplers, the 600M's trainer, the ImageNet 7B, the Flag-DiT 5B's self-
-# and caption attention, the 2B's self- and caption attention (the control)
+# and caption attention, the 2B's self-attention and its sampler's and
+# trainer's caption attention, the music trainer's self- and caption
+# attention, the 2B's DreamBooth, FlagDiT-1D's served self- and caption
+# attention and MMDiT-SD3-Medium's joint sequence at 1024^2
 MAIN_SHAPES = {"small": (48, 1024, 1024), "600m": (48, 256, 256), "600m_train": (48, 256, 256),
                "7b": (128, 256, 256), "5b": (96, 4160, 4160), "5b_captions": (96, 4160, 128),
-               "2b": (72, 4096, 4096), "2b_captions": (72, 4096, 256)}
+               "2b": (72, 4096, 4096), "2b_captions": (72, 4096, 256),
+               "2b_train_captions": (72, 4096, 32), "music_train": (72, 256, 256),
+               "music_captions": (72, 256, 77), "2b_db": (72, 256, 256), "audio": (72, 128, 128),
+               "audio_captions": (72, 128, 16), "sd3": (64, 4429, 4429)}
 
 
 @pytest.mark.parametrize("shape", [(d, sq, sk) for d in range(8, 129, 8)
-                                   for sq, sk in ((256, 256), (4096, 256), (4096, 4096))]
+                                   for sq, sk in ((256, 256), (4096, 256), (4096, 4096),
+                                                  (128, 128), (256, 129), (4096, 1024),
+                                                  (4096, 1025))]
                          + list(MAIN_SHAPES.values()))
 def test_fwd_instantiation_by_head_dim_and_keys(shape):
     """`fwd_sm90_instantiation` names what `launch()` runs (the card's
     `test_kernel_resources` holds it against the compiled kernel): the
     products' depth and width by head_dim (48/48, 64/64, 80/72, 96/96,
-    128/128); 64-row blocks, three an SM, up to 64/64 over at most 1024
+    128/128); 64-row blocks, three an SM, up to 80/72 over at most 1024
     keys, else 192 rows, one an SM, whatever Sq is."""
     d, sq, sk = shape
     depth, width = next(row[1:] for row in WIDTHS if d <= row[0])
-    few = width <= 64 and sk <= tfa._SMALL_KV_MAX
+    few = width <= 72 and sk <= tfa._SMALL_KV_MAX
     assert tfa.fwd_sm90_instantiation(d, sq, sk) == (depth, width, 64 if few else 192,
                                                       3 if few else 1)
     assert depth >= d and depth % 16 == 0 and width >= d and width % 8 == 0
@@ -374,16 +382,21 @@ def test_fwd_instantiation_by_head_dim_and_keys(shape):
 @pytest.mark.parametrize("name,expected", [
     ("small", (48, 48, 64, 3)), ("600m", (48, 48, 64, 3)), ("600m_train", (48, 48, 64, 3)),
     ("7b", (128, 128, 192, 1)), ("5b", (96, 96, 192, 1)), ("5b_captions", (96, 96, 192, 1)),
-    ("2b", (80, 72, 192, 1)), ("2b_captions", (80, 72, 192, 1))])
+    ("2b", (80, 72, 192, 1)), ("2b_captions", (80, 72, 64, 3)),
+    ("2b_train_captions", (80, 72, 64, 3)), ("music_train", (80, 72, 64, 3)),
+    ("music_captions", (80, 72, 64, 3)), ("2b_db", (80, 72, 64, 3)), ("audio", (80, 72, 64, 3)),
+    ("audio_captions", (80, 72, 64, 3)), ("sd3", (64, 64, 192, 1))])
 def test_fwd_instantiation_at_the_main_paths(name, expected):
     """The main paths' instantiations: 48/48 and 96/96 where the widths are
-    48 and 96; at head_dim 48 over few keys a block that fits 256 and 1024
-    query rows (no 64-row tile of a head left empty), three resident an SM;
-    the 2B's 192-row block at 80/72."""
+    48 and 96; at head_dim 48 and 72 over few keys a block that fits 128,
+    256 and 1024 query rows (no 64-row tile of a head left empty), three
+    resident an SM (at 80/72: the 2B's sampler and trainer captions, the
+    music trainer's self- and caption attention, DreamBooth, FlagDiT-1D);
+    the 2B's and SD3's self-attention over more than 1024 keys in 192 rows."""
     d, sq, sk = MAIN_SHAPES[name]
     got = tfa.fwd_sm90_instantiation(d, sq, sk)
     assert got == expected
-    if d == 48 and sk <= tfa._SMALL_KV_MAX:
+    if d in (48, 72) and sk <= tfa._SMALL_KV_MAX:
         assert -(-sq // got[2]) * got[2] == -(-sq // 64) * 64
 
 
@@ -611,6 +624,19 @@ def test_breakdown_variants_edit_the_kernel():
     assert picked <= {(a, b, 64 * c, n) for a, b, c, n in bd.BLOCKS}
 
 
+def test_breakdown_chain_variants_edit_the_kernel():
+    """`--chain`'s variants of the online chain and the consumers' turns:
+    every edit applies to the source as it is, each variant is its own
+    source, and each exports the breakdown entry."""
+    from lumina_t2x_tpu_torch.exps import fwd_sm90_breakdown as bd
+
+    source = bd.kernel_source()
+    texts = {name: bd.variant_source(name, source, bd._CHAIN) for name in bd._CHAIN}
+    assert texts["kernel"].startswith(source)
+    assert all("breakdown_fwd" in text for text in texts.values())
+    assert len(set(texts.values())) == len(texts)
+
+
 @pytest.mark.parametrize("module", ["lumina_t2x_tpu_torch.exps.fwd_sm90_breakdown",
                                     "lumina_t2x_tpu_torch.pipelines.profile_forward",
                                     "lumina_t2x_tpu_torch.exps.fp16_times",
@@ -805,7 +831,7 @@ def test_rope_kernel_equals_the_first_template_online_forward(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [48, 96])
-@pytest.mark.parametrize("sq,sk", [(1000, 1000), (256, 256), (200, 2100)])
+@pytest.mark.parametrize("sq,sk", [(1000, 1000), (256, 256), (200, 2100), (300, 4429)])
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_new_widths_equal_zero_padded_on_card(cuda_device, entry, sq, sk, d, dtype):
     """48/48 and 96/96 (each block: 48/48 over few keys in 64 rows; over
@@ -830,6 +856,101 @@ def test_new_widths_equal_zero_padded_on_card(cuda_device, entry, sq, sk, d, dty
     assert torch.equal(got, ref[..., :d])
 
 
+# keys a call over at most 1024 is padded to, the padding masked, so that it
+# runs the 192-row block
+PAST_1024 = 1088
+
+
+def _past_1024(k, v, mask):
+    """k and v with zero keys appended up to PAST_1024, and the mask (all
+    ones for None) with the appended keys masked."""
+    b, sk, hkv, d = k.shape
+    zeros = k.new_zeros(b, PAST_1024 - sk, hkv, d)
+    base = torch.ones(b, sk, dtype=torch.int32, device=k.device) if mask is None else mask
+    return (torch.cat([k, zeros], 1), torch.cat([v, zeros], 1),
+            torch.cat([base, base.new_zeros(b, PAST_1024 - sk)], 1))
+
+
+def _equal_past_1024(entry, q, k, v, mask, **kw):
+    """The call over Sk <= 1024 keys (80/72's 64-row block, three an SM)
+    equals, bit for bit, the same call over its keys padded past 1024 and
+    masked (the 192-row block): a masked key adds exact zeros, and the block
+    does not change a row's arithmetic. The LSE too."""
+    d, sq, sk = q.shape[-1], q.shape[1], k.shape[1]
+    assert tfa.fwd_sm90_instantiation(d, sq, sk) == (80, 72, 64, 3)
+    assert tfa.fwd_sm90_instantiation(d, sq, PAST_1024) == (80, 72, 192, 1)
+    fn = getattr(tfa, f"flash_{entry}")
+    # K1 is K2's kernel; its entry takes at most 1024 keys
+    wide = tfa.flash_online if entry == "small_kv" else fn
+    got, ref = fn(q, k, v, mask, 0.2, **kw), wide(q, *_past_1024(k, v, mask), 0.2, **kw)
+    torch.cuda.synchronize()
+    if entry.endswith("_lse"):
+        (got, lse), (ref, ref_lse) = got, ref
+        assert torch.equal(lse, ref_lse)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sq", [1, 63, 64, 65, 128, 256, 4096])
+@pytest.mark.parametrize("sk", [16, 32, 77, 128, 129, 256, 1024])
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_short_key_block_equals_the_192_row_block_on_card(cuda_device, entry, sk, sq, dtype):
+    """80/72 over at most 1024 keys (64-row blocks three an SM, Q's, K's
+    and V's columns 64-79 in narrow atoms, PV as n64 and n16 products)
+    against the 192-row block (whole 64-column atoms, PV n72), bit for bit,
+    at every Sq and Sk of the short-key paths: 4:1 GQA, a masked tail, a
+    fully masked batch row, the LSE, the static max, fp16."""
+    q, k, v, mask = (t.to(dtype) if t.is_floating_point() else t
+                     for t in _cuda_inputs(2, sq, sk, 8, 2))
+    kw = {"bound": 9.0} if entry.startswith("static_max") else {}
+    _equal_past_1024(entry, q, k, v, mask, **kw)
+    if sq == 256:  # no mask: every tile but a ragged last one takes the all-valid chain
+        _equal_past_1024(entry, q, k, v, None, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sq,sk", [(1, 16), (65, 77), (256, 256), (4096, 32), (128, 1024)])
+def test_short_key_block_rotates_q_on_card(cuda_device, sq, sk, dtype):
+    """The fused rotation on 80/72's short-key block (Q's columns 64-71 in
+    a narrow, 32-byte-swizzled atom): `flash_rope_q` equals the 192-row
+    block's call over keys padded past 1024 and masked, and, at Sq = Sk,
+    `flash_rope` equals `flash_online` on `apply_rope`d q and k, bit for
+    bit."""
+    from lumina_t2x_tpu_torch.ops.rope import apply_rope
+
+    q, k, v, mask = (t.to(dtype) if t.is_floating_point() else t
+                     for t in _cuda_inputs(2, sq, sk, 8, 2))
+    g = torch.Generator().manual_seed(sq + sk)
+    angles = (3.0 * torch.randn(sq, 36, generator=g)).cuda()
+    kp, vp, mp = _past_1024(k, v, mask)
+    got = tfa.flash_rope_q(q, k, v, angles, mask, 0.2)
+    ref = tfa.flash_rope_q(q, kp, vp, angles, mp, 0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if sq == sk:
+        angles = (3.0 * torch.randn(sk, 36, generator=g)).cuda()
+        got = tfa.flash_rope(q, k, v, angles, mask, 0.2)
+        ref = tfa.flash_online(apply_rope(q, angles), apply_rope(k, angles), v, mask, 0.2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["online", "static_max", "online_lse"])
+def test_sd3_joint_sequence_matches_plain_on_card(cuda_device, entry):
+    """K2-K4 at 64/64 over MMDiT-SD3-Medium's 4429-key joint sequence (192
+    rows; 70 key tiles, the last ragged) against the plain version, no mask,
+    as the SD3 sampler calls it."""
+    g = torch.Generator().manual_seed(64)
+    q, k, v = (torch.randn(1, 4429, 24, 64, generator=g).to("cuda", torch.bfloat16)
+               for _ in range(3))
+    got, ref = _call(entry, q, k, v, None, scale=64 ** -0.5, bound=12.0)
+    err = (got.float() - ref).abs()
+    assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
+
+
 @pytest.mark.cuda
 def test_kernel_resources(cuda_device):
     """Each instantiation and block (`fwd_sm90_instantiation`) as compiled:
@@ -838,7 +959,7 @@ def test_kernel_resources(cuda_device):
     setmaxnreg hands out within the block's share of the SM's 65536, no
     local-memory spills, the products' depth and width and the block's rows
     as the port names them, in bf16 and fp16."""
-    shapes = ((4096, 4096), (256, 256), (4096, 256))
+    shapes = ((4096, 4096), (256, 256), (4096, 256), (4096, 32))
     for static_max, head_dim, (sq, sk), dtype in itertools.product(
             (False, True), (48, 64, 72, 96, 128), shapes, (torch.bfloat16, torch.float16)):
         info = tfa.sm90_attributes(static_max, head_dim, dtype, sk)
