@@ -60,8 +60,10 @@ last line:
    and 96 names the instantiation and block it ran and equals, bit for bit,
    the 64/64 or 128/128 call on the operands padded with zero columns,
    `_padded_equal`; every bf16 or fp16 row at head_dim 72 over at most
-   1024 keys equals, bit for bit, the 192-row block's call on its keys
-   padded past 1024 and masked, `_block_equal`); K1 and K4 (forward) and K6-K8
+   1024 keys -- the 64-row block, or over at most 256 keys and at least 512
+   query rows the K/V-resident block -- equals, bit for bit, the 192-row
+   block's call on its keys padded past 1024 and masked, `_block_equal`, LSE
+   and K9's `rope_q` included, and names its block); K1 and K4 (forward) and K6-K8
    (backward) also at Gemma caption lengths Sk = 8, 40 and 136 with masks
    ending inside a key tile (`CAPTION_LENGTHS`), bf16, fp32 and GQA, within
    the same bars; the backward's delta (`bwd_delta`, `csrc/bwd_delta.cu`)
@@ -468,16 +470,20 @@ D96_SHAPE, D96_CAPTION, D128_K1 = (2, 4160, 32, 96), (128, 100), (8, 256, 32, 12
 # the head_dims whose instantiations (48/48, 96/96) are held bit for bit
 # against the wider ones (64/64, 128/128) on zero-padded operands
 PADDED_WIDTHS = {48: 64, 96: 128}
-# (head_dim, Sk) that run each instantiation and block of the Hopper
-# forward: 80/72 over the 2B's 4096 keys (192 rows) and its 256 caption
-# keys (64-row blocks, three an SM, V's columns 64-79 in a narrow atom);
-# 48/48 over the 600M's 256 keys (64-row blocks, three an SM) and over more
-# than 1024 (192 rows); 64/64 the same; 96/96 over the 5B's 4160 keys;
-# 128/128 over the 7B's 256
-FWD_BUILD_SHAPES = ((72, 4096), (72, 256), (48, 256), (48, 4096), (64, 256), (64, 4096),
-                    (96, 4160), (128, 256))
-# keys a call of 80/72's short-key block is padded to, the padding masked,
-# to run the 192-row block on the same rows
+# (head_dim, Sq, Sk) that run each instantiation and block of the Hopper
+# forward: 80/72 over the 2B's 4096 keys (192 rows), its 4096 query rows
+# over its 256 caption keys (the K/V-resident block: K/V loaded once a
+# block, Q tiles streamed, rows a block set at launch) and the music
+# trainer's 256 over 256
+# (64-row blocks, three an SM, V's columns 64-79 in a narrow atom); 48/48
+# over the 600M's 256 keys (64-row blocks, three an SM) and over more than
+# 1024 (192 rows); 64/64 the same; 96/96 over the 5B's 4160 keys; 128/128
+# over the 7B's 256
+FWD_BUILD_SHAPES = ((72, 4096, 4096), (72, 4096, 256), (72, 256, 256), (48, 256, 256),
+                    (48, 4096, 4096), (64, 256, 256), (64, 4096, 4096), (96, 4160, 4160),
+                    (128, 256, 256))
+# keys a call of 80/72's short-key or K/V-resident block is padded to, the
+# padding masked, to run the 192-row block on the same rows
 PAST_1024 = 1088
 # meta-llama/Llama-2-7b-hf's config.json (the 5B's caption LM), depth cut to
 # LLAMA_LAYERS decoder layers: the features are hidden_states[-2]
@@ -711,26 +717,32 @@ def build_phase():
     # the Hopper forward (bf16 and fp16 K1-K5, K9): each instantiation and
     # block, named by a shape that runs it (K1, K4/K5 and K9 are K2/K3's
     # instantiations, K4/K5 with an LSE pointer, K9 with rotation tables)
-    for dtype, static, (head_dim, sk) in itertools.product(
+    for dtype, static, (head_dim, sq, sk) in itertools.product(
             (torch.bfloat16, torch.float16), (False, True), FWD_BUILD_SHAPES):
-        info = flash_attention.sm90_attributes(static, head_dim, dtype, sk)
+        info = flash_attention.sm90_attributes(static, head_dim, dtype, sq, sk)
         entries = ("static_max, static_max_lse" if static
                    else "small_kv, online, online_lse, rope, rope_q")
         if dtype == torch.float16:
             entries = "fp16 " + entries
-        phase("build", f"{SM90_SOURCE} ({entries}, head_dim {head_dim}, Sk {sk}: the "
-              f"{info['instantiation']} instantiation, {info['rows_per_block']} query rows a block, "
-              f"{info['stages']} ring stages, built for {info['min_blocks']} block(s) an SM): "
+        block = (f"the K/V-resident block: {info['consumers']} consumers taking its 64-row Q "
+                 f"tiles through {info['q_stages']} Q stages, query rows a block set at launch"
+                 if info["q_stages"] else f"{info['rows_per_block']} query rows a block")
+        phase("build", f"{SM90_SOURCE} ({entries}, head_dim {head_dim}, Sq {sq}, Sk {sk}: the "
+              f"{info['instantiation']} instantiation, {block}, {info['stages']} K/V stages, "
+              f"built for {info['min_blocks']} block(s) an SM): "
               f"{info['registers']} registers per thread as compiled, "
               f"{info['producer_registers']} (producer) / {info['consumer_registers']} "
               f"(consumers) after setmaxnreg, {info['local_bytes']} local (spill) bytes per "
               f"thread, {info['shared_bytes']} bytes of shared memory per block, "
               f"{info['blocks_per_sm']} block(s) of {info['threads']} threads per SM")
         require(info["blocks_per_sm"] >= info["min_blocks"],
-                f"{SM90_SOURCE} (head_dim {head_dim}, Sk {sk}): "
+                f"{SM90_SOURCE} (head_dim {head_dim}, Sq {sq}, Sk {sk}): "
                 f"{info['blocks_per_sm']} resident blocks an SM, built for {info['min_blocks']}")
-        require(info["local_bytes"] == 0, f"{SM90_SOURCE} (head_dim {head_dim}, Sk {sk}) "
-                f"spills")
+        require(info["local_bytes"] == 0, f"{SM90_SOURCE} (head_dim {head_dim}, Sq {sq}, "
+                f"Sk {sk}) spills")
+        require(info["rows_per_block"] == flash_attention.fwd_sm90_instantiation(
+            head_dim, sq, sk)[2], f"{SM90_SOURCE} (head_dim {head_dim}, Sq {sq}, Sk {sk}): "
+            f"compiled another block than the port names")
     # the backward's and the experiments' Hopper kernels: their resources
     # from the CUDA runtime
     for source, entry, head_dim, info in (
@@ -895,7 +907,7 @@ def kernel_phase(fa):
             line = f"{entry} {label} (Sk={sk}): max abs err {max_err:.3g} mean {mean_err:.3g}"
             if entry.endswith("_lse"):
                 line += f", LSE {lse_err:.3g}"
-            line += block
+            line += block + _instantiation(fa, q, k)
             if timed is None:
                 timed = {"ms": time_ms(lambda: kernel(q, k, v, mask, scale, **kw)),
                          "plain_ms": time_ms(lambda: plain(q, k, v, mask, scale, *kw.values()))}
@@ -1172,6 +1184,9 @@ def rope_kernel_phase(fa):
             line = (f"{entry} {label} (Sk={sk}, Hkv={hkv}): max abs err {max_err:.3g} (bar "
                     f"{bar:.3g}) mean {mean_err:.3g}; equal bit for bit to itself at zero angles "
                     f"and to flash_{unfused} on apply_rope'd inputs")
+            if entry == "rope_q":
+                line += _block_equal(fa, entry, q, k, v, mask, scale, {}, got, label, angles)
+            line += _instantiation(fa, q, k)
             if prev["ms"] is None and "ms" not in results.get(entry, {}):
                 ms = time_ms(lambda: kernel(q, k, v, angles, mask, scale))
                 plain_ms = time_ms(lambda: getattr(fa, f"flash_{entry}_plain")(
@@ -1371,7 +1386,12 @@ def _instantiation(fa, q, k):
     on q, k runs, as compiled (`sm90_attributes`), as a label ("" for fp32)."""
     if q.dtype == torch.float32:
         return ""
-    info = fa.sm90_attributes(False, q.shape[-1], q.dtype, k.shape[1])
+    info = fa.sm90_attributes(False, q.shape[-1], q.dtype, q.shape[1], k.shape[1])
+    if info["q_stages"]:  # the K/V-resident block: its rows a block set at launch
+        tiles, chunks = fa.resident_split(q.shape[0], q.shape[1], q.shape[2],
+                                          torch.cuda.get_device_properties(0).multi_processor_count)
+        return (f" [{info['instantiation']}, K/V-resident blocks of {64 * tiles} rows, {chunks} a "
+                f"head, {info['min_blocks']} an SM]")
     return (f" [{info['instantiation']}, {info['rows_per_block']}-row blocks, "
             f"{info['min_blocks']} an SM]")
 
@@ -1398,13 +1418,15 @@ def _padded_equal(fa, entry, q, k, v, mask, scale, kw, got, label):
     return f"; equal bit for bit to {wide}/{wide} on zero-padded operands"
 
 
-def _block_equal(fa, entry, q, k, v, mask, scale, kw, got, label):
+def _block_equal(fa, entry, q, k, v, mask, scale, kw, got, label, angles=None):
     """Where a bf16 or fp16 call ran 80/72's short-key block (head_dim 72
-    over at most 1024 keys: 64 rows three an SM, PV as n64 and n16),
-    requires its output (and LSE) to equal, bit for bit, the 192-row
-    block's on the same call with zero keys appended past 1024 and masked
-    (a masked key adds exact zeros; the block does not change a row's
-    arithmetic). Returns a line, "" elsewhere."""
+    over at most 1024 keys: 64 rows three an SM, PV as n64 and n16) or its
+    K/V-resident block (over at most 256 keys and at least 512 query rows:
+    K/V loaded once a block, Q tiles streamed), requires its
+    output (and LSE) to equal, bit for bit, the 192-row block's on the same
+    call with zero keys appended past 1024 and masked (a masked key adds
+    exact zeros; the block does not change a row's arithmetic); `rope_q`
+    with its `angles`. Returns a line naming the block, "" elsewhere."""
     b, sk, hkv, d = k.shape
     _, width, rows, _ = fa.fwd_sm90_instantiation(d, q.shape[1], sk)
     if q.dtype == torch.float32 or width != 72 or rows == 192:
@@ -1412,16 +1434,21 @@ def _block_equal(fa, entry, q, k, v, mask, scale, kw, got, label):
     zeros = k.new_zeros(b, PAST_1024 - sk, hkv, d)
     base = torch.ones(b, sk, dtype=torch.int32, device="cuda") if mask is None else mask
     past = torch.cat([base, base.new_zeros(b, PAST_1024 - sk)], 1)
-    wide = fa.flash_online if entry == "small_kv" else getattr(fa, f"flash_{entry}")
-    ref = wide(q, torch.cat([k, zeros], 1), torch.cat([v, zeros], 1), past, scale, **kw)
+    padded = (torch.cat([k, zeros], 1), torch.cat([v, zeros], 1))
+    if entry == "rope_q":
+        ref = fa.flash_rope_q(q, *padded, angles, past, scale)
+    else:
+        wide = fa.flash_online if entry == "small_kv" else getattr(fa, f"flash_{entry}")
+        ref = wide(q, *padded, past, scale, **kw)
     torch.cuda.synchronize()
+    block = "K/V-resident block" if rows == 0 else "64-row block"
     if entry.endswith("_lse"):
         (got, lse), (ref, ref_lse) = got, ref
-        require(torch.equal(lse, ref_lse), f"{entry} {label}: LSE not equal to the 192-row "
-                f"block's (keys masked past 1024)")
-    require(torch.equal(got, ref), f"{entry} {label}: output not equal to the 192-row block's "
-            f"(keys masked past 1024)")
-    return "; equal bit for bit to the 192-row block (keys masked past 1024)"
+        require(torch.equal(lse, ref_lse), f"{entry} {label}: the {block}'s LSE not equal to "
+                f"the 192-row block's (keys masked past 1024)")
+    require(torch.equal(got, ref), f"{entry} {label}: the {block}'s output not equal to the "
+            f"192-row block's (keys masked past 1024)")
+    return f"; the {block}, equal bit for bit to the 192-row block (keys masked past 1024)"
 
 
 def _check_forward(fa, entry, q, k, v, mask, label):
@@ -1710,6 +1737,9 @@ def fp16_rope_rows(fa, g):
             line = (f"{entry} fp16 (Sk={sk}, Hkv={k.shape[2]}{', masked' if masked else ''}): max "
                     f"abs err {err:.3g} (bar {bar:.3g}); equal bit for bit to flash_{unfused} on "
                     f"apply_rope'd inputs")
+            if entry == "rope_q":
+                line += _block_equal(fa, entry, q, k, v, mask, scale, {}, got, "fp16", angles)
+            line += _instantiation(fa, q, k)
             if not masked:
                 rotated = q.numel() + (k.numel() if entry == "rope" else 0)
                 row.update(ms=time_ms(lambda: kernel(q, k, v, angles, mask, scale)),
@@ -4870,8 +4900,10 @@ def longcontext_phase(fa):
                                     "plain_ms": plain_ms, "unfused_ms": unfused_ms,
                                     "sdpa_ms": sdpa_ms, **bound, "library_ms": None,
                                     "library_kernel": "none"}
+        block = (_block_equal(fa, entry, q, k, v, mask, scale, {}, got, "128k", angles)
+                 if entry == "rope_q" else "") + _instantiation(fa, q, k)
         phase("longcontext", f"{entry} bf16 (1, {sq}, {H}, {D}) over {k.shape[1]} keys (layer "
-              f"0's call): max abs err {err:.3g} on {LONG_SAMPLE_ROWS} sampled rows, "
+              f"0's call){block}: max abs err {err:.3g} on {LONG_SAMPLE_ROWS} sampled rows, "
               f"{full_err:.3g} over every row (bar {BF16_MAX * top:.3g}); kernel {ms:.3f} ms, "
               f"plain (chunks of {LONG_PLAIN_CHUNK} rows) {plain_ms:.1f} ms, flash_{unfused} "
               f"on rotated inputs {unfused_ms:.3f} ms, sdpa on rotated inputs {sdpa_ms:.3f} ms, "

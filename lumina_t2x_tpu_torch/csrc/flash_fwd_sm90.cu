@@ -51,7 +51,8 @@
 //
 // Design. One block per (64 or 192 query rows, q head, batch): a producer
 // warpgroup and one or three consumer warpgroups (`Block`, chosen at launch
-// from head_dim and Sk: `by_shape`). Warpgroup 0 is the producer: one
+// from head_dim, Sq and Sk: `by_shape`; the K/V-resident block below
+// streams 64-row Q tiles to two). Warpgroup 0 is the producer: one
 // thread loads the block's Q tile, then each 64-key K/V tile, with TMA
 // (cp.async.bulk.tensor) into a ring of up to 8 stages in the block's share
 // of shared memory (5 at 80/72 in the 192-row block, 3 in its 64-row
@@ -105,20 +106,51 @@
 //   caption keys 0.115 / 0.116, 0.131 / 0.131, 0.119 / 0.124, 0.110 /
 //   0.115, over 32 0.061 / 0.063, 0.068 / 0.068, 0.074 / 0.075, 0.069 /
 //   0.071.
-// Two an SM and 128 rows are slower than three an SM almost everywhere; a
-// 64-row block reads each K/V tile from L2 once per 64 rows, which sets the
-// pace where Sq is long and Sk is not short (the 2B's 256 caption keys),
-// so there 192 rows stay as fast, but no block is picked by Sq. The 192-row
-// block keeps whole atoms: with 7 stages on narrow Q and K the 2B's K2 / K3
-// over 4096 keys were no faster (`exps/fwd_head_dim_times.py`). Above 80/72
-// two blocks do not fit (Q and three stages of whole 128-column atoms take
-// 115,792 bytes with the alignment pad, past half the SM's 115,712; two
-// consumers' blocks, two an SM, leave 104 registers a consumer thread,
-// where o, S and the P pair alone take 112 at 96/96). A 128-row block, one
-// an SM, took the ImageNet 7B's single K1 call from 0.084-0.087 to
-// 0.101-0.104 ms on an H100, though its device time fell
+// Two an SM and 128 rows are slower than three an SM almost everywhere. The
+// 192-row block keeps whole atoms: with 7 stages on narrow Q and K the 2B's
+// K2 / K3 over 4096 keys were no faster (`exps/fwd_head_dim_times.py`).
+// Above 80/72 two blocks do not fit (Q and three stages of whole
+// 128-column atoms take 115,792 bytes with the alignment pad, past half the
+// SM's 115,712; two consumers' blocks, two an SM, leave 104 registers a
+// consumer thread, where o, S and the P pair alone take 112 at 96/96). A
+// 128-row block, one an SM, took the ImageNet 7B's single K1 call from
+// 0.084-0.087 to 0.101-0.104 ms on an H100, though its device time fell
 // (`exps/fwd_head_dim_times.py`), so above 80/72 the block stays at 192
 // rows whatever Sq is.
+//
+// The K/V-resident block (80/72 over at most 256 keys and at least 512
+// query rows: the 2B's caption cross-attention, 4096 rows over 256 or 32
+// keys, and the 128K-token forward's). A 64-row block reads each K/V tile
+// from L2 once per 64 rows (~302 MB a call at the 2B's 256 caption keys,
+// against the call's ~80 MB of Q, K, V and O), and its loads alone took
+// its whole time; 192 rows read a third as much and were hardly faster,
+// their fixed costs exposed at one block an SM. So here a block holds a
+// head's K/V, at most 4 tiles, in 4 stages loaded once (the ring's producer
+// loop, never refilled) and streams 64-row Q tiles through a ring of its
+// own (`QRing`: two stages a consumer, "full" and "empty" mbarriers); two
+// consumers take the tiles in turn (tiles c, c + 2, ...), each through
+// the same products and chain as every other block (`attend_rows`, the
+// turns as above), and write O / l over the tile's own Q stage, in its
+// swizzled atoms, then store it with one TMA box per atom (`store_rows`)
+// and give the stage back. One an SM, whole atoms fit (196,608 bytes with
+// two consumers; two an SM need narrow ones). A block takes one (batch, q
+// head)'s tiles, as many as one wave of the SMs leaves each head
+// (`resident_tiles`, set at launch: 32 at the 2B's (2, 4096, 32, 72), two
+// blocks a head, 128 blocks), so each SM runs one prologue; a block's last
+// round may hold a tile past Sq, computed and not written, so that both
+// consumers take as many turns. On an H100 (`exps/fwd_head_dim_times.py`,
+// device ms under the profiler, the 64-row block it replaces in brackets):
+// K1 at (2, 4096, 32, 72) over 256 keys 0.079-0.080 (0.116-0.120; sdpa
+// 0.082-0.098), over 32 keys 0.039 (0.062-0.068; sdpa 0.050-0.051); K4 over
+// 8 / 40 / 136 keys 0.039 / 0.039-0.040 / 0.068-0.070 (0.062 / 0.063 /
+// 0.098-0.100); `rope_q` at 131072 rows over 256 keys 2.14-2.18 (2.58), but
+// over 32 keys 0.092-0.096 (0.088): each consumer rotates each tile on its
+// own path. What did not help (`--blocks`, the same card): K/V on narrow
+// atoms (PV n64 + n16; ~5% slower), three Q stages a consumer or more, three
+// consumers, one consumer two an SM, a consumer's tiles run as one stream
+// of steps (slower, and ptxas C7511 on the static max); the stores by TMA
+// took 0.056 to 0.044 at 32 keys, the rows set at launch (one wave) 0.087
+// to 0.076 at 256 (`PERF.md` §6).
 // A block does not change a row's arithmetic: every block and width gives
 // the same bits (a zero column adds exact zeros to each fp32 sum).
 //
@@ -236,19 +268,31 @@ struct Params {
   float scale2;  // scale * log2(e)
   float bound2;  // bound * log2(e)
   float clamp2;  // 55 * log2(e)
+  int q_tiles;   // the K/V-resident block's 64-row Q tiles a block (`resident_tiles`)
 };
 
 // -- the block ----------------------------------------------------------------------
 
-// A block by its consumer warpgroups (kCons, 64 query rows each) and the
-// blocks to be resident on an SM (kBlocks): the launch bound, the registers
-// setmaxnreg hands the consumers, and the block's share of the SM's shared
-// memory. The SM's 65536 registers go to the resident threads (in 8s, at
-// most 255 a thread); of a block's, 24 a thread to the producer warpgroup
-// and the rest to the consumers, at most 240 a thread.
-template <int kCons, int kBlocks>
+// A block by its consumer warpgroups (kCons, 64 query rows at a time each)
+// and the blocks to be resident on an SM (kBlocks): the launch bound, the
+// registers setmaxnreg hands the consumers, and the block's share of the
+// SM's shared memory. The SM's 65536 registers go to the resident threads
+// (in 8s, at most 255 a thread); of a block's, 24 a thread to the producer
+// warpgroup and the rest to the consumers, at most 240 a thread. kTiles != 0
+// makes it the K/V-resident block: 64-row Q tiles of one (batch, q head) a
+// block, kTiles of them or, with kTilesAtLaunch, as many as `resident_tiles`
+// gives the call, which its consumers take in turn from a ring of two
+// stages a consumer.
+constexpr int kTilesAtLaunch = -1;
+template <int kCons, int kBlocks, int kTiles = 0>
 struct Block {
-  static constexpr int kBQ = kRows * kCons;           // query rows per block
+  static_assert(kTiles <= 0 || kTiles % kCons == 0, "every consumer takes as many Q tiles");
+  static constexpr int kQTiles = kTiles, kConsumers = kCons;
+  static constexpr bool kKvResident = kTiles != 0;
+  // query rows per block (the K/V-resident block: at launch, 0 here)
+  static constexpr int kBQ = kRows * (kKvResident ? (kTiles > 0 ? kTiles : 0) : kCons);
+  static constexpr int kQBox = kKvResident ? kRows : kBQ;  // rows of a Q load
+  static constexpr int kQStages = 2 * kCons;  // the K/V-resident block's Q ring
   static constexpr int kThreads = 128 * (1 + kCons);  // producer warpgroup + consumers
   static constexpr int kLaunchRegs =
       65536 / (kThreads * kBlocks) / 8 * 8 < 248 ? 65536 / (kThreads * kBlocks) / 8 * 8 : 248;
@@ -257,7 +301,7 @@ struct Block {
   static_assert(128 * kProducerRegs + 128 * kCons * kConsumerRegs <= kLaunchRegs * kThreads,
                 "setmaxnreg hands out more registers than the block has");
   static constexpr uint32_t kSmem = kBlocks == 1 ? kSmemMax : kSmemSm / kBlocks - 1024;
-  static constexpr int kResident = kBlocks;
+  static constexpr int kPerSm = kBlocks;
   static constexpr int kBarRope = kBarFirst + kCons;  // kBarRope + c: consumer c's rotated rows
 };
 
@@ -268,7 +312,40 @@ struct Block {
 // 64. 80/72's 64-row block, three an SM, keeps Q's, K's and V's columns
 // 64-79 in narrow atoms (3 stages).
 template <int kDK, int kDN, class B>
-using Smem = KvRing<B::kBQ, 1, kDK, kDN, B::kSmem, kDK % kAtomCols == 16 && B::kResident == 3>;
+using Ring = KvRing<B::kBQ, 1, kDK, kDN, B::kSmem, kDK % kAtomCols == 16 && B::kPerSm == 3>;
+
+// The K/V-resident block's: a ring of kQStages 64-row Q tiles, then the
+// kKvTiles K/V stages that hold all of a head's keys (Sk <= 256) from the
+// block's start to its end (KvRing with the budget that fits exactly
+// kKvTiles stages); past the ring's mbarriers, each Q stage's "full" (the
+// producer's arrive and bytes) and "empty" (every thread of the consumer
+// that took the tile). One an SM, whole atoms fit (two or three consumers:
+// 196,608 or 229,376 bytes at 80/72); two an SM take Q's, K's and V's
+// columns 64-79 in narrow atoms (kNarrow; a `--blocks` candidate).
+constexpr int kKvTiles = 4;
+template <int kDK, int kDN, int kQStages, bool kNarrow,
+          class P = KvRing<kRows, kQStages, kDK, kDN, kSmemMax, kNarrow>>
+struct QRing : KvRing<kRows, kQStages, kDK, kDN,
+                      P::kAlign + P::kQBytes + kKvTiles * P::kStageBytes + 512, kNarrow> {
+  using Base = KvRing<kRows, kQStages, kDK, kDN,
+                      P::kAlign + P::kQBytes + kKvTiles * P::kStageBytes + 512, kNarrow>;
+  static_assert(Base::kStages == kKvTiles, "one stage for each key tile");
+  static constexpr uint32_t kQBars = Base::kBytes - Base::kAlign;
+  static constexpr uint32_t kBytes = Base::kBytes + 16 * kQStages;
+  __device__ static uint32_t q_full(int i) { return kQBars + 8 * i; }
+  __device__ static uint32_t q_empty(int i) { return kQBars + 8 * (kQStages + i); }
+};
+
+template <int kDK, int kDN, class B, bool = (B::kQTiles != 0)>
+struct SmemOf {
+  using type = Ring<kDK, kDN, B>;
+};
+template <int kDK, int kDN, class B>
+struct SmemOf<kDK, kDN, B, true> {
+  using type = QRing<kDK, kDN, B::kQStages, (kDK % kAtomCols == 16 && B::kPerSm > 1)>;
+};
+template <int kDK, int kDN, class B>
+using Smem = typename SmemOf<kDK, kDN, B>::type;
 
 // PV's width: kDN, or 80 where V's columns 64-79 are a narrow atom (n64 +
 // n16 products; columns 72-79 of V arrive as zeros)
@@ -442,30 +519,187 @@ __device__ __forceinline__ void pv_tile(float (&o)[kN], const uint32_t (&phi)[4]
     mma_pair<kDN, L::kAtom, T>(o, phi, plo, base + L::v(st));
 }
 
-// tq2, tk2 and tv2: Q's, K's and V's narrow atoms (unused without them)
-template <class T, bool kStaticMax, int kDK, int kDN, int kCons, int kBlocks>
-__global__ void __launch_bounds__(Block<kCons, kBlocks>::kThreads, kBlocks)
+// The epilogue of a K/V-resident consumer's 64 rows from query position
+// row0 (the other blocks' stores from registers: the end of the kernel's
+// consumer loop): O / l in T written over the tile's own Q stage (q_rows;
+// q_tail: its narrow atom), in Q's swizzled atoms, then stored by one TMA
+// box per atom, which writes no row at or past Sq and no column at or past
+// D; the row's LSE, where the pointer is set, from registers. Gives the
+// stage back (its "empty" mbarrier) once the stores have read it.
+template <class T, bool kStaticMax, class L, int kBar, int kN>
+__device__ __forceinline__ void store_rows(const float (&o)[kN], float (&l)[2],
+                                           const float (&m)[2], unsigned char* q_rows,
+                                           unsigned char* q_tail, uint32_t q_empty, int row0,
+                                           int h, int b, int c, int tid, const CUtensorMap* to,
+                                           const CUtensorMap* to2, const Params& p) {
+  const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = 16 * warp + lane / 4 + 8 * r, row = row0 + rr;
+    // l and m are the same on the row's quad: its first lane writes the LSE,
+    // whose base is the running max or the bound, both in log2 units
+    if (p.lse != nullptr && lane % 4 == 0 && row < p.Sq)
+      p.lse[((long long)b * p.Hq + h) * p.Sq + row] =
+          l[r] > 0.f ? kLn2 * ((kStaticMax ? p.bound2 : m[r]) + log2f(l[r])) : -INFINITY;
+    // fp16 static max: o holds p * sc (l * sc lies in [2^14, 2^32])
+    const float den = kStaticMax && kIsF16<T> ? l[r] * m[r] : l[r];
+    const float inv = l[r] > 0.f ? 1.f / den : 0.f;
+#pragma unroll
+    for (int n = 0; n < kN / 4; ++n) {
+      // columns 8n + 2t, +1: 16-byte chunk n % 8 of atom n / 8, swizzled by
+      // the row (128-byte rows), or of the narrow atom (32-byte rows)
+      const bool narrow = L::kNarrow && n / 8 == L::kWideK;
+      unsigned char* at =
+          narrow ? q_tail + rr * kNarrowRow + ((n % 2 ^ rr / 4 % 2) << 4)
+                 : q_rows + (n / 8) * L::kQAtom + rr * kSwizzle + ((n % 8 ^ rr % 8) << 4);
+      *reinterpret_cast<uint32_t*>(at + 4 * (lane % 4)) =
+          Elem<T>::pack(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    }
+  }
+  fence_async_smem();
+  bar_sync<128>(kBar + c);
+  if (tid == 0) {
+    if (row0 < p.Sq) {  // a tile past Sq stores nothing
+      const uint32_t q = smem_addr(q_rows);
+      for (int a = 0; a < L::kWideK; ++a)
+        tma_store(to, q + a * L::kQAtom, kAtomCols * a, h, row0, b);
+      if (L::kNarrow) tma_store(to2, smem_addr(q_tail), kAtomCols * L::kWideK, h, row0, b);
+      bulk_commit();
+      bulk_wait_read<0>();
+    }
+    mbar_arrive(q_empty);
+  }
+}
+
+// The rounds of a K/V-resident block's consumers: its 64-row Q tiles past
+// q0, at most p.q_tiles, rounded up to a whole round (a tile past Sq is
+// computed on what its stage holds and not written)
+template <class Bk>
+__device__ __forceinline__ int resident_rounds(int q0, const Params& p) {
+  const int tiles = min(p.q_tiles, (p.Sq - q0 + kRows - 1) / kRows);
+  return (tiles + Bk::kConsumers - 1) / Bk::kConsumers;
+}
+
+// A K/V-resident block's consumer on one 64-row Q tile (q_addr; q_tail:
+// its rows in Q's narrow atom) over the nk resident key tiles: the other
+// blocks' per-tile sequence (the consumer loop of flash_fwd_sm90_kernel,
+// kept there as it is so that their code does not change), the same
+// products and chain in the same order. Leaves O unnormalised in o, the row
+// sums in l and the running max (fp16 static max: the rows' scales) in m.
+// `last`: the consumer's last tile of the block (the last consumer's final
+// product then ends the turns: consumer 0 has no later one).
+template <class T, bool kStaticMax, int kDK, int kDN, class L, int kConsumers, int kN>
+__device__ __forceinline__ void attend_rows(float (&o)[kN], float (&l)[2], float (&m)[2],
+                                            uint32_t q_addr, uint32_t q_tail, uint32_t base,
+                                            const unsigned long long* bits, int nk, int c,
+                                            int tid, bool last, const Params& p) {
+  constexpr int kStages = L::kStages;
+  // two or more consumers issue their products in turn: 0, 1, ..., kConsumers - 1,
+  // 0, ...; a lone one (whose turns are the block's) waits for no barrier
+  constexpr bool kTurns = kConsumers > 1;
+  const int mine = kBarFirst + c, other = kBarFirst + (c + 1) % kConsumers;
+#pragma unroll
+  for (int i = 0; i < kN; ++i) o[i] = 0.f;
+  // m: the running max (online), or the rows' scales (fp16 static max)
+  const float m0 = kStaticMax && kIsF16<T> ? pow2(127) : -INFINITY;
+  l[0] = l[1] = 0.f;
+  m[0] = m[1] = m0;
+  float s[kBK / 2];
+  uint32_t phi[4][4], plo[4][4];
+  float alpha[2];
+
+  mbar_wait(base + L::full(0), 0);
+  if (kTurns) bar_sync(mine);
+  wgmma_fence();
+  qk_tile<L, kDK, T>(s, q_addr, q_tail, base, 0);
+  wgmma_commit();
+  if (kTurns) bar_arrive(other);
+  wgmma_wait<0>();
+  pin(s);
+  exp_tile<T, kStaticMax>(s, bits[0], tid % 4, l, m, alpha, p);
+  pack_tile<T, kStaticMax, kN>(s, alpha, o, phi, plo);
+
+  // Per tile j: S(j) = QK^T and O += P(j-1) V(j-1) in two wgmma groups;
+  // the chain of S(j) runs as soon as the first group is done, beside the
+  // second (FlashAttention-3's intra-warpgroup overlap), and packs P(j)
+  // once the second is done with the P registers.
+  for (int j = 1; j < nk; ++j) {
+    const int st = j % kStages, prev = (j - 1) % kStages;
+    mbar_wait(base + L::full(st), (j / kStages) & 1);
+    if (kTurns) bar_sync(mine);
+    pin(o);
+    pin(phi);
+    pin(plo);
+    wgmma_fence();
+    qk_tile<L, kDK, T>(s, q_addr, q_tail, base, st);
+    wgmma_commit();
+    pv_tile<L, kDN, T>(o, phi, plo, base, prev);
+    wgmma_commit();
+    if (kTurns) bar_arrive(other);
+    wgmma_wait<1>();
+    pin(s);
+    exp_tile<T, kStaticMax>(s, bits[st], tid % 4, l, m, alpha, p);
+    wgmma_wait<0>();
+    pin(o);
+    mbar_arrive(base + L::empty(prev));
+    pack_tile<T, kStaticMax, kN>(s, alpha, o, phi, plo);
+  }
+
+  if (kTurns) bar_sync(mine);
+  pin(o);
+  pin(phi);
+  pin(plo);
+  wgmma_fence();
+  pv_tile<L, kDN, T>(o, phi, plo, base, (nk - 1) % kStages);
+  wgmma_commit();
+  if (kTurns && !(last && c == kConsumers - 1)) bar_arrive(other);
+  wgmma_wait<0>();
+  pin(o);
+}
+
+// tq2, tk2 and tv2: Q's, K's and V's narrow atoms (unused without them); to
+// and to2: the output's whole and narrow atoms (the K/V-resident block's
+// stores)
+template <class T, bool kStaticMax, int kDK, int kDN, int kCons, int kBlocks, int kTiles>
+__global__ void __launch_bounds__(Block<kCons, kBlocks, kTiles>::kThreads, kBlocks)
     flash_fwd_sm90_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tq2,
                           const __grid_constant__ CUtensorMap tk2,
-                          const __grid_constant__ CUtensorMap tv2) {
-  using Bk = Block<kCons, kBlocks>;
+                          const __grid_constant__ CUtensorMap tv2,
+                          const __grid_constant__ CUtensorMap to,
+                          const __grid_constant__ CUtensorMap to2) {
+  using Bk = Block<kCons, kBlocks, kTiles>;
   using L = Smem<kDK, kDN, Bk>;
   static_assert(L::kBK == kBK, "the chain's tile is the ring's");
+  static_assert(L::kBytes <= Bk::kSmem, "the block's share of the SM");
   constexpr int kStages = L::kStages, kConsumers = kCons, kBQ = Bk::kBQ;
+  constexpr bool kKvResident = Bk::kKvResident;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_addr(smem) + L::kAlign - 1) & ~(L::kAlign - 1);
   unsigned long long* bits =
       reinterpret_cast<unsigned long long*>(smem + (base - smem_addr(smem)) + L::kBits);
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * (kKvResident ? p.q_tiles * kRows : kBQ), h = blockIdx.y,
+            b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
   const int nk = (p.Sk + kBK - 1) / kBK;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    mbar_init(base + L::q_full(), 1);
+    if constexpr (kKvResident) {
+      for (int i = 0; i < Bk::kQStages; ++i) {
+        mbar_init(base + L::q_full(i), 1);     // the producer's arrive + bytes
+        mbar_init(base + L::q_empty(i), 1);    // the consumer's store of the tile's rows
+      }
+    } else {
+      mbar_init(base + L::q_full(), 1);
+    }
     for (int st = 0; st < kStages; ++st) {
       mbar_init(base + L::full(st), 1);                   // the producer's arrive + bytes
       mbar_init(base + L::empty(st), 128 * kConsumers);   // every consumer thread
@@ -481,16 +715,71 @@ __global__ void __launch_bounds__(Block<kCons, kBlocks>::kThreads, kBlocks)
     const int lane = threadIdx.x;
     // the maps are (D, H, S, B) with a box of 64 columns x rows: one box per
     // atom; columns past D (the pad to kDK) and rows past S arrive as zeros
-    if (lane == 0) {
-      mbar_expect_tx(base + L::q_full(), L::kQBytes);
-      for (int a = 0; a < L::kWideK; ++a)
-        tma_load(base + L::kQ + a * L::kQAtom, &tq, base + L::q_full(), kAtomCols * a, h, q0, b);
-      if (L::kNarrow)
-        tma_load(base + L::kQ + L::kQTailAt, &tq2, base + L::q_full(), kAtomCols * L::kWideK, h,
-                 q0, b);
+    if constexpr (!kKvResident) {
+      if (lane == 0) {
+        mbar_expect_tx(base + L::q_full(), L::kQBytes);
+        for (int a = 0; a < L::kWideK; ++a)
+          tma_load(base + L::kQ + a * L::kQAtom, &tq, base + L::q_full(), kAtomCols * a, h, q0,
+                   b);
+        if (L::kNarrow)
+          tma_load(base + L::kQ + L::kQTailAt, &tq2, base + L::q_full(), kAtomCols * L::kWideK,
+                   h, q0, b);
+      }
+      produce_kv<L>(base, bits, &tk, &tv, p.mask ? p.mask + b * p.m_sb : nullptr, p.Sk, hk, b,
+                    lane, &tk2, &tv2);
+    } else {
+      // The K/V-resident block: Q tile i, in the order the consumers take
+      // them, into Q stage i % kQStages once its consumer has given it back
+      const auto load_q = [&](int i) {
+        const int st = i % Bk::kQStages, row = q0 + i * kRows;
+        mbar_wait(base + L::q_empty(st), ((i / Bk::kQStages) & 1) ^ 1);  // round 0 at once
+        if (row >= p.Sq) {
+          mbar_arrive(base + L::q_full(st));
+          return;
+        }
+        mbar_expect_tx(base + L::q_full(st), L::kQTile);
+        for (int a = 0; a < L::kWideK; ++a)
+          tma_load(base + L::q(st) + a * L::kQAtom, &tq, base + L::q_full(st), kAtomCols * a, h,
+                   row, b);
+        if (L::kNarrow)
+          tma_load(base + L::q(st) + L::kQTailAt, &tq2, base + L::q_full(st),
+                   kAtomCols * L::kWideK, h, row, b);
+      };
+      const int tiles = resident_rounds<Bk>(q0, p) * kConsumers;
+      // each consumer's first tile ahead of the keys (its first product needs both);
+      // then the nk <= kStages key tiles, each into a stage of its own at once, to
+      // stay there (no consumer waits for a refill); then the other Q tiles
+      for (int i = 0; lane == 0 && i < kConsumers; ++i) load_q(i);
+      produce_kv<L>(base, bits, &tk, &tv, p.mask ? p.mask + b * p.m_sb : nullptr, p.Sk, hk, b,
+                    lane, &tk2, &tv2);
+      for (int i = kConsumers; lane == 0 && i < tiles; ++i) load_q(i);
     }
-    produce_kv<L>(base, bits, &tk, &tv, p.mask ? p.mask + b * p.m_sb : nullptr, p.Sk, hk, b,
-                  lane, &tk2, &tv2);
+  } else if constexpr (kKvResident) {
+    // ---- consumers: 64-row Q tiles in turn ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Bk::kConsumerRegs));
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    constexpr int kN = kPvWidth<L, kDN> / 2;
+    float o[kN], l[2], m[2];
+    if (kConsumers > 1 && c == kConsumers - 1) bar_arrive(kBarFirst);  // consumer 0 issues first
+    // consumer c takes the block's Q tiles c, c + kConsumers, ...: each
+    // through the same products and chain over the resident K/V tiles, its
+    // rows stored from its own stage
+    const int rounds = resident_rounds<Bk>(q0, p);
+    for (int t = 0; t < rounds; ++t) {
+      const int i = t * kConsumers + c, st = i % Bk::kQStages, row0 = q0 + i * kRows;
+      const uint32_t q_addr = base + L::q(st), q_tail = q_addr + L::kQTailAt;
+      mbar_wait(base + L::q_full(st), (i / Bk::kQStages) & 1);
+      if (p.rope_cos != nullptr)
+        rotate_q<T, L, Bk::kBarRope>(smem + (q_addr - smem_addr(smem)),
+                                     smem + (q_tail - smem_addr(smem)), row0, c, tid, p);
+      attend_rows<T, kStaticMax, kDK, kDN, L, kConsumers>(o, l, m, q_addr, q_tail, base, bits,
+                                                          nk, c, tid, t + 1 == rounds, p);
+      store_rows<T, kStaticMax, L, Bk::kBarRope>(
+          o, l, m, smem + (q_addr - smem_addr(smem)), smem + (q_tail - smem_addr(smem)),
+          base + L::q_empty(st), row0, h, b, c, tid, &to, &to2, p);
+    }
+    if (tid == 0) bulk_wait_all();
   } else {
     // ---- consumers: 64 query rows each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Bk::kConsumerRegs));
@@ -606,35 +895,63 @@ int launch_registers(Kernel kernel) {
 }
 
 // The products' depth and width, and the block, of an instantiation
-template <int kDK, int kDN, int kCons, int kBlocks>
+template <int kDK, int kDN, int kCons, int kBlocks, int kTiles = 0>
 struct Dims {
-  static constexpr int kDepth = kDK, kWidth = kDN, kConsumers = kCons, kMinBlocks = kBlocks;
+  static constexpr int kDepth = kDK, kWidth = kDN, kConsumers = kCons, kMinBlocks = kBlocks,
+                       kQTiles = kTiles;
 };
 
-// Calls `fn` with the Dims of the instantiation that runs head_dim d over
-// Sk keys: the depth and width of the header's Widths, the block of its
-// Blocks (64 rows three an SM up to 80/72 over at most 1024 keys, else 192
-// rows one an SM).
+// The K/V-resident block's reach: at most kKvTiles key tiles, and at least
+// kResidentRows query rows
+constexpr int kResidentKeys = kKvTiles * kBK, kResidentRows = 512;
+
+// The K/V-resident block's 64-row Q tiles a block at launch: each (batch, q
+// head)'s tiles split evenly over as many blocks as one wave of the card's
+// SMs leaves it (at least one), in whole rounds of kCons consumers
+int resident_tiles(int B, int Hq, int Sq, int kCons) {
+  static const int sms = [] {
+    int device = 0, count = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
+    return count > 0 ? count : 1;
+  }();
+  const int per_head = sms / (B * Hq) > 1 ? sms / (B * Hq) : 1;
+  const int tiles = ((Sq + kRows - 1) / kRows + per_head - 1) / per_head;
+  return (tiles + kCons - 1) / kCons * kCons;
+}
+
+// Calls `fn` with the Dims of the instantiation that runs head_dim d at Sq
+// query rows over Sk keys: the depth and width of the header's Widths, the
+// block of its Blocks (at 80/72 the K/V-resident block over at most 256
+// keys and at least 512 query rows; 64 rows three an SM up to 80/72 over at
+// most 1024 keys; else 192 rows one an SM).
 template <class Fn>
-int by_shape(int d, int sk, Fn fn) {
+int by_shape(int d, int sq, int sk, Fn fn) {
   const bool few_keys = sk <= 1024;
   if (d <= 48) return few_keys ? fn(Dims<48, 48, 1, 3>{}) : fn(Dims<48, 48, 3, 1>{});
   if (d <= 64) return few_keys ? fn(Dims<64, 64, 1, 3>{}) : fn(Dims<64, 64, 3, 1>{});
-  if (d <= 72) return few_keys ? fn(Dims<80, 72, 1, 3>{}) : fn(Dims<80, 72, 3, 1>{});
+  if (d <= 72) {
+    if (sk <= kResidentKeys && sq >= kResidentRows)
+      return fn(Dims<80, 72, 2, 1, kTilesAtLaunch>{});
+    return few_keys ? fn(Dims<80, 72, 1, 3>{}) : fn(Dims<80, 72, 3, 1>{});
+  }
   if (d <= 96) return fn(Dims<96, 96, 3, 1>{});
   return fn(Dims<128, 128, 3, 1>{});
 }
 
-template <class T, bool kStaticMax, int kDK, int kDN, int kCons, int kBlocks>
+template <class T, bool kStaticMax, int kDK, int kDN, int kCons, int kBlocks, int kTiles>
 int launch_dims(const Params& p, cudaStream_t stream) {
-  using Bk = Block<kCons, kBlocks>;
+  using Bk = Block<kCons, kBlocks, kTiles>;
+  using L = Smem<kDK, kDN, Bk>;
+  // the K/V-resident block holds every key tile in a stage of its own
+  if (Bk::kKvResident && (p.Sk + kBK - 1) / kBK > L::kStages) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tq2, tk2, tv2;
-  if (!make_map<T>(&tq, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, Bk::kBQ) ||
+  if (!make_map<T>(&tq, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, Bk::kQBox) ||
       !make_map<T>(&tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, kBK) ||
       !make_map<T>(&tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, kBK))
     return (int)cudaErrorInvalidValue;
-  if (Smem<kDK, kDN, Bk>::kNarrow) {
-    if (!make_narrow_map<T>(&tq2, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, Bk::kBQ) ||
+  if (L::kNarrow) {
+    if (!make_narrow_map<T>(&tq2, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, Bk::kQBox) ||
         !make_narrow_map<T>(&tk2, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, kBK) ||
         !make_narrow_map<T>(&tv2, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, kBK))
       return (int)cudaErrorInvalidValue;
@@ -643,34 +960,43 @@ int launch_dims(const Params& p, cudaStream_t stream) {
     tk2 = tk;
     tv2 = tv;
   }
-  auto kernel = flash_fwd_sm90_kernel<T, kStaticMax, kDK, kDN, kCons, kBlocks>;
+  CUtensorMap to = tq, to2 = tq2;  // the output, stored by the K/V-resident block
+  if (Bk::kKvResident &&
+      (!make_map<T>(&to, p.out, p.B, p.Sq, p.Hq, p.D, p.o_sb, p.o_ss, p.o_sh, kRows) ||
+       (L::kNarrow &&
+        !make_narrow_map<T>(&to2, p.out, p.B, p.Sq, p.Hq, p.D, p.o_sb, p.o_ss, p.o_sh, kRows))))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_fwd_sm90_kernel<T, kStaticMax, kDK, kDN, kCons, kBlocks, kTiles>;
   // the block's registers at launch must cover what setmaxnreg hands out,
   // or setmaxnreg.inc would wait for registers the block never gets
   static const int regs = launch_registers(kernel);
   if (regs * Bk::kThreads < 128 * (kProducerRegs + kCons * Bk::kConsumerRegs))
     return (int)cudaErrorLaunchOutOfResources;
-  const int bytes = (int)Smem<kDK, kDN, Bk>::kBytes;
+  const int bytes = (int)L::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.Sq + Bk::kBQ - 1) / Bk::kBQ, p.Hq, p.B);
-  kernel<<<grid, Bk::kThreads, bytes, stream>>>(p, tq, tk, tv, tq2, tk2, tv2);
+  Params pk = p;
+  pk.q_tiles = kTiles < 0 ? resident_tiles(p.B, p.Hq, p.Sq, kCons) : kTiles;
+  const int rows = Bk::kKvResident ? pk.q_tiles * kRows : Bk::kBQ;
+  dim3 grid((p.Sq + rows - 1) / rows, p.Hq, p.B);
+  kernel<<<grid, Bk::kThreads, bytes, stream>>>(pk, tq, tk, tv, tq2, tk2, tv2, to, to2);
   return (int)cudaGetLastError();
 }
 
 template <class T, bool kStaticMax>
 int launch(const Params& p, cudaStream_t stream) {
-  return by_shape(p.D, p.Sk, [&](auto dims) {
+  return by_shape(p.D, p.Sq, p.Sk, [&](auto dims) {
     using X = decltype(dims);
-    return launch_dims<T, kStaticMax, X::kDepth, X::kWidth, X::kConsumers, X::kMinBlocks>(p,
-                                                                                        stream);
+    return launch_dims<T, kStaticMax, X::kDepth, X::kWidth, X::kConsumers, X::kMinBlocks,
+                       X::kQTiles>(p, stream);
   });
 }
 
-template <class T, bool kStaticMax, int kDK, int kDN, int kCons, int kBlocks>
+template <class T, bool kStaticMax, int kDK, int kDN, int kCons, int kBlocks, int kTiles>
 int attributes_dims(long long* out) {
-  using Bk = Block<kCons, kBlocks>;
-  auto kernel = flash_fwd_sm90_kernel<T, kStaticMax, kDK, kDN, kCons, kBlocks>;
+  using Bk = Block<kCons, kBlocks, kTiles>;
+  auto kernel = flash_fwd_sm90_kernel<T, kStaticMax, kDK, kDN, kCons, kBlocks, kTiles>;
   const int bytes = (int)Smem<kDK, kDN, Bk>::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -689,9 +1015,11 @@ int attributes_dims(long long* out) {
   out[6] = Bk::kThreads;
   out[7] = kDK;
   out[8] = kDN;
-  out[9] = Bk::kBQ;
+  out[9] = Bk::kBQ;  // 0: set at launch (`resident_tiles`)
   out[10] = Smem<kDK, kDN, Bk>::kStages;
   out[11] = kBlocks;
+  out[12] = kCons;
+  out[13] = Bk::kKvResident ? Bk::kQStages : 0;
   return 0;
 }
 
@@ -733,6 +1061,7 @@ int flash_fwd_sm90(bool f16, bool static_max, const void* q, const void* k, cons
   p.scale2 = scale * kLog2e;
   p.bound2 = bound * kLog2e;
   p.clamp2 = kClamp * kLog2e;
+  p.q_tiles = 0;  // set at launch for the K/V-resident block
   // TMA moves 16-byte chunks: D, the strides and the bases in whole chunks
   for (int i = 6; i <= 17; ++i)
     if (meta[i] % 8 != 0) return (int)cudaErrorInvalidValue;
@@ -753,27 +1082,28 @@ int flash_fwd_sm90(bool f16, bool static_max, const void* q, const void* k, cons
 namespace {
 
 template <class T>
-int attributes(int static_max, int head_dim, int sk, long long* out) {
-  return by_shape(head_dim, sk, [&](auto dims) {
+int attributes(int static_max, int head_dim, int sq, int sk, long long* out) {
+  return by_shape(head_dim, sq, sk, [&](auto dims) {
     using X = decltype(dims);
     return static_max ? attributes_dims<T, true, X::kDepth, X::kWidth, X::kConsumers,
-                                        X::kMinBlocks>(out)
+                                        X::kMinBlocks, X::kQTiles>(out)
                       : attributes_dims<T, false, X::kDepth, X::kWidth, X::kConsumers,
-                                        X::kMinBlocks>(out);
+                                        X::kMinBlocks, X::kQTiles>(out);
   });
 }
 
 }  // namespace
 
-// The resources of the kernel that runs head_dim over Sk keys, for bf16
-// (f16 = 0) or fp16 operands (12 values into out): registers per thread as
-// compiled (the launch bound), the producer's and the consumers' registers
-// after setmaxnreg, local-memory (spill) bytes per thread, shared memory per
-// block, resident blocks per SM, threads per block, the products' depth and
-// width, query rows per block, ring stages, the blocks an SM it is built
-// for. Launches nothing.
-extern "C" int lumina_flash_fwd_sm90_attributes(int static_max, int head_dim, int sk, int f16,
-                                                long long* out) {
-  return f16 ? attributes<fp16>(static_max, head_dim, sk, out)
-             : attributes<bf16>(static_max, head_dim, sk, out);
+// The resources of the kernel that runs head_dim at Sq query rows over Sk
+// keys, for bf16 (f16 = 0) or fp16 operands (14 values into out): registers
+// per thread as compiled (the launch bound), the producer's and the
+// consumers' registers after setmaxnreg, local-memory (spill) bytes per
+// thread, shared memory per block, resident blocks per SM, threads per
+// block, the products' depth and width, query rows per block, K/V stages,
+// the blocks an SM it is built for, its consumer warpgroups and its Q
+// ring's stages (0: one Q load a block). Launches nothing.
+extern "C" int lumina_flash_fwd_sm90_attributes(int static_max, int head_dim, int sq, int sk,
+                                                int f16, long long* out) {
+  return f16 ? attributes<fp16>(static_max, head_dim, sq, sk, out)
+             : attributes<bf16>(static_max, head_dim, sq, sk, out);
 }

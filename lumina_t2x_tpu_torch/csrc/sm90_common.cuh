@@ -61,6 +61,16 @@ __device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, uint32_t 
       "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
       : "memory");
 }
+// a box of shared memory into a 4-D tensor map's elements in device memory
+// (elements out of range are not written), in this thread's bulk group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

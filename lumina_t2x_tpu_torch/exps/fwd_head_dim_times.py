@@ -12,6 +12,10 @@ every key valid, Sk = Sq unless noted:
   5b         (2, 4160, 32, 96)   Flag-DiT 5B's at 1024^2: K2, K3, K4, K5
   2b         (2, 4096, 32, 72)   NextDiT-2B's at 1024^2, the control (80/72): K2, K3, and K1
                                  over the sampler's 256 and the trainer's 32 caption keys
+                                 (the K/V-resident block), K4 and K9's rope_q over 32
+  2b_gemma   (2, 4096, 32, 72)   the 2B trainer's K4 over Gemma caption lengths 8, 40, 136
+  2b_128k    (1, 131072, 32, 72) the 2B's 128K-token forward: rope_q over its 256 caption
+                                 keys (`exps/longcontext_forward.py`)
   mmdit_db   (2, 589, 24, 64)    MMDiT-SD3-Medium's joint sequence in DreamBooth at 256^2
                                  (64/64 over few keys): K4, K1
   music_train (32, 256, 16, 72)  the music trainer's (80/72 over few keys): K4 over its 256
@@ -31,10 +35,13 @@ wrapper's Python: checks, allocation, meta, counts), and in the same call
 one library call on the same inputs: `scaled_dot_product_attention` for
 K1-K3, aten's flash attention with its LSE for K4/K5, by CUDA events and by
 its kernels' device time under `torch.profiler` (every kernel of the call),
-so that each factor reads device to device as well as on one call. K3/K5
+so that each factor reads device to device as well as on one call; K9's
+`rope_q` (q rotated in the kernel, the 2B's RoPE angles on a square grid,
+512 x 256 at 131072 rows) has no library call and no C entry timing. K3/K5
 run under a bound 6 over the largest row LSE. Beside them, each row's bound (the
 larger of its two products' operations over 989 TFLOP/s and its bytes,
-each input read and each output written once, over 3.35 TB/s) and its exp
+each input read and each output written once, the rotation's two fp32
+tables read once, over 3.35 TB/s) and its exp
 floor (B*H*Sq*Sk exponentials over the special-function units' 3.9e12 a
 second: 16 per clock per SM x 132 SMs x ~1.83 GHz).
 
@@ -66,7 +73,10 @@ SHAPES = {
     "5b": ((2, 4160, 32, 96), [("K2", "online", None), ("K3", "static_max", None),
                                ("K4", "online_lse", None), ("K5", "static_max_lse", None)]),
     "2b": ((2, 4096, 32, 72), [("K2", "online", None), ("K3", "static_max", None),
-                               ("K1 Sk=256", "small_kv", 256), ("K1 Sk=32", "small_kv", 32)]),
+                               ("K1 Sk=256", "small_kv", 256), ("K1 Sk=32", "small_kv", 32),
+                               ("K4 Sk=32", "online_lse", 32), ("rope_q Sk=32", "rope_q", 32)]),
+    "2b_gemma": ((2, 4096, 32, 72), [(f"K4 Sk={sk}", "online_lse", sk) for sk in (8, 40, 136)]),
+    "2b_128k": ((1, 131072, 32, 72), [("rope_q Sk=256", "rope_q", 256)]),
     "mmdit_db": ((2, 589, 24, 64), [("K4", "online_lse", None), ("K1", "small_kv", None)]),
     "music_train": ((32, 256, 16, 72), [("K4", "online_lse", None),
                                         ("K4 Sk=77", "online_lse", 77)]),
@@ -156,6 +166,14 @@ def _fmt(x):
     return "not traced" if x is None else f"{x:.4f}"
 
 
+def _rope_angles(s, d):
+    """The 2B's RoPE angles (s, d / 2) on a gh x gw grid, gh = 2^ceil(log2(s) / 2)."""
+    from lumina_t2x_tpu_torch.ops.rope import rope_angles_2d
+
+    gh = 2 ** (s.bit_length() // 2)
+    return rope_angles_2d(d, gh, s // gh, device="cuda").reshape(s, d // 2)
+
+
 def shape_rows(torch, fa, name, reps, label, dtype):
     (b, s, h, d), entries = SHAPES[name]
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -172,21 +190,29 @@ def shape_rows(torch, fa, name, reps, label, dtype):
             lse = fa.flash_online_lse(q, k, v, None, scale)[1]
             kw = {"bound": float(lse.max()) + 6.0}
         fn = getattr(fa, f"flash_{entry}")
-        call = lambda: fn(q, k, v, None, scale, **kw)  # noqa: E731
+        rope = entry.startswith("rope")
+        if rope:
+            angles = _rope_angles(s, d)
+            call = lambda: fn(q, k, v, angles, None, scale)  # noqa: E731
+        else:
+            call = lambda: fn(q, k, v, None, scale, **kw)  # noqa: E731
         one = _events_ms(torch, call, reps)
         device = _device_ms(torch, call, 10, "flash_fwd")
-        c_entry, keep = _entry_call(torch, fa, entry, q, k, v, scale, kw.get("bound", 0.0))
         out = {"entry": entry, "dtype": str(dtype), "shape": [b, s, h, d], "sk": sk, "ms": one,
                "burst_ms": _events_ms(torch, call, reps, BURST), "device_ms": device,
                "host_ms": None if device is None else one - device,
-               "issue_us": _host_us(torch, call), "entry_issue_us": _host_us(torch, c_entry),
-               "library_ms": _events_ms(torch, _library(torch, entry, q, k, v, scale), reps),
-               "library_burst_ms": _events_ms(torch, _library(torch, entry, q, k, v, scale),
-                                              reps, BURST),
-               "library_device_ms": _device_ms(torch, _library(torch, entry, q, k, v, scale), 10,
-                                               "")}
+               "issue_us": _host_us(torch, call), "entry_issue_us": None, "library_ms": None,
+               "library_burst_ms": None, "library_device_ms": None}
+        keep = None
+        if not rope:
+            c_entry, keep = _entry_call(torch, fa, entry, q, k, v, scale, kw.get("bound", 0.0))
+            library = _library(torch, entry, q, k, v, scale)
+            out.update(entry_issue_us=_host_us(torch, c_entry),
+                       library_ms=_events_ms(torch, library, reps),
+                       library_burst_ms=_events_ms(torch, library, reps, BURST),
+                       library_device_ms=_device_ms(torch, library, 10, ""))
         nbytes = 2 * (2 * b * s * h * d + 2 * b * sk * h * d) + (
-            4 * b * h * s if entry.endswith("_lse") else 0)
+            4 * b * h * s if entry.endswith("_lse") else 0) + (2 * s * d * 4 if rope else 0)
         out["bound_ms"] = 1e3 * max(4 * b * h * s * sk * d / PEAK_BF16, nbytes / HBM_BYTES_S)
         out["exp_floor_ms"] = 1e3 * b * h * s * sk / EXP_RATE
         if instantiation is not None:
@@ -196,11 +222,13 @@ def shape_rows(torch, fa, name, reps, label, dtype):
               f"{'fp16' if dtype == torch.float16 else 'bf16'}"
               + (f" {out['instantiation']}" if "instantiation" in out else "")
               + f": {one:.4f} ms one call, {out['burst_ms']:.4f} in bursts of {BURST}; device "
-              f"{_fmt(device)}, host {_fmt(out['host_ms'])}; issue {out['issue_us']:.1f} us "
-              f"(C entry {out['entry_issue_us']:.1f}); library {out['library_ms']:.4f} "
-              f"(bursts {out['library_burst_ms']:.4f}, device {_fmt(out['library_device_ms'])}); "
-              f"bound {out['bound_ms']:.4f}, exp floor "
-              f"{out['exp_floor_ms']:.4f}", flush=True)
+              f"{_fmt(device)}, host {_fmt(out['host_ms'])}; issue {out['issue_us']:.1f} us"
+              + ("" if rope else
+                 f" (C entry {out['entry_issue_us']:.1f}); library {out['library_ms']:.4f} "
+                 f"(bursts {out['library_burst_ms']:.4f}, device "
+                 f"{_fmt(out['library_device_ms'])})")
+              + ("; library none" if rope else "")
+              + f"; bound {out['bound_ms']:.4f}, exp floor {out['exp_floor_ms']:.4f}", flush=True)
         del k, v, keep
     del q
     torch.cuda.empty_cache()

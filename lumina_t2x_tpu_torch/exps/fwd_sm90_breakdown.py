@@ -15,6 +15,8 @@ shapes named (`SHAPES`, default `2b`), beside one
               length of its main path (the self-attention's 4096, the
               sampler's 256 caption tokens, the served worker's and the
               trainer's 32)
+  2b_gemma    the same over the Gemma caption lengths 8, 40 and 136
+  2b_128k     (1, 131072, 32, 72), Sk = 256: the 128K-token forward's captions
   small       (128, 1024, 8, 48), Sk = 1024: the Small's sampler (K1)
   600m        (8, 256, 32, 48), Sk = 256: the ImageNet 600M's sampler (K1)
   600m_train  (256, 256, 32, 48), Sk = 256: the 600M's trainer (K4's kernel)
@@ -43,8 +45,10 @@ events around the wrapper, and its kernel's device time under
 
 With `--blocks` it times instead, at each shape, every block of `BLOCKS`
 (depth/width, consumer warpgroups of 64 rows, blocks built to be resident
-an SM) at the width the kernel picks and at the width head_dim took before
-48/48 and 96/96 (64/64, 128/128), the one `launch()` picks marked: the
+an SM, and the K/V-resident block's Q tiles a block: fixed, or set at
+launch; over at most 256 keys) at the width the kernel picks and at the
+width head_dim took before 48/48 and 96/96 (64/64, 128/128), the one
+`launch()` picks marked: the
 source with `launch()` forced to one block at a time, each computing the
 function, by CUDA events and by its device time under `torch.profiler`.
 With `--chain` it times the variants of `_CHAIN` instead: the online
@@ -78,6 +82,9 @@ from . import device_label, device_ms, source_with_common, time_ms
 SHAPES = {
     # self-attention, sampler captions, served / trainer captions
     "2b": ((2, 4096, 32, 72), (4096, 256, 32)),
+    # the 2B trainer's Gemma caption lengths; the 128K-token forward's captions
+    "2b_gemma": ((2, 4096, 32, 72), (8, 40, 136)),
+    "2b_128k": ((1, 131072, 32, 72), (256,)),
     "small": ((128, 1024, 8, 48), (1024,)),
     "600m": ((8, 256, 32, 48), (256,)),
     "600m_train": ((256, 256, 32, 48), (256,)),
@@ -100,6 +107,10 @@ _LOOP_PRODUCTS = """      qk_tile<L, kDK, T>(s, q_addr, q_tail, base, st);
 """
 _LOOP_EXP = "      exp_tile<T, kStaticMax>(s, bits[st], tid % 4, l, m, alpha, p);\n"
 _LOOP_PACK = "      pack_tile<T, kStaticMax, kN>(s, alpha, o, phi, plo);\n"
+# the same parts of the K/V-resident block's per-tile sequence (`attend_rows`)
+_RES_PRODUCTS = _LOOP_PRODUCTS.replace("      ", "    ")
+_RES_EXP = ("    pin(s);\n" + _LOOP_EXP.replace("      ", "    "))
+_RES_PACK = ("    mbar_arrive(base + L::empty(prev));\n" + _LOOP_PACK.replace("      ", "    "))
 _KV_LOADS = """      mbar_expect_tx(base + L::full(st), L::kStageBytes);
       for (int a = 0; a < L::kWideK; ++a)
         tma_load(base + L::k(st) + a * L::kAtom, tk, base + L::full(st), a * kAtomCols, hk, j0, b);
@@ -121,9 +132,13 @@ _LO_PACK = """    lo[n / 2][2 * (n % 2)] = E::pack(x[4 * n] - E::lo(top), x[4 * 
 """
 _EDITS = {
     "kernel": [],
-    "loads only": [(_LOOP_PRODUCTS, ""), (_LOOP_EXP, ""), (_LOOP_PACK, "")],
+    "loads only": [(_LOOP_PRODUCTS, ""), (_LOOP_EXP, ""), (_LOOP_PACK, ""), (_RES_PRODUCTS, ""),
+                   (_RES_EXP, "    pin(s);\n"),
+                   (_RES_PACK, "    mbar_arrive(base + L::empty(prev));\n")],
     "compute only": [(_KV_LOADS, _NO_KV)],
-    "products only": [(_KV_LOADS, _NO_KV), (_LOOP_EXP, ""), (_LOOP_PACK, "")],
+    "products only": [(_KV_LOADS, _NO_KV), (_LOOP_EXP, ""), (_LOOP_PACK, ""),
+                      (_RES_EXP, "    pin(s);\n"),
+                      (_RES_PACK, "    mbar_arrive(base + L::empty(prev));\n")],
     "P once": [(_LO_PRODUCT, ""), (_LO_NARROW, ""), (_LO_PACK, "")],
 }
 # `--chain`: changes to the online chain (every width's) and to the
@@ -260,7 +275,9 @@ _CHAIN = {
     "scale in FMA": _FOLD,
     # the consumers issue their products when ready, not in turn
     "no turns": [("    constexpr bool kTurns = kConsumers > 1;\n",
-                  "    constexpr bool kTurns = false;\n")],
+                  "    constexpr bool kTurns = false;\n"),
+                 ("  constexpr bool kTurns = kConsumers > 1;\n  const int mine",
+                  "  constexpr bool kTurns = false;\n  const int mine")],
     # S(j + 1) issued once PV(j - 1) is done, into a second set of S
     # registers (192 rows, up to 80/72: the registers it needs fit)
     "early QK": [(_LOOP_HEAD, _EARLY_QK + "    } else {\n" + _LOOP_HEAD),
@@ -278,10 +295,17 @@ extern "C" int breakdown_fwd(int static_max, const void* q, const void* k, const
 
 
 # the blocks `--blocks` times: (depth, width, consumer warpgroups, blocks an
-# SM), each one the kernel's `Block` and `KvRing` take
-BLOCKS = ((48, 48, 3, 1), (48, 48, 2, 1), (48, 48, 1, 2), (48, 48, 1, 3), (48, 48, 2, 2),
-          (64, 64, 3, 1), (64, 64, 2, 1), (64, 64, 1, 3), (80, 72, 3, 1), (80, 72, 2, 1),
-          (80, 72, 1, 3), (96, 96, 3, 1), (96, 96, 2, 1), (128, 128, 3, 1), (128, 128, 2, 1))
+# SM, Q tiles), each one the kernel's `Block` and `KvRing` take; Q tiles != 0
+# is the K/V-resident block (that many 64-row Q tiles of one head a block,
+# -1 as many as `resident_split` gives the call; at most 256 keys; two an SM
+# on narrow atoms), 0 a block of 64 rows a consumer
+BLOCKS = ((48, 48, 3, 1, 0), (48, 48, 2, 1, 0), (48, 48, 1, 2, 0), (48, 48, 1, 3, 0),
+          (48, 48, 2, 2, 0), (64, 64, 3, 1, 0), (64, 64, 2, 1, 0), (64, 64, 1, 3, 0),
+          (80, 72, 3, 1, 0), (80, 72, 2, 1, 0), (80, 72, 1, 3, 0), (80, 72, 2, 1, -1),
+          (80, 72, 2, 1, 8), (80, 72, 2, 1, 16), (80, 72, 2, 1, 32), (80, 72, 3, 1, 6),
+          (80, 72, 1, 2, 8), (96, 96, 3, 1, 0), (96, 96, 2, 1, 0), (128, 128, 3, 1, 0),
+          (128, 128, 2, 1, 0))
+RESIDENT_KEYS = 256  # the K/V-resident block's most keys (its launch refuses more)
 _LAUNCH = ("template <class T, bool kStaticMax>\nint launch(const Params& p, cudaStream_t stream) "
            "{\n  return by_shape(")
 
@@ -307,13 +331,13 @@ def blocks_source(source: str) -> str:
     `by_shape`'s, as the kernel picks)."""
     if source.count(_LAUNCH) != 1:
         raise RuntimeError("blocks: the kernel source changed; update _LAUNCH")
-    cases = "\n".join(f"    case {i}: return fn(Dims<{a}, {b}, {c}, {d}>{{}});"
-                      for i, (a, b, c, d) in enumerate(BLOCKS))
-    pick = ("int g_block = -1;\ntemplate <class Fn>\nint by_block(int d, int sk, Fn fn) {\n"
-            f"  switch (g_block) {{\n{cases}\n  }}\n  return by_shape(d, sk, fn);\n}}\n\n")
+    cases = "\n".join(f"    case {i}: return fn(Dims<{a}, {b}, {c}, {d}, {t}>{{}});"
+                      for i, (a, b, c, d, t) in enumerate(BLOCKS))
+    pick = ("int g_block = -1;\ntemplate <class Fn>\nint by_block(int d, int sq, int sk, Fn fn) {\n"
+            f"  switch (g_block) {{\n{cases}\n  }}\n  return by_shape(d, sq, sk, fn);\n}}\n\n")
     source = source.replace(_LAUNCH, pick + _LAUNCH.replace("by_shape(", "by_block("))
-    attrs = "\n".join(f"    case {i}: return attributes_dims<bf16, false, {a}, {b}, {c}, {d}>(out);"
-                      for i, (a, b, c, d) in enumerate(BLOCKS))
+    attrs = "\n".join(f"    case {i}: return attributes_dims<bf16, false, {a}, {b}, {c}, {d}, "
+                      f"{t}>(out);" for i, (a, b, c, d, t) in enumerate(BLOCKS))
     return (source + _ENTRY + 'extern "C" void breakdown_block(int i) { g_block = i; }\n'
             'extern "C" int breakdown_block_attributes(int i, long long* out) {\n'
             f"  switch (i) {{\n{attrs}\n  }}\n  return 1;\n}}\n")
@@ -375,10 +399,10 @@ def time_blocks(lib, device, shape, sks):
                 for _ in range(2))
         meta = fa._fwd_meta(q, k, v, out, None)
         picked = fa.fwd_sm90_instantiation(d, s, sk)
-        for i, (depth, width, cons, blocks) in enumerate(BLOCKS):
-            if width not in (picked[1], before):
+        for i, (depth, width, cons, blocks, tiles) in enumerate(BLOCKS):
+            if width not in (picked[1], before) or (tiles and sk > RESIDENT_KEYS):
                 continue
-            info = (ctypes.c_longlong * 11)()
+            info = (ctypes.c_longlong * 14)()
             if lib.breakdown_block_attributes(i, info):
                 raise RuntimeError(f"block {i}: no attributes")
             lib.breakdown_block(i)
@@ -387,12 +411,17 @@ def time_blocks(lib, device, shape, sks):
                 fn = lambda: _call(lib, static_max, q, k, v, out, meta, scale,  # noqa: E731
                                    device, f"block {i}")
                 ms[static_max], dev[static_max] = time_ms(fn, device), device_ms(fn, "flash_fwd")
-            mark = " (picked)" if (depth, width, 64 * cons, blocks) == picked else ""
-            print(f"block {depth}/{width}, {64 * cons} rows, {blocks} an SM{mark} D={d} Sq={s} "
-                  f"Sk={sk}: static max {ms[True]:.3f} ms, online {ms[False]:.3f} ms; device "
-                  f"{_dev(dev[True])} / {_dev(dev[False])} ({info[2]} "
+            rows = 64 * tiles if tiles > 0 else 0 if tiles else 64 * cons
+            mark = " (picked)" if (depth, width, rows, blocks) == picked else ""
+            kind = (f"K/V-resident, {cons} consumer(s), {info[13]} Q stages, "
+                    f"{info[4]} bytes of shared memory" if tiles else f"{cons} consumer(s)")
+            shown = rows or 64 * fa.resident_split(b, s, h)[0]
+            print(f"block {depth}/{width}, {shown} rows{' (at launch)' if tiles < 0 else ''}, "
+                  f"{blocks} an SM ({kind}){mark} D={d} "
+                  f"Sq={s} Sk={sk}: static max {ms[True]:.4f} ms, online {ms[False]:.4f} ms; "
+                  f"device {_dev(dev[True])} / {_dev(dev[False])} ({info[2]} "
                   f"registers a consumer thread, {info[3]} spill bytes, {info[5]} resident an "
-                  f"SM, {info[10]} stages)", flush=True)
+                  f"SM, {info[10]} K/V stages)", flush=True)
         lib.breakdown_block(-1)
         del k, v
     del q, out

@@ -58,10 +58,13 @@ base or (b, s, h) strides are not whole chunks, or whose strides do not
 grow from h to s to b, is copied contiguous first (`_chunk_aligned`; a
 strided view such as q, k, v of a fused (B, S, 3, H, D) tensor is read in
 place). The bf16 and fp16 forward picks its instantiation at launch from
-head_dim and Sk (`fwd_sm90_instantiation` names it): the products' depth
-and width 48/48, 64/64, 80/72, 96/96 or 128/128, and a block of 64 or 192
-query rows, three or one resident an SM; every one gives a row the same
-bits.
+head_dim, Sq and Sk (`fwd_sm90_instantiation` names it): the products'
+depth and width 48/48, 64/64, 80/72, 96/96 or 128/128, and a block of 64
+or 192 query rows, three or one resident an SM, or at 80/72 over at most
+256 keys and at least 512 query rows the K/V-resident block (a head's K/V
+loaded once a block, its 64-row Q tiles streamed, as many a block as one
+wave of the SMs gives the call: `resident_split`); every one gives a row
+the same bits.
 
 fp16 q/k/v take the Hopper kernels' fp16 instantiations (wgmma on .f16
 operands), under the same checks as bf16; no entry point casts them to
@@ -342,8 +345,8 @@ cuda_lib.declare(LIBRARY, ["flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
     **{f"lumina_flash_{name}": _ROPE_ARGS for name in _ROPE_ENTRIES},
     "lumina_rope_rotate": _ROTATE_ARGS,
     "lumina_bwd_delta": _DELTA_ARGS,
-    # static_max (fused), head_dim, Sk, fp16, out (int64[12]); launch nothing
-    "lumina_flash_fwd_sm90_attributes": [ctypes.c_int] * 4 + [_meta],
+    # static_max (fused), head_dim, Sq, Sk, fp16, out (int64[14]); launch nothing
+    "lumina_flash_fwd_sm90_attributes": [ctypes.c_int] * 5 + [_meta],
     # which (0 dK/dV, 1 fused, 2 dQ), head_dim, fp16, out (int64[9])
     "lumina_flash_bwd_sm90_attributes": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _meta],
     # static_max, meta (the forward's, shapes read), out (int64[8]); launch nothing
@@ -369,39 +372,63 @@ def _attributes(symbol, flag, head_dim, dtype, names=_SM90_ATTRIBUTES, shape=())
 # (largest head_dim, depth, width) of the bf16 and fp16 forward's products,
 # as `csrc/flash_fwd_sm90.cu` picks them (`by_shape`)
 _FWD_DIMS = ((48, 48, 48), (64, 64, 64), (72, 80, 72), (96, 96, 96), (128, 128, 128))
+# the K/V-resident block's reach (`kResidentKeys`, `kResidentRows`): at most
+# 4 key tiles of 64, at least 512 query rows; its consumer warpgroups
+_RESIDENT_KEYS, _RESIDENT_ROWS, _RESIDENT_CONSUMERS = 256, 512, 2
+H100_SMS = 132
 
 
 def fwd_sm90_instantiation(head_dim: int, sq: int, sk: int) -> tuple:
     """(depth, width, query rows per block, blocks an SM) of the bf16 and
     fp16 forward instantiation that runs `head_dim` at Sq, Sk: the products'
-    depth and width 48/48 up to 48, 64/64, 80/72, 96/96, 128/128; the block
-    64 rows, three an SM, up to 80/72 over at most 1024 keys (at 80/72 with
-    Q's, K's and V's columns 64-79 in narrow atoms), else 192 rows, one an
-    SM. Sq does not change it."""
+    depth and width 48/48 up to 48, 64/64, 80/72, 96/96, 128/128; at 80/72
+    over at most 256 keys and at least 512 query rows the K/V-resident block
+    (one an SM: a head's K/V loaded once a block, two consumers taking its
+    64-row Q tiles in turn), whose rows a block are set at launch
+    (`resident_split`) and named 0 here; else the block 64 rows, three an
+    SM, up to 80/72 over at most 1024 keys (at 80/72 with Q's, K's and V's
+    columns 64-79 in narrow atoms), else 192 rows, one an SM."""
     if not 0 < head_dim <= 128:
         raise ValueError(f"the forward kernels take head_dim up to 128, got {head_dim}")
     depth, width = next(row[1:] for row in _FWD_DIMS if head_dim <= row[0])
+    if width == 72 and sk <= _RESIDENT_KEYS and sq >= _RESIDENT_ROWS:
+        return depth, width, 0, 1
     if width <= 72 and sk <= _SMALL_KV_MAX:
         return depth, width, 64, 3
     return depth, width, 192, 1
 
 
+def resident_split(b: int, sq: int, hq: int, sms: int = H100_SMS) -> tuple:
+    """(64-row Q tiles a block, blocks a (batch row, q head)) of the
+    K/V-resident block at launch (`resident_tiles` in
+    `csrc/flash_fwd_sm90.cu`, with the card's SM count): each (batch row, q
+    head)'s tiles split evenly over as many blocks as one wave of `sms`
+    leaves it (at least one), in whole rounds of the two consumers."""
+    per_head = max(1, sms // (b * hq))
+    tiles = -(-(-(-sq // 64)) // per_head)
+    tiles = -(-tiles // _RESIDENT_CONSUMERS) * _RESIDENT_CONSUMERS
+    return tiles, -(-sq // (64 * tiles))
+
+
 _FWD_SM90_ATTRIBUTES = _SM90_ATTRIBUTES + ("depth", "width", "rows_per_block", "stages",
-                                           "min_blocks")
+                                           "min_blocks", "consumers", "q_stages")
 
 
 def sm90_attributes(static_max: bool, head_dim: int = 72, dtype=torch.bfloat16,
-                    sk: int = 4096) -> dict:
+                    sq: int = 4096, sk: int = 4096) -> dict:
     """Resources of the compiled streaming kernel (`csrc/flash_fwd_sm90.cu`;
     with or without the LSE, one instantiation) that runs `dtype` (bf16 or
-    fp16) at `head_dim` over `sk` keys, from the CUDA runtime: registers per
-    thread as compiled (the launch bound) and per producer / consumer thread
-    after `setmaxnreg`, local-memory (spill) bytes per thread, shared memory
-    per block, resident blocks per SM, threads per block, the products'
-    depth and width, query rows per block, ring stages and the blocks an SM
-    it is built for, as compiled ("instantiation": "depth/width")."""
+    fp16) at `head_dim` at `sq` query rows over `sk` keys, from the CUDA
+    runtime: registers per thread as compiled (the launch bound) and per
+    producer / consumer thread after `setmaxnreg`, local-memory (spill)
+    bytes per thread, shared memory per block, resident blocks per SM,
+    threads per block, the products' depth and width, query rows per block
+    (0: set at launch, the K/V-resident block's `resident_split`), K/V
+    stages, the blocks an SM it is built for, its consumer warpgroups and
+    its Q ring's stages (0 where a block loads its Q once), as compiled
+    ("instantiation": "depth/width")."""
     info = _attributes("lumina_flash_fwd_sm90_attributes", static_max, head_dim, dtype,
-                       _FWD_SM90_ATTRIBUTES, (sk,))
+                       _FWD_SM90_ATTRIBUTES, (sq, sk))
     return {**info, "instantiation": f"{info['depth']}/{info['width']}"}
 
 

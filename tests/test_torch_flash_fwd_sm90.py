@@ -369,35 +369,126 @@ def test_fwd_instantiation_by_head_dim_and_keys(shape):
     """`fwd_sm90_instantiation` names what `launch()` runs (the card's
     `test_kernel_resources` holds it against the compiled kernel): the
     products' depth and width by head_dim (48/48, 64/64, 80/72, 96/96,
-    128/128); 64-row blocks, three an SM, up to 80/72 over at most 1024
-    keys, else 192 rows, one an SM, whatever Sq is."""
+    128/128); at 80/72 over at most 256 keys and at least 512 query rows
+    the K/V-resident block (one an SM, its rows set at launch: 0); else
+    64-row blocks, three an SM, up to 80/72 over at most 1024 keys, else 192
+    rows, one an SM."""
     d, sq, sk = shape
     depth, width = next(row[1:] for row in WIDTHS if d <= row[0])
+    resident = width == 72 and sk <= 256 and sq >= 512
     few = width <= 72 and sk <= tfa._SMALL_KV_MAX
-    assert tfa.fwd_sm90_instantiation(d, sq, sk) == (depth, width, 64 if few else 192,
-                                                      3 if few else 1)
+    rows, blocks = (0, 1) if resident else (64, 3) if few else (192, 1)
+    assert tfa.fwd_sm90_instantiation(d, sq, sk) == (depth, width, rows, blocks)
     assert depth >= d and depth % 16 == 0 and width >= d and width % 8 == 0
 
 
 @pytest.mark.parametrize("name,expected", [
     ("small", (48, 48, 64, 3)), ("600m", (48, 48, 64, 3)), ("600m_train", (48, 48, 64, 3)),
     ("7b", (128, 128, 192, 1)), ("5b", (96, 96, 192, 1)), ("5b_captions", (96, 96, 192, 1)),
-    ("2b", (80, 72, 192, 1)), ("2b_captions", (80, 72, 64, 3)),
-    ("2b_train_captions", (80, 72, 64, 3)), ("music_train", (80, 72, 64, 3)),
+    ("2b", (80, 72, 192, 1)), ("2b_captions", (80, 72, 0, 1)),
+    ("2b_train_captions", (80, 72, 0, 1)), ("music_train", (80, 72, 64, 3)),
     ("music_captions", (80, 72, 64, 3)), ("2b_db", (80, 72, 64, 3)), ("audio", (80, 72, 64, 3)),
     ("audio_captions", (80, 72, 64, 3)), ("sd3", (64, 64, 192, 1))])
 def test_fwd_instantiation_at_the_main_paths(name, expected):
     """The main paths' instantiations: 48/48 and 96/96 where the widths are
     48 and 96; at head_dim 48 and 72 over few keys a block that fits 128,
     256 and 1024 query rows (no 64-row tile of a head left empty), three
-    resident an SM (at 80/72: the 2B's sampler and trainer captions, the
-    music trainer's self- and caption attention, DreamBooth, FlagDiT-1D);
-    the 2B's and SD3's self-attention over more than 1024 keys in 192 rows."""
+    resident an SM (at 80/72: the music trainer's self- and caption
+    attention, DreamBooth, FlagDiT-1D); the 2B's sampler and trainer
+    captions (4096 query rows over 256 and 32 keys, B=2 under CFG, 32
+    heads) in the K/V-resident block, 32 whole 64-row tiles a block, two a
+    head (one wave of 128 blocks); the 2B's and SD3's self-attention over
+    more than 1024 keys in 192 rows."""
     d, sq, sk = MAIN_SHAPES[name]
     got = tfa.fwd_sm90_instantiation(d, sq, sk)
     assert got == expected
+    rows = got[2] or 64 * tfa.resident_split(2, sq, 32)[0]
+    if got[2] == 0:
+        assert tfa.resident_split(2, sq, 32) == (32, 2)
     if d in (48, 72) and sk <= tfa._SMALL_KV_MAX:
-        assert -(-sq // got[2]) * got[2] == -(-sq // 64) * 64
+        assert -(-sq // rows) * rows == -(-sq // 64) * 64
+
+
+def resident_work(b, sq, hq, hkv, sms=tfa.H100_SMS, consumers=2, stages=4):
+    """The K/V-resident block's work, as `csrc/flash_fwd_sm90.cu` splits it:
+    `resident_split`'s 64-row Q tiles a block, a block per (chunk of them,
+    q head, batch row); in it the producer loads the kv head's K/V once,
+    then its Q tiles up to Sq, rounded up to a whole round of the
+    consumers, into a ring of `stages`; consumer c takes tiles c, c +
+    consumers, ... Returns the K/V loads as (block, b, kv head), the Q
+    tiles taken as (b, h, tile, consumer, ring stage, use of the stage), and
+    the tiles written (those below Sq)."""
+    loads, taken, written = [], [], []
+    per_block, chunks = tfa.resident_split(b, sq, hq, sms)
+    rows = 64 * per_block
+    for bi, h, chunk in itertools.product(range(b), range(hq), range(chunks)):
+        q0 = chunk * rows
+        loads.append(((chunk, h, bi), bi, h // (hq // hkv)))
+        tiles = min(per_block, -(-(sq - q0) // 64))
+        rounds = -(-tiles // consumers)
+        for t, c in itertools.product(range(rounds), range(consumers)):
+            i = t * consumers + c
+            tile = q0 // 64 + i
+            taken.append((bi, h, tile, c, i % stages, i // stages))
+            if 64 * tile < sq:
+                written.append((bi, h, tile))
+    return loads, taken, written
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv,sms", [(2, 4096, 32, 32, 132), (1, 1000, 8, 2, 132),
+                                             (2, 4097, 8, 2, 132), (1, 512, 4, 1, 132),
+                                             (3, 520, 4, 4, 132), (1, 131072, 32, 8, 132),
+                                             (4, 4096, 64, 16, 132), (2, 4096, 32, 32, 114)])
+def test_kv_resident_block_work_split(b, sq, hq, hkv, sms):
+    """Every (batch row, q head, 64-row tile) below Sq is written exactly
+    once, by the consumer whose turn it is; a block loads its K/V once, from
+    its kv head (4:1 GQA: q head h reads kv head h // 4); the blocks fit one
+    wave of the SMs where the heads allow (the 2B's captions: 128 blocks of
+    32 tiles on 132 SMs) and take whole rounds of tiles; a consumer takes as
+    many tiles as the other (their turns alternate), so a block's last round
+    may hold a tile past Sq, which is computed and not written; each
+    consumer keeps to its two ring stages and uses them in turn."""
+    assert tfa.fwd_sm90_instantiation(72, sq, 256) == (80, 72, 0, 1)
+    loads, taken, written = resident_work(b, sq, hq, hkv, sms)
+    per_block, chunks = tfa.resident_split(b, sq, hq, sms)
+    blocks = b * hq * chunks
+    assert per_block % 2 == 0 and (blocks <= sms or chunks == 1)
+    if (b, sq, hq, sms) == (2, 4096, 32, 132):
+        assert (per_block, blocks) == (32, 128)
+    assert len(loads) == len({blk for blk, *_ in loads}) == blocks
+    assert all(kv == blk[1] // (hq // hkv) for blk, _, kv in loads)
+    tiles = [(bi, h, t) for bi in range(b) for h in range(hq) for t in range(-(-sq // 64))]
+    assert sorted(written) == tiles
+    by_consumer = {c: [x for x in taken if x[3] == c] for c in (0, 1)}
+    assert len(by_consumer[0]) == len(by_consumer[1])
+    assert all(x[4] % 2 == x[3] for x in taken)  # consumer c: stages c and c + 2
+    past = [x for x in taken if 64 * x[2] >= sq]
+    assert len(past) == len(taken) - len(written) and len(past) <= b * hq * chunks
+
+
+def test_kv_resident_emulation_matches_pallas():
+    """K1 and K4 at a shape the K/V-resident block runs (head_dim 72, 520
+    query rows, 136 keys: two blocks a head, the second with one row; 4:1
+    GQA, a masked tail and a fully masked batch row) against the JAX
+    package's Pallas K4 (`_flash_fwd_res_impl`) in interpret mode: the
+    emulation (`emulate`), which every block repeats bit for bit, gives K1's
+    output (K1 is K4's kernel without the LSE pointer) and K4's output and
+    LSE; the dead row is 0 with LSE -inf, as the port's plain version."""
+    b, sq, sk, hq, hkv, d = 2, 520, 136, 8, 2, 72
+    assert tfa.fwd_sm90_instantiation(d, sq, sk) == (80, 72, 0, 1)
+    q, k, v, mask = _inputs(31, b, sq, sk, hq, hkv, d=d, tail=29, dead_row=True)
+    scale = d ** -0.5
+    ref_out, ref_lse = jfa._flash_fwd_res_impl(*map(jnp.asarray, (q, k, v, mask)), scale, 128,
+                                               128)
+    tq, tk, tv, tm = map(torch.from_numpy, (q, k, v, mask))
+    out, lse = emulate(tq, tk, tv, tm, scale)
+    _close(out[0], np.asarray(ref_out)[0])
+    np.testing.assert_allclose(lse[0].numpy(), np.asarray(ref_lse)[0, :, :sq, 0], rtol=0,
+                               atol=LSE_ATOL)
+    plain_out, plain_lse = tfa.flash_online_lse_plain(tq, tk, tv, tm, scale)
+    assert torch.equal(out[1], torch.zeros_like(out[1])) and torch.isneginf(lse[1]).all()
+    assert torch.equal(plain_out[1], out[1]) and torch.equal(plain_lse[1], lse[1])
+    _close(out[0], plain_out[0])
 
 
 def test_fwd_instantiation_rejects_what_no_kernel_takes():
@@ -618,10 +709,11 @@ def test_breakdown_variants_edit_the_kernel():
     # --blocks: launch() forced to each block of BLOCKS, every one a block
     # the port picks somewhere or one the choice was made against
     blocks = bd.blocks_source(source)
-    assert "return by_block(p.D, p.Sk," in blocks and "breakdown_block" in blocks
+    assert "return by_block(p.D, p.Sq, p.Sk," in blocks and "breakdown_block" in blocks
     picked = {tfa.fwd_sm90_instantiation(d, sq, sk) for d in (48, 64, 72, 96, 128)
               for sq, sk in ((256, 256), (4096, 256), (4096, 4096))}
-    assert picked <= {(a, b, 64 * c, n) for a, b, c, n in bd.BLOCKS}
+    assert picked <= {(a, b, 64 * t if t > 0 else 0 if t else 64 * c, n)
+                      for a, b, c, n, t in bd.BLOCKS}
 
 
 def test_breakdown_chain_variants_edit_the_kernel():
@@ -871,13 +963,14 @@ def _past_1024(k, v, mask):
             torch.cat([base, base.new_zeros(b, PAST_1024 - sk)], 1))
 
 
-def _equal_past_1024(entry, q, k, v, mask, **kw):
-    """The call over Sk <= 1024 keys (80/72's 64-row block, three an SM)
-    equals, bit for bit, the same call over its keys padded past 1024 and
-    masked (the 192-row block): a masked key adds exact zeros, and the block
-    does not change a row's arithmetic. The LSE too."""
+def _equal_past_1024(entry, q, k, v, mask, rows=64, **kw):
+    """The call over Sk <= 1024 keys (80/72's 64-row block, three an SM, or
+    with `rows` 512 its K/V-resident block) equals, bit for bit, the same
+    call over its keys padded past 1024 and masked (the 192-row block): a
+    masked key adds exact zeros, and the block does not change a row's
+    arithmetic. The LSE too."""
     d, sq, sk = q.shape[-1], q.shape[1], k.shape[1]
-    assert tfa.fwd_sm90_instantiation(d, sq, sk) == (80, 72, 64, 3)
+    assert tfa.fwd_sm90_instantiation(d, sq, sk) == (80, 72, rows, 3 if rows == 64 else 1)
     assert tfa.fwd_sm90_instantiation(d, sq, PAST_1024) == (80, 72, 192, 1)
     fn = getattr(tfa, f"flash_{entry}")
     # K1 is K2's kernel; its entry takes at most 1024 keys
@@ -897,16 +990,18 @@ def _equal_past_1024(entry, q, k, v, mask, **kw):
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_short_key_block_equals_the_192_row_block_on_card(cuda_device, entry, sk, sq, dtype):
     """80/72 over at most 1024 keys (64-row blocks three an SM, Q's, K's
-    and V's columns 64-79 in narrow atoms, PV as n64 and n16 products)
-    against the 192-row block (whole 64-column atoms, PV n72), bit for bit,
-    at every Sq and Sk of the short-key paths: 4:1 GQA, a masked tail, a
-    fully masked batch row, the LSE, the static max, fp16."""
+    and V's columns 64-79 in narrow atoms, PV as n64 and n16 products; at
+    Sq 4096 over at most 256 keys the K/V-resident block) against the
+    192-row block (whole 64-column atoms, PV n72), bit for bit, at every Sq
+    and Sk of the short-key paths: 4:1 GQA, a masked tail, a fully masked
+    batch row, the LSE, the static max, fp16."""
     q, k, v, mask = (t.to(dtype) if t.is_floating_point() else t
                      for t in _cuda_inputs(2, sq, sk, 8, 2))
     kw = {"bound": 9.0} if entry.startswith("static_max") else {}
-    _equal_past_1024(entry, q, k, v, mask, **kw)
+    rows = tfa.fwd_sm90_instantiation(72, sq, sk)[2]
+    _equal_past_1024(entry, q, k, v, mask, rows=rows, **kw)
     if sq == 256:  # no mask: every tile but a ragged last one takes the all-valid chain
-        _equal_past_1024(entry, q, k, v, None, **kw)
+        _equal_past_1024(entry, q, k, v, None, rows=rows, **kw)
 
 
 @pytest.mark.cuda
@@ -925,6 +1020,7 @@ def test_short_key_block_rotates_q_on_card(cuda_device, sq, sk, dtype):
     g = torch.Generator().manual_seed(sq + sk)
     angles = (3.0 * torch.randn(sq, 36, generator=g)).cuda()
     kp, vp, mp = _past_1024(k, v, mask)
+    assert tfa.fwd_sm90_instantiation(72, sq, sk)[2] != 192
     got = tfa.flash_rope_q(q, k, v, angles, mask, 0.2)
     ref = tfa.flash_rope_q(q, kp, vp, angles, mp, 0.2)
     torch.cuda.synchronize()
@@ -935,6 +1031,56 @@ def test_short_key_block_rotates_q_on_card(cuda_device, sq, sk, dtype):
         ref = tfa.flash_online(apply_rope(q, angles), apply_rope(k, angles), v, mask, 0.2)
         torch.cuda.synchronize()
         assert torch.equal(got, ref)
+
+
+# key lengths of the K/V-resident block's card tests: one key, a partial
+# tile, a tile and one key, the music captions, a Gemma caption, the 2B's
+# 256 less one, 256, and one past its reach (the 64-row block)
+RESIDENT_SKS = [1, 32, 33, 77, 136, 255, 256, 257]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sk", RESIDENT_SKS)
+@pytest.mark.parametrize("entry", ENTRIES + ["rope_q"])
+def test_kv_resident_block_on_card(cuda_device, entry, sk, dtype):
+    """80/72's K/V-resident block (a (batch, q head)'s K/V tiles loaded once
+    a block, two consumers taking its 64-row Q tiles in turn, 34 of them a
+    block here) at the 2B's caption shape with Sq 4097 (the last block of a
+    head holds a tile past Sq, computed and not stored), 4:1 GQA, a masked
+    tail and a fully masked batch row: against the plain version (bf16: 1e-2 of
+    max(1, max|ref|), as chip_smoke's caption rows), and bit for bit
+    against the 192-row block's call over the keys padded past 1024 and
+    masked, output and LSE; `rope_q` bit for bit against the 192-row block
+    and against `flash_small_kv` on `apply_rope`d q. Sk 257 runs the 64-row
+    block, held the same way."""
+    from lumina_t2x_tpu_torch.ops.rope import apply_rope
+
+    q, k, v, mask = (t.to(dtype) if t.is_floating_point() else t
+                     for t in _cuda_inputs(2, 4097, sk, 32, 8))
+    rows = 0 if sk <= 256 else 64  # 0: the K/V-resident block
+    assert tfa.fwd_sm90_instantiation(72, 4097, sk)[2] == rows
+    if entry == "rope_q":
+        g = torch.Generator().manual_seed(sk)
+        angles = (3.0 * torch.randn(4097, 36, generator=g)).cuda()
+        kp, vp, mp = _past_1024(k, v, mask)
+        got = tfa.flash_rope_q(q, k, v, angles, mask, 0.2)
+        ref = tfa.flash_rope_q(q, kp, vp, angles, mp, 0.2)
+        same = tfa.flash_small_kv(apply_rope(q, angles), k, v, mask, 0.2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and torch.equal(got, same)
+        return
+    kw = {"bound": 9.0} if entry.startswith("static_max") else {}
+    before = tfa.LAUNCHES[entry]
+    got, ref = _call(entry, q, k, v, mask, **kw)
+    assert tfa.LAUNCHES[entry] == before + 1
+    assert got.dtype == dtype and torch.count_nonzero(got[-1]).item() == 0
+    err, top = (got.float() - ref).abs(), ref.abs().max().item()
+    if dtype == torch.bfloat16:  # outputs reach [4, 8), where half a bf16 ulp is 1.6e-2
+        assert err.max().item() <= 1e-2 * max(1.0, top) and err.mean().item() <= 1e-3
+    else:
+        assert err.max().item() <= 1e-3 * top
+    _equal_past_1024(entry, q, k, v, mask, rows=rows, **kw)
 
 
 @pytest.mark.cuda
@@ -958,14 +1104,20 @@ def test_kernel_resources(cuda_device):
     blocks resident on an SM as the block is built for, the registers
     setmaxnreg hands out within the block's share of the SM's 65536, no
     local-memory spills, the products' depth and width and the block's rows
-    as the port names them, in bf16 and fp16."""
-    shapes = ((4096, 4096), (256, 256), (4096, 256), (4096, 32))
+    as the port names them, in bf16 and fp16; the K/V-resident block (Sq
+    4096 and 512 over 256 and 32 keys at 80/72) with two consumers, four K/V
+    stages and two Q stages a consumer."""
+    shapes = ((4096, 4096), (256, 256), (4096, 256), (4096, 32), (512, 256), (511, 256))
     for static_max, head_dim, (sq, sk), dtype in itertools.product(
             (False, True), (48, 64, 72, 96, 128), shapes, (torch.bfloat16, torch.float16)):
-        info = tfa.sm90_attributes(static_max, head_dim, dtype, sk)
+        info = tfa.sm90_attributes(static_max, head_dim, dtype, sq, sk)
         depth, width, rows, blocks = tfa.fwd_sm90_instantiation(head_dim, sq, sk)
         consumers = info["threads"] - 128
-        assert info["threads"] % 128 == 0 and consumers == 2 * rows
+        assert info["threads"] % 128 == 0 and consumers == 128 * info["consumers"]
+        if rows == 0:  # the K/V-resident block
+            assert (width, info["consumers"], info["stages"], info["q_stages"]) == (72, 2, 4, 4)
+        else:
+            assert rows == 64 * info["consumers"] and info["q_stages"] == 0
         assert (info["depth"], info["width"], info["rows_per_block"], info["min_blocks"]) == \
             (depth, width, rows, blocks)
         assert info["blocks_per_sm"] >= blocks and info["stages"] >= 3
